@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one card.  The kernels
+build from ``src/repro_torch/kernels/csrc`` at first use.  Phases (any
+failure ends the run with a non-zero exit):
+
+  1. the card (name, power limit) and the kernel build;
+  2. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes (80000 rows x 1000 slots -> 80000 posts, 80% of slots
+     valid; B = 1 and 8; 1% and 100% of rows spiking; 21 delay slots):
+     rtol=atol=1e-5, and exact with integer-valued weights; times of the
+     kernel, the plain version and torch.sparse.mm on the same matrix as CSR
+     (a yardstick only: the port never calls it), beside the bound;
+  3. the main path at full width: the Izhikevich net, 100k neurons, 1000
+     synapses per neuron (4 split ELL groups, ~1.8 GB), 1000 steps; its
+     launch counts; 50 steps through the plain versions on the card, whose
+     raster must agree with the kernel run's on >= 99.8% of neuron-steps;
+  4. a gScale sweep of the excitatory groups: 8 candidates (0.3 .. 1.2,
+     below saturation) x 500 steps as one batch, rates non-decreasing in
+     gScale, then the conductance search;
+  5. a delay path (10k neurons, 500 synapses each, per-synapse delays
+     0..20 steps on the excitatory groups) through ``ell_spmv_delay``.
+
+Before the last line it prints the card's ``nvidia-smi`` name and power
+limit and a ``{"kernels": [...]}`` JSON line; the last line is
+``{"ok": true, "device": {...}}``.  The full results also go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
+TOL = 1e-5
+RASTER_AGREEMENT = 0.998
+
+N_PRE, N_CONN, N_POST, N_SLOTS = 80_000, 1000, 80_000, 21
+MAIN = dict(n_total=100_000, n_conn=1000, steps=1000, plain_steps=50)
+# the grid a conductance search scans, below the saturated regime: above
+# gScale ~1.25 this net bursts at ~100 Hz and the rate is no longer monotone
+SWEEP = dict(values=(0.3, 0.45, 0.6, 0.75, 0.9, 1.0, 1.1, 1.2), steps=500)
+DELAY = dict(n_total=10_000, n_conn=500, max_delay=20, steps=200)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    print(f"== {name}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        yield
+    except BaseException:
+        print(f"== {name}: FAILED", flush=True)
+        raise
+    print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report: dict = {}
+    kernels = card_and_build(torch, report)
+    kernel_entries = compare_kernels(torch, report)
+    launches_main, model = main_path(torch, report)
+    sweep(torch, report, model)
+    del model
+    torch.cuda.empty_cache()
+    launches_delay = delay_path(torch, report)
+    # each kernel's launches come from the run of its own path
+    path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay}
+    for e in kernel_entries:
+        e["launches"] = path_of[e["name"]][e["name"]]
+        check(e["launches"] > 0, f"{e['name']} never launched on its path")
+    report["kernels"] = kernel_entries
+    report["build"] = kernels
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(report["nvidia_smi"])
+    print(json.dumps({"kernels": kernel_entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+def card_and_build(torch, report) -> dict:
+    from repro_torch.kernels import _build
+    with phase("1. card and kernel build"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        report["nvidia_smi"] = smi.stdout.strip().splitlines()[0]
+        print(report["nvidia_smi"])
+        t0 = time.perf_counter()
+        built = _build.build()
+        secs = time.perf_counter() - t0
+        print(f"kernels built in {secs:.2f} s: {sorted(built)}")
+        for name, b in built.items():
+            regs = [ln.strip() for ln in b["log"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+            print(f"  {name}: " + " | ".join(regs))
+        report["build_seconds"] = secs
+        return {n: {"seconds": b["seconds"], "cached": b["cached"]}
+                for n, b in built.items()}
+
+
+def _time_ms(torch, fn, reps: int) -> float:
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i + 1)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _csr(torch, post_ind, valid, g, rows_of, n_rows):
+    """The ELL as a CSR matrix [n_rows, n_pre] (row = target coordinate)."""
+    n_pre, k = post_ind.shape
+    pre = torch.arange(n_pre, device=g.device)[:, None].expand(n_pre, k)
+    sel = valid.reshape(-1)
+    idx = torch.stack([rows_of.reshape(-1)[sel], pre.reshape(-1)[sel]])
+    coo = torch.sparse_coo_tensor(idx, g.reshape(-1)[sel], (n_rows, n_pre))
+    return coo.coalesce().to_sparse_csr()
+
+
+def compare_kernels(torch, report) -> list:
+    from repro_torch.kernels import ell_spmv as K
+    from repro_torch.kernels import ref as R
+    dev = torch.device("cuda")
+    rows = []
+    with phase("2. kernels against their plain versions"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        g = 0.5 * torch.rand(N_PRE, N_CONN, device=dev, generator=gen)
+        idx = torch.randint(0, N_POST, (N_PRE, N_CONN), device=dev,
+                            generator=gen, dtype=torch.int32)
+        valid = torch.rand(N_PRE, N_CONN, device=dev, generator=gen) < 0.8
+        dly = torch.randint(0, N_SLOTS, (N_PRE, N_CONN), device=dev,
+                            generator=gen, dtype=torch.int32)
+        g_int = torch.floor(8.0 * g)
+        csr = _csr(torch, idx, valid, g, idx.long(), N_POST)
+        csr_d = _csr(torch, idx, valid, g,
+                     dly.long() * N_POST + idx.long(), N_SLOTS * N_POST)
+        valid_per_row = valid.sum(dim=1)
+        for b in (1, 8):
+            for p in (0.01, 1.0):
+                spikes = [(torch.rand(b, N_PRE, device=dev, generator=gen)
+                           < p).float() for _ in range(8)]
+                spk = spikes[0]
+                live = spk.amax(dim=0) > 0
+                n_live = int(live.sum())
+                valid_live = int(valid_per_row[live].sum())
+                syn_events = int((spk * valid_per_row).sum())
+                for name in ("ell_spmv", "ell_spmv_delay"):
+                    delay = name == "ell_spmv_delay"
+                    slots = N_SLOTS if delay else 1
+                    if delay:
+                        kern = lambda s, gg=g: K.ell_spmv_delay(
+                            gg, idx, valid, dly, s, N_POST, N_SLOTS)
+                        plain = lambda s, gg=g: R.ell_spmv_delay_ref(
+                            gg, idx, valid, dly, s, N_POST, N_SLOTS)
+                        lib = lambda s: torch.sparse.mm(csr_d, s.t())
+                    else:
+                        kern = lambda s, gg=g: K.ell_spmv(
+                            gg, idx, valid, s, N_POST)
+                        plain = lambda s, gg=g: R.ell_spmv_ref(
+                            gg, idx, valid, s, N_POST)
+                        lib = lambda s: torch.sparse.mm(csr, s.t())
+                    out, ref = kern(spk), plain(spk)
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    check(bool(torch.allclose(out, ref, rtol=TOL, atol=TOL)),
+                          f"{name} B={b} p={p}: max abs err {err}")
+                    check(bool(torch.equal(kern(spk, g_int),
+                                           plain(spk, g_int))),
+                          f"{name} B={b} p={p}: integer weights not exact")
+                    lib_out = lib(spk).t().reshape(out.shape)
+                    check(bool(torch.allclose(lib_out, ref, rtol=1e-4,
+                                              atol=1e-4)),
+                          f"{name}: the library yardstick computes another "
+                          "function")
+                    reps = 20 if p < 0.5 else 5
+                    ms = _time_ms(torch, lambda i: kern(spikes[i % 8]), reps)
+                    plain_ms = _time_ms(torch, lambda i: plain(spikes[i % 8]),
+                                        reps)
+                    lib_ms = _time_ms(torch, lambda i: lib(spikes[i % 8]),
+                                      reps)
+                    nbytes = (n_live * N_CONN                       # valid
+                              + valid_live * (8 + (4 if delay else 0))
+                              + b * N_PRE * 4                  # spikes
+                              + b * slots * N_POST * 4)        # output
+                    flops = 2.0 * syn_events
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = flops / FP32_FLOPS * 1e3
+                    row = {"name": name, "B": b, "spiking": p,
+                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms,
+                           "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": ("bytes" if t_bytes >= t_ops
+                                        else "operations"),
+                           "bytes": nbytes, "flops": flops}
+                    rows.append(row)
+                    print(json.dumps(row))
+        del g, idx, valid, dly, g_int, csr, csr_d
+        torch.cuda.empty_cache()
+    report["kernel_table"] = rows
+    entries = []
+    for name, replaces in (("ell_spmv", "src/repro/kernels/ell_spmv.py:127"),
+                           ("ell_spmv_delay",
+                            "src/repro/kernels/ell_spmv.py:190")):
+        # the main path's own regime: one simulation, ~1% of rows spiking
+        r = next(x for x in rows if x["name"] == name and x["B"] == 1
+                 and x["spiking"] < 0.5)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return entries
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the propagation ops to the plain versions on the card, for the
+    comparison runs only (the port itself never does this)."""
+    from unittest import mock
+    from repro_torch.kernels import ell_spmv as K
+    from repro_torch.kernels import ref as R
+    with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
+            mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref):
+        yield
+
+
+def _raster_agreement(torch, a, b) -> float:
+    num = sum(int((a[k] == b[k]).sum()) for k in a)
+    den = sum(a[k].numel() for k in a)
+    return num / den
+
+
+def _profile_window(torch, model, steps: int) -> dict:
+    """Device busy share, device ops per step and the kernels that fill the
+    busy time, from a torch.profiler trace of ``steps`` steps.  Profiling
+    slows the host, so the idle share it shows is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model.run(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.run(steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_ops += 1
+            busy_by_name[e.name] = (busy_by_name.get(e.name, 0.0)
+                                    + e.time_range.elapsed_us())
+    busy_us = sum(busy_by_name.values())
+    top = sorted(busy_by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
+           "busy_share": busy_us / wall_us, "device_ops_per_step":
+           n_ops / steps, "top_us": [[n[:80], us] for n, us in top]}
+    if n_ops == 0:
+        print("profiler saw no device activity: busy share not measured")
+    else:
+        print(f"profiled {steps} steps: device busy {busy_us:.0f} of "
+              f"{wall_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
+              f"{n_ops / steps:.0f} device ops/step; top: "
+              + "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
+    return out
+
+
+def _run_checked(torch, model, steps, what, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.run(steps, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rates = {k: float(v) for k, v in res.rates_hz.items()}
+    finite = bool(res.finite)
+    print(f"{what}: {steps} steps in {secs:.3f} s "
+          f"({secs / steps * 1e6:.1f} us/step), rates Hz {rates}, "
+          f"finite {finite}")
+    check(finite, f"{what}: state went non-finite")
+    check(all(0.0 < r < float("inf") for r in rates.values()),
+          f"{what}: a population is silent or its rate is not finite: "
+          f"{rates}")
+    return res, secs, rates
+
+
+def main_path(torch, report):
+    from repro_torch.core.models import izhikevich_net as IZ
+    from repro_torch.kernels import ell_spmv as K
+    with phase("3. main path: Izhikevich net, 100k neurons"):
+        cfg = IZ.IzhikevichNetConfig(n_total=MAIN["n_total"],
+                                     n_conn=MAIN["n_conn"],
+                                     representation="sparse")
+        t0 = time.perf_counter()
+        model = IZ.compile_model(cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        groups = [(g.name, g.representation, g.ell.n_pre, g.ell.max_conn,
+                   int(g.ell.valid.sum())) for g in model.network.synapses]
+        print(f"built {model} in {build_s:.1f} s; groups {groups}")
+        n_sparse = sum(1 for g in model.network.synapses
+                       if g.representation == "sparse")
+        check(n_sparse == 4, f"expected 4 sparse groups, got {groups}")
+        model.run(5)                            # warm-up: library, caches
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        res, secs, rates = _run_checked(torch, model, MAIN["steps"],
+                                        "kernel run")
+        launches = dict(K.launches)
+        print(f"launches in the main-path run: {launches}")
+        check(launches["ell_spmv"] >= n_sparse * MAIN["steps"],
+              f"ell_spmv launched {launches['ell_spmv']} times for "
+              f"{n_sparse} sparse groups x {MAIN['steps']} steps")
+        report["main"] = {
+            "config": MAIN, "build_s": build_s, "groups": groups,
+            "seconds": secs, "us_per_step": secs / MAIN["steps"] * 1e6,
+            "rates_hz": rates, "launches": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+        n = MAIN["plain_steps"]
+        kr = model.run(n, record_raster=True).raster
+        K.reset_launches()
+        with plain_versions():
+            pr = model.run(n, record_raster=True).raster
+        check(K.launches["ell_spmv"] == 0, "the plain run launched kernels")
+        agree = _raster_agreement(torch, kr, pr)
+        print(f"raster agreement kernel vs plain over {n} steps: {agree}")
+        check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
+        report["main"]["plain_raster_agreement"] = agree
+        report["main"]["profile"] = _profile_window(torch, model, 50)
+        return launches, model
+
+
+def sweep(torch, report, model) -> None:
+    from repro_torch.core import conductance as C
+    with phase("4. gScale sweep of the excitatory groups"):
+        values = list(SWEEP["values"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = model.sweep_gscale("exc", values, SWEEP["steps"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rates = {k: v.tolist() for k, v in s.rates_hz.items()}
+        finite = s.finite.tolist()
+        print(f"{len(values)} candidates x {SWEEP['steps']} steps in "
+              f"{secs:.3f} s: {len(values) / secs:.3f} candidates/s")
+        for i, v in enumerate(values):
+            print(f"  gScale {v}: " + ", ".join(
+                f"{k} {rates[k][i]:.4f} Hz" for k in rates)
+                + f", finite {finite[i]}")
+        for k, r in rates.items():
+            fin = [x for x, ok in zip(r, finite) if ok]
+            check(all(b >= a for a, b in zip(fin, fin[1:])),
+                  f"{k} rate falls as gScale grows: {r}")
+        target = report["main"]["rates_hz"]["exc"]
+        pick = C.search_sweep(lambda c: (s.rates_hz["exc"], s.finite),
+                              values, target)
+        print(f"search_sweep to the main run's exc rate {target:.4f} Hz: "
+              f"{pick}")
+        check(pick.finite and min(abs(pick.gscale - v) for v in values)
+              < 1e-6, f"search_sweep picked {pick}")
+        report["sweep"] = {"values": values, "steps": SWEEP["steps"],
+                           "seconds": secs,
+                           "candidates_per_s": len(values) / secs,
+                           "rates_hz": rates, "finite": finite,
+                           "pick": pick.__dict__}
+
+
+def delay_path(torch, report) -> dict:
+    from repro_torch.core.models import izhikevich_net as IZ
+    from repro_torch.core.snn.spec import ModelSpec
+    from repro_torch.kernels import ell_spmv as K
+    from repro_torch.sparse.formats import UniformIntDelay
+    with phase("5. delay path: per-synapse delays 0..20 steps"):
+        cfg = IZ.IzhikevichNetConfig(n_total=DELAY["n_total"],
+                                     n_conn=DELAY["n_conn"],
+                                     representation="sparse")
+        base = IZ.spec(cfg)
+        ms = ModelSpec(f"{base.name}_delayed")
+        for pop in base.populations.values():
+            ms.add_neuron_population(pop.name, pop.n, pop.model, pop.params,
+                                     pop.input_fn)
+        for sp in base.synapses:
+            ms.add_synapse_population(
+                sp.name, sp.pre, list(sp.post), sp.connect, sp.weight,
+                representation="sparse",
+                delay=(UniformIntDelay(0, DELAY["max_delay"])
+                       if sp.name == "exc" else None))
+        model = ms.build(dt=cfg.dt, seed=cfg.seed)
+        rings = [(g.name, g.ring_slots if g.needs_ring else 0)
+                 for g in model.network.synapses]
+        print(f"built {model}; ring slots {rings}")
+        model.run(5)
+        K.reset_launches()
+        _, secs, rates = _run_checked(torch, model, DELAY["steps"],
+                                      "delay run")
+        launches = dict(K.launches)
+        print(f"launches in the delay run: {launches}")
+        check(launches["ell_spmv_delay"] >= 2 * DELAY["steps"],
+              "ell_spmv_delay did not run for both delayed groups each step")
+        n = MAIN["plain_steps"]
+        kr = model.run(n, record_raster=True).raster
+        with plain_versions():
+            pr = model.run(n, record_raster=True).raster
+        agree = _raster_agreement(torch, kr, pr)
+        print(f"raster agreement kernel vs plain over {n} steps: {agree}")
+        check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
+        report["delay"] = {"config": DELAY, "seconds": secs,
+                           "us_per_step": secs / DELAY["steps"] * 1e6,
+                           "rates_hz": rates, "launches": launches,
+                           "plain_raster_agreement": agree}
+        return launches
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,92 @@
+"""Carry a model's arrays from the JAX package into the port.
+
+The arrays arrive as plain numpy (this module never imports ``repro`` or
+``jax``; the caller exports them), in this layout::
+
+    {"populations": {pop: {"params": {name: array or float},
+                           "state":  {var: array [n]}}},
+     "synapses":    {group: {"g", "post_ind", "valid": [n_pre, K] arrays,
+                             "delay": [n_pre, K] int array or None,
+                             "dense": [n_pre, n_post] array or None,
+                             "sign": float, "representation": str,
+                             "delay_steps": int, "max_delay": int}}}
+
+``load_arrays`` returns a port model that computes what the exported one
+computes: the port model's spec supplies the models and snippets, the
+arrays supply the graph, the parameters and the representation and delay
+settings.  ``init_state`` starts it from the exported initial state.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.snn.network import Network
+from repro_torch.core.snn.simulator import SimState, Simulator
+from repro_torch.core.snn.spec import CompiledModel, _param_on
+from repro_torch.core.snn.synapses import SynapseGroup
+from repro_torch.sparse import formats as F
+
+__all__ = ["load_arrays", "init_state"]
+
+
+def _check_names(what: str, have, got) -> None:
+    if set(have) != set(got):
+        raise ValueError(f"{what} differ: model has {sorted(have)}, arrays "
+                         f"have {sorted(got)}")
+
+
+def load_arrays(model: CompiledModel, arrays: Mapping) -> CompiledModel:
+    """A copy of ``model`` (on its device) whose population parameters and
+    synapse groups come from ``arrays``."""
+    dev = model.device
+    pops_in = arrays["populations"]
+    syn_in = arrays["synapses"]
+    _check_names("populations", model.network.populations, pops_in)
+    _check_names("synapse groups", model.group_names, syn_in)
+    net = Network(name=model.network.name)
+    for name, pop in model.network.populations.items():
+        params = {k: _param_on(v, dev)
+                  for k, v in pops_in[name].get("params", {}).items()}
+        unknown = set(params) - set(pop.model.params)
+        if unknown:
+            raise ValueError(f"population {name!r}: unknown parameters "
+                             f"{sorted(unknown)}")
+        net.add_population(name, pop.model, pop.n,
+                           params={**pop.params, **params},
+                           input_fn=pop.input_fn,
+                           edge_spikes=pop.edge_spikes)
+    for grp in model.network.synapses:
+        a = syn_in[grp.name]
+        delay = a.get("delay")
+        dense = a.get("dense")
+        net.add_synapse(SynapseGroup(
+            name=grp.name, pre=grp.pre, post=grp.post,
+            ell=F.triple_to_ell(a["post_ind"], a["g"], a["valid"],
+                                net.populations[grp.post].n, delay=delay,
+                                device=dev),
+            dense=(None if dense is None else torch.tensor(
+                np.asarray(dense, np.float32), device=dev)),
+            representation=str(a["representation"]),
+            propagation=grp.propagation, wum=grp.wum, psm=grp.psm,
+            delay_steps=int(a.get("delay_steps", 0)),
+            max_delay=(None if delay is None else int(a["max_delay"])),
+            sign=float(a["sign"])))
+    sim = Simulator(net, dt=model.dt, seed=model.simulator.seed, device=dev)
+    return CompiledModel(spec=model.spec, network=net, simulator=sim)
+
+
+def init_state(model: CompiledModel, arrays: Mapping,
+               batch: int = 1) -> SimState:
+    """``model``'s initial state with each population's variables taken
+    from ``arrays`` (copied to every batch member)."""
+    st = model.init_state(batch)
+    for name, entry in arrays["populations"].items():
+        for var, v in entry.get("state", {}).items():
+            cur = st.neurons[name][var]
+            t = torch.tensor(np.asarray(v, np.float32), device=cur.device)
+            st.neurons[name][var] = t.expand(cur.shape).clone()
+    return st

@@ -1,0 +1,77 @@
+"""The Izhikevich (2003) cortical network, as used in the paper §5.1.
+
+Counterpart of ``repro/core/models/izhikevich_net.py``: `n_total` spiking
+cortical neurons (4:1 excitatory:inhibitory), each pre neuron connected to
+`n_conn` random post neurons over the whole population (a multi-post
+synapse population split per post group at build time).  Weights:
+excitatory 0.5*U(0,1), inhibitory -1.0*U(0,1); thalamic input 5*N(0,1)
+(exc) / 2*N(0,1) (inh) per ms.  dt = 1 ms with two half-steps on V.
+
+The graph comes from the host numpy generator and equals the JAX package's
+for the same seed.  The per-neuron parameters and the thalamic noise come
+from torch generators, so they differ in value (not in distribution) from
+the JAX package's ``jax.random`` draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.snn import neurons as N
+from repro_torch.core.snn.spec import CompiledModel, ModelSpec
+from repro_torch.sparse.formats import FixedFanout, UniformWeight
+
+__all__ = ["IzhikevichNetConfig", "spec", "compile_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class IzhikevichNetConfig:
+    n_total: int = 1000
+    exc_frac: float = 0.8
+    n_conn: int = 1000
+    representation: str = "auto"   # 'auto' | 'sparse' | 'dense'
+    dt: float = 1.0                # 1 ms, two half-steps on V (as Izhikevich)
+    seed: int = 1234
+    input_scale: float = 1.0
+
+
+def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
+    """Declarative description of the cortical net."""
+    n_exc = int(round(cfg.n_total * cfg.exc_frac))
+    n_inh = cfg.n_total - n_exc
+    params = N.izhikevich_population_params(
+        torch.Generator().manual_seed(cfg.seed), n_exc, n_inh)
+    exc_params = {k: v[:n_exc] for k, v in params.items()}
+    inh_params = {k: v[n_exc:] for k, v in params.items()}
+
+    s_in = cfg.input_scale
+
+    # the thalamic drive draws from the model's generator (SimState), on
+    # the model's device: one [n] draw per step, shared by a sweep's batch
+    def thalamic_exc(gen, t, n):
+        return 5.0 * s_in * torch.randn(n, generator=gen, device=gen.device)
+
+    def thalamic_inh(gen, t, n):
+        return 2.0 * s_in * torch.randn(n, generator=gen, device=gen.device)
+
+    ms = ModelSpec(name=f"izhikevich_{cfg.n_total}_{cfg.n_conn}")
+    ms.add_neuron_population("exc", n_exc, N.IZHIKEVICH, exc_params,
+                             thalamic_exc)
+    ms.add_neuron_population("inh", n_inh, N.IZHIKEVICH, inh_params,
+                             thalamic_inh)
+    ms.add_synapse_population(
+        "exc", "exc", ["exc", "inh"], connect=FixedFanout(cfg.n_conn),
+        weight=UniformWeight(0.0, 0.5),
+        representation=cfg.representation)
+    ms.add_synapse_population(
+        "inh", "inh", ["exc", "inh"], connect=FixedFanout(cfg.n_conn),
+        weight=UniformWeight(0.0, -1.0),
+        representation=cfg.representation)
+    return ms
+
+
+def compile_model(cfg: IzhikevichNetConfig, device=None) -> CompiledModel:
+    """Build the net on ``device`` ("cuda" unless the caller asks)."""
+    return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device)

@@ -1,0 +1,570 @@
+"""ModelSpec: the declarative front-end for spiking networks.
+
+Counterpart of ``repro/core/snn/spec.py``, host-init path.  The network is
+declared as data and code snippets, then `build` validates the spec,
+resolves the seeded connectivity initializers on the host (numpy, in
+declaration order: the same spec and seed give the JAX package's graph bit
+for bit), runs the paper's representation choice (eqs. (1)/(2)), moves the
+graph to the device and generates the simulator.
+
+    spec = ModelSpec("demo")
+    spec.add_neuron_population("exc", 160, "izhikevich", input_fn=thalamic)
+    spec.add_synapse_population("ee", "exc", "exc",
+                                connect=FixedFanout(40),
+                                weight=UniformWeight(0.0, 0.5),
+                                psm=ExpDecay(5.0))
+    model = spec.build(dt=1.0, seed=0)          # on "cuda" unless told
+    res = model.run(400)
+    sweep = model.sweep_gscale("ee", torch.logspace(-1, 1, 16), n_steps=400)
+
+`post` may be a list of population names: one connectivity draw is made
+over the concatenated target space and split per post population (the
+paper's cortical-net construction).
+
+Not in this slice: probes, custom updates, health monitors, on-device
+construction (``init="device"``), meshes, serving, ``plan`` and
+``memory_report``.  Declaring or asking for them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.codegen import (NeuronModel, PostsynapticModel,
+                                      WeightUpdateModel)
+from repro_torch.core.snn.errors import SpecError
+from repro_torch.core.snn.network import InputFn, Network
+from repro_torch.core.snn.simulator import RunResult, SimState, Simulator
+from repro_torch.core.snn.synapses import PROPAGATIONS, Pulse, SynapseGroup
+from repro_torch.sparse import formats as F
+
+__all__ = ["ModelSpec", "CompiledModel", "SweepResult", "SpecError",
+           "MAX_DELAY_STEPS"]
+
+# weight initialization: scalar, or (rng, shape) -> array
+WeightInit = Union[None, float, int, Callable[..., np.ndarray]]
+
+# delay initialization: steps (int), or a per-synapse DelaySnippet
+DelayInit = Union[None, int, F.DelaySnippet]
+
+_REPRESENTATIONS = ("auto", "sparse", "dense")
+
+# Dendritic ring capacity: every delayed group carries a
+# [B, max_delay+1, n_post] ring on the device for the whole simulation.
+# Delays above this bound are almost certainly a unit error (steps vs ms).
+MAX_DELAY_STEPS = 1024
+
+_LATER = ("probes, custom updates and health monitors are not ported to "
+          "repro_torch yet; use the JAX package (repro) for them")
+
+
+@dataclasses.dataclass
+class NeuronPopSpec:
+    name: str
+    n: int
+    model: NeuronModel
+    params: Dict[str, object]
+    input_fn: Optional[InputFn]
+    edge_spikes: Optional[bool]
+
+
+@dataclasses.dataclass
+class SynapsePopSpec:
+    name: str
+    pre: str
+    post: Tuple[str, ...]
+    connect: F.ConnectivityInit
+    weight: WeightInit
+    wum: Optional[WeightUpdateModel]
+    psm: PostsynapticModel
+    delay_steps: int
+    delay: Optional[F.DelaySnippet]
+    delay_ms: Optional[float]
+    sign: float
+    representation: str
+    propagation: str = "auto"
+
+    def group_names(self) -> List[str]:
+        if len(self.post) == 1:
+            return [self.name]
+        return [f"{self.name}_{p}" for p in self.post]
+
+
+def _as_weight_fn(weight: WeightInit):
+    """Normalize the weight initializer to the (rng, shape) protocol.
+    Scalars consume no rng draws."""
+    if weight is None or callable(weight):
+        return weight
+    w = float(weight)
+    return lambda rng, shape: np.full(shape, w, np.float32)
+
+
+def _param_on(v, device: torch.device):
+    """A neuron parameter as the update reads it: Python float for a
+    scalar, float32 tensor on ``device`` for a per-neuron array."""
+    if isinstance(v, torch.Tensor):
+        return (float(v) if v.dim() == 0
+                else v.to(device=device, dtype=torch.float32))
+    arr = np.asarray(v, np.float32)
+    if arr.ndim == 0:
+        return float(arr)
+    return torch.tensor(arr, device=device)
+
+
+class ModelSpec:
+    """Declarative network description; `build` compiles it."""
+
+    def __init__(self, name: str = "model"):
+        self.name = name
+        self.populations: Dict[str, NeuronPopSpec] = {}
+        self.synapses: List[SynapsePopSpec] = []
+
+    # -- declaration ------------------------------------------------------
+    def add_neuron_population(
+        self, name: str, n: int, model: Union[NeuronModel, str],
+        params: Optional[Mapping[str, object]] = None,
+        input_fn: Optional[InputFn] = None,
+        edge_spikes: Optional[bool] = None,
+    ) -> NeuronPopSpec:
+        if not name or not isinstance(name, str):
+            raise SpecError(f"population name must be a non-empty string, "
+                            f"got {name!r}")
+        if name in self.populations:
+            raise SpecError(f"duplicate population name {name!r}")
+        if not isinstance(n, int) or n <= 0:
+            raise SpecError(f"population {name!r}: n must be a positive "
+                            f"int, got {n!r}")
+        if isinstance(model, str):
+            from repro_torch.core.snn import neurons as _neurons
+            try:
+                model = _neurons.get_model(model)
+            except KeyError as e:
+                raise SpecError(f"population {name!r}: {e.args[0]}") from None
+        if not isinstance(model, NeuronModel):
+            raise SpecError(f"population {name!r}: model must be a "
+                            f"NeuronModel or registry name, got "
+                            f"{type(model).__name__}")
+        merged = dict(model.params)
+        for k, v in (params or {}).items():
+            if k not in model.params:
+                raise SpecError(
+                    f"population {name!r}: unknown parameter {k!r} for "
+                    f"neuron model {model.name!r}; valid parameters: "
+                    f"{sorted(model.params)}")
+            shape = np.shape(v)
+            if shape and shape[0] != n:
+                raise SpecError(
+                    f"population {name!r}: per-neuron parameter {k!r} has "
+                    f"leading dimension {shape[0]} != population size {n}")
+            merged[k] = v
+        pop = NeuronPopSpec(name=name, n=n, model=model, params=merged,
+                            input_fn=input_fn, edge_spikes=edge_spikes)
+        self.populations[name] = pop
+        return pop
+
+    def add_synapse_population(
+        self, name: str, pre: str, post: Union[str, Sequence[str]],
+        connect: F.ConnectivityInit,
+        weight: WeightInit = None,
+        wum: Optional[WeightUpdateModel] = None,
+        psm: Optional[PostsynapticModel] = None,
+        delay_steps: int = 0,
+        delay: DelayInit = None,
+        delay_ms: Optional[float] = None,
+        sign: float = 1.0,
+        representation: str = "auto",
+        propagation: str = "auto",
+    ) -> SynapsePopSpec:
+        """Declare a synapse population.
+
+        Delays (dendritic: the weighted current is buffered on the post
+        side) come in three forms, at most one per population:
+        ``delay_steps=k`` (homogeneous), ``delay=ConstantDelay(k) |
+        UniformIntDelay(lo, hi) | int`` (per-synapse slot) and
+        ``delay_ms=x`` (homogeneous, converted at build time; x must be an
+        integer multiple of dt).
+
+        ``propagation`` ("auto" | "dense" | "event") is validated as in the
+        JAX package; the port's ELL kernel skips silent rows in every mode.
+        """
+        if not name or not isinstance(name, str):
+            raise SpecError(f"synapse population name must be a non-empty "
+                            f"string, got {name!r}")
+        post_t = (post,) if isinstance(post, str) else tuple(post)
+        if not post_t:
+            raise SpecError(f"synapse population {name!r}: empty post list")
+        if len(set(post_t)) != len(post_t):
+            raise SpecError(
+                f"synapse population {name!r}: duplicate post population "
+                f"in {list(post_t)}")
+        # declared names and expanded group names share one namespace:
+        # gscales/sweep address either
+        taken = {s.name for s in self.synapses}
+        taken |= {n for s in self.synapses for n in s.group_names()}
+        if isinstance(delay, int) and not isinstance(delay, bool):
+            try:
+                delay = F.ConstantDelay(delay)
+            except ValueError as e:
+                raise SpecError(
+                    f"synapse population {name!r}: {e}") from None
+        spec = SynapsePopSpec(
+            name=name, pre=pre, post=post_t, connect=connect, weight=weight,
+            wum=wum, psm=psm if psm is not None else Pulse(),
+            delay_steps=delay_steps, delay=delay, delay_ms=delay_ms,
+            sign=sign, representation=representation,
+            propagation=propagation)
+        new_names = spec.group_names()
+        for gname in [name] + new_names:
+            if gname in taken or new_names.count(gname) > 1:
+                raise SpecError(f"duplicate synapse group name {gname!r}")
+        for popname, what in [(pre, "pre")] + [(p, "post") for p in post_t]:
+            if popname not in self.populations:
+                raise SpecError(
+                    f"synapse population {name!r}: unknown {what} "
+                    f"population {popname!r}; declared populations: "
+                    f"{sorted(self.populations)}")
+        if not isinstance(spec.connect, F.ConnectivityInit):
+            raise SpecError(
+                f"synapse population {name!r}: connect must be a "
+                f"ConnectivityInit (FixedFanout / FixedProbability / "
+                f"OneToOne / DenseInit), got {type(connect).__name__}")
+        if not isinstance(spec.psm, PostsynapticModel):
+            raise SpecError(
+                f"synapse population {name!r}: psm must be a "
+                f"PostsynapticModel, got {type(spec.psm).__name__}")
+        if wum is not None and not isinstance(wum, WeightUpdateModel):
+            raise SpecError(
+                f"synapse population {name!r}: wum must be a "
+                f"WeightUpdateModel, got {type(wum).__name__}")
+        if representation not in _REPRESENTATIONS:
+            raise SpecError(
+                f"synapse population {name!r}: representation "
+                f"{representation!r} not in {_REPRESENTATIONS}")
+        if propagation not in PROPAGATIONS:
+            raise SpecError(
+                f"synapse population {name!r}: propagation "
+                f"{propagation!r} not in {PROPAGATIONS}")
+        if propagation == "event" and representation == "dense":
+            raise SpecError(
+                f"synapse population {name!r}: propagation='event' is "
+                "incompatible with representation='dense' (event-driven "
+                "delivery reads ELL rows; the dense mirror has none); "
+                "use representation 'sparse' or 'auto'")
+        if (representation == "dense" and wum is not None
+                and not wum.is_static_pulse):
+            raise SpecError(
+                f"synapse population {name!r}: representation='dense' is "
+                f"incompatible with weight-update model {wum.name!r} "
+                "(dynamic weights propagate via the ELL path); use "
+                "'sparse' or 'auto'")
+        if not isinstance(delay_steps, int) or delay_steps < 0:
+            raise SpecError(
+                f"synapse population {name!r}: delay_steps must be a "
+                f"non-negative int, got {delay_steps!r}")
+        declared = [d for d, used in [
+            ("delay_steps", delay_steps != 0), ("delay", delay is not None),
+            ("delay_ms", delay_ms is not None)] if used]
+        if len(declared) > 1:
+            raise SpecError(
+                f"synapse population {name!r}: {' and '.join(declared)} are "
+                "mutually exclusive; declare the delay exactly one way")
+        if delay_steps > MAX_DELAY_STEPS:
+            raise SpecError(
+                f"synapse population {name!r}: delay_steps={delay_steps} "
+                f"exceeds the dendritic ring capacity "
+                f"MAX_DELAY_STEPS={MAX_DELAY_STEPS}")
+        if delay is not None:
+            if not isinstance(delay, F.DelaySnippet):
+                raise SpecError(
+                    f"synapse population {name!r}: delay must be an int or "
+                    f"a DelaySnippet (ConstantDelay / UniformIntDelay), "
+                    f"got {type(delay).__name__}")
+            if delay.max_steps > MAX_DELAY_STEPS:
+                raise SpecError(
+                    f"synapse population {name!r}: "
+                    f"{type(delay).__name__} max delay {delay.max_steps} "
+                    f"exceeds the dendritic ring capacity "
+                    f"MAX_DELAY_STEPS={MAX_DELAY_STEPS}")
+            if representation == "dense":
+                raise SpecError(
+                    f"synapse population {name!r}: representation='dense' "
+                    "is incompatible with per-synapse delays (the dense "
+                    "mirror has no delay slot); use 'sparse' or 'auto'")
+        if delay_ms is not None:
+            if not isinstance(delay_ms, (int, float)) or delay_ms < 0:
+                raise SpecError(
+                    f"synapse population {name!r}: delay_ms must be a "
+                    f"non-negative number, got {delay_ms!r}")
+        if spec.psm.needs_v:
+            for p in post_t:
+                if "V" not in self.populations[p].model.state:
+                    raise SpecError(
+                        f"synapse population {name!r}: postsynaptic model "
+                        f"{spec.psm.name!r} references V but post "
+                        f"population {p!r} (model "
+                        f"{self.populations[p].model.name!r}) has no "
+                        "membrane state 'V'")
+        self.synapses.append(spec)
+        return spec
+
+    # -- not in this slice --------------------------------------------------
+    def probe(self, *args, **kwargs):
+        raise NotImplementedError(_LATER)
+
+    def add_custom_update(self, *args, **kwargs):
+        raise NotImplementedError(_LATER)
+
+    # -- build ------------------------------------------------------------
+    def build(self, dt: float = 0.5, seed: int = 0, init: str = "host",
+              device=None, mesh=None, monitor=None) -> "CompiledModel":
+        """Validate, resolve connectivity on the host (seeded numpy, in
+        declaration order) and generate the simulator on ``device``
+        ("cuda" unless the caller asks for another; raises when no card is
+        present and none was asked for)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (the sharded engine) is not ported to repro_torch yet")
+        if monitor is not None:
+            raise NotImplementedError(_LATER)
+        if init == "device":
+            raise NotImplementedError(
+                "init='device' (on-device construction) is not ported to "
+                "repro_torch yet; use init='host'")
+        if init != "host":
+            raise SpecError(f"init must be 'host' or 'device', got {init!r}")
+        if not self.populations:
+            raise SpecError(f"model {self.name!r} declares no populations")
+        dev = resolve_device(device)
+        rng = np.random.default_rng(seed)
+        net = Network(name=self.name)
+        for pop in self.populations.values():
+            net.add_population(
+                pop.name, pop.model, pop.n,
+                params={k: _param_on(v, dev) for k, v in pop.params.items()},
+                input_fn=pop.input_fn, edge_spikes=pop.edge_spikes)
+
+        for sp in self.synapses:
+            n_pre = self.populations[sp.pre].n
+            sizes = [self.populations[p].n for p in sp.post]
+            n_post_total = int(sum(sizes))
+            where = (f"synapse population {sp.name!r} "
+                     f"({sp.pre} -> {'+'.join(sp.post)})")
+
+            delay_steps = sp.delay_steps
+            if sp.delay_ms is not None:
+                steps_f = sp.delay_ms / dt
+                steps = int(round(steps_f))
+                if abs(steps_f - steps) > 1e-6:
+                    raise SpecError(
+                        f"{where}: delay_ms={sp.delay_ms} is not an "
+                        f"integer multiple of dt={dt} "
+                        f"({steps_f:.6g} steps); dendritic delays are "
+                        "ring-buffered in whole dt steps")
+                if steps > MAX_DELAY_STEPS:
+                    raise SpecError(
+                        f"{where}: delay_ms={sp.delay_ms} is {steps} steps "
+                        f"at dt={dt}, exceeding the dendritic ring "
+                        f"capacity MAX_DELAY_STEPS={MAX_DELAY_STEPS}")
+                delay_steps = steps
+
+            try:
+                post_ind, g, valid = sp.connect.resolve(
+                    rng, n_pre, n_post_total, _as_weight_fn(sp.weight))
+            except ValueError as e:
+                raise SpecError(f"{where}: {e}") from None
+            # delays draw from the same rng *after* connectivity and
+            # weights, so delay-free specs reproduce their graphs bit for bit
+            dd = None if sp.delay is None else sp.delay(rng, post_ind.shape)
+            if dd is not None:
+                dd = np.where(valid, dd, 0).astype(np.int32)
+            lo = 0
+            for pname, n_p, gname in zip(sp.post, sizes, sp.group_names()):
+                hi = lo + n_p
+                if len(sp.post) == 1:
+                    idx, gg, vv, dv = post_ind, g, valid, dd
+                else:
+                    mask = (post_ind >= lo) & (post_ind < hi) & valid
+                    idx = np.where(mask, post_ind - lo, 0).astype(np.int32)
+                    gg = np.where(mask, g, 0.0).astype(np.float32)
+                    vv = mask
+                    dv = (None if dd is None
+                          else np.where(mask, dd, 0).astype(np.int32))
+                try:
+                    group = SynapseGroup(
+                        name=gname, pre=sp.pre, post=pname,
+                        ell=F.triple_to_ell(idx, gg, vv, n_p, delay=dv,
+                                            device=dev),
+                        representation=sp.representation,
+                        propagation=sp.propagation,
+                        wum=sp.wum, psm=sp.psm,
+                        delay_steps=delay_steps,
+                        max_delay=(None if sp.delay is None
+                                   else sp.delay.max_steps),
+                        sign=sp.sign)
+                except ValueError as e:
+                    raise SpecError(f"{where}: {e}") from None
+                net.add_synapse(group)
+                lo = hi
+
+        sim = Simulator(net, dt=dt, seed=seed, device=dev)
+        return CompiledModel(spec=self, network=net, simulator=sim)
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """One batched gscale sweep: per-candidate statistics."""
+
+    values: torch.Tensor                   # [n_candidates]
+    rates_hz: Dict[str, torch.Tensor]      # pop -> [n_candidates]
+    finite: torch.Tensor                   # [n_candidates] bool
+    spike_counts: Dict[str, torch.Tensor]  # pop -> [n_candidates, n]
+
+
+def _squeeze(res: RunResult) -> RunResult:
+    """A single-member run reported in the JAX package's shapes."""
+    return RunResult(
+        state=res.state,
+        spike_counts={k: v[0] for k, v in res.spike_counts.items()},
+        rates_hz={k: v[0] for k, v in res.rates_hz.items()},
+        finite=res.finite[0],
+        raster=(None if res.raster is None
+                else {k: v[:, 0] for k, v in res.raster.items()}))
+
+
+def _expand_state(state: SimState, batch: int) -> SimState:
+    """A single-member state copied to ``batch`` members (the sweep's
+    shared starting point)."""
+    def rep(x):
+        if isinstance(x, torch.Tensor):
+            return x.expand((batch,) + tuple(x.shape[1:])).clone()
+        if isinstance(x, dict):
+            return {k: rep(v) for k, v in x.items()}
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(
+                x, **{f.name: rep(getattr(x, f.name))
+                      for f in dataclasses.fields(x)})
+        return x
+    return SimState(neurons=rep(state.neurons), spikes=rep(state.spikes),
+                    prev_above=rep(state.prev_above), syn=rep(state.syn),
+                    t=state.t, generator=state.generator,
+                    finite=rep(state.finite))
+
+
+class CompiledModel:
+    """A built network: validated spec + generated simulator, with `run`,
+    `step` and the batched `sweep_gscale` the conductance-scaling study
+    drives."""
+
+    def __init__(self, spec: ModelSpec, network: Network,
+                 simulator: Simulator):
+        self.spec = spec
+        self.network = network
+        self.simulator = simulator
+
+    @property
+    def group_names(self) -> List[str]:
+        return [g.name for g in self.network.synapses]
+
+    @property
+    def dt(self) -> float:
+        return self.simulator.dt
+
+    @property
+    def device(self) -> torch.device:
+        return self.simulator.device
+
+    def _expand_group(self, name: str) -> List[str]:
+        """Resolve a synapse name to concrete group names: a multi-post
+        population's declared name addresses all of its groups."""
+        if name in set(self.group_names):
+            return [name]
+        for sp in self.spec.synapses:
+            if sp.name == name:
+                return sp.group_names()
+        raise SpecError(
+            f"unknown synapse group {name!r}; valid names: "
+            f"{sorted(set(self.group_names) | {s.name for s in self.spec.synapses})}")
+
+    def init_state(self, batch: int = 1,
+                   generator: Optional[torch.Generator] = None) -> SimState:
+        return self.simulator.init_state(batch, generator)
+
+    def _norm_stim(self, stim) -> Dict[str, torch.Tensor]:
+        out = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+               for k, v in (stim or {}).items()}
+        unknown = set(out) - set(self.network.populations)
+        if unknown:
+            raise SpecError(
+                f"unknown stim population(s) {sorted(unknown)}; declared "
+                f"populations: {sorted(self.network.populations)}")
+        return out
+
+    def _norm_gscales(self, gscales) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        for k, v in (gscales or {}).items():
+            for g in self._expand_group(k):
+                if g in out:
+                    raise SpecError(
+                        f"gscales address synapse group {g!r} twice "
+                        f"(overlapping keys in {sorted(gscales)})")
+                out[g] = self.simulator._gscale(v)
+        return out
+
+    def step(self, state: SimState,
+             gscales: Optional[Mapping[str, object]] = None,
+             stim: Optional[Mapping[str, object]] = None):
+        return self.simulator.step(state, self._norm_gscales(gscales),
+                                   stim=self._norm_stim(stim))
+
+    def run(self, n_steps: int,
+            gscales: Optional[Mapping[str, object]] = None,
+            state: Optional[SimState] = None,
+            record_raster: bool = False,
+            stim: Optional[Mapping[str, object]] = None) -> RunResult:
+        """Run n_steps from `state` (default: fresh init).  stim:
+        population -> [n_steps, n] currents injected one row per step.
+        A single-member state reports the JAX package's shapes (rates as
+        scalars, counts [n], raster [n_steps, n]); a batched state keeps its
+        leading axis."""
+        if state is None:
+            state = self.init_state()
+        res = self.simulator.run(state, n_steps,
+                                 self._norm_gscales(gscales),
+                                 record_raster=record_raster,
+                                 stim=self._norm_stim(stim))
+        return _squeeze(res) if state.batch == 1 else res
+
+    def sweep_gscale(self, group: Union[str, Sequence[str]],
+                     values, n_steps: int,
+                     state: Optional[SimState] = None) -> SweepResult:
+        """Sweep a gscale multiplier over `values` for one synapse group (or
+        several scaled together): the candidates ride the batch axis of one
+        run, and share its random draws (as the JAX sweep shares its key)."""
+        requested = [group] if isinstance(group, str) else list(group)
+        names = [g for r in requested for g in self._expand_group(r)]
+        values = torch.atleast_1d(torch.as_tensor(
+            values, dtype=torch.float32)).to(self.device)
+        if values.dim() != 1:
+            raise ValueError(f"values must be 1-D, got {tuple(values.shape)}")
+        batch = values.shape[0]
+        if state is None:
+            state = self.init_state(batch)
+        elif state.batch == 1 and batch > 1:
+            state = _expand_state(state, batch)
+        elif state.batch != batch:
+            raise ValueError(f"state has batch {state.batch}, values "
+                             f"{batch}")
+        res = self.simulator.run(state, n_steps, {n: values for n in names})
+        return SweepResult(values=values, rates_hz=res.rates_hz,
+                           finite=res.finite, spike_counts=res.spike_counts)
+
+    def __repr__(self) -> str:
+        pops = {p.name: p.n for p in self.spec.populations.values()}
+        return (f"CompiledModel({self.spec.name!r}, populations={pops}, "
+                f"synapse_groups={self.group_names}, dt={self.dt}, "
+                f"device={str(self.device)!r})")

@@ -1,0 +1,95 @@
+"""repro_torch stands alone: no module of the port and no part of
+chip_smoke.py imports jax or the JAX package; importing the port leaves jax
+unloaded; tensors on the CPU take the plain versions without counting a
+launch; an entry point that needs a card raises when there is none."""
+
+import ast
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.models import izhikevich_net as TIZ  # noqa: E402
+from repro_torch.kernels import ell_spmv as K  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("__import__", "import_module") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_leaves_jax_unloaded():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_cpu_tensors_take_the_plain_path_without_counting():
+    rng = np.random.default_rng(0)
+    g = torch.tensor(rng.random((8, 3)), dtype=torch.float32)
+    idx = torch.tensor(rng.integers(0, 5, (8, 3)), dtype=torch.int32)
+    valid = torch.ones(8, 3, dtype=torch.bool)
+    dly = torch.zeros(8, 3, dtype=torch.int32)
+    spk = torch.ones(2, 8)
+    K.reset_launches()
+    K.ell_spmv(g, idx, valid, spk, 5)
+    K.ell_spmv_delay(g, idx, valid, dly, spk, 5, 2)
+    TIZ.compile_model(TIZ.IzhikevichNetConfig(n_total=50, n_conn=5),
+                      device="cpu").run(3)
+    assert K.launches == {"ell_spmv": 0, "ell_spmv_delay": 0}
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TIZ.IzhikevichNetConfig(n_total=50, n_conn=5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TIZ.compile_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TIZ.spec(cfg).build(device="cuda")
+
+
+def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):
+    """Alone in a directory (and, here, without a card) the smoke script
+    exits non-zero and prints no result line."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
