@@ -8,21 +8,41 @@ build from ``src/repro_torch/kernels/csrc`` at first use.  Phases (any
 failure ends the run with a non-zero exit):
 
   1. the card (name, power limit) and the kernel build;
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (80000 rows x 1000 slots -> 80000 posts, 80% of slots
-     valid; B = 1 and 8; 1% and 100% of rows spiking; 21 delay slots):
-     rtol=atol=1e-5, and exact with integer-valued weights; times of the
-     kernel, the plain version and torch.sparse.mm on the same matrix as CSR
-     (a yardstick only: the port never calls it), beside the bound;
+  2. each kernel against its plain PyTorch version on the card, at the
+     shapes of its path, with times of the kernel and the plain version
+     beside the bound:
+     - the ELL kernels at 80000 rows x 1000 slots -> 80000 posts (80% of
+       slots valid; B = 1 and 8; 1% and 100% of rows spiking; 21 delay
+       slots): rtol=atol=1e-5, exact with integer-valued weights; beside
+       them torch.sparse.mm on the same matrix as CSR (a yardstick only:
+       the port never calls it);
+     - izhikevich_step at [1, 80000] and [8, 80000] with per-neuron a..d,
+       hh_step at [1, 100000] and [5, 100000] (dt 0.1, 5 substeps), inputs
+       that straddle the threshold: rtol=atol=2e-4, spike decisions differ
+       on < 0.2% of neurons; their ms is device time from torch.profiler
+       (a launch of a few microseconds is shorter than the host's gap
+       between launches), beside the CUDA-event wall time; no single
+       PyTorch call computes either, so they have no library time;
   3. the main path at full width: the Izhikevich net, 100k neurons, 1000
      synapses per neuron (4 split ELL groups, ~1.8 GB), 1000 steps; its
-     launch counts; 50 steps through the plain versions on the card, whose
+     launch counts (4 ell_spmv and 2 izhikevich_step per step); 50 steps
+     through the plain versions on the card (no kernel launched), whose
      raster must agree with the kernel run's on >= 99.8% of neuron-steps;
   4. a gScale sweep of the excitatory groups: 8 candidates (0.3 .. 1.2,
      below saturation) x 500 steps as one batch, rates non-decreasing in
      gScale, then the conductance search;
   5. a delay path (10k neurons, 500 synapses each, per-synapse delays
-     0..20 steps on the excitatory groups) through ``ell_spmv_delay``.
+     0..20 steps on the excitatory groups) through ``ell_spmv_delay``;
+  6a. the paper's NaN-guard table on the mushroom body at the example's
+     size (24 PN / 6 LHI / 150 KC / 12 DN, dt 0.1 ms): PN_KC gScale
+     0.5 .. 50 as one batch of 5 x 2500 steps; finite at 0.5 and 1, not
+     finite at 50, PN within 15 Hz of 50;
+  6b. the mushroom body at full width (100 PN / 20 LHI / 100k KC / 100 DN)
+     with every group's gScale scaled by fan-in from the example's, 2500
+     steps (3 hh_step launches per step, finite); 200 steps through the
+     plain versions, rasters agreeing on >= 99.8% of neuron-steps; then
+     the conductance search for the PN_KC gScale that gives 6a's KC rate
+     at gScale 1, 12 candidates as one batch.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -44,6 +64,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
 TOL = 1e-5
+NEURON_TOL = 2e-4
+SPIKE_DISAGREEMENT = 0.002
 RASTER_AGREEMENT = 0.998
 
 N_PRE, N_CONN, N_POST, N_SLOTS = 80_000, 1000, 80_000, 21
@@ -52,6 +74,19 @@ MAIN = dict(n_total=100_000, n_conn=1000, steps=1000, plain_steps=50)
 # gScale ~1.25 this net bursts at ~100 Hz and the rate is no longer monotone
 SWEEP = dict(values=(0.3, 0.45, 0.6, 0.75, 0.9, 1.0, 1.1, 1.2), steps=500)
 DELAY = dict(n_total=10_000, n_conn=500, max_delay=20, steps=200)
+IZH_SHAPES = ((1, 80_000), (8, 80_000))      # exc; B of phases 3 and 4
+HH_SHAPES = ((1, 100_000), (5, 100_000))     # KC; B of phases 6b and 6a
+# float operations per (member, neuron), counting expf and a division as
+# one each (so the operation bound is a lower bound): the statements of
+# csrc/neuron_step.cu
+IZH_OPS = 28
+HH_OPS_PER_SUBSTEP = 88
+MB_EXAMPLE = dict(n_pn=24, n_lhi=6, n_kc=150, n_dn=12)
+MB_FULL = dict(n_pn=100, n_lhi=20, n_kc=100_000, n_dn=100)
+MB_TABLE = dict(values=(0.5, 1.0, 2.0, 8.0, 50.0), steps=2500)
+MB_RUN = dict(steps=2500, plain_steps=200, search_steps=2500,
+              # PN_KC candidates around its fan-in gScale (0.24)
+              search=tuple(0.24 * 2.0 ** (i / 4 - 1) for i in range(12)))
 
 
 class SmokeFailure(RuntimeError):
@@ -94,13 +129,17 @@ def main() -> int:
     report: dict = {}
     kernels = card_and_build(torch, report)
     kernel_entries = compare_kernels(torch, report)
+    kernel_entries += compare_neuron_kernels(torch, report)
     launches_main, model = main_path(torch, report)
     sweep(torch, report, model)
     del model
     torch.cuda.empty_cache()
     launches_delay = delay_path(torch, report)
+    kc_target = gscale_table(torch, report)
+    launches_mb = mushroom_body_full(torch, report, kc_target)
     # each kernel's launches come from the run of its own path
-    path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay}
+    path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
+               "izhikevich_step": launches_main, "hh_step": launches_mb}
     for e in kernel_entries:
         e["launches"] = path_of[e["name"]][e["name"]]
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
@@ -151,6 +190,26 @@ def _time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Device time per call: the summed duration of every device op that
+    ``reps`` calls of ``fn`` run, from a torch.profiler trace.  Unlike
+    ``_time_ms`` it leaves out the gaps between launches, which set the
+    wall time of a kernel of a few microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i + 1)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / reps / 1e3
 
 
 def _csr(torch, post_ind, valid, g, rows_of, n_rows):
@@ -260,15 +319,137 @@ def compare_kernels(torch, report) -> list:
     return entries
 
 
+def _bound(nbytes: float, ops: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _neuron_times(torch, kern, plain) -> dict:
+    """ms / plain_ms: device time per call (the kernel, or all the plain
+    version's ops); *_wall_ms: CUDA events around back-to-back calls, which
+    the host's enqueue rate sets for kernels this short."""
+    return {"ms": _device_ms(torch, kern, 50),
+            "plain_ms": _device_ms(torch, plain, 20),
+            "wall_ms": _time_ms(torch, kern, 50),
+            "plain_wall_ms": _time_ms(torch, plain, 20)}
+
+
+def compare_neuron_kernels(torch, report) -> list:
+    from repro_torch.kernels import hh_step as HH
+    from repro_torch.kernels import izhikevich_step as IZ
+    from repro_torch.kernels import ref as R
+    dev = torch.device("cuda")
+    rows = []
+    with phase("2b. neuron kernels against their plain versions"):
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def uniform(shape, lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, device=dev,
+                                               generator=gen)
+
+        def normal(shape, scale):
+            return scale * torch.randn(shape, device=dev, generator=gen)
+
+        for b, n in IZH_SHAPES:
+            r = torch.rand(n, device=dev, generator=gen)
+            params = (0.02 + 0.08 * r, 0.25 - 0.05 * r, -65.0 + 15.0 * r * r,
+                      8.0 - 6.0 * r * r)
+            ins = [(uniform((b, n), -80, 25), uniform((b, n), -20, 5),
+                    normal((b, n), 5.0)) for _ in range(4)]
+            dt = 1.0                                   # the main path's dt
+            kern = lambda i: IZ.izhikevich_step(*ins[i % 4], *params, dt)
+            plain = lambda i: R.izhikevich_step_ref(*ins[i % 4], *params, dt)
+            out, ref = kern(0), plain(0)
+            torch.cuda.synchronize()
+            agree = out[2] == ref[2]
+            disagree = float((~agree).float().mean())
+            spiking = float(ref[2].float().mean())
+            err = max(float((o - e)[agree].abs().max())
+                      for o, e in zip(out[:2], ref[:2]))
+            check(0.01 < spiking < 0.99,
+                  f"izhikevich_step inputs spike {spiking}: they do not "
+                  "straddle the threshold")
+            check(disagree < SPIKE_DISAGREEMENT,
+                  f"izhikevich_step [{b}, {n}]: spike decisions differ on "
+                  f"{disagree} of neurons")
+            check(all(bool(torch.allclose(o[agree], e[agree], rtol=NEURON_TOL,
+                                          atol=NEURON_TOL))
+                      for o, e in zip(out[:2], ref[:2])),
+                  f"izhikevich_step [{b}, {n}]: max abs err {err}")
+            rows.append({"name": "izhikevich_step", "B": b, "n": n,
+                         "max_abs_err": err, "spike_disagreement": disagree,
+                         "spiking": spiking, **_neuron_times(torch, kern,
+                                                             plain),
+                         "library_ms": None,
+                         **_bound(b * n * (12 + 9) + n * 16, b * n * IZH_OPS),
+                         "bytes": b * n * (12 + 9) + n * 16,
+                         "ops": b * n * IZH_OPS})
+            print(json.dumps(rows[-1]))
+        for b, n in HH_SHAPES:
+            ins = [(uniform((b, n), -80, 30), uniform((b, n), 0, 1),
+                    uniform((b, n), 0, 1), uniform((b, n), 0, 1),
+                    normal((b, n), 2.0)) for _ in range(4)]
+            kern = lambda i: HH.hh_step(*ins[i % 4], 0.1, 5)
+            plain = lambda i: R.hh_step_ref(*ins[i % 4], 0.1, 5)
+            out, ref = kern(0), plain(0)
+            torch.cuda.synchronize()
+            err = max(float((o - e).abs().max()) for o, e in zip(out, ref))
+            check(all(bool(torch.allclose(o, e, rtol=NEURON_TOL,
+                                          atol=NEURON_TOL))
+                      for o, e in zip(out, ref)),
+                  f"hh_step [{b}, {n}]: max abs err {err}")
+            ops = b * n * 5 * HH_OPS_PER_SUBSTEP
+            rows.append({"name": "hh_step", "B": b, "n": n,
+                         "max_abs_err": err,
+                         **_neuron_times(torch, kern, plain),
+                         "library_ms": None, **_bound(b * n * 36, ops),
+                         "bytes": b * n * 36, "ops": ops})
+            print(json.dumps(rows[-1]))
+    report["neuron_kernel_table"] = rows
+    entries = []
+    for name, replaces in (
+            ("izhikevich_step", "src/repro/kernels/izhikevich_step.py:50"),
+            ("hh_step", "src/repro/kernels/hh_step.py:71")):
+        r = next(x for x in rows if x["name"] == name and x["B"] == 1)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/neuron_step.cu",
+            "replaces": replaces, "launches": 0,
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}})
+    return entries
+
+
+def _kernel_modules():
+    from repro_torch.kernels import ell_spmv, hh_step, izhikevich_step
+    return ell_spmv, izhikevich_step, hh_step
+
+
+def reset_launches() -> None:
+    for m in _kernel_modules():
+        m.reset_launches()
+
+
+def read_launches() -> dict:
+    out: dict = {}
+    for m in _kernel_modules():
+        out.update(m.launches)
+    return out
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the propagation ops to the plain versions on the card, for the
-    comparison runs only (the port itself never does this)."""
+    """Route every kernel's wrapper to its plain version on the card, for
+    the comparison runs only (the port itself never does this)."""
     from unittest import mock
-    from repro_torch.kernels import ell_spmv as K
     from repro_torch.kernels import ref as R
+    K, IZ, HH = _kernel_modules()
     with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
-            mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref):
+            mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref), \
+            mock.patch.object(IZ, "izhikevich_step", R.izhikevich_step_ref), \
+            mock.patch.object(HH, "hh_step", R.hh_step_ref):
         yield
 
 
@@ -278,32 +459,44 @@ def _raster_agreement(torch, a, b) -> float:
     return num / den
 
 
-def _profile_window(torch, model, steps: int) -> dict:
+def _profile_window(torch, model, steps: int, **run_kw) -> dict:
     """Device busy share, device ops per step and the kernels that fill the
     busy time, from a torch.profiler trace of ``steps`` steps.  Profiling
     slows the host, so the idle share it shows is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    model.run(2)
+    model.run(2, **run_kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.run(steps)
+        model.run(steps, **run_kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_by_name: dict = {}
-    n_ops = 0
+    count_by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            n_ops += 1
+            count_by_name[e.name] = count_by_name.get(e.name, 0) + 1
             busy_by_name[e.name] = (busy_by_name.get(e.name, 0.0)
                                     + e.time_range.elapsed_us())
+    n_ops = sum(count_by_name.values())
     busy_us = sum(busy_by_name.values())
     top = sorted(busy_by_name.items(), key=lambda kv: -kv[1])[:6]
+    # device time per launch of the port's own kernels, by kernel name
+    ours = {n[:80]: {"launches": count_by_name[n], "us_per_launch":
+                     busy_by_name[n] / count_by_name[n]}
+            for n in busy_by_name
+            if any(k in n for k in ("ell_spmv_kernel",
+                                    "izhikevich_step_kernel",
+                                    "hh_step_kernel"))}
     out = {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
            "busy_share": busy_us / wall_us, "device_ops_per_step":
-           n_ops / steps, "top_us": [[n[:80], us] for n, us in top]}
+           n_ops / steps, "top_us": [[n[:80], us] for n, us in top],
+           "kernels": ours,
+           "by_name": {n[:100]: [count_by_name[n], us]
+                       for n, us in sorted(busy_by_name.items(),
+                                           key=lambda kv: -kv[1])}}
     if n_ops == 0:
         print("profiler saw no device activity: busy share not measured")
     else:
@@ -311,6 +504,7 @@ def _profile_window(torch, model, steps: int) -> dict:
               f"{wall_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
               f"{n_ops / steps:.0f} device ops/step; top: "
               + "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
+        print(f"the port's kernels on the device: {ours}")
     return out
 
 
@@ -334,7 +528,6 @@ def _run_checked(torch, model, steps, what, **kw):
 
 def main_path(torch, report):
     from repro_torch.core.models import izhikevich_net as IZ
-    from repro_torch.kernels import ell_spmv as K
     with phase("3. main path: Izhikevich net, 100k neurons"):
         cfg = IZ.IzhikevichNetConfig(n_total=MAIN["n_total"],
                                      n_conn=MAIN["n_conn"],
@@ -349,16 +542,22 @@ def main_path(torch, report):
         n_sparse = sum(1 for g in model.network.synapses
                        if g.representation == "sparse")
         check(n_sparse == 4, f"expected 4 sparse groups, got {groups}")
+        check(model.simulator.routes == {"exc": "izhikevich_step",
+                                         "inh": "izhikevich_step"},
+              f"neuron routes {model.simulator.routes}")
         model.run(5)                            # warm-up: library, caches
         torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
+        reset_launches()
         res, secs, rates = _run_checked(torch, model, MAIN["steps"],
                                         "kernel run")
-        launches = dict(K.launches)
+        launches = read_launches()
         print(f"launches in the main-path run: {launches}")
         check(launches["ell_spmv"] >= n_sparse * MAIN["steps"],
               f"ell_spmv launched {launches['ell_spmv']} times for "
               f"{n_sparse} sparse groups x {MAIN['steps']} steps")
+        check(launches["izhikevich_step"] == 2 * MAIN["steps"],
+              f"izhikevich_step launched {launches['izhikevich_step']} "
+              f"times for 2 populations x {MAIN['steps']} steps")
         report["main"] = {
             "config": MAIN, "build_s": build_s, "groups": groups,
             "seconds": secs, "us_per_step": secs / MAIN["steps"] * 1e6,
@@ -367,10 +566,11 @@ def main_path(torch, report):
 
         n = MAIN["plain_steps"]
         kr = model.run(n, record_raster=True).raster
-        K.reset_launches()
+        reset_launches()
         with plain_versions():
             pr = model.run(n, record_raster=True).raster
-        check(K.launches["ell_spmv"] == 0, "the plain run launched kernels")
+        check(not any(read_launches().values()),
+              f"the plain run launched kernels: {read_launches()}")
         agree = _raster_agreement(torch, kr, pr)
         print(f"raster agreement kernel vs plain over {n} steps: {agree}")
         check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
@@ -417,7 +617,6 @@ def sweep(torch, report, model) -> None:
 def delay_path(torch, report) -> dict:
     from repro_torch.core.models import izhikevich_net as IZ
     from repro_torch.core.snn.spec import ModelSpec
-    from repro_torch.kernels import ell_spmv as K
     from repro_torch.sparse.formats import UniformIntDelay
     with phase("5. delay path: per-synapse delays 0..20 steps"):
         cfg = IZ.IzhikevichNetConfig(n_total=DELAY["n_total"],
@@ -439,17 +638,20 @@ def delay_path(torch, report) -> dict:
                  for g in model.network.synapses]
         print(f"built {model}; ring slots {rings}")
         model.run(5)
-        K.reset_launches()
+        reset_launches()
         _, secs, rates = _run_checked(torch, model, DELAY["steps"],
                                       "delay run")
-        launches = dict(K.launches)
+        launches = read_launches()
         print(f"launches in the delay run: {launches}")
         check(launches["ell_spmv_delay"] >= 2 * DELAY["steps"],
               "ell_spmv_delay did not run for both delayed groups each step")
         n = MAIN["plain_steps"]
         kr = model.run(n, record_raster=True).raster
+        reset_launches()
         with plain_versions():
             pr = model.run(n, record_raster=True).raster
+        check(not any(read_launches().values()),
+              f"the plain run launched kernels: {read_launches()}")
         agree = _raster_agreement(torch, kr, pr)
         print(f"raster agreement kernel vs plain over {n} steps: {agree}")
         check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
@@ -457,6 +659,137 @@ def delay_path(torch, report) -> dict:
                            "us_per_step": secs / DELAY["steps"] * 1e6,
                            "rates_hz": rates, "launches": launches,
                            "plain_raster_agreement": agree}
+        return launches
+
+
+def gscale_table(torch, report) -> float:
+    """Phase 6a; returns the KC rate at gScale 1 (the search's target)."""
+    from repro_torch.core.models import mushroom_body as MB
+    with phase("6a. mushroom body: the NaN-guard table"):
+        cfg = MB.MushroomBodyConfig(**MB_EXAMPLE)
+        model = MB.compile_model(cfg)
+        print(f"built {model}; routes {model.simulator.routes}")
+        values, steps = list(MB_TABLE["values"]), MB_TABLE["steps"]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = model.sweep_gscale("PN_KC", values, steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        rates = {k: v.tolist() for k, v in s.rates_hz.items()}
+        finite = s.finite.tolist()
+        print(f"{len(values)} candidates x {steps} steps in {secs:.3f} s "
+              f"({secs / steps * 1e6:.1f} us/step); launches {launches}")
+        print(" gScale |  PN Hz |  KC Hz |  DN Hz | finite (NaN guard)")
+        for i, g in enumerate(values):
+            print(f" {g:6.1f} | {rates['PN'][i]:6.1f} | {rates['KC'][i]:6.1f} "
+                  f"| {rates['DN'][i]:6.1f} | {finite[i]}")
+        check(launches["hh_step"] == 3 * steps,
+              f"hh_step launched {launches['hh_step']} times for 3 "
+              f"populations x {steps} steps")
+        check(finite[0] and finite[1], f"not finite at gScale 0.5 or 1: "
+              f"{finite}")
+        check(not finite[-1], "gScale 50 did not trip the NaN guard")
+        check(all(abs(r - cfg.pn_rate_hz) < 15.0 for r in rates["PN"]),
+              f"PN rates {rates['PN']} not within 15 Hz of "
+              f"{cfg.pn_rate_hz}")
+        report["mb_table"] = {"config": MB_EXAMPLE, "values": values,
+                              "steps": steps, "seconds": secs,
+                              "us_per_step": secs / steps * 1e6,
+                              "rates_hz": rates, "finite": finite,
+                              "launches": launches}
+        return rates["KC"][1]
+
+
+def mushroom_body_full(torch, report, kc_target: float) -> dict:
+    """Phase 6b; returns the launch counts of its 2500-step run."""
+    from repro_torch.core import conductance as C
+    from repro_torch.core.models import mushroom_body as MB
+    with phase("6b. mushroom body at full width: 100k KCs"):
+        cfg = MB.MushroomBodyConfig(**MB_FULL)
+        ex = MB_EXAMPLE
+        # each group's gScale: the example's fan-in over this size's
+        fan_in = {"PN_KC": ex["n_pn"] / cfg.n_pn,
+                  "PN_LHI": ex["n_pn"] / cfg.n_pn,
+                  "LHI_KC": ex["n_lhi"] / cfg.n_lhi,
+                  "KC_DN": ex["n_kc"] / cfg.n_kc,
+                  "DN_DN": ex["n_dn"] / cfg.n_dn}
+        t0 = time.perf_counter()
+        model = MB.compile_model(cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        groups = [(g.name, g.representation, g.ell.n_pre, g.ell.n_post,
+                   g.ell.max_conn) for g in model.network.synapses]
+        print(f"built {model} in {build_s:.1f} s; groups {groups}; "
+              f"fan-in gScales {fan_in}")
+        check(model.simulator.routes == {"PN": "codegen", "LHI": "hh_step",
+                                         "KC": "hh_step", "DN": "hh_step"},
+              f"neuron routes {model.simulator.routes}")
+        steps = MB_RUN["steps"]
+        model.run(5, gscales=fan_in)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, secs, rates = _run_checked(torch, model, steps, "kernel run",
+                                      gscales=fan_in)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"launches {launches}; peak device memory {peak} B")
+        check(launches["hh_step"] == 3 * steps,
+              f"hh_step launched {launches['hh_step']} times for 3 "
+              f"populations x {steps} steps")
+        out = report["mb_full"] = {
+            "config": MB_FULL, "fan_in_gscales": fan_in, "build_s": build_s,
+            "groups": groups, "steps": steps, "seconds": secs,
+            "us_per_step": secs / steps * 1e6, "rates_hz": rates,
+            "launches": launches, "peak_mem_bytes": peak}
+
+        n = MB_RUN["plain_steps"]
+        kr = model.run(n, gscales=fan_in, record_raster=True).raster
+        reset_launches()
+        with plain_versions():
+            pr = model.run(n, gscales=fan_in, record_raster=True).raster
+        check(not any(read_launches().values()),
+              f"the plain run launched kernels: {read_launches()}")
+        agree = _raster_agreement(torch, kr, pr)
+        print(f"raster agreement kernel vs plain over {n} steps: {agree}")
+        check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
+        out["plain_raster_agreement"] = agree
+        out["profile"] = _profile_window(torch, model, 50, gscales=fan_in)
+
+        others = {k: v for k, v in fan_in.items() if k != "PN_KC"}
+        search_steps = MB_RUN["search_steps"]
+
+        seen = {}
+
+        def kc_rate(cands):
+            """One batched run of every candidate; PN_KC's gScale [B], the
+            other groups' fan-in gScales as scalars."""
+            res = model.simulator.run(
+                model.init_state(len(cands)), search_steps,
+                {**others, "PN_KC": cands.to(model.device)})
+            seen["kc"], seen["finite"] = res.rates_hz["KC"], res.finite
+            return res.rates_hz["KC"], res.finite
+
+        cands = list(MB_RUN["search"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pick = C.search_sweep(kc_rate, cands, kc_target)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        kc, fin = seen["kc"].tolist(), seen["finite"].tolist()
+        for g, r, f in zip(cands, kc, fin):
+            print(f"  PN_KC gScale {g:.4f}: KC {r:.4f} Hz, finite {f}")
+        bracketed = (min(r for r, f in zip(kc, fin) if f) <= kc_target
+                     <= max(r for r, f in zip(kc, fin) if f))
+        print(f"search_sweep to 6a's KC rate {kc_target:.4f} Hz: {pick} "
+              f"({len(cands)} candidates x {search_steps} steps in "
+              f"{search_s:.3f} s; target bracketed: {bracketed})")
+        check(pick.finite, f"search_sweep picked {pick}")
+        out["search"] = {"candidates": cands, "steps": search_steps,
+                         "seconds": search_s, "kc_rates_hz": kc,
+                         "finite": fin, "target_hz": kc_target,
+                         "bracketed": bracketed, "pick": pick.__dict__}
         return launches
 
 

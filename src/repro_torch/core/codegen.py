@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -156,7 +157,9 @@ class NeuronModel:
         _check_reserved(self.name, _EXTERNALS,
                         state=self.state, params=self.params)
 
-    @property
+    # cached: the simulator asks every step, and a parse costs more than
+    # the population's update (the frozen dataclass's fields are unchanged)
+    @functools.cached_property
     def needs_rand(self) -> bool:
         return any(
             "rand" in _names(code)
@@ -386,7 +389,7 @@ class PostsynapticModel:
         _check_reserved(self.name, _PSM_EXTERNALS,
                         state=self.state, params=self.params)
 
-    @property
+    @functools.cached_property
     def needs_v(self) -> bool:
         return "V" in _names(self.apply_code) | _names(self.decay_code)
 

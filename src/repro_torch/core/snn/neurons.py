@@ -4,11 +4,19 @@ Counterpart of ``repro/core/snn/neurons.py``: the same declarations
 (Izhikevich for the cortical net, Traub-Miles Hodgkin-Huxley and Poisson for
 the mushroom body, LIF, the Rulkov map), compiled by the port's codegen.
 
+``fused_kernel`` is the table of models whose whole update one hand-written
+kernel computes (``IZHIKEVICH`` -> ``izhikevich_step``, any
+``make_traubmiles(k)`` -> ``hh_step`` with ``substeps=k``); the simulator
+runs those populations through the kernel and every other model through
+codegen.
+
 Units follow GeNN: time in ms, voltages in mV, conductances in uS, currents
 in nA, capacitance in nF.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,6 +25,7 @@ from repro_torch.core.codegen import NeuronModel
 __all__ = [
     "IZHIKEVICH", "TRAUBMILES_HH", "POISSON", "LIF", "RULKOV_MAP",
     "make_traubmiles", "izhikevich_population_params", "get_model",
+    "fused_kernel",
 ]
 
 # ---------------------------------------------------------------------------
@@ -158,6 +167,28 @@ _REGISTRY = {
     m.name: m for m in (IZHIKEVICH, TRAUBMILES_HH, POISSON, LIF, RULKOV_MAP)
 }
 _REGISTRY["traubmiles_hh"] = TRAUBMILES_HH
+
+
+def _declaration(model: NeuronModel) -> tuple:
+    """What a model's update depends on: its code, state and params (not
+    its name)."""
+    return (model.sim_code, model.threshold_code, model.reset_code,
+            dict(model.state), dict(model.params))
+
+
+def fused_kernel(model: NeuronModel) -> Optional[Tuple[str, Dict[str, int]]]:
+    """The fused kernel that computes ``model``'s update and its static
+    arguments: ("izhikevich_step", {}) for a declaration equal to
+    ``IZHIKEVICH``, ("hh_step", {"substeps": k}) for one equal to
+    ``make_traubmiles(k)``, None for any other (a model named "izhikevich"
+    with other code stays on codegen)."""
+    decl = _declaration(model)
+    if decl == _declaration(IZHIKEVICH):
+        return "izhikevich_step", {}
+    k = model.sim_code.count("Imem =")
+    if k >= 1 and decl == _declaration(make_traubmiles(k)):
+        return "hh_step", {"substeps": k}
+    return None
 
 
 def get_model(name: str) -> NeuronModel:

@@ -4,7 +4,10 @@ Counterpart of ``repro/core/snn/simulator.py`` (its host path).  Each step:
 
   1. synaptic propagation: last step's spikes -> post-synaptic currents
      (the hand-written ELL kernel, or a dense matmul, per group)
-  2. neuron updates: the codegen'd model equations advance every population
+  2. neuron updates: a population of the built-in Izhikevich or Traub-Miles
+     model advances through its fused kernel (``neurons.fused_kernel``:
+     ``izhikevich_step`` / ``hh_step``), every other through the codegen'd
+     model equations
   3. spike extraction (threshold / reset, or rising-edge detection)
 
 What differs from the JAX package:
@@ -30,15 +33,18 @@ membrane state into a carried per-batch-member ``finite`` flag.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import codegen
-from repro_torch.core.snn.network import Network
+from repro_torch.core.snn import neurons
+from repro_torch.core.snn.network import Network, Population
 from repro_torch.core.snn.synapses import SynapseState
+from repro_torch.kernels import hh_step as _hh
+from repro_torch.kernels import izhikevich_step as _iz
 
 __all__ = ["Simulator", "SimState", "RunResult"]
 
@@ -67,6 +73,14 @@ class RunResult:
     raster: Optional[Dict[str, torch.Tensor]] = None   # [steps, B, n] bool
 
 
+def _scalar(v) -> Optional[float]:
+    """A neuron parameter as a float, or None for a per-neuron array."""
+    if isinstance(v, torch.Tensor):
+        return float(v) if v.dim() == 0 else None
+    arr = np.asarray(v)
+    return float(arr) if arr.ndim == 0 else None
+
+
 class Simulator:
     def __init__(self, net: Network, dt: float = 0.5, seed: int = 0,
                  device=None):
@@ -74,11 +88,55 @@ class Simulator:
         self.dt = float(dt)
         self.seed = seed
         self.device = resolve_device(device)
-        self._updates = {
-            name: codegen.compile_sim(pop.model)
-            for name, pop in net.populations.items()
-        }
+        # population -> "izhikevich_step" | "hh_step" | "codegen"
+        self.routes: Dict[str, str] = {}
+        self._updates = {}
+        for name, pop in net.populations.items():
+            fused = self._fused_update(pop)
+            self.routes[name] = fused[0] if fused else "codegen"
+            self._updates[name] = (fused[1] if fused
+                                   else codegen.compile_sim(pop.model))
         self._group_names = {g.name for g in net.synapses}
+
+    def _fused_update(self, pop: Population
+                      ) -> Optional[Tuple[str, Callable]]:
+        """(kernel name, update) when a fused kernel computes ``pop``'s
+        update, else None.  The update has codegen's signature and calls the
+        kernel's wrapper through its module, where a test can swap it.
+
+        Izhikevich parameters are made [n] float32 tensors here, once.  A
+        Traub-Miles population with a per-neuron parameter is not the
+        kernel's function (its parameters are scalars) and stays on
+        codegen."""
+        found = neurons.fused_kernel(pop.model)
+        if found is None:
+            return None
+        kernel, static = found
+        dt = self.dt
+        if kernel == "izhikevich_step":
+            a, b, c, d = (torch.as_tensor(pop.params[k], dtype=torch.float32,
+                                          device=self.device)
+                          .broadcast_to((pop.n,)).contiguous()
+                          for k in "abcd")
+
+            def izhikevich(state, params, ext):
+                v, u, spiked = _iz.izhikevich_step(
+                    state["V"], state["U"], ext["Isyn"], a, b, c, d, dt)
+                return {"V": v, "U": u}, spiked
+
+            return kernel, izhikevich
+        scalars = {k: _scalar(v) for k, v in pop.params.items()}
+        if any(v is None for v in scalars.values()):
+            return None
+        substeps = static["substeps"]
+
+        def hh(state, params, ext):
+            v, m, h, n = _hh.hh_step(
+                state["V"], state["m"], state["h"], state["n"], ext["Isyn"],
+                dt, substeps, **scalars)
+            return {"V": v, "m": m, "h": h, "n": n}, v >= 0.0
+
+        return kernel, hh
 
     def _validate_gscales(self, gscales: Optional[Mapping[str, object]]
                           ) -> None:
@@ -174,7 +232,7 @@ class Simulator:
             new_syn[g.name] = s_new
             isyn[g.post] = isyn[g.post] + cur
 
-        # 2+3. neuron updates via generated code ------------------------
+        # 2+3. neuron updates: fused kernel or generated code -----------
         new_neurons, new_spikes, new_prev = {}, {}, dict(state.prev_above)
         finite = state.finite
         gen = state.generator

@@ -32,8 +32,12 @@ BUILD_DIR = Path(__file__).with_name("_build")
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; -Xptxas -v
 # records registers, shared memory and spills in the build log.
+# -fmad=false keeps a*b+c as two rounded operations, as PyTorch's eager ops
+# compute it, so a fused kernel rounds like its plain version (no
+# --use_fast_math either: expf and division stay IEEE).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def sources() -> Dict[str, Path]:

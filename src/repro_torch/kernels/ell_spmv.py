@@ -17,22 +17,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, I, LL, P,
+                                           check_operand, on_cpu, raise_on)
 
 __all__ = ["ell_spmv", "ell_spmv_delay", "launches", "reset_launches"]
 
 # kernel name -> number of launches since the last reset_launches()
 launches: Dict[str, int] = {"ell_spmv": 0, "ell_spmv_delay": 0}
-
-_GRID_Y_MAX = 65535           # the batch rides grid axis y
-_INT_MAX = 2 ** 31 - 1
-
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -43,26 +40,14 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_spmv")
-    lib.ell_spmv_f32.argtypes = [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.ell_spmv_f32.restype = _I
-    lib.ell_spmv_delay_f32.argtypes = [_P, _LL, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _P]
-    lib.ell_spmv_delay_f32.restype = _I
-    lib.ell_spmv_error_string.argtypes = [_I]
+    lib.ell_spmv_f32.argtypes = [P, LL, P, P, P, P, I, I, I, I, P]
+    lib.ell_spmv_f32.restype = I
+    lib.ell_spmv_delay_f32.argtypes = [P, LL, P, P, P, P, P,
+                                       I, I, I, I, I, P]
+    lib.ell_spmv_delay_f32.restype = I
+    lib.ell_spmv_error_string.argtypes = [I]
     lib.ell_spmv_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
-    """True when every tensor lies on the CPU; False when every one lies on
-    one CUDA device; anything else raises."""
-    devs = {t.device for t in tensors if t is not None}
-    if all(d.type == "cpu" for d in devs):
-        return True
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"ELL spmv operands lie on {sorted(map(str, devs))}"
-                         "; expected all on the CPU or all on one CUDA device")
-    return False
 
 
 def _check(g, post_ind, valid, delay, spikes, n_post: int,
@@ -92,26 +77,15 @@ def _check(g, post_ind, valid, delay, spikes, n_post: int,
                         ("post_ind", post_ind, torch.int32),
                         ("valid", valid, torch.bool),
                         ("delay", delay, torch.int32)):
-        if t is None:
-            continue
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if batch > _GRID_Y_MAX:
-        raise ValueError(f"batch {batch} exceeds the kernel's {_GRID_Y_MAX}")
+        if t is not None:
+            check_operand(name, t, dt)
+    if batch > GRID_Y_MAX:
+        raise ValueError(f"batch {batch} exceeds the kernel's {GRID_Y_MAX}")
     for what, v in (("n_pre", n_pre), ("K", k), ("n_post", n_post),
                     ("n_slots * n_post", n_slots * n_post)):
-        if not 0 <= v <= _INT_MAX:
+        if not 0 <= v <= INT_MAX:
             raise ValueError(f"{what}={v} outside the kernel's int32 range")
     return batch, n_pre, k, g_stride
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().ell_spmv_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} (cuda error "
-                           f"{rc})")
 
 
 def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
@@ -122,7 +96,7 @@ def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
     g: [n_pre, K] float32 (or [B, n_pre, K] for per-member weights);
     post_ind: [n_pre, K] int32; valid: [n_pre, K] bool;
     spikes: [B, n_pre] float32  ->  [B, n_post] float32."""
-    if _on_cpu(g, post_ind, valid, spikes):
+    if on_cpu("ell_spmv", g, post_ind, valid, spikes):
         return _ref.ell_spmv_ref(g, post_ind, valid, spikes, n_post)
     batch, n_pre, k, g_stride = _check(g, post_ind, valid, None, spikes,
                                        n_post, 1)
@@ -135,7 +109,7 @@ def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
             spikes.data_ptr(), out.data_ptr(), batch, n_pre, k, n_post,
             stream)
     launches["ell_spmv"] += 1
-    _raise_on(rc, "ell_spmv")
+    raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv")
     return out
 
 
@@ -147,7 +121,8 @@ def ell_spmv_delay(g: torch.Tensor, post_ind: torch.Tensor,
     * valid[i,k] * (delay[i,k] == d) * (post_ind[i,k] == j).
 
     As ``ell_spmv`` plus delay: [n_pre, K] int32  ->  [B, n_slots, n_post]."""
-    if _on_cpu(g, post_ind, valid, delay, spikes):
+    if on_cpu("ell_spmv_delay", g, post_ind, valid, delay,
+              spikes):
         return _ref.ell_spmv_delay_ref(g, post_ind, valid, delay, spikes,
                                        n_post, n_slots)
     batch, n_pre, k, g_stride = _check(g, post_ind, valid, delay, spikes,
@@ -161,5 +136,5 @@ def ell_spmv_delay(g: torch.Tensor, post_ind: torch.Tensor,
             delay.data_ptr(), spikes.data_ptr(), out.data_ptr(), batch,
             n_pre, k, n_post, n_slots, stream)
     launches["ell_spmv_delay"] += 1
-    _raise_on(rc, "ell_spmv_delay")
+    raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv_delay")
     return out

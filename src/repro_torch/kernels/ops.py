@@ -1,8 +1,8 @@
-"""Container-level propagation ops, one signature per op.
+"""Container-level ops, one signature per op.
 
-Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family.  There is
-no backend switch: each op goes by the device its tensors lie on (see
-``repro_torch.kernels.ell_spmv``).
+Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family and the
+fused neuron updates.  There is no backend switch: each op goes by the
+device its tensors lie on (see ``repro_torch.kernels._dispatch``).
 
 The event-driven variants keep the JAX signatures and run the same kernel.
 The kernel returns at once for rows whose spike is 0, which is the work the
@@ -15,10 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ell_spmv as _k
+from repro_torch.kernels import hh_step as _hh
+from repro_torch.kernels import izhikevich_step as _iz
 
 __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
            "ell_spmv_delay_batched", "ell_spmv_event",
-           "ell_spmv_event_delay"]
+           "ell_spmv_event_delay", "izhikevich_step", "hh_step"]
 
 
 def ell_spmv_batched(ell, spikes: torch.Tensor) -> torch.Tensor:
@@ -67,3 +69,25 @@ def ell_spmv_event_delay(ell, spikes: torch.Tensor, n_slots: int,
     [n_slots, n_post], equal to ``ell_spmv_delay``."""
     _check_capacity(capacity)
     return ell_spmv_delay(ell, spikes, n_slots)
+
+
+# -- fused neuron updates -----------------------------------------------------
+
+def izhikevich_step(v, u, isyn, a, b, c, d, dt: float):
+    """Fused Izhikevich update: state [n] or [B, n]; a..d scalars or [n]
+    (broadcast to [n] float32 on v's device, as the JAX entry point does).
+    Returns (v', u', spiked)."""
+    n = v.shape[-1]
+
+    def bcast(x):
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=v.device).broadcast_to((n,)).contiguous()
+
+    return _iz.izhikevich_step(v, u, isyn, bcast(a), bcast(b), bcast(c),
+                               bcast(d), dt)
+
+
+def hh_step(v, m, h, n, isyn, dt: float, **params):
+    """Fused Traub-Miles HH update; params: ``substeps`` and the seven
+    scalar conductances/potentials of ``hh_step.hh_step``."""
+    return _hh.hh_step(v, m, h, n, isyn, dt, **params)

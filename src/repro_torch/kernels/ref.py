@@ -9,13 +9,21 @@ repeat the kernels' arithmetic with ``index_add_`` over the flattened
 
 ``g`` may carry a leading batch axis (``[B, n_pre, K]``): plastic groups in
 a batched run hold one weight matrix per batch member.
+
+The neuron updates take state ``[B, n]`` (or ``[n]``) and parameters that
+are scalars or ``[n]``.  They repeat the statements of the codegen'd
+``IZHIKEVICH`` and ``make_traubmiles(substeps)`` in the same order, with
+``dt`` as a float32 scalar as the simulator hands it to codegen, so on the
+CPU they round exactly as codegen does.  HH keeps the TPU kernel's
+``n*n*n*n`` (the JAX reference's ``n ** 4`` rounds otherwise).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ell_spmv_ref", "ell_spmv_delay_ref"]
+__all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "izhikevich_step_ref",
+           "hh_step_ref"]
 
 
 def _contributions(g: torch.Tensor, valid: torch.Tensor,
@@ -62,3 +70,41 @@ def ell_spmv_delay_ref(g: torch.Tensor, post_ind: torch.Tensor,
                       dtype=flat.dtype, device=flat.device)
     out.index_add_(1, idx, flat)
     return out.reshape(spikes.shape[0], n_slots, n_post)
+
+
+def izhikevich_step_ref(v, u, isyn, a, b, c, d, dt):
+    """Fused Izhikevich update (two half-steps on V): (v', u', spiked)."""
+    dt = torch.as_tensor(dt, dtype=torch.float32)
+    v = v + 0.5 * dt * (0.04 * v * v + 5.0 * v + 140.0 - u + isyn)
+    v = v + 0.5 * dt * (0.04 * v * v + 5.0 * v + 140.0 - u + isyn)
+    u = u + dt * a * (b * v - u)
+    v = torch.clamp(v, max=30.0)
+    spiked = v >= 29.99
+    return torch.where(spiked, c, v), torch.where(spiked, u + d, u), spiked
+
+
+def _vtrap(x):
+    """x / (exp(x) - 1), guarded at the pole (Taylor: 1 - x/2)."""
+    return torch.where(x.abs() > 1e-4, x / (torch.exp(x) - 1.0),
+                       1.0 - x / 2.0)
+
+
+def hh_step_ref(v, m, h, n, isyn, dt, substeps=5, gNa=7.15, ENa=50.0,
+                gK=1.43, EK=-95.0, gl=0.02672, El=-63.563, C=0.143):
+    """Fused Traub-Miles HH update: ``substeps`` Euler substeps of
+    dt / substeps; returns (v, m, h, n)."""
+    hdt = torch.as_tensor(dt, dtype=torch.float32) / float(substeps)
+    for _ in range(substeps):
+        imem = -(m * m * m * h * gNa * (v - ENa)
+                 + n * n * n * n * gK * (v - EK) + gl * (v - El) - isyn)
+        v = v + hdt * imem / C
+        a_m = 1.28 * _vtrap((-52.0 - v) / 4.0)
+        b_m = 1.4 * _vtrap((v + 25.0) / 5.0)
+        a_h = 0.128 * torch.exp((-48.0 - v) / 18.0)
+        b_h = 4.0 / (torch.exp((-25.0 - v) / 5.0) + 1.0)
+        a_n = 0.16 * _vtrap((-50.0 - v) / 5.0)
+        b_n = 0.5 * torch.exp((-55.0 - v) / 40.0)
+        m = torch.clamp(m + hdt * (a_m * (1.0 - m) - b_m * m), 0.0, 1.0)
+        h = torch.clamp(h + hdt * (a_h * (1.0 - h) - b_h * h), 0.0, 1.0)
+        n = torch.clamp(n + hdt * (a_n * (1.0 - n) - b_n * n), 0.0, 1.0)
+    return v, m, h, n

@@ -1,7 +1,8 @@
 """repro_torch stands alone: no module of the port and no part of
 chip_smoke.py imports jax or the JAX package; importing the port leaves jax
 unloaded; tensors on the CPU take the plain versions without counting a
-launch; an entry point that needs a card raises when there is none."""
+launch (ELL and neuron kernels alike); an entry point that needs a card
+raises when there is none."""
 
 import ast
 import pathlib
@@ -15,7 +16,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.models import izhikevich_net as TIZ  # noqa: E402
+from repro_torch.core.models import mushroom_body as TMB  # noqa: E402
 from repro_torch.kernels import ell_spmv as K  # noqa: E402
+from repro_torch.kernels import hh_step as HH  # noqa: E402
+from repro_torch.kernels import izhikevich_step as IZ  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -68,11 +72,17 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     dly = torch.zeros(8, 3, dtype=torch.int32)
     spk = torch.ones(2, 8)
     K.reset_launches()
+    IZ.reset_launches()
+    HH.reset_launches()
     K.ell_spmv(g, idx, valid, spk, 5)
     K.ell_spmv_delay(g, idx, valid, dly, spk, 5, 2)
     TIZ.compile_model(TIZ.IzhikevichNetConfig(n_total=50, n_conn=5),
                       device="cpu").run(3)
+    TMB.compile_model(TMB.MushroomBodyConfig(n_pn=4, n_lhi=2, n_kc=10,
+                                             n_dn=2), device="cpu").run(3)
     assert K.launches == {"ell_spmv": 0, "ell_spmv_delay": 0}
+    assert IZ.launches == {"izhikevich_step": 0}
+    assert HH.launches == {"hh_step": 0}
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):
@@ -82,6 +92,8 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
         TIZ.compile_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         TIZ.spec(cfg).build(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMB.compile_model(TMB.MushroomBodyConfig(n_kc=10))
 
 
 def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):
