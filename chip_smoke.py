@@ -23,6 +23,16 @@ failure ends the run with a non-zero exit):
        (a launch of a few microseconds is shorter than the host's gap
        between launches), beside the CUDA-event wall time; no single
        PyTorch call computes either, so they have no library time;
+  2c. flash_attention against its plain version on the card, with kernel,
+     plain and library (torch's scaled_dot_product_attention on the same
+     inputs, a yardstick only: the port never calls it) times beside the
+     bound: the serving prefill's shape, q [8, 14, 2048, 64] and k, v
+     [8, 2, 2048, 64], bf16, causal (rtol=atol=1e-2 against the plain
+     version in float32 on the same bf16 inputs); the same at B=1 in
+     float32 (2e-5); gemma3's local layer, [1, 16, 2048, 256] /
+     [1, 8, 2048, 256], window 1024, bf16; softcap 30, and prefix 100, at
+     [1, 4, 256, 64] / [1, 2, 256, 64], float32; non-causal ragged T=200,
+     float32;
   3. the main path at full width: the Izhikevich net, 100k neurons, 1000
      synapses per neuron (4 split ELL groups, ~1.8 GB), 1000 steps; its
      launch counts (4 ell_spmv and 2 izhikevich_step per step); 50 steps
@@ -42,7 +52,20 @@ failure ends the run with a non-zero exit):
      steps (3 hh_step launches per step, finite); 200 steps through the
      plain versions, rasters agreeing on >= 99.8% of neuron-steps; then
      the conductance search for the PN_KC gScale that gives 6a's KC rate
-     at gScale 1, 12 candidates as one batch.
+     at gScale 1, 12 candidates as one batch;
+  7. LM serving at full width: ``Server("qwen2-0.5b", use_reduced=False,
+     max_batch=8, max_seq=4096)`` (494.1M bf16 weights from a seeded
+     generator, a 402.7 MB bf16 KV cache) serves 16 greedy requests, prompt
+     lengths 1024..2048 from numpy's default_rng(0), 32 new tokens each, in
+     two waves of 8: every request gets 32 tokens below the vocab size,
+     every logit row is finite, flash_attention launches 24 x 2 = 48 times;
+     a float32 copy of the weights prefills 2 prompts of 512 tokens through
+     the kernel and through the plain versions, whose last-token logits
+     agree within rtol=atol=1e-3 with equal argmax.  It prints prefill
+     tokens/s and time to first token per wave, decode ms/step and
+     tokens/s, peak device memory, and from torch.profiler the kernel's
+     share of one prefill wave's device time and the card's busy share
+     over 20 decode steps.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -63,6 +86,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
+BF16_FLOPS = 989e12              # H100 SXM, bf16 dense on the tensor cores
 TOL = 1e-5
 NEURON_TOL = 2e-4
 SPIKE_DISAGREEMENT = 0.002
@@ -87,6 +111,24 @@ MB_TABLE = dict(values=(0.5, 1.0, 2.0, 8.0, 50.0), steps=2500)
 MB_RUN = dict(steps=2500, plain_steps=200, search_steps=2500,
               # PN_KC candidates around its fan-in gScale (0.24)
               search=tuple(0.24 * 2.0 ** (i / 4 - 1) for i in range(12)))
+# name, (B, Hq, Hkv, T, D), dtype, options, tolerance against the plain
+# version (in float32, on the same inputs)
+FLASH_CASES = (
+    ("prefill", (8, 14, 2, 2048, 64), "bfloat16", {"causal": True}, 1e-2),
+    ("prefill_b1_f32", (1, 14, 2, 2048, 64), "float32", {"causal": True},
+     2e-5),
+    ("gemma3_local", (1, 16, 8, 2048, 256), "bfloat16",
+     {"causal": True, "window": 1024}, 1e-2),
+    ("softcap", (1, 4, 2, 256, 64), "float32",
+     {"causal": True, "softcap": 30.0}, 2e-5),
+    ("prefix", (1, 4, 2, 256, 64), "float32",
+     {"causal": True, "prefix": 100}, 2e-5),
+    ("noncausal_ragged", (2, 4, 4, 200, 64), "float32", {"causal": False},
+     2e-5),
+)
+SERVE = dict(arch="qwen2-0.5b", max_batch=8, max_seq=4096, requests=16,
+             prompt_len=(1024, 2048), max_new=32, check_prompts=2,
+             check_len=512, tol=1e-3, decode_profile_steps=20)
 
 
 class SmokeFailure(RuntimeError):
@@ -130,6 +172,7 @@ def main() -> int:
     kernels = card_and_build(torch, report)
     kernel_entries = compare_kernels(torch, report)
     kernel_entries += compare_neuron_kernels(torch, report)
+    kernel_entries += compare_flash(torch, report)
     launches_main, model = main_path(torch, report)
     sweep(torch, report, model)
     del model
@@ -137,9 +180,12 @@ def main() -> int:
     launches_delay = delay_path(torch, report)
     kc_target = gscale_table(torch, report)
     launches_mb = mushroom_body_full(torch, report, kc_target)
+    torch.cuda.empty_cache()
+    launches_serve = serve_full(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
-               "izhikevich_step": launches_main, "hh_step": launches_mb}
+               "izhikevich_step": launches_main, "hh_step": launches_mb,
+               "flash_attention": launches_serve}
     for e in kernel_entries:
         e["launches"] = path_of[e["name"]][e["name"]]
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
@@ -197,19 +243,15 @@ def _device_ms(torch, fn, reps: int) -> float:
     ``reps`` calls of ``fn`` run, from a torch.profiler trace.  Unlike
     ``_time_ms`` it leaves out the gaps between launches, which set the
     wall time of a kernel of a few microseconds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for i in range(reps):
             fn(i + 1)
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3
+
+    return _device_profile(torch, calls)["device_busy_us"] / reps / 1e3
 
 
 def _csr(torch, post_ind, valid, g, rows_of, n_rows):
@@ -422,9 +464,94 @@ def compare_neuron_kernels(torch, report) -> list:
     return entries
 
 
+def _visible_pairs(torch, tq, tk, causal, window=None, prefix=None, **_):
+    """The number of (query, key) pairs the masks leave visible in one
+    (batch, head), and the mask [tq, tk]."""
+    qpos = torch.arange(tq, device="cuda")[:, None]
+    kpos = torch.arange(tk, device="cuda")[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device="cuda")
+    if causal:
+        cm = kpos <= qpos
+        if prefix is not None:
+            cm = cm | ((kpos < prefix) & (qpos < prefix))
+        mask &= cm
+    if window is not None:
+        mask &= kpos > qpos - window
+    return int(mask.sum()), mask
+
+
+def compare_flash(torch, report) -> list:
+    import torch.nn.functional as TF
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    dev = torch.device("cuda")
+    rows = []
+    with phase("2c. flash_attention against its plain version"):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        for name, (b, hq, hkv, t, d), dt, kw, tol in FLASH_CASES:
+            dtype = getattr(torch, dt)
+            q, k, v = (torch.randn(shape, device=dev, generator=gen
+                                   ).to(dtype)
+                       for shape in ((b, hq, t, d), (b, hkv, t, d),
+                                     (b, hkv, t, d)))
+            out = FA.flash_attention(q, k, v, **kw)
+            ref = R.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            check(bool(torch.allclose(out.float(), ref, rtol=tol, atol=tol)),
+                  f"flash_attention {name}: max abs err {err} > {tol}")
+            pairs, mask = _visible_pairs(torch, t, t, **kw)
+            lib = None
+            if "softcap" not in kw:       # no PyTorch call soft-caps
+                lib_kw = ({"is_causal": kw["causal"]} if set(kw) == {"causal"}
+                          else {"attn_mask": mask})
+
+                def lib(i, q=q, k=k, v=v, lib_kw=lib_kw):
+                    return TF.scaled_dot_product_attention(
+                        q, k, v, enable_gqa=True, **lib_kw)
+
+                lib_err = float((lib(0).float() - ref).abs().max())
+                check(lib_err < (2e-2 if dt == "bfloat16" else 1e-3),
+                      f"flash_attention {name}: the library yardstick "
+                      f"computes another function (max abs err {lib_err})")
+            reps = 10 if b * hq * t * t * d > 1e9 else 50
+            ms = _time_ms(torch, lambda i: FA.flash_attention(q, k, v, **kw),
+                          reps)
+            plain_ms = _time_ms(torch, lambda i: R.flash_attention_ref(
+                q, k, v, **kw), max(3, reps // 5))
+            lib_ms = None if lib is None else _time_ms(torch, lib, reps)
+            es = q.element_size()
+            nbytes = es * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+            flops = 4.0 * b * hq * d * pairs
+            peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            row = {"name": "flash_attention", "case": name,
+                   "shape": [b, hq, hkv, t, d], "dtype": dt,
+                   "options": kw, "tol": tol, "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": nbytes, "flops": flops,
+                   "tflops": flops / ms / 1e9}
+            rows.append(row)
+            print(json.dumps(row))
+            del q, k, v, out, ref, mask
+            torch.cuda.empty_cache()
+    report["flash_table"] = rows
+    r = rows[0]                       # the serving prefill's own shape
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:112",
+             "launches": 0,
+             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}]
+
+
 def _kernel_modules():
-    from repro_torch.kernels import ell_spmv, hh_step, izhikevich_step
-    return ell_spmv, izhikevich_step, hh_step
+    from repro_torch.kernels import (ell_spmv, flash_attention, hh_step,
+                                     izhikevich_step)
+    return ell_spmv, izhikevich_step, hh_step, flash_attention
 
 
 def reset_launches() -> None:
@@ -445,11 +572,12 @@ def plain_versions():
     the comparison runs only (the port itself never does this)."""
     from unittest import mock
     from repro_torch.kernels import ref as R
-    K, IZ, HH = _kernel_modules()
+    K, IZ, HH, FA = _kernel_modules()
     with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
             mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref), \
             mock.patch.object(IZ, "izhikevich_step", R.izhikevich_step_ref), \
-            mock.patch.object(HH, "hh_step", R.hh_step_ref):
+            mock.patch.object(HH, "hh_step", R.hh_step_ref), \
+            mock.patch.object(FA, "flash_attention", R.flash_attention_ref):
         yield
 
 
@@ -459,53 +587,62 @@ def _raster_agreement(torch, a, b) -> float:
     return num / den
 
 
+def _device_profile(torch, fn) -> dict:
+    """Device time by kernel name and the wall time of ``fn()`` under
+    torch.profiler (``fn`` ends in a synchronise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values())
+    check(busy > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "busy_share": busy / wall_us,
+            "device_ops": sum(n for n, _ in by_name.values()),
+            "top": [[n[:80], c, us] for n, (c, us) in top[:8]],
+            "by_name": {n[:100]: [c, us] for n, (c, us) in top}}
+
+
 def _profile_window(torch, model, steps: int, **run_kw) -> dict:
     """Device busy share, device ops per step and the kernels that fill the
     busy time, from a torch.profiler trace of ``steps`` steps.  Profiling
     slows the host, so the idle share it shows is an upper bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     model.run(2, **run_kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         model.run(steps, **run_kw)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_by_name: dict = {}
-    count_by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            count_by_name[e.name] = count_by_name.get(e.name, 0) + 1
-            busy_by_name[e.name] = (busy_by_name.get(e.name, 0.0)
-                                    + e.time_range.elapsed_us())
-    n_ops = sum(count_by_name.values())
-    busy_us = sum(busy_by_name.values())
-    top = sorted(busy_by_name.items(), key=lambda kv: -kv[1])[:6]
+
+    prof = _device_profile(torch, run)
     # device time per launch of the port's own kernels, by kernel name
-    ours = {n[:80]: {"launches": count_by_name[n], "us_per_launch":
-                     busy_by_name[n] / count_by_name[n]}
-            for n in busy_by_name
+    ours = {n[:80]: {"launches": c, "us_per_launch": us / c}
+            for n, (c, us) in prof["by_name"].items()
             if any(k in n for k in ("ell_spmv_kernel",
                                     "izhikevich_step_kernel",
-                                    "hh_step_kernel"))}
-    out = {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
-           "busy_share": busy_us / wall_us, "device_ops_per_step":
-           n_ops / steps, "top_us": [[n[:80], us] for n, us in top],
-           "kernels": ours,
-           "by_name": {n[:100]: [count_by_name[n], us]
-                       for n, us in sorted(busy_by_name.items(),
-                                           key=lambda kv: -kv[1])}}
-    if n_ops == 0:
-        print("profiler saw no device activity: busy share not measured")
-    else:
-        print(f"profiled {steps} steps: device busy {busy_us:.0f} of "
-              f"{wall_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
-              f"{n_ops / steps:.0f} device ops/step; top: "
-              + "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
-        print(f"the port's kernels on the device: {ours}")
-    return out
+                                    "hh_step_kernel",
+                                    "flash_attention_kernel"))}
+    busy_us, wall_us = prof["device_busy_us"], prof["wall_us"]
+    top = [(n, us) for n, _, us in prof["top"][:6]]
+    print(f"profiled {steps} steps: device busy {busy_us:.0f} of "
+          f"{wall_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
+          f"{prof['device_ops'] / steps:.0f} device ops/step; top: "
+          + "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
+    print(f"the port's kernels on the device: {ours}")
+    return {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
+            "busy_share": prof["busy_share"],
+            "device_ops_per_step": prof["device_ops"] / steps,
+            "top_us": [list(x) for x in top], "kernels": ours,
+            "by_name": prof["by_name"]}
 
 
 def _run_checked(torch, model, steps, what, **kw):
@@ -790,6 +927,170 @@ def mushroom_body_full(torch, report, kc_target: float) -> dict:
                          "seconds": search_s, "kc_rates_hz": kc,
                          "finite": fin, "target_hz": kc_target,
                          "bracketed": bracketed, "pick": pick.__dict__}
+        return launches
+
+
+def serve_full(torch, report) -> dict:
+    """Phase 7; returns the launch counts of the serving run."""
+    import numpy as np
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import transformer as T
+    cfg_s = SERVE
+    with phase("7. LM serving at full width: qwen2-0.5b"):
+        t0 = time.perf_counter()
+        srv = Server(cfg_s["arch"], use_reduced=False,
+                     max_batch=cfg_s["max_batch"], max_seq=cfg_s["max_seq"],
+                     seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = srv.cfg
+        n_params = T.count_params(srv.params)
+        leaves = tree_leaves(srv.params)
+        param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+        caches = T.init_caches(cfg, cfg_s["max_batch"], cfg_s["max_seq"],
+                               device="cuda")
+        cache_bytes = sum(c[k].numel() * c[k].element_size()
+                          for c in caches["segments"] for k in ("k", "v"))
+        del caches
+        print(f"{cfg.name}: {n_params} params ({param_bytes} B, "
+              f"{leaves[0].dtype}) drawn in {init_s:.2f} s; KV cache "
+              f"{cache_bytes} B at B={cfg_s['max_batch']}, "
+              f"S={cfg_s['max_seq']}")
+        check(all(x.dtype == torch.bfloat16 for x in leaves),
+              "the full-width weights are not all bf16")
+
+        # warm-up (cuBLAS handles, allocator), before the counted run
+        warm = torch.randint(3, cfg.vocab, (1, 64), device="cuda")
+        logits, caches = T.prefill(srv.params, cfg, warm, max_seq=80)
+        T.decode_step(srv.params, cfg, caches, logits.argmax(-1))
+        torch.cuda.synchronize()
+        del caches
+
+        rng = np.random.default_rng(0)
+        lo, hi = cfg_s["prompt_len"]
+        lens = rng.integers(lo, hi + 1, size=cfg_s["requests"])
+        reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
+                                                   size=int(n)).tolist(),
+                        max_new=cfg_s["max_new"])
+                for i, n in enumerate(lens)]
+        rows_seen = {"n": 0, "finite": True}
+        sample = srv._sample
+
+        def checked_sample(logits, req):
+            rows_seen["n"] += 1
+            rows_seen["finite"] &= bool(np.isfinite(logits[:cfg.vocab]).all())
+            return sample(logits, req)
+
+        srv._sample = checked_sample
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_submit = time.perf_counter()
+        for r in reqs:
+            srv.submit(r)
+        srv.run()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t_submit
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"served {len(reqs)} requests in {total_s:.3f} s; launches "
+              f"{launches}; peak device memory {peak} B")
+        check(all(r.done and len(r.out) == cfg_s["max_new"] for r in reqs),
+              "a request did not get its tokens: "
+              f"{[len(r.out) for r in reqs]}")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+              "a sampled token is a pad id")
+        check(rows_seen["finite"] and rows_seen["n"] == len(reqs)
+              * cfg_s["max_new"], f"logit rows: {rows_seen}")
+        n_waves = len(srv.waves)
+        check(launches["flash_attention"] == cfg.n_layers * n_waves == 48,
+              f"flash_attention launched {launches['flash_attention']} "
+              f"times for {cfg.n_layers} layers x {n_waves} waves")
+        check(not any(v for k, v in launches.items()
+                      if k != "flash_attention"),
+              f"an SNN kernel launched on the serving path: {launches}")
+        waves = []
+        for w in srv.waves:
+            tokens = w["size"] * w["prompt_len"]
+            waves.append({
+                **w, "prefill_tokens": tokens,
+                "prefill_tok_per_s": tokens / w["prefill_s"],
+                "ttft_s": w["first_token_at"] - t_submit,
+                "decode_ms_per_step": w["decode_s"] / w["decode_steps"] * 1e3,
+                "decode_tok_per_s": w["size"] * w["decode_steps"]
+                / w["decode_s"]})
+            print("wave: " + json.dumps(waves[-1]))
+        out = report["serve"] = {
+            "config": cfg_s, "params": n_params, "param_bytes": param_bytes,
+            "kv_cache_bytes": cache_bytes, "init_s": init_s,
+            "prompt_lens": lens.tolist(), "total_s": total_s,
+            "tokens": sum(len(r.out) for r in reqs), "waves": waves,
+            "launches": launches, "peak_mem_bytes": peak}
+
+        # the kernel against the plain versions, float32 weights
+        p32 = tree_map(lambda t: t.float(), srv.params)
+        toks = torch.tensor(rng.integers(
+            3, cfg.vocab, (cfg_s["check_prompts"], cfg_s["check_len"])),
+            device="cuda")
+        lk, _ = T.prefill(p32, cfg, toks)
+        with plain_versions():
+            lp, _ = T.prefill(p32, cfg, toks)
+        lk, lp = lk[:, :cfg.vocab], lp[:, :cfg.vocab]
+        torch.cuda.synchronize()
+        err = float((lk - lp).abs().max())
+        print(f"float32 prefill of {tuple(toks.shape)}, kernel vs plain "
+              f"last-token logits: max abs err {err}, argmax "
+              f"{lk.argmax(-1).tolist()} vs {lp.argmax(-1).tolist()}")
+        check(bool(torch.allclose(lk, lp, rtol=cfg_s["tol"],
+                                  atol=cfg_s["tol"])),
+              f"float32 logits differ by {err}")
+        check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+              "float32 argmax differs between kernel and plain")
+        out["f32_check"] = {"shape": list(toks.shape), "max_abs_err": err}
+        del p32, lk, lp
+
+        # where the device time goes: one prefill wave, 20 decode steps
+        first = reqs[:cfg_s["max_batch"]]
+        maxlen = max(len(r.prompt) for r in first)
+        wave = np.zeros((len(first), maxlen), np.int64)
+        for i, r in enumerate(first):
+            wave[i, maxlen - len(r.prompt):] = r.prompt
+        wave = torch.from_numpy(wave).cuda()
+        box = {}
+
+        def prefill():
+            box["logits"], box["caches"] = T.prefill(
+                srv.params, cfg, wave, max_seq=cfg_s["max_seq"])
+            torch.cuda.synchronize()
+
+        prof_prefill = _device_profile(torch, prefill)
+        fa_us = sum(us for n, (_, us) in prof_prefill["by_name"].items()
+                    if "flash_attention_kernel" in n)
+        prof_prefill["flash_share"] = fa_us / prof_prefill["device_busy_us"]
+        token = box["logits"].argmax(-1)
+
+        def decode():
+            caches, tok = box["caches"], token
+            for _ in range(cfg_s["decode_profile_steps"]):
+                logits, caches = T.decode_step(srv.params, cfg, caches, tok)
+                tok = logits.argmax(-1)
+            tok.cpu()
+
+        prof_decode = _device_profile(torch, decode)
+        print(f"prefill wave {tuple(wave.shape)} profiled: device busy "
+              f"{prof_prefill['device_busy_us']:.0f} us of "
+              f"{prof_prefill['wall_us']:.0f}, flash_attention "
+              f"{100 * prof_prefill['flash_share']:.1f}% of device time; "
+              f"top {prof_prefill['top'][:4]}")
+        print(f"{cfg_s['decode_profile_steps']} decode steps profiled: "
+              f"card busy {100 * prof_decode['busy_share']:.1f}% of "
+              f"{prof_decode['wall_us']:.0f} us, "
+              f"{prof_decode['device_ops'] / cfg_s['decode_profile_steps']:.0f}"
+              f" device ops/step; top {prof_decode['top'][:4]}")
+        out["profile_prefill"] = prof_prefill
+        out["profile_decode"] = prof_decode
+        del srv, box
         return launches
 
 

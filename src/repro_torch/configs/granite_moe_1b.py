@@ -1,0 +1,12 @@
+"""granite-moe-1b-a400m [moe]: 24L, d=1024, 16H GQA kv=8, 32 experts
+top-8 with per-expert ff=512, vocab=49155.  Experts shard over the model
+axis (32 % 16 == 0).  [hf:ibm-granite/granite-3.0-1b-a400m-base]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv=8, head_dim=64,
+    d_ff=512, vocab=49155,
+    n_experts=32, top_k=8, expert_sharding="expert",
+    tie_embeddings=True,
+)

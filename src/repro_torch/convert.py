@@ -1,5 +1,8 @@
 """Carry a model's arrays from the JAX package into the port.
 
+Two kinds of model: a spiking network (``load_arrays``, ``init_state``) and
+an LM's parameter tree (``load_lm_params``).
+
 The arrays arrive as plain numpy (this module never imports ``repro`` or
 ``jax``; the caller exports them), in this layout::
 
@@ -15,22 +18,29 @@ The arrays arrive as plain numpy (this module never imports ``repro`` or
 computes: the port model's spec supplies the models and snippets, the
 arrays supply the graph, the parameters and the representation and delay
 settings.  ``init_state`` starts it from the exported initial state.
+
+An LM's parameters arrive as the JAX tree exported to numpy: nested dicts
+and lists with the JAX keys and the ``[n, ...]`` / ``[R, n, ...]`` stacking
+(``jax.tree.map(np.asarray, params)``).  ``load_lm_params`` returns the same
+tree as tensors in the config's dtype on ``device``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.snn.network import Network
 from repro_torch.core.snn.simulator import SimState, Simulator
 from repro_torch.core.snn.spec import CompiledModel, _param_on
 from repro_torch.core.snn.synapses import SynapseGroup
+from repro_torch.models.transformer import resolve_dtype
 from repro_torch.sparse import formats as F
 
-__all__ = ["load_arrays", "init_state"]
+__all__ = ["load_arrays", "init_state", "load_lm_params"]
 
 
 def _check_names(what: str, have, got) -> None:
@@ -90,3 +100,25 @@ def init_state(model: CompiledModel, arrays: Mapping,
             t = torch.tensor(np.asarray(v, np.float32), device=cur.device)
             st.neurons[name][var] = t.expand(cur.shape).clone()
     return st
+
+
+def load_lm_params(cfg, arrays, device=None) -> Any:
+    """The JAX parameter tree ``arrays`` (numpy leaves) as the port's tree:
+    tensors in ``cfg.dtype`` on ``device`` (default: ``cuda``, raising
+    without a card), the structure and keys unchanged.  bfloat16 leaves
+    (numpy's ``ml_dtypes`` type) pass through float32, which holds them
+    exactly."""
+    dev = resolve_device(device)
+    dtype = resolve_dtype(cfg.dtype)
+
+    def walk(a):
+        if isinstance(a, Mapping):
+            return {k: walk(v) for k, v in a.items()}
+        if isinstance(a, (list, tuple)):
+            return [walk(v) for v in a]
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a)).to(dev, dtype)
+
+    return walk(arrays)

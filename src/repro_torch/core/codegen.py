@@ -30,6 +30,12 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+# The first comparison of a tensor with a Python number in a process makes
+# torch import a module from C, through the calling frame's builtins.
+# Snippets run with empty builtins, where that import fails (KeyError:
+# '__import__'), so make it here, once, with the builtins intact.
+torch.zeros(()) > 0.0
+
 __all__ = [
     "NeuronModel",
     "PostsynapticModel",

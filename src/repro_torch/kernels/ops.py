@@ -1,7 +1,7 @@
 """Container-level ops, one signature per op.
 
-Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family and the
-fused neuron updates.  There is no backend switch: each op goes by the
+Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family, the fused
+neuron updates and flash attention.  There is no backend switch: each op goes by the
 device its tensors lie on (see ``repro_torch.kernels._dispatch``).
 
 The event-driven variants keep the JAX signatures and run the same kernel.
@@ -12,15 +12,19 @@ needed and the result is the dense pass's.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ell_spmv as _k
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hh_step as _hh
 from repro_torch.kernels import izhikevich_step as _iz
 
 __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
            "ell_spmv_delay_batched", "ell_spmv_event",
-           "ell_spmv_event_delay", "izhikevich_step", "hh_step"]
+           "ell_spmv_event_delay", "izhikevich_step", "hh_step",
+           "flash_attention"]
 
 
 def ell_spmv_batched(ell, spikes: torch.Tensor) -> torch.Tensor:
@@ -91,3 +95,22 @@ def hh_step(v, m, h, n, isyn, dt: float, **params):
     """Fused Traub-Miles HH update; params: ``substeps`` and the seven
     scalar conductances/potentials of ``hh_step.hh_step``."""
     return _hh.hh_step(v, m, h, n, isyn, dt, **params)
+
+
+# -- LM kernels ---------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    softcap: Optional[float] = None,
+                    prefix: Optional[int] = None):
+    """q [B, Hq, Tq, D]; k, v [B, Hkv, Tk, D] -> [B, Hq, Tq, D].
+
+    CPU tensors take the plain version, CUDA tensors the kernel, whatever
+    the options: the kernel computes prefix-LM masking too (the JAX entry
+    point sends ``prefix`` to XLA, though its Pallas kernel has the mask).
+    ``window`` is a Python int or None; the JAX package's roofline stand-ins
+    and its traced-window route have no counterpart here."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale, q_offset=q_offset,
+                               softcap=softcap, prefix=prefix)

@@ -16,14 +16,20 @@ are scalars or ``[n]``.  They repeat the statements of the codegen'd
 ``dt`` as a float32 scalar as the simulator hands it to codegen, so on the
 CPU they round exactly as codegen does.  HH keeps the TPU kernel's
 ``n*n*n*n`` (the JAX reference's ``n ** 4`` rounds otherwise).
+
+``flash_attention_ref`` is plain softmax attention with the flash kernel's
+masks and casts (see its docstring).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 __all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "izhikevich_step_ref",
-           "hh_step_ref"]
+           "hh_step_ref", "flash_attention_ref"]
 
 
 def _contributions(g: torch.Tensor, valid: torch.Tensor,
@@ -108,3 +114,48 @@ def hh_step_ref(v, m, h, n, isyn, dt, substeps=5, gNa=7.15, ENa=50.0,
         h = torch.clamp(h + hdt * (a_h * (1.0 - h) - b_h * h), 0.0, 1.0)
         n = torch.clamp(n + hdt * (a_n * (1.0 - n) - b_n * n), 0.0, 1.0)
     return v, m, h, n
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0,
+                        softcap: Optional[float] = None,
+                        prefix: Optional[int] = None) -> torch.Tensor:
+    """Plain softmax attention, computing what the flash kernel computes.
+
+    q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D] with Hq % Hkv == 0 (query head
+    h reads key/value head h // (Hq / Hkv)).  q, k and v are upcast to
+    float32; logits = (q . k) * scale (default 1 / sqrt(D)), then
+    ``softcap * tanh(logits / softcap)``; query position p = row +
+    ``q_offset`` sees key s when (s <= p, or s and p both below ``prefix``)
+    under ``causal``, and s > p - ``window`` when a window is given; softmax
+    and p . v in float32; a row that sees no key gives 0; the output is cast
+    to q's dtype.
+
+    These are the casts of the TPU kernel (``flash_attention_pallas``),
+    which upcasts its tiles to float32.  The JAX package's
+    ``flash_attention_ref`` differs for bfloat16 inputs: it rounds the
+    logits' product and the softmax weights to bfloat16.  For float32
+    inputs the two agree."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    logits = torch.matmul(q.float(), kf.transpose(-1, -2)).mul_(s)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device)
+    if causal:
+        cm = kpos <= qpos
+        if prefix is not None:
+            cm = cm | ((kpos < prefix) & (qpos < prefix))
+        mask &= cm
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(logits.masked_fill_(~mask, float("-inf")), dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros((), device=p.device), p)
+    return torch.matmul(p, vf).to(q.dtype)

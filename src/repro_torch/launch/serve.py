@@ -1,0 +1,192 @@
+"""Token server: batched prefill + decode loop with continuous batching,
+the counterpart of ``repro/launch/serve.py``.
+
+Requests (prompt token lists) enter a queue; the slot scheduler
+(``launch/scheduling.py``) packs up to ``max_batch`` of them into a wave
+when no request is active; the wave's prompts are left-padded with token 0
+(the pad is attended to, and positions run from 0 over the padded prompt,
+as in the JAX server) and prefilled together, with the KV caches allocated
+to ``max_seq``; decode steps then run the wave through ``decode_step``
+until every request has ``max_new`` tokens.  Sampling (greedy, or
+temperature with a numpy generator seeded with ``seed``) happens on the
+host.  ``model_parallel`` is not ported (ROADMAP Queue 1 item 7).
+
+``waves`` records each wave's size, padded prompt length, prefill seconds
+(up to the first tokens on the host), decode steps and decode seconds.
+
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --full
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.launch.scheduling import SlotScheduler
+from repro_torch.models import transformer as T
+
+__all__ = ["Server", "Request", "main"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int = 16
+    temperature: float = 0.0
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Server:
+    def __init__(self, arch: str, use_reduced: bool = True,
+                 max_batch: int = 4, max_seq: int = 512, seed: int = 0,
+                 device: DeviceLike = None):
+        self.cfg = make_reduced(get_config(arch)) if use_reduced \
+            else get_config(arch)
+        self.device = resolve_device(device)
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self._rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = T.init_params(self.cfg, gen)
+        self.sched = SlotScheduler(max_batch)
+        self.finished: List[Request] = []
+        self.waves: List[dict] = []
+        self._admit_caches = None
+
+    # -- queue --------------------------------------------------------------
+    @property
+    def queue(self) -> List[Request]:
+        return self.sched.queue
+
+    @property
+    def active(self) -> Dict[int, Request]:
+        return self.sched.active
+
+    def submit(self, req: Request) -> None:
+        self.sched.submit(req)
+
+    # -- internals ------------------------------------------------------------
+    def _admit(self) -> None:
+        """Prefill queued requests into free slots (one wave per admit)."""
+        assigned = self.sched.admit()
+        if not assigned:
+            return
+        t0 = time.perf_counter()
+        reqs = [r for _, r in assigned]
+        maxlen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((len(reqs), maxlen), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, maxlen - len(r.prompt):] = r.prompt          # left-pad
+        logits, caches = T.prefill(
+            self.params, self.cfg, torch.from_numpy(toks).to(self.device),
+            max_seq=self.max_seq)
+        logits_np = logits.float().cpu().numpy()
+        for i, r in enumerate(reqs):
+            r.out.append(self._sample(logits_np[i], r))
+        self._admit_caches = caches
+        now = time.perf_counter()
+        self.waves.append({"size": len(reqs), "prompt_len": maxlen,
+                           "prefill_s": now - t0, "first_token_at": now,
+                           "decode_steps": 0, "decode_s": 0.0})
+
+    def _sample(self, logits: np.ndarray, req: Request) -> int:
+        if req.temperature <= 0:
+            return int(np.argmax(logits))
+        z = logits / req.temperature
+        z = z - z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        return int(self._rng.choice(len(p), p=p))
+
+    # -- main loop ------------------------------------------------------------
+    def step(self) -> bool:
+        """One decode step over the admitted wave; returns True while work
+        remains."""
+        if not self.active:
+            self._admit()
+            if not self.active:
+                return False
+        t0 = time.perf_counter()
+        reqs = [self.active[s] for s in sorted(self.active)]
+        last = torch.tensor([r.out[-1] if r.out else r.prompt[-1]
+                             for r in reqs], dtype=torch.int64,
+                            device=self.device)
+        logits, self._admit_caches = T.decode_step(
+            self.params, self.cfg, self._admit_caches, last)
+        logits_np = logits.float().cpu().numpy()
+        for i, (s, r) in enumerate(sorted(self.active.items())):
+            r.out.append(self._sample(logits_np[i], r))
+            if len(r.out) >= r.max_new:
+                r.done = True
+        wave = self.waves[-1]
+        wave["decode_steps"] += 1
+        wave["decode_s"] += time.perf_counter() - t0
+        for s in [s for s, r in self.active.items() if r.done]:
+            self.finished.append(self.sched.release(s))
+        if not self.active:
+            self._admit_caches = None
+            return bool(self.queue)
+        return True
+
+    def run(self) -> List[Request]:
+        while self.step():
+            pass
+        return list(self.finished)
+
+    def pop_finished(self) -> List[Request]:
+        """Collect finished requests, pruning their accounting records so
+        a long-lived server stays bounded (and their rids reusable)."""
+        done, self.finished = self.finished, []
+        for r in done:
+            self.sched.forget(r.rid)
+        return done
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true",
+                    help="the arch at its published widths (default: the "
+                         "reduced config)")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a card)")
+    args = ap.parse_args(argv)
+
+    srv = Server(args.arch, use_reduced=not args.full,
+                 max_batch=args.max_batch, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(3, srv.cfg.vocab,
+                              size=rng.integers(4, 12)).tolist()
+        r = Request(rid=i, prompt=prompt, max_new=args.max_new,
+                    temperature=args.temperature)
+        reqs.append(r)
+        srv.submit(r)
+    t0 = time.time()
+    srv.run()
+    dt = time.time() - t0
+    total_tokens = sum(len(r.out) for r in reqs)
+    print(f"[serve] {args.arch} on {srv.device}: {args.requests} requests, "
+          f"{total_tokens} tokens in {dt:.2f}s ({total_tokens/dt:.1f} tok/s)")
+    print(f"[serve] latency: {srv.sched.latency_summary()}")
+    for r in reqs[:4]:
+        print(f"  req{r.rid}: prompt[:6]={r.prompt[:6]} -> out[:8]={r.out[:8]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,301 @@
+"""Model assembly for the dense LM family, the counterpart of
+``repro/models/transformer.py``.
+
+The layer stack follows the arch's ``LayerProgram`` (``configs/base.py``):
+``repeats`` groups of segments plus a tail, each segment's layers stacked
+``[n, ...]`` (``[R, n, ...]`` when grouped), exactly as the JAX parameter
+tree has them, so that JAX weights carry over with one walk
+(``repro_torch.convert.load_lm_params``).  Where the JAX package scans over
+a stack, the port loops in Python over its layers, and each segment keeps
+its own cache stack (ring caches for windowed layers, dense for global: the
+paper's sparse-vs-dense representation choice applied to the KV "synapse
+matrix").  Both programs of the dense family run: uniform (``repeats ==
+1``) and gemma3's local:global groups (``repeats > 1``).
+
+Entry points:
+  init_params(cfg, generator)                      -> params
+  forward(params, cfg, tokens)                     -> (logits, aux)
+  prefill(params, cfg, tokens, max_seq=)           -> (last_logits, caches)
+  decode_step(params, cfg, caches, token, index=)  -> (logits, caches)
+
+A cache tree is ``{"segments": [...], "tail": [...], "index": int}``; each
+segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``, ``pos``
+``[(R,) n, S]`` and ``ring`` (a Python bool).  ``decode_step`` writes the
+new token's keys and values into the caches in place and returns the same
+tensors with ``index + 1``.
+
+The other families (moe, ssm, hybrid, encdec, vlm) raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
+                                       mlp_init, norm_apply, norm_init)
+
+__all__ = ["init_params", "forward", "prefill", "decode_step",
+           "init_caches", "count_params", "padded_vocab", "resolve_dtype"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+# family -> the ROADMAP (Queue 1, item 8) step that ports it
+_LATER = {"moe": "8.2 (moe)", "ssm": "8.3 (ssm/hybrid serving)",
+          "hybrid": "8.3 (ssm/hybrid serving)", "encdec": "8.4 (encdec)",
+          "vlm": "8.5 (vlm)"}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def padded_vocab(v: int, multiple: int = 256) -> int:
+    """Vocab rounded up as the JAX package pads it (for even model-axis
+    sharding there); sampling masks the pad entries to -inf."""
+    return (v + multiple - 1) // multiple * multiple
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP Queue 1 item {_LATER.get(cfg.family, '8')}); the "
+            "port serves the dense family")
+
+
+# ---------------------------------------------------------------------------
+# per-layer definitions
+# ---------------------------------------------------------------------------
+
+def _attn_cfg(cfg: ArchConfig, kind: str) -> A.AttnConfig:
+    window = cfg.window
+    if kind == "attn_local":
+        window = cfg.local_window
+    elif kind == "attn_global":
+        window = None
+    return A.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias, window=window,
+        causal=True)
+
+
+def _layer_init(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype):
+    d, dev = cfg.d_model, gen.device
+    return {"ln1": norm_init(cfg.norm, d, dtype, dev),
+            "attn": A.attn_init(gen, _attn_cfg(cfg, kind), dtype),
+            "ln2": norm_init(cfg.norm, d, dtype, dev),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, dtype)}
+
+
+def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """Full-sequence layer: returns (x, (k, v))."""
+    h = norm_apply(cfg.norm, x, p["ln1"])
+    y, kv = A.attention_forward(p["attn"], _attn_cfg(cfg, kind), h,
+                                positions=positions, return_kv=True)
+    x = x + y
+    h = norm_apply(cfg.norm, x, p["ln2"])
+    return x + mlp_apply(p["mlp"], h, cfg.activation), kv
+
+
+def _layer_decode(cfg: ArchConfig, kind: str, p, x: torch.Tensor, cache,
+                  index: int) -> torch.Tensor:
+    """One-token layer step (the cache is written in place)."""
+    h = norm_apply(cfg.norm, x, p["ln1"])
+    y, _ = A.attention_decode(p["attn"], _attn_cfg(cfg, kind), h, cache,
+                              index)
+    x = x + y
+    h = norm_apply(cfg.norm, x, p["ln2"])
+    return x + mlp_apply(p["mlp"], h, cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# the stacked layout
+# ---------------------------------------------------------------------------
+
+def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, str, int, tuple]]:
+    """(kind, where, i, idx) for every layer in execution order: the layer's
+    params are ``_take(params[where][i], idx)``, its cache likewise."""
+    prog = cfg.program()
+    for r in range(prog.repeats):
+        for i, seg in enumerate(prog.segments):
+            for l in range(seg.n):
+                yield (seg.kind, "segments", i,
+                       (r, l) if prog.repeats > 1 else (l,))
+    for i, seg in enumerate(prog.tail):
+        for l in range(seg.n):
+            yield seg.kind, "tail", i, (l,)
+
+
+def _take(tree, idx: tuple):
+    """One layer of a stacked tree: every tensor indexed by ``idx`` (views,
+    so writes reach the stack); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _take(v, idx) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[idx]
+    return tree
+
+
+def _stack(trees: List[Any]):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """Random weights on ``gen``'s device, with the JAX initializers'
+    distributions (embeddings N(0, 0.02^2), projections N(0, 1/fan_in),
+    norm scales as the JAX package sets them, biases 0)."""
+    _check_family(cfg)
+    dtype = resolve_dtype(cfg.dtype)
+    prog = cfg.program()
+    pv = padded_vocab(cfg.vocab)
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, pv, cfg.d_model, dtype),
+        "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, pv, dtype)
+
+    def seg_init(seg):
+        return _stack([_layer_init(cfg, seg.kind, gen, dtype)
+                       for _ in range(seg.n)])
+
+    if prog.repeats > 1:
+        params["segments"] = [_stack([seg_init(seg)
+                                      for _ in range(prog.repeats)])
+                              for seg in prog.segments]
+    else:
+        params["segments"] = [seg_init(seg) for seg in prog.segments]
+    params["tail"] = [seg_init(seg) for seg in prog.tail]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# embeddings / heads
+# ---------------------------------------------------------------------------
+
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        # the scale is rounded to the activations' dtype first, as JAX
+        # rounds a Python scalar that multiplies an array
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _logits(params, cfg: ArchConfig, x: torch.Tensor,
+            mask_pad: bool = False) -> torch.Tensor:
+    x = norm_apply(cfg.norm, x, params["final_norm"])
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    logits = x @ head
+    if cfg.logits_dtype == "bfloat16":
+        logits = logits.to(torch.bfloat16)
+    if mask_pad and logits.shape[-1] != cfg.vocab:
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= cfg.vocab
+        logits = logits.masked_fill(pad, float("-inf"))
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
+    """Logits over a full sequence: (logits [B, T, V], aux loss 0)."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for kind, where, i, idx in _layers(cfg):
+        x, _ = _layer_apply(cfg, kind, _take(params[where][i], idx), x,
+                            positions)
+    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, device=None):
+    """Empty caches in the layer program's structure (``index`` 0)."""
+    _check_family(cfg)
+    prog = cfg.program()
+
+    def seg_cache(seg, lead: tuple):
+        c = A.init_cache(_attn_cfg(cfg, seg.kind), batch, max_seq, dtype,
+                         device)
+        return {k: (v.expand(lead + tuple(v.shape)).clone()
+                    if isinstance(v, torch.Tensor) else v)
+                for k, v in c.items()}
+
+    grouped = (prog.repeats,) if prog.repeats > 1 else ()
+    return {
+        "segments": [seg_cache(s, grouped + (s.n,)) for s in prog.segments],
+        "tail": [seg_cache(s, (s.n,)) for s in prog.tail],
+        "index": 0,
+    }
+
+
+def _write_prefill_caches(cfg: ArchConfig, caches, kv_raw: List[tuple]):
+    """Write each layer's prompt (k, v) (``kv_raw``, in layer order) into
+    its cache, in place; a ring keeps the last positions (``fill_cache``)."""
+    for (_, where, i, idx), (k, v) in zip(_layers(cfg), kv_raw):
+        A.fill_cache(_take(caches[where][i], idx), k, v, 0)
+    return caches
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
+            cache_dtype=torch.bfloat16, max_seq: Optional[int] = None):
+    """Run the prompts [B, T]: (last-token logits [B, V], caches).  The
+    caches are bfloat16 by default whatever the weights' dtype, as in the
+    JAX package."""
+    _check_family(cfg)
+    b, t = tokens.shape
+    max_seq = max(max_seq or t, t)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(t, device=x.device)
+    kv_raw = []
+    for kind, where, i, idx in _layers(cfg):
+        x, kv = _layer_apply(cfg, kind, _take(params[where][i], idx), x,
+                             positions)
+        kv_raw.append(kv)
+    caches = init_caches(cfg, b, max_seq, cache_dtype, x.device)
+    _write_prefill_caches(cfg, caches, kv_raw)
+    caches["index"] = t
+    logits = _logits(params, cfg, x[:, -1:, :], mask_pad=True)
+    return logits[:, 0], caches
+
+
+def decode_step(params, cfg: ArchConfig, caches, token: torch.Tensor,
+                index: Optional[int] = None):
+    """token [B] -> (logits [B, V], caches): one step at position ``index``
+    (default ``caches["index"]``); the caches are written in place."""
+    _check_family(cfg)
+    index = caches["index"] if index is None else int(index)
+    x = _embed(params, cfg, token)[:, None, :]
+    for kind, where, i, idx in _layers(cfg):
+        x = _layer_decode(cfg, kind, _take(params[where][i], idx), x,
+                          _take(caches[where][i], idx), index)
+    logits = _logits(params, cfg, x, mask_pad=True)[:, 0]
+    return logits, {"segments": caches["segments"], "tail": caches["tail"],
+                    "index": index + 1}
+
+
+# ---------------------------------------------------------------------------
+# accounting
+# ---------------------------------------------------------------------------
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return params.numel() if isinstance(params, torch.Tensor) else 0

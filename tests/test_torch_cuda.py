@@ -8,7 +8,11 @@ PyTorch:
 Tolerance: rtol=atol=1e-5 for the spmv kernels (atomics sum in another
 order than index_add_), exact with integer-valued weights; rtol=atol=2e-4
 for the neuron updates, whose spike decisions may differ on under 0.2% of
-neurons (the parity contract of tests/test_kernels.py)."""
+neurons (the parity contract of tests/test_kernels.py); flash attention
+within rtol=atol=2e-5 of its plain version in float32 (the sums run in
+another order) and within 1e-2 in bfloat16, against the plain version on
+the same bf16 inputs upcast to float32 (the kernel's output is rounded to
+bf16)."""
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ell_spmv as K  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hh_step as HH  # noqa: E402
 from repro_torch.kernels import izhikevich_step as IZ  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
@@ -123,3 +128,55 @@ def test_cuda_neuron_wrappers_reject_bad_operands(cuda_device):
         HH.hh_step(v, v, v, v.cpu(), v, 0.1)
     with pytest.raises(TypeError):            # per-neuron params
         HH.hh_step(v, v, v, v, v, 0.1, gK=p)
+
+
+# b, hq, hkv, tq, tk, d, causal, window, softcap, prefix, q_offset
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, None, None, 0),
+    (1, 4, 2, 130, 300, 32, True, 64, None, None, 170),
+    (1, 2, 2, 256, 256, 64, True, None, 30.0, 100, 0),
+    (2, 4, 4, 200, 200, 64, False, None, None, None, 0),
+    (1, 4, 2, 300, 300, 256, True, 128, None, None, 0),
+    (1, 2, 1, 96, 96, 112, True, None, None, None, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
+    b, hq, hkv, tq, tk, d, causal, window, softcap, prefix, off = case
+    rng = np.random.default_rng(2)
+    dt = getattr(torch, dtype)
+
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=cuda_device).to(dt)
+
+    # q as the model hands it over: a [B, T, H, D] projection, transposed
+    q = t((b, tq, hq, d)).transpose(1, 2)
+    k, v = t((b, hkv, tk, d)), t((b, hkv, tk, d))
+    kw = dict(causal=causal, window=window, softcap=softcap, prefix=prefix,
+              q_offset=off)
+    FA.reset_launches()
+    out = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 1}
+    assert out.dtype == dt and out.shape == (b, hq, tq, d)
+    ref = TR.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_bad_operands(cuda_device):
+    q = torch.zeros(1, 4, 8, 64, device=cuda_device)
+    k = torch.zeros(1, 2, 8, 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):           # head dim not a multiple of 8
+        FA.flash_attention(q[..., :60], k[..., :60], k[..., :60])
+    with pytest.raises(ValueError):           # Hq not a multiple of Hkv
+        FA.flash_attention(q[:, :3], k, k)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k.cpu(), k)

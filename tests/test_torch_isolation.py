@@ -105,3 +105,41 @@ def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):
                          env={"PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_cpu_server_launches_no_kernel():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import Request, Server
+    srv = Server("qwen2-0.5b", max_batch=2, max_seq=32, device="cpu")
+    for i in range(3):
+        srv.submit(Request(rid=i, prompt=[5 + i, 7, 9], max_new=3))
+    FA.reset_launches()
+    K.reset_launches()
+    IZ.reset_launches()
+    HH.reset_launches()
+    done = srv.run()
+    assert sorted(len(r.out) for r in done) == [3, 3, 3]
+    assert FA.launches == {"flash_attention": 0}
+    assert not any({**K.launches, **IZ.launches, **HH.launches}.values())
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import load_lm_params
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.model import build
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server("qwen2-0.5b", device="cuda")
+    model = build(reduced(get_config("qwen2-0.5b")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_caches(1, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_lm_params(model.cfg, {"embed": np.zeros((4, 2), np.float32)})
+    params = model.init(device="cpu")           # the CPU on request
+    logits, caches = model.prefill(params, torch.tensor([[3, 4, 5]]))
+    assert logits.shape == (1, 512) and caches["index"] == 3
