@@ -65,7 +65,33 @@ failure ends the run with a non-zero exit):
      tokens/s and time to first token per wave, decode ms/step and
      tokens/s, peak device memory, and from torch.profiler the kernel's
      share of one prefill wave's device time and the card's busy share
-     over 20 decode steps.
+     over 20 decode steps;
+  2d. ssd_scan against its plain version (``ssd_chunked``) on the card,
+     TF32 off: Mamba2-2.7B's training shape, x [2, 2048, 80, 64] and B/C
+     [2, 2048, 1, 128] float32, and t = 96, t = 1000, 4 and 3 heads,
+     within rtol=atol=2e-4; kernel and plain times beside the bound (no
+     single PyTorch call computes the scan);
+  2e. the flash-attention backward against its plain version
+     (``flash_attention_bwd_ref``, on the same saved tensors) and against
+     autograd through ``flash_attention_ref``: Qwen2-0.5B's training
+     shape, q [4, 14, 2048, 64], k/v [4, 2, 2048, 64], bf16, causal; the
+     same at B=1 in float32; gemma3's local layer; small float32 softcap,
+     prefix and non-causal cases (tolerances at FLASH_BWD_TOL); beside the
+     bound, the plain backward's time and SDPA's backward
+     (``torch.autograd.grad`` through ``scaled_dot_product_attention``, a
+     yardstick only) with the kernels it ran;
+  8a. training Qwen2-0.5B at full width and depth (24 layers, bf16
+     params, float32 master copies and moments, remat): batch 4 x 2048
+     from ``TokenPipeline(seed=0)``, 4 steps (the first a warm-up); each
+     step 48 ``flash_attention`` and 24 ``flash_attention_bwd`` launches
+     and a finite loss; ms/step, tokens/s, model TFLOP/s (6N), peak
+     memory, and a torch.profiler trace of one more step;
+  8b. the same for Mamba2-2.7B (64 layers): batch 2 x 2048, 3 steps, 128
+     ``ssd_scan`` launches a step;
+  8c. one training step of each, 2 layers at full width in float32, with
+     the kernels and with the plain versions: losses within 1e-4, every
+     gradient within rtol=1e-3 plus 1e-4 of its largest entry, and
+     ``wq``/``wk``/``wv`` gradients nonzero on the card.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -77,6 +103,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -130,6 +157,54 @@ SERVE = dict(arch="qwen2-0.5b", max_batch=8, max_seq=4096, requests=16,
              prompt_len=(1024, 2048), max_new=32, check_prompts=2,
              check_len=512, tol=1e-3, decode_profile_steps=20)
 
+# name, (b, t, h, dh, ds): the training shape of mamba2-2.7b (batch 2 x
+# 2048 tokens, 80 heads of 64, state 128), t = 96 (one chunk of 96 in the
+# plain version) and t = 1000 (chunks of 8 by the halving rule), and head
+# counts that no head block of the TPU kernel divides evenly
+SSD_CASES = (
+    ("train", (2, 2048, 80, 64, 128)),
+    ("t96", (2, 96, 80, 64, 128)),
+    ("t1000", (1, 1000, 80, 64, 128)),
+    ("h4", (2, 512, 4, 64, 128)),
+    ("h3_small", (1, 300, 3, 16, 16)),
+)
+SSD_TOL = 2e-4
+SSD_Q = 64                       # the kernel's chunk (csrc/ssd_scan.cu)
+# name, (B, Hq, Hkv, T, D), dtype, options: the training shape of
+# qwen2-0.5b (batch 4 x 2048), the same at B=1 in float32, gemma3's local
+# layer, and small float32 softcap, prefix and non-causal cases
+FLASH_BWD_CASES = (
+    ("train", (4, 14, 2, 2048, 64), "bfloat16", {"causal": True}),
+    ("train_b1_f32", (1, 14, 2, 2048, 64), "float32", {"causal": True}),
+    ("gemma3_local", (1, 16, 8, 2048, 256), "bfloat16",
+     {"causal": True, "window": 1024}),
+    ("softcap", (1, 4, 2, 256, 64), "float32",
+     {"causal": True, "softcap": 30.0}),
+    ("prefix", (1, 4, 2, 256, 64), "float32", {"causal": True, "prefix": 100}),
+    ("noncausal_ragged", (2, 4, 4, 200, 64), "float32", {"causal": False}),
+)
+# float32: tests/test_kernels.py's gradient tolerance.  bf16: against the
+# plain backward on the same saved bf16 tensors, 1e-2 of each gradient's
+# largest entry (each gradient is rounded to bf16 once, 2^-8 relative, and
+# the float32 sums run in another order); against autograd through the
+# plain float32 forward, 3e-2 (that forward keeps its output in float32,
+# while the kernel's delta = rowsum(dO * O) reads the bf16-rounded output,
+# as training does)
+FLASH_BWD_TOL = {"float32": (5e-4, 5e-5), "bfloat16": (1e-2, 3e-2)}
+# full width and depth; the trainer's schedule (launch/train.py run()):
+# warmup_cosine(lr, warmup=min(20, steps // 5 + 1), total=steps)
+TRAIN = {
+    "qwen2-0.5b": dict(batch=4, seq=2048, steps=4, lr=3e-3,
+                       per_step={"flash_attention": 48,
+                                 "flash_attention_bwd": 24}),
+    "mamba2-2.7b": dict(batch=2, seq=2048, steps=3, lr=3e-3,
+                        per_step={"ssd_scan": 128}),
+}
+# 8c: one step at full width, 2 layers, float32, kernels vs plain versions:
+# losses within 1e-4; each gradient within rtol=1e-3 plus 1e-4 of its
+# largest entry (float32 on both sides; the kernels sum in another order)
+STEP_CHECK = dict(layers=2, batch=2, seq=512, loss_tol=1e-4, grad_rtol=1e-3,
+                  grad_atol_frac=1e-4)
 
 class SmokeFailure(RuntimeError):
     pass
@@ -173,6 +248,8 @@ def main() -> int:
     kernel_entries = compare_kernels(torch, report)
     kernel_entries += compare_neuron_kernels(torch, report)
     kernel_entries += compare_flash(torch, report)
+    kernel_entries += compare_ssd(torch, report)
+    kernel_entries += compare_flash_bwd(torch, report)
     launches_main, model = main_path(torch, report)
     sweep(torch, report, model)
     del model
@@ -182,10 +259,16 @@ def main() -> int:
     launches_mb = mushroom_body_full(torch, report, kc_target)
     torch.cuda.empty_cache()
     launches_serve = serve_full(torch, report)
+    torch.cuda.empty_cache()
+    launches_qwen = train_full(torch, report, "qwen2-0.5b", "8a")
+    launches_mamba = train_full(torch, report, "mamba2-2.7b", "8b")
+    train_step_check(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "izhikevich_step": launches_main, "hh_step": launches_mb,
-               "flash_attention": launches_serve}
+               "flash_attention": launches_serve,
+               "flash_attention_bwd": launches_qwen,
+               "ssd_scan": launches_mamba}
     for e in kernel_entries:
         e["launches"] = path_of[e["name"]][e["name"]]
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
@@ -548,10 +631,192 @@ def compare_flash(torch, report) -> list:
                                   "bound_ms", "bound_by", "library_ms")}}]
 
 
+def _ssd_work(b, t, h, dh, ds) -> tuple:
+    """(bytes, float ops) of the SSD scan at the kernel's chunk: x, B, C
+    and dt read once, y written once (float32); C B^T once a chunk (the
+    heads share it), the lower triangles of it and of G x, and C S and the
+    state update per head."""
+    tri = sum(n * (n + 1) // 2 for n in
+              (min(SSD_Q, t - c) for c in range(0, t, SSD_Q)))
+    nbytes = 4 * (2 * b * t * h * dh + 2 * b * t * ds + b * t * h + 2 * h)
+    ops = 2 * b * tri * ds + 2 * b * h * (tri * dh + 2 * t * ds * dh)
+    return nbytes, ops
+
+
+def compare_ssd(torch, report) -> list:
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.ssm import ssd_chunked
+    dev = torch.device("cuda")
+    rows = []
+    with phase("2d. ssd_scan against its plain version (ssd_chunked)"):
+        print(f"torch.backends.cuda.matmul.allow_tf32 = "
+              f"{torch.backends.cuda.matmul.allow_tf32}")
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for name, (b, t, h, dh, ds) in SSD_CASES:
+            def rand(*shape):
+                return torch.rand(shape, device=dev, generator=gen)
+
+            def randn(*shape):
+                return torch.randn(shape, device=dev, generator=gen)
+
+            x, dt = randn(b, t, h, dh), 0.001 + 0.1 * rand(b, t, h)
+            A = -torch.exp(2.0 * rand(h))
+            B, C, D = randn(b, t, 1, ds), randn(b, t, 1, ds), randn(h)
+            y = SSD.ssd_scan(x, dt, A, B, C, D)
+            ref = ssd_chunked(x, dt, A, B, C, D)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            check(bool(torch.allclose(y, ref, rtol=SSD_TOL, atol=SSD_TOL)),
+                  f"ssd_scan {name}: max abs err {err} > {SSD_TOL}")
+            big = b * t * h > 1e5
+            ms = _time_ms(torch, lambda i: SSD.ssd_scan(x, dt, A, B, C, D),
+                          20 if big else 50)
+            plain_ms = _time_ms(torch, lambda i: ssd_chunked(
+                x, dt, A, B, C, D), 3 if big else 10)
+            nbytes, ops = _ssd_work(b, t, h, dh, ds)
+            row = {"name": "ssd_scan", "case": name,
+                   "shape": [b, t, h, dh, ds], "max_abs_err": err,
+                   "tol": SSD_TOL, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, **_bound(nbytes, ops),
+                   "bytes": nbytes, "ops": ops,
+                   "tflops": ops / ms / 1e9}
+            rows.append(row)
+            print(json.dumps(row))
+            del x, dt, A, B, C, D, y, ref
+        torch.cuda.empty_cache()
+    report["ssd_table"] = rows
+    r = rows[0]                       # the training shape
+    return [{"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:76", "launches": 0,
+             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}]
+
+
+def _sdpa_backend(torch, grad_fn) -> str:
+    """The device kernels one SDPA backward runs, by name."""
+    prof = _device_profile(torch, grad_fn)
+    return "; ".join(n for n, _, _ in prof["top"][:3])
+
+
+def compare_flash_bwd(torch, report) -> list:
+    import torch.nn.functional as TF
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    dev = torch.device("cuda")
+    rows = []
+    with phase("2e. flash_attention backward against its plain versions"):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        for name, (b, hq, hkv, t, d), dt, kw in FLASH_BWD_CASES:
+            dtype = getattr(torch, dt)
+            q, k, v, g = (torch.randn(shape, device=dev, generator=gen
+                                      ).to(dtype)
+                          for shape in ((b, hq, t, d), (b, hkv, t, d),
+                                        (b, hkv, t, d), (b, hq, t, d)))
+            out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+            got = FA.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            # the plain backward on the same saved tensors
+            want = R.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                             out.float(), lse, g.float(),
+                                             **kw)
+            # autograd through the plain forward
+            ins = [x.float().requires_grad_(True) for x in (q, k, v)]
+            auto = torch.autograd.grad(R.flash_attention_ref(*ins, **kw),
+                                       ins, g.float())
+            torch.cuda.synchronize()
+            tol_ref, tol_auto = FLASH_BWD_TOL[dt]
+            errs, auto_errs = [], []
+            for gname, a, w, au in zip("qkv", got, want, auto):
+                a = a.float()
+                errs.append(float((a - w).abs().max()))
+                auto_errs.append(float((a - au).abs().max()))
+                if dt == "float32":
+                    ok = torch.allclose(a, w, rtol=tol_ref, atol=tol_auto) \
+                        and torch.allclose(a, au, rtol=tol_ref,
+                                           atol=tol_auto)
+                else:
+                    ok = torch.allclose(
+                        a, w, rtol=tol_ref,
+                        atol=tol_ref * float(w.abs().max())) \
+                        and torch.allclose(
+                            a, au, rtol=tol_auto,
+                            atol=tol_auto * float(au.abs().max()))
+                check(bool(ok), f"flash_attention_bwd {name} d{gname}: max "
+                      f"abs err {errs[-1]} (plain bwd), {auto_errs[-1]} "
+                      "(autograd)")
+            del want, auto, ins
+            torch.cuda.empty_cache()
+            pairs, mask = _visible_pairs(torch, t, t, **kw)
+            lib_ms = lib_backend = None
+            if "softcap" not in kw:       # no PyTorch call soft-caps
+                lib_kw = ({"is_causal": kw["causal"]} if set(kw) == {"causal"}
+                          else {"attn_mask": mask})
+                lq, lk, lv = (x.detach().requires_grad_(True)
+                              for x in (q, k, v))
+                lo = TF.scaled_dot_product_attention(lq, lk, lv,
+                                                     enable_gqa=True,
+                                                     **lib_kw)
+
+                def lib(i):
+                    return torch.autograd.grad(lo, (lq, lk, lv), g,
+                                               retain_graph=True)
+
+                lib_err = max(float((x.float() - w.float()).abs().max())
+                              for x, w in zip(lib(0), got))
+                check(lib_err < 0.05 * max(float(w.float().abs().max())
+                                           for w in got),
+                      f"flash_attention_bwd {name}: the library yardstick "
+                      f"computes another gradient (max abs err {lib_err})")
+
+                def lib_once():
+                    lib(0)
+                    torch.cuda.synchronize()
+
+                lib_backend = _sdpa_backend(torch, lib_once)
+            reps = 5 if b * hq * t * t * d > 1e9 else 20
+            ms = _time_ms(torch, lambda i: FA.flash_attention_bwd(
+                q, k, v, out, lse, g, **kw), reps)
+            plain_ms = _time_ms(torch, lambda i: R.flash_attention_bwd_ref(
+                q, k, v, out, lse, g, **kw), max(2, reps // 5))
+            if lib_backend is not None:
+                lib_ms = _time_ms(torch, lib, reps)
+                del lo, lq, lk, lv
+            es = q.element_size()
+            nbytes = (es * (4 * b * hq * t * d + 4 * b * hkv * t * d)
+                      + 4 * b * hq * t)
+            flops = 10.0 * b * hq * d * pairs
+            peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            row = {"name": "flash_attention_bwd", "case": name,
+                   "shape": [b, hq, hkv, t, d], "dtype": dt, "options": kw,
+                   "tol": FLASH_BWD_TOL[dt], "max_abs_err": max(errs),
+                   "max_abs_err_autograd": max(auto_errs), "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_kernels": lib_backend,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": nbytes, "flops": flops,
+                   "tflops": flops / ms / 1e9}
+            rows.append(row)
+            print(json.dumps(row))
+            del q, k, v, g, out, lse, got, mask
+            torch.cuda.empty_cache()
+    report["flash_bwd_table"] = rows
+    r = rows[0]                       # the training shape
+    return [{"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_xla.py:121",
+             "launches": 0,
+             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}]
+
+
 def _kernel_modules():
     from repro_torch.kernels import (ell_spmv, flash_attention, hh_step,
-                                     izhikevich_step)
-    return ell_spmv, izhikevich_step, hh_step, flash_attention
+                                     izhikevich_step, ssd_scan)
+    return ell_spmv, izhikevich_step, hh_step, flash_attention, ssd_scan
 
 
 def reset_launches() -> None:
@@ -572,12 +837,17 @@ def plain_versions():
     the comparison runs only (the port itself never does this)."""
     from unittest import mock
     from repro_torch.kernels import ref as R
-    K, IZ, HH, FA = _kernel_modules()
+    K, IZ, HH, FA, SSD = _kernel_modules()
     with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
             mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref), \
             mock.patch.object(IZ, "izhikevich_step", R.izhikevich_step_ref), \
             mock.patch.object(HH, "hh_step", R.hh_step_ref), \
-            mock.patch.object(FA, "flash_attention", R.flash_attention_ref):
+            mock.patch.object(FA, "flash_attention", R.flash_attention_ref), \
+            mock.patch.object(FA, "flash_attention_fwd",
+                              R.flash_attention_fwd_ref), \
+            mock.patch.object(FA, "flash_attention_bwd",
+                              R.flash_attention_bwd_ref), \
+            mock.patch.object(SSD, "ssd_scan", SSD._plain):
         yield
 
 
@@ -600,8 +870,9 @@ def _device_profile(torch, fn) -> dict:
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            key = e.name[:100]
+            n, us = by_name.get(key, (0, 0.0))
+            by_name[key] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
     check(busy > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
@@ -609,7 +880,7 @@ def _device_profile(torch, fn) -> dict:
             "busy_share": busy / wall_us,
             "device_ops": sum(n for n, _ in by_name.values()),
             "top": [[n[:80], c, us] for n, (c, us) in top[:8]],
-            "by_name": {n[:100]: [c, us] for n, (c, us) in top}}
+            "by_name": {n: [c, us] for n, (c, us) in top}}
 
 
 def _profile_window(torch, model, steps: int, **run_kw) -> dict:
@@ -1092,6 +1363,224 @@ def serve_full(torch, report) -> dict:
         out["profile_decode"] = prof_decode
         del srv, box
         return launches
+
+
+def _train_setup(torch, cfg, batch: int, seq: int, steps: int, lr: float,
+                 seed: int):
+    """What ``launch.train.run`` builds: weights from a seeded generator,
+    AdamW with the trainer's schedule, the train step, the pipeline."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build
+    from repro_torch.optim import adamw, schedule
+    params = build(cfg).init(seed=seed, device="cuda")
+    ocfg = adamw.AdamWConfig(lr=schedule.warmup_cosine(
+        lr, warmup=min(20, steps // 5 + 1), total=steps), grad_clip=1.0)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=seed),
+                         device="cuda")
+    return (params, adamw.init(ocfg, params), make_train_step(cfg, ocfg),
+            pipe)
+
+
+# device-time categories of a training step, by kernel name (first match)
+STEP_CATEGORIES = (
+    ("flash_attention_bwd", ("flash_bwd",)),
+    ("flash_attention", ("flash_attention_kernel",)),
+    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("copy", ("copy", "Memcpy", "Memset")),
+    ("reduce", ("reduce", "SoftMax")),
+    ("elementwise", ("elementwise", "Functor", "index", "scatter", "gather",
+                     "cat", "where")),
+)
+
+
+def _categories(prof) -> dict:
+    """Device us and share of busy time by STEP_CATEGORIES ("other" for a
+    kernel no pattern names)."""
+    out: dict = {}
+    for n, (c, us) in prof["by_name"].items():
+        cat = next((k for k, pats in STEP_CATEGORIES
+                    if any(p in n for p in pats)), "other")
+        o = out.setdefault(cat, {"launches": 0, "us": 0.0})
+        o["launches"] += c
+        o["us"] += us
+    for o in out.values():
+        o["share"] = o["us"] / prof["device_busy_us"]
+    return out
+
+
+def train_full(torch, report, arch: str, label: str) -> dict:
+    """Phases 8a / 8b: train ``arch`` at full width and depth; returns the
+    launch counts of the run (warm-up step included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    spec = TRAIN[arch]
+    b, t, steps = spec["batch"], spec["seq"], spec["steps"]
+    with phase(f"{label}. train {arch} at full width and depth"):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params, opt, step_fn, pipe = _train_setup(torch, cfg, b, t, steps,
+                                                  spec["lr"], seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = T.count_params(params)
+        flops_tok = T.model_flops_per_token(cfg, n_params)
+        print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {n_params} "
+              f"params ({cfg.dtype}, fp32 master and moments), remat "
+              f"{cfg.remat} ({cfg.remat_policy}); batch {b} x {t}; init "
+              f"{init_s:.2f} s")
+        check(cfg.remat and cfg.dtype == "bfloat16",
+              f"{arch}: expected the full config (bf16, remat)")
+        rows = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        before = read_launches()
+        for i in range(steps):
+            batch = pipe.next_batch()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            now = read_launches()
+            step_launches = {k: now[k] - before[k] for k in now}
+            before = now
+            rows.append({"step": i + 1, "loss": loss, "ms": secs * 1e3,
+                         "tokens_per_s": b * t / secs,
+                         "model_tflops": flops_tok * b * t / secs / 1e12,
+                         "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"]),
+                         "launches": {k: v for k, v in step_launches.items()
+                                      if v}})
+            print("step: " + json.dumps(rows[-1]))
+            check(math.isfinite(loss), f"{arch}: step {i + 1} loss {loss}")
+            for k, want in spec["per_step"].items():
+                check(step_launches[k] == want,
+                      f"{arch}: {k} launched {step_launches[k]} times in "
+                      f"step {i + 1}, expected {want}")
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        timed = rows[1:]                # the first step is the warm-up
+        ms = sum(r["ms"] for r in timed) / len(timed)
+        summary = {"ms_per_step": ms, "tokens_per_s": b * t / ms * 1e3,
+                   "model_tflops": flops_tok * b * t / ms / 1e9,
+                   "peak_mem_bytes": peak}
+        print(f"{arch}: {json.dumps(summary)}; launches {launches}")
+
+        # where the device time of one more step goes
+        box = {"p": params, "o": opt}
+        batch = pipe.next_batch()
+
+        def one_step():
+            box["p"], box["o"], box["m"] = step_fn(box["p"], box["o"], batch)
+            float(box["m"]["loss"])
+            torch.cuda.synchronize()
+
+        prof = _device_profile(torch, one_step)
+        cats = _categories(prof)
+        print(f"profiled step: device busy {prof['device_busy_us']:.0f} of "
+              f"{prof['wall_us']:.0f} us ({100 * prof['busy_share']:.1f}%), "
+              f"{prof['device_ops']} device ops; by category "
+              + "; ".join(f"{k} {v['launches']} x, {v['us']:.0f} us "
+                          f"({100 * v['share']:.1f}%)"
+                          for k, v in sorted(cats.items(),
+                                             key=lambda kv: -kv[1]["us"]))
+              + f"; top {prof['top'][:6]}")
+        report[f"train_{arch}"] = {
+            "config": {**spec, "params": n_params, "flops_per_token":
+                       flops_tok}, "init_s": init_s, "steps": rows,
+            **summary, "launches": launches, "profile": prof,
+            "categories": cats}
+        del params, opt, box, step_fn
+        torch.cuda.empty_cache()
+        return launches
+
+
+def _grads_of_step(torch, step_fn, params, opt, batch):
+    """One train step on copies of params/opt; (loss, grads, launches)."""
+    from torch.utils._pytree import tree_map
+    from unittest import mock
+    from repro_torch.optim import adamw
+    seen = {}
+    real = adamw.update
+
+    def spy(cfg, grads, state, p):
+        seen["grads"] = tree_map(lambda g: g.detach().clone(), grads)
+        return real(cfg, grads, state, p)
+
+    p = tree_map(lambda x: x.detach().clone(), params)
+    o = opt._replace(mu=tree_map(torch.clone, opt.mu),
+                     nu=tree_map(torch.clone, opt.nu),
+                     master=tree_map(torch.clone, opt.master))
+    reset_launches()
+    with mock.patch.object(adamw, "update", spy):
+        _, _, m = step_fn(p, o, batch)
+        loss = float(m["loss"])
+    torch.cuda.synchronize()
+    return loss, seen["grads"], read_launches()
+
+
+def train_step_check(torch, report) -> None:
+    """Phase 8c: one train step with the kernels and with the plain
+    versions, at full width, 2 layers, float32."""
+    import dataclasses
+    from torch.utils._pytree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    c = STEP_CHECK
+    out = report["train_step_check"] = {}
+    with phase("8c. one train step on the card: kernels against plain "
+               "versions"):
+        for arch in ("qwen2-0.5b", "mamba2-2.7b"):
+            cfg = dataclasses.replace(get_config(arch), n_layers=c["layers"],
+                                      dtype="float32")
+            params, opt, step_fn, pipe = _train_setup(
+                torch, cfg, c["batch"], c["seq"], 1, 1e-3, seed=1)
+            batch = pipe.next_batch()
+            lk, gk, launches_k = _grads_of_step(torch, step_fn, params, opt,
+                                                batch)
+            with plain_versions():
+                lp, gp, launches_p = _grads_of_step(torch, step_fn, params,
+                                                    opt, batch)
+            print(f"{arch} ({c['layers']} layers, float32): loss kernel "
+                  f"{lk} plain {lp}; launches {launches_k} / plain "
+                  f"{launches_p}")
+            check(abs(lk - lp) <= c["loss_tol"],
+                  f"{arch}: losses differ by {abs(lk - lp)}")
+            check(not any(launches_p.values()),
+                  f"{arch}: the plain run launched {launches_p}")
+            want = ({"flash_attention": 2 * c["layers"],
+                     "flash_attention_bwd": c["layers"]}
+                    if cfg.family == "dense"
+                    else {"ssd_scan": 2 * c["layers"]})
+            check(all(launches_k[k] == n for k, n in want.items()),
+                  f"{arch}: kernel launches {launches_k}, expected {want}")
+            worst = {}
+            for (path, a), (_, w) in zip(tree_flatten_with_path(gk)[0],
+                                         tree_flatten_with_path(gp)[0]):
+                key = "".join(str(x) for x in path)
+                err = float((a - w).abs().max())
+                scale = float(w.abs().max())
+                worst[key] = [err, scale]
+                check(bool(torch.allclose(a, w, rtol=c["grad_rtol"],
+                                          atol=c["grad_atol_frac"] * scale)),
+                      f"{arch}: gradient {key} differs by {err} "
+                      f"(largest entry {scale})")
+            if cfg.family == "dense":
+                for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+                    g = gk["segments"][0]["attn"][name]
+                    check(bool(g.abs().sum() > 0),
+                          f"{arch}: {name} has no gradient on the card")
+            rel = max(e / max(s, 1e-30) for e, s in worst.values())
+            print(f"{arch}: {len(worst)} gradients within tolerance; "
+                  f"largest error relative to its leaf's scale {rel:.3g}")
+            out[arch] = {"loss_kernel": lk, "loss_plain": lp,
+                         "launches": launches_k, "grad_err": worst,
+                         "max_rel_grad_err": rel}
+            del params, opt, step_fn, gk, gp
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,10 @@ reference) module for module:
                             the paper's eq. (1)/(2) memory model
   repro_torch.kernels    -- hand-written CUDA kernels for Hopper (sm_90a),
                             their plain PyTorch versions and the dispatch
+  repro_torch.models     -- the LM family (dense, Mamba2), its loss
+  repro_torch.launch     -- the token server and the trainer
+  repro_torch.optim      -- AdamW and LR schedules
+  repro_torch.data       -- the deterministic token pipeline
   repro_torch.convert    -- loads arrays exported from a ``repro`` model
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a

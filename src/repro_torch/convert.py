@@ -102,23 +102,31 @@ def init_state(model: CompiledModel, arrays: Mapping,
     return st
 
 
+# Mamba2 leaves that the JAX package keeps in float32 whatever cfg.dtype
+_FLOAT32_LEAVES = ("dt_bias", "A_log", "D")
+
+
 def load_lm_params(cfg, arrays, device=None) -> Any:
     """The JAX parameter tree ``arrays`` (numpy leaves) as the port's tree:
     tensors in ``cfg.dtype`` on ``device`` (default: ``cuda``, raising
-    without a card), the structure and keys unchanged.  bfloat16 leaves
-    (numpy's ``ml_dtypes`` type) pass through float32, which holds them
-    exactly."""
+    without a card), the structure and keys unchanged.  That covers the
+    dense family (embed, final_norm, lm_head; each layer's ln1, attn, ln2,
+    mlp) and Mamba2's (each layer's norm and ssm: w_in, conv_w, conv_b,
+    dt_bias, A_log, D, norm_scale, w_out); Mamba2's dt_bias, A_log and D
+    stay float32, as in the JAX package.  bfloat16 leaves (numpy's
+    ``ml_dtypes`` type) pass through float32, which holds them exactly."""
     dev = resolve_device(device)
     dtype = resolve_dtype(cfg.dtype)
 
-    def walk(a):
+    def walk(a, key=None):
         if isinstance(a, Mapping):
-            return {k: walk(v) for k, v in a.items()}
+            return {k: walk(v, k) for k, v in a.items()}
         if isinstance(a, (list, tuple)):
             return [walk(v) for v in a]
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
-        return torch.from_numpy(np.array(a)).to(dev, dtype)
+        to = torch.float32 if key in _FLOAT32_LEAVES else dtype
+        return torch.from_numpy(np.array(a)).to(dev, to)
 
     return walk(arrays)

@@ -51,6 +51,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <cstdint>
 
 namespace {
@@ -66,6 +67,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;        // [b, hq, tq]: m + log l, -inf where l = 0
   int hq, hkv, tq, tk, d;
   float scale;
   int causal;
@@ -295,6 +297,10 @@ flash_attention_kernel(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= p.tq) continue;
+    // m and l are the same on the 16 lanes of the row: one writes lse
+    if (tx == 0)
+      p.lse[static_cast<long long>(bh) * p.tq + row] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : -CUDART_INF_F;
     const float denom = fmaxf(l[i], 1e-37f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -332,18 +338,435 @@ cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (flash_xla.py's `_bwd`): from the saved (q, k, v, o, lse) and
+// dO, recompute P = exp(softcap'd logits - lse) tile by tile, then
+//   delta = rowsum(dO * O)                      (pre-pass, one warp a row)
+//   dV   += P^T dO,  dP = dO V^T,  dS = P (dP - delta) [(1 - tanh^2)] scale
+//   dK   += dS^T Q                              (kernel dkdv)
+//   dQ   += dS K                                (kernel dq)
+// Each kernel owns its outputs, so nothing is summed with atomics: a dkdv
+// CTA takes one (batch, KV head, 64-key tile) and loops over the Hq / Hkv
+// query heads that read it (GQA summed in the CTA) and over the query
+// tiles the masks leave visible; a dq CTA takes one (batch, query head,
+// 64-query tile) and loops over its visible key tiles.  The contraction
+// over D runs in 64-wide chunks (both operands d-major, as in the
+// forward), and each CTA writes one 64-wide column block of its outputs
+// (grid axis z: D / 64 blocks, so at D = 256 the logits are recomputed
+// four times but every accumulator stays a 4 x 4 register tile).  P and dS
+// pass through shared memory, row-major, for the products that contract
+// over the other axis.  Rows with lse = -inf see no key: P = 0 there.
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int hq, hkv, tq, tk, d;
+  float scale;
+  int causal;
+  int window;        // < 0: none
+  int prefix;        // < 0: none
+  int use_softcap;
+  float softcap;
+  int q_offset;
+};
+
+__device__ __forceinline__ bool sees(const BwdParams& p, int qpos, int kpos) {
+  bool ok = kpos < p.tk;
+  if (p.causal)
+    ok = ok && (kpos <= qpos ||
+                (p.prefix >= 0 && kpos < p.prefix && qpos < p.prefix));
+  if (p.window >= 0) ok = ok && kpos > qpos - p.window;
+  return ok;
+}
+
+// Rows row0 .. row0+63, columns col0 .. col0+63 of a [rows_total, d] array
+// into shared memory as float32, zero outside it: d-major (dst[c * kLD +
+// r]) or row-major (dst[r * kLD + c]).
+template <typename T, bool kDMajor>
+__device__ __forceinline__ void load_block(const T* __restrict__ src,
+                                           int row0, int rows_total,
+                                           int col0, int d, float* dst) {
+  constexpr int N = Vec<T>::N;
+  for (int i = threadIdx.x; i < kBK * (64 / N); i += kThreads) {
+    const int r = i % kBK;
+    const int c = (i / kBK) * N;
+    float x[N];
+    if (row0 + r < rows_total && col0 + c < d) {
+      Vec<T>::load(src + (static_cast<long long>(row0) + r) * d + col0 + c,
+                   x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) x[e] = 0.0f;
+    }
+    if (kDMajor) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) dst[(c + e) * kLD + r] = x[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; e += 4)
+        *reinterpret_cast<float4*>(&dst[r * kLD + c + e]) =
+            make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// delta[row] = sum_d dO[row, d] * O[row, d] in float32, one warp a row
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, long long rows, int d) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* a = o + row * d;
+  const T* g = dout + row * d;
+  float s = 0.0f;
+  for (int c = lane; c < d; c += 32) s += to_f(g[c]) * to_f(a[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// s[r][c] and dp[r][c] (query rows 4ty+r, keys 4tx+c) from the d-major
+// chunks in shared memory
+__device__ __forceinline__ void qk_and_dov(const float* qd, const float* kd,
+                                           const float* dod, const float* vd,
+                                           int ty, int tx, float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+#pragma unroll 4
+  for (int c = 0; c < 64; ++c) {
+    const float4 a = *reinterpret_cast<const float4*>(&qd[c * kLD + 4 * ty]);
+    const float4 e = *reinterpret_cast<const float4*>(&kd[c * kLD + 4 * tx]);
+    const float4 g = *reinterpret_cast<const float4*>(&dod[c * kLD + 4 * ty]);
+    const float4 w = *reinterpret_cast<const float4*>(&vd[c * kLD + 4 * tx]);
+    const float qa[4] = {a.x, a.y, a.z, a.w};
+    const float kb[4] = {e.x, e.y, e.z, e.w};
+    const float ga[4] = {g.x, g.y, g.z, g.w};
+    const float vb[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+        dp[i][j] = fmaf(ga[i], vb[j], dp[i][j]);
+      }
+  }
+}
+
+// P and dS in place of s and dp, for query rows q0+4ty+r, keys k0+4tx+c
+__device__ __forceinline__ void probs_and_ds(const BwdParams& p, int q0,
+                                             int k0, int ty, int tx,
+                                             const float (&lse)[4],
+                                             const float (&dl)[4],
+                                             float (&s)[4][4],
+                                             float (&dp)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + 4 * ty + i + p.q_offset;
+    const bool live_row = q0 + 4 * ty + i < p.tq && lse[i] > -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float raw = s[i][j] * p.scale;
+      float th = 0.0f;
+      float capped = raw;
+      if (p.use_softcap) {
+        th = tanhf(raw / p.softcap);
+        capped = p.softcap * th;
+      }
+      const bool ok = live_row && sees(p, qpos, k0 + 4 * tx + j);
+      const float pv = ok ? expf(capped - lse[i]) : 0.0f;
+      float ds = pv * (dp[i][j] - dl[i]);
+      if (p.use_softcap) ds = ds * (1.0f - th * th);
+      s[i][j] = pv;
+      dp[i][j] = ds * p.scale;
+    }
+  }
+}
+
+struct DkdvSmem {
+  float qd[64 * kLD], kd[64 * kLD], dod[64 * kLD], vd[64 * kLD];
+  float qr[kBQ * kLD], dor[kBQ * kLD];   // the column block, row-major
+  float ps[kBQ * kLD], dss[kBQ * kLD];   // P[i][j], dS[i][j]
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(BwdParams p) {
+  extern __shared__ float4 smem4[];
+  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(smem4);
+  const int d = p.d;
+  const int k0 = blockIdx.x * kBK;
+  const int hk = blockIdx.y;                 // b * hkv + kv head
+  const int col0 = blockIdx.z * 64;
+  const int b = hk / p.hkv;
+  const int rep = p.hq / p.hkv;
+  const int h0 = b * p.hq + (hk - b * p.hkv) * rep;
+  const int nchunk = (d + 63) / 64;
+  const T* kg = static_cast<const T*>(p.k) + static_cast<long long>(hk) * p.tk * d;
+  const T* vg = static_cast<const T*>(p.v) + static_cast<long long>(hk) * p.tk * d;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+
+  // the query rows that see some key of this tile
+  const int k_last = min(k0 + kBK, p.tk) - 1;
+  int row_lo = 0;
+  if (p.causal && !(p.prefix >= 0 && k0 < p.prefix))
+    row_lo = max(0, k0 - p.q_offset);
+  int row_hi = p.tq;
+  if (p.window >= 0)
+    row_hi = min(row_hi, k_last + p.window - p.q_offset);
+
+  if (nchunk == 1) {
+    load_block<T, true>(kg, k0, p.tk, 0, d, sm.kd);
+    load_block<T, true>(vg, k0, p.tk, 0, d, sm.vd);
+  }
+  float dk[4][4], dv[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.0f;
+
+  for (int g = 0; g < rep; ++g) {
+    const long long bh = h0 + g;
+    const T* qg = static_cast<const T*>(p.q) + bh * p.tq * d;
+    const T* og = static_cast<const T*>(p.dout) + bh * p.tq * d;
+    for (int q0 = (row_lo / kBQ) * kBQ; q0 < row_hi; q0 += kBQ) {
+      float s[4][4], dp[4][4], lse[4], dl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * ty + i;
+        lse[i] = row < p.tq ? p.lse[bh * p.tq + row] : -CUDART_INF_F;
+        dl[i] = row < p.tq ? p.delta[bh * p.tq + row] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      }
+      for (int ch = 0; ch < nchunk; ++ch) {
+        __syncthreads();              // the last readers are done
+        load_block<T, true>(qg, q0, p.tq, 64 * ch, d, sm.qd);
+        load_block<T, true>(og, q0, p.tq, 64 * ch, d, sm.dod);
+        if (nchunk > 1) {
+          load_block<T, true>(kg, k0, p.tk, 64 * ch, d, sm.kd);
+          load_block<T, true>(vg, k0, p.tk, 64 * ch, d, sm.vd);
+        }
+        __syncthreads();
+        qk_and_dov(sm.qd, sm.kd, sm.dod, sm.vd, ty, tx, s, dp);
+      }
+      probs_and_ds(p, q0, k0, ty, tx, lse, dl, s, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(&sm.ps[(4 * ty + i) * kLD + 4 * tx]) =
+            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        *reinterpret_cast<float4*>(&sm.dss[(4 * ty + i) * kLD + 4 * tx]) =
+            make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      }
+      load_block<T, false>(qg, q0, p.tq, col0, d, sm.qr);
+      load_block<T, false>(og, q0, p.tq, col0, d, sm.dor);
+      __syncthreads();
+      // keys 4ty+r, columns col0+4tx+c
+#pragma unroll 4
+      for (int i = 0; i < kBQ; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(&sm.ps[i * kLD + 4 * ty]);
+        const float4 e = *reinterpret_cast<const float4*>(&sm.dss[i * kLD + 4 * ty]);
+        const float4 f = *reinterpret_cast<const float4*>(&sm.dor[i * kLD + 4 * tx]);
+        const float4 w = *reinterpret_cast<const float4*>(&sm.qr[i * kLD + 4 * tx]);
+        const float pa[4] = {a.x, a.y, a.z, a.w};
+        const float da[4] = {e.x, e.y, e.z, e.w};
+        const float ga[4] = {f.x, f.y, f.z, f.w};
+        const float qa[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            dv[r][c] = fmaf(pa[r], ga[c], dv[r][c]);
+            dk[r][c] = fmaf(da[r], qa[c], dk[r][c]);
+          }
+      }
+    }
+  }
+  T* dkg = static_cast<T*>(p.dk) + static_cast<long long>(hk) * p.tk * d;
+  T* dvg = static_cast<T*>(p.dv) + static_cast<long long>(hk) * p.tk * d;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = k0 + 4 * ty + r;
+    if (row >= p.tk) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + 4 * tx + c;
+      if (col < d) {
+        Vec<T>::store(dk[r][c], dkg + static_cast<long long>(row) * d + col);
+        Vec<T>::store(dv[r][c], dvg + static_cast<long long>(row) * d + col);
+      }
+    }
+  }
+}
+
+struct DqSmem {
+  float qd[64 * kLD], kd[64 * kLD], dod[64 * kLD], vd[64 * kLD];
+  float kr[kBK * kLD];                   // the column block of K, row-major
+  float dst[kBK * kLD];                  // dS[i][j] as [j][i]
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(BwdParams p) {
+  extern __shared__ float4 smem4[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem4);
+  const int d = p.d;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
+  const int bh = blockIdx.y;
+  const int col0 = blockIdx.z * 64;
+  const int b = bh / p.hq;
+  const int h = bh - b * p.hq;
+  const int hk = b * p.hkv + h / (p.hq / p.hkv);
+  const int nchunk = (d + 63) / 64;
+  const T* qg = static_cast<const T*>(p.q) + static_cast<long long>(bh) * p.tq * d;
+  const T* og = static_cast<const T*>(p.dout) + static_cast<long long>(bh) * p.tq * d;
+  const T* kg = static_cast<const T*>(p.k) + static_cast<long long>(hk) * p.tk * d;
+  const T* vg = static_cast<const T*>(p.v) + static_cast<long long>(hk) * p.tk * d;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+
+  float lse[4], dl[4], dq[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    lse[i] = row < p.tq ? p.lse[static_cast<long long>(bh) * p.tq + row]
+                        : -CUDART_INF_F;
+    dl[i] = row < p.tq ? p.delta[static_cast<long long>(bh) * p.tq + row]
+                       : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[i][j] = 0.0f;
+  }
+  if (nchunk == 1) {
+    load_block<T, true>(qg, q0, p.tq, 0, d, sm.qd);
+    load_block<T, true>(og, q0, p.tq, 0, d, sm.dod);
+  }
+
+  // the keys that some query of this tile can see (as in the forward)
+  const int qmin = q0 + p.q_offset;
+  const int qmax = min(q0 + kBQ, p.tq) - 1 + p.q_offset;
+  int k_hi = p.tk;
+  if (p.causal) {
+    k_hi = min(k_hi, qmax + 1);
+    if (p.prefix >= 0 && qmin < p.prefix)
+      k_hi = max(k_hi, min(p.prefix, p.tk));
+  }
+  const int k_lo = p.window >= 0 ? max(0, qmin - p.window + 1) : 0;
+
+  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    for (int ch = 0; ch < nchunk; ++ch) {
+      __syncthreads();                // the last readers are done
+      if (nchunk > 1) {
+        load_block<T, true>(qg, q0, p.tq, 64 * ch, d, sm.qd);
+        load_block<T, true>(og, q0, p.tq, 64 * ch, d, sm.dod);
+      }
+      load_block<T, true>(kg, k0, p.tk, 64 * ch, d, sm.kd);
+      load_block<T, true>(vg, k0, p.tk, 64 * ch, d, sm.vd);
+      __syncthreads();
+      qk_and_dov(sm.qd, sm.kd, sm.dod, sm.vd, ty, tx, s, dp);
+    }
+    probs_and_ds(p, q0, k0, ty, tx, lse, dl, s, dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&sm.dst[(4 * tx + j) * kLD + 4 * ty]) =
+          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
+    load_block<T, false>(kg, k0, p.tk, col0, d, sm.kr);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      const float4 a = *reinterpret_cast<const float4*>(&sm.dst[j * kLD + 4 * ty]);
+      const float4 e = *reinterpret_cast<const float4*>(&sm.kr[j * kLD + 4 * tx]);
+      const float da[4] = {a.x, a.y, a.z, a.w};
+      const float ka[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dq[r][c] = fmaf(da[r], ka[c], dq[r][c]);
+    }
+  }
+  T* dqg = static_cast<T*>(p.dq) + static_cast<long long>(bh) * p.tq * d;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + 4 * ty + r;
+    if (row >= p.tq) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + 4 * tx + c;
+      if (col < d)
+        Vec<T>::store(dq[r][c], dqg + static_cast<long long>(row) * d + col);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * p.hq * p.tq;
+  const int rows_per_cta = kThreads / 32;
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>(
+      (rows + rows_per_cta - 1) / rows_per_cta), kThreads, 0, stream>>>(
+      static_cast<const T*>(p.o), static_cast<const T*>(p.dout), p.delta,
+      rows, p.d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int ncb = (p.d + 63) / 64;
+  const size_t smem_kv = sizeof(DkdvSmem);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<T><<<dim3((p.tk + kBK - 1) / kBK, batch * p.hkv, ncb),
+                             kThreads, smem_kv, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_q = sizeof(DqSmem);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T><<<dim3((p.tq + kBQ - 1) / kBQ, batch * p.hq, ncb),
+                           kThreads, smem_q, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int batch, int hq,
+                                   void* o, float* lse, int dtype, int batch,
+                                   int hq,
                                    int hkv, int tq, int tk, int d, float scale,
                                    int causal, int window, int prefix,
                                    int use_softcap, float softcap,
                                    int q_offset, void* stream) {
   if (d <= 0 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, hq, hkv, tq, tk, d, scale, causal, window,
+  const Params p{q, k, v, o, lse, hq, hkv, tq, tk, d, scale, causal, window,
                  prefix, use_softcap, softcap, q_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch<float>(p, batch, s));
@@ -354,4 +777,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 extern "C" const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The gradients (dq like q; dk, dv like k) from the saved forward (o, lse)
+// and dout; delta is float32 scratch [batch, hq, tq].  dtype: 0 float32,
+// 1 bfloat16.  Returns the first failing launch's cudaError_t.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const void* dout,
+                                   const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv, int dtype, int batch,
+                                   int hq, int hkv, int tq, int tk, int d,
+                                   float scale, int causal, int window,
+                                   int prefix, int use_softcap, float softcap,
+                                   int q_offset, void* stream) {
+  if (d <= 0 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p{q, k, v, o, dout, lse, delta, dq, dk, dv, hq, hkv, tq,
+                    tk, d, scale, causal, window, prefix, use_softcap,
+                    softcap, q_offset};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(launch_bwd<float>(p, batch, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_bwd<__nv_bfloat16>(p, batch, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,16 +1,23 @@
-"""Wrapper around the hand-written flash-attention forward kernel.
+"""Wrappers around the hand-written flash-attention kernels, and their
+``torch.autograd.Function``.
 
 ``csrc/flash_attention.cu`` replaces the TPU kernel
-``repro/kernels/flash_attention.py::flash_attention_pallas``; its header
-says how, and what bounds it on the card.
+``repro/kernels/flash_attention.py::flash_attention_pallas`` (the forward)
+and the recompute backward of ``repro/kernels/flash_xla.py`` (``_bwd``);
+its header says how, and what bounds them on the card.
 
-Dispatch goes by where the tensors lie: on the CPU the plain version
-``repro_torch.kernels.ref.flash_attention_ref``; on a CUDA device the kernel,
-on the current stream, or an error.  The kernel reads dense row-major
-``[B, H, T, D]`` operands: the wrapper makes q, k and v contiguous (a copy
-when they are transposed views, as the model's ``[B, T, H, D]``
-projections are) and returns a contiguous ``[B, Hq, Tq, D]`` output.
-``launches`` counts kernel launches (plain-version calls are not counted).
+Dispatch goes by where the tensors lie: on the CPU the plain versions
+``repro_torch.kernels.ref.flash_attention_fwd_ref`` / ``_bwd_ref``; on a
+CUDA device the kernels, on the current stream, or an error.  The kernels
+read dense row-major ``[B, H, T, D]`` operands: the wrappers make q, k and
+v contiguous (a copy when they are transposed views, as the model's
+``[B, T, H, D]`` projections are) and return contiguous outputs.
+
+``FlashAttention.apply`` is the differentiable attention of the port, on
+both devices: its forward saves (q, k, v, out, lse) and its backward is
+``flash_attention_bwd``.  ``launches`` counts kernel launches: one a
+forward call and one a backward call (the backward runs three kernels:
+the rowsum pre-pass, dK/dV and dQ); plain-version calls are not counted.
 """
 
 from __future__ import annotations
@@ -27,24 +34,29 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
                                            check_operand, on_cpu, raise_on)
 
-__all__ = ["flash_attention", "launches", "reset_launches", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "FlashAttention", "launches", "reset_launches", "MAX_HEAD_DIM"]
 
-launches: Dict[str, int] = {"flash_attention": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = ([P] * 4 + [I] * 7 + [F] + [I] * 4
+    lib.flash_attention_fwd.argtypes = ([P] * 5 + [I] * 7 + [F] + [I] * 4
                                         + [F, I, P])
     lib.flash_attention_fwd.restype = I
+    lib.flash_attention_bwd.argtypes = ([P] * 10 + [I] * 7 + [F] + [I] * 4
+                                        + [F, I, P])
+    lib.flash_attention_bwd.restype = I
     lib.flash_attention_error_string.argtypes = [I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -57,22 +69,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, q_offset: int = 0,
-                    softcap: Optional[float] = None,
-                    prefix: Optional[int] = None) -> torch.Tensor:
-    """q [B, Hq, Tq, D]; k, v [B, Hkv, Tk, D] -> [B, Hq, Tq, D] in q's dtype.
-
-    Query position p (absolute: row index + ``q_offset``) attends key
-    position s when s < Tk, s <= p under ``causal`` (or both lie below
-    ``prefix``), and s > p - ``window`` when a window is given.  Logits are
-    (q . k) * scale (default 1 / sqrt(D)), then ``softcap * tanh(x /
-    softcap)``.  A query that sees no key gives 0."""
-    if on_cpu("flash_attention", q, k, v):
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        scale=scale, q_offset=q_offset,
-                                        softcap=softcap, prefix=prefix)
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int], prefix: Optional[int], q_offset: int):
+    """Raise on what the kernels do not take; return (b, hq, hkv, tq, tk,
+    d)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, T, D]")
     b, hq, tq, d = q.shape
@@ -97,22 +97,128 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must be a non-negative int, got {t}")
     if abs(q_offset) > INT_MAX // 2:
         raise ValueError(f"q_offset {q_offset} does not fit the kernel")
+    return b, hq, hkv, tq, tk, d
+
+
+def _masks(causal, window, scale, d, softcap, prefix):
+    """The kernels' trailing scalar arguments."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    return (float(s), int(bool(causal)),
+            -1 if window is None else int(window),
+            -1 if prefix is None else int(prefix), int(softcap is not None),
+            0.0 if softcap is None else float(softcap))
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0,
+                        softcap: Optional[float] = None,
+                        prefix: Optional[int] = None):
+    """(out, lse): ``flash_attention``'s output and each row's log-sum-exp
+    ``[B, Hq, Tq]`` in float32 (``-inf`` where a row sees no key)."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
+              softcap=softcap, prefix=prefix)
+    if on_cpu("flash_attention", q, k, v):
+        return _ref.flash_attention_fwd_ref(q, k, v, **kw)
+    b, hq, hkv, tq, tk, d = _check(q, k, v, window, prefix, q_offset)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t, q.dtype)
     out = torch.empty_like(q)
+    # the kernel writes every row's lse
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
-    s = scale if scale is not None else 1.0 / math.sqrt(d)
+        return out, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, hq, hkv, tq, tk, d, float(s),
-            int(bool(causal)), -1 if window is None else int(window),
-            -1 if prefix is None else int(prefix), int(softcap is not None),
-            0.0 if softcap is None else float(softcap), int(q_offset),
-            stream)
+            lse.data_ptr(), _DTYPE_CODE[q.dtype], b, hq, hkv, tq, tk, d,
+            *_masks(causal, window, scale, d, softcap, prefix),
+            int(q_offset), stream)
     launches["flash_attention"] += 1
     raise_on(rc, _lib().flash_attention_error_string, "flash_attention")
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0,
+                        softcap: Optional[float] = None,
+                        prefix: Optional[int] = None):
+    """(dq, dk, dv) in the inputs' dtypes from the forward's saved (q, k,
+    v, out, lse) and the output's gradient ``dout``; float32 sums."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
+              softcap=softcap, prefix=prefix)
+    if on_cpu("flash_attention_bwd", q, k, v, out, lse, dout):
+        return _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    b, hq, hkv, tq, tk, d = _check(q, k, v, window, prefix, q_offset)
+    if tuple(out.shape) != tuple(q.shape) \
+            or tuple(dout.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (b, hq, tq):
+        raise ValueError(f"out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} and lse {tuple(lse.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    q, k, v, out = (_aligned(t) for t in (q, k, v, out))
+    dout = _aligned(dout.to(q.dtype))
+    lse = _aligned(lse)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        check_operand(name, t, q.dtype)
+    check_operand("lse", lse, torch.float32)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, hq, hkv,
+            tq, tk, d, *_masks(causal, window, scale, d, softcap, prefix),
+            int(q_offset), stream)
+    launches["flash_attention_bwd"] += 1
+    raise_on(rc, _lib().flash_attention_error_string, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    softcap: Optional[float] = None,
+                    prefix: Optional[int] = None) -> torch.Tensor:
+    """q [B, Hq, Tq, D]; k, v [B, Hkv, Tk, D] -> [B, Hq, Tq, D] in q's dtype.
+
+    Query position p (absolute: row index + ``q_offset``) attends key
+    position s when s < Tk, s <= p under ``causal`` (or both lie below
+    ``prefix``), and s > p - ``window`` when a window is given.  Logits are
+    (q . k) * scale (default 1 / sqrt(D)), then ``softcap * tanh(x /
+    softcap)``.  A query that sees no key gives 0.  No autograd:
+    ``FlashAttention.apply`` is the differentiable form."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               scale=scale, q_offset=q_offset,
+                               softcap=softcap, prefix=prefix)[0]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: the forward kernel (saving its lse), and
+    the backward kernels; on the CPU their plain versions.  ``apply(q, k,
+    v, causal, window, scale, q_offset, softcap, prefix)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, scale=None,
+                q_offset=0, softcap=None, prefix=None):
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        q_offset=q_offset, softcap=softcap, prefix=prefix)
+        out, lse = flash_attention_fwd(q, k, v, **ctx.opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.opts)
+        return (dq, dk, dv) + (None,) * 6

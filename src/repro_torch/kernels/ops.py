@@ -1,7 +1,7 @@
 """Container-level ops, one signature per op.
 
 Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family, the fused
-neuron updates and flash attention.  There is no backend switch: each op goes by the
+neuron updates, flash attention and the SSD scan.  There is no backend switch: each op goes by the
 device its tensors lie on (see ``repro_torch.kernels._dispatch``).
 
 The event-driven variants keep the JAX signatures and run the same kernel.
@@ -20,11 +20,12 @@ from repro_torch.kernels import ell_spmv as _k
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hh_step as _hh
 from repro_torch.kernels import izhikevich_step as _iz
+from repro_torch.kernels import ssd_scan as _ssd
 
 __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
            "ell_spmv_delay_batched", "ell_spmv_event",
            "ell_spmv_event_delay", "izhikevich_step", "hh_step",
-           "flash_attention"]
+           "flash_attention", "ssd_scan"]
 
 
 def ell_spmv_batched(ell, spikes: torch.Tensor) -> torch.Tensor:
@@ -104,13 +105,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None, q_offset: int = 0,
                     softcap: Optional[float] = None,
                     prefix: Optional[int] = None):
-    """q [B, Hq, Tq, D]; k, v [B, Hkv, Tk, D] -> [B, Hq, Tq, D].
+    """q [B, Hq, Tq, D]; k, v [B, Hkv, Tk, D] -> [B, Hq, Tq, D], with a
+    gradient (``FlashAttention``: the forward kernel and the backward
+    kernels on the card, their plain versions on the CPU).
 
-    CPU tensors take the plain version, CUDA tensors the kernel, whatever
-    the options: the kernel computes prefix-LM masking too (the JAX entry
+    CPU tensors take the plain versions, CUDA tensors the kernels, whatever
+    the options: the kernels compute prefix-LM masking too (the JAX entry
     point sends ``prefix`` to XLA, though its Pallas kernel has the mask).
     ``window`` is a Python int or None; the JAX package's roofline stand-ins
     and its traced-window route have no counterpart here."""
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset,
-                               softcap=softcap, prefix=prefix)
+    return _fa.FlashAttention.apply(q, k, v, causal, window, scale,
+                                    q_offset, softcap, prefix)
+
+
+def ssd_scan(x, dt, A, B, C, D=None):
+    """Mamba2 SSD: x [b, t, h, dh], dt [b, t, h], A [h], B/C [b, t, 1, ds],
+    D [h] or None -> y [b, t, h, dh], with a gradient (``SSDScan``: the
+    kernel forward on the card, ``ssd_chunked`` on the CPU; the backward is
+    autograd through ``ssd_chunked`` on both, as the JAX package trains).
+    The JAX entry point's roofline stand-in has no counterpart here."""
+    return _ssd.SSDScan.apply(x, dt, A, B, C, D)

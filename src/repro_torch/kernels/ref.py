@@ -18,7 +18,12 @@ CPU they round exactly as codegen does.  HH keeps the TPU kernel's
 ``n*n*n*n`` (the JAX reference's ``n ** 4`` rounds otherwise).
 
 ``flash_attention_ref`` is plain softmax attention with the flash kernel's
-masks and casts (see its docstring).
+masks and casts (see its docstring); ``flash_attention_fwd_ref`` also
+returns the rows' log-sum-exp, and ``flash_attention_bwd_ref`` is the
+gradient by the recompute schedule of ``repro/kernels/flash_xla.py``.
+
+``ssd_scan_ref`` is the naive Mamba2 state-space recurrence, the oracle of
+the chunked SSD (``repro_torch.models.ssm.ssd_chunked``) and its kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from typing import Optional
 import torch
 
 __all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "izhikevich_step_ref",
-           "hh_step_ref", "flash_attention_ref"]
+           "hh_step_ref", "flash_attention_ref", "flash_attention_fwd_ref",
+           "flash_attention_bwd_ref", "ssd_scan_ref", "chunk_size"]
 
 
 def _contributions(g: torch.Tensor, valid: torch.Tensor,
@@ -116,6 +122,49 @@ def hh_step_ref(v, m, h, n, isyn, dt, substeps=5, gNa=7.15, ENa=50.0,
     return v, m, h, n
 
 
+def _attn_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+               window: Optional[int], prefix: Optional[int]) -> torch.Tensor:
+    """[len(qpos), len(kpos)]: which keys each query position sees."""
+    mask = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        cm = kpos[None, :] <= qpos[:, None]
+        if prefix is not None:
+            cm = cm | ((kpos[None, :] < prefix) & (qpos[:, None] < prefix))
+        mask &= cm
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None, q_offset: int = 0,
+                            softcap: Optional[float] = None,
+                            prefix: Optional[int] = None):
+    """(out, lse): ``flash_attention_ref``'s output and the log-sum-exp of
+    each row's visible logits, ``[B, Hq, Tq]`` in float32 (``-inf`` for a
+    row that sees no key, as ``flash_xla.py`` writes it)."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    logits = torch.matmul(q.float(), kf.transpose(-1, -2)).mul_(s)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = _attn_mask(torch.arange(tq, device=q.device) + q_offset,
+                      torch.arange(tk, device=q.device), causal, window,
+                      prefix)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros((), device=p.device), p)
+    return torch.matmul(p, vf).to(q.dtype), lse
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None, q_offset: int = 0,
@@ -137,25 +186,96 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention_ref`` differs for bfloat16 inputs: it rounds the
     logits' product and the softmax weights to bfloat16.  For float32
     inputs the two agree."""
+    return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset,
+                                   softcap=softcap, prefix=prefix)[0]
+
+
+def chunk_size(t: int, pref: int) -> int:
+    """The JAX package's chunk rule (``flash_xla._chunks``, ``ssd_chunked``):
+    min(pref, t), halved until it divides t."""
+    c = min(pref, t)
+    while t % c:
+        c //= 2
+    return c
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None, q_offset: int = 0,
+                            softcap: Optional[float] = None,
+                            prefix: Optional[int] = None,
+                            q_chunk: int = 512, k_chunk: int = 1024):
+    """(dq, dk, dv) of attention from its saved (q, k, v, o, lse) and the
+    output's gradient ``do``, by ``flash_xla.py``'s recompute schedule
+    (``_bwd``): per (query chunk, key chunk) block the probabilities are
+    recomputed as exp(logits - lse), masked to 0 where the key is hidden
+    (and so everywhere in a row with lse = -inf); delta = rowsum(do * o);
+    dS = P (dP - delta), times 1 - tanh^2(raw / softcap) under a softcap,
+    times the scale.  GQA sums the query heads of a KV head into its dk
+    and dv.  Float32 throughout; the gradients are cast to the inputs'
+    dtypes."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     rep = hq // hkv
     s = scale if scale is not None else 1.0 / math.sqrt(d)
-    kf = k.float().repeat_interleave(rep, dim=1)
-    vf = v.float().repeat_interleave(rep, dim=1)
-    logits = torch.matmul(q.float(), kf.transpose(-1, -2)).mul_(s)
-    if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(tk, device=q.device)[None, :]
-    mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device)
-    if causal:
-        cm = kpos <= qpos
-        if prefix is not None:
-            cm = cm | ((kpos < prefix) & (qpos < prefix))
-        mask &= cm
-    if window is not None:
-        mask &= kpos > qpos - window
-    p = torch.softmax(logits.masked_fill_(~mask, float("-inf")), dim=-1)
-    p = torch.where(torch.isnan(p), torch.zeros((), device=p.device), p)
-    return torch.matmul(p, vf).to(q.dtype)
+    qc, kc = chunk_size(tq, q_chunk), chunk_size(tk, k_chunk)
+    qf = q.float().reshape(b, hkv, rep, tq, d)
+    gf = do.float().reshape(b, hkv, rep, tq, d)
+    delta = (gf * o.float().reshape(b, hkv, rep, tq, d)).sum(-1)
+    lse = lse.float().reshape(b, hkv, rep, tq)
+    lse_safe = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(b, hkv, tk, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    zero = torch.zeros((), device=q.device)
+    for q0 in range(0, tq, qc):
+        qpos = torch.arange(q0, q0 + qc, device=q.device) + q_offset
+        qb, gb = qf[:, :, :, q0:q0 + qc], gf[:, :, :, q0:q0 + qc]
+        lb = lse_safe[..., q0:q0 + qc, None]
+        db = delta[..., q0:q0 + qc, None]
+        for k0 in range(0, tk, kc):
+            kb, vb = kf[:, :, k0:k0 + kc], vf[:, :, k0:k0 + kc]
+            msk = _attn_mask(qpos, torch.arange(k0, k0 + kc, device=q.device),
+                             causal, window, prefix)
+            raw = torch.einsum("bgrqd,bgkd->bgrqk", qb, kb) * s
+            capped = (softcap * torch.tanh(raw / softcap)
+                      if softcap is not None else raw)
+            p = torch.where(msk, torch.exp(capped - lb), zero)
+            dv[:, :, k0:k0 + kc] += torch.einsum("bgrqk,bgrqd->bgkd", p, gb)
+            dp = torch.einsum("bgrqd,bgkd->bgrqk", gb, vb)
+            ds = p * (dp - db)
+            if softcap is not None:
+                th = torch.tanh(raw / softcap)
+                ds = ds * (1.0 - th * th)
+            ds = ds * s
+            dq[:, :, :, q0:q0 + qc] += torch.einsum("bgrqk,bgkd->bgrqd", ds,
+                                                    kb)
+            dk[:, :, k0:k0 + kc] += torch.einsum("bgrqk,bgrqd->bgkd", ds, qb)
+    return (dq.reshape(b, hq, tq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def ssd_scan_ref(x, dt, A, B, C, D=None):
+    """Mamba2 SSD by its naive sequential recurrence (the oracle).
+
+    x [b, t, h, dh]; dt [b, t, h] (softplus'd, > 0); A [h] (< 0);
+    B, C [b, t, g, ds] (g groups, each shared by h / g heads); D [h] or
+    None.  State s [b, h, dh, ds]: s' = exp(dt A) s + (dt x) outer B,
+    y = s' . C (+ D x).  Returns y [b, t, h, dh]."""
+    b, t, h, dh = x.shape
+    rep = h // B.shape[2]
+    Bh = B.repeat_interleave(rep, dim=2)
+    Ch = C.repeat_interleave(rep, dim=2)
+    st = torch.zeros(b, h, dh, B.shape[3], dtype=x.dtype, device=x.device)
+    ys = []
+    for i in range(t):
+        decay = torch.exp(dt[:, i] * A[None, :])[:, :, None, None]
+        st = st * decay + (dt[:, i, :, None] * x[:, i])[..., None] \
+            * Bh[:, i, :, None, :]
+        ys.append(torch.einsum("bhds,bhs->bhd", st, Ch[:, i]))
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + x * D[None, None, :, None]
+    return y

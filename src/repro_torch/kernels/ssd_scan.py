@@ -1,0 +1,138 @@
+"""Wrapper around the hand-written Mamba2 SSD-scan kernel.
+
+``csrc/ssd_scan.cu`` replaces the TPU kernel
+``repro/kernels/ssd_scan.py::ssd_scan_pallas``; its header says how, and
+what bounds it on the card.
+
+``ssd_scan`` dispatches by where the tensors lie: on the CPU the plain
+version ``repro_torch.models.ssm.ssd_chunked``; on a CUDA device the
+kernel, on the current stream, or an error.  ``launches`` counts kernel
+launches (plain-version calls are not counted).
+
+``SSDScan`` is its ``torch.autograd.Function``.  Its backward recomputes
+the plain ``ssd_chunked`` on the saved inputs and differentiates that by
+autograd: the JAX package trains Mamba2 the same way (by autodiff of
+``ssd_chunked``; its Pallas kernel has no VJP).  The forward on the card
+is the kernel only; a hand-written backward is later work (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._dispatch import (INT_MAX, I, P, check_operand,
+                                           on_cpu, raise_on)
+
+__all__ = ["ssd_scan", "SSDScan", "launches", "reset_launches",
+           "MAX_HEAD_DIM", "MAX_STATE_DIM"]
+
+launches: Dict[str, int] = {"ssd_scan": 0}
+
+MAX_HEAD_DIM = 64
+MAX_STATE_DIM = 128
+
+
+def reset_launches() -> None:
+    launches["ssd_scan"] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan")
+    lib.ssd_scan_fwd.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.ssd_scan_fwd.restype = I
+    lib.ssd_scan_error_string.argtypes = [I]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _plain(x, dt, A, B, C, D):
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, D)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as float32, contiguous and starting on 16 bytes."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor,
+             D: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [b, t, h, dh], dt [b, t, h], A [h], B/C [b, t, 1, ds], D [h] or
+    None -> y [b, t, h, dh] in x's dtype (the kernel computes in float32).
+    No autograd: ``SSDScan.apply`` is the differentiable form."""
+    if on_cpu("ssd_scan", x, dt, A, B, C, D):
+        return _plain(x, dt, A, B, C, D)
+    if x.dim() != 4 or dt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
+        raise ValueError("x must be [b, t, h, dh], dt [b, t, h] and B, C "
+                         "[b, t, g, ds]")
+    b, t, h, dh = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    if g != 1:
+        raise NotImplementedError(
+            f"the ssd_scan kernel takes n_groups == 1, got {g}")
+    if tuple(dt.shape) != (b, t, h) or tuple(A.shape) != (h,) \
+            or tuple(B.shape) != (b, t, 1, ds) \
+            or tuple(C.shape) != tuple(B.shape) \
+            or (D is not None and tuple(D.shape) != (h,)):
+        raise ValueError(
+            f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+            f"B {tuple(B.shape)}, C {tuple(C.shape)} do not fit together")
+    if dh % 4 or not 0 < dh <= MAX_HEAD_DIM or ds % 4 \
+            or not 0 < ds <= MAX_STATE_DIM:
+        raise ValueError(f"head dim {dh}, state dim {ds}: the kernel takes "
+                         f"dh <= {MAX_HEAD_DIM} and ds <= {MAX_STATE_DIM}, "
+                         "both multiples of 4")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"x must be a float tensor, got {x.dtype}")
+    if b * h > INT_MAX or b * t * h * dh > 2 ** 62:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
+    ops = [_dense(a) for a in (x, dt, A, B, C)]
+    d = None if D is None else _dense(D)
+    for name, a in zip(("x", "dt", "A", "B", "C"), ops):
+        check_operand(name, a, torch.float32)
+    y = torch.empty_like(ops[0])
+    if y.numel() == 0:
+        return y.to(x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().ssd_scan_fwd(
+            *(a.data_ptr() for a in ops), None if d is None else d.data_ptr(),
+            y.data_ptr(), b, t, h, dh, ds, stream)
+    launches["ssd_scan"] += 1
+    raise_on(rc, _lib().ssd_scan_error_string, "ssd_scan")
+    return y.to(x.dtype)
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with a gradient: the backward recomputes the plain
+    ``ssd_chunked`` on the saved inputs under autograd and returns its
+    gradients (JAX's way: autodiff of ``ssd_chunked``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        return ssd_scan(x, dt, A, B, C, D)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        want = [i for i, t in enumerate(saved)
+                if t is not None and ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(i in want)
+                   if t is not None else None for i, t in enumerate(saved)]
+            y = _plain(*ins)
+            grads = torch.autograd.grad(y, [ins[i] for i in want], gy,
+                                        allow_unused=True)
+        out = [None] * len(saved)
+        for i, gr in zip(want, grads):
+            out[i] = gr
+        return tuple(out)

@@ -1,1 +1,1 @@
-"""Serving: the slot scheduler and the token server."""
+"""Serving (the slot scheduler and the token server) and training."""

@@ -1,0 +1,144 @@
+"""The trainer, the counterpart of ``repro/launch/train.py``: the
+token pipeline, the model's loss, its backward, AdamW, and the paper's
+NaN guard, on one device (``cuda`` unless ``device=`` / ``--device`` names
+another; without a card that raises).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --steps 100 --batch 8 --seq 256                 # reduced config
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --full --steps 3 --batch 2 --seq 2048           # full width, on a card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --steps 3 --device cpu                          # the plain versions
+
+The trained families are dense and ssm (mamba2).  NaN containment follows
+the paper's Fig-1 guard in the JAX package: a non-finite loss rolls back to
+the last checkpoint with the LR halved.  Checkpoints
+(``checkpoint/manager.py``) wait for ROADMAP Queue 1 item 8.6, so
+``ckpt_dir`` raises and a non-finite loss raises ``FloatingPointError``,
+as the JAX trainer does when it has no checkpoint; ``model_parallel > 1``
+waits for item 7.  The JAX trainer does not use ``cfg.microbatches``
+either: one step is one batch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import time
+from typing import Optional
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw, schedule
+from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
+from repro_torch.runtime.straggler import StragglerPolicy
+
+__all__ = ["make_train_step", "run", "main"]
+
+
+def make_train_step(cfg, ocfg: adamw.AdamWConfig):
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    the loss, the gradient of every parameter, and the AdamW update (in
+    place).  The params are made leaves that require grad."""
+    def train_step(params, opt_state, batch):
+        leaves, spec = tree_flatten(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss, metrics = T.loss_fn(params, cfg, batch)
+        grads = tree_unflatten(list(torch.autograd.grad(loss, leaves)), spec)
+        new_params, new_opt, om = adamw.update(ocfg, grads, opt_state,
+                                               params)
+        return new_params, new_opt, {
+            "loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **om}
+    return train_step
+
+
+def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
+        use_reduced: bool = True, ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 25, lr: float = 3e-3, seed: int = 0,
+        model_parallel: int = 1, log_every: int = 10,
+        lr_floor_scale: float = 0.125, device: DeviceLike = "cuda"):
+    """Train ``steps`` steps; returns the losses.  Weights are drawn from
+    a ``torch.Generator`` seeded with ``seed`` on the device."""
+    if ckpt_dir is not None:
+        raise NotImplementedError(
+            "checkpoints (checkpoint/manager.py) are not ported yet "
+            "(ROADMAP Queue 1 item 8.6)")
+    if model_parallel != 1:
+        raise NotImplementedError(
+            "model parallelism is not ported yet (ROADMAP Queue 1 item 7)")
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = make_reduced(cfg)
+
+    sched = schedule.warmup_cosine(lr, warmup=min(20, steps // 5 + 1),
+                                   total=steps)
+    ocfg = adamw.AdamWConfig(lr=sched, grad_clip=1.0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=seed)
+    pipe = TokenPipeline(dcfg, device=dev)
+
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    opt_state = adamw.init(ocfg, params)
+    step_fn = make_train_step(cfg, ocfg)
+
+    host = "host0"
+    monitor = HeartbeatMonitor([host])
+    straggler = StragglerPolicy()
+
+    losses = []
+    for i in range(steps):
+        batch_data = pipe.next_batch()
+        t0 = time.time()
+        params, opt_state, metrics = step_fn(params, opt_state, batch_data)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        monitor.beat(host)
+        straggler.observe(host, dt)
+        if not math.isfinite(loss):
+            # the paper's Fig-1 guard rolls back to a checkpoint, and
+            # there is none without checkpoint/ (item 8.6)
+            raise FloatingPointError(
+                f"non-finite loss at step {i} and no checkpoint")
+        losses.append(loss)
+        if (i + 1) % log_every == 0 or i + 1 == steps:
+            print(f"[train] step {i + 1:5d} loss {loss:.4f} "
+                  f"({dt*1e3:.0f} ms/step)")
+    return losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--full", action="store_true",
+                    help="use the full config (default: reduced)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+    losses = run(args.arch, steps=args.steps, batch=args.batch,
+                 seq=args.seq, use_reduced=not args.full,
+                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                 lr=args.lr, seed=args.seed,
+                 model_parallel=args.model_parallel, device=args.device)
+    print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

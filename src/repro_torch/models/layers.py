@@ -11,13 +11,14 @@ the port to the JAX package carries the JAX weights over with
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "rmsnorm", "layernorm", "norm_apply",
            "norm_init", "rope_freqs", "apply_rope", "mlp_init", "mlp_apply",
-           "ACTIVATIONS"]
+           "ACTIVATIONS", "cross_entropy"]
 
 
 # ---------------------------------------------------------------------------
@@ -135,3 +136,31 @@ def mlp_apply(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     else:
         h = act(x @ p["w_in"])
     return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# misc
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1,
+                  true_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over non-ignored tokens; logits [.., V], labels [..].
+
+    As the JAX package computes it: in float32, padded vocab entries
+    (``true_vocab`` and up) masked to -inf, the row max held out of the
+    gradient, and the label's logit picked by an iota mask (a sum over
+    the vocab), not a gather."""
+    v = logits.shape[-1]
+    x = logits.float()
+    vidx = torch.arange(v, device=x.device)
+    if true_vocab is not None and true_vocab < v:
+        x = x.masked_fill(vidx >= true_vocab, float("-inf"))
+    lmax = torch.amax(x, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(x - lmax), dim=-1)) + lmax[..., 0]
+    label_hit = vidx == labels[..., None].clamp(min=0)
+    ll = torch.sum(torch.where(label_hit, x, torch.zeros((), device=x.device)),
+                   dim=-1)
+    mask = (labels != ignore_id).float()
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

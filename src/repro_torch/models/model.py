@@ -33,6 +33,10 @@ class Model:
     def forward(self, params, tokens, extra=None):
         return T.forward(params, self.cfg, tokens, extra)
 
+    def loss(self, params, batch):
+        """(loss, metrics) of a batch ``{"tokens": [B, T+1]}``."""
+        return T.loss_fn(params, self.cfg, batch)
+
     def prefill(self, params, tokens, extra=None, max_seq=None):
         return T.prefill(params, self.cfg, tokens, extra, max_seq=max_seq)
 

@@ -1,0 +1,199 @@
+"""Mamba2 (SSD, state-space duality) blocks, the counterpart of
+``repro/models/ssm.py``.
+
+``ssd_chunked`` is the O(T) chunked algorithm in plain torch: inside a
+chunk the recurrence is computed in its quadratic "dual" (attention-like)
+form, and the state passes from chunk to chunk.  ``ssm_apply`` runs the
+full-sequence block (input projection to [z | x | B | C | dt], causal
+depthwise conv on (x, B, C), the SSD core through ``kernels.ops.ssd_scan``,
+gated RMSNorm, output projection): the hand-written kernel on the card,
+its plain version (``ssd_chunked``) on the CPU.
+
+The recurrent forms (``ssm_apply(return_state=True)``, ``ssm_init_cache``,
+``ssm_decode_step``) serve prefill and decode; they wait for the SSM
+serving port (ROADMAP Queue 1 item 8.3) and raise until then.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import chunk_size
+from repro_torch.models.layers import dense_init, rmsnorm
+
+__all__ = ["SSMConfig", "ssm_init", "ssm_apply", "ssm_decode_step",
+           "ssm_init_cache", "ssd_chunked", "chunk_size"]
+
+_SERVING = ("SSM serving (the recurrent state for prefill and decode) is "
+            "not ported yet (ROADMAP Queue 1 item 8.3)")
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_model: int
+    d_state: int = 128          # N: SSM state size per head
+    d_head: int = 64            # P: channels per head
+    expand: int = 2
+    n_groups: int = 1           # B/C groups (like KV heads)
+    d_conv: int = 4
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.d_head
+
+
+def ssm_init(gen: torch.Generator, cfg: SSMConfig, dtype=torch.float32):
+    """Random block weights on ``gen``'s device with the JAX initializers'
+    distributions; ``dt_bias``, ``A_log`` and ``D`` stay float32 whatever
+    ``dtype`` is, as in the JAX package."""
+    d, di, g, n, hh = (cfg.d_model, cfg.d_inner, cfg.n_groups, cfg.d_state,
+                       cfg.n_heads)
+    dev = gen.device
+    d_in_proj = 2 * di + 2 * g * n + hh
+    conv_dim = di + 2 * g * n
+    w_in = dense_init(gen, d, d_in_proj, dtype)
+    conv_w = (torch.randn((cfg.d_conv, conv_dim), generator=gen, device=dev)
+              / math.sqrt(cfg.d_conv)).to(dtype)
+    # dt bias: softplus^-1 of log-uniform(dt_min, dt_max) samples
+    u = torch.rand((hh,), generator=gen, device=dev)
+    dt0 = torch.exp(u * (math.log(cfg.dt_max) - math.log(cfg.dt_min))
+                    + math.log(cfg.dt_min))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    a0 = 1.0 + 15.0 * torch.rand((hh,), generator=gen, device=dev)
+    return {
+        "w_in": w_in,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=dev),
+        "dt_bias": dt_bias,
+        "A_log": torch.log(a0),
+        "D": torch.ones(hh, dtype=torch.float32, device=dev),
+        "norm_scale": torch.zeros(di, dtype=dtype, device=dev),
+        "w_out": dense_init(gen, di, d, dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# chunked SSD core
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 256):
+    """O(T) chunked SSD, the plain version of the ``ssd_scan`` kernel.
+    x [b, t, h, dh], dt [b, t, h], A [h], B/C [b, t, g, ds] -> y [b, t, h,
+    dh].  Differentiable by autograd (the kernel's backward recomputes it).
+    The JAX function's ``initial_state`` / ``return_final_state`` serve
+    prefill and wait for item 8.3."""
+    b, t, h, dh = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    rep = h // g
+    q = chunk_size(t, chunk)
+    nc = t // q
+
+    Bh = B.repeat_interleave(rep, dim=2)             # [b,t,h,ds]
+    Ch = C.repeat_interleave(rep, dim=2)
+
+    la = dt * A[None, None, :]                       # [b,t,h] (negative)
+    xc = x.reshape(b, nc, q, h, dh)
+    dtc = dt.reshape(b, nc, q, h)
+    lac = la.reshape(b, nc, q, h)
+    Bc = Bh.reshape(b, nc, q, h, ds)
+    Cc = Ch.reshape(b, nc, q, h, ds)
+
+    cum = torch.cumsum(lac, dim=2)                   # within-chunk logs
+    total = cum[:, :, -1]                            # [b,nc,h]
+
+    # intra-chunk (dual form), i >= j:
+    #   att[i,j] = C_i . B_j * exp(cum_i - cum_j) * dt_j
+    # the upper triangle (cum_i - cum_j > 0, which can overflow) is masked
+    # before it is exponentiated, so neither it nor its gradient is inf*0
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b,nc,q,q,h]
+    mask = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    mask = mask[None, None, :, :, None]
+    dec = torch.where(mask, torch.exp(diff.masked_fill(~mask, 0.0)),
+                      torch.zeros((), dtype=diff.dtype, device=x.device))
+    cb = torch.einsum("bcihs,bcjhs->bcijh", Cc, Bc)
+    att = cb * dec * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhd->bcihd", att, xc)
+
+    # chunk states: S_c = sum_j exp(total - cum_j) * dt_j * B_j x_j^T
+    w = torch.exp(total[:, :, None, :] - cum) * dtc          # [b,nc,q,h]
+    S = torch.einsum("bcjh,bcjhs,bcjhd->bchsd", w, Bc, xc)   # [b,nc,h,ds,dh]
+
+    # inter-chunk: the state entering each chunk
+    s_prev = torch.zeros(b, h, ds, dh, dtype=x.dtype, device=x.device)
+    prevs = []
+    for c in range(nc):
+        prevs.append(s_prev)
+        s_prev = s_prev * torch.exp(total[:, c])[:, :, None, None] + S[:, c]
+    s_prevs = torch.stack(prevs, dim=1)                      # [b,nc,h,ds,dh]
+
+    # y_inter[i] = C_i . (exp(cum_i) * S_prev)
+    y_inter = torch.einsum("bcihs,bchsd->bcihd",
+                           Cc * torch.exp(cum)[..., None], s_prevs)
+
+    y = (y_intra + y_inter).reshape(b, t, h, dh)
+    if D is not None:
+        y = y + x * D[None, None, :, None]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# full block
+# ---------------------------------------------------------------------------
+
+def _split_proj(cfg: SSMConfig, zxbcdt: torch.Tensor):
+    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: 2 * di + 2 * g * n]
+    dt = zxbcdt[..., 2 * di + 2 * g * n:]
+    return z, xbc, dt
+
+
+def ssm_apply(p, cfg: SSMConfig, u: torch.Tensor, conv_state=None,
+              ssd_state=None, return_state: bool = False) -> torch.Tensor:
+    """u: [B, T, d_model] -> [B, T, d_model] (full sequence)."""
+    if return_state or conv_state is not None or ssd_state is not None:
+        raise NotImplementedError(_SERVING)
+    b, t, _ = u.shape
+    di, g, n, h, dh = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
+                       cfg.d_head)
+    zxbcdt = u @ p["w_in"]
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
+
+    # causal depthwise conv over time (window d_conv)
+    w = p["conv_w"]                                  # [d_conv, conv_dim]
+    pad = cfg.d_conv - 1
+    xbc_pad = F.pad(xbc, (0, 0, pad, 0))
+    xbc_conv = sum(xbc_pad[:, i: i + t] * w[i][None, None, :]
+                   for i in range(cfg.d_conv)) + p["conv_b"]
+    xbc_conv = F.silu(xbc_conv)
+
+    xs = xbc_conv[..., :di].reshape(b, t, h, dh)
+    Bmat = xbc_conv[..., di: di + g * n].reshape(b, t, g, n)
+    Cmat = xbc_conv[..., di + g * n:].reshape(b, t, g, n)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    y = kops.ssd_scan(xs.float(), dt, A, Bmat.float(), Cmat.float(), p["D"])
+    y = y.reshape(b, t, di).to(u.dtype)
+    y = rmsnorm(y * F.silu(z), p["norm_scale"])
+    return y @ p["w_out"]
+
+
+def ssm_init_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
+                   device=None):
+    raise NotImplementedError(_SERVING)
+
+
+def ssm_decode_step(p, cfg: SSMConfig, u: torch.Tensor, cache):
+    raise NotImplementedError(_SERVING)

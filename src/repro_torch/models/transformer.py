@@ -1,4 +1,4 @@
-"""Model assembly for the dense LM family, the counterpart of
+"""Model assembly for the dense and ssm LM families, the counterpart of
 ``repro/models/transformer.py``.
 
 The layer stack follows the arch's ``LayerProgram`` (``configs/base.py``):
@@ -15,8 +15,14 @@ matrix").  Both programs of the dense family run: uniform (``repeats ==
 Entry points:
   init_params(cfg, generator)                      -> params
   forward(params, cfg, tokens)                     -> (logits, aux)
+  loss_fn(params, cfg, batch)                      -> (loss, metrics)
   prefill(params, cfg, tokens, max_seq=)           -> (last_logits, caches)
   decode_step(params, cfg, caches, token, index=)  -> (logits, caches)
+
+``forward`` and ``loss_fn`` are differentiable (attention through the
+``FlashAttention`` Function, Mamba2's SSD through ``SSDScan``); with
+``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the JAX package.
 
 A cache tree is ``{"segments": [...], "tail": [...], "index": int}``; each
 segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``, ``pos``
@@ -24,7 +30,9 @@ segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``, ``pos``
 new token's keys and values into the caches in place and returns the same
 tensors with ``index + 1``.
 
-The other families (moe, ssm, hybrid, encdec, vlm) raise
+The ssm family (mamba2) trains (``forward``, ``loss_fn``); its serving
+(``prefill``, ``decode_step``, ``init_caches``) raises until ROADMAP Queue 1
+item 8.3.  The other families (moe, hybrid, encdec, vlm) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -34,14 +42,18 @@ import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
-from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, norm_apply, norm_init)
+from repro_torch.models import ssm as S
+from repro_torch.models.layers import (cross_entropy, dense_init, embed_init,
+                                       mlp_apply, mlp_init, norm_apply,
+                                       norm_init)
 
-__all__ = ["init_params", "forward", "prefill", "decode_step",
-           "init_caches", "count_params", "padded_vocab", "resolve_dtype"]
+__all__ = ["init_params", "forward", "loss_fn", "prefill", "decode_step",
+           "init_caches", "count_params", "model_flops_per_token",
+           "padded_vocab", "resolve_dtype"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -62,12 +74,16 @@ def padded_vocab(v: int, multiple: int = 256) -> int:
     return (v + multiple - 1) // multiple * multiple
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item {_LATER.get(cfg.family, '8')}); the "
-            "port serves the dense family")
+def _check_family(cfg: ArchConfig, train: bool = False) -> None:
+    """Raise for a family the port does not run: the dense family runs
+    every entry point, the ssm family ``init_params``, ``forward`` and
+    ``loss_fn`` (``train``) only."""
+    if cfg.family == "dense" or (train and cfg.family == "ssm"):
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+        f"(ROADMAP Queue 1 item {_LATER.get(cfg.family, '8')}); the "
+        "port serves the dense family and trains the dense and ssm ones")
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +103,17 @@ def _attn_cfg(cfg: ArchConfig, kind: str) -> A.AttnConfig:
         causal=True)
 
 
+def _ssm_cfg(cfg: ArchConfig) -> S.SSMConfig:
+    return S.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                       d_head=cfg.ssm_head, expand=cfg.ssm_expand,
+                       n_groups=cfg.ssm_groups)
+
+
 def _layer_init(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype):
     d, dev = cfg.d_model, gen.device
+    if kind == "mamba":
+        return {"norm": norm_init(cfg.norm, d, dtype, dev),
+                "ssm": S.ssm_init(gen, _ssm_cfg(cfg), dtype)}
     return {"ln1": norm_init(cfg.norm, d, dtype, dev),
             "attn": A.attn_init(gen, _attn_cfg(cfg, kind), dtype),
             "ln2": norm_init(cfg.norm, d, dtype, dev),
@@ -97,7 +122,11 @@ def _layer_init(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype):
 
 def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                  positions: torch.Tensor):
-    """Full-sequence layer: returns (x, (k, v))."""
+    """Full-sequence layer: returns (x, (k, v)); a mamba layer returns
+    (x, None)."""
+    if kind == "mamba":
+        return x + S.ssm_apply(p["ssm"], _ssm_cfg(cfg),
+                               norm_apply(cfg.norm, x, p["norm"])), None
     h = norm_apply(cfg.norm, x, p["ln1"])
     y, kv = A.attention_forward(p["attn"], _attn_cfg(cfg, kind), h,
                                 positions=positions, return_kv=True)
@@ -145,6 +174,34 @@ def _take(tree, idx: tuple):
     return tree
 
 
+def _split(tree, n: int) -> List[Any]:
+    """The n trees ``tree[l]``, made with one ``unbind`` per tensor.  Its
+    gradient is one ``stack`` of the layers' gradients, where indexing
+    the stack layer by layer would add a full-size gradient per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _split(v, n) for k, v in tree.items()}
+        return [{k: parts[k][l] for k in tree} for l in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    return [tree] * n
+
+
+def _per_layer(params, cfg: ArchConfig) -> Dict[tuple, Any]:
+    """(where, i, idx) of ``_layers`` -> that layer's params, for a pass
+    that differentiates them (``forward``)."""
+    prog = cfg.program()
+    out: Dict[tuple, Any] = {}
+    for where, segs in (("segments", prog.segments), ("tail", prog.tail)):
+        grouped = where == "segments" and prog.repeats > 1
+        for i, seg in enumerate(segs):
+            groups = (_split(params[where][i], prog.repeats) if grouped
+                      else [params[where][i]])
+            for r, tree in enumerate(groups):
+                for l, layer in enumerate(_split(tree, seg.n)):
+                    out[(where, i, (r, l) if grouped else (l,))] = layer
+    return out
+
+
 def _stack(trees: List[Any]):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -155,7 +212,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random weights on ``gen``'s device, with the JAX initializers'
     distributions (embeddings N(0, 0.02^2), projections N(0, 1/fan_in),
     norm scales as the JAX package sets them, biases 0)."""
-    _check_family(cfg)
+    _check_family(cfg, train=True)
     dtype = resolve_dtype(cfg.dtype)
     prog = cfg.program()
     pv = padded_vocab(cfg.vocab)
@@ -212,15 +269,43 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
 # public entry points
 # ---------------------------------------------------------------------------
 
+def _remat(cfg: ArchConfig, body):
+    """The configured activation-checkpoint policy around a layer body:
+    ``"full"`` recomputes the layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), ``"none"`` or
+    ``cfg.remat`` False saves everything.  JAX's ``"dots"`` policy (save
+    the matrix products' outputs) keeps its name here but recomputes in
+    full: the port has no policy that saves only some of a layer's
+    tensors."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return body
+
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False)
+    return run
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
     """Logits over a full sequence: (logits [B, T, V], aux loss 0)."""
-    _check_family(cfg)
+    _check_family(cfg, train=True)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    layers = _per_layer(params, cfg)
     for kind, where, i, idx in _layers(cfg):
-        x, _ = _layer_apply(cfg, kind, _take(params[where][i], idx), x,
-                            positions)
+        def body(h, p, kind=kind):
+            return _layer_apply(cfg, kind, p, h, positions)[0]
+        x = _remat(cfg, body)(x, layers[(where, i, idx)])
     return _logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """batch: {'tokens': [B, T+1] integer}: next-token cross entropy over
+    the padded vocab with its pad entries masked -> (loss, {'ce', 'aux'})."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = forward(params, cfg, inp)
+    ce = cross_entropy(logits, labels, true_vocab=cfg.vocab)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
@@ -299,3 +384,10 @@ def count_params(params) -> int:
     if isinstance(params, (list, tuple)):
         return sum(count_params(v) for v in params)
     return params.numel() if isinstance(params, torch.Tensor) else 0
+
+
+def model_flops_per_token(cfg: ArchConfig, n_params: int,
+                          n_active: Optional[int] = None) -> float:
+    """Training FLOPs a token by the 6 N convention (N = the active
+    parameters for MoE)."""
+    return 6.0 * (n_active if n_active is not None else n_params)

@@ -12,7 +12,13 @@ neurons (the parity contract of tests/test_kernels.py); flash attention
 within rtol=atol=2e-5 of its plain version in float32 (the sums run in
 another order) and within 1e-2 in bfloat16, against the plain version on
 the same bf16 inputs upcast to float32 (the kernel's output is rounded to
-bf16)."""
+bf16).  The flash-attention backward: in float32 within rtol=5e-4,
+atol=5e-5 of autograd through the plain attention (tests/test_kernels.py's
+gradient tolerance); in bfloat16 within rtol=1e-2 plus 1e-2 of each
+gradient's largest entry of the plain backward on the same saved bf16
+tensors (each gradient is rounded to bf16 once: 2^-8 relative).  The SSD
+scan within rtol=atol=2e-4 of ``ssd_chunked`` (tests/test_kernels.py's
+tolerance), with TF32 off."""
 
 import numpy as np
 import pytest
@@ -23,7 +29,10 @@ from repro_torch.kernels import ell_spmv as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hh_step as HH  # noqa: E402
 from repro_torch.kernels import izhikevich_step as IZ  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NEURON_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -161,7 +170,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     FA.reset_launches()
     out = FA.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert FA.launches == {"flash_attention": 1}
+    assert FA.launches == {"flash_attention": 1, "flash_attention_bwd": 0}
     assert out.dtype == dt and out.shape == (b, hq, tq, d)
     ref = TR.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
     tol = 2e-5 if dtype == "float32" else 1e-2
@@ -180,3 +189,114 @@ def test_cuda_flash_attention_rejects_bad_operands(cuda_device):
         FA.flash_attention(q[:, :3], k, k)
     with pytest.raises(ValueError):
         FA.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_grads_match_plain(cuda_device, case):
+    """q, k and v get the gradients of autograd through the plain version
+    (the repaired fault: the kernel's output had no grad_fn)."""
+    b, hq, hkv, tq, tk, d, causal, window, softcap, prefix, off = case
+    rng = np.random.default_rng(3)
+
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=cuda_device)
+
+    kw = dict(causal=causal, window=window, softcap=softcap, prefix=prefix,
+              q_offset=off)
+    q, k, v, g = (t((b, hq, tq, d)), t((b, hkv, tk, d)), t((b, hkv, tk, d)),
+                  t((b, hq, tq, d)))
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    FA.reset_launches()
+    out = kops.flash_attention(*ins, **kw)
+    grads = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 1, "flash_attention_bwd": 1}
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(TR.flash_attention_ref(*refs, **kw), refs, g)
+    for name, a, w in zip("qkv", grads, want):
+        assert a.abs().sum() > 0, name
+        torch.testing.assert_close(a, w, rtol=5e-4, atol=5e-5,
+                                   msg=lambda m: f"d{name}: {m}")
+    _, lse = TR.flash_attention_fwd_ref(q, k, v, **kw)
+    _, lse_k = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.testing.assert_close(lse_k, lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES[:2] + FLASH_CASES[4:5])
+def test_cuda_flash_attention_bwd_bf16_matches_plain(cuda_device, case):
+    b, hq, hkv, tq, tk, d, causal, window, softcap, prefix, off = case
+    rng = np.random.default_rng(4)
+
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=cuda_device).to(torch.bfloat16)
+
+    kw = dict(causal=causal, window=window, softcap=softcap, prefix=prefix,
+              q_offset=off)
+    q, k, v, g = (t((b, hq, tq, d)), t((b, hkv, tk, d)), t((b, hkv, tk, d)),
+                  t((b, hq, tq, d)))
+    out, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    want = TR.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                      out.float(), lse, g.float(), **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), w, rtol=1e-2,
+                                   atol=1e-2 * float(w.abs().max()))
+
+
+# b, t, h, dh, ds
+SSD_CASES = [(2, 256, 8, 64, 128), (1, 96, 4, 64, 128), (1, 1000, 3, 16, 16),
+             (2, 300, 5, 32, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_d", [True, False])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_cuda_ssd_scan_matches_plain(cuda_device, case, with_d):
+    b, t, h, dh, ds = case
+    rng = np.random.default_rng(5)
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda_device)
+
+    x = f(rng.standard_normal((b, t, h, dh)))
+    dt = f(0.001 + 0.1 * rng.random((b, t, h)))
+    A = f(-np.exp(rng.uniform(0, 2, h)))
+    B = f(rng.standard_normal((b, t, 1, ds)))
+    C = f(rng.standard_normal((b, t, 1, ds)))
+    D = f(rng.standard_normal(h)) if with_d else None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    SSD.reset_launches()
+    y = SSD.ssd_scan(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert SSD.launches == {"ssd_scan": 1}
+    ref = TS.ssd_chunked(x, dt, A, B, C, D)
+    torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y, TR.ssd_scan_ref(x, dt, A, B, C, D),
+                               rtol=2e-4, atol=2e-4)
+    # the Function: kernel forward, gradients of ssd_chunked
+    xs = x.clone().requires_grad_(True)
+    y2 = kops.ssd_scan(xs, dt, A, B, C, D)
+    (gx,) = torch.autograd.grad(y2.sum(), [xs])
+    xr = x.clone().requires_grad_(True)
+    (gr,) = torch.autograd.grad(TS.ssd_chunked(xr, dt, A, B, C, D).sum(),
+                                [xr])
+    torch.testing.assert_close(gx, gr)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    dt = torch.zeros(1, 8, 2, device=cuda_device)
+    A = torch.zeros(2, device=cuda_device)
+    B = torch.zeros(1, 8, 1, 16, device=cuda_device)
+    with pytest.raises(NotImplementedError):        # n_groups 2
+        SSD.ssd_scan(x, dt, A, B.expand(1, 8, 2, 16), B.expand(1, 8, 2, 16))
+    with pytest.raises(ValueError):                 # dh > 64
+        SSD.ssd_scan(x.expand(1, 8, 2, 16).repeat(1, 1, 1, 5), dt, A, B, B)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x, dt.cpu(), A, B, B)

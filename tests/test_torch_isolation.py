@@ -119,7 +119,7 @@ def test_cpu_server_launches_no_kernel():
     HH.reset_launches()
     done = srv.run()
     assert sorted(len(r.out) for r in done) == [3, 3, 3]
-    assert FA.launches == {"flash_attention": 0}
+    assert FA.launches == {"flash_attention": 0, "flash_attention_bwd": 0}
     assert not any({**K.launches, **IZ.launches, **HH.launches}.values())
 
 
