@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one card.  The kernels
 build from ``src/repro_torch/kernels/csrc`` at first use.  Phases (any
 failure ends the run with a non-zero exit):
 
-  1. the card (name, power limit) and the kernel build;
+  1. the card (name, power limit) and the kernel build (seconds and
+     registers per source);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of its path, with times of the kernel and the plain version
      beside the bound:
@@ -26,13 +27,16 @@ failure ends the run with a non-zero exit):
   2c. flash_attention against its plain version on the card, with kernel,
      plain and library (torch's scaled_dot_product_attention on the same
      inputs, a yardstick only: the port never calls it) times beside the
-     bound: the serving prefill's shape, q [8, 14, 2048, 64] and k, v
+     bound; bf16 runs on the tensor-core kernels, float32 on the CUDA-core
+     ones: the serving prefill's shape, q [8, 14, 2048, 64] and k, v
      [8, 2, 2048, 64], bf16, causal (rtol=atol=1e-2 against the plain
      version in float32 on the same bf16 inputs); the same at B=1 in
      float32 (2e-5); gemma3's local layer, [1, 16, 2048, 256] /
      [1, 8, 2048, 256], window 1024, bf16; softcap 30, and prefix 100, at
-     [1, 4, 256, 64] / [1, 2, 256, 64], float32; non-causal ragged T=200,
-     float32;
+     [1, 4, 256, 64] / [1, 2, 256, 64], in float32 and in bf16; non-causal
+     ragged T=200 in both; in bf16 also q_offset 100, zamba2's D=112
+     ([1, 32, 2048, 112]), D=40 (a contraction padded with zeros) and the
+     prefill shape without the causal mask;
   3. the main path at full width: the Izhikevich net, 100k neurons, 1000
      synapses per neuron (4 split ELL groups, ~1.8 GB), 1000 steps; its
      launch counts (4 ell_spmv and 2 izhikevich_step per step); 50 steps
@@ -75,8 +79,8 @@ failure ends the run with a non-zero exit):
      (``flash_attention_bwd_ref``, on the same saved tensors) and against
      autograd through ``flash_attention_ref``: Qwen2-0.5B's training
      shape, q [4, 14, 2048, 64], k/v [4, 2, 2048, 64], bf16, causal; the
-     same at B=1 in float32; gemma3's local layer; small float32 softcap,
-     prefix and non-causal cases (tolerances at FLASH_BWD_TOL); beside the
+     same at B=1 in float32; gemma3's local layer; the other cases of 2c
+     (tolerances at FLASH_BWD_TOL); beside the
      bound, the plain backward's time and SDPA's backward
      (``torch.autograd.grad`` through ``scaled_dot_product_attention``, a
      yardstick only) with the kernels it ran;
@@ -84,8 +88,11 @@ failure ends the run with a non-zero exit):
      params, float32 master copies and moments, remat): batch 4 x 2048
      from ``TokenPipeline(seed=0)``, 4 steps (the first a warm-up); each
      step 48 ``flash_attention`` and 24 ``flash_attention_bwd`` launches
-     and a finite loss; ms/step, tokens/s, model TFLOP/s (6N), peak
-     memory, and a torch.profiler trace of one more step;
+     and a finite loss (the first step's printed beside 12.07, its value
+     on the CUDA-core flash kernels);
+     ms/step, tokens/s, model TFLOP/s (6N), peak memory, and a
+     torch.profiler trace of one more step, whose flash kernels must show
+     by name;
   8b. the same for Mamba2-2.7B (64 layers): batch 2 x 2048, 3 steps, 128
      ``ssd_scan`` launches a step;
   8c. one training step of each, 2 layers at full width in float32, with
@@ -140,6 +147,7 @@ MB_RUN = dict(steps=2500, plain_steps=200, search_steps=2500,
               search=tuple(0.24 * 2.0 ** (i / 4 - 1) for i in range(12)))
 # name, (B, Hq, Hkv, T, D), dtype, options, tolerance against the plain
 # version (in float32, on the same inputs)
+# (bf16 runs on the tensor cores, float32 on the CUDA cores)
 FLASH_CASES = (
     ("prefill", (8, 14, 2, 2048, 64), "bfloat16", {"causal": True}, 1e-2),
     ("prefill_b1_f32", (1, 14, 2, 2048, 64), "float32", {"causal": True},
@@ -152,6 +160,21 @@ FLASH_CASES = (
      {"causal": True, "prefix": 100}, 2e-5),
     ("noncausal_ragged", (2, 4, 4, 200, 64), "float32", {"causal": False},
      2e-5),
+    ("softcap_bf16", (1, 4, 2, 256, 64), "bfloat16",
+     {"causal": True, "softcap": 30.0}, 1e-2),
+    ("prefix_bf16", (1, 4, 2, 256, 64), "bfloat16",
+     {"causal": True, "prefix": 100}, 1e-2),
+    ("noncausal_ragged_bf16", (2, 4, 4, 200, 64), "bfloat16",
+     {"causal": False}, 1e-2),
+    ("q_offset_bf16", (1, 4, 2, 256, 64), "bfloat16",
+     {"causal": True, "q_offset": 100}, 1e-2),
+    ("zamba2_d112", (1, 32, 32, 2048, 112), "bfloat16", {"causal": True},
+     1e-2),
+    ("d40_bf16", (1, 4, 2, 256, 40), "bfloat16", {"causal": True}, 1e-2),
+    # the prefill shape without the causal mask: what the masks cost the
+    # tensor-core kernel per visible pair
+    ("prefill_noncausal", (8, 14, 2, 2048, 64), "bfloat16",
+     {"causal": False}, 1e-2),
 )
 SERVE = dict(arch="qwen2-0.5b", max_batch=8, max_seq=4096, requests=16,
              prompt_len=(1024, 2048), max_new=32, check_prompts=2,
@@ -182,6 +205,17 @@ FLASH_BWD_CASES = (
      {"causal": True, "softcap": 30.0}),
     ("prefix", (1, 4, 2, 256, 64), "float32", {"causal": True, "prefix": 100}),
     ("noncausal_ragged", (2, 4, 4, 200, 64), "float32", {"causal": False}),
+    ("softcap_bf16", (1, 4, 2, 256, 64), "bfloat16",
+     {"causal": True, "softcap": 30.0}),
+    ("prefix_bf16", (1, 4, 2, 256, 64), "bfloat16",
+     {"causal": True, "prefix": 100}),
+    ("noncausal_ragged_bf16", (2, 4, 4, 200, 64), "bfloat16",
+     {"causal": False}),
+    ("q_offset_bf16", (1, 4, 2, 256, 64), "bfloat16",
+     {"causal": True, "q_offset": 100}),
+    ("zamba2_d112", (1, 32, 32, 2048, 112), "bfloat16", {"causal": True}),
+    ("d40_bf16", (1, 4, 2, 256, 40), "bfloat16", {"causal": True}),
+    ("train_noncausal", (4, 14, 2, 2048, 64), "bfloat16", {"causal": False}),
 )
 # float32: tests/test_kernels.py's gradient tolerance.  bf16: against the
 # plain backward on the same saved bf16 tensors, 1e-2 of each gradient's
@@ -196,7 +230,10 @@ FLASH_BWD_TOL = {"float32": (5e-4, 5e-5), "bfloat16": (1e-2, 3e-2)}
 TRAIN = {
     "qwen2-0.5b": dict(batch=4, seq=2048, steps=4, lr=3e-3,
                        per_step={"flash_attention": 48,
-                                 "flash_attention_bwd": 24}),
+                                 "flash_attention_bwd": 24},
+                       # the first step's loss on the CUDA-core flash
+                       # kernels (same seed and data; PERF.md)
+                       first_loss_cuda_cores=12.07),
     "mamba2-2.7b": dict(batch=2, seq=2048, steps=3, lr=3e-3,
                         per_step={"ssd_scan": 128}),
 }
@@ -302,7 +339,7 @@ def card_and_build(torch, report) -> dict:
         for name, b in built.items():
             regs = [ln.strip() for ln in b["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
-            print(f"  {name}: " + " | ".join(regs))
+            print(f"  {name}.cu: {b['seconds']:.2f} s; " + " | ".join(regs))
         report["build_seconds"] = secs
         return {n: {"seconds": b["seconds"], "cached": b["cached"]}
                 for n, b in built.items()}
@@ -547,10 +584,11 @@ def compare_neuron_kernels(torch, report) -> list:
     return entries
 
 
-def _visible_pairs(torch, tq, tk, causal, window=None, prefix=None, **_):
+def _visible_pairs(torch, tq, tk, causal, window=None, prefix=None,
+                   q_offset=0, **_):
     """The number of (query, key) pairs the masks leave visible in one
     (batch, head), and the mask [tq, tk]."""
-    qpos = torch.arange(tq, device="cuda")[:, None]
+    qpos = q_offset + torch.arange(tq, device="cuda")[:, None]
     kpos = torch.arange(tk, device="cuda")[None, :]
     mask = torch.ones(tq, tk, dtype=torch.bool, device="cuda")
     if causal:
@@ -624,7 +662,9 @@ def compare_flash(torch, report) -> list:
     report["flash_table"] = rows
     r = rows[0]                       # the serving prefill's own shape
     return [{"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             # the bf16 route (tensor cores), which the path runs
+             "source":
+                 "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "replaces": "src/repro/kernels/flash_attention.py:112",
              "launches": 0,
              **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -806,7 +846,9 @@ def compare_flash_bwd(torch, report) -> list:
     report["flash_bwd_table"] = rows
     r = rows[0]                       # the training shape
     return [{"name": "flash_attention_bwd", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             # the bf16 route (tensor cores), which the path runs
+             "source":
+                 "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "replaces": "src/repro/kernels/flash_xla.py:121",
              "launches": 0,
              **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -857,6 +899,13 @@ def _raster_agreement(torch, a, b) -> float:
     return num / den
 
 
+def _flash_kernels(direction: str) -> tuple:
+    """The device kernels of both flash routes, forward ("fwd") or
+    backward ("bwd"), by the names a profile shows."""
+    from repro_torch.kernels import flash_attention as FA
+    return tuple(n for r in FA.ROUTES.values() for n in r[direction])
+
+
 def _device_profile(torch, fn) -> dict:
     """Device time by kernel name and the wall time of ``fn()`` under
     torch.profiler (``fn`` ends in a synchronise)."""
@@ -901,7 +950,7 @@ def _profile_window(torch, model, steps: int, **run_kw) -> dict:
             if any(k in n for k in ("ell_spmv_kernel",
                                     "izhikevich_step_kernel",
                                     "hh_step_kernel",
-                                    "flash_attention_kernel"))}
+                                    *_flash_kernels("fwd")))}
     busy_us, wall_us = prof["device_busy_us"], prof["wall_us"]
     top = [(n, us) for n, _, us in prof["top"][:6]]
     print(f"profiled {steps} steps: device busy {busy_us:.0f} of "
@@ -1337,8 +1386,11 @@ def serve_full(torch, report) -> dict:
 
         prof_prefill = _device_profile(torch, prefill)
         fa_us = sum(us for n, (_, us) in prof_prefill["by_name"].items()
-                    if "flash_attention_kernel" in n)
+                    if any(k in n for k in _flash_kernels("fwd")))
         prof_prefill["flash_share"] = fa_us / prof_prefill["device_busy_us"]
+        check(prof_prefill["flash_share"] > 0,
+              "the prefill profile shows no flash_attention kernel by name: "
+              f"{prof_prefill['top']}")
         token = box["logits"].argmax(-1)
 
         def decode():
@@ -1383,10 +1435,9 @@ def _train_setup(torch, cfg, batch: int, seq: int, steps: int, lr: float,
             pipe)
 
 
-# device-time categories of a training step, by kernel name (first match)
+# device-time categories of a training step, by kernel name (first match),
+# after the flash kernels of both routes (kernels.flash_attention.ROUTES)
 STEP_CATEGORIES = (
-    ("flash_attention_bwd", ("flash_bwd",)),
-    ("flash_attention", ("flash_attention_kernel",)),
     ("ssd_scan", ("ssd_scan_kernel",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
     ("copy", ("copy", "Memcpy", "Memset")),
@@ -1399,10 +1450,12 @@ STEP_CATEGORIES = (
 def _categories(prof) -> dict:
     """Device us and share of busy time by STEP_CATEGORIES ("other" for a
     kernel no pattern names)."""
+    cats = (("flash_attention_bwd", _flash_kernels("bwd")),
+            ("flash_attention", _flash_kernels("fwd"))) + STEP_CATEGORIES
     out: dict = {}
     for n, (c, us) in prof["by_name"].items():
-        cat = next((k for k, pats in STEP_CATEGORIES
-                    if any(p in n for p in pats)), "other")
+        cat = next((k for k, pats in cats if any(p in n for p in pats)),
+                   "other")
         o = out.setdefault(cat, {"launches": 0, "us": 0.0})
         o["launches"] += c
         o["us"] += us
@@ -1456,6 +1509,10 @@ def train_full(torch, report, arch: str, label: str) -> dict:
                          "launches": {k: v for k, v in step_launches.items()
                                       if v}})
             print("step: " + json.dumps(rows[-1]))
+            if i == 0 and "first_loss_cuda_cores" in spec:
+                print(f"{arch}: first step's loss {loss:.4f} beside "
+                      f"{spec['first_loss_cuda_cores']} on the CUDA-core "
+                      "flash kernels (same seed and data)")
             check(math.isfinite(loss), f"{arch}: step {i + 1} loss {loss}")
             for k, want in spec["per_step"].items():
                 check(step_launches[k] == want,
@@ -1481,6 +1538,9 @@ def train_full(torch, report, arch: str, label: str) -> dict:
 
         prof = _device_profile(torch, one_step)
         cats = _categories(prof)
+        for k in spec["per_step"]:
+            check(cats.get(k, {}).get("us", 0) > 0,
+                  f"{arch}: the step's profile shows no {k} kernel by name")
         print(f"profiled step: device busy {prof['device_busy_us']:.0f} of "
               f"{prof['wall_us']:.0f} us ({100 * prof['busy_share']:.1f}%), "
               f"{prof['device_ops']} device ops; by category "

@@ -92,13 +92,25 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        # the compiler's output goes to a file, so that each build's own
+        # seconds can be read off as it ends (a pipe would have to be
+        # drained in turn)
+        log_file = tmp.with_suffix(".log")
+        with open(log_file, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT),
+                           tmp, out, log_file, time.perf_counter())
+    ended: Dict[str, float] = {}
+    while len(ended) < len(procs):
+        for name, (proc, *_, t0) in procs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter() - t0
+        time.sleep(0.02)
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
+    for name, (proc, tmp, out, log_file, _) in procs.items():
+        log = log_file.read_text()
+        log_file.unlink()
+        secs = ended[name]
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)

@@ -1,4 +1,7 @@
-// Flash attention forward on Hopper (sm_90a), on the CUDA cores.
+// Flash attention forward on Hopper (sm_90a), on the CUDA cores: the
+// float32 route.  bf16 operands take the tensor-core kernels of
+// flash_attention_sm90.cu; float32 stays here, because float32 on the
+// tensor cores would be TF32, which cannot hold the float32 tolerances.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
 // flash_attention_pallas (body `_kernel`): softmax(q k^T * scale) v with
@@ -8,8 +11,8 @@
 // and output accumulator acc, rescaled as each key tile arrives).
 //
 // Layout: q [B, Hq, Tq, D], k and v [B, Hkv, Tk, D], o like q, all dense
-// row-major (the wrapper makes them contiguous), float32 or bfloat16; the
-// arithmetic is float32 throughout and o is rounded to q's type at the end.
+// row-major (the wrapper makes them contiguous), float32; the arithmetic is
+// float32 throughout.
 // Query head h reads key/value head h / (Hq / Hkv): the grouped heads are
 // never repeated in memory.  Any D <= 256 with D % 8 == 0 (rows are read
 // 16 bytes at a time).
@@ -44,12 +47,11 @@
 // 3.35 TB/s.  This kernel runs on the CUDA cores in float32 (67 TFLOP/s
 // counting an FMA as two), so its own ceiling is ~0.9 ms; the register
 // tiles give 8 FMAs per shared-memory load to approach it.  Tensor cores
-// (mma.sync or wgmma on bf16 tiles) and TMA-fed K/V are the next step.
+// (wgmma on bf16 tiles) and TMA-fed K/V are flash_attention_sm90.cu.
 //
 // The build turns off multiply-add contraction (-fmad=false, _build.py);
 // the dot products here are explicit fmaf, the rest rounds as written.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstdint>
@@ -89,24 +91,6 @@ struct Vec<float> {
     out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   }
   __device__ static void store(float x, float* p) { *p = x; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(float x, __nv_bfloat16* p) {
-    *p = __float2bfloat16(x);         // round to nearest even, as .to()
-  }
 };
 
 // Rows row0 .. row0+63 of a [rows_total, d] array into shared memory as
@@ -422,10 +406,6 @@ template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
 __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // delta[row] = sum_d dO[row, d] * O[row, d] in float32, one warp a row
 template <typename T>
@@ -756,7 +736,8 @@ cudaError_t launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns the launch's cudaError_t.
+// dtype: 0 float32 (bfloat16 is flash_attention_sm90.cu's).  Returns the
+// launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int dtype, int batch,
                                    int hq,
@@ -770,8 +751,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                  prefix, use_softcap, softcap, q_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch<float>(p, batch, s));
-  if (dtype == 1)
-    return static_cast<int>(dispatch<__nv_bfloat16>(p, batch, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -780,8 +759,9 @@ extern "C" const char* flash_attention_error_string(int err) {
 }
 
 // The gradients (dq like q; dk, dv like k) from the saved forward (o, lse)
-// and dout; delta is float32 scratch [batch, hq, tq].  dtype: 0 float32,
-// 1 bfloat16.  Returns the first failing launch's cudaError_t.
+// and dout; delta is float32 scratch [batch, hq, tq].  dtype: 0 float32
+// (bfloat16 is flash_attention_sm90.cu's).  Returns the first failing
+// launch's cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const float* lse, float* delta, void* dq,
@@ -797,7 +777,5 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                     softcap, q_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_bwd<float>(p, batch, s));
-  if (dtype == 1)
-    return static_cast<int>(launch_bwd<__nv_bfloat16>(p, batch, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,16 +1,22 @@
 """Wrappers around the hand-written flash-attention kernels, and their
 ``torch.autograd.Function``.
 
-``csrc/flash_attention.cu`` replaces the TPU kernel
+Two routes replace the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (the forward)
-and the recompute backward of ``repro/kernels/flash_xla.py`` (``_bwd``);
-its header says how, and what bounds them on the card.
+and the recompute backward of ``repro/kernels/flash_xla.py`` (``_bwd``):
+bf16 operands go to the tensor cores (``csrc/flash_attention_sm90.cu``:
+wgmma on bf16 tiles fed by TMA), float32 operands to the CUDA cores
+(``csrc/flash_attention.cu``; float32 on the tensor cores would be TF32).
+The sources' headers say how, and what bounds them on the card.
 
 Dispatch goes by where the tensors lie: on the CPU the plain versions
 ``repro_torch.kernels.ref.flash_attention_fwd_ref`` / ``_bwd_ref``; on a
-CUDA device the kernels, on the current stream, or an error.  The kernels
-read dense row-major ``[B, H, T, D]`` operands: the wrappers make q, k and
-v contiguous (a copy when they are transposed views, as the model's
+CUDA device the kernels of the dtype's route, on the current stream, or an
+error (a failed launch raises; nothing falls back to the other route).
+``launch_plan`` computes on the host what each launch needs (route, tiles,
+ring stages, shared memory, TMA boxes, grid).  The kernels read dense
+row-major ``[B, H, T, D]`` operands: the wrappers make q, k and v
+contiguous (a copy when they are transposed views, as the model's
 ``[B, T, H, D]`` projections are) and return contiguous outputs.
 
 ``FlashAttention.apply`` is the differentiable attention of the port, on
@@ -35,12 +41,32 @@ from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
                                            check_operand, on_cpu, raise_on)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "FlashAttention", "launches", "reset_launches", "MAX_HEAD_DIM"]
+           "FlashAttention", "launches", "reset_launches", "launch_plan",
+           "ROUTES", "MAX_HEAD_DIM", "SMEM_MAX"]
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the route of each dtype the kernels take, and its device kernels by name
+# (as a profile shows them)
+ROUTES = {
+    torch.bfloat16: {"route": "tensor_cores",
+                     "fwd": ("flash_fwd_wgmma_kernel",),
+                     "bwd": ("flash_bwd_rowsum_kernel",
+                             "flash_bwd_dkdv_wgmma_kernel",
+                             "flash_bwd_dq_wgmma_kernel")},
+    torch.float32: {"route": "cuda_cores",
+                    "fwd": ("flash_attention_kernel",),
+                    "bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                            "flash_bwd_dq_kernel")},
+}
+SMEM_MAX = 232_448        # dynamic shared memory one CTA may use (H100)
+_SMEM_SM = 233_472        # shared memory of one SM
+_SMEM_RESERVED = 1_024    # the runtime's share of every resident CTA
+_PANEL = 64               # columns of a TMA box: 128 bytes of bf16
+_ROW = 128                # bytes of one box row
+_FWD_BQ = 128             # queries a forward CTA (two warpgroups of 64)
+_BWD_TILE = 64            # keys (dK/dV) or queries (dQ) a backward CTA
 
 
 def reset_launches() -> None:
@@ -50,6 +76,7 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The float32 route (CUDA cores)."""
     lib = _build.load("flash_attention")
     lib.flash_attention_fwd.argtypes = ([P] * 5 + [I] * 7 + [F] + [I] * 4
                                         + [F, I, P])
@@ -60,6 +87,84 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_tc() -> ctypes.CDLL:
+    """The bf16 route (tensor cores)."""
+    lib = _build.load("flash_attention_sm90")
+    lib.flash_attention_sm90_fwd.argtypes = ([P] * 5 + [I] * 6 + [F]
+                                             + [I] * 4 + [F] + [I] * 3 + [P])
+    lib.flash_attention_sm90_fwd.restype = I
+    lib.flash_attention_sm90_bwd.argtypes = ([P] * 10 + [I] * 6 + [F]
+                                             + [I] * 4 + [F] + [I] * 5 + [P])
+    lib.flash_attention_sm90_bwd.restype = I
+    lib.flash_attention_sm90_error_string.argtypes = [I]
+    lib.flash_attention_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _stages(budget: int, fixed: int, stage: int, most: int = 3) -> int:
+    """Ring stages (at most ``most``) whose tiles and two mbarriers each
+    fit ``budget`` bytes beside ``fixed`` ones (+ 1024 of alignment slack
+    and the resident tile's mbarrier)."""
+    return min(most, (budget - 1024 - fixed - 8) // (stage + 16))
+
+
+def launch_plan(dtype: torch.dtype, b: int, hq: int, hkv: int, tq: int,
+                tk: int, d: int) -> dict:
+    """What the launches of ``dtype``'s route need at these shapes.
+
+    bf16 (the tensor cores): per kernel its threads, rows per tile, ring
+    stages, dynamic shared memory (which ``csrc/flash_attention_sm90.cu``
+    checks against its own layout), TMA boxes (columns, rows) and grid.
+    D is loaded in ``panels`` boxes of 64 columns, the columns past D
+    filled with zeros.  The forward CTA holds 128 queries (two consumer
+    warpgroups) and takes K/V tiles of 128 keys up to D = 128, 64 above;
+    the backward CTAs hold 64 keys (dK/dV, one 128-column block of them:
+    grid axis z; up to D = 64 two consumer warpgroups take alternate
+    (head, query tile) items from a 4-stage ring) or 64 queries (dQ, two
+    CTAs to an SM at D <= 64).  Every grid has its tiles on axis y, the
+    longest causal ones launched first.
+    float32 (the CUDA cores): the route alone; ``csrc/flash_attention.cu``
+    plans its own launches."""
+    route = ROUTES[dtype]["route"]
+    if dtype == torch.float32:
+        return {"route": route}
+    panels = _cdiv(d, _PANEL)
+    bk = 128 if panels <= 2 else 64
+    q_bytes = panels * _FWD_BQ * _ROW
+    kv_stage = 2 * panels * bk * _ROW
+    st = _stages(SMEM_MAX, q_bytes, kv_stage)
+    fwd = {"threads": 384, "bq": _FWD_BQ, "bk": bk, "stages": st,
+           "smem": 1024 + q_bytes + st * kv_stage + 8 * (2 * st + 1),
+           "boxes": {"q": (_PANEL, _FWD_BQ), "kv": (_PANEL, bk)},
+           "grid": (b * hq, _cdiv(tq, _FWD_BQ)), "ctas_per_sm": 1}
+    pair = 2 * panels * _BWD_TILE * _ROW           # K+V, Q+dO: one tile each
+    side = 2 * _BWD_TILE * 4                       # lse and delta a stage
+
+    def bwd(threads, ctas, most):
+        budget = min(SMEM_MAX, _SMEM_SM // ctas - _SMEM_RESERVED)
+        st = _stages(budget, pair, pair + side, most)
+        return {"threads": threads, "tile": _BWD_TILE, "stages": st,
+                "smem": 1024 + pair + st * (pair + side) + 8 * (2 * st + 1),
+                "boxes": {"q": (_PANEL, _BWD_TILE),
+                          "kv": (_PANEL, _BWD_TILE)},
+                "ctas_per_sm": ctas}
+
+    two_wg = panels == 1
+    dkdv = bwd(384, 1, 4) if two_wg else bwd(160, 1, 3)
+    return {"route": route, "panels": panels, "fwd": fwd,
+            "dkdv": {**dkdv, "consumer_warpgroups": 2 if two_wg else 1,
+                     "col_panels": min(panels, 2),
+                     "grid": (b * hkv, _cdiv(tk, _BWD_TILE),
+                              _cdiv(panels, 2))},
+            "dq": {**bwd(160, 2 if panels == 1 else 1, 3),
+                   "grid": (b * hq, _cdiv(tq, _BWD_TILE))}}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -86,7 +191,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 8 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernel takes D <= "
                          f"{MAX_HEAD_DIM} with D % 8 == 0")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in ROUTES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
     if b * hq > GRID_Y_MAX or max(tq, tk) > INT_MAX:
@@ -98,6 +203,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if abs(q_offset) > INT_MAX // 2:
         raise ValueError(f"q_offset {q_offset} does not fit the kernel")
     return b, hq, hkv, tq, tk, d
+
+
+def _checked_plan(*shape) -> dict:
+    """The bf16 plan at ``shape`` (b, hq, hkv, tq, tk, d); raises where a
+    grid would exceed what a launch takes on axis y (the tiles)."""
+    plan = launch_plan(torch.bfloat16, *shape)
+    if max(plan[k]["grid"][1] for k in ("fwd", "dkdv", "dq")) > GRID_Y_MAX:
+        raise ValueError(f"sequence lengths {shape[3:5]} exceed the "
+                         "kernel's grid")
+    return plan
 
 
 def _masks(causal, window, scale, d, softcap, prefix):
@@ -129,15 +244,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    shape = (b, hq, hkv, tq, tk, d)
+    opts = (*_masks(causal, window, scale, d, softcap, prefix), int(q_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODE[q.dtype], b, hq, hkv, tq, tk, d,
-            *_masks(causal, window, scale, d, softcap, prefix),
-            int(q_offset), stream)
+        if q.dtype == torch.bfloat16:
+            plan = _checked_plan(*shape)["fwd"]
+            lib = _lib_tc()
+            rc = lib.flash_attention_sm90_fwd(*args, *shape, *opts,
+                                              plan["stages"], plan["smem"],
+                                              stream)
+            err = lib.flash_attention_sm90_error_string
+        else:
+            rc = _lib().flash_attention_fwd(*args, 0, *shape, *opts, stream)
+            err = _lib().flash_attention_error_string
     launches["flash_attention"] += 1
-    raise_on(rc, _lib().flash_attention_error_string, "flash_attention")
+    raise_on(rc, err, "flash_attention")
     return out, lse
 
 
@@ -172,16 +296,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    args = tuple(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
+                                        dk, dv))
+    shape = (b, hq, hkv, tq, tk, d)
+    opts = (*_masks(causal, window, scale, d, softcap, prefix), int(q_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, hq, hkv,
-            tq, tk, d, *_masks(causal, window, scale, d, softcap, prefix),
-            int(q_offset), stream)
+        if q.dtype == torch.bfloat16:
+            plan = _checked_plan(*shape)
+            lib = _lib_tc()
+            rc = lib.flash_attention_sm90_bwd(
+                *args, *shape, *opts, plan["dkdv"]["stages"],
+                plan["dkdv"]["smem"], plan["dq"]["stages"],
+                plan["dq"]["smem"], stream)
+            err = lib.flash_attention_sm90_error_string
+        else:
+            rc = _lib().flash_attention_bwd(*args, 0, *shape, *opts, stream)
+            err = _lib().flash_attention_error_string
     launches["flash_attention_bwd"] += 1
-    raise_on(rc, _lib().flash_attention_error_string, "flash_attention_bwd")
+    raise_on(rc, err, "flash_attention_bwd")
     return dq, dk, dv
 
 

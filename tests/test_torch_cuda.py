@@ -147,6 +147,8 @@ FLASH_CASES = [
     (2, 4, 4, 200, 200, 64, False, None, None, None, 0),
     (1, 4, 2, 300, 300, 256, True, 128, None, None, 0),
     (1, 2, 1, 96, 96, 112, True, None, None, None, 0),
+    # D = 40: the tensor-core kernels pad the contraction with zeros
+    (1, 2, 1, 200, 200, 40, True, None, None, None, 0),
 ]
 
 
@@ -225,7 +227,7 @@ def test_cuda_flash_attention_grads_match_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", FLASH_CASES[:2] + FLASH_CASES[4:5])
+@pytest.mark.parametrize("case", FLASH_CASES)
 def test_cuda_flash_attention_bwd_bf16_matches_plain(cuda_device, case):
     b, hq, hkv, tq, tk, d, causal, window, softcap, prefix, off = case
     rng = np.random.default_rng(4)
@@ -246,6 +248,34 @@ def test_cuda_flash_attention_bwd_bf16_matches_plain(cuda_device, case):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), w, rtol=1e-2,
                                    atol=1e-2 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_route_by_dtype(cuda_device, dtype):
+    """A bf16 call runs the tensor-core kernels and a float32 call the
+    CUDA-core ones, by kernel name in a torch.profiler trace; neither runs
+    a kernel of the other route."""
+    from torch.profiler import ProfilerActivity, profile
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, dout = (torch.randn(shape, device=cuda_device, generator=g
+                                 ).to(dt)
+                     for shape in ((1, 4, 128, 64), (1, 2, 128, 64),
+                                   (1, 2, 128, 64), (1, 4, 128, 64)))
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True)      # built
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+        FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    mine, other = (FA.ROUTES[dt], FA.ROUTES[torch.float32 if dt ==
+                                           torch.bfloat16 else torch.bfloat16])
+    for kern in mine["fwd"] + mine["bwd"]:
+        assert any(kern in n for n in names), (kern, names)
+    for kern in other["fwd"] + other["bwd"]:
+        assert not any(kern in n for n in names), (kern, names)
 
 
 # b, t, h, dh, ds
