@@ -71,10 +71,16 @@ failure ends the run with a non-zero exit):
      share of one prefill wave's device time and the card's busy share
      over 20 decode steps;
   2d. ssd_scan against its plain version (``ssd_chunked``) on the card,
-     TF32 off: Mamba2-2.7B's training shape, x [2, 2048, 80, 64] and B/C
-     [2, 2048, 1, 128] float32, and t = 96, t = 1000, 4 and 3 heads,
-     within rtol=atol=2e-4; kernel and plain times beside the bound (no
-     single PyTorch call computes the scan);
+     torch's TF32 off: Mamba2-2.7B's training shape, x [2, 2048, 80, 64]
+     and B/C [2, 2048, 1, 128] float32, and t = 96, t = 1000, 4 and 3
+     heads, within rtol=atol=2e-4; kernel and plain times beside two
+     bounds, float32 on the CUDA cores and the tensor cores' (3 x the
+     operations at TF32's rate: the kernel splits every operand into two
+     tf32 halves), with the time before the redesign and its prediction
+     (no single PyTorch call computes the scan); the count of tensor-core
+     (HMMA) instructions in the built kernel; and the time of
+     ``SSDScan``'s backward (autograd of ``ssd_chunked``) at the training
+     shape;
   2e. the flash-attention backward against its plain version
      (``flash_attention_bwd_ref``, on the same saved tensors) and against
      autograd through ``flash_attention_ref``: Qwen2-0.5B's training
@@ -94,7 +100,8 @@ failure ends the run with a non-zero exit):
      torch.profiler trace of one more step, whose flash kernels must show
      by name;
   8b. the same for Mamba2-2.7B (64 layers): batch 2 x 2048, 3 steps, 128
-     ``ssd_scan`` launches a step;
+     ``ssd_scan`` launches a step; beside ms/step, the calls of
+     ``SSDScan``'s backward a step times its time from 2d;
   8c. one training step of each, 2 layers at full width in float32, with
      the kernels and with the plain versions: losses within 1e-4, every
      gradient within rtol=1e-3 plus 1e-4 of its largest entry, and
@@ -121,6 +128,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
 BF16_FLOPS = 989e12              # H100 SXM, bf16 dense on the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM, TF32 dense on the tensor cores
 TOL = 1e-5
 NEURON_TOL = 2e-4
 SPIKE_DISAGREEMENT = 0.002
@@ -192,7 +200,12 @@ SSD_CASES = (
     ("h3_small", (1, 300, 3, 16, 16)),
 )
 SSD_TOL = 2e-4
-SSD_Q = 64                       # the kernel's chunk (csrc/ssd_scan.cu)
+SSD_Q = 32                       # the kernel's chunk (csrc/ssd_scan.cu)
+# the training shape's time on the CUDA-core kernel that the tensor-core
+# one replaced (PERF.md) and what the redesign predicted, in ms; both
+# printed beside this run's time
+SSD_BEFORE_MS = 1.363
+SSD_PREDICTED_MS = (0.25, 0.5)
 # name, (B, Hq, Hkv, T, D), dtype, options: the training shape of
 # qwen2-0.5b (batch 4 x 2048), the same at B=1 in float32, gemma3's local
 # layer, and small float32 softcap, prefix and non-causal cases
@@ -683,7 +696,28 @@ def _ssd_work(b, t, h, dh, ds) -> tuple:
     return nbytes, ops
 
 
+def _tc_bound(nbytes: float, ops: float, passes: int = 3) -> dict:
+    """The tensor cores' bound: ``passes`` x the operations at TF32's rate
+    (3xTF32 runs three products for each), or the bytes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = passes * ops / TF32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _sass_count(lib_path: str, opcode: str) -> int:
+    """Lines of ``opcode`` in the SASS of a built library (cuobjdump from
+    the toolkit that built it)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    return sum(1 for ln in out.stdout.splitlines() if opcode in ln)
+
+
 def compare_ssd(torch, report) -> list:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models.ssm import ssd_chunked
     dev = torch.device("cuda")
@@ -692,6 +726,11 @@ def compare_ssd(torch, report) -> list:
         print(f"torch.backends.cuda.matmul.allow_tf32 = "
               f"{torch.backends.cuda.matmul.allow_tf32}")
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+        hmma = _sass_count(str(_build.library_path("ssd_scan")), "HMMA")
+        print(f"ssd_scan.cu: {hmma} HMMA (tensor-core mma) instructions in "
+              "its SASS")
+        check(hmma > 0, "the ssd_scan kernel has no tensor-core instruction")
+        report["ssd_hmma_instructions"] = hmma
         gen = torch.Generator(device=dev).manual_seed(3)
         for name, (b, t, h, dh, ds) in SSD_CASES:
             def rand(*shape):
@@ -715,12 +754,28 @@ def compare_ssd(torch, report) -> list:
             plain_ms = _time_ms(torch, lambda i: ssd_chunked(
                 x, dt, A, B, C, D), 3 if big else 10)
             nbytes, ops = _ssd_work(b, t, h, dh, ds)
+            f32 = _bound(nbytes, ops)
             row = {"name": "ssd_scan", "case": name,
                    "shape": [b, t, h, dh, ds], "max_abs_err": err,
                    "tol": SSD_TOL, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": None, **_bound(nbytes, ops),
+                   "library_ms": None, **_tc_bound(nbytes, ops),
+                   "f32_bound_ms": f32["bound_ms"],
+                   "f32_bound_by": f32["bound_by"],
                    "bytes": nbytes, "ops": ops,
-                   "tflops": ops / ms / 1e9}
+                   "tflops": ops / ms / 1e9,
+                   "plan": SSD.launch_plan(b, t, h, dh, ds)}
+            if name == "train":
+                row["before_ms"] = SSD_BEFORE_MS
+                row["predicted_ms"] = list(SSD_PREDICTED_MS)
+                row["bwd_ms"] = _ssd_bwd_ms(torch, SSD, x, dt, A, B, C, D)
+                lo, hi = SSD_PREDICTED_MS
+                print(f"ssd_scan at the training shape: {ms:.4f} ms "
+                      f"(before the tensor cores {SSD_BEFORE_MS}; predicted "
+                      f"{lo}-{hi}: {'in' if lo <= ms <= hi else 'out'}); "
+                      f"bounds: tensor cores {row['bound_ms']:.4f} "
+                      f"({row['bound_by']}), float32 CUDA cores "
+                      f"{row['f32_bound_ms']:.4f}; SSDScan backward "
+                      f"{row['bwd_ms']:.3f} ms; {report['nvidia_smi']}")
             rows.append(row)
             print(json.dumps(row))
             del x, dt, A, B, C, D, y, ref
@@ -732,6 +787,22 @@ def compare_ssd(torch, report) -> list:
              "replaces": "src/repro/kernels/ssd_scan.py:76", "launches": 0,
              **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}}]
+
+
+def _ssd_bwd_ms(torch, SSD, *inputs) -> float:
+    """CUDA-event time of one ``SSDScan`` backward (autograd of the plain
+    ``ssd_chunked`` on the saved inputs), every input needing a gradient,
+    as in training."""
+    ins = [v.detach().clone().requires_grad_(True) for v in inputs]
+    y = SSD.SSDScan.apply(*ins)
+    gy = torch.randn_like(y)
+
+    def bwd(i):
+        torch.autograd.grad(y, ins, gy, retain_graph=True)
+
+    ms = _time_ms(torch, bwd, 3)
+    del ins, y, gy
+    return ms
 
 
 def _sdpa_backend(torch, grad_fn) -> str:
@@ -1490,11 +1561,13 @@ def train_full(torch, report, arch: str, label: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         before = read_launches()
+        bwd_calls = {"SSDScan": 0}
         for i in range(steps):
             batch = pipe.next_batch()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            params, opt, m = step_fn(params, opt, batch)
+            with _counting_ssd_backward(bwd_calls):
+                params, opt, m = step_fn(params, opt, batch)
             loss = float(m["loss"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t1
@@ -1525,6 +1598,19 @@ def train_full(torch, report, arch: str, label: str) -> dict:
         summary = {"ms_per_step": ms, "tokens_per_s": b * t / ms * 1e3,
                    "model_tflops": flops_tok * b * t / ms / 1e9,
                    "peak_mem_bytes": peak}
+        if bwd_calls["SSDScan"]:
+            # the SSD backward's share of a step: its calls a step times its
+            # CUDA-event time at this shape (phase 2d)
+            calls = bwd_calls["SSDScan"] / steps
+            bwd_ms = report["ssd_table"][0]["bwd_ms"]
+            summary["ssd_bwd"] = {"calls_per_step": calls, "ms": bwd_ms,
+                                  "ms_per_step": calls * bwd_ms,
+                                  "share": calls * bwd_ms / ms}
+            fwd_ms = report["ssd_table"][0]["ms"]
+            summary["ssd_fwd"] = {"launches_per_step":
+                                  spec["per_step"]["ssd_scan"], "ms": fwd_ms,
+                                  "ms_per_step": spec["per_step"]["ssd_scan"]
+                                  * fwd_ms}
         print(f"{arch}: {json.dumps(summary)}; launches {launches}")
 
         # where the device time of one more step goes
@@ -1557,6 +1643,22 @@ def train_full(torch, report, arch: str, label: str) -> dict:
         del params, opt, box, step_fn
         torch.cuda.empty_cache()
         return launches
+
+
+@contextlib.contextmanager
+def _counting_ssd_backward(calls: dict):
+    """Count the calls of ``SSDScan``'s backward (autograd looks it up on
+    the class at each call)."""
+    from unittest import mock
+    from repro_torch.kernels import ssd_scan as SSD
+    real = SSD.SSDScan.backward
+
+    def counted(ctx, gy):
+        calls["SSDScan"] += 1
+        return real(ctx, gy)
+
+    with mock.patch.object(SSD.SSDScan, "backward", staticmethod(counted)):
+        yield
 
 
 def _grads_of_step(torch, step_fn, params, opt, batch):

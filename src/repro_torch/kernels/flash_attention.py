@@ -131,9 +131,16 @@ def launch_plan(dtype: torch.dtype, b: int, hq: int, hkv: int, tq: int,
     CTAs to an SM at D <= 64).  Every grid has its tiles on axis y, the
     longest causal ones launched first.
     float32 (the CUDA cores): the route alone; ``csrc/flash_attention.cu``
-    plans its own launches."""
+    plans its own launches, with b·Hq on grid axis y.
+
+    Raises ValueError where a grid of the route would exceed what a launch
+    takes: float32 b·Hq past axis y's 65535; bf16 b·Hq or b·Hkv past axis
+    x's 2^31 - 1, or the tiles past axis y."""
     route = ROUTES[dtype]["route"]
     if dtype == torch.float32:
+        if b * hq > GRID_Y_MAX:
+            raise ValueError(f"b·Hq = {b * hq} exceeds the float32 "
+                             f"kernels' grid axis y ({GRID_Y_MAX})")
         return {"route": route}
     panels = _cdiv(d, _PANEL)
     bk = 128 if panels <= 2 else 64
@@ -158,13 +165,21 @@ def launch_plan(dtype: torch.dtype, b: int, hq: int, hkv: int, tq: int,
 
     two_wg = panels == 1
     dkdv = bwd(384, 1, 4) if two_wg else bwd(160, 1, 3)
-    return {"route": route, "panels": panels, "fwd": fwd,
+    plan = {"route": route, "panels": panels, "fwd": fwd,
             "dkdv": {**dkdv, "consumer_warpgroups": 2 if two_wg else 1,
                      "col_panels": min(panels, 2),
                      "grid": (b * hkv, _cdiv(tk, _BWD_TILE),
                               _cdiv(panels, 2))},
             "dq": {**bwd(160, 2 if panels == 1 else 1, 3),
                    "grid": (b * hq, _cdiv(tq, _BWD_TILE))}}
+    grids = [plan[k]["grid"] for k in ("fwd", "dkdv", "dq")]
+    if max(gr[0] for gr in grids) > INT_MAX:
+        raise ValueError(f"b·Hq = {b * hq} exceeds the bf16 kernels' grid "
+                         f"axis x ({INT_MAX})")
+    if max(gr[1] for gr in grids) > GRID_Y_MAX:
+        raise ValueError(f"sequence lengths {(tq, tk)} exceed the bf16 "
+                         f"kernels' grid axis y ({GRID_Y_MAX})")
+    return plan
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -176,8 +191,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int], prefix: Optional[int], q_offset: int):
-    """Raise on what the kernels do not take; return (b, hq, hkv, tq, tk,
-    d)."""
+    """Raise on what the kernels of q's dtype do not take (the grids by
+    ``launch_plan``); return ((b, hq, hkv, tq, tk, d), the plan)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, T, D]")
     b, hq, tq, d = q.shape
@@ -194,25 +209,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in ROUTES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if b * hq > GRID_Y_MAX or max(tq, tk) > INT_MAX:
+    if max(tq, tk) > INT_MAX:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} exceed "
-                         "the kernel's grid")
+                         "the kernel's sizes")
     for name, t in (("window", window), ("prefix", prefix)):
         if t is not None and not 0 <= t <= INT_MAX:
             raise ValueError(f"{name} must be a non-negative int, got {t}")
     if abs(q_offset) > INT_MAX // 2:
         raise ValueError(f"q_offset {q_offset} does not fit the kernel")
-    return b, hq, hkv, tq, tk, d
-
-
-def _checked_plan(*shape) -> dict:
-    """The bf16 plan at ``shape`` (b, hq, hkv, tq, tk, d); raises where a
-    grid would exceed what a launch takes on axis y (the tiles)."""
-    plan = launch_plan(torch.bfloat16, *shape)
-    if max(plan[k]["grid"][1] for k in ("fwd", "dkdv", "dq")) > GRID_Y_MAX:
-        raise ValueError(f"sequence lengths {shape[3:5]} exceed the "
-                         "kernel's grid")
-    return plan
+    shape = (b, hq, hkv, tq, tk, d)
+    return shape, launch_plan(q.dtype, *shape)
 
 
 def _masks(causal, window, scale, d, softcap, prefix):
@@ -235,7 +241,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               softcap=softcap, prefix=prefix)
     if on_cpu("flash_attention", q, k, v):
         return _ref.flash_attention_fwd_ref(q, k, v, **kw)
-    b, hq, hkv, tq, tk, d = _check(q, k, v, window, prefix, q_offset)
+    shape, plan = _check(q, k, v, window, prefix, q_offset)
+    b, hq, hkv, tq, tk, d = shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t, q.dtype)
@@ -246,15 +253,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr())
-    shape = (b, hq, hkv, tq, tk, d)
     opts = (*_masks(causal, window, scale, d, softcap, prefix), int(q_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if q.dtype == torch.bfloat16:
-            plan = _checked_plan(*shape)["fwd"]
+            fwd = plan["fwd"]
             lib = _lib_tc()
             rc = lib.flash_attention_sm90_fwd(*args, *shape, *opts,
-                                              plan["stages"], plan["smem"],
+                                              fwd["stages"], fwd["smem"],
                                               stream)
             err = lib.flash_attention_sm90_error_string
         else:
@@ -278,7 +284,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               softcap=softcap, prefix=prefix)
     if on_cpu("flash_attention_bwd", q, k, v, out, lse, dout):
         return _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    b, hq, hkv, tq, tk, d = _check(q, k, v, window, prefix, q_offset)
+    shape, plan = _check(q, k, v, window, prefix, q_offset)
+    b, hq, hkv, tq, tk, d = shape
     if tuple(out.shape) != tuple(q.shape) \
             or tuple(dout.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (b, hq, tq):
@@ -298,12 +305,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     args = tuple(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
                                         dk, dv))
-    shape = (b, hq, hkv, tq, tk, d)
     opts = (*_masks(causal, window, scale, d, softcap, prefix), int(q_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if q.dtype == torch.bfloat16:
-            plan = _checked_plan(*shape)
             lib = _lib_tc()
             rc = lib.flash_attention_sm90_bwd(
                 *args, *shape, *opts, plan["dkdv"]["stages"],

@@ -1,13 +1,19 @@
 """Wrapper around the hand-written Mamba2 SSD-scan kernel.
 
 ``csrc/ssd_scan.cu`` replaces the TPU kernel
-``repro/kernels/ssd_scan.py::ssd_scan_pallas``; its header says how, and
-what bounds it on the card.
+``repro/kernels/ssd_scan.py::ssd_scan_pallas`` with two passes that run
+the scan's four products on the tensor cores in 3xTF32 (float32
+accuracy): C B^T once a chunk, then the scan itself; its header says how,
+and what bounds it on the card.  ``launch_plan`` computes on the host
+what a call needs (passes, grids, threads, shared memory, chunk,
+scratch); the kernel refuses a plan whose shared memory differs from its
+own layout.
 
 ``ssd_scan`` dispatches by where the tensors lie: on the CPU the plain
 version ``repro_torch.models.ssm.ssd_chunked``; on a CUDA device the
-kernel, on the current stream, or an error.  ``launches`` counts kernel
-launches (plain-version calls are not counted).
+kernel's two passes, on the current stream, or an error.  ``launches``
+counts kernel calls, one for the two passes (plain-version calls are not
+counted).
 
 ``SSDScan`` is its ``torch.autograd.Function``.  Its backward recomputes
 the plain ``ssd_chunked`` on the saved inputs and differentiates that by
@@ -29,12 +35,46 @@ from repro_torch.kernels._dispatch import (INT_MAX, I, P, check_operand,
                                            on_cpu, raise_on)
 
 __all__ = ["ssd_scan", "SSDScan", "launches", "reset_launches",
-           "MAX_HEAD_DIM", "MAX_STATE_DIM"]
+           "launch_plan", "MAX_HEAD_DIM", "MAX_STATE_DIM", "CHUNK", "COLS"]
 
 launches: Dict[str, int] = {"ssd_scan": 0}
 
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
+CHUNK = 32                # the kernel's chunk (rows), whatever t is
+COLS = 32                 # head-dim columns of one scan CTA
+_THREADS = 256
+_MIN_CTAS = 3             # the scan's __launch_bounds__(256, 3)
+_SMEM_SM = 233_472        # shared memory of one H100 SM
+_SMEM_RESERVED = 1_024    # the runtime's share of every resident CTA
+
+
+def launch_plan(b: int, t: int, h: int, dh: int, ds: int) -> dict:
+    """What a call needs at x [b, t, h, dh], B/C [b, t, 1, ds]: two passes
+    of 256 threads.  ``cb``: C B^T of each (batch, chunk) into a float32
+    scratch of ``scratch_bytes``, its B and C tiles in static shared
+    memory.  ``scan``: one CTA per (batch, head, block of ``COLS``
+    head-dim columns) walking its ``chunks`` chunks of ``CHUNK`` rows;
+    its dynamic shared memory holds one chunk's tiles in float32 (the
+    ``Smem`` struct of ``csrc/ssd_scan.cu``, which checks it): x [32, 32 +
+    4], w x split into (hi, lo) pairs [32, 32 + 2], B [32, 128 + 4], C [32,
+    128 + 8], the state [128, 32 + 4], the scaled C B^T [32, 32 + 8] and
+    the second half-sum of C S [32, 32 + 4] (the pitches keep the fragment
+    loads free of bank conflicts).  The
+    tiles always hold 32 columns of dh and 128 of ds, zero past dh and ds:
+    multiples of the mma's 8."""
+    q, nc = CHUNK, -(-t // CHUNK)
+    floats = (q * (COLS + 4) + q * (MAX_STATE_DIM + 4)
+              + q * (MAX_STATE_DIM + 8) + MAX_STATE_DIM * (COLS + 4)
+              + q * (q + 8) + q * (COLS + 4))
+    smem = 4 * floats + 8 * q * (COLS + 2)
+    per_sm = min(_MIN_CTAS, _SMEM_SM // (smem + _SMEM_RESERVED))
+    return {"passes": 2, "threads": _THREADS, "chunk": q, "chunks": nc,
+            "cols": COLS,
+            "cb": {"grid": (b * nc,), "smem": 2 * 4 * q * (MAX_STATE_DIM + 8)},
+            "scan": {"grid": (b * h, -(-dh // COLS)), "smem": smem,
+                     "ctas_per_sm": per_sm},
+            "scratch_bytes": 4 * b * nc * q * q}
 
 
 def reset_launches() -> None:
@@ -44,7 +84,7 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.ssd_scan_fwd.argtypes = [P] * 8 + [I] * 6 + [P]
     lib.ssd_scan_fwd.restype = I
     lib.ssd_scan_error_string.argtypes = [I]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -92,7 +132,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "both multiples of 4")
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"x must be a float tensor, got {x.dtype}")
-    if b * h > INT_MAX or b * t * h * dh > 2 ** 62:
+    if b * h > INT_MAX or b * -(-t // CHUNK) > INT_MAX \
+            or b * t * h * dh > 2 ** 62:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
     ops = [_dense(a) for a in (x, dt, A, B, C)]
     d = None if D is None else _dense(D)
@@ -101,11 +142,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(ops[0])
     if y.numel() == 0:
         return y.to(x.dtype)
+    plan = launch_plan(b, t, h, dh, ds)
+    cb = torch.empty(plan["scratch_bytes"] // 4, dtype=torch.float32,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().ssd_scan_fwd(
             *(a.data_ptr() for a in ops), None if d is None else d.data_ptr(),
-            y.data_ptr(), b, t, h, dh, ds, stream)
+            y.data_ptr(), cb.data_ptr(), b, t, h, dh, ds,
+            plan["scan"]["smem"], stream)
     launches["ssd_scan"] += 1
     raise_on(rc, _lib().ssd_scan_error_string, "ssd_scan")
     return y.to(x.dtype)

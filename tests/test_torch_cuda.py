@@ -278,9 +278,40 @@ def test_cuda_flash_attention_route_by_dtype(cuda_device, dtype):
         assert not any(kern in n for n in names), (kern, names)
 
 
-# b, t, h, dh, ds
+@pytest.mark.gpu
+def test_cuda_flash_attention_bf16_batch_heads_past_grid_axis_y(cuda_device):
+    """b·Hq = 65,552 > 65535: the bf16 kernels (b·Hq on grid axis x) run
+    forward and backward and match the plain versions at the bf16
+    tolerances; the float32 route (b·Hq on axis y) refuses the shape."""
+    b, hq, hkv, t, d = 4097, 16, 4, 16, 64
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, dout = (torch.randn(shape, device=cuda_device, generator=g
+                                 ).bfloat16()
+                     for shape in ((b, hq, t, d), (b, hkv, t, d),
+                                   (b, hkv, t, d), (b, hq, t, d)))
+    FA.reset_launches()
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 1, "flash_attention_bwd": 1}
+    ref = TR.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True)
+    torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
+    want = TR.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                      out.float(), lse, dout.float(),
+                                      causal=True)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), w, rtol=1e-2,
+                                   atol=1e-2 * float(w.abs().max()))
+    with pytest.raises(ValueError, match="axis y"):
+        FA.flash_attention(q.float(), k.float(), v.float())
+
+
+# b, t, h, dh, ds (the last: dh and ds multiples of 4 but not of 8, padded
+# with zeros to the tensor cores' mma width)
 SSD_CASES = [(2, 256, 8, 64, 128), (1, 96, 4, 64, 128), (1, 1000, 3, 16, 16),
-             (2, 300, 5, 32, 64)]
+             (2, 300, 5, 32, 64), (1, 200, 3, 20, 12)]
 
 
 @pytest.mark.gpu

@@ -124,3 +124,46 @@ def test_bf16_on_the_cpu_takes_the_plain_version():
     out = FA.flash_attention(q, k, v, causal=True)
     assert FA.launches == {"flash_attention": 0, "flash_attention_bwd": 0}
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+# b·Hq = 4097 x 16 = 65,552: past grid axis y (65535), where the float32
+# kernels put b·Hq; the bf16 kernels put it on axis x (2^31 - 1)
+BIG_BATCH = (4097, 16, 4, 16, 16, 64)
+
+
+def _meta(dtype, b, hq, hkv, tq, tk, d):
+    return [torch.empty(shape, dtype=dtype, device="meta")
+            for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+
+
+def test_bf16_takes_batch_heads_past_grid_axis_y():
+    """The bf16 route takes b·Hq > 65535 (the reference takes any batch):
+    its plan and the wrapper's checks accept it, the grids carry b·Hq and
+    b·Hkv on axis x."""
+    p = FA.launch_plan(torch.bfloat16, *BIG_BATCH)
+    assert p["fwd"]["grid"] == (65_552, 1)
+    assert p["dkdv"]["grid"] == (4097 * 4, 1, 1)
+    assert p["dq"]["grid"] == (65_552, 1)
+    shape, plan = FA._check(*_meta(torch.bfloat16, *BIG_BATCH), None, None, 0)
+    assert shape == BIG_BATCH and plan == p
+
+
+def test_float32_refuses_batch_heads_past_grid_axis_y():
+    """The float32 kernels put b·Hq on grid axis y: past 65535 their plan
+    and the wrapper's checks raise; at 65535 they accept."""
+    with pytest.raises(ValueError, match="axis y"):
+        FA.launch_plan(torch.float32, *BIG_BATCH)
+    with pytest.raises(ValueError, match="axis y"):
+        FA._check(*_meta(torch.float32, *BIG_BATCH), None, None, 0)
+    ok = (4095, 16, 4, 16, 16, 64)          # b·Hq = 65,520
+    assert FA._check(*_meta(torch.float32, *ok), None, None, 0)[1] == {
+        "route": "cuda_cores"}
+
+
+def test_bf16_refuses_grids_past_what_a_launch_takes():
+    """The bf16 route still raises where its own grids overflow: the tiles
+    on axis y, b·Hq on axis x."""
+    with pytest.raises(ValueError, match="axis y"):
+        FA.launch_plan(torch.bfloat16, 1, 2, 1, 65_536 * 128 + 1, 64, 64)
+    with pytest.raises(ValueError, match="axis x"):
+        FA.launch_plan(torch.bfloat16, 2 ** 28, 8, 1, 64, 64, 64)
