@@ -11,19 +11,29 @@ failure ends the run with a non-zero exit):
      registers per source);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of its path, with times of the kernel and the plain version
-     beside the bound:
+     beside the bound (a kernel's ms: device time a call from
+     torch.profiler, every op the wrapper runs; beside it the CUDA-event
+     time of back-to-back calls, which the host sets for calls of a few
+     microseconds; the ELL plain versions and library calls, 0.5-15 ms,
+     by CUDA events):
      - the ELL kernels at 80000 rows x 1000 slots -> 80000 posts (80% of
        slots valid; B = 1 and 8; 1% and 100% of rows spiking; 21 delay
-       slots): rtol=atol=1e-5, exact with integer-valued weights; beside
-       them torch.sparse.mm on the same matrix as CSR (a yardstick only:
-       the port never calls it);
+       slots): rtol=atol=1e-5, exact with integer-valued weights, bool
+       spikes (the simulator's) equal to float ones, and ``ell_spmv``
+       bit-equal to its plain version (both sum in float64); beside them
+       torch.sparse.mm on the same matrix as CSR (a yardstick only: the
+       port never calls it), the kernel's own device time, its
+       ``launch_plan`` and the SASS instruction count of the main path's
+       instance;
      - izhikevich_step at [1, 80000] and [8, 80000] with per-neuron a..d,
-       hh_step at [1, 100000] and [5, 100000] (dt 0.1, 5 substeps), inputs
-       that straddle the threshold: rtol=atol=2e-4, spike decisions differ
-       on < 0.2% of neurons; their ms is device time from torch.profiler
-       (a launch of a few microseconds is shorter than the host's gap
-       between launches), beside the CUDA-event wall time; no single
-       PyTorch call computes either, so they have no library time;
+       hh_step at the mushroom body's [1, 20], [1, 100000], [1, 100] and
+       [5, 100000] (dt 0.1, 5 substeps), inputs that straddle the
+       threshold, each with the NaN guard's flag: rtol=atol=2e-4, spike
+       decisions differ on < 0.2% of neurons, above = v >= 0, the flag
+       untouched; beside each time the wrapper's host time (CUDA-event
+       time less device time) and hh_step's SASS instruction count (all,
+       and one substep's); no single PyTorch call computes either, so
+       they have no library time;
   2c. flash_attention against its plain version on the card, with kernel,
      plain and library (torch's scaled_dot_product_attention on the same
      inputs, a yardstick only: the port never calls it) times beside the
@@ -42,6 +52,8 @@ failure ends the run with a non-zero exit):
      launch counts (4 ell_spmv and 2 izhikevich_step per step); 50 steps
      through the plain versions on the card (no kernel launched), whose
      raster must agree with the kernel run's on >= 99.8% of neuron-steps;
+     a profile of 50 steps (device ops a step, busy share, the device ops
+     a step that the NaN guard costs);
   4. a gScale sweep of the excitatory groups: 8 candidates (0.3 .. 1.2,
      below saturation) x 500 steps as one batch, rates non-decreasing in
      gScale, then the conductance search;
@@ -54,7 +66,8 @@ failure ends the run with a non-zero exit):
   6b. the mushroom body at full width (100 PN / 20 LHI / 100k KC / 100 DN)
      with every group's gScale scaled by fan-in from the example's, 2500
      steps (3 hh_step launches per step, finite); 200 steps through the
-     plain versions, rasters agreeing on >= 99.8% of neuron-steps; then
+     plain versions, rasters agreeing on >= 99.8% of neuron-steps; a
+     profile as in 3; then
      the conductance search for the PN_KC gScale that gives 6a's KC rate
      at gScale 1, 12 candidates as one batch;
   7. LM serving at full width: ``Server("qwen2-0.5b", use_reduced=False,
@@ -135,18 +148,24 @@ SPIKE_DISAGREEMENT = 0.002
 RASTER_AGREEMENT = 0.998
 
 N_PRE, N_CONN, N_POST, N_SLOTS = 80_000, 1000, 80_000, 21
+# the main path's ELL kernel in the SASS (its mangled name holds this)
+ELL_SASS_KERNEL = "ell_spmv_live_kernelIhLi4E"   # bool spikes, 4 slots
 MAIN = dict(n_total=100_000, n_conn=1000, steps=1000, plain_steps=50)
 # the grid a conductance search scans, below the saturated regime: above
 # gScale ~1.25 this net bursts at ~100 Hz and the rate is no longer monotone
 SWEEP = dict(values=(0.3, 0.45, 0.6, 0.75, 0.9, 1.0, 1.1, 1.2), steps=500)
 DELAY = dict(n_total=10_000, n_conn=500, max_delay=20, steps=200)
 IZH_SHAPES = ((1, 80_000), (8, 80_000))      # exc; B of phases 3 and 4
-HH_SHAPES = ((1, 100_000), (5, 100_000))     # KC; B of phases 6b and 6a
+# mb_full's LHI, KC and DN (phase 6b), then mb_table's batch of 5 (6a)
+HH_SHAPES = ((1, 20), (1, 100_000), (1, 100), (5, 100_000))
 # float operations per (member, neuron), counting expf and a division as
 # one each (so the operation bound is a lower bound): the statements of
 # csrc/neuron_step.cu
 IZH_OPS = 28
 HH_OPS_PER_SUBSTEP = 88
+# bytes per (member, neuron): v, m, h, n, isyn read, v, m, h, n written
+# (float32) and above (a byte)
+HH_BYTES = 5 * 4 + 4 * 4 + 1
 MB_EXAMPLE = dict(n_pn=24, n_lhi=6, n_kc=150, n_dn=12)
 MB_FULL = dict(n_pn=100, n_lhi=20, n_kc=100_000, n_dn=100)
 MB_TABLE = dict(values=(0.5, 1.0, 2.0, 8.0, 50.0), steps=2500)
@@ -371,11 +390,15 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, reps: int) -> float:
-    """Device time per call: the summed duration of every device op that
-    ``reps`` calls of ``fn`` run, from a torch.profiler trace.  Unlike
-    ``_time_ms`` it leaves out the gaps between launches, which set the
-    wall time of a kernel of a few microseconds."""
+def _device_ms(torch, fn, reps: int, kernel: str = "") -> tuple:
+    """Device time per call from a torch.profiler trace of ``reps`` calls
+    of ``fn``: (every device op's, those whose name holds ``kernel``).
+    Unlike ``_time_ms`` it leaves out the gaps between launches, which set
+    the wall time of a kernel of a few microseconds.  Every call runs the
+    same device ops, so a trace whose count of them (of ``kernel``'s, when
+    named) is no multiple of ``reps`` dropped some: it is taken again, up
+    to three times (on the card one trace once kept a tenth of its
+    launches)."""
     fn(0)
     torch.cuda.synchronize()
 
@@ -384,7 +407,16 @@ def _device_ms(torch, fn, reps: int) -> float:
             fn(i + 1)
         torch.cuda.synchronize()
 
-    return _device_profile(torch, calls)["device_busy_us"] / reps / 1e3
+    for _ in range(3):
+        prof = _device_profile(torch, calls, warm=True)
+        mine = [(c, t) for n, (c, t) in prof["by_name"].items() if kernel in n]
+        seen = sum(c for c, _ in mine)
+        if seen > 0 and seen % reps == 0:
+            break
+    check(seen > 0 and seen % reps == 0,
+          f"traces of {reps} calls kept {seen} device ops of {kernel!r}")
+    return (prof["device_busy_us"] / reps / 1e3,
+            sum(t for _, t in mine) / reps / 1e3)
 
 
 def _csr(torch, post_ind, valid, g, rows_of, n_rows):
@@ -398,11 +430,17 @@ def _csr(torch, post_ind, valid, g, rows_of, n_rows):
 
 
 def compare_kernels(torch, report) -> list:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ell_spmv as K
     from repro_torch.kernels import ref as R
     dev = torch.device("cuda")
     rows = []
     with phase("2. kernels against their plain versions"):
+        sass = _sass_instructions(str(_build.library_path("ell_spmv")),
+                                  ELL_SASS_KERNEL)
+        print(f"{ELL_SASS_KERNEL}: {sass['instructions']} SASS "
+              f"instructions: {sass['by_opcode']}")
+        report["ell_spmv_sass"] = sass
         gen = torch.Generator(device=dev).manual_seed(0)
         g = 0.5 * torch.rand(N_PRE, N_CONN, device=dev, generator=gen)
         idx = torch.randint(0, N_POST, (N_PRE, N_CONN), device=dev,
@@ -419,6 +457,8 @@ def compare_kernels(torch, report) -> list:
             for p in (0.01, 1.0):
                 spikes = [(torch.rand(b, N_PRE, device=dev, generator=gen)
                            < p).float() for _ in range(8)]
+                # the simulator hands ell_spmv its bool spikes as they are
+                spikes_bool = [s.bool() for s in spikes]
                 spk = spikes[0]
                 live = spk.amax(dim=0) > 0
                 n_live = int(live.sum())
@@ -439,39 +479,66 @@ def compare_kernels(torch, report) -> list:
                         plain = lambda s, gg=g: R.ell_spmv_ref(
                             gg, idx, valid, s, N_POST)
                         lib = lambda s: torch.sparse.mm(csr, s.t())
-                    out, ref = kern(spk), plain(spk)
+                    ins = spikes if delay else spikes_bool
+                    out, ref = kern(ins[0]), plain(spk)
                     torch.cuda.synchronize()
                     err = float((out - ref).abs().max())
                     check(bool(torch.allclose(out, ref, rtol=TOL, atol=TOL)),
                           f"{name} B={b} p={p}: max abs err {err}")
-                    check(bool(torch.equal(kern(spk, g_int),
+                    check(bool(torch.equal(kern(ins[0], g_int),
                                            plain(spk, g_int))),
                           f"{name} B={b} p={p}: integer weights not exact")
+                    if not delay:
+                        check(bool(torch.equal(kern(spk, g_int),
+                                               kern(ins[0], g_int))),
+                              f"{name} B={b} p={p}: float and bool spikes "
+                              "differ")
+                        # both sum in float64 and round once: bit-equal
+                        # with any weights, whatever the atomics' order
+                        check(bool(torch.equal(out, ref)),
+                              f"{name} B={b} p={p}: not bit-equal to the "
+                              f"plain version (max abs err {err})")
                     lib_out = lib(spk).t().reshape(out.shape)
                     check(bool(torch.allclose(lib_out, ref, rtol=1e-4,
                                               atol=1e-4)),
                           f"{name}: the library yardstick computes another "
                           "function")
                     reps = 20 if p < 0.5 else 5
-                    ms = _time_ms(torch, lambda i: kern(spikes[i % 8]), reps)
-                    plain_ms = _time_ms(torch, lambda i: plain(spikes[i % 8]),
-                                        reps)
-                    lib_ms = _time_ms(torch, lambda i: lib(spikes[i % 8]),
-                                      reps)
+                    call = lambda i: kern(ins[i % 8])
+                    # the wrapper's device time a call (every op it runs:
+                    # the output's zero fill and the kernel) and the
+                    # kernel's alone, beside the CUDA-event time of
+                    # back-to-back calls, which the host's enqueue rate
+                    # sets once a call's device work is shorter than its
+                    # host work (PRs 11-16 kept only this); the plain
+                    # version and the library call run ~0.5-15 ms on the
+                    # device, so events time them
+                    ms, kernel_ms = _device_ms(torch, call, reps, "ell_spmv")
+                    times = {"ms": ms, "kernel_ms": kernel_ms,
+                             "wall_ms": _time_ms(torch, call, reps),
+                             "plain_ms": _time_ms(
+                                 torch, lambda i: plain(spikes[i % 8]), reps),
+                             "library_ms": _time_ms(
+                                 torch, lambda i: lib(spikes[i % 8]), reps)}
                     nbytes = (n_live * N_CONN                       # valid
                               + valid_live * (8 + (4 if delay else 0))
-                              + b * N_PRE * 4                  # spikes
+                              # spikes, as the kernel reads them: a
+                              # byte each when bool, 4 when float32
+                              + b * N_PRE * ins[0].element_size()
                               + b * slots * N_POST * 4)        # output
                     flops = 2.0 * syn_events
                     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     t_ops = flops / FP32_FLOPS * 1e3
                     row = {"name": name, "B": b, "spiking": p,
-                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": lib_ms,
+                           "spikes": str(ins[0].dtype),
+                           "max_abs_err": err, **times,
                            "bound_ms": max(t_bytes, t_ops),
                            "bound_by": ("bytes" if t_bytes >= t_ops
                                         else "operations"),
-                           "bytes": nbytes, "flops": flops}
+                           "bytes": nbytes, "flops": flops,
+                           "live_rows": n_live}
+                    if not delay:
+                        row["plan"] = K.launch_plan(b, N_PRE, N_CONN, N_POST)
                     rows.append(row)
                     print(json.dumps(row))
         del g, idx, valid, dly, g_int, csr, csr_d
@@ -505,19 +572,26 @@ def _neuron_times(torch, kern, plain) -> dict:
     """ms / plain_ms: device time per call (the kernel, or all the plain
     version's ops); *_wall_ms: CUDA events around back-to-back calls, which
     the host's enqueue rate sets for kernels this short."""
-    return {"ms": _device_ms(torch, kern, 50),
-            "plain_ms": _device_ms(torch, plain, 20),
+    return {"ms": _device_ms(torch, kern, 50, "_step_kernel")[0],
+            "plain_ms": _device_ms(torch, plain, 20)[0],
             "wall_ms": _time_ms(torch, kern, 50),
             "plain_wall_ms": _time_ms(torch, plain, 20)}
 
 
 def compare_neuron_kernels(torch, report) -> list:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import hh_step as HH
     from repro_torch.kernels import izhikevich_step as IZ
     from repro_torch.kernels import ref as R
     dev = torch.device("cuda")
     rows = []
     with phase("2b. neuron kernels against their plain versions"):
+        sass = _sass_instructions(str(_build.library_path("neuron_step")),
+                                  "hh_step_kernel")
+        print(f"hh_step_kernel: {sass['instructions']} SASS instructions, "
+              f"{sass['loop_body']} in one substep (the innermost loop): "
+              f"{sass['by_opcode']}")
+        report["hh_step_sass"] = sass
         gen = torch.Generator(device=dev).manual_seed(1)
 
         def uniform(shape, lo, hi):
@@ -534,8 +608,12 @@ def compare_neuron_kernels(torch, report) -> list:
             ins = [(uniform((b, n), -80, 25), uniform((b, n), -20, 5),
                     normal((b, n), 5.0)) for _ in range(4)]
             dt = 1.0                                   # the main path's dt
-            kern = lambda i: IZ.izhikevich_step(*ins[i % 4], *params, dt)
-            plain = lambda i: R.izhikevich_step_ref(*ins[i % 4], *params, dt)
+            # the NaN guard's flag, as the simulator passes it
+            flag = torch.ones(b, dtype=torch.bool, device=dev)
+            kern = lambda i: IZ.izhikevich_step(*ins[i % 4], *params, dt,
+                                                finite=flag)
+            plain = lambda i: R.izhikevich_step_ref(*ins[i % 4], *params, dt,
+                                                    finite=flag)
             out, ref = kern(0), plain(0)
             torch.cuda.synchronize()
             agree = out[2] == ref[2]
@@ -566,28 +644,39 @@ def compare_neuron_kernels(torch, report) -> list:
             ins = [(uniform((b, n), -80, 30), uniform((b, n), 0, 1),
                     uniform((b, n), 0, 1), uniform((b, n), 0, 1),
                     normal((b, n), 2.0)) for _ in range(4)]
-            kern = lambda i: HH.hh_step(*ins[i % 4], 0.1, 5)
-            plain = lambda i: R.hh_step_ref(*ins[i % 4], 0.1, 5)
+            flag = torch.ones(b, dtype=torch.bool, device=dev)
+            kern = lambda i: HH.hh_step(*ins[i % 4], 0.1, 5, finite=flag)
+            plain = lambda i: R.hh_step_ref(*ins[i % 4], 0.1, 5, finite=flag)
             out, ref = kern(0), plain(0)
             torch.cuda.synchronize()
-            err = max(float((o - e).abs().max()) for o, e in zip(out, ref))
+            err = max(float((o - e).abs().max())
+                      for o, e in zip(out[:4], ref[:4]))
             check(all(bool(torch.allclose(o, e, rtol=NEURON_TOL,
                                           atol=NEURON_TOL))
-                      for o, e in zip(out, ref)),
+                      for o, e in zip(out[:4], ref[:4])),
                   f"hh_step [{b}, {n}]: max abs err {err}")
+            check(bool(torch.equal(out[4], out[0] >= 0.0)),
+                  f"hh_step [{b}, {n}]: above is not v >= 0")
+            check(bool(flag.all()), f"hh_step [{b}, {n}]: finite inputs "
+                  f"cleared the flag {flag.tolist()}")
             ops = b * n * 5 * HH_OPS_PER_SUBSTEP
+            times = _neuron_times(torch, kern, plain)
             rows.append({"name": "hh_step", "B": b, "n": n,
-                         "max_abs_err": err,
-                         **_neuron_times(torch, kern, plain),
-                         "library_ms": None, **_bound(b * n * 36, ops),
-                         "bytes": b * n * 36, "ops": ops})
+                         "max_abs_err": err, **times,
+                         # what the host adds to each call: the wrapper
+                         # and the launch, beyond the device time
+                         "host_ms": times["wall_ms"] - times["ms"],
+                         "library_ms": None, **_bound(b * n * HH_BYTES, ops),
+                         "bytes": b * n * HH_BYTES, "ops": ops})
             print(json.dumps(rows[-1]))
     report["neuron_kernel_table"] = rows
     entries = []
     for name, replaces in (
             ("izhikevich_step", "src/repro/kernels/izhikevich_step.py:50"),
             ("hh_step", "src/repro/kernels/hh_step.py:71")):
-        r = next(x for x in rows if x["name"] == name and x["B"] == 1)
+        # the largest population of the kernel's path at B = 1
+        r = max((x for x in rows if x["name"] == name and x["B"] == 1),
+                key=lambda x: x["n"])
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/neuron_step.cu",
@@ -714,6 +803,39 @@ def _sass_count(lib_path: str, opcode: str) -> int:
                          text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
     return sum(1 for ln in out.stdout.splitlines() if opcode in ln)
+
+
+def _sass_instructions(lib_path: str, kernel: str) -> dict:
+    """The instructions (NOPs left out) in the SASS of the one function of
+    a built library whose name holds ``kernel``: their number, the number
+    of each opcode (its first word), and the number inside its innermost
+    loop (the shortest span that a backward branch closes: one pass of HH's
+    substep loop, slow paths such as a division's called out of line)."""
+    import re
+    from collections import Counter
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    funcs = [f for f in re.split(r"\n\s*Function : ", out.stdout)[1:]
+             if kernel in f.split("\n", 1)[0]]
+    check(len(funcs) == 1, f"{len(funcs)} functions named like {kernel} in "
+          f"{lib_path}")
+    code = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
+        r"([^;]*);", funcs[0]) if not op.startswith("NOP")]
+    loops = [(addr - int(t, 16), int(t, 16), addr) for addr, op, rest in code
+             if op.startswith("BRA")
+             for t in re.findall(r"0x([0-9a-f]+)", rest)
+             if int(t, 16) < addr]      # not the idle self-branch after EXIT
+    body = 0
+    if loops:
+        _, lo, hi = min(loops)
+        body = sum(1 for addr, _, _ in code if lo <= addr <= hi)
+    by_op = Counter(op.split(".")[0] for _, op, _ in code)
+    return {"instructions": len(code), "loop_body": body,
+            "by_opcode": dict(by_op.most_common())}
 
 
 def compare_ssd(torch, report) -> list:
@@ -977,23 +1099,47 @@ def _flash_kernels(direction: str) -> tuple:
     return tuple(n for r in FA.ROUTES.values() for n in r[direction])
 
 
-def _device_profile(torch, fn) -> dict:
+def _device_profile(torch, fn, warm: bool = False) -> dict:
     """Device time by kernel name and the wall time of ``fn()`` under
-    torch.profiler (``fn`` ends in a synchronise)."""
+    torch.profiler (``fn`` ends in a synchronise).  With ``warm`` (the
+    short kernel and SNN traces) ``fn`` runs twice and only the second run
+    is kept, since a trace that starts cold can miss the device ops of its
+    first milliseconds, and a trace that holds no device op at all is taken
+    again, up to three times: on the card, in two of three full runs one
+    such trace came back empty after ~50 earlier ones in the process.  The
+    LM phases trace one run, as they always have."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:100]
-            n, us = by_name.get(key, (0, 0.0))
-            by_name[key] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in by_name.values())
+    from torch.profiler import ProfilerActivity, profile, schedule
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(3 if warm else 1):
+        if warm:
+            with profile(activities=activities,
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                fn()
+                prof.step()
+                t0 = time.perf_counter()
+                fn()
+                wall_us = (time.perf_counter() - t0) * 1e6
+                prof.step()
+        else:
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                fn()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        by_name: dict = {}
+        for e in prof.events():
+            # a schedule's step markers show on the device timeline as
+            # annotations spanning the step: they are not device work
+            if (e.device_type == DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep")
+                    and not getattr(e, "is_user_annotation", False)):
+                key = e.name[:100]
+                n, us = by_name.get(key, (0, 0.0))
+                by_name[key] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in by_name.values())
+        if busy > 0:
+            break
     check(busy > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return {"wall_us": wall_us, "device_busy_us": busy,
@@ -1014,24 +1160,51 @@ def _profile_window(torch, model, steps: int, **run_kw) -> dict:
         model.run(steps, **run_kw)
         torch.cuda.synchronize()
 
-    prof = _device_profile(torch, run)
-    # device time per launch of the port's own kernels, by kernel name
-    ours = {n[:80]: {"launches": c, "us_per_launch": us / c}
-            for n, (c, us) in prof["by_name"].items()
-            if any(k in n for k in ("ell_spmv_kernel",
-                                    "izhikevich_step_kernel",
-                                    "hh_step_kernel",
-                                    *_flash_kernels("fwd")))}
+    def traced():
+        """The trace and the port's kernels in it (device time per launch,
+        by name).  A trace that kept some steps' launches of them and not
+        others dropped events (see _device_ms): it is taken again."""
+        for _ in range(3):
+            prof = _device_profile(torch, run, warm=True)
+            ours = {n[:80]: {"launches": c, "us_per_launch": us / c}
+                    for n, (c, us) in prof["by_name"].items()
+                    if any(k in n for k in ("ell_spmv",
+                                            "izhikevich_step_kernel",
+                                            "hh_step_kernel",
+                                            *_flash_kernels("fwd")))}
+            whole = bool(ours) and all(v["launches"] % steps == 0
+                                       for v in ours.values())
+            if whole:
+                break
+        check(whole, f"traces of {steps} steps kept {ours}")
+        return prof, ours
+
+    prof, ours = traced()
     busy_us, wall_us = prof["device_busy_us"], prof["wall_us"]
     top = [(n, us) for n, _, us in prof["top"][:6]]
     print(f"profiled {steps} steps: device busy {busy_us:.0f} of "
           f"{wall_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
-          f"{prof['device_ops'] / steps:.0f} device ops/step; top: "
+          f"{prof['device_ops'] / steps:.1f} device ops/step; top: "
           + "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
     print(f"the port's kernels on the device: {ours}")
+    # the same window with the NaN guard's isfinite fold (codegen'd
+    # populations) and its copy of the flag (fused ones) patched out: the
+    # difference is what the guard costs a step (the flag that the fused
+    # kernels write in their epilogues costs no device op of its own)
+    from unittest import mock
+    from repro_torch.core.snn import simulator as S
+    with mock.patch.object(S, "fold_finite", lambda finite, arrays: finite), \
+            mock.patch.object(S, "own_flag", lambda finite: finite):
+        bare, _ = traced()
+    guard_ops = (prof["device_ops"] - bare["device_ops"]) / steps
+    guard_us = (busy_us - bare["device_busy_us"]) / steps
+    print(f"the NaN guard: {guard_ops:.1f} device ops/step, "
+          f"{guard_us:.2f} us device time/step")
     return {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
             "busy_share": prof["busy_share"],
             "device_ops_per_step": prof["device_ops"] / steps,
+            "guard_ops_per_step": guard_ops,
+            "guard_busy_us_per_step": guard_us,
             "top_us": [list(x) for x in top], "kernels": ours,
             "by_name": prof["by_name"]}
 

@@ -26,8 +26,11 @@ External stimuli (``stim``): ``step``/``run`` accept per-population injected
 currents, added to Isyn after the population's input_fn, consuming no
 random draws.
 
-NaN containment (paper §2): every step folds an ``isfinite`` reduction over
-membrane state into a carried per-batch-member ``finite`` flag.
+NaN containment (paper §2): every step folds whether each member's new
+state is finite into a carried per-batch-member ``finite`` flag.  A fused
+kernel writes that for its population in its own epilogue (its plain
+version on the CPU folds ``isfinite`` over the same outputs); codegen'd
+populations fold ``isfinite`` over their state here.
 """
 
 from __future__ import annotations
@@ -73,6 +76,20 @@ class RunResult:
     raster: Optional[Dict[str, torch.Tensor]] = None   # [steps, B, n] bool
 
 
+def fold_finite(finite: torch.Tensor, arrays) -> torch.Tensor:
+    """The NaN guard of a codegen'd population: ``finite`` [B] and, for
+    each array [B, n], whether all of its member's row is finite."""
+    for arr in arrays:
+        finite = finite & torch.isfinite(arr).all(dim=-1)
+    return finite
+
+
+def own_flag(finite: torch.Tensor) -> torch.Tensor:
+    """A copy of the carried NaN-guard flag for the fused kernels to clear
+    in place (they must not write into the previous step's state)."""
+    return finite.clone()
+
+
 def _scalar(v) -> Optional[float]:
     """A neuron parameter as a float, or None for a per-neuron array."""
     if isinstance(v, torch.Tensor):
@@ -102,7 +119,9 @@ class Simulator:
                       ) -> Optional[Tuple[str, Callable]]:
         """(kernel name, update) when a fused kernel computes ``pop``'s
         update, else None.  The update has codegen's signature and calls the
-        kernel's wrapper through its module, where a test can swap it.
+        kernel's wrapper through its module, where a test can swap it.  It
+        is marked ``clears_finite``: the kernel writes the NaN guard's flag
+        (``ext["finite"]``, cleared in place), so no isfinite fold follows.
 
         Izhikevich parameters are made [n] float32 tensors here, once.  A
         Traub-Miles population with a per-neuron parameter is not the
@@ -121,9 +140,11 @@ class Simulator:
 
             def izhikevich(state, params, ext):
                 v, u, spiked = _iz.izhikevich_step(
-                    state["V"], state["U"], ext["Isyn"], a, b, c, d, dt)
+                    state["V"], state["U"], ext["Isyn"], a, b, c, d, dt,
+                    finite=ext["finite"])
                 return {"V": v, "U": u}, spiked
 
+            izhikevich.clears_finite = True
             return kernel, izhikevich
         scalars = {k: _scalar(v) for k, v in pop.params.items()}
         if any(v is None for v in scalars.values()):
@@ -131,11 +152,12 @@ class Simulator:
         substeps = static["substeps"]
 
         def hh(state, params, ext):
-            v, m, h, n = _hh.hh_step(
+            v, m, h, n, above = _hh.hh_step(
                 state["V"], state["m"], state["h"], state["n"], ext["Isyn"],
-                dt, substeps, **scalars)
-            return {"V": v, "m": m, "h": h, "n": n}, v >= 0.0
+                dt, substeps, **scalars, finite=ext["finite"])
+            return {"V": v, "m": m, "h": h, "n": n}, above
 
+        hh.clears_finite = True
         return kernel, hh
 
     def _validate_gscales(self, gscales: Optional[Mapping[str, object]]
@@ -247,8 +269,13 @@ class Simulator:
             if pop.model.needs_rand:
                 ext["rand"] = torch.rand(pop.n, generator=gen,
                                          device=self.device)
-            ns, above = self._updates[name](state.neurons[name], pop.params,
-                                            ext)
+            update = self._updates[name]
+            flagged = getattr(update, "clears_finite", False)
+            if flagged:
+                if finite is state.finite:
+                    finite = own_flag(finite)
+                ext["finite"] = finite
+            ns, above = update(state.neurons[name], pop.params, ext)
             if pop.edge_spikes:
                 spk = above & ~state.prev_above[name]
                 new_prev[name] = above
@@ -256,8 +283,8 @@ class Simulator:
                 spk = above
             new_neurons[name] = ns
             new_spikes[name] = spk
-            for arr in ns.values():
-                finite = finite & torch.isfinite(arr).all(dim=-1)
+            if not flagged:
+                finite = fold_finite(finite, ns.values())
 
         new_state = SimState(
             neurons=new_neurons, spikes=new_spikes, prev_above=new_prev,

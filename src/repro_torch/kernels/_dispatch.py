@@ -14,7 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["on_cpu", "check_operand", "raise_on", "GRID_Y_MAX", "INT_MAX"]
+__all__ = ["on_cpu", "check_operand", "check_flag", "raise_on", "launch",
+           "GRID_Y_MAX", "INT_MAX"]
 
 GRID_Y_MAX = 65535            # a launch's grid axis y (the batch rides it)
 INT_MAX = 2 ** 31 - 1         # sizes the kernels take as int
@@ -38,6 +39,42 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_flag(finite: Optional[torch.Tensor], state: torch.Tensor) -> None:
+    """``finite``, when given, is a NaN guard's flag for ``state`` [B, n]
+    (or [n]): one bool per batch member, which the kernel clears where
+    that member's outputs are not all finite."""
+    if finite is None:
+        return
+    if (finite.dtype != torch.bool or finite.shape != state.shape[:-1]
+            or not finite.is_contiguous()):
+        raise ValueError(f"finite must be a contiguous bool tensor of shape "
+                         f"{tuple(state.shape[:-1])}, got {finite.dtype} "
+                         f"{tuple(finite.shape)}")
+
+
+# the raw handle of PyTorch's current stream on a device, without making a
+# Stream object (the public torch.cuda.current_stream(i).cuda_stream is the
+# fallback)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(device: torch.device, fn: Callable[..., int], *args) -> int:
+    """``fn(*args, stream)``: a kernel's C launch on PyTorch's current
+    stream of ``device``, made the current device only when it is not
+    already (entering ``torch.cuda.device`` costs the host more than the
+    launch)."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, _stream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, _stream(device.index))
 
 
 def raise_on(rc: int, error_string: Callable[[int], bytes],

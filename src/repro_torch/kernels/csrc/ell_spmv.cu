@@ -9,24 +9,60 @@
 // The TPU form builds a one-hot matrix per (post-block, pre-block) tile and
 // contracts it on the MXU, because a TPU core has neither per-lane scatter
 // nor atomics.  It touches every slot of every row, spiking or not.  The
-// card has both, so this is GeNN's own form instead:
+// card has both, so this is GeNN's own form instead: read only the rows
+// that spike, and scatter their valid slots with atomicAdd.
 //
-//   * one warp per presynaptic row, eight rows to a block, and the batch
-//     index b on grid axis y;
-//   * a warp whose spike value is 0 returns at once, so the work is
-//     proportional to activity (the compaction that
-//     repro/kernels/ops.py::ell_spmv_event does on the TPU is not needed);
-//   * the 32 lanes stride over the row's K slots, so the loads of g,
-//     post_ind, valid (and delay) are coalesced, and each valid slot does one
-//     atomicAdd into the output row of batch member b.
+// What bounds it on this card.  By the bytes: memory.  Per spiking row it
+// reads 9 bytes a slot (13 with a delay) and does one add per valid slot
+// and spiking member, far below the ~20 flop/byte the card needs before
+// arithmetic matters; at the main path's ~1% activity a launch moves ~6
+// MB, which the card reads in ~2 us.  In fact: the atomics.  Every valid
+// slot of a spiking row is one atomicAdd to a random post neuron (with K
+// >= 1000 and ~1e5 targets they rarely collide, and resolve in L2), and
+// the card retires them at a rate of its own: chip_smoke.py's phase 2
+// measures ~43-84 G adds/s on an H100 (0.62 M adds in ~14 us at B = 1 and
+// 1% spiking, 5.2 M in ~80 us at B = 8, 64 M in ~0.95 ms at 100%), so the
+// adds, not the bytes, set the time of this kernel.  What the design
+// controls is the rest: how many dependent trips to memory a row takes
+// before its adds can issue, and how much of the card waits on them.
 //
-// What bounds it on this card: memory.  Per spiking row it reads 9 bytes a
-// slot (13 with a delay) and does one add per valid slot, far below the
-// ~20 flop/byte the card needs before arithmetic matters.  The atomics land
-// on random post neurons; with K >= 1000 and ~1e5 targets contention is low,
-// and the adds resolve in L2.  The design answers the bound only by reading
-// nothing for silent rows; reading a row once for all B batch members and
-// packing valid into the index word are later work.
+// ell_spmv_live_kernel (the delay-free form) answers that:
+//
+//   * A CTA of 256 threads covers 256 presynaptic rows and up to 8 batch
+//     members (grid: rows on x, groups of 8 members on y).  Each thread
+//     first reads its row's spike for every member of the group, keeps
+//     the values in shared memory, and the CTA builds its list of live rows
+//     (a row spiking for any member) with __ballot_sync and a prefix sum
+//     over the warps: the paper's event-driven delivery.  The grid is one
+//     wave at the main path's sizes (313 CTAs for 80,000 rows at B <= 8).
+//   * Then all 256 threads walk the live rows' slots together, 4 slots an
+//     item (16-byte loads of post_ind and g, 4 bytes of valid), 4 items a
+//     thread, and issue every load of their items before their first
+//     atomic: a row costs about one round trip to memory, not one per 32
+//     slots as with a warp per row (the PR 11 form).
+//   * A row's post_ind, valid and (when shared, g_batch_stride == 0) g are
+//     read once for all members of the group; then one atomicAdd per valid
+//     slot and spiking member.  Per-member weights are read per member.
+//   * Spikes may be float32 or bool bytes (the simulator's spikes as they
+//     are: a bool spike is 1.0).
+//   * The atomics add in float64 (out is a float64 buffer that the wrapper
+//     rounds to float32 once).  Float32 atomics land in an order of the
+//     card's choosing, so two runs, or the kernel and the plain version,
+//     round a neuron's input differently, and in a network that sits on a
+//     knife edge one ulp decides a spike: on the main path, the raster of
+//     one branch differs from the other's on 0.3% of 50 steps' neuron-steps
+//     (experiments/raster_agreement.py).  A float64 sum of float32
+//     products is exact while they span fewer than 2^29 between the
+//     smallest one's ulp and the largest partial sum, so the result is the
+//     correctly rounded sum whatever the order: the same on every run, and
+//     bit-equal to the plain version, which sums in float64 too.
+//   * kVec = 1 is the same walk one slot an item, for rows whose K is no
+//     multiple of 4 or operands not 16-byte aligned.
+//
+// ell_spmv_delay_kernel is the PR 11 form, unchanged: one warp per
+// presynaptic row, eight rows to a block, the batch index on grid axis y,
+// a warp whose spike is 0 returning at once, 32 lanes striding over the
+// row's K slots.
 //
 // Out-of-range targets (post_ind >= n_post, delay >= n_slots) are skipped
 // rather than written: the containers are checked when they are built, and
@@ -37,18 +73,186 @@
 
 namespace {
 
+// -- the delay-free kernel ----------------------------------------------------
+
+constexpr int kRows = 256;       // presynaptic rows (= threads) of a CTA
+constexpr int kMembers = 8;      // batch members of a CTA
+constexpr int kUnroll = 4;       // items a thread loads before its atomics
+constexpr int kWarps = kRows / 32;
+
+// The CTA's static shared memory: kernels.ell_spmv.launch_plan's
+// "smem_bytes" must equal its size (checked at launch).
+struct LiveSmem {
+  float spike[kMembers][kRows];  // the group's spike values, by local row
+  uint16_t rows[kRows];          // the live local rows, in order
+  int warp_live[kWarps];         // live rows per warp
+};
+
+__device__ __forceinline__ float spike_value(float s) { return s; }
+__device__ __forceinline__ float spike_value(uint8_t s) {
+  return s ? 1.0f : 0.0f;
+}
+
+// kVec slots of one row: their targets, weights and valid bytes
+template <int kVec> struct Slots;
+template <> struct Slots<4> {
+  int4 j;
+  float4 w;
+  uint32_t v;
+  __device__ __forceinline__ void load(const int32_t* post_ind,
+                                       const float* g, const uint8_t* valid,
+                                       long long p, bool with_g) {
+    j = __ldg(reinterpret_cast<const int4*>(post_ind + p));
+    v = __ldg(reinterpret_cast<const unsigned int*>(valid + p));
+    if (with_g) w = __ldg(reinterpret_cast<const float4*>(g + p));
+  }
+  __device__ __forceinline__ void load_g(const float* g, long long p) {
+    w = __ldg(reinterpret_cast<const float4*>(g + p));
+  }
+  __device__ __forceinline__ int target(int e) const {
+    return e == 0 ? j.x : e == 1 ? j.y : e == 2 ? j.z : j.w;
+  }
+  __device__ __forceinline__ float weight(int e) const {
+    return e == 0 ? w.x : e == 1 ? w.y : e == 2 ? w.z : w.w;
+  }
+  __device__ __forceinline__ bool is_valid(int e) const {
+    return (v >> (8 * e)) & 0xffu;
+  }
+};
+template <> struct Slots<1> {
+  int j;
+  float w;
+  uint8_t v;
+  __device__ __forceinline__ void load(const int32_t* post_ind,
+                                       const float* g, const uint8_t* valid,
+                                       long long p, bool with_g) {
+    j = __ldg(post_ind + p);
+    v = __ldg(valid + p);
+    if (with_g) w = __ldg(g + p);
+  }
+  __device__ __forceinline__ void load_g(const float* g, long long p) {
+    w = __ldg(g + p);
+  }
+  __device__ __forceinline__ int target(int) const { return j; }
+  __device__ __forceinline__ float weight(int) const { return w; }
+  __device__ __forceinline__ bool is_valid(int) const { return v != 0; }
+};
+
+template <typename S, int kVec>
+__global__ void __launch_bounds__(kRows)
+ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
+                     const int32_t* __restrict__ post_ind,
+                     const uint8_t* __restrict__ valid,
+                     const S* __restrict__ spikes, double* __restrict__ out,
+                     int batch, int n_pre, int k, int n_post) {
+  __shared__ LiveSmem sm;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int row0 = blockIdx.x * kRows;
+  const int b0 = blockIdx.y * kMembers;
+  const int members = min(kMembers, batch - b0);
+
+  // 1. which of the CTA's rows spike, for any member of the group
+  const int row = row0 + t;
+  bool live = false;
+#pragma unroll
+  for (int m = 0; m < kMembers; ++m) {
+    float s = 0.0f;
+    if (m < members && row < n_pre)
+      s = spike_value(spikes[static_cast<long long>(b0 + m) * n_pre + row]);
+    sm.spike[m][t] = s;
+    live |= s != 0.0f;
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) sm.warp_live[warp] = __popc(ballot);
+  __syncthreads();
+  int offset = 0, n_live = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = sm.warp_live[w];
+    offset += w < warp ? c : 0;
+    n_live += c;
+  }
+  if (live)
+    sm.rows[offset + __popc(ballot & ((1u << lane) - 1u))] =
+        static_cast<uint16_t>(t);
+  __syncthreads();
+  if (n_live == 0) return;                 // uniform across the CTA
+
+  // 2. the live rows' slots, kVec to an item, all threads together;
+  //    n_live * chunks < 2^31 (launch_plan bounds k)
+  const bool shared_g = g_batch_stride == 0;
+  const unsigned chunks = static_cast<unsigned>(k / kVec);
+  const unsigned items = static_cast<unsigned>(n_live) * chunks;
+  for (unsigned base = t; base < items; base += kRows * kUnroll) {
+    Slots<kVec> sl[kUnroll];
+    int rl[kUnroll];
+    long long p[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned it = base + u * kRows;
+      rl[u] = -1;
+      if (it < items) {
+        rl[u] = sm.rows[it / chunks];
+        p[u] = static_cast<long long>(row0 + rl[u]) * k +
+               static_cast<long long>(it % chunks) * kVec;
+        sl[u].load(post_ind, g, valid, p[u], shared_g);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (rl[u] < 0) continue;
+      for (int m = 0; m < members; ++m) {
+        const float s = sm.spike[m][rl[u]];
+        if (s == 0.0f) continue;
+        if (!shared_g) sl[u].load_g(g + (b0 + m) * g_batch_stride, p[u]);
+        double* out_b = out + static_cast<long long>(b0 + m) * n_post;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int j = sl[u].target(e);
+          if (sl[u].is_valid(e) &&
+              static_cast<unsigned>(j) < static_cast<unsigned>(n_post))
+            atomicAdd(out_b + j, static_cast<double>(s * sl[u].weight(e)));
+        }
+      }
+    }
+  }
+}
+
+template <typename S>
+int launch_live(const float* g, long long g_batch_stride,
+                const int32_t* post_ind, const uint8_t* valid,
+                const S* spikes, double* out, int batch, int n_pre, int k,
+                int n_post, int vec, cudaStream_t stream) {
+  dim3 grid((n_pre + kRows - 1) / kRows, (batch + kMembers - 1) / kMembers);
+  if (vec == 4)
+    ell_spmv_live_kernel<S, 4><<<grid, kRows, 0, stream>>>(
+        g, g_batch_stride, post_ind, valid, spikes, out, batch, n_pre, k,
+        n_post);
+  else
+    ell_spmv_live_kernel<S, 1><<<grid, kRows, 0, stream>>>(
+        g, g_batch_stride, post_ind, valid, spikes, out, batch, n_pre, k,
+        n_post);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// -- the delay kernel (PR 11's form) ----------------------------------------
+
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 
-template <bool kDelay>
 __global__ void __launch_bounds__(kThreads)
-ell_spmv_kernel(const float* __restrict__ g, long long g_batch_stride,
-                const int32_t* __restrict__ post_ind,
-                const uint8_t* __restrict__ valid,
-                const int32_t* __restrict__ delay,
-                const float* __restrict__ spikes,
-                float* __restrict__ out,
-                int n_pre, int k, int n_post, int n_slots) {
+ell_spmv_delay_kernel(const float* __restrict__ g, long long g_batch_stride,
+                      const int32_t* __restrict__ post_ind,
+                      const uint8_t* __restrict__ valid,
+                      const int32_t* __restrict__ delay,
+                      const float* __restrict__ spikes,
+                      float* __restrict__ out,
+                      int n_pre, int k, int n_post, int n_slots) {
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   const long long b = blockIdx.y;
@@ -61,7 +265,7 @@ ell_spmv_kernel(const float* __restrict__ g, long long g_batch_stride,
   for (int c = lane; c < k; c += 32) {
     if (!valid[base + c]) continue;
     const int j = post_ind[base + c];
-    const int d = kDelay ? delay[base + c] : 0;
+    const int d = delay[base + c];
     if (static_cast<unsigned>(j) >= static_cast<unsigned>(n_post) ||
         static_cast<unsigned>(d) >= static_cast<unsigned>(n_slots))
       continue;
@@ -69,31 +273,37 @@ ell_spmv_kernel(const float* __restrict__ g, long long g_batch_stride,
   }
 }
 
-template <bool kDelay>
-int launch(const float* g, long long g_batch_stride, const int32_t* post_ind,
-           const uint8_t* valid, const int32_t* delay, const float* spikes,
-           float* out, int batch, int n_pre, int k, int n_post, int n_slots,
-           cudaStream_t stream) {
-  if (batch == 0 || n_pre == 0 || k == 0) return cudaSuccess;
-  dim3 grid((n_pre + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-  ell_spmv_kernel<kDelay><<<grid, kThreads, 0, stream>>>(
-      g, g_batch_stride, post_ind, valid, delay, spikes, out, n_pre, k,
-      n_post, n_slots);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// out: [batch, n_post] float32, zeroed by the caller.
+// The shared memory of a live-kernel CTA (launch_plan's "smem_bytes").
+int ell_spmv_smem_bytes() { return static_cast<int>(sizeof(LiveSmem)); }
+
+// out: [batch, n_post] float64, zeroed by the caller.  spikes: [batch,
+// n_pre], float32 (spikes_bool = 0) or bool bytes (1).  vec and smem_bytes
+// come from kernels.ell_spmv.launch_plan: vec 4 needs k % 4 == 0, post_ind
+// and g 16-byte aligned and valid 4-byte aligned; a plan that disagrees
+// with this source is refused.
 int ell_spmv_f32(const float* g, long long g_batch_stride,
                  const int32_t* post_ind, const uint8_t* valid,
-                 const float* spikes, float* out, int batch, int n_pre, int k,
-                 int n_post, void* stream) {
-  return launch<false>(g, g_batch_stride, post_ind, valid, nullptr, spikes,
-                       out, batch, n_pre, k, n_post, 1,
-                       static_cast<cudaStream_t>(stream));
+                 const void* spikes, int spikes_bool, double* out, int batch,
+                 int n_pre, int k, int n_post, int vec, int smem_bytes,
+                 void* stream) {
+  if (smem_bytes != static_cast<int>(sizeof(LiveSmem)) ||
+      (vec != 1 && vec != 4) ||
+      (vec == 4 && (k % 4 != 0 || !aligned(post_ind, 16) ||
+                    !aligned(g, 16) || !aligned(valid, 4))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || n_pre == 0 || k == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (spikes_bool)
+    return launch_live(g, g_batch_stride, post_ind, valid,
+                       static_cast<const uint8_t*>(spikes), out, batch,
+                       n_pre, k, n_post, vec, s);
+  return launch_live(g, g_batch_stride, post_ind, valid,
+                     static_cast<const float*>(spikes), out, batch, n_pre, k,
+                     n_post, vec, s);
 }
 
 // out: [batch, n_slots, n_post] float32, zeroed by the caller.
@@ -102,9 +312,13 @@ int ell_spmv_delay_f32(const float* g, long long g_batch_stride,
                        const int32_t* delay, const float* spikes, float* out,
                        int batch, int n_pre, int k, int n_post, int n_slots,
                        void* stream) {
-  return launch<true>(g, g_batch_stride, post_ind, valid, delay, spikes, out,
-                      batch, n_pre, k, n_post, n_slots,
-                      static_cast<cudaStream_t>(stream));
+  if (batch == 0 || n_pre == 0 || k == 0) return cudaSuccess;
+  dim3 grid((n_pre + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
+  ell_spmv_delay_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      g, g_batch_stride, post_ind, valid, delay, spikes, out, n_pre, k,
+      n_post, n_slots);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* ell_spmv_error_string(int code) {

@@ -2,7 +2,10 @@
 
 ``csrc/ell_spmv.cu`` replaces the TPU kernels
 ``repro/kernels/ell_spmv.py::ell_spmv_pallas`` and ``::ell_spmv_delay_pallas``
-(its header says how, and what bounds it on the card).
+(its header says how, and what bounds it on the card).  ``launch_plan``
+computes on the host what a delay-free call needs (grid, block, shared
+memory, the slots an item); the kernel refuses a plan whose shared memory
+differs from its own layout.
 
 Dispatch goes by where the tensors lie.  Tensors on the CPU take the plain
 PyTorch version in ``repro_torch.kernels.ref``; CUDA tensors launch the
@@ -24,12 +27,27 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, I, LL, P,
-                                           check_operand, on_cpu, raise_on)
+                                           check_operand, launch, on_cpu,
+                                           raise_on)
 
-__all__ = ["ell_spmv", "ell_spmv_delay", "launches", "reset_launches"]
+__all__ = ["ell_spmv", "ell_spmv_delay", "launch_plan", "launches",
+           "reset_launches", "ROWS_PER_CTA", "MEMBERS_PER_CTA"]
 
 # kernel name -> number of launches since the last reset_launches()
 launches: Dict[str, int] = {"ell_spmv": 0, "ell_spmv_delay": 0}
+
+ROWS_PER_CTA = 256        # presynaptic rows (and threads) of a CTA
+MEMBERS_PER_CTA = 8       # batch members whose spikes a CTA reads
+_ITEMS_PER_THREAD = 4     # items a thread loads before its first atomic
+# the CTA's shared memory (``LiveSmem`` in the .cu): spike values
+# [members][rows] float32, the live-row list uint16 [rows], live rows per
+# warp int32 [rows / 32]
+_SMEM_BYTES = (4 * MEMBERS_PER_CTA * ROWS_PER_CTA + 2 * ROWS_PER_CTA
+               + 4 * (ROWS_PER_CTA // 32))
+SMEM_MAX = 232_448        # shared memory one H100 CTA can use
+GRID_X_MAX = INT_MAX
+# the kernel counts a CTA's items (live rows x slots) in 32 bits
+K_MAX = (INT_MAX - ROWS_PER_CTA * _ITEMS_PER_THREAD) // ROWS_PER_CTA
 
 
 def reset_launches() -> None:
@@ -37,21 +55,55 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+@functools.lru_cache(maxsize=256)
+def launch_plan(batch: int, n_pre: int, k: int, n_post: int,
+                aligned: bool = True) -> dict:
+    """What ``ell_spmv`` launches for spikes [batch, n_pre], K slots a row
+    and n_post targets: a CTA of ``block`` threads for each
+    ``ROWS_PER_CTA`` rows (grid x) and each ``MEMBERS_PER_CTA`` members
+    (grid y), ``smem_bytes`` of static shared memory, ``vec`` slots an
+    item (4 when K is a multiple of 4 and the operands are ``aligned``:
+    16 bytes for post_ind and g, 4 for valid; else 1).  Raises where a
+    grid axis or an index would overflow.  The returned dict is shared:
+    do not change it."""
+    for what, v in (("batch", batch), ("n_pre", n_pre), ("K", k),
+                    ("n_post", n_post)):
+        if not 0 <= v <= INT_MAX:
+            raise ValueError(f"{what}={v} outside the kernel's int32 range")
+    grid = (-(-n_pre // ROWS_PER_CTA), -(-batch // MEMBERS_PER_CTA), 1)
+    if grid[1] > GRID_Y_MAX:
+        raise ValueError(f"batch {batch} needs {grid[1]} CTAs on grid axis "
+                         f"y, past its {GRID_Y_MAX}")
+    if grid[0] > GRID_X_MAX:
+        raise ValueError(f"n_pre {n_pre} needs {grid[0]} CTAs on grid axis "
+                         f"x, past its {GRID_X_MAX}")
+    if k > K_MAX:
+        raise ValueError(f"K={k} past the kernel's {K_MAX} slots a row")
+    if _SMEM_BYTES > SMEM_MAX:
+        raise ValueError(f"{_SMEM_BYTES} B of shared memory past {SMEM_MAX}")
+    return {"grid": grid, "block": ROWS_PER_CTA, "smem_bytes": _SMEM_BYTES,
+            "vec": 4 if k % 4 == 0 and aligned else 1,
+            "rows_per_cta": ROWS_PER_CTA,
+            "members_per_cta": MEMBERS_PER_CTA,
+            "items_per_thread": _ITEMS_PER_THREAD}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_spmv")
-    lib.ell_spmv_f32.argtypes = [P, LL, P, P, P, P, I, I, I, I, P]
+    lib.ell_spmv_f32.argtypes = [P, LL, P, P, P, I, P, I, I, I, I, I, I, P]
     lib.ell_spmv_f32.restype = I
     lib.ell_spmv_delay_f32.argtypes = [P, LL, P, P, P, P, P,
                                        I, I, I, I, I, P]
     lib.ell_spmv_delay_f32.restype = I
+    lib.ell_spmv_smem_bytes.argtypes = []
+    lib.ell_spmv_smem_bytes.restype = I
     lib.ell_spmv_error_string.argtypes = [I]
     lib.ell_spmv_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(g, post_ind, valid, delay, spikes, n_post: int,
-           n_slots: int) -> tuple:
+def _check(g, post_ind, valid, delay, spikes) -> tuple:
     """Validate what the kernel takes; returns (batch, n_pre, k, g_stride)."""
     if spikes.dim() != 2:
         raise ValueError(f"spikes must be [B, n_pre], got {tuple(spikes.shape)}")
@@ -60,11 +112,11 @@ def _check(g, post_ind, valid, delay, spikes, n_post: int,
         raise ValueError(f"post_ind must be [n_pre={n_pre}, K], got "
                          f"{tuple(post_ind.shape)}")
     k = post_ind.shape[1]
-    if tuple(valid.shape) != (n_pre, k):
+    if valid.shape != post_ind.shape:
         raise ValueError(f"valid {tuple(valid.shape)} != post_ind {(n_pre, k)}")
-    if delay is not None and tuple(delay.shape) != (n_pre, k):
+    if delay is not None and delay.shape != post_ind.shape:
         raise ValueError(f"delay {tuple(delay.shape)} != post_ind {(n_pre, k)}")
-    if g.dim() == 2 and tuple(g.shape) == (n_pre, k):
+    if g.shape == post_ind.shape:
         g_stride = 0
     elif g.dim() == 3 and tuple(g.shape) == (batch, n_pre, k):
         g_stride = n_pre * k
@@ -72,19 +124,11 @@ def _check(g, post_ind, valid, delay, spikes, n_post: int,
         raise ValueError(f"g must be [n_pre, K]={(n_pre, k)} or "
                          f"[B, n_pre, K]={(batch, n_pre, k)}, got "
                          f"{tuple(g.shape)}")
-    for name, t, dt in (("g", g, torch.float32), ("spikes", spikes,
-                                                   torch.float32),
-                        ("post_ind", post_ind, torch.int32),
-                        ("valid", valid, torch.bool),
-                        ("delay", delay, torch.int32)):
-        if t is not None:
-            check_operand(name, t, dt)
-    if batch > GRID_Y_MAX:
-        raise ValueError(f"batch {batch} exceeds the kernel's {GRID_Y_MAX}")
-    for what, v in (("n_pre", n_pre), ("K", k), ("n_post", n_post),
-                    ("n_slots * n_post", n_slots * n_post)):
-        if not 0 <= v <= INT_MAX:
-            raise ValueError(f"{what}={v} outside the kernel's int32 range")
+    check_operand("g", g, torch.float32)
+    check_operand("post_ind", post_ind, torch.int32)
+    check_operand("valid", valid, torch.bool)
+    if delay is not None:
+        check_operand("delay", delay, torch.int32)
     return batch, n_pre, k, g_stride
 
 
@@ -95,22 +139,31 @@ def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
 
     g: [n_pre, K] float32 (or [B, n_pre, K] for per-member weights);
     post_ind: [n_pre, K] int32; valid: [n_pre, K] bool;
-    spikes: [B, n_pre] float32  ->  [B, n_post] float32."""
+    spikes: [B, n_pre] float32 or bool (a bool spike is 1.0)
+    ->  [B, n_post] float32."""
     if on_cpu("ell_spmv", g, post_ind, valid, spikes):
         return _ref.ell_spmv_ref(g, post_ind, valid, spikes, n_post)
-    batch, n_pre, k, g_stride = _check(g, post_ind, valid, None, spikes,
-                                       n_post, 1)
-    out = torch.zeros((batch, n_post), dtype=torch.float32,
+    batch, n_pre, k, g_stride = _check(g, post_ind, valid, None, spikes)
+    spikes_bool = spikes.dtype == torch.bool
+    if not spikes_bool:
+        check_operand("spikes", spikes, torch.float32)
+    elif not spikes.is_contiguous():
+        raise ValueError("spikes must be contiguous")
+    g_ptr, ind_ptr, valid_ptr = (g.data_ptr(), post_ind.data_ptr(),
+                                 valid.data_ptr())
+    plan = launch_plan(batch, n_pre, k, n_post,
+                       (g_ptr | ind_ptr) % 16 == 0 and valid_ptr % 4 == 0)
+    # the kernel sums in float64, so its result does not depend on the
+    # order of its atomics; rounded to float32 once here
+    out = torch.zeros((batch, n_post), dtype=torch.float64,
                       device=spikes.device)
-    with torch.cuda.device(spikes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().ell_spmv_f32(
-            g.data_ptr(), g_stride, post_ind.data_ptr(), valid.data_ptr(),
-            spikes.data_ptr(), out.data_ptr(), batch, n_pre, k, n_post,
-            stream)
+    rc = launch(spikes.device, _lib().ell_spmv_f32, g_ptr, g_stride, ind_ptr,
+                valid_ptr, spikes.data_ptr(), int(spikes_bool),
+                out.data_ptr(), batch, n_pre, k, n_post, plan["vec"],
+                plan["smem_bytes"])
     launches["ell_spmv"] += 1
     raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv")
-    return out
+    return out.to(torch.float32)
 
 
 def ell_spmv_delay(g: torch.Tensor, post_ind: torch.Tensor,
@@ -125,16 +178,20 @@ def ell_spmv_delay(g: torch.Tensor, post_ind: torch.Tensor,
               spikes):
         return _ref.ell_spmv_delay_ref(g, post_ind, valid, delay, spikes,
                                        n_post, n_slots)
-    batch, n_pre, k, g_stride = _check(g, post_ind, valid, delay, spikes,
-                                       n_post, n_slots)
+    batch, n_pre, k, g_stride = _check(g, post_ind, valid, delay, spikes)
+    check_operand("spikes", spikes, torch.float32)
+    if batch > GRID_Y_MAX:
+        raise ValueError(f"batch {batch} exceeds the kernel's {GRID_Y_MAX}")
+    for what, v in (("n_pre", n_pre), ("K", k), ("n_post", n_post),
+                    ("n_slots * n_post", n_slots * n_post)):
+        if not 0 <= v <= INT_MAX:
+            raise ValueError(f"{what}={v} outside the kernel's int32 range")
     out = torch.zeros((batch, n_slots, n_post), dtype=torch.float32,
                       device=spikes.device)
-    with torch.cuda.device(spikes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().ell_spmv_delay_f32(
-            g.data_ptr(), g_stride, post_ind.data_ptr(), valid.data_ptr(),
-            delay.data_ptr(), spikes.data_ptr(), out.data_ptr(), batch,
-            n_pre, k, n_post, n_slots, stream)
+    rc = launch(spikes.device, _lib().ell_spmv_delay_f32, g.data_ptr(),
+                g_stride, post_ind.data_ptr(), valid.data_ptr(),
+                delay.data_ptr(), spikes.data_ptr(), out.data_ptr(), batch,
+                n_pre, k, n_post, n_slots)
     launches["ell_spmv_delay"] += 1
     raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv_delay")
     return out

@@ -14,14 +14,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
-                                           check_operand, on_cpu, raise_on)
+                                           check_flag, check_operand, launch,
+                                           on_cpu, raise_on)
 
 __all__ = ["izhikevich_step", "launches", "reset_launches"]
 
@@ -35,7 +36,7 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("neuron_step")
-    lib.izhikevich_step_f32.argtypes = [P] * 10 + [I, I, F, P]
+    lib.izhikevich_step_f32.argtypes = [P] * 11 + [I, I, F, P]
     lib.izhikevich_step_f32.restype = I
     lib.neuron_step_error_string.argtypes = [I]
     lib.neuron_step_error_string.restype = ctypes.c_char_p
@@ -43,16 +44,20 @@ def _lib() -> ctypes.CDLL:
 
 
 def izhikevich_step(v: torch.Tensor, u: torch.Tensor, isyn: torch.Tensor,
-                    a, b, c, d, dt: float
+                    a, b, c, d, dt: float,
+                    finite: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Izhikevich step: returns (v', u', spiked), shaped like ``v``.
 
     v, u, isyn: [B, n] (or [n]) float32; a, b, c, d: [n] float32 tensors
-    (scalars too, on the CPU); dt in ms."""
+    (scalars too, on the CPU); dt in ms.  ``finite``: the NaN guard's
+    flag, a bool tensor [B] (0-dim for [n]), cleared in place for each
+    member whose v' or u' is not all finite."""
     params = (a, b, c, d)
-    if on_cpu("izhikevich_step", v, u, isyn,
+    if on_cpu("izhikevich_step", v, u, isyn, finite,
               *(p for p in params if isinstance(p, torch.Tensor))):
-        return _ref.izhikevich_step_ref(v, u, isyn, a, b, c, d, dt)
+        return _ref.izhikevich_step_ref(v, u, isyn, a, b, c, d, dt,
+                                        finite=finite)
     if v.dim() not in (1, 2):
         raise ValueError(f"v must be [B, n] or [n], got {tuple(v.shape)}")
     n = v.shape[-1]
@@ -67,17 +72,18 @@ def izhikevich_step(v: torch.Tensor, u: torch.Tensor, isyn: torch.Tensor,
                              f"card (kernels.ops.izhikevich_step broadcasts "
                              f"scalars)")
         check_operand(name, p, torch.float32)
+    check_flag(finite, v)
     if batch > GRID_Y_MAX or n > INT_MAX:
         raise ValueError(f"[{batch}, {n}] exceeds the kernel's grid")
-    v_out = torch.empty_like(v)
-    u_out = torch.empty_like(v)
+    v_out, u_out = torch.empty((2,) + v.shape, dtype=torch.float32,
+                               device=v.device).unbind(0)
     spiked = torch.empty(v.shape, dtype=torch.bool, device=v.device)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().izhikevich_step_f32(
-            v.data_ptr(), u.data_ptr(), isyn.data_ptr(), a.data_ptr(),
-            b.data_ptr(), c.data_ptr(), d.data_ptr(), v_out.data_ptr(),
-            u_out.data_ptr(), spiked.data_ptr(), batch, n, float(dt), stream)
+    rc = launch(v.device, _lib().izhikevich_step_f32, v.data_ptr(),
+                u.data_ptr(), isyn.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), d.data_ptr(), v_out.data_ptr(),
+                u_out.data_ptr(), spiked.data_ptr(),
+                0 if finite is None else finite.data_ptr(), batch, n,
+                float(dt))
     launches["izhikevich_step"] += 1
     raise_on(rc, _lib().neuron_step_error_string, "izhikevich_step")
     return v_out, u_out, spiked

@@ -5,7 +5,7 @@ neuron updates, flash attention and the SSD scan.  There is no backend switch: e
 device its tensors lie on (see ``repro_torch.kernels._dispatch``).
 
 The event-driven variants keep the JAX signatures and run the same kernel.
-The kernel returns at once for rows whose spike is 0, which is the work the
+The kernel reads nothing of a row whose spike is 0, which is the work the
 TPU's row compaction saves, so no compaction, capacity or dense fallback is
 needed and the result is the dense pass's.
 """
@@ -29,9 +29,11 @@ __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
 
 
 def ell_spmv_batched(ell, spikes: torch.Tensor) -> torch.Tensor:
-    """spikes [B, n_pre] -> currents [B, n_post]."""
-    return _k.ell_spmv(ell.g, ell.post_ind, ell.valid,
-                       spikes.to(torch.float32), ell.n_post)
+    """spikes [B, n_pre] -> currents [B, n_post].  The kernel reads bool
+    and float32 spikes as they are (no cast on the simulator's path)."""
+    if spikes.dtype not in (torch.bool, torch.float32):
+        spikes = spikes.to(torch.float32)
+    return _k.ell_spmv(ell.g, ell.post_ind, ell.valid, spikes, ell.n_post)
 
 
 def ell_spmv(ell, spikes: torch.Tensor) -> torch.Tensor:
@@ -94,8 +96,9 @@ def izhikevich_step(v, u, isyn, a, b, c, d, dt: float):
 
 def hh_step(v, m, h, n, isyn, dt: float, **params):
     """Fused Traub-Miles HH update; params: ``substeps`` and the seven
-    scalar conductances/potentials of ``hh_step.hh_step``."""
-    return _hh.hh_step(v, m, h, n, isyn, dt, **params)
+    scalar conductances/potentials of ``hh_step.hh_step``.  Returns
+    (v, m, h, n), as the JAX entry point does."""
+    return _hh.hh_step(v, m, h, n, isyn, dt, **params)[:4]
 
 
 # -- LM kernels ---------------------------------------------------------------

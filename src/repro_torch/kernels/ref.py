@@ -5,7 +5,10 @@ exactly with integer-valued weights, whose sums do not depend on the order
 of the atomics).  The kernel wrappers take them for tensors that lie on the
 CPU; the tests and ``chip_smoke.py`` compare the kernels with them.  They
 repeat the kernels' arithmetic with ``index_add_`` over the flattened
-``(i, k)`` slots and are no yardstick of speed.
+``(i, k)`` slots and are no yardstick of speed.  ``ell_spmv_ref`` adds its
+float32 products in float64 and rounds once, as the ``ell_spmv`` kernel
+does, so the two agree bit for bit whatever order either adds in (see
+``csrc/ell_spmv.cu``).
 
 ``g`` may carry a leading batch axis (``[B, n_pre, K]``): plastic groups in
 a batched run hold one weight matrix per batch member.
@@ -15,7 +18,9 @@ are scalars or ``[n]``.  They repeat the statements of the codegen'd
 ``IZHIKEVICH`` and ``make_traubmiles(substeps)`` in the same order, with
 ``dt`` as a float32 scalar as the simulator hands it to codegen, so on the
 CPU they round exactly as codegen does.  HH keeps the TPU kernel's
-``n*n*n*n`` (the JAX reference's ``n ** 4`` rounds otherwise).
+``n*n*n*n`` (the JAX reference's ``n ** 4`` rounds otherwise).  Both take
+the NaN guard's flag ``finite`` [B] and clear it in place where a member's
+new state is not all finite, as the kernels do in their epilogues.
 
 ``flash_attention_ref`` is plain softmax attention with the flash kernel's
 masks and casts (see its docstring); ``flash_attention_fwd_ref`` also
@@ -55,11 +60,15 @@ def ell_spmv_ref(g: torch.Tensor, post_ind: torch.Tensor,
     g: [n_pre, K] or [B, n_pre, K];  post_ind, valid: [n_pre, K];
     spikes: [B, n_pre]  ->  [B, n_post]
     out[b, j] = sum_{i,k} spikes[b,i] * g[i,k] * valid[i,k] * (post_ind[i,k]==j)
+
+    The float32 products are summed in float64 and rounded once: the
+    correctly rounded sum, in any order of the adds.
     """
     flat = _contributions(g, valid, spikes)
-    out = torch.zeros((spikes.shape[0], n_post), dtype=flat.dtype,
+    out = torch.zeros((spikes.shape[0], n_post), dtype=torch.float64,
                       device=flat.device)
-    return out.index_add_(1, post_ind.reshape(-1).long(), flat)
+    out.index_add_(1, post_ind.reshape(-1).long(), flat.to(torch.float64))
+    return out.to(flat.dtype)
 
 
 def ell_spmv_delay_ref(g: torch.Tensor, post_ind: torch.Tensor,
@@ -84,15 +93,27 @@ def ell_spmv_delay_ref(g: torch.Tensor, post_ind: torch.Tensor,
     return out.reshape(spikes.shape[0], n_slots, n_post)
 
 
-def izhikevich_step_ref(v, u, isyn, a, b, c, d, dt):
-    """Fused Izhikevich update (two half-steps on V): (v', u', spiked)."""
+def _clear_if_not_finite(finite, *arrays) -> None:
+    """The NaN guard's flag: clear ``finite`` [B] in place for each member
+    whose row of any array is not all finite (the fold the simulator makes
+    for codegen'd populations, in its order)."""
+    if finite is not None:
+        for arr in arrays:
+            finite &= torch.isfinite(arr).all(dim=-1)
+
+
+def izhikevich_step_ref(v, u, isyn, a, b, c, d, dt, finite=None):
+    """Fused Izhikevich update (two half-steps on V): (v', u', spiked);
+    clears ``finite`` [B] where v' or u' is not all finite."""
     dt = torch.as_tensor(dt, dtype=torch.float32)
     v = v + 0.5 * dt * (0.04 * v * v + 5.0 * v + 140.0 - u + isyn)
     v = v + 0.5 * dt * (0.04 * v * v + 5.0 * v + 140.0 - u + isyn)
     u = u + dt * a * (b * v - u)
     v = torch.clamp(v, max=30.0)
     spiked = v >= 29.99
-    return torch.where(spiked, c, v), torch.where(spiked, u + d, u), spiked
+    v, u = torch.where(spiked, c, v), torch.where(spiked, u + d, u)
+    _clear_if_not_finite(finite, v, u)
+    return v, u, spiked
 
 
 def _vtrap(x):
@@ -102,9 +123,11 @@ def _vtrap(x):
 
 
 def hh_step_ref(v, m, h, n, isyn, dt, substeps=5, gNa=7.15, ENa=50.0,
-                gK=1.43, EK=-95.0, gl=0.02672, El=-63.563, C=0.143):
+                gK=1.43, EK=-95.0, gl=0.02672, El=-63.563, C=0.143,
+                finite=None):
     """Fused Traub-Miles HH update: ``substeps`` Euler substeps of
-    dt / substeps; returns (v, m, h, n)."""
+    dt / substeps; returns (v, m, h, n, above = v >= 0); clears ``finite``
+    [B] where v, m, h or n is not all finite."""
     hdt = torch.as_tensor(dt, dtype=torch.float32) / float(substeps)
     for _ in range(substeps):
         imem = -(m * m * m * h * gNa * (v - ENa)
@@ -119,7 +142,8 @@ def hh_step_ref(v, m, h, n, isyn, dt, substeps=5, gNa=7.15, ENa=50.0,
         m = torch.clamp(m + hdt * (a_m * (1.0 - m) - b_m * m), 0.0, 1.0)
         h = torch.clamp(h + hdt * (a_h * (1.0 - h) - b_h * h), 0.0, 1.0)
         n = torch.clamp(n + hdt * (a_n * (1.0 - n) - b_n * n), 0.0, 1.0)
-    return v, m, h, n
+    _clear_if_not_finite(finite, v, m, h, n)
+    return v, m, h, n, v >= 0.0
 
 
 def _attn_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,

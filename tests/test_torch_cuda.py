@@ -6,7 +6,8 @@ PyTorch:
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerance: rtol=atol=1e-5 for the spmv kernels (atomics sum in another
-order than index_add_), exact with integer-valued weights; rtol=atol=2e-4
+order than index_add_), exact with integer-valued weights, and exact for
+``ell_spmv`` (kernel and plain version sum in float64); rtol=atol=2e-4
 for the neuron updates, whose spike decisions may differ on under 0.2% of
 neurons (the parity contract of tests/test_kernels.py); flash attention
 within rtol=atol=2e-5 of its plain version in float32 (the sums run in
@@ -46,8 +47,10 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,p", [(1, 0.01), (4, 1.0)])
-def test_cuda_kernels_match_plain(cuda_device, b, p):
+@pytest.mark.parametrize("spike_dtype", [torch.float32, torch.bool],
+                         ids=["float", "bool"])
+@pytest.mark.parametrize("b,p", [(1, 0.01), (4, 1.0), (8, 0.01)])
+def test_cuda_kernels_match_plain(cuda_device, b, p, spike_dtype):
     rng = np.random.default_rng(0)
     n_pre, k, n_post, n_slots = 2000, 100, 3000, 7
     g = torch.tensor(0.5 * rng.random((n_pre, k)), dtype=torch.float32,
@@ -59,8 +62,9 @@ def test_cuda_kernels_match_plain(cuda_device, b, p):
                        dtype=torch.int32, device=cuda_device)
     spk = torch.tensor(rng.random((b, n_pre)) < p, dtype=torch.float32,
                        device=cuda_device)
+    s_in = spk.to(spike_dtype)
     K.reset_launches()
-    out = K.ell_spmv(g, idx, valid, spk, n_post)
+    out = K.ell_spmv(g, idx, valid, s_in, n_post)
     out_d = K.ell_spmv_delay(g, idx, valid, dly, spk, n_post, n_slots)
     torch.cuda.synchronize()
     assert K.launches == {"ell_spmv": 1, "ell_spmv_delay": 1}
@@ -70,8 +74,99 @@ def test_cuda_kernels_match_plain(cuda_device, b, p):
         out_d, TR.ell_spmv_delay_ref(g, idx, valid, dly, spk, n_post,
                                      n_slots), **TOL)
     gi = torch.floor(8 * g)
-    assert torch.equal(K.ell_spmv(gi, idx, valid, spk, n_post),
+    assert torch.equal(K.ell_spmv(gi, idx, valid, s_in, n_post),
                        TR.ell_spmv_ref(gi, idx, valid, spk, n_post))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["valid_not_first", "per_member_g",
+                                  "silent", "k_not_multiple_of_4",
+                                  "misaligned"])
+def test_cuda_ell_spmv_cases_match_plain(cuda_device, case):
+    """The redesigned kernel's other paths: a mask with each row's valid
+    slots last, per-member weights (read per member), every member silent
+    (no live row), and the one-slot walk (K % 4 != 0, or operands that are
+    not 16-byte aligned); n_pre no multiple of 256, B no multiple of 8."""
+    rng = np.random.default_rng(5)
+    n_pre, k, n_post, b = 700, 30 if case == "k_not_multiple_of_4" else 32, \
+        500, 11
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=cuda_device)
+
+    g = t(rng.standard_normal((n_pre, k)))
+    idx = t(rng.integers(0, n_post, (n_pre, k)), torch.int32)
+    valid = t(rng.random((n_pre, k)) < 0.7, torch.bool)
+    spk = t(rng.random((b, n_pre)) < (0.0 if case == "silent" else 0.05),
+            torch.bool)
+    if case == "valid_not_first":
+        valid[:, : k // 2] = False
+    if case == "per_member_g":
+        g = (t(rng.standard_normal((b, 1, 1))) * g).contiguous()
+    if case == "misaligned":
+        # a view one element into its storage: 4-byte aligned, not 16
+        g = torch.empty(n_pre * k + 1, device=cuda_device)[1:].view(n_pre, k)
+        g.copy_(t(rng.standard_normal((n_pre, k))))
+    aligned = (g.data_ptr() | idx.data_ptr()) % 16 == 0
+    assert K.launch_plan(b, n_pre, k, n_post, aligned)["vec"] == (
+        4 if case in ("valid_not_first", "per_member_g", "silent") else 1)
+    out = K.ell_spmv(g, idx, valid, spk, n_post)
+    torch.testing.assert_close(out, TR.ell_spmv_ref(g, idx, valid, spk,
+                                                    n_post), **TOL)
+    if case == "silent":
+        assert not out.any()
+
+
+@pytest.mark.gpu
+def test_cuda_ell_spmv_refuses_a_plan_unlike_its_layout(cuda_device):
+    g = torch.ones(4, 8, device=cuda_device)
+    idx = torch.zeros(4, 8, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(4, 8, dtype=torch.bool, device=cuda_device)
+    spk = torch.ones(1, 4, device=cuda_device)
+    out = torch.zeros(1, 5, dtype=torch.float64, device=cuda_device)
+    lib = K._lib()
+    assert lib.ell_spmv_smem_bytes() == K.launch_plan(1, 4, 8, 5)[
+        "smem_bytes"]
+    args = (g.data_ptr(), 0, idx.data_ptr(), valid.data_ptr(),
+            spk.data_ptr(), 0, out.data_ptr(), 1, 4, 8, 5)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.ell_spmv_f32(*args, 4, lib.ell_spmv_smem_bytes() + 4,
+                            stream) != 0
+    assert lib.ell_spmv_f32(*args, 2, lib.ell_spmv_smem_bytes(),
+                            stream) != 0
+    assert lib.ell_spmv_f32(*args, 4, lib.ell_spmv_smem_bytes(),
+                            stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((1, 5), 0.0, dtype=torch.float64,
+                                       device=cuda_device)
+                       .index_fill_(1, torch.tensor([0], device=cuda_device),
+                                    32.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spike_dtype", [torch.float32, torch.bool],
+                         ids=["float", "bool"])
+@pytest.mark.parametrize("b,p", [(1, 0.05), (8, 0.05), (3, 1.0)])
+def test_cuda_ell_spmv_equals_plain_bit_for_bit(cuda_device, b, p,
+                                                spike_dtype):
+    """Kernel and plain version both sum in float64 and round once, so
+    with weights that are no integers they agree exactly, and two calls
+    of the kernel agree with each other, whatever order the atomics land
+    in (many slots share few targets, so every target sums many terms)."""
+    rng = np.random.default_rng(11)
+    n_pre, k, n_post = 3000, 64, 40
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=cuda_device)
+
+    g = t(rng.standard_normal((n_pre, k)))
+    idx = t(rng.integers(0, n_post, (n_pre, k)), torch.int32)
+    valid = t(rng.random((n_pre, k)) < 0.8, torch.bool)
+    spk = t(rng.random((b, n_pre)) < p)
+    first = K.ell_spmv(g, idx, valid, spk.to(spike_dtype), n_post)
+    again = K.ell_spmv(g, idx, valid, spk.to(spike_dtype), n_post)
+    assert torch.equal(first, again)
+    assert torch.equal(first, TR.ell_spmv_ref(g, idx, valid, spk, n_post))
 
 
 @pytest.mark.gpu
@@ -117,8 +212,47 @@ def test_cuda_neuron_kernels_match_plain(cuda_device, b):
     assert (~agree).float().mean().item() < 0.002
     for a, e in zip(out[:2], ref[:2]):
         torch.testing.assert_close(a[agree], e[agree], **NEURON_TOL)
-    for a, e in zip(hout, TR.hh_step_ref(*hh_in, 0.1, substeps=5)):
+    href = TR.hh_step_ref(*hh_in, 0.1, substeps=5)
+    for a, e in zip(hout[:4], href[:4]):
         torch.testing.assert_close(a, e, **NEURON_TOL)
+    assert torch.equal(hout[4], hout[0] >= 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plant", [None, "nan", "inf"])
+@pytest.mark.parametrize("kernel", ["izhikevich_step", "hh_step"])
+def test_cuda_finite_flag_equals_the_fold(cuda_device, kernel, plant):
+    """The flag a kernel writes in its epilogue equals isfinite over its
+    own outputs, member by member (3 members of 70000 neurons: several
+    blocks each; the planted value sits in member 1's last block)."""
+    rng = np.random.default_rng(2)
+    b, n = 3, 70_000
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda_device)
+
+    isyn = t(2 * rng.standard_normal((b, n)))
+    if plant is not None:
+        isyn[1, n - 5] = float(plant)
+    finite = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    finite[2] = False                      # an earlier step's verdict stays
+    if kernel == "hh_step":
+        state = [t(rng.uniform(-80, 30, (b, n)))] + [
+            t(rng.random((b, n))) for _ in range(3)]
+        out = HH.hh_step(*state, isyn, 0.1, finite=finite)[:4]
+    else:
+        r = rng.random(n)
+        params = [t(0.02 + 0.08 * r), t(0.25 - 0.05 * r),
+                  t(-65 + 15 * r * r), t(8 - 6 * r * r)]
+        out = IZ.izhikevich_step(t(rng.uniform(-80, 25, (b, n))),
+                                 t(rng.uniform(-20, 5, (b, n))), isyn,
+                                 *params, 1.0, finite=finite)[:2]
+    torch.cuda.synchronize()
+    fold = torch.tensor([True, True, False], device=cuda_device)
+    for x in out:
+        fold &= torch.isfinite(x).all(dim=-1)
+    assert torch.equal(finite, fold)
+    assert finite.tolist() == [True, plant is None, False]
 
 
 @pytest.mark.gpu

@@ -115,3 +115,52 @@ def test_ops_route_containers_and_event_variants():
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         kops.ell_spmv_event(ell, s, 0)
+
+
+def _case_inputs(case):
+    """The ELL cases the redesigned kernel must keep: bool spikes, rows
+    whose valid slots are not first, per-member weights, every member
+    silent (n_pre 300 is no multiple of the kernel's 256 rows a CTA, and
+    B 10 none of its 8 members)."""
+    n_pre, k, n_post, b = 300, 12, 200, 10
+    g, idx, valid, spk, _ = _inputs(n_pre, k, n_post, b, seed=21)
+    if case == "valid_not_first":
+        # each row's valid slots last, in a row whose first slots are not
+        valid = np.zeros((n_pre, k), bool)
+        valid[:, k // 2:] = True
+        valid[::3, 0] = True
+    if case == "silent":
+        spk = np.zeros_like(spk)
+    return g, idx, valid, spk, n_post
+
+
+@pytest.mark.parametrize("case", ["bool_spikes", "valid_not_first",
+                                  "per_member_g", "silent"])
+def test_ell_spmv_cases_match_jax(case):
+    g, idx, valid, spk, n_post = _case_inputs(case)
+    gt, it, vt, st = _t(g, idx, valid, spk)
+    if case == "per_member_g":
+        scale = np.linspace(-1, 2, spk.shape[0], dtype=np.float32)
+        gb = (scale[:, None, None] * g).astype(np.float32)
+        out = K.ell_spmv(torch.tensor(gb), it, vt, st, n_post).numpy()
+        for b in range(spk.shape[0]):
+            jref = JR.ell_spmv_ref(*map(jnp.asarray, (gb[b], idx, valid,
+                                                      spk[b:b + 1])), n_post)
+            np.testing.assert_allclose(out[b:b + 1], np.asarray(jref), **TOL)
+        return
+    if case == "bool_spikes":
+        out = K.ell_spmv(gt, it, vt, st > 0, n_post)
+        assert torch.equal(out, K.ell_spmv(gt, it, vt, st, n_post))
+        assert torch.equal(kops.ell_spmv_batched(
+            F.ELLSynapses(g=gt, post_ind=it, valid=vt, n_post=n_post),
+            st > 0), out)
+    else:
+        out = K.ell_spmv(gt, it, vt, st, n_post)
+    args = tuple(map(jnp.asarray, (g, idx, valid, spk)))
+    pallas = ell_spmv_pallas(*args, n_post=n_post, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(JR.ell_spmv_ref(*args, n_post)),
+                               **TOL)
+    if case == "silent":
+        assert not out.any()
