@@ -19,12 +19,18 @@ failure ends the run with a non-zero exit):
      - the ELL kernels at 80000 rows x 1000 slots -> 80000 posts (80% of
        slots valid; B = 1 and 8; 1% and 100% of rows spiking; 21 delay
        slots): rtol=atol=1e-5, exact with integer-valued weights, bool
-       spikes (the simulator's) equal to float ones, and ``ell_spmv``
-       bit-equal to its plain version (both sum in float64); beside them
+       spikes (the simulator's) equal to float ones, and both bit-equal
+       to their plain versions (all sum in float64); beside them
        torch.sparse.mm on the same matrix as CSR (a yardstick only: the
-       port never calls it), the kernel's own device time, its
-       ``launch_plan`` and the SASS instruction count of the main path's
-       instance;
+       port never calls it), the kernel's own device time, the atomics'
+       adds/s, its ``launch_plan`` and the SASS instruction count of the
+       main path's instance;
+     - the dendritic ring's fold at phase 5's [1, 21, 80000] and the
+       sweep's [8, 21, 80000], cursors 0, 11 and 20, sign +-1, a scalar and
+       a per-member gScale: bit-equal to its plain version (the eager
+       sequence it replaces, whose device time stands beside it), the
+       scratch left zeroed; the bound by bytes (read ring and scratch,
+       write the new ring, the zeros and the cursor's row);
      - izhikevich_step at [1, 80000] and [8, 80000] with per-neuron a..d,
        hh_step at the mushroom body's [1, 20], [1, 100000], [1, 100] and
        [5, 100000] (dt 0.1, 5 substeps), inputs that straddle the
@@ -57,8 +63,18 @@ failure ends the run with a non-zero exit):
   4. a gScale sweep of the excitatory groups: 8 candidates (0.3 .. 1.2,
      below saturation) x 500 steps as one batch, rates non-decreasing in
      gScale, then the conductance search;
-  5. a delay path (10k neurons, 500 synapses each, per-synapse delays
-     0..20 steps on the excitatory groups) through ``ell_spmv_delay``;
+  5. the delay path at full width: the main path's net (100k neurons,
+     1000 synapses each) with per-synapse delays 0..20 steps on the
+     excitatory groups (21 ring slots), 200 steps through the delay
+     scatter and the ring fold (2 launches of each a step); 50 steps
+     through the plain versions, rasters agreeing on >= 99.8% of
+     neuron-steps and the rings bit-equal; us/step beside the card; a
+     profile of 50 steps as in 3;
+  5b. phase 4's gScale grid on phase 5's net, one batch of 8 x 500 steps
+     (2 launches of the delay scatter and the fold a step, the exc->exc
+     group's float64 scratch 107.5 MB), every candidate finite, member 5
+     equal spike for spike to the B = 1 run at its gScale; candidates/s and
+     us/step beside the card; a profile of 50 steps;
   6a. the paper's NaN-guard table on the mushroom body at the example's
      size (24 PN / 6 LHI / 150 KC / 12 DN, dt 0.1 ms): PN_KC gScale
      0.5 .. 50 as one batch of 5 x 2500 steps; finite at 0.5 and 1, not
@@ -154,7 +170,13 @@ MAIN = dict(n_total=100_000, n_conn=1000, steps=1000, plain_steps=50)
 # the grid a conductance search scans, below the saturated regime: above
 # gScale ~1.25 this net bursts at ~100 Hz and the rate is no longer monotone
 SWEEP = dict(values=(0.3, 0.45, 0.6, 0.75, 0.9, 1.0, 1.1, 1.2), steps=500)
-DELAY = dict(n_total=10_000, n_conn=500, max_delay=20, steps=200)
+# phase 5: the main path's net with per-synapse delays 0..20 steps on the
+# excitatory groups (21 ring slots); its plain run and profile take 50
+DELAY = dict(n_total=100_000, n_conn=1000, max_delay=20, steps=200,
+             plain_steps=50, profile_steps=50, sweep_steps=500)
+# the fold's rows in phase 2: phase 5's ring of the 80,000 excitatory
+# posts at B = 1, and at the sweep's B = 8
+FOLD_SHAPES = ((1, 21, 80_000), (8, 21, 80_000))
 IZH_SHAPES = ((1, 80_000), (8, 80_000))      # exc; B of phases 3 and 4
 # mb_full's LHI, KC and DN (phase 6b), then mb_table's batch of 5 (6a)
 HH_SHAPES = ((1, 20), (1, 100_000), (1, 100), (5, 100_000))
@@ -323,7 +345,10 @@ def main() -> int:
     sweep(torch, report, model)
     del model
     torch.cuda.empty_cache()
-    launches_delay = delay_path(torch, report)
+    launches_delay, model = delay_path(torch, report)
+    delay_sweep(torch, report, model)
+    del model
+    torch.cuda.empty_cache()
     kc_target = gscale_table(torch, report)
     launches_mb = mushroom_body_full(torch, report, kc_target)
     torch.cuda.empty_cache()
@@ -334,6 +359,7 @@ def main() -> int:
     train_step_check(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
+               "delay_ring_fold": launches_delay,
                "izhikevich_step": launches_main, "hh_step": launches_mb,
                "flash_attention": launches_serve,
                "flash_attention_bwd": launches_qwen,
@@ -397,8 +423,9 @@ def _device_ms(torch, fn, reps: int, kernel: str = "") -> tuple:
     the wall time of a kernel of a few microseconds.  Every call runs the
     same device ops, so a trace whose count of them (of ``kernel``'s, when
     named) is no multiple of ``reps`` dropped some: it is taken again, up
-    to three times (on the card one trace once kept a tenth of its
-    launches)."""
+    to five times (on the card one trace once kept a tenth of its
+    launches, and traces of 5 calls of a 14 ms kernel three times running
+    kept 4)."""
     fn(0)
     torch.cuda.synchronize()
 
@@ -407,7 +434,7 @@ def _device_ms(torch, fn, reps: int, kernel: str = "") -> tuple:
             fn(i + 1)
         torch.cuda.synchronize()
 
-    for _ in range(3):
+    for _ in range(5):
         prof = _device_profile(torch, calls, warm=True)
         mine = [(c, t) for n, (c, t) in prof["by_name"].items() if kernel in n]
         seen = sum(c for c, _ in mine)
@@ -457,7 +484,8 @@ def compare_kernels(torch, report) -> list:
             for p in (0.01, 1.0):
                 spikes = [(torch.rand(b, N_PRE, device=dev, generator=gen)
                            < p).float() for _ in range(8)]
-                # the simulator hands ell_spmv its bool spikes as they are
+                # the simulator hands both kernels its bool spikes as
+                # they are
                 spikes_bool = [s.bool() for s in spikes]
                 spk = spikes[0]
                 live = spk.amax(dim=0) > 0
@@ -479,7 +507,7 @@ def compare_kernels(torch, report) -> list:
                         plain = lambda s, gg=g: R.ell_spmv_ref(
                             gg, idx, valid, s, N_POST)
                         lib = lambda s: torch.sparse.mm(csr, s.t())
-                    ins = spikes if delay else spikes_bool
+                    ins = spikes_bool
                     out, ref = kern(ins[0]), plain(spk)
                     torch.cuda.synchronize()
                     err = float((out - ref).abs().max())
@@ -488,16 +516,14 @@ def compare_kernels(torch, report) -> list:
                     check(bool(torch.equal(kern(ins[0], g_int),
                                            plain(spk, g_int))),
                           f"{name} B={b} p={p}: integer weights not exact")
-                    if not delay:
-                        check(bool(torch.equal(kern(spk, g_int),
-                                               kern(ins[0], g_int))),
-                              f"{name} B={b} p={p}: float and bool spikes "
-                              "differ")
-                        # both sum in float64 and round once: bit-equal
-                        # with any weights, whatever the atomics' order
-                        check(bool(torch.equal(out, ref)),
-                              f"{name} B={b} p={p}: not bit-equal to the "
-                              f"plain version (max abs err {err})")
+                    check(bool(torch.equal(kern(spk), out)),
+                          f"{name} B={b} p={p}: float and bool spikes "
+                          "differ")
+                    # both sum in float64 and round once: bit-equal with
+                    # any weights, whatever the atomics' order
+                    check(bool(torch.equal(out, ref)),
+                          f"{name} B={b} p={p}: not bit-equal to the "
+                          f"plain version (max abs err {err})")
                     lib_out = lib(spk).t().reshape(out.shape)
                     check(bool(torch.allclose(lib_out, ref, rtol=1e-4,
                                               atol=1e-4)),
@@ -536,13 +562,19 @@ def compare_kernels(torch, report) -> list:
                            "bound_by": ("bytes" if t_bytes >= t_ops
                                         else "operations"),
                            "bytes": nbytes, "flops": flops,
-                           "live_rows": n_live}
-                    if not delay:
-                        row["plan"] = K.launch_plan(b, N_PRE, N_CONN, N_POST)
+                           "live_rows": n_live,
+                           # the atomics' rate: one add per valid slot
+                           # of a spiking row and member
+                           "adds": syn_events,
+                           "adds_per_s": syn_events / (kernel_ms * 1e-3),
+                           "plan": K.launch_plan(
+                               b, N_PRE, N_CONN, N_POST,
+                               n_slots=N_SLOTS if delay else None)}
                     rows.append(row)
                     print(json.dumps(row))
         del g, idx, valid, dly, g_int, csr, csr_d
         torch.cuda.empty_cache()
+        rows += _compare_fold(torch, dev, gen)
     report["kernel_table"] = rows
     entries = []
     for name, replaces in (("ell_spmv", "src/repro/kernels/ell_spmv.py:127"),
@@ -558,7 +590,70 @@ def compare_kernels(torch, report) -> list:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the fold at B = 1, phase 5's own regime; it fuses the eager ring
+    # update that the JAX package runs in its step (no TPU kernel)
+    r = next(x for x in rows if x["name"] == "delay_ring_fold"
+             and x["B"] == 1)
+    entries.append({
+        "name": "delay_ring_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
+        "replaces": "src/repro/core/snn/synapses.py:513", "launches": 0,
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}})
     return entries
+
+
+def _compare_fold(torch, dev, gen) -> list:
+    """The dendritic ring's fold at phase 5's shapes against its plain
+    version (the eager sequence it replaces), bit for bit; times beside
+    the bytes bound (read ring and scratch, write the new ring, the
+    scratch's zeros and inj)."""
+    from repro_torch.kernels import delay_ring as DR
+    from repro_torch.kernels import ref as R
+    rows = []
+    for b, n_slots, n_post in FOLD_SHAPES:
+        ring = torch.randn(b, n_slots, n_post, device=dev, generator=gen)
+        ring[:, :, :64] = 0.0
+        acc0 = torch.randn(n_slots, n_post, b, device=dev, generator=gen,
+                           dtype=torch.float64)
+        acc0[:, 32:96] = 0.0
+        gscales = (torch.tensor(0.7),
+                   torch.rand(b, device=dev, generator=gen) + 0.5)
+        for gs in gscales:
+            for sign in (1.0, -1.0):
+                for cursor in (0, 11, n_slots - 1):
+                    acc, acc_ref = acc0.clone(), acc0.clone()
+                    got = DR.delay_ring_fold(ring, acc, cursor, sign, gs)
+                    want = R.delay_ring_fold_ref(ring, acc_ref, cursor,
+                                                 sign, gs)
+                    for x, y in zip(got, want):
+                        check(bool(torch.equal(x, y)) and bool(torch.equal(
+                            torch.signbit(x), torch.signbit(y))),
+                              f"delay_ring_fold {[b, n_slots, n_post]}: "
+                              "not bit-equal to the plain version")
+                    check(not bool(acc.any()),
+                          "delay_ring_fold left its scratch nonzero")
+        err = float((got[0] - want[0]).abs().max())
+        accs = [acc0.clone() for _ in range(8)]
+        # the simulator's regime: a 0-dim gscale at B = 1, [B] for a sweep
+        gs = gscales[0] if b == 1 else gscales[1]
+        kern = lambda i: DR.delay_ring_fold(ring, accs[i % 8], i % n_slots,
+                                            -1.0, gs)
+        plain = lambda i: R.delay_ring_fold_ref(ring, accs[i % 8],
+                                                i % n_slots, -1.0, gs)
+        ms, kernel_ms = _device_ms(torch, kern, 20, "delay_ring_fold")
+        nbytes = b * n_slots * n_post * (4 + 8 + 4 + 8) + b * n_post * 4
+        row = {"name": "delay_ring_fold", "B": b, "shape": [b, n_slots,
+                                                            n_post],
+               "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+               "wall_ms": _time_ms(torch, kern, 20),
+               "plain_ms": _device_ms(torch, plain, 20)[0],
+               "plain_wall_ms": _time_ms(torch, plain, 20),
+               **_bound(nbytes, 0.0), "bytes": nbytes, "library_ms": None,
+               "plan": DR.launch_plan(b, n_slots, n_post)}
+        rows.append(row)
+        print(json.dumps(row))
+    return rows
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -1049,9 +1144,10 @@ def compare_flash_bwd(torch, report) -> list:
 
 
 def _kernel_modules():
-    from repro_torch.kernels import (ell_spmv, flash_attention, hh_step,
-                                     izhikevich_step, ssd_scan)
-    return ell_spmv, izhikevich_step, hh_step, flash_attention, ssd_scan
+    from repro_torch.kernels import (delay_ring, ell_spmv, flash_attention,
+                                     hh_step, izhikevich_step, ssd_scan)
+    return (ell_spmv, izhikevich_step, hh_step, flash_attention, ssd_scan,
+            delay_ring)
 
 
 def reset_launches() -> None:
@@ -1072,9 +1168,13 @@ def plain_versions():
     the comparison runs only (the port itself never does this)."""
     from unittest import mock
     from repro_torch.kernels import ref as R
-    K, IZ, HH, FA, SSD = _kernel_modules()
+    K, IZ, HH, FA, SSD, DR = _kernel_modules()
     with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
             mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref), \
+            mock.patch.object(K, "ell_spmv_delay_into",
+                              R.ell_spmv_delay_into_ref), \
+            mock.patch.object(DR, "delay_ring_fold",
+                              R.delay_ring_fold_ref), \
             mock.patch.object(IZ, "izhikevich_step", R.izhikevich_step_ref), \
             mock.patch.object(HH, "hh_step", R.hh_step_ref), \
             mock.patch.object(FA, "flash_attention", R.flash_attention_ref), \
@@ -1104,14 +1204,15 @@ def _device_profile(torch, fn, warm: bool = False) -> dict:
     torch.profiler (``fn`` ends in a synchronise).  With ``warm`` (the
     short kernel and SNN traces) ``fn`` runs twice and only the second run
     is kept, since a trace that starts cold can miss the device ops of its
-    first milliseconds, and a trace that holds no device op at all is taken
-    again, up to three times: on the card, in two of three full runs one
-    such trace came back empty after ~50 earlier ones in the process.  The
-    LM phases trace one run, as they always have."""
+    first milliseconds; the LM phases trace one run.  In both modes a trace
+    that holds no device op at all is taken again, up to three times, so
+    ``fn`` may run again: on the card, in two of three full runs one such
+    trace came back empty after ~50 earlier ones in the process (and once
+    the first trace of phase 2e's SDPA backward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(3 if warm else 1):
+    for _ in range(3):
         if warm:
             with profile(activities=activities,
                          schedule=schedule(wait=0, warmup=1, active=1,
@@ -1169,6 +1270,7 @@ def _profile_window(torch, model, steps: int, **run_kw) -> dict:
             ours = {n[:80]: {"launches": c, "us_per_launch": us / c}
                     for n, (c, us) in prof["by_name"].items()
                     if any(k in n for k in ("ell_spmv",
+                                            "delay_ring_fold",
                                             "izhikevich_step_kernel",
                                             "hh_step_kernel",
                                             *_flash_kernels("fwd")))}
@@ -1315,52 +1417,146 @@ def sweep(torch, report, model) -> None:
                            "pick": pick.__dict__}
 
 
-def delay_path(torch, report) -> dict:
+def build_delay_model(torch):
+    """Phase 5's net: the main path's, with per-synapse delays
+    ``UniformIntDelay(0, DELAY["max_delay"])`` on the excitatory groups.
+    Returns (model, build seconds)."""
     from repro_torch.core.models import izhikevich_net as IZ
     from repro_torch.core.snn.spec import ModelSpec
     from repro_torch.sparse.formats import UniformIntDelay
-    with phase("5. delay path: per-synapse delays 0..20 steps"):
-        cfg = IZ.IzhikevichNetConfig(n_total=DELAY["n_total"],
-                                     n_conn=DELAY["n_conn"],
-                                     representation="sparse")
-        base = IZ.spec(cfg)
-        ms = ModelSpec(f"{base.name}_delayed")
-        for pop in base.populations.values():
-            ms.add_neuron_population(pop.name, pop.n, pop.model, pop.params,
-                                     pop.input_fn)
-        for sp in base.synapses:
-            ms.add_synapse_population(
-                sp.name, sp.pre, list(sp.post), sp.connect, sp.weight,
-                representation="sparse",
-                delay=(UniformIntDelay(0, DELAY["max_delay"])
-                       if sp.name == "exc" else None))
-        model = ms.build(dt=cfg.dt, seed=cfg.seed)
+    cfg = IZ.IzhikevichNetConfig(n_total=DELAY["n_total"],
+                                 n_conn=DELAY["n_conn"],
+                                 representation="sparse")
+    base = IZ.spec(cfg)
+    ms = ModelSpec(f"{base.name}_delayed")
+    for pop in base.populations.values():
+        ms.add_neuron_population(pop.name, pop.n, pop.model, pop.params,
+                                 pop.input_fn)
+    for sp in base.synapses:
+        ms.add_synapse_population(
+            sp.name, sp.pre, list(sp.post), sp.connect, sp.weight,
+            representation="sparse",
+            delay=(UniformIntDelay(0, DELAY["max_delay"])
+                   if sp.name == "exc" else None))
+    t0 = time.perf_counter()
+    model = ms.build(dt=cfg.dt, seed=cfg.seed)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def delay_path(torch, report) -> dict:
+    with phase("5. delay path: 100k neurons, per-synapse delays 0..20 "
+               "steps"):
+        model, build_s = build_delay_model(torch)
+        delayed = [g for g in model.network.synapses
+                   if g.ell.delay is not None]
         rings = [(g.name, g.ring_slots if g.needs_ring else 0)
                  for g in model.network.synapses]
-        print(f"built {model}; ring slots {rings}")
+        ell_bytes = sum(g.ell.post_ind.numel() * (9 + (
+            4 if g.ell.delay is not None else 0))
+            for g in model.network.synapses)
+        print(f"built {model} in {build_s:.1f} s; ring slots {rings}; ELL "
+              f"{ell_bytes} B")
+        check(len(delayed) == 2 and all(
+            g.ring_slots == DELAY["max_delay"] + 1 for g in delayed),
+            f"expected 2 delayed groups of {DELAY['max_delay'] + 1} slots: "
+            f"{rings}")
         model.run(5)
+        ring_bytes = sum(g._acc.numel() * 8 + 4 * g.ring_slots * g.ell.n_post
+                         for g in delayed)
+        steps = DELAY["steps"]
         reset_launches()
-        _, secs, rates = _run_checked(torch, model, DELAY["steps"],
-                                      "delay run")
+        _, secs, rates = _run_checked(torch, model, steps, "delay run")
         launches = read_launches()
         print(f"launches in the delay run: {launches}")
-        check(launches["ell_spmv_delay"] >= 2 * DELAY["steps"],
-              "ell_spmv_delay did not run for both delayed groups each step")
-        n = MAIN["plain_steps"]
-        kr = model.run(n, record_raster=True).raster
+        for name in ("ell_spmv_delay", "delay_ring_fold", "ell_spmv"):
+            check(launches[name] == 2 * steps,
+                  f"{name} launched {launches[name]} times for 2 groups x "
+                  f"{steps} steps")
+        us = secs / steps * 1e6
+        print(f"delay path: {us:.1f} us/step ({report['nvidia_smi']}); "
+              f"rings and scratch {ring_bytes} B")
+        n = DELAY["plain_steps"]
+        kr = model.run(n, record_raster=True)
         reset_launches()
         with plain_versions():
-            pr = model.run(n, record_raster=True).raster
+            pr = model.run(n, record_raster=True)
         check(not any(read_launches().values()),
               f"the plain run launched kernels: {read_launches()}")
-        agree = _raster_agreement(torch, kr, pr)
+        agree = _raster_agreement(torch, kr.raster, pr.raster)
         print(f"raster agreement kernel vs plain over {n} steps: {agree}")
         check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
-        report["delay"] = {"config": DELAY, "seconds": secs,
-                           "us_per_step": secs / DELAY["steps"] * 1e6,
+        # both sides sum in float64 and fold with the same roundings: with
+        # equal rasters the rings are equal bit for bit
+        rings_equal = {g.name: bool(torch.equal(
+            kr.state.syn[g.name].dendritic, pr.state.syn[g.name].dendritic))
+            and kr.state.syn[g.name].cursor == pr.state.syn[g.name].cursor
+            for g in delayed}
+        print(f"rings bit-equal after {n} steps: {rings_equal}")
+        check(all(rings_equal.values()),
+              f"the rings differ from the plain run's: {rings_equal}")
+        prof = _profile_window(torch, model, DELAY["profile_steps"])
+        report["delay"] = {"config": DELAY, "build_s": build_s,
+                           "ell_bytes": ell_bytes,
+                           "ring_and_scratch_bytes": ring_bytes,
+                           "seconds": secs, "us_per_step": us,
                            "rates_hz": rates, "launches": launches,
-                           "plain_raster_agreement": agree}
-        return launches
+                           "plain_raster_agreement": agree,
+                           "rings_bit_equal": rings_equal, "profile": prof}
+        return launches, model
+
+
+def delay_sweep(torch, report, model) -> None:
+    """Phase 5b: phase 4's gScale grid on phase 5's net, one batch of 8:
+    the delay path's batch axis (the exc->exc group's scratch [21, 80000,
+    8] is 107.5 MB, past L2)."""
+    with phase("5b. delayed gScale sweep: phase 4's grid on phase 5's net"):
+        values, steps = list(SWEEP["values"]), DELAY["sweep_steps"]
+        model.sweep_gscale("exc", values, 5)        # the B = 8 scratch
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = model.sweep_gscale("exc", values, steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        want = 2 * steps
+        for name in ("ell_spmv_delay", "delay_ring_fold"):
+            check(launches[name] == want,
+                  f"{name} launched {launches[name]} times, not {want}")
+        rates = {k: v.tolist() for k, v in s.rates_hz.items()}
+        finite = s.finite.tolist()
+        us = secs / steps * 1e6
+        print(f"{len(values)} candidates x {steps} steps in {secs:.3f} s: "
+              f"{len(values) / secs:.3f} candidates/s, {us:.1f} us/step "
+              f"({report['nvidia_smi']}); launches {launches}")
+        for i, v in enumerate(values):
+            print(f"  gScale {v}: " + ", ".join(
+                f"{k} {rates[k][i]:.4f} Hz" for k in rates)
+                + f", finite {finite[i]}")
+        check(all(finite) and all(r > 0 for r in rates["exc"]),
+              f"a candidate went non-finite or silent: {rates}, {finite}")
+        # a member is the single run at its gScale spike for spike: the
+        # sums are exact and the members independent
+        i = 5
+        one = model.run(steps, gscales={"exc": values[i]})
+        same = {k: bool(torch.equal(one.spike_counts[k],
+                                    s.spike_counts[k][i]))
+                for k in one.spike_counts}
+        print(f"member {i} (gScale {values[i]}) equals its B = 1 run: "
+              f"{same}")
+        check(all(same.values()),
+              f"member {i} differs from its B = 1 run: {same}")
+        prof = _profile_window(
+            torch, model, DELAY["profile_steps"],
+            gscales={"exc": torch.tensor(values, device="cuda")},
+            state=model.init_state(len(values)))
+        report["delay_sweep"] = {
+            "values": values, "steps": steps, "seconds": secs,
+            "us_per_step": us, "candidates_per_s": len(values) / secs,
+            "launches": launches,
+            "rates_hz": rates, "finite": finite,
+            "member_equals_single_run": same, "profile": prof}
 
 
 def gscale_table(torch, report) -> float:

@@ -21,12 +21,16 @@ Dendritic delays (GeNN's per-synapse delay model): a group may carry an
 integer delay per synapse (``ELLSynapses.delay``) or a homogeneous
 ``delay_steps``; both land weighted currents in a post-side ring
 ``[B, max_delay+1, n_post]`` (``SynapseState.dendritic``) read at the cursor.
+Per-synapse delays take two kernels a step: the delay scatter adds into a
+float64 scratch that the group owns (one, for the last step's batch size
+and device, zero between steps), and the ring fold scales it, rolls it into a new ring,
+reads and clears the cursor's row and zeroes the scratch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -250,6 +254,11 @@ class SynapseGroup:
         self._gather = (self.ell.post_ind.long()
                         if self._wu.learn is not None else None)
         self._device = dev
+        # the delay scatter's float64 scratch [S, n_post, B] for the last
+        # step's (B, device), zero between steps (the fold zeroes what the
+        # scatter added)
+        self._acc: Optional[torch.Tensor] = None
+        self._acc_key: Optional[Tuple[int, torch.device]] = None
 
     @property
     def plastic(self) -> bool:
@@ -321,16 +330,32 @@ class SynapseGroup:
                 self._effective_ell(g, syn, externals), spikes)
         return _scale(self.sign, gscale, out)
 
-    def _delay_contrib(self, spikes: torch.Tensor, gscale: Scale,
-                       g: Optional[torch.Tensor],
-                       syn: Dict[str, torch.Tensor],
-                       externals: Dict[str, object]) -> torch.Tensor:
-        """Fused heterogeneous-delay accumulation: one pass over the ELL
-        slots returns [B, ring_slots, n_post]; slot d holds the currents due
-        d steps from now."""
-        out = kops.ell_spmv_delay_batched(
-            self._effective_ell(g, syn, externals), spikes, self.ring_slots)
-        return _scale(self.sign, gscale, out)
+    def _delay_fold(self, ring: torch.Tensor, cursor: int,
+                    spikes: torch.Tensor, gscale: Scale,
+                    g: Optional[torch.Tensor], syn: Dict[str, torch.Tensor],
+                    externals: Dict[str, object]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Heterogeneous delays: this step's spikes scattered into the
+        scratch (slot d = currents due d steps from now), then folded into
+        a new ring at row (cursor + d) % S, scaled by sign * gscale, with
+        the cursor's row read out and cleared.  Returns (new_ring, inj)."""
+        key = (spikes.shape[0], spikes.device)
+        if key != self._acc_key:
+            # one scratch at a time: the old one goes before the new one
+            self._acc = self._acc_key = None
+            self._acc = torch.zeros((self.ring_slots, self.ell.n_post,
+                                     key[0]), dtype=torch.float64,
+                                    device=spikes.device)
+            self._acc_key = key
+        try:
+            kops.ell_spmv_delay_into(self._effective_ell(g, syn, externals),
+                                     spikes, self._acc)
+            return kops.delay_ring_fold(ring, self._acc, cursor, self.sign,
+                                        gscale)
+        except BaseException:
+            # a scratch that may hold this step's adds is not reused
+            self._acc = self._acc_key = None
+            raise
 
     def step(
         self, state: SynapseState, spikes: torch.Tensor, gscale: Scale,
@@ -365,14 +390,13 @@ class SynapseGroup:
                                             state.syn, wu_ext)
                 ring = state.dendritic.clone()
                 ring[:, (cur + self.delay_steps) % S] += contrib
+                inj = ring[:, cur].clone()
+                ring[:, cur] = 0.0      # `ring` is a fresh tensor: in place
             else:
-                # fused delay scatter: rolling by the cursor aligns slot d
-                # with ring row (cur + d) % S
-                contrib_all = self._delay_contrib(spikes, gscale, state.g,
-                                                  state.syn, wu_ext)
-                ring = state.dendritic + torch.roll(contrib_all, cur, dims=1)
-            inj = ring[:, cur].clone()
-            ring[:, cur] = 0.0          # `ring` is a fresh tensor: in place
+                # delay scatter + ring fold; the new ring is a fresh tensor
+                ring, inj = self._delay_fold(state.dendritic, cur, spikes,
+                                             gscale, state.g, state.syn,
+                                             wu_ext)
             new_buf, new_cur = ring, (cur + 1) % S
 
         # -- learning (generated weight-update code) -----------------------

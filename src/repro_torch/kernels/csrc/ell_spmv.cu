@@ -59,10 +59,38 @@
 //   * kVec = 1 is the same walk one slot an item, for rows whose K is no
 //     multiple of 4 or operands not 16-byte aligned.
 //
-// ell_spmv_delay_kernel is the PR 11 form, unchanged: one warp per
-// presynaptic row, eight rows to a block, the batch index on grid axis y,
-// a warp whose spike is 0 returning at once, 32 lanes striding over the
-// row's K slots.
+// ell_spmv_delay_live_kernel is the same walk for the delay variant: 13
+// bytes a slot (16-byte loads of post_ind, g and delay, 4 of valid, all
+// issued before the first atomic), one float64 atomicAdd per valid slot and
+// spiking member at (delay, post, b), 64-bit offsets.  Its target, a
+// float64 scratch [n_slots, n_post, B], is n_slots times the delay-free
+// one: 13.4 MB a member at 21 slots and 80,000 posts.  The members of a
+// cell lie side by side, so members that spike together add into one
+// 32-byte sector, not B sectors 13.4 MB apart.  At B = 8 the scratch is
+// 107.5 MB, past the 50 MB L2, and the adds go to device memory: a
+// launch takes about twice a float32 scatter's time.  Scattering and
+// folding 2 members a launch keeps the scratch in L2 and cut the sweep's
+// device time a step by 15%, but its 6 more launches a step cost more
+// host time than that on the host-bound sweep (PERF.md), so one launch
+// takes the batch.
+// The simulator keeps the scratch zeroed between steps, so the path needs
+// no zero fill a step.
+//
+// delay_ring_fold_kernel folds the scratch into the dendritic ring
+// [B, S, n_post] in one pass, in place of the six eager ops that did it
+// (scale, roll, add, read the cursor's slot, clear it):
+//
+//   new_ring[b, r, j] = ring[b, r, j]
+//                       + f32(sign * gscale_b) * f32(acc[(r - cur) mod S, j, b])
+//   inj[b] = new_ring[b, cur];  new_ring[b, cur] = 0;  acc = 0
+//
+// with exactly the roundings of those ops (IEEE products and sums, no
+// contraction), so it is bit-equal to its plain version.  It reads the
+// ring and the scratch once and writes the new ring, the zeros and inj:
+// memory-bound, ~24 bytes an element.  A thread takes 4 posts of one ring
+// row and one member, the members of a post on neighbouring threads, so a
+// warp's scratch accesses are contiguous and its ring accesses 16 bytes a
+// thread.
 //
 // Out-of-range targets (post_ind >= n_post, delay >= n_slots) are skipped
 // rather than written: the containers are checked when they are built, and
@@ -73,7 +101,7 @@
 
 namespace {
 
-// -- the delay-free kernel ----------------------------------------------------
+// -- the scatter kernels -----------------------------------------------------
 
 constexpr int kRows = 256;       // presynaptic rows (= threads) of a CTA
 constexpr int kMembers = 8;      // batch members of a CTA
@@ -138,14 +166,34 @@ template <> struct Slots<1> {
   __device__ __forceinline__ bool is_valid(int) const { return v != 0; }
 };
 
-template <typename S, int kVec>
-__global__ void __launch_bounds__(kRows)
-ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
-                     const int32_t* __restrict__ post_ind,
-                     const uint8_t* __restrict__ valid,
-                     const S* __restrict__ spikes, double* __restrict__ out,
-                     int batch, int n_pre, int k, int n_post) {
-  __shared__ LiveSmem sm;
+// kVec slots of one row: their delays (the delay variant only)
+template <int kVec> struct Delays;
+template <> struct Delays<4> {
+  int4 d;
+  __device__ __forceinline__ void load(const int32_t* delay, long long p) {
+    d = __ldg(reinterpret_cast<const int4*>(delay + p));
+  }
+  __device__ __forceinline__ int slot(int e) const {
+    return e == 0 ? d.x : e == 1 ? d.y : e == 2 ? d.z : d.w;
+  }
+};
+template <> struct Delays<1> {
+  int d;
+  __device__ __forceinline__ void load(const int32_t* delay, long long p) {
+    d = __ldg(delay + p);
+  }
+  __device__ __forceinline__ int slot(int) const { return d; }
+};
+
+// The walk of both kernels: out[b, d, j] += spike[b, i] * g[i, k] for the
+// CTA's rows (n_slots = 1 and no delay without kDelay).
+template <typename S, int kVec, bool kDelay>
+__device__ __forceinline__ void live_scatter(
+    LiveSmem& sm, const float* __restrict__ g, long long g_batch_stride,
+    const int32_t* __restrict__ post_ind, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ delay, const S* __restrict__ spikes,
+    double* __restrict__ out, int batch, int n_pre, int k, int n_post,
+    int n_slots) {
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int row0 = blockIdx.x * kRows;
@@ -186,6 +234,7 @@ ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
   const unsigned items = static_cast<unsigned>(n_live) * chunks;
   for (unsigned base = t; base < items; base += kRows * kUnroll) {
     Slots<kVec> sl[kUnroll];
+    Delays<kVec> dl[kUnroll];
     int rl[kUnroll];
     long long p[kUnroll];
 #pragma unroll
@@ -197,6 +246,7 @@ ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
         p[u] = static_cast<long long>(row0 + rl[u]) * k +
                static_cast<long long>(it % chunks) * kVec;
         sl[u].load(post_ind, g, valid, p[u], shared_g);
+        if constexpr (kDelay) dl[u].load(delay, p[u]);
       }
     }
 #pragma unroll
@@ -206,33 +256,81 @@ ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
         const float s = sm.spike[m][rl[u]];
         if (s == 0.0f) continue;
         if (!shared_g) sl[u].load_g(g + (b0 + m) * g_batch_stride, p[u]);
-        double* out_b = out + static_cast<long long>(b0 + m) * n_post;
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
           const int j = sl[u].target(e);
-          if (sl[u].is_valid(e) &&
-              static_cast<unsigned>(j) < static_cast<unsigned>(n_post))
-            atomicAdd(out_b + j, static_cast<double>(s * sl[u].weight(e)));
+          if (!sl[u].is_valid(e) ||
+              static_cast<unsigned>(j) >= static_cast<unsigned>(n_post))
+            continue;
+          long long at;
+          if constexpr (kDelay) {
+            // [n_slots, n_post, batch]: a cell's members side by side
+            const int d = dl[u].slot(e);
+            if (static_cast<unsigned>(d) >= static_cast<unsigned>(n_slots))
+              continue;
+            at = (static_cast<long long>(d) * n_post + j) * batch + b0 + m;
+          } else {
+            at = static_cast<long long>(b0 + m) * n_post + j;
+          }
+          atomicAdd(out + at, static_cast<double>(s * sl[u].weight(e)));
         }
       }
     }
   }
 }
 
+template <typename S, int kVec>
+__global__ void __launch_bounds__(kRows)
+ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
+                     const int32_t* __restrict__ post_ind,
+                     const uint8_t* __restrict__ valid,
+                     const S* __restrict__ spikes, double* __restrict__ out,
+                     int batch, int n_pre, int k, int n_post) {
+  __shared__ LiveSmem sm;
+  live_scatter<S, kVec, false>(sm, g, g_batch_stride, post_ind, valid,
+                               nullptr, spikes, out, batch, n_pre, k, n_post,
+                               1);
+}
+
+template <typename S, int kVec>
+__global__ void __launch_bounds__(kRows)
+ell_spmv_delay_live_kernel(const float* __restrict__ g,
+                           long long g_batch_stride,
+                           const int32_t* __restrict__ post_ind,
+                           const uint8_t* __restrict__ valid,
+                           const int32_t* __restrict__ delay,
+                           const S* __restrict__ spikes,
+                           double* __restrict__ out, int batch, int n_pre,
+                           int k, int n_post, int n_slots) {
+  __shared__ LiveSmem sm;
+  live_scatter<S, kVec, true>(sm, g, g_batch_stride, post_ind, valid, delay,
+                              spikes, out, batch, n_pre, k, n_post, n_slots);
+}
+
+// One launch of either scatter (the delay variant when delay is given).
 template <typename S>
 int launch_live(const float* g, long long g_batch_stride,
                 const int32_t* post_ind, const uint8_t* valid,
-                const S* spikes, double* out, int batch, int n_pre, int k,
-                int n_post, int vec, cudaStream_t stream) {
+                const int32_t* delay, const S* spikes, double* out,
+                int batch, int n_pre, int k, int n_post, int n_slots,
+                int vec, cudaStream_t stream) {
   dim3 grid((n_pre + kRows - 1) / kRows, (batch + kMembers - 1) / kMembers);
-  if (vec == 4)
+  if (delay == nullptr && vec == 4)
     ell_spmv_live_kernel<S, 4><<<grid, kRows, 0, stream>>>(
         g, g_batch_stride, post_ind, valid, spikes, out, batch, n_pre, k,
         n_post);
-  else
+  else if (delay == nullptr)
     ell_spmv_live_kernel<S, 1><<<grid, kRows, 0, stream>>>(
         g, g_batch_stride, post_ind, valid, spikes, out, batch, n_pre, k,
         n_post);
+  else if (vec == 4)
+    ell_spmv_delay_live_kernel<S, 4><<<grid, kRows, 0, stream>>>(
+        g, g_batch_stride, post_ind, valid, delay, spikes, out, batch, n_pre,
+        k, n_post, n_slots);
+  else
+    ell_spmv_delay_live_kernel<S, 1><<<grid, kRows, 0, stream>>>(
+        g, g_batch_stride, post_ind, valid, delay, spikes, out, batch, n_pre,
+        k, n_post, n_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,44 +338,93 @@ bool aligned(const void* p, unsigned bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// -- the delay kernel (PR 11's form) ----------------------------------------
+// Both scatters' plan check and launch.
+int scatter(const float* g, long long g_batch_stride, const int32_t* post_ind,
+            const uint8_t* valid, const int32_t* delay, const void* spikes,
+            int spikes_bool, double* out, int batch, int n_pre, int k,
+            int n_post, int n_slots, int vec, int smem_bytes, void* stream) {
+  if (smem_bytes != static_cast<int>(sizeof(LiveSmem)) ||
+      (vec != 1 && vec != 4) ||
+      (vec == 4 && (k % 4 != 0 || !aligned(post_ind, 16) ||
+                    !aligned(g, 16) || !aligned(valid, 4) ||
+                    (delay != nullptr && !aligned(delay, 16)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || n_pre == 0 || k == 0 || n_slots == 0 || n_post == 0)
+    return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (spikes_bool)
+    return launch_live(g, g_batch_stride, post_ind, valid, delay,
+                       static_cast<const uint8_t*>(spikes), out, batch,
+                       n_pre, k, n_post, n_slots, vec, s);
+  return launch_live(g, g_batch_stride, post_ind, valid, delay,
+                     static_cast<const float*>(spikes), out, batch, n_pre, k,
+                     n_post, n_slots, vec, s);
+}
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
+// -- the ring fold ------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-ell_spmv_delay_kernel(const float* __restrict__ g, long long g_batch_stride,
-                      const int32_t* __restrict__ post_ind,
-                      const uint8_t* __restrict__ valid,
-                      const int32_t* __restrict__ delay,
-                      const float* __restrict__ spikes,
-                      float* __restrict__ out,
-                      int n_pre, int k, int n_post, int n_slots) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const long long b = blockIdx.y;
-  if (row >= n_pre) return;
-  const float s = spikes[b * n_pre + row];
-  if (s == 0.0f) return;
-  const long long base = static_cast<long long>(row) * k;
-  const float* g_row = g + b * g_batch_stride + base;
-  float* out_b = out + b * n_slots * static_cast<long long>(n_post);
-  for (int c = lane; c < k; c += 32) {
-    if (!valid[base + c]) continue;
-    const int j = post_ind[base + c];
-    const int d = delay[base + c];
-    if (static_cast<unsigned>(j) >= static_cast<unsigned>(n_post) ||
-        static_cast<unsigned>(d) >= static_cast<unsigned>(n_slots))
-      continue;
-    atomicAdd(out_b + static_cast<long long>(d) * n_post + j, s * g_row[c]);
+constexpr int kFoldThreads = 256;
+
+// grid: items (kVec posts x one member, members fastest) on x, ring rows r
+// on y.  Ring row r takes scratch slot (r - cur) mod S, so each scratch
+// element is read, and zeroed, by exactly one thread.  With the members
+// on the fast axis a warp reads and zeroes contiguous runs of the
+// scratch (its cells' members side by side) and reads and writes kVec
+// posts of B ring rows.
+template <int kVec>
+__global__ void __launch_bounds__(kFoldThreads)
+delay_ring_fold_kernel(const float* __restrict__ ring,
+                       double* __restrict__ acc, float* __restrict__ new_ring,
+                       float* __restrict__ inj,
+                       const float* __restrict__ gscale, float scale,
+                       float sign, int batch, int n_slots, int n_post,
+                       int cur) {
+  const long long item =
+      static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
+  const long long j = item / batch * kVec;
+  if (j >= n_post) return;
+  const int b = static_cast<int>(item % batch);
+  const int r = blockIdx.y;
+  const int src = r >= cur ? r - cur : r - cur + n_slots;
+  // sign * gscale, rounded to float32 as PyTorch rounds it
+  const float sc = gscale != nullptr ? __fmul_rn(sign, gscale[b]) : scale;
+  const long long at = (static_cast<long long>(b) * n_slots + r) * n_post + j;
+  double* a = acc + (static_cast<long long>(src) * n_post + j) * batch + b;
+  float v[kVec];
+  double av[kVec];
+  if constexpr (kVec == 4) {
+    const float4 r4 = __ldg(reinterpret_cast<const float4*>(ring + at));
+    v[0] = r4.x; v[1] = r4.y; v[2] = r4.z; v[3] = r4.w;
+  } else {
+    v[0] = __ldg(ring + at);
   }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) av[e] = a[e * batch];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    a[e * batch] = 0.0;                     // leave the scratch zeroed
+    v[e] = __fadd_rn(v[e], __fmul_rn(sc, __double2float_rn(av[e])));
+  }
+  if (r == cur) {                            // uniform across the CTA
+    float* out = inj + static_cast<long long>(b) * n_post + j;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      out[e] = v[e];
+      v[e] = 0.0f;
+    }
+  }
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(new_ring + at) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  else
+    new_ring[at] = v[0];
 }
 
 }  // namespace
 
 extern "C" {
 
-// The shared memory of a live-kernel CTA (launch_plan's "smem_bytes").
+// The shared memory of a scatter CTA (launch_plan's "smem_bytes").
 int ell_spmv_smem_bytes() { return static_cast<int>(sizeof(LiveSmem)); }
 
 // out: [batch, n_post] float64, zeroed by the caller.  spikes: [batch,
@@ -290,34 +437,57 @@ int ell_spmv_f32(const float* g, long long g_batch_stride,
                  const void* spikes, int spikes_bool, double* out, int batch,
                  int n_pre, int k, int n_post, int vec, int smem_bytes,
                  void* stream) {
-  if (smem_bytes != static_cast<int>(sizeof(LiveSmem)) ||
-      (vec != 1 && vec != 4) ||
-      (vec == 4 && (k % 4 != 0 || !aligned(post_ind, 16) ||
-                    !aligned(g, 16) || !aligned(valid, 4))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || n_pre == 0 || k == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (spikes_bool)
-    return launch_live(g, g_batch_stride, post_ind, valid,
-                       static_cast<const uint8_t*>(spikes), out, batch,
-                       n_pre, k, n_post, vec, s);
-  return launch_live(g, g_batch_stride, post_ind, valid,
-                     static_cast<const float*>(spikes), out, batch, n_pre, k,
-                     n_post, vec, s);
+  return scatter(g, g_batch_stride, post_ind, valid, nullptr, spikes,
+                 spikes_bool, out, batch, n_pre, k, n_post, 1, vec,
+                 smem_bytes, stream);
 }
 
-// out: [batch, n_slots, n_post] float32, zeroed by the caller.
+// The delay variant: adds into out [n_slots, n_post, batch] float64 (the
+// caller zeroes it, or keeps it zeroed between calls).  As ell_spmv_f32,
+// and vec 4 needs delay 16-byte aligned too.
 int ell_spmv_delay_f32(const float* g, long long g_batch_stride,
                        const int32_t* post_ind, const uint8_t* valid,
-                       const int32_t* delay, const float* spikes, float* out,
-                       int batch, int n_pre, int k, int n_post, int n_slots,
-                       void* stream) {
-  if (batch == 0 || n_pre == 0 || k == 0) return cudaSuccess;
-  dim3 grid((n_pre + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-  ell_spmv_delay_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      g, g_batch_stride, post_ind, valid, delay, spikes, out, n_pre, k,
-      n_post, n_slots);
+                       const int32_t* delay, const void* spikes,
+                       int spikes_bool, double* out, int batch, int n_pre,
+                       int k, int n_post, int n_slots, int vec,
+                       int smem_bytes, void* stream) {
+  if (delay == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return scatter(g, g_batch_stride, post_ind, valid, delay, spikes,
+                 spikes_bool, out, batch, n_pre, k, n_post, n_slots, vec,
+                 smem_bytes, stream);
+}
+
+// ring [batch, n_slots, n_post] float32 (read), acc [n_slots, n_post,
+// batch] float64 (read, then zeroed), new_ring [batch, n_slots, n_post]
+// float32 and inj [batch, n_post] float32 (written).  gscale: [batch]
+// float32 on the card, or null and then scale (= sign * gscale, rounded to
+// float32) for every member.  vec comes from kernels.delay_ring.launch_plan:
+// vec 4 needs n_post % 4 == 0 and all four arrays 16-byte aligned.
+int delay_ring_fold_f32(const float* ring, double* acc, float* new_ring,
+                        float* inj, const float* gscale, float scale,
+                        float sign, int batch, int n_slots, int n_post,
+                        int cur, int vec, void* stream) {
+  if ((vec != 1 && vec != 4) ||
+      (vec == 4 && (n_post % 4 != 0 || !aligned(ring, 16) ||
+                    !aligned(acc, 16) || !aligned(new_ring, 16) ||
+                    !aligned(inj, 16))) ||
+      batch < 0 || n_post < 0 || n_slots <= 0 || n_slots > 65535 ||
+      cur < 0 || cur >= n_slots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || n_post == 0) return cudaSuccess;
+  const long long items = (static_cast<long long>(n_post) / vec) * batch;
+  const long long ctas = (items + kFoldThreads - 1) / kFoldThreads;
+  if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(ctas), n_slots);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    delay_ring_fold_kernel<4><<<grid, kFoldThreads, 0, s>>>(
+        ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
+        n_post, cur);
+  else
+    delay_ring_fold_kernel<1><<<grid, kFoldThreads, 0, s>>>(
+        ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
+        n_post, cur);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,9 +3,12 @@
 ``csrc/ell_spmv.cu`` replaces the TPU kernels
 ``repro/kernels/ell_spmv.py::ell_spmv_pallas`` and ``::ell_spmv_delay_pallas``
 (its header says how, and what bounds it on the card).  ``launch_plan``
-computes on the host what a delay-free call needs (grid, block, shared
-memory, the slots an item); the kernel refuses a plan whose shared memory
-differs from its own layout.
+computes on the host what a call of either scatter needs (grid, block,
+shared memory, the slots an item); the kernel refuses a plan whose shared
+memory differs from its own layout.  Both sum in float64: ``ell_spmv`` and
+``ell_spmv_delay`` round the sum to float32 once; ``ell_spmv_delay_into``
+adds into a float64 scratch [n_slots, n_post, B] that the simulator keeps
+between steps and folds into its dendritic ring (``kernels.delay_ring``).
 
 Dispatch goes by where the tensors lie.  Tensors on the CPU take the plain
 PyTorch version in ``repro_torch.kernels.ref``; CUDA tensors launch the
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -30,8 +33,9 @@ from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, I, LL, P,
                                            check_operand, launch, on_cpu,
                                            raise_on)
 
-__all__ = ["ell_spmv", "ell_spmv_delay", "launch_plan", "launches",
-           "reset_launches", "ROWS_PER_CTA", "MEMBERS_PER_CTA"]
+__all__ = ["ell_spmv", "ell_spmv_delay", "ell_spmv_delay_into",
+           "launch_plan", "launches", "reset_launches", "ROWS_PER_CTA",
+           "MEMBERS_PER_CTA"]
 
 # kernel name -> number of launches since the last reset_launches()
 launches: Dict[str, int] = {"ell_spmv": 0, "ell_spmv_delay": 0}
@@ -48,6 +52,9 @@ SMEM_MAX = 232_448        # shared memory one H100 CTA can use
 GRID_X_MAX = INT_MAX
 # the kernel counts a CTA's items (live rows x slots) in 32 bits
 K_MAX = (INT_MAX - ROWS_PER_CTA * _ITEMS_PER_THREAD) // ROWS_PER_CTA
+# the delay kernel's offsets into its scratch [n_slots, n_post, B] are
+# 64-bit
+INDEX_MAX = 2 ** 63 - 1
 
 
 def reset_launches() -> None:
@@ -57,17 +64,20 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(batch: int, n_pre: int, k: int, n_post: int,
-                aligned: bool = True) -> dict:
-    """What ``ell_spmv`` launches for spikes [batch, n_pre], K slots a row
-    and n_post targets: a CTA of ``block`` threads for each
+                aligned: bool = True, n_slots: Optional[int] = None) -> dict:
+    """What ``ell_spmv`` (or, with ``n_slots``, the delay scatter) launches
+    for spikes [batch, n_pre], K slots a row and n_post targets (n_slots x
+    n_post with a delay): a CTA of ``block`` threads for each
     ``ROWS_PER_CTA`` rows (grid x) and each ``MEMBERS_PER_CTA`` members
     (grid y), ``smem_bytes`` of static shared memory, ``vec`` slots an
     item (4 when K is a multiple of 4 and the operands are ``aligned``:
-    16 bytes for post_ind and g, 4 for valid; else 1).  Raises where a
-    grid axis or an index would overflow.  The returned dict is shared:
-    do not change it."""
-    for what, v in (("batch", batch), ("n_pre", n_pre), ("K", k),
-                    ("n_post", n_post)):
+    16 bytes for post_ind, g and delay, 4 for valid; else 1).  Raises where
+    a grid axis, a CTA's item count or an index would overflow.  The
+    returned dict is shared: do not change it."""
+    sizes = [("batch", batch), ("n_pre", n_pre), ("K", k), ("n_post", n_post)]
+    if n_slots is not None:
+        sizes.append(("n_slots", n_slots))
+    for what, v in sizes:
         if not 0 <= v <= INT_MAX:
             raise ValueError(f"{what}={v} outside the kernel's int32 range")
     grid = (-(-n_pre // ROWS_PER_CTA), -(-batch // MEMBERS_PER_CTA), 1)
@@ -79,13 +89,17 @@ def launch_plan(batch: int, n_pre: int, k: int, n_post: int,
                          f"x, past its {GRID_X_MAX}")
     if k > K_MAX:
         raise ValueError(f"K={k} past the kernel's {K_MAX} slots a row")
+    if n_slots is not None and batch * n_slots * n_post > INDEX_MAX:
+        raise ValueError(f"[{batch}, {n_slots}, {n_post}] past the "
+                         "kernel's 64-bit index")
     if _SMEM_BYTES > SMEM_MAX:
         raise ValueError(f"{_SMEM_BYTES} B of shared memory past {SMEM_MAX}")
     return {"grid": grid, "block": ROWS_PER_CTA, "smem_bytes": _SMEM_BYTES,
             "vec": 4 if k % 4 == 0 and aligned else 1,
             "rows_per_cta": ROWS_PER_CTA,
             "members_per_cta": MEMBERS_PER_CTA,
-            "items_per_thread": _ITEMS_PER_THREAD}
+            "items_per_thread": _ITEMS_PER_THREAD, "n_slots": n_slots}
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,8 +107,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_spmv")
     lib.ell_spmv_f32.argtypes = [P, LL, P, P, P, I, P, I, I, I, I, I, I, P]
     lib.ell_spmv_f32.restype = I
-    lib.ell_spmv_delay_f32.argtypes = [P, LL, P, P, P, P, P,
-                                       I, I, I, I, I, P]
+    lib.ell_spmv_delay_f32.argtypes = [P, LL, P, P, P, P, I, P,
+                                       I, I, I, I, I, I, I, P]
     lib.ell_spmv_delay_f32.restype = I
     lib.ell_spmv_smem_bytes.argtypes = []
     lib.ell_spmv_smem_bytes.restype = I
@@ -132,6 +146,16 @@ def _check(g, post_ind, valid, delay, spikes) -> tuple:
     return batch, n_pre, k, g_stride
 
 
+def _check_spikes(spikes: torch.Tensor) -> bool:
+    """The kernels read float32 spikes or bool bytes; True for bool."""
+    if spikes.dtype == torch.bool:
+        if not spikes.is_contiguous():
+            raise ValueError("spikes must be contiguous")
+        return True
+    check_operand("spikes", spikes, torch.float32)
+    return False
+
+
 def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
              spikes: torch.Tensor, n_post: int) -> torch.Tensor:
     """out[b, j] = sum_{i,k} spikes[b,i] * g[i,k] * valid[i,k]
@@ -144,11 +168,7 @@ def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
     if on_cpu("ell_spmv", g, post_ind, valid, spikes):
         return _ref.ell_spmv_ref(g, post_ind, valid, spikes, n_post)
     batch, n_pre, k, g_stride = _check(g, post_ind, valid, None, spikes)
-    spikes_bool = spikes.dtype == torch.bool
-    if not spikes_bool:
-        check_operand("spikes", spikes, torch.float32)
-    elif not spikes.is_contiguous():
-        raise ValueError("spikes must be contiguous")
+    spikes_bool = _check_spikes(spikes)
     g_ptr, ind_ptr, valid_ptr = (g.data_ptr(), post_ind.data_ptr(),
                                  valid.data_ptr())
     plan = launch_plan(batch, n_pre, k, n_post,
@@ -166,6 +186,29 @@ def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
     return out.to(torch.float32)
 
 
+def _delay_scatter(g, post_ind, valid, delay, spikes, out) -> None:
+    """Launch the delay scatter, adding into ``out`` [n_slots, n_post, B]
+    float64 (CUDA tensors only)."""
+    batch, n_pre, k, g_stride = _check(g, post_ind, valid, delay, spikes)
+    spikes_bool = _check_spikes(spikes)
+    check_operand("out", out, torch.float64)
+    if out.dim() != 3 or out.shape[2] != batch:
+        raise ValueError(f"out must be [n_slots, n_post, B={batch}], got "
+                         f"{tuple(out.shape)}")
+    n_slots, n_post = out.shape[0], out.shape[1]
+    ptrs = (g.data_ptr(), post_ind.data_ptr(), valid.data_ptr(),
+            delay.data_ptr())
+    plan = launch_plan(batch, n_pre, k, n_post,
+                       (ptrs[0] | ptrs[1] | ptrs[3]) % 16 == 0
+                       and ptrs[2] % 4 == 0, n_slots)
+    rc = launch(spikes.device, _lib().ell_spmv_delay_f32, ptrs[0], g_stride,
+                ptrs[1], ptrs[2], ptrs[3], spikes.data_ptr(),
+                int(spikes_bool), out.data_ptr(), batch, n_pre, k, n_post,
+                n_slots, plan["vec"], plan["smem_bytes"])
+    launches["ell_spmv_delay"] += 1
+    raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv_delay")
+
+
 def ell_spmv_delay(g: torch.Tensor, post_ind: torch.Tensor,
                    valid: torch.Tensor, delay: torch.Tensor,
                    spikes: torch.Tensor, n_post: int,
@@ -173,25 +216,26 @@ def ell_spmv_delay(g: torch.Tensor, post_ind: torch.Tensor,
     """Fused delay-scatter: out[b, d, j] = sum_{i,k} spikes[b,i] * g[i,k]
     * valid[i,k] * (delay[i,k] == d) * (post_ind[i,k] == j).
 
-    As ``ell_spmv`` plus delay: [n_pre, K] int32  ->  [B, n_slots, n_post]."""
-    if on_cpu("ell_spmv_delay", g, post_ind, valid, delay,
-              spikes):
+    As ``ell_spmv`` plus delay: [n_pre, K] int32  ->  [B, n_slots, n_post]
+    float32 (summed in float64, rounded once)."""
+    if on_cpu("ell_spmv_delay", g, post_ind, valid, delay, spikes):
         return _ref.ell_spmv_delay_ref(g, post_ind, valid, delay, spikes,
                                        n_post, n_slots)
-    batch, n_pre, k, g_stride = _check(g, post_ind, valid, delay, spikes)
-    check_operand("spikes", spikes, torch.float32)
-    if batch > GRID_Y_MAX:
-        raise ValueError(f"batch {batch} exceeds the kernel's {GRID_Y_MAX}")
-    for what, v in (("n_pre", n_pre), ("K", k), ("n_post", n_post),
-                    ("n_slots * n_post", n_slots * n_post)):
-        if not 0 <= v <= INT_MAX:
-            raise ValueError(f"{what}={v} outside the kernel's int32 range")
-    out = torch.zeros((batch, n_slots, n_post), dtype=torch.float32,
-                      device=spikes.device)
-    rc = launch(spikes.device, _lib().ell_spmv_delay_f32, g.data_ptr(),
-                g_stride, post_ind.data_ptr(), valid.data_ptr(),
-                delay.data_ptr(), spikes.data_ptr(), out.data_ptr(), batch,
-                n_pre, k, n_post, n_slots)
-    launches["ell_spmv_delay"] += 1
-    raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv_delay")
-    return out
+    acc = torch.zeros((n_slots, n_post, spikes.shape[0]),
+                      dtype=torch.float64, device=spikes.device)
+    _delay_scatter(g, post_ind, valid, delay, spikes, acc)
+    return _ref.delay_scratch_to_bsn(acc)
+
+
+def ell_spmv_delay_into(g: torch.Tensor, post_ind: torch.Tensor,
+                        valid: torch.Tensor, delay: torch.Tensor,
+                        spikes: torch.Tensor, out: torch.Tensor) -> None:
+    """The delay scatter added into ``out`` [n_slots, n_post, B] float64
+    in place (float32 products, summed in float64; a cell's members side
+    by side): the simulator's scratch, which
+    ``kernels.delay_ring.delay_ring_fold`` rounds, folds into the ring and
+    zeroes again."""
+    if on_cpu("ell_spmv_delay", g, post_ind, valid, delay, spikes, out):
+        _ref.ell_spmv_delay_into_ref(g, post_ind, valid, delay, spikes, out)
+        return
+    _delay_scatter(g, post_ind, valid, delay, spikes, out)

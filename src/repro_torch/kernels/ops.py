@@ -1,8 +1,10 @@
 """Container-level ops, one signature per op.
 
 Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family, the fused
-neuron updates, flash attention and the SSD scan.  There is no backend switch: each op goes by the
-device its tensors lie on (see ``repro_torch.kernels._dispatch``).
+neuron updates, flash attention and the SSD scan, plus the dendritic ring's
+scatter-and-fold (``ell_spmv_delay_into``, ``delay_ring_fold``).  There is
+no backend switch: each op goes by the device its tensors lie on (see
+``repro_torch.kernels._dispatch``).
 
 The event-driven variants keep the JAX signatures and run the same kernel.
 The kernel reads nothing of a row whose spike is 0, which is the work the
@@ -16,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import delay_ring as _ring
 from repro_torch.kernels import ell_spmv as _k
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hh_step as _hh
@@ -23,17 +26,24 @@ from repro_torch.kernels import izhikevich_step as _iz
 from repro_torch.kernels import ssd_scan as _ssd
 
 __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
-           "ell_spmv_delay_batched", "ell_spmv_event",
+           "ell_spmv_delay_batched", "ell_spmv_delay_into",
+           "delay_ring_fold", "ell_spmv_event",
            "ell_spmv_event_delay", "izhikevich_step", "hh_step",
            "flash_attention", "ssd_scan"]
 
 
-def ell_spmv_batched(ell, spikes: torch.Tensor) -> torch.Tensor:
-    """spikes [B, n_pre] -> currents [B, n_post].  The kernel reads bool
-    and float32 spikes as they are (no cast on the simulator's path)."""
+def _spikes(spikes: torch.Tensor) -> torch.Tensor:
+    """The kernels read bool and float32 spikes as they are (no cast on
+    the simulator's path); other types are cast to float32."""
     if spikes.dtype not in (torch.bool, torch.float32):
         spikes = spikes.to(torch.float32)
-    return _k.ell_spmv(ell.g, ell.post_ind, ell.valid, spikes, ell.n_post)
+    return spikes
+
+
+def ell_spmv_batched(ell, spikes: torch.Tensor) -> torch.Tensor:
+    """spikes [B, n_pre] -> currents [B, n_post]."""
+    return _k.ell_spmv(ell.g, ell.post_ind, ell.valid, _spikes(spikes),
+                       ell.n_post)
 
 
 def ell_spmv(ell, spikes: torch.Tensor) -> torch.Tensor:
@@ -49,7 +59,26 @@ def ell_spmv_delay_batched(ell, spikes: torch.Tensor,
     if ell.delay is None:
         raise ValueError("ell_spmv_delay needs an ELL with a delay slot")
     return _k.ell_spmv_delay(ell.g, ell.post_ind, ell.valid, ell.delay,
-                             spikes.to(torch.float32), ell.n_post, n_slots)
+                             _spikes(spikes), ell.n_post, n_slots)
+
+
+def ell_spmv_delay_into(ell, spikes: torch.Tensor,
+                        acc: torch.Tensor) -> None:
+    """The fused delay-scatter of spikes [B, n_pre] added into ``acc``
+    [n_slots, n_post, B] float64 in place (the scratch that
+    ``delay_ring_fold`` folds into the ring and zeroes)."""
+    if ell.delay is None:
+        raise ValueError("ell_spmv_delay needs an ELL with a delay slot")
+    _k.ell_spmv_delay_into(ell.g, ell.post_ind, ell.valid, ell.delay,
+                           _spikes(spikes), acc)
+
+
+def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
+                    sign: float, gscale):
+    """(new_ring, inj): the scratch ``acc`` scaled by sign * gscale and
+    rolled by ``cursor`` into the ring [B, S, n_post], then the cursor's
+    row read out and cleared; ``acc`` is left zeroed."""
+    return _ring.delay_ring_fold(ring, acc, cursor, sign, gscale)
 
 
 def ell_spmv_delay(ell, spikes: torch.Tensor, n_slots: int) -> torch.Tensor:

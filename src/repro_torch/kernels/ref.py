@@ -5,10 +5,12 @@ exactly with integer-valued weights, whose sums do not depend on the order
 of the atomics).  The kernel wrappers take them for tensors that lie on the
 CPU; the tests and ``chip_smoke.py`` compare the kernels with them.  They
 repeat the kernels' arithmetic with ``index_add_`` over the flattened
-``(i, k)`` slots and are no yardstick of speed.  ``ell_spmv_ref`` adds its
-float32 products in float64 and rounds once, as the ``ell_spmv`` kernel
-does, so the two agree bit for bit whatever order either adds in (see
-``csrc/ell_spmv.cu``).
+``(i, k)`` slots and are no yardstick of speed.  ``ell_spmv_ref`` and
+``ell_spmv_delay_ref`` add their float32 products in float64 and round
+once, as the kernels do, so each agrees with its kernel bit for bit
+whatever order either adds in (see ``csrc/ell_spmv.cu``).
+``delay_ring_fold_ref`` is the dendritic ring's update that the fold
+kernel fuses: scale, roll, add, read and clear the cursor's slot.
 
 ``g`` may carry a leading batch axis (``[B, n_pre, K]``): plastic groups in
 a batched run hold one weight matrix per batch member.
@@ -38,8 +40,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "izhikevich_step_ref",
-           "hh_step_ref", "flash_attention_ref", "flash_attention_fwd_ref",
+__all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "ell_spmv_delay_into_ref",
+           "delay_scratch_to_bsn", "delay_ring_fold_ref",
+           "izhikevich_step_ref", "hh_step_ref", "flash_attention_ref", "flash_attention_fwd_ref",
            "flash_attention_bwd_ref", "ssd_scan_ref", "chunk_size"]
 
 
@@ -71,6 +74,31 @@ def ell_spmv_ref(g: torch.Tensor, post_ind: torch.Tensor,
     return out.to(flat.dtype)
 
 
+def ell_spmv_delay_into_ref(g: torch.Tensor, post_ind: torch.Tensor,
+                            valid: torch.Tensor, delay: torch.Tensor,
+                            spikes: torch.Tensor, out: torch.Tensor) -> None:
+    """The delay scatter added into ``out`` [n_slots, n_post, B] float64 in
+    place (the kernel's scratch layout, members side by side): every
+    synapse's float32 contribution lands at its own (delay_slot, post)
+    cell, summed in float64."""
+    flat = _contributions(g, valid, spikes)                # [B, n_pre*K]
+    batch, n_post = spikes.shape[0], out.shape[1]
+    d = torch.where(valid, delay, torch.zeros((), dtype=delay.dtype,
+                                              device=delay.device))
+    cell = (d.long() * n_post + post_ind.long()).reshape(1, -1)
+    idx = cell * batch + torch.arange(batch, device=cell.device)[:, None]
+    out.view(-1).index_add_(0, idx.reshape(-1),
+                            flat.reshape(-1).to(torch.float64))
+
+
+def delay_scratch_to_bsn(acc: torch.Tensor) -> torch.Tensor:
+    """A delay scratch [n_slots, n_post, B] float64 as the delay scatter's
+    result [B, n_slots, n_post] float32, rounded once (one copy)."""
+    out = torch.empty((acc.shape[2], acc.shape[0], acc.shape[1]),
+                      dtype=torch.float32, device=acc.device)
+    return out.copy_(acc.permute(2, 0, 1))
+
+
 def ell_spmv_delay_ref(g: torch.Tensor, post_ind: torch.Tensor,
                        valid: torch.Tensor, delay: torch.Tensor,
                        spikes: torch.Tensor, n_post: int,
@@ -82,15 +110,33 @@ def ell_spmv_delay_ref(g: torch.Tensor, post_ind: torch.Tensor,
     spikes: [B, n_pre]  ->  [B, n_slots, n_post]
     out[b, d, j] = sum_{i,k} spikes[b,i] * g[i,k] * valid[i,k]
                              * (delay[i,k]==d) * (post_ind[i,k]==j)
+
+    The float32 products are summed in float64 and rounded once.
     """
-    flat = _contributions(g, valid, spikes)
-    d = torch.where(valid, delay, torch.zeros((), dtype=delay.dtype,
-                                              device=delay.device))
-    idx = (d.long() * n_post + post_ind.long()).reshape(-1)
-    out = torch.zeros((spikes.shape[0], n_slots * n_post),
-                      dtype=flat.dtype, device=flat.device)
-    out.index_add_(1, idx, flat)
-    return out.reshape(spikes.shape[0], n_slots, n_post)
+    acc = torch.zeros((n_slots, n_post, spikes.shape[0]),
+                      dtype=torch.float64, device=g.device)
+    ell_spmv_delay_into_ref(g, post_ind, valid, delay, spikes, acc)
+    return delay_scratch_to_bsn(acc)
+
+
+def delay_ring_fold_ref(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
+                        sign: float, gscale) -> tuple:
+    """One step of the dendritic ring [B, S, n_post] float32: the delay
+    scatter ``acc`` [S, n_post, B] float64 (slot d = currents due d steps
+    from now), rounded to float32 and scaled by ``sign * gscale`` (a scalar
+    or [B]), lands at ring row (cursor + d) % S; the cursor's row is read
+    out and cleared.  Returns (new_ring, inj [B, n_post]), both fresh
+    tensors; ``ring`` is left as it is and ``acc`` is zeroed, as the fold
+    kernel leaves it."""
+    contrib = delay_scratch_to_bsn(acc)
+    acc.zero_()
+    if isinstance(gscale, torch.Tensor) and gscale.dim() == 1:
+        gscale = gscale.reshape((-1,) + (1,) * (contrib.dim() - 1))
+    contrib = sign * gscale * contrib
+    new_ring = ring + torch.roll(contrib, cursor, dims=1)
+    inj = new_ring[:, cursor].clone()
+    new_ring[:, cursor] = 0.0
+    return new_ring, inj
 
 
 def _clear_if_not_finite(finite, *arrays) -> None:

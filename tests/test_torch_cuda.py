@@ -7,7 +7,9 @@ PyTorch:
 
 Tolerance: rtol=atol=1e-5 for the spmv kernels (atomics sum in another
 order than index_add_), exact with integer-valued weights, and exact for
-``ell_spmv`` (kernel and plain version sum in float64); rtol=atol=2e-4
+``ell_spmv`` and ``ell_spmv_delay`` (kernel and plain version sum in
+float64); the dendritic ring's fold bit-equal to its plain version (sign
+bits of zeros included); rtol=atol=2e-4
 for the neuron updates, whose spike decisions may differ on under 0.2% of
 neurons (the parity contract of tests/test_kernels.py); flash attention
 within rtol=atol=2e-5 of its plain version in float32 (the sums run in
@@ -26,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import delay_ring as DR  # noqa: E402
 from repro_torch.kernels import ell_spmv as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hh_step as HH  # noqa: E402
@@ -181,6 +184,108 @@ def test_cuda_wrapper_rejects_bad_operands(cuda_device):
         K.ell_spmv(g.t(), idx, valid, spk, 5)
     with pytest.raises(ValueError):
         K.ell_spmv(g.cpu(), idx, valid, spk, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spike_dtype", [torch.float32, torch.bool],
+                         ids=["float", "bool"])
+@pytest.mark.parametrize("per_member_g", [False, True],
+                         ids=["shared_g", "per_member_g"])
+@pytest.mark.parametrize("b,p,k", [(1, 0.05, 64), (8, 0.05, 64),
+                                   (3, 1.0, 64), (8, 0.3, 30)])
+def test_cuda_delay_scatter_equals_plain_bit_for_bit(cuda_device, b, p, k,
+                                                     per_member_g,
+                                                     spike_dtype):
+    """The delay scatter sums in float64 like its plain version, so the
+    two agree exactly (many slots share few (slot, target) cells); bool
+    spikes equal float ones; K % 4 != 0 takes the one-slot walk; adding
+    into a scratch that holds (float32-exact) values adds to them."""
+    rng = np.random.default_rng(13)
+    n_pre, n_post, n_slots = 3000, 40, 21
+    assert K.launch_plan(b, n_pre, k, n_post, n_slots=n_slots)["grid"] == (
+        -(-n_pre // 256), -(-b // 8), 1)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=cuda_device)
+
+    g = t(rng.standard_normal((b, n_pre, k) if per_member_g
+                              else (n_pre, k)))
+    idx = t(rng.integers(0, n_post, (n_pre, k)), torch.int32)
+    valid = t(rng.random((n_pre, k)) < 0.8, torch.bool)
+    dly = t(rng.integers(0, n_slots, (n_pre, k)), torch.int32)
+    spk = t(rng.random((b, n_pre)) < p)
+    assert K.launch_plan(b, n_pre, k, n_post, n_slots=n_slots)["vec"] == (
+        4 if k % 4 == 0 else 1)
+    K.reset_launches()
+    first = K.ell_spmv_delay(g, idx, valid, dly, spk.to(spike_dtype),
+                             n_post, n_slots)
+    again = K.ell_spmv_delay(g, idx, valid, dly, spk, n_post, n_slots)
+    assert K.launches == {"ell_spmv": 0, "ell_spmv_delay": 2}
+    ref = TR.ell_spmv_delay_ref(g, idx, valid, dly, spk, n_post, n_slots)
+    assert torch.equal(first, again)
+    assert torch.equal(first, ref)
+    # a scratch holding float32 values: float64 sums onto them stay exact
+    acc = t(rng.standard_normal((n_slots, n_post, b)).astype(np.float32),
+            torch.float64)
+    want = acc.clone()
+    TR.ell_spmv_delay_into_ref(g, idx, valid, dly, spk, want)
+    K.ell_spmv_delay_into(g, idx, valid, dly, spk.to(spike_dtype), acc)
+    assert torch.equal(acc, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gscale_kind", ["python", "scalar", "per_member"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("b,n_post", [(1, 80_000), (8, 2000), (4, 37)])
+def test_cuda_ring_fold_equals_plain_bit_for_bit(cuda_device, b, n_post,
+                                                 sign, gscale_kind):
+    """At every cursor: the new ring and inj equal the plain version's bit
+    for bit (zeros' sign bits too), the input ring is untouched and the
+    scratch is left zeroed; n_post = 37 takes the one-element form."""
+    rng = np.random.default_rng(b + n_post)
+    n_slots = 21
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=cuda_device)
+
+    ring = t(rng.standard_normal((b, n_slots, n_post)))
+    ring[:, :, :3] = 0.0
+    acc0 = t(rng.standard_normal((n_slots, n_post, b)), torch.float64)
+    acc0[:, 2:6] = 0.0
+    gscale = {"python": 1.0, "scalar": torch.tensor(0.7),
+              "per_member": t(rng.uniform(0.1, 3.0, b))}[gscale_kind]
+    assert DR.launch_plan(b, n_slots, n_post)["vec"] == (
+        4 if n_post % 4 == 0 else 1)
+    before = ring.clone()
+    for cursor in (0, 7, n_slots - 1):
+        acc, acc_ref = acc0.clone(), acc0.clone()
+        DR.reset_launches()
+        new_ring, inj = DR.delay_ring_fold(ring, acc, cursor, sign, gscale)
+        assert DR.launches == {"delay_ring_fold": 1}
+        want_ring, want_inj = TR.delay_ring_fold_ref(ring, acc_ref, cursor,
+                                                     sign, gscale)
+        for got, want in ((new_ring, want_ring), (inj, want_inj)):
+            assert torch.equal(got, want)
+            assert torch.equal(torch.signbit(got), torch.signbit(want))
+        assert not acc.any() and torch.equal(ring, before)
+
+
+@pytest.mark.gpu
+def test_cuda_ring_fold_rejects_bad_operands(cuda_device):
+    ring = torch.zeros(2, 5, 8, device=cuda_device)
+    acc = torch.zeros(5, 8, 2, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        DR.delay_ring_fold(ring, acc.float(), 0, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        DR.delay_ring_fold(ring, acc, 5, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        DR.delay_ring_fold(ring, acc, 0, 1.0, torch.ones(3,
+                                                          device=cuda_device))
+    with pytest.raises(ValueError):
+        DR.delay_ring_fold(ring, acc[:4], 0, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        DR.delay_ring_fold(ring, acc.permute(2, 0, 1).contiguous(), 0, 1.0,
+                           1.0)
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
-"""``kernels.ell_spmv.launch_plan`` on the CPU: what the delay-free ELL
-kernel (``csrc/ell_spmv.cu``, ``ell_spmv_live_kernel``) launches, held to
-an H100's limits (232,448 B of shared memory a CTA, grid axis y <= 65535)
-at the main path's shapes, at B = 1, 8 and 65535, and at an n_pre that is
-no multiple of a CTA's rows.  The kernel itself runs only on a card
+"""``kernels.ell_spmv.launch_plan`` on the CPU: what the ELL kernels
+(``csrc/ell_spmv.cu``: ``ell_spmv_live_kernel`` and, with ``n_slots``,
+``ell_spmv_delay_live_kernel``) launch, held to an H100's limits (232,448 B
+of shared memory a CTA, grid axis y <= 65535) at the main path's shapes
+and the delay path's 21 slots, at B = 1, 8 and 65535, and at an n_pre that
+is no multiple of a CTA's rows.  The kernels themselves run only on a card
 (tests/test_torch_cuda.py)."""
 
 import pytest
@@ -60,3 +61,36 @@ def test_plan_raises_past_the_grid_and_the_index_range():
                                            (10, True, 1), (1000, False, 1)])
 def test_vector_width(k, aligned, vec):
     assert K.launch_plan(2, 300, k, 50, aligned)["vec"] == vec
+
+
+@pytest.mark.parametrize("batch", [1, 8, 65535])
+@pytest.mark.parametrize("n_pre,k,n_post", MAIN_SHAPES)
+def test_delay_plan_is_the_scatter_plan(n_pre, k, n_post, batch):
+    """The delay kernel walks the same CTAs; only its target has n_slots
+    rows a member."""
+    plan = K.launch_plan(batch, n_pre, k, n_post, n_slots=21)
+    assert plan["n_slots"] == 21
+    free = K.launch_plan(batch, n_pre, k, n_post)
+    assert {k: v for k, v in plan.items() if k != "n_slots"} == {
+        k: v for k, v in free.items() if k != "n_slots"}
+    assert plan["grid"][2] == 1
+
+
+@pytest.mark.parametrize("k,aligned,vec", [(1000, True, 4), (12, True, 4),
+                                           (10, True, 1), (1000, False, 1)])
+def test_delay_vector_width(k, aligned, vec):
+    assert K.launch_plan(2, 300, k, 50, aligned, n_slots=7)["vec"] == vec
+
+
+def test_delay_plan_raises_past_its_ranges():
+    # the 64-bit index of [B, n_slots, n_post]
+    K.launch_plan(8 * GRID_Y_LIMIT, 100, 8, 2 ** 31 - 1, n_slots=2)
+    with pytest.raises(ValueError, match="64-bit index"):
+        K.launch_plan(8 * GRID_Y_LIMIT, 100, 8, 2 ** 31 - 1,
+                      n_slots=GRID_Y_LIMIT)
+    with pytest.raises(ValueError, match="int32"):
+        K.launch_plan(1, 100, 8, 100, n_slots=2 ** 31)
+    with pytest.raises(ValueError, match="axis y"):
+        K.launch_plan(8 * GRID_Y_LIMIT + 1, 100, 8, 100, n_slots=21)
+    with pytest.raises(ValueError, match="slots a row"):
+        K.launch_plan(1, 100, K.K_MAX + 1, 100, n_slots=21)
