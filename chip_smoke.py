@@ -53,13 +53,32 @@ failure ends the run with a non-zero exit):
      ragged T=200 in both; in bf16 also q_offset 100, zamba2's D=112
      ([1, 32, 2048, 112]), D=40 (a contraction padded with zeros) and the
      prefill shape without the causal mask;
+  2f. the threefry kernels (``threefry_split``, ``threefry_draw``)
+     against their plain version on the card at the SNN paths' shapes
+     (main's 5 keys a step and normal draws of 80,000 x 5.0 and 20,000 x
+     2.0; mb_full's 9 keys and 100 PN uniforms), B = 1 and 8: keys, bits
+     and uniforms bit-equal, normals within 4 float32 ulp; times beside
+     the bound (integer operations against bytes) and, as a yardstick
+     only, ``torch.randn`` at the same shape (Philox, not threefry: no
+     library time);
+  Phases 3-6b each run their model once eagerly (``Simulator.run``) and
+     once through the graph route (``Simulator.run_compiled``: CUDA graphs
+     of 32 steps and a remainder, which ``CompiledModel.run`` and
+     ``sweep_gscale`` replay) from the same state: counts and every state
+     tensor (neurons, spikes, rings, cursors, t, key, finite) bit-equal,
+     the same kernel launches, and rasters bit-equal over 100 steps; they
+     print eager and graph us/step, the first graph run's seconds (the
+     capture), captures and replays; phases 4 and 5b replay one capture
+     for two gScale grids; the phases' own runs below take the graph
+     route, their comparisons with the plain versions the eager one;
   3. the main path at full width: the Izhikevich net, 100k neurons, 1000
      synapses per neuron (4 split ELL groups, ~1.8 GB), 1000 steps; its
-     launch counts (4 ell_spmv and 2 izhikevich_step per step); 50 steps
-     through the plain versions on the card (no kernel launched), whose
-     raster must agree with the kernel run's on >= 99.8% of neuron-steps;
-     a profile of 50 steps (device ops a step, busy share, the device ops
-     a step that the NaN guard costs);
+     launch counts (4 ell_spmv, 2 izhikevich_step, 1 threefry_split and 2
+     threefry_draw per step); 50 steps through the plain versions on the
+     card (no kernel launched), whose raster must agree with the kernel
+     run's on >= 99.8% of neuron-steps; profiles of 50 steps, eager and
+     replayed (device ops a step, busy share; eagerly, the device ops a
+     step that the NaN guard costs);
   4. a gScale sweep of the excitatory groups: 8 candidates (0.3 .. 1.2,
      below saturation) x 500 steps as one batch, rates non-decreasing in
      gScale, then the conductance search;
@@ -169,7 +188,9 @@ ELL_SASS_KERNEL = "ell_spmv_live_kernelIhLi4E"   # bool spikes, 4 slots
 MAIN = dict(n_total=100_000, n_conn=1000, steps=1000, plain_steps=50)
 # the grid a conductance search scans, below the saturated regime: above
 # gScale ~1.25 this net bursts at ~100 Hz and the rate is no longer monotone
-SWEEP = dict(values=(0.3, 0.45, 0.6, 0.75, 0.9, 1.0, 1.1, 1.2), steps=500)
+SWEEP = dict(values=(0.3, 0.45, 0.6, 0.75, 0.9, 1.0, 1.1, 1.2), steps=500,
+             # a second grid the same capture replays (phases 4 and 5b)
+             values_b=(0.35, 0.5, 0.65, 0.8, 0.95, 1.05, 1.15, 1.25))
 # phase 5: the main path's net with per-synapse delays 0..20 steps on the
 # excitatory groups (21 ring slots); its plain run and profile take 50
 DELAY = dict(n_total=100_000, n_conn=1000, max_delay=20, steps=200,
@@ -188,6 +209,24 @@ HH_OPS_PER_SUBSTEP = 88
 # bytes per (member, neuron): v, m, h, n, isyn read, v, m, h, n written
 # (float32) and above (a byte)
 HH_BYTES = 5 * 4 + 4 * 4 + 1
+# phase 2f: the threefry draws of the SNN paths, (what, n, draw, scale):
+# main's thalamic normals and mb_full's PN rand; the keys a step's split
+# makes (1 + 2 x populations: main 2, mb_full 4)
+THREEFRY_DRAWS = (("main exc", 80_000, "normal", 5.0),
+                  ("main inh", 20_000, "normal", 2.0),
+                  ("mb_full PN", 100, "uniform", 1.0))
+THREEFRY_SPLITS = (5, 9)
+NORMAL_ULP = 4
+# operations a draw costs at least: 20 rounds of add, rotate (one funnel
+# shift) and xor and 12 key-schedule adds, in 32-bit integers; a normal
+# ~17 float operations more (log1p and sqrt counted as one each)
+THREEFRY_INT_OPS = 72
+NORMAL_FLOAT_OPS = 17
+# 32-bit integer operations/s: Hopper has 64 INT32 lanes a SM beside 128
+# float32 lanes, and no fused pair: a quarter of FP32_FLOPS
+INT32_OPS = FP32_FLOPS / 4
+# the graph route's raster check: 3 chunks of 32 steps and a remainder
+RASTER_CHECK_STEPS = 100
 MB_EXAMPLE = dict(n_pn=24, n_lhi=6, n_kc=150, n_dn=12)
 MB_FULL = dict(n_pn=100, n_lhi=20, n_kc=100_000, n_dn=100)
 MB_TABLE = dict(values=(0.5, 1.0, 2.0, 8.0, 50.0), steps=2500)
@@ -341,6 +380,7 @@ def main() -> int:
     kernel_entries += compare_flash(torch, report)
     kernel_entries += compare_ssd(torch, report)
     kernel_entries += compare_flash_bwd(torch, report)
+    kernel_entries += compare_threefry(torch, report)
     launches_main, model = main_path(torch, report)
     sweep(torch, report, model)
     del model
@@ -361,6 +401,8 @@ def main() -> int:
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
                "izhikevich_step": launches_main, "hh_step": launches_mb,
+               "threefry_split": launches_main,
+               "threefry_draw": launches_main,
                "flash_attention": launches_serve,
                "flash_attention_bwd": launches_qwen,
                "ssd_scan": launches_mamba}
@@ -612,6 +654,8 @@ def _compare_fold(torch, dev, gen) -> list:
     from repro_torch.kernels import ref as R
     rows = []
     for b, n_slots, n_post in FOLD_SHAPES:
+        curs = [torch.tensor(c, dtype=torch.int32, device=dev)
+                for c in range(n_slots)]
         ring = torch.randn(b, n_slots, n_post, device=dev, generator=gen)
         ring[:, :, :64] = 0.0
         acc0 = torch.randn(n_slots, n_post, b, device=dev, generator=gen,
@@ -623,10 +667,14 @@ def _compare_fold(torch, dev, gen) -> list:
             for sign in (1.0, -1.0):
                 for cursor in (0, 11, n_slots - 1):
                     acc, acc_ref = acc0.clone(), acc0.clone()
-                    got = DR.delay_ring_fold(ring, acc, cursor, sign, gs)
-                    want = R.delay_ring_fold_ref(ring, acc_ref, cursor,
-                                                 sign, gs)
-                    for x, y in zip(got, want):
+                    got = DR.delay_ring_fold(ring, acc, curs[cursor], sign,
+                                             gs)
+                    want = R.delay_ring_fold_ref(ring, acc_ref,
+                                                 curs[cursor], sign, gs)
+                    check(int(got[2]) == int(want[2])
+                          == (cursor + 1) % n_slots,
+                          "delay_ring_fold: the advanced cursor")
+                    for x, y in zip(got[:2], want[:2]):
                         check(bool(torch.equal(x, y)) and bool(torch.equal(
                             torch.signbit(x), torch.signbit(y))),
                               f"delay_ring_fold {[b, n_slots, n_post]}: "
@@ -637,10 +685,10 @@ def _compare_fold(torch, dev, gen) -> list:
         accs = [acc0.clone() for _ in range(8)]
         # the simulator's regime: a 0-dim gscale at B = 1, [B] for a sweep
         gs = gscales[0] if b == 1 else gscales[1]
-        kern = lambda i: DR.delay_ring_fold(ring, accs[i % 8], i % n_slots,
-                                            -1.0, gs)
+        kern = lambda i: DR.delay_ring_fold(ring, accs[i % 8],
+                                            curs[i % n_slots], -1.0, gs)
         plain = lambda i: R.delay_ring_fold_ref(ring, accs[i % 8],
-                                                i % n_slots, -1.0, gs)
+                                                curs[i % n_slots], -1.0, gs)
         ms, kernel_ms = _device_ms(torch, kern, 20, "delay_ring_fold")
         nbytes = b * n_slots * n_post * (4 + 8 + 4 + 8) + b * n_post * 4
         row = {"name": "delay_ring_fold", "B": b, "shape": [b, n_slots,
@@ -1143,11 +1191,106 @@ def compare_flash_bwd(torch, report) -> list:
                                   "bound_ms", "bound_by", "library_ms")}}]
 
 
+def _ulp(torch, a, b) -> int:
+    """The largest distance between two float32 tensors in float32 steps
+    (of one sign, as draws of one key are)."""
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def compare_threefry(torch, report) -> list:
+    """Phase 2f: the threefry kernels against their plain version on the
+    card, at the SNN paths' shapes; times beside the bound and, as a
+    yardstick, torch.randn at the same shape (Philox, another function)."""
+    from repro_torch import random as RND
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import threefry as TFK
+    dev = torch.device("cuda")
+    rows = []
+    with phase("2f. threefry kernels against their plain version"):
+        for b in (1, 8):
+            keys = RND.split(RND.PRNGKey(1234), b).to(dev)
+            for num in THREEFRY_SPLITS:
+                got = TFK.threefry_split(keys, num)
+                check(bool(torch.equal(got, R.threefry_split_ref(keys, num)))
+                      and bool(torch.equal(got.cpu(), R.threefry_split_ref(
+                          keys.cpu(), num))),
+                      f"threefry_split B={b} num={num}: not bit-equal")
+                kern = lambda i, n=num: TFK.threefry_split(keys, n)
+                plain = lambda i, n=num: R.threefry_split_ref(keys, n)
+                nbytes = b * 8 + b * num * 8
+                t_ops = b * num * THREEFRY_INT_OPS / INT32_OPS * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                row = {"name": "threefry_split", "B": b, "num": num,
+                       "max_abs_err": 0.0,
+                       "ms": _device_ms(torch, kern, 50, "threefry")[0],
+                       "wall_ms": _time_ms(torch, kern, 50),
+                       "plain_ms": _device_ms(torch, plain, 20)[0],
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "library_ms": None}
+                rows.append(row)
+                print(json.dumps(row))
+            # a step's subkeys: a strided column of its split
+            sub = TFK.threefry_split(keys, THREEFRY_SPLITS[0])[:, 1]
+            for what, n, dist, scale in THREEFRY_DRAWS:
+                bits = TFK.threefry_draw(sub, n, "bits")
+                check(bool(torch.equal(bits, R.threefry_draw_ref(
+                    sub, n, "bits"))), f"threefry bits {what} B={b}")
+                got = TFK.threefry_draw(sub, n, dist, scale)
+                want = R.threefry_draw_ref(sub, n, dist, scale)
+                err = float((got - want).abs().max())
+                if dist == "normal":
+                    ulp = _ulp(torch, got, want)
+                    check(ulp <= NORMAL_ULP, f"threefry normal {what} B={b}:"
+                          f" {ulp} ulp from the plain version")
+                else:
+                    ulp = 0
+                    check(bool(torch.equal(got, want)),
+                          f"threefry uniform {what} B={b}: not bit-equal")
+                kern = lambda i: TFK.threefry_draw(sub, n, dist, scale)
+                plain = lambda i: R.threefry_draw_ref(sub, n, dist, scale)
+                randn = lambda i: torch.randn(b, n, device=dev)
+                t_bytes = (b * n * 4 + b * 8) / HBM_BYTES_PER_S * 1e3
+                t_ops = max(b * n * THREEFRY_INT_OPS / INT32_OPS,
+                            (b * n * NORMAL_FLOAT_OPS / FP32_FLOPS
+                             if dist == "normal" else 0.0)) * 1e3
+                row = {"name": "threefry_draw", "B": b, "case": what, "n": n,
+                       "draw": dist, "max_abs_err": err, "max_ulp": ulp,
+                       "ms": _device_ms(torch, kern, 50, "threefry")[0],
+                       "wall_ms": _time_ms(torch, kern, 50),
+                       "plain_ms": _device_ms(torch, plain, 20)[0],
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "library_ms": None,
+                       "randn_ms": _device_ms(torch, randn, 50)[0]}
+                rows.append(row)
+                print(json.dumps(row))
+    report["threefry_table"] = rows
+    entries = []
+    for name, replaces, pick in (
+            ("threefry_split", "src/repro/core/snn/simulator.py:210",
+             lambda r: r["B"] == 1 and r["num"] == THREEFRY_SPLITS[0]),
+            ("threefry_draw", "src/repro/core/models/izhikevich_net.py:62",
+             lambda r: r["B"] == 1 and r["case"] == "main exc")):
+        r = next(x for x in rows if x["name"] == name and pick(x))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/threefry.cu",
+            "replaces": replaces, "launches": 0,
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}})
+    return entries
+
+
 def _kernel_modules():
     from repro_torch.kernels import (delay_ring, ell_spmv, flash_attention,
-                                     hh_step, izhikevich_step, ssd_scan)
+                                     hh_step, izhikevich_step, ssd_scan,
+                                     threefry)
     return (ell_spmv, izhikevich_step, hh_step, flash_attention, ssd_scan,
-            delay_ring)
+            delay_ring, threefry)
 
 
 def reset_launches() -> None:
@@ -1168,7 +1311,7 @@ def plain_versions():
     the comparison runs only (the port itself never does this)."""
     from unittest import mock
     from repro_torch.kernels import ref as R
-    K, IZ, HH, FA, SSD, DR = _kernel_modules()
+    K, IZ, HH, FA, SSD, DR, TFK = _kernel_modules()
     with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
             mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref), \
             mock.patch.object(K, "ell_spmv_delay_into",
@@ -1182,7 +1325,9 @@ def plain_versions():
                               R.flash_attention_fwd_ref), \
             mock.patch.object(FA, "flash_attention_bwd",
                               R.flash_attention_bwd_ref), \
-            mock.patch.object(SSD, "ssd_scan", SSD._plain):
+            mock.patch.object(SSD, "ssd_scan", SSD._plain), \
+            mock.patch.object(TFK, "threefry_split", R.threefry_split_ref), \
+            mock.patch.object(TFK, "threefry_draw", R.threefry_draw_ref):
         yield
 
 
@@ -1250,15 +1395,18 @@ def _device_profile(torch, fn, warm: bool = False) -> dict:
             "by_name": {n: [c, us] for n, (c, us) in top}}
 
 
-def _profile_window(torch, model, steps: int, **run_kw) -> dict:
+def _profile_window(torch, run, steps: int, guard: bool = True) -> dict:
     """Device busy share, device ops per step and the kernels that fill the
-    busy time, from a torch.profiler trace of ``steps`` steps.  Profiling
-    slows the host, so the idle share it shows is an upper bound."""
-    model.run(2, **run_kw)
+    busy time, from a torch.profiler trace of ``run(steps)`` (``run(n)``
+    runs n steps, eagerly or replayed from graphs).  Profiling slows the
+    host, so the idle share it shows is an upper bound.  With ``guard``
+    (eager runs only: a graph keeps the ops it captured) also the device
+    ops and time a step of the NaN guard."""
+    run(2)
     torch.cuda.synchronize()
 
-    def run():
-        model.run(steps, **run_kw)
+    def window():
+        run(steps)
         torch.cuda.synchronize()
 
     def traced():
@@ -1266,13 +1414,13 @@ def _profile_window(torch, model, steps: int, **run_kw) -> dict:
         by name).  A trace that kept some steps' launches of them and not
         others dropped events (see _device_ms): it is taken again."""
         for _ in range(3):
-            prof = _device_profile(torch, run, warm=True)
+            prof = _device_profile(torch, window, warm=True)
             ours = {n[:80]: {"launches": c, "us_per_launch": us / c}
                     for n, (c, us) in prof["by_name"].items()
                     if any(k in n for k in ("ell_spmv",
                                             "delay_ring_fold",
                                             "izhikevich_step_kernel",
-                                            "hh_step_kernel",
+                                            "hh_step_kernel", "threefry",
                                             *_flash_kernels("fwd")))}
             whole = bool(ours) and all(v["launches"] % steps == 0
                                        for v in ours.values())
@@ -1289,26 +1437,156 @@ def _profile_window(torch, model, steps: int, **run_kw) -> dict:
           f"{prof['device_ops'] / steps:.1f} device ops/step; top: "
           + "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
     print(f"the port's kernels on the device: {ours}")
-    # the same window with the NaN guard's isfinite fold (codegen'd
-    # populations) and its copy of the flag (fused ones) patched out: the
-    # difference is what the guard costs a step (the flag that the fused
-    # kernels write in their epilogues costs no device op of its own)
-    from unittest import mock
-    from repro_torch.core.snn import simulator as S
-    with mock.patch.object(S, "fold_finite", lambda finite, arrays: finite), \
-            mock.patch.object(S, "own_flag", lambda finite: finite):
-        bare, _ = traced()
-    guard_ops = (prof["device_ops"] - bare["device_ops"]) / steps
-    guard_us = (busy_us - bare["device_busy_us"]) / steps
-    print(f"the NaN guard: {guard_ops:.1f} device ops/step, "
-          f"{guard_us:.2f} us device time/step")
-    return {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
-            "busy_share": prof["busy_share"],
-            "device_ops_per_step": prof["device_ops"] / steps,
-            "guard_ops_per_step": guard_ops,
-            "guard_busy_us_per_step": guard_us,
-            "top_us": [list(x) for x in top], "kernels": ours,
-            "by_name": prof["by_name"]}
+    out = {"steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
+           "busy_share": prof["busy_share"],
+           "device_us_per_step": busy_us / steps,
+           "device_ops_per_step": prof["device_ops"] / steps,
+           "top_us": [list(x) for x in top], "kernels": ours,
+           "by_name": prof["by_name"]}
+    if guard:
+        # the same window with the NaN guard's isfinite fold (codegen'd
+        # populations) and its copy of the flag (fused ones) patched out:
+        # the difference is what the guard costs a step (the flag that the
+        # fused kernels write in their epilogues costs no device op of its
+        # own)
+        from unittest import mock
+        from repro_torch.core.snn import simulator as S
+        with mock.patch.object(S, "fold_finite",
+                               lambda finite, arrays: finite), \
+                mock.patch.object(S, "own_flag", lambda finite: finite):
+            bare, _ = traced()
+        out["guard_ops_per_step"] = (prof["device_ops"]
+                                     - bare["device_ops"]) / steps
+        out["guard_busy_us_per_step"] = (busy_us
+                                         - bare["device_busy_us"]) / steps
+        print(f"the NaN guard: {out['guard_ops_per_step']:.1f} device "
+              f"ops/step, {out['guard_busy_us_per_step']:.2f} us device "
+              "time/step")
+    return out
+
+
+def _profiles(torch, model, steps: int, batch: int = 1,
+              gscales=None) -> dict:
+    """Profiles of ``steps`` steps eagerly (with the NaN guard's cost) and
+    replayed from graphs, from a fresh state of ``batch`` members."""
+    sim = model.simulator
+    st = sim.init_state(batch)
+    print("eager:")
+    eager = _profile_window(torch, lambda n: sim.run(st, n, gscales),
+                            steps)
+    print("graph:")
+    graph = _profile_window(
+        torch, lambda n: sim.run_compiled(st, n, gscales), steps,
+        guard=False)
+    return {"eager": eager, "graph": graph}
+
+
+def _state_tensors(state, prefix: str = "") -> dict:
+    """name -> tensor of every tensor of a SimState: neurons, spikes,
+    prev_above, synapse state (rings, cursors, traces), t, key, finite."""
+    import dataclasses
+    import torch
+    if isinstance(state, torch.Tensor):
+        return {prefix: state}
+    out = {}
+    if isinstance(state, dict):
+        for k in sorted(state):
+            out.update(_state_tensors(state[k], f"{prefix}.{k}"))
+    elif dataclasses.is_dataclass(state):
+        for f in dataclasses.fields(state):
+            out.update(_state_tensors(getattr(state, f.name),
+                                      f"{prefix}.{f.name}"))
+    return out
+
+
+def _check_same_run(torch, a, b, what: str, raster: bool = False) -> None:
+    """Two RunResults bit for bit: spike counts (rasters), and every state
+    tensor's dtype, shape and bits."""
+    for k in a.spike_counts:
+        check(bool(torch.equal(a.spike_counts[k], b.spike_counts[k])),
+              f"{what}: {k} spike counts differ between eager and graph")
+        if raster:
+            check(bool(torch.equal(a.raster[k], b.raster[k])),
+                  f"{what}: {k} rasters differ between eager and graph")
+    sa, sb = _state_tensors(a.state), _state_tensors(b.state)
+    check(sa.keys() == sb.keys(), f"{what}: the states hold other tensors")
+    for k, x in sa.items():
+        y = sb[k]
+        same = x.dtype == y.dtype and x.shape == y.shape
+        if same and x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        check(same and bool(torch.equal(x, y)),
+              f"{what}: state {k} differs between eager and graph")
+
+
+def _eager_vs_graph(torch, model, what: str, steps: int, batch: int = 1,
+                    grids=None) -> tuple:
+    """Each gScale set of ``grids`` (group name -> value) run for ``steps``
+    from one fresh state, eagerly (``Simulator.run``) and through the graph
+    route (``Simulator.run_compiled``, as ``CompiledModel.run`` and
+    ``sweep_gscale`` run), after one graph run that captures: the graph
+    runs must equal the eager ones bit for bit, launch the same kernels as
+    often, and later sets replay the first set's capture; then rasters over
+    RASTER_CHECK_STEPS.  Returns (the numbers, the graph runs, the graph
+    runs' launch counts)."""
+    sim = model.simulator
+    grids = list(grids or [{}])
+    st = sim.init_state(batch)
+    captures0 = sim.graph_counts["captures"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run_compiled(st, steps, grids[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    captures = sim.graph_counts["captures"] - captures0
+    sets, runs, launches = [], [], []
+    for gs in grids:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = sim.run(st, steps, gs)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        le = read_launches()
+        reset_launches()
+        replays0 = sim.graph_counts["replays"]
+        t0 = time.perf_counter()
+        g = sim.run_compiled(st, steps, gs)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        lg = read_launches()
+        check(lg == le, f"{what}: the graph run launched {lg}, the eager "
+              f"run {le}")
+        _check_same_run(torch, e, g, what)
+        sets.append({"eager_s": eager_s, "graph_s": graph_s,
+                     "eager_us_per_step": eager_s / steps * 1e6,
+                     "graph_us_per_step": graph_s / steps * 1e6,
+                     "eager_candidates_per_s": batch / eager_s,
+                     "graph_candidates_per_s": batch / graph_s,
+                     "replays": sim.graph_counts["replays"] - replays0})
+        runs.append(g)
+        launches.append(lg)
+        del e
+    check(sim.graph_counts["captures"] - captures0 == captures,
+          f"{what}: a later gScale set captured anew")
+    n = min(steps, RASTER_CHECK_STEPS)
+    _check_same_run(torch, sim.run(st, n, grids[0], record_raster=True),
+                    sim.run_compiled(st, n, grids[0], record_raster=True),
+                    what, raster=True)
+    out = {"steps": steps, "batch": batch, "first_graph_run_s": first_s,
+           "capture_s": first_s - sets[0]["graph_s"], "captures": captures,
+           "sets": sets}
+    for i, x in enumerate(sets):
+        print(f"{what} (set {i}): eager {x['eager_us_per_step']:.1f} "
+              f"us/step, graph {x['graph_us_per_step']:.1f} us/step "
+              f"({x['replays']} replays); B={batch}: "
+              f"{x['eager_candidates_per_s']:.3f} / "
+              f"{x['graph_candidates_per_s']:.3f} candidates/s")
+    print(f"{what}: first graph run {first_s:.3f} s ({captures} captures, "
+          f"~{out['capture_s']:.3f} s more than a replayed run); graph "
+          f"equals eager bit for bit (state, counts; rasters over {n} "
+          "steps)")
+    return out, runs, launches
 
 
 def _run_checked(torch, model, steps, what, **kw):
@@ -1327,6 +1605,24 @@ def _run_checked(torch, model, steps, what, **kw):
           f"{what}: a population is silent or its rate is not finite: "
           f"{rates}")
     return res, secs, rates
+
+
+def _plain_agreement(torch, model, n: int, **run_kw) -> tuple:
+    """n steps eagerly through the kernels and through the plain versions
+    (no kernel launched), from one fresh state: (raster agreement, the two
+    runs)."""
+    sim = model.simulator
+    st = sim.init_state()
+    kr = sim.run(st, n, record_raster=True, **run_kw)
+    reset_launches()
+    with plain_versions():
+        pr = sim.run(st, n, record_raster=True, **run_kw)
+    check(not any(read_launches().values()),
+          f"the plain run launched kernels: {read_launches()}")
+    agree = _raster_agreement(torch, kr.raster, pr.raster)
+    print(f"raster agreement kernel vs plain over {n} steps: {agree}")
+    check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
+    return agree, kr, pr
 
 
 def main_path(torch, report):
@@ -1348,52 +1644,54 @@ def main_path(torch, report):
         check(model.simulator.routes == {"exc": "izhikevich_step",
                                          "inh": "izhikevich_step"},
               f"neuron routes {model.simulator.routes}")
-        model.run(5)                            # warm-up: library, caches
+        steps = MAIN["steps"]
+        graph, _, _ = _eager_vs_graph(torch, model, "main", steps)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        res, secs, rates = _run_checked(torch, model, MAIN["steps"],
-                                        "kernel run")
+        res, secs, rates = _run_checked(torch, model, steps, "kernel run")
         launches = read_launches()
         print(f"launches in the main-path run: {launches}")
-        check(launches["ell_spmv"] >= n_sparse * MAIN["steps"],
+        check(launches["ell_spmv"] >= n_sparse * steps,
               f"ell_spmv launched {launches['ell_spmv']} times for "
-              f"{n_sparse} sparse groups x {MAIN['steps']} steps")
-        check(launches["izhikevich_step"] == 2 * MAIN["steps"],
-              f"izhikevich_step launched {launches['izhikevich_step']} "
-              f"times for 2 populations x {MAIN['steps']} steps")
+              f"{n_sparse} sparse groups x {steps} steps")
+        for name, per_step in (("izhikevich_step", 2), ("threefry_split", 1),
+                               ("threefry_draw", 2)):
+            check(launches[name] == per_step * steps,
+                  f"{name} launched {launches[name]} times for "
+                  f"{per_step} x {steps} steps")
         report["main"] = {
             "config": MAIN, "build_s": build_s, "groups": groups,
-            "seconds": secs, "us_per_step": secs / MAIN["steps"] * 1e6,
+            "seconds": secs, "us_per_step": secs / steps * 1e6,
             "rates_hz": rates, "launches": launches,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-
-        n = MAIN["plain_steps"]
-        kr = model.run(n, record_raster=True).raster
-        reset_launches()
-        with plain_versions():
-            pr = model.run(n, record_raster=True).raster
-        check(not any(read_launches().values()),
-              f"the plain run launched kernels: {read_launches()}")
-        agree = _raster_agreement(torch, kr, pr)
-        print(f"raster agreement kernel vs plain over {n} steps: {agree}")
-        check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "eager_vs_graph": graph,
+            "graph_counts": dict(model.simulator.graph_counts)}
+        agree, _, _ = _plain_agreement(torch, model, MAIN["plain_steps"])
         report["main"]["plain_raster_agreement"] = agree
-        report["main"]["profile"] = _profile_window(torch, model, 50)
+        report["main"]["profile"] = _profiles(torch, model, 50)
         return launches, model
 
 
 def sweep(torch, report, model) -> None:
     from repro_torch.core import conductance as C
     with phase("4. gScale sweep of the excitatory groups"):
-        values = list(SWEEP["values"])
+        values, steps = list(SWEEP["values"]), SWEEP["steps"]
+        names = model._expand_group("exc")
+        grids = [{n: torch.tensor(v, device="cuda") for n in names}
+                 for v in (values, SWEEP["values_b"])]
+        graph, _, _ = _eager_vs_graph(torch, model, "sweep", steps,
+                                      batch=len(values), grids=grids)
+        captures = model.simulator.graph_counts["captures"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s = model.sweep_gscale("exc", values, SWEEP["steps"])
+        s = model.sweep_gscale("exc", values, steps)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        check(model.simulator.graph_counts["captures"] == captures,
+              "sweep_gscale captured anew for values of a captured grid")
         rates = {k: v.tolist() for k, v in s.rates_hz.items()}
         finite = s.finite.tolist()
-        print(f"{len(values)} candidates x {SWEEP['steps']} steps in "
+        print(f"{len(values)} candidates x {steps} steps in "
               f"{secs:.3f} s: {len(values) / secs:.3f} candidates/s")
         for i, v in enumerate(values):
             print(f"  gScale {v}: " + ", ".join(
@@ -1410,11 +1708,11 @@ def sweep(torch, report, model) -> None:
               f"{pick}")
         check(pick.finite and min(abs(pick.gscale - v) for v in values)
               < 1e-6, f"search_sweep picked {pick}")
-        report["sweep"] = {"values": values, "steps": SWEEP["steps"],
+        report["sweep"] = {"values": values, "steps": steps,
                            "seconds": secs,
                            "candidates_per_s": len(values) / secs,
                            "rates_hz": rates, "finite": finite,
-                           "pick": pick.__dict__}
+                           "pick": pick.__dict__, "eager_vs_graph": graph}
 
 
 def build_delay_model(torch):
@@ -1461,10 +1759,10 @@ def delay_path(torch, report) -> dict:
             g.ring_slots == DELAY["max_delay"] + 1 for g in delayed),
             f"expected 2 delayed groups of {DELAY['max_delay'] + 1} slots: "
             f"{rings}")
-        model.run(5)
+        steps = DELAY["steps"]
+        graph, _, _ = _eager_vs_graph(torch, model, "delay", steps)
         ring_bytes = sum(g._acc.numel() * 8 + 4 * g.ring_slots * g.ell.n_post
                          for g in delayed)
-        steps = DELAY["steps"]
         reset_launches()
         _, secs, rates = _run_checked(torch, model, steps, "delay run")
         launches = read_launches()
@@ -1476,33 +1774,27 @@ def delay_path(torch, report) -> dict:
         us = secs / steps * 1e6
         print(f"delay path: {us:.1f} us/step ({report['nvidia_smi']}); "
               f"rings and scratch {ring_bytes} B")
-        n = DELAY["plain_steps"]
-        kr = model.run(n, record_raster=True)
-        reset_launches()
-        with plain_versions():
-            pr = model.run(n, record_raster=True)
-        check(not any(read_launches().values()),
-              f"the plain run launched kernels: {read_launches()}")
-        agree = _raster_agreement(torch, kr.raster, pr.raster)
-        print(f"raster agreement kernel vs plain over {n} steps: {agree}")
-        check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
+        agree, kr, pr = _plain_agreement(torch, model, DELAY["plain_steps"])
         # both sides sum in float64 and fold with the same roundings: with
         # equal rasters the rings are equal bit for bit
         rings_equal = {g.name: bool(torch.equal(
             kr.state.syn[g.name].dendritic, pr.state.syn[g.name].dendritic))
-            and kr.state.syn[g.name].cursor == pr.state.syn[g.name].cursor
+            and bool(torch.equal(kr.state.syn[g.name].cursor,
+                                 pr.state.syn[g.name].cursor))
             for g in delayed}
-        print(f"rings bit-equal after {n} steps: {rings_equal}")
+        print(f"rings bit-equal after {DELAY['plain_steps']} steps: "
+              f"{rings_equal}")
         check(all(rings_equal.values()),
               f"the rings differ from the plain run's: {rings_equal}")
-        prof = _profile_window(torch, model, DELAY["profile_steps"])
+        prof = _profiles(torch, model, DELAY["profile_steps"])
         report["delay"] = {"config": DELAY, "build_s": build_s,
                            "ell_bytes": ell_bytes,
                            "ring_and_scratch_bytes": ring_bytes,
                            "seconds": secs, "us_per_step": us,
                            "rates_hz": rates, "launches": launches,
                            "plain_raster_agreement": agree,
-                           "rings_bit_equal": rings_equal, "profile": prof}
+                           "rings_bit_equal": rings_equal, "profile": prof,
+                           "eager_vs_graph": graph}
         return launches, model
 
 
@@ -1512,7 +1804,11 @@ def delay_sweep(torch, report, model) -> None:
     8] is 107.5 MB, past L2)."""
     with phase("5b. delayed gScale sweep: phase 4's grid on phase 5's net"):
         values, steps = list(SWEEP["values"]), DELAY["sweep_steps"]
-        model.sweep_gscale("exc", values, 5)        # the B = 8 scratch
+        names = model._expand_group("exc")
+        grids = [{n: torch.tensor(v, device="cuda") for n in names}
+                 for v in (values, SWEEP["values_b"])]
+        graph, _, _ = _eager_vs_graph(torch, model, "delay_sweep", steps,
+                                      batch=len(values), grids=grids)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1547,16 +1843,15 @@ def delay_sweep(torch, report, model) -> None:
               f"{same}")
         check(all(same.values()),
               f"member {i} differs from its B = 1 run: {same}")
-        prof = _profile_window(
-            torch, model, DELAY["profile_steps"],
-            gscales={"exc": torch.tensor(values, device="cuda")},
-            state=model.init_state(len(values)))
+        prof = _profiles(torch, model, DELAY["profile_steps"],
+                         batch=len(values), gscales=grids[0])
         report["delay_sweep"] = {
             "values": values, "steps": steps, "seconds": secs,
             "us_per_step": us, "candidates_per_s": len(values) / secs,
             "launches": launches,
             "rates_hz": rates, "finite": finite,
-            "member_equals_single_run": same, "profile": prof}
+            "member_equals_single_run": same, "profile": prof,
+            "eager_vs_graph": graph}
 
 
 def gscale_table(torch, report) -> float:
@@ -1567,6 +1862,9 @@ def gscale_table(torch, report) -> float:
         model = MB.compile_model(cfg)
         print(f"built {model}; routes {model.simulator.routes}")
         values, steps = list(MB_TABLE["values"]), MB_TABLE["steps"]
+        graph, _, _ = _eager_vs_graph(
+            torch, model, "mb_table", steps, batch=len(values),
+            grids=[{"PN_KC": torch.tensor(values, device="cuda")}])
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1595,7 +1893,7 @@ def gscale_table(torch, report) -> float:
                               "steps": steps, "seconds": secs,
                               "us_per_step": secs / steps * 1e6,
                               "rates_hz": rates, "finite": finite,
-                              "launches": launches}
+                              "launches": launches, "eager_vs_graph": graph}
         return rates["KC"][1]
 
 
@@ -1624,7 +1922,8 @@ def mushroom_body_full(torch, report, kc_target: float) -> dict:
                                          "KC": "hh_step", "DN": "hh_step"},
               f"neuron routes {model.simulator.routes}")
         steps = MB_RUN["steps"]
-        model.run(5, gscales=fan_in)
+        graph, _, _ = _eager_vs_graph(torch, model, "mb_full", steps,
+                                      grids=[fan_in])
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         _, secs, rates = _run_checked(torch, model, steps, "kernel run",
@@ -1639,20 +1938,11 @@ def mushroom_body_full(torch, report, kc_target: float) -> dict:
             "config": MB_FULL, "fan_in_gscales": fan_in, "build_s": build_s,
             "groups": groups, "steps": steps, "seconds": secs,
             "us_per_step": secs / steps * 1e6, "rates_hz": rates,
-            "launches": launches, "peak_mem_bytes": peak}
-
-        n = MB_RUN["plain_steps"]
-        kr = model.run(n, gscales=fan_in, record_raster=True).raster
-        reset_launches()
-        with plain_versions():
-            pr = model.run(n, gscales=fan_in, record_raster=True).raster
-        check(not any(read_launches().values()),
-              f"the plain run launched kernels: {read_launches()}")
-        agree = _raster_agreement(torch, kr, pr)
-        print(f"raster agreement kernel vs plain over {n} steps: {agree}")
-        check(agree >= RASTER_AGREEMENT, f"rasters agree on only {agree}")
-        out["plain_raster_agreement"] = agree
-        out["profile"] = _profile_window(torch, model, 50, gscales=fan_in)
+            "launches": launches, "peak_mem_bytes": peak,
+            "eager_vs_graph": graph}
+        out["plain_raster_agreement"], _, _ = _plain_agreement(
+            torch, model, MB_RUN["plain_steps"], gscales=fan_in)
+        out["profile"] = _profiles(torch, model, 50, gscales=fan_in)
 
         others = {k: v for k, v in fan_in.items() if k != "PN_KC"}
         search_steps = MB_RUN["search_steps"]
@@ -1660,9 +1950,10 @@ def mushroom_body_full(torch, report, kc_target: float) -> dict:
         seen = {}
 
         def kc_rate(cands):
-            """One batched run of every candidate; PN_KC's gScale [B], the
-            other groups' fan-in gScales as scalars."""
-            res = model.simulator.run(
+            """One batched run of every candidate through the graph route;
+            PN_KC's gScale [B], the other groups' fan-in gScales as
+            scalars."""
+            res = model.simulator.run_compiled(
                 model.init_state(len(cands)), search_steps,
                 {**others, "PN_KC": cands.to(model.device)})
             seen["kc"], seen["finite"] = res.rates_hz["KC"], res.finite
@@ -1681,12 +1972,14 @@ def mushroom_body_full(torch, report, kc_target: float) -> dict:
                      <= max(r for r, f in zip(kc, fin) if f))
         print(f"search_sweep to 6a's KC rate {kc_target:.4f} Hz: {pick} "
               f"({len(cands)} candidates x {search_steps} steps in "
-              f"{search_s:.3f} s; target bracketed: {bracketed})")
+              f"{search_s:.3f} s, the capture included; target bracketed: "
+              f"{bracketed})")
         check(pick.finite, f"search_sweep picked {pick}")
         out["search"] = {"candidates": cands, "steps": search_steps,
                          "seconds": search_s, "kc_rates_hz": kc,
                          "finite": fin, "target_hz": kc_target,
                          "bracketed": bracketed, "pick": pick.__dict__}
+        out["graph_counts"] = dict(model.simulator.graph_counts)
         return launches
 
 

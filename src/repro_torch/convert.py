@@ -12,12 +12,16 @@ The arrays arrive as plain numpy (this module never imports ``repro`` or
                              "delay": [n_pre, K] int array or None,
                              "dense": [n_pre, n_post] array or None,
                              "sign": float, "representation": str,
-                             "delay_steps": int, "max_delay": int}}}
+                             "delay_steps": int, "max_delay": int,
+                             "cursor": int (optional)}},
+     "key": uint32 [2] (optional), "t": float (optional)}
 
 ``load_arrays`` returns a port model that computes what the exported one
 computes: the port model's spec supplies the models and snippets, the
 arrays supply the graph, the parameters and the representation and delay
-settings.  ``init_state`` starts it from the exported initial state.
+settings.  ``init_state`` starts it from the exported state: each
+population's variables and, where given, the JAX state's key
+(``jax.random.key_data(state.key)``), ``t`` and the delay rings' cursors.
 
 An LM's parameters arrive as the JAX tree exported to numpy: nested dicts
 and lists with the JAX keys and the ``[n, ...]`` / ``[R, n, ...]`` stacking
@@ -92,13 +96,29 @@ def load_arrays(model: CompiledModel, arrays: Mapping) -> CompiledModel:
 def init_state(model: CompiledModel, arrays: Mapping,
                batch: int = 1) -> SimState:
     """``model``'s initial state with each population's variables taken
-    from ``arrays`` (copied to every batch member)."""
-    st = model.init_state(batch)
+    from ``arrays`` (copied to every batch member), and the key (uint32
+    words, as int32 bits), ``t`` (float32) and each delay ring's cursor
+    (int32) where ``arrays`` holds them."""
+    key = arrays.get("key")
+    if key is not None:
+        key = torch.from_numpy(np.asarray(key, np.uint32).view(np.int32)
+                               .copy())
+    st = model.init_state(batch, key)
+    dev = st.t.device
     for name, entry in arrays["populations"].items():
         for var, v in entry.get("state", {}).items():
             cur = st.neurons[name][var]
             t = torch.tensor(np.asarray(v, np.float32), device=cur.device)
             st.neurons[name][var] = t.expand(cur.shape).clone()
+    if arrays.get("t") is not None:
+        st.t = torch.tensor(np.float32(arrays["t"]), device=dev)
+    for name, entry in arrays["synapses"].items():
+        if entry.get("cursor") is not None:
+            if st.syn[name].cursor is None:
+                raise ValueError(f"synapse group {name!r} has no delay ring "
+                                 "for the exported cursor")
+            st.syn[name].cursor = torch.tensor(int(entry["cursor"]),
+                                               dtype=torch.int32, device=dev)
     return st
 
 

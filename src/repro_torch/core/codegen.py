@@ -56,12 +56,13 @@ class CodegenError(ValueError):
 
 def _tensor(x, like=None) -> torch.Tensor:
     """``x`` as a tensor: tensors pass through; Python numbers become
-    float32 (bools: bool) tensors on ``like``'s device."""
+    float32 (bools: bool) tensors on ``like``'s device, filled there (no
+    copy from the host, which a CUDA graph capture would refuse)."""
     if isinstance(x, torch.Tensor):
         return x
     dev = like.device if isinstance(like, torch.Tensor) else None
     dt = torch.bool if isinstance(x, bool) else torch.float32
-    return torch.tensor(x, dtype=dt, device=dev)
+    return torch.full((), x, dtype=dt, device=dev)
 
 
 def _unary(fn):

@@ -13,6 +13,12 @@ connectivity).
     rides the batch axis of the ELL kernel); picks the finite candidate
     whose rate is closest to the target.
 
+A run function over ``CompiledModel.run`` (or ``sweep_gscale``) takes the
+compiled step loop: its runner is cached per (gscale keys, batch, ...), so
+every candidate of a search with one group and step count replays one
+capture, its gScale a copy into a device buffer.  The searches read each
+run's rate and ``finite`` on the host between runs, outside the graphs.
+
 `fit_hyperbola` reproduces the paper's regression
     gScale = k1/(k2 + nConn) + k3
 via its linearization, refined by a 1-D search over k2 with exact linear

@@ -8,9 +8,10 @@ excitatory 0.5*U(0,1), inhibitory -1.0*U(0,1); thalamic input 5*N(0,1)
 (exc) / 2*N(0,1) (inh) per ms.  dt = 1 ms with two half-steps on V.
 
 The graph comes from the host numpy generator and equals the JAX package's
-for the same seed.  The per-neuron parameters and the thalamic noise come
-from torch generators, so they differ in value (not in distribution) from
-the JAX package's ``jax.random`` draws.
+for the same seed.  The per-neuron parameters come from the threefry key
+``PRNGKey(seed)`` (``repro_torch.random``) as in the JAX package, bit for
+bit, and the thalamic noise from each step's subkeys (JAX's draws, within
+a few float32 ulp: ``repro_torch.random.normal``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import random as R
 from repro_torch.core.snn import neurons as N
 from repro_torch.core.snn.spec import CompiledModel, ModelSpec
 from repro_torch.sparse.formats import FixedFanout, UniformWeight
@@ -41,20 +43,21 @@ def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
     """Declarative description of the cortical net."""
     n_exc = int(round(cfg.n_total * cfg.exc_frac))
     n_inh = cfg.n_total - n_exc
-    params = N.izhikevich_population_params(
-        torch.Generator().manual_seed(cfg.seed), n_exc, n_inh)
+    pkey, _ = R.split(R.PRNGKey(cfg.seed))
+    params = N.izhikevich_population_params(pkey, n_exc, n_inh)
     exc_params = {k: v[:n_exc] for k, v in params.items()}
     inh_params = {k: v[n_exc:] for k, v in params.items()}
 
     s_in = cfg.input_scale
 
-    # the thalamic drive draws from the model's generator (SimState), on
-    # the model's device: one [n] draw per step, shared by a sweep's batch
-    def thalamic_exc(gen, t, n):
-        return 5.0 * s_in * torch.randn(n, generator=gen, device=gen.device)
+    # the thalamic drive: each member's [n] normal draw from the step's
+    # subkey (keys [B, 2] on the model's device), the scale fused into the
+    # draw kernel as JAX rounds 5.0 * s_in * normal(k, (n,))
+    def thalamic_exc(keys: torch.Tensor, t, n: int) -> torch.Tensor:
+        return R.normal(keys, (n,), scale=5.0 * s_in)
 
-    def thalamic_inh(gen, t, n):
-        return 2.0 * s_in * torch.randn(n, generator=gen, device=gen.device)
+    def thalamic_inh(keys: torch.Tensor, t, n: int) -> torch.Tensor:
+        return R.normal(keys, (n,), scale=2.0 * s_in)
 
     ms = ModelSpec(name=f"izhikevich_{cfg.n_total}_{cfg.n_conn}")
     ms.add_neuron_population("exc", n_exc, N.IZHIKEVICH, exc_params,

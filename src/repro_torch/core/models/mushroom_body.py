@@ -12,9 +12,10 @@ Counterpart of ``repro/core/models/mushroom_body.py``:
 Every synapse group is an ExpCond postsynaptic model.  The connectivity and
 the KC->DN weights come from the host numpy generator in declaration order,
 so the same config and seed give the JAX package's graph bit for bit.  The
-PN Poisson draws come from the model's torch generator: other values than
-``jax.random``'s, the same distribution.  The LHI, KC and DN populations
-advance through the fused ``hh_step`` kernel (``neurons.fused_kernel``).
+PN Poisson draws (``rand``) come from each step's threefry subkey as in the
+JAX package, so the same seed gives its PN spike trains bit for bit.  The
+LHI, KC and DN populations advance through the fused ``hh_step`` kernel
+(``neurons.fused_kernel``).
 
 Baseline conductances are the JAX package's, calibrated at the reduced
 sizes of its tests and example (24 PN / 6 LHI / 150 KC / 12 DN and

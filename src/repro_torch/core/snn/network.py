@@ -16,8 +16,10 @@ from repro_torch.core.snn.synapses import SynapseGroup
 
 __all__ = ["Population", "Network", "InputFn"]
 
-# external input: (generator, t, n) -> current [n] on the generator's device
-InputFn = Callable[[torch.Generator, float, int], torch.Tensor]
+# external input: (keys [B, 2], t, n) -> current [B, n] (or [n]) on the keys'
+# device; keys are the step's threefry subkeys (repro_torch.random), one a
+# batch member, t the time in ms (a float32 0-dim tensor on the device)
+InputFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 
 @dataclasses.dataclass

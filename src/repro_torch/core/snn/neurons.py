@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import random as _random
 from repro_torch.core.codegen import NeuronModel
 
 __all__ = [
@@ -51,28 +52,27 @@ U = U + d
 )
 
 
-def izhikevich_population_params(generator: torch.Generator, n_exc: int,
+def izhikevich_population_params(key: torch.Tensor, n_exc: int,
                                  n_inh: int):
     """Per-neuron parameter tensors for the Izhikevich (2003) cortical net,
-    drawn from ``generator`` (on its device).
+    drawn from the threefry ``key`` (``repro_torch.random``; on its device),
+    equal to the JAX package's bit for bit.
 
     Excitatory: (a,b) = (0.02, 0.2), (c,d) = (-65+15 r^2, 8-6 r^2)
     Inhibitory: (a,b) = (0.02+0.08 r, 0.25-0.05 r), (c,d) = (-65, 2)
-
-    The draws are torch's, not ``jax.random``'s: the same seed gives other
-    values from the same distribution.
     """
-    dev = generator.device
-    re = torch.rand(n_exc, generator=generator, device=dev)
-    ri = torch.rand(n_inh, generator=generator, device=dev)
+    ke, ki = _random.split(key)
+    re = _random.uniform(ke, (n_exc,))
+    ri = _random.uniform(ki, (n_inh,))
+    dev = key.device
 
     def full(n, v):
         return torch.full((n,), v, dtype=torch.float32, device=dev)
 
     a = torch.cat([full(n_exc, 0.02), 0.02 + 0.08 * ri])
     b = torch.cat([full(n_exc, 0.2), 0.25 - 0.05 * ri])
-    c = torch.cat([-65.0 + 15.0 * re ** 2, full(n_inh, -65.0)])
-    d = torch.cat([8.0 - 6.0 * re ** 2, full(n_inh, 2.0)])
+    c = torch.cat([-65.0 + 15.0 * (re * re), full(n_inh, -65.0)])
+    d = torch.cat([8.0 - 6.0 * (re * re), full(n_inh, 2.0)])
     return {"a": a, "b": b, "c": c, "d": d}
 
 

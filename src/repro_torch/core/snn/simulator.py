@@ -16,11 +16,17 @@ What differs from the JAX package:
     A gScale sweep runs its candidates as the batch.
   * ``lax.scan`` is a Python loop that never waits for the device: counts,
     the ``finite`` flag and rasters stay on the device until the run ends.
-  * Random numbers come from a ``torch.Generator`` on the model's device,
-    carried in the state.  Each population's ``input_fn`` and ``rand``
-    draws are made once per step as ``[n]`` and shared by every batch
-    member, as the JAX sweep shares its key across candidates.  The values
-    differ from ``jax.random``'s; the distributions are the same.
+    ``run_compiled`` (and ``run_jit``, cached as JAX caches it) runs the
+    same steps as CUDA graphs (``repro_torch.core.snn.graphs``).
+  * Random numbers follow JAX's key schedule: each member's threefry key
+    (``SimState.key`` [B, 2], ``repro_torch.random``) is split every step
+    into the next key and an (input, rand) pair per population, in
+    declaration order, and each member draws its own ``[n]`` from its
+    subkeys, as ``vmap`` over keys does.  A sweep's members start from one
+    key, as the JAX sweep shares its key across candidates, so the same
+    seed gives the JAX package's draws.
+  * ``t`` (ms, float32) and the delay rings' cursors live on the device,
+    as in the JAX state: no step reads a value on the host.
 
 External stimuli (``stim``): ``step``/``run`` accept per-population injected
 currents, added to Isyn after the population's input_fn, consuming no
@@ -41,9 +47,10 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import random as _random
 from repro_torch._device import resolve_device
 from repro_torch.core import codegen
-from repro_torch.core.snn import neurons
+from repro_torch.core.snn import graphs, neurons
 from repro_torch.core.snn.network import Network, Population
 from repro_torch.core.snn.synapses import SynapseState
 from repro_torch.kernels import hh_step as _hh
@@ -58,8 +65,8 @@ class SimState:
     spikes: Dict[str, torch.Tensor]       # last step's spikes, bool [B, n]
     prev_above: Dict[str, torch.Tensor]   # for edge-spike populations
     syn: Dict[str, SynapseState]          # per synapse group
-    t: np.float32                         # ms, accumulated in float32
-    generator: torch.Generator            # on the model's device
+    t: torch.Tensor                       # ms, float32 0-dim on the device
+    key: torch.Tensor                     # threefry keys, int32 [B, 2]
     finite: torch.Tensor                  # bool [B]: no NaN/Inf so far
 
     @property
@@ -114,6 +121,14 @@ class Simulator:
             self._updates[name] = (fused[1] if fused
                                    else codegen.compile_sim(pop.model))
         self._group_names = {g.name for g in net.synapses}
+        # dt as codegen reads it (a CPU scalar) and as t advances by it
+        self._dt_cpu = torch.tensor(self.dt, dtype=torch.float32)
+        self._dt_dev = self._dt_cpu.to(self.device)
+        # the compiled step loop: chunked runners by configuration, run_jit's
+        # functions by (n_steps, record_raster), and what they have done
+        self._compiled: Dict[tuple, object] = {}
+        self._run_jit_cache: Dict[tuple, Callable] = {}
+        self.graph_counts = {"captures": 0, "replays": 0}
 
     def _fused_update(self, pop: Population
                       ) -> Optional[Tuple[str, Callable]]:
@@ -195,16 +210,20 @@ class Simulator:
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int = 1,
-                   generator: Optional[torch.Generator] = None) -> SimState:
+                   key: Optional[torch.Tensor] = None) -> SimState:
         """Fresh state for ``batch`` independent copies of the network.
-        ``generator`` defaults to one on the model's device seeded with the
-        model's seed."""
+        ``key``: a threefry key [2] for every member (default
+        ``PRNGKey(seed)``, as a JAX sweep shares one key) or one per member
+        [batch, 2]."""
         if not isinstance(batch, int) or batch < 1:
             raise ValueError(f"batch must be a positive int, got {batch!r}")
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(self.seed)
         dev = self.device
+        if key is None:
+            key = _random.PRNGKey(self.seed)
+        key = torch.as_tensor(key).to(device=dev, dtype=torch.int32)
+        if tuple(key.shape) not in ((2,), (batch, 2)):
+            raise ValueError(f"key must be [2] or [batch={batch}, 2], got "
+                             f"{tuple(key.shape)}")
         neurons, spikes, prev_above = {}, {}, {}
         for name, pop in self.net.populations.items():
             neurons[name] = {
@@ -219,8 +238,9 @@ class Simulator:
                                                dtype=torch.bool, device=dev)
         syn = {g.name: g.init_state(batch) for g in self.net.synapses}
         return SimState(neurons=neurons, spikes=spikes,
-                        prev_above=prev_above, syn=syn, t=np.float32(0.0),
-                        generator=generator,
+                        prev_above=prev_above, syn=syn,
+                        t=torch.zeros((), dtype=torch.float32, device=dev),
+                        key=key.expand(batch, 2).clone(),
                         finite=torch.ones(batch, dtype=torch.bool,
                                           device=dev))
 
@@ -239,7 +259,10 @@ class Simulator:
         gs = {k: self._gscale(v) for k, v in (gscales or {}).items()}
         stim = stim or {}
         batch = state.batch
-        t = torch.tensor(state.t, dtype=torch.float32)
+        t = state.t
+        # JAX's schedule: key, *subkeys = split(key, 1 + 2P); then
+        # (k_in, k_rand) per population in declaration order
+        keys = _random.split(state.key, 1 + 2 * len(net.populations))
 
         # 1. synaptic propagation (last step's spikes) ------------------
         isyn = {name: torch.zeros((batch, pop.n), dtype=torch.float32,
@@ -257,18 +280,16 @@ class Simulator:
         # 2+3. neuron updates: fused kernel or generated code -----------
         new_neurons, new_spikes, new_prev = {}, {}, dict(state.prev_above)
         finite = state.finite
-        gen = state.generator
-        dt_t = torch.tensor(dt, dtype=torch.float32)
-        for name, pop in net.populations.items():
+        for i, (name, pop) in enumerate(net.populations.items()):
+            k_in, k_rand = keys[:, 1 + 2 * i], keys[:, 2 + 2 * i]
             cur = isyn[name]
             if pop.input_fn is not None:
-                cur = cur + pop.input_fn(gen, float(state.t), pop.n)
+                cur = cur + pop.input_fn(k_in, t, pop.n)
             if name in stim:
                 cur = cur + stim[name]
-            ext = {"Isyn": cur, "dt": dt_t, "t": t}
+            ext = {"Isyn": cur, "dt": self._dt_cpu, "t": t}
             if pop.model.needs_rand:
-                ext["rand"] = torch.rand(pop.n, generator=gen,
-                                         device=self.device)
+                ext["rand"] = _random.uniform(k_rand, pop.n)
             update = self._updates[name]
             flagged = getattr(update, "clears_finite", False)
             if flagged:
@@ -288,21 +309,11 @@ class Simulator:
 
         new_state = SimState(
             neurons=new_neurons, spikes=new_spikes, prev_above=new_prev,
-            syn=new_syn, t=np.float32(state.t + np.float32(dt)),
-            generator=gen, finite=finite)
+            syn=new_syn, t=t + self._dt_dev, key=keys[:, 0], finite=finite)
         return new_state, new_spikes
 
     # ------------------------------------------------------------------
-    def run(
-        self, state: SimState, n_steps: int,
-        gscales: Optional[Mapping[str, object]] = None,
-        record_raster: bool = False,
-        stim: Optional[Mapping[str, torch.Tensor]] = None,
-    ) -> RunResult:
-        """Advance n_steps; returns spike statistics (and rasters
-        [n_steps, B, n] when ``record_raster``).  stim: population name ->
-        [n_steps, n] (or [n_steps, B, n]) currents, one row per step."""
-        self._validate_gscales(gscales)
+    def _stim_tensors(self, stim, n_steps: int) -> Dict[str, torch.Tensor]:
         self._validate_stim(stim)
         stim = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
                 for k, v in (stim or {}).items()}
@@ -310,6 +321,29 @@ class Simulator:
             if v.shape[0] != n_steps:
                 raise ValueError(f"stim[{k!r}] has {v.shape[0]} rows for "
                                  f"{n_steps} steps")
+        return stim
+
+    def _result(self, state: SimState, counts: Dict[str, torch.Tensor],
+                n_steps: int, raster) -> RunResult:
+        t_sec = n_steps * self.dt * 1e-3
+        rates = {k: v.to(torch.float32).mean(dim=-1) / t_sec
+                 for k, v in counts.items()}
+        return RunResult(state=state, spike_counts=counts, rates_hz=rates,
+                         finite=state.finite, raster=raster)
+
+    def run(
+        self, state: SimState, n_steps: int,
+        gscales: Optional[Mapping[str, object]] = None,
+        record_raster: bool = False,
+        stim: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> RunResult:
+        """Advance n_steps eagerly, one step at a time (as the JAX
+        package's unjitted ``Simulator.run``); returns spike statistics
+        (and rasters [n_steps, B, n] when ``record_raster``).  stim:
+        population name -> [n_steps, n] (or [n_steps, B, n]) currents, one
+        row per step."""
+        self._validate_gscales(gscales)
+        stim = self._stim_tensors(stim, n_steps)
         counts = {name: torch.zeros((state.batch, pop.n), dtype=torch.int32,
                                     device=self.device)
                   for name, pop in self.net.populations.items()}
@@ -321,13 +355,50 @@ class Simulator:
                 counts[k] += spk[k]
                 if raster is not None:
                     raster[k].append(spk[k])
-        t_sec = n_steps * self.dt * 1e-3
-        rates = {k: v.to(torch.float32).mean(dim=-1) / t_sec
-                 for k, v in counts.items()}
         if raster is not None:
             raster = {k: (torch.stack(v) if v else torch.zeros(
                 (0,) + tuple(counts[k].shape), dtype=torch.bool,
                 device=self.device)) for k, v in raster.items()}
-        return RunResult(state=state, spike_counts=counts, rates_hz=rates,
-                         finite=state.finite, raster=raster)
+        return self._result(state, counts, n_steps, raster)
 
+    # -- the compiled step loop -------------------------------------------
+    def run_compiled(
+        self, state: SimState, n_steps: int,
+        gscales: Optional[Mapping[str, object]] = None,
+        record_raster: bool = False,
+        stim: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> RunResult:
+        """``run``'s result, computed by the chunked runner of this
+        configuration: on a CUDA device each chunk is a CUDA graph captured
+        once and replayed (a capture or replay that fails raises), on the
+        CPU the same chunks run eagerly.  Runners are cached by (batch,
+        gscale keys, stim keys, record_raster, device), as the JAX package
+        caches its executables, so new gScale or stim values reuse them.
+        The caller's state is copied in and the result is a fresh state."""
+        self._validate_gscales(gscales)
+        gscales = dict(gscales or {})
+        stim = self._stim_tensors(stim, n_steps)
+        key = (state.batch, tuple(sorted(gscales)), tuple(sorted(stim)),
+               bool(record_raster), str(self.device))
+        runner = self._compiled.get(key)
+        if runner is None:
+            runner = self._compiled[key] = graphs.ChunkedRun(
+                self, state.batch, key[1], key[2], key[3])
+        state, counts, raster = runner.run(state, n_steps, gscales, stim)
+        return self._result(state, counts, n_steps, raster)
+
+    def run_jit(self, n_steps: int, record_raster: bool = False) -> Callable:
+        """``fn(state, gscales=None) -> RunResult`` running n_steps through
+        ``run_compiled``, cached per (n_steps, record_raster) as the JAX
+        package caches ``run_jit``: gScale values are buffer contents, so
+        sweeping values reuses one set of graphs."""
+        cache_key = (int(n_steps), bool(record_raster))
+        fn = self._run_jit_cache.get(cache_key)
+        if fn is None:
+            def fn(state: SimState,
+                   gscales: Optional[Mapping[str, object]] = None
+                   ) -> RunResult:
+                return self.run_compiled(state, cache_key[0], gscales,
+                                         record_raster=cache_key[1])
+            self._run_jit_cache[cache_key] = fn
+        return fn

@@ -17,6 +17,11 @@ graph to the device and generates the simulator.
     res = model.run(400)
     sweep = model.sweep_gscale("ee", torch.logspace(-1, 1, 16), n_steps=400)
 
+``CompiledModel.run`` and ``sweep_gscale`` go through the simulator's
+compiled step loop (``Simulator.run_compiled``: CUDA graphs on the card,
+the same chunks eagerly on the CPU), cached as the JAX package caches its
+executables; ``Simulator.run`` stays the eager loop.
+
 `post` may be a list of population names: one connectivity draw is made
 over the concatenated target space and split per post population (the
 paper's cortical-net construction).
@@ -438,9 +443,12 @@ def _squeeze(res: RunResult) -> RunResult:
 
 def _expand_state(state: SimState, batch: int) -> SimState:
     """A single-member state copied to ``batch`` members (the sweep's
-    shared starting point)."""
+    shared starting point, its key included); ``t`` and the rings' cursors
+    are shared by every member as they are."""
     def rep(x):
         if isinstance(x, torch.Tensor):
+            if x.dim() == 0:
+                return x.clone()
             return x.expand((batch,) + tuple(x.shape[1:])).clone()
         if isinstance(x, dict):
             return {k: rep(v) for k, v in x.items()}
@@ -451,7 +459,7 @@ def _expand_state(state: SimState, batch: int) -> SimState:
         return x
     return SimState(neurons=rep(state.neurons), spikes=rep(state.spikes),
                     prev_above=rep(state.prev_above), syn=rep(state.syn),
-                    t=state.t, generator=state.generator,
+                    t=state.t.clone(), key=rep(state.key),
                     finite=rep(state.finite))
 
 
@@ -491,8 +499,8 @@ class CompiledModel:
             f"{sorted(set(self.group_names) | {s.name for s in self.spec.synapses})}")
 
     def init_state(self, batch: int = 1,
-                   generator: Optional[torch.Generator] = None) -> SimState:
-        return self.simulator.init_state(batch, generator)
+                   key: Optional[torch.Tensor] = None) -> SimState:
+        return self.simulator.init_state(batch, key)
 
     def _norm_stim(self, stim) -> Dict[str, torch.Tensor]:
         out = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
@@ -526,17 +534,20 @@ class CompiledModel:
             state: Optional[SimState] = None,
             record_raster: bool = False,
             stim: Optional[Mapping[str, object]] = None) -> RunResult:
-        """Run n_steps from `state` (default: fresh init).  stim:
-        population -> [n_steps, n] currents injected one row per step.
-        A single-member state reports the JAX package's shapes (rates as
-        scalars, counts [n], raster [n_steps, n]); a batched state keeps its
-        leading axis."""
+        """Run n_steps from `state` (default: fresh init) through the
+        compiled step loop (``Simulator.run_compiled``), whose runners are
+        cached per (gscale keys, stim keys, record_raster, batch, device):
+        gscale and stim *values* are copied into its buffers, so sweeping
+        values reuses one capture.  stim: population -> [n_steps, n]
+        currents injected one row per step.  A single-member state reports
+        the JAX package's shapes (rates as scalars, counts [n], raster
+        [n_steps, n]); a batched state keeps its leading axis."""
         if state is None:
             state = self.init_state()
-        res = self.simulator.run(state, n_steps,
-                                 self._norm_gscales(gscales),
-                                 record_raster=record_raster,
-                                 stim=self._norm_stim(stim))
+        res = self.simulator.run_compiled(state, n_steps,
+                                          self._norm_gscales(gscales),
+                                          record_raster=record_raster,
+                                          stim=self._norm_stim(stim))
         return _squeeze(res) if state.batch == 1 else res
 
     def sweep_gscale(self, group: Union[str, Sequence[str]],
@@ -544,7 +555,9 @@ class CompiledModel:
                      state: Optional[SimState] = None) -> SweepResult:
         """Sweep a gscale multiplier over `values` for one synapse group (or
         several scaled together): the candidates ride the batch axis of one
-        run, and share its random draws (as the JAX sweep shares its key)."""
+        compiled run (cached per (names, batch, device): new values reuse its
+        capture), and start from one key, so they share their random draws
+        (as the JAX sweep shares its key)."""
         requested = [group] if isinstance(group, str) else list(group)
         names = [g for r in requested for g in self._expand_group(r)]
         values = torch.atleast_1d(torch.as_tensor(
@@ -559,7 +572,8 @@ class CompiledModel:
         elif state.batch != batch:
             raise ValueError(f"state has batch {state.batch}, values "
                              f"{batch}")
-        res = self.simulator.run(state, n_steps, {n: values for n in names})
+        res = self.simulator.run_compiled(state, n_steps,
+                                          {n: values for n in names})
         return SweepResult(values=values, rates_hz=res.rates_hz,
                            finite=res.finite, spike_counts=res.spike_counts)
 

@@ -20,7 +20,9 @@ run the same kernel and give the same result.
 Dendritic delays (GeNN's per-synapse delay model): a group may carry an
 integer delay per synapse (``ELLSynapses.delay``) or a homogeneous
 ``delay_steps``; both land weighted currents in a post-side ring
-``[B, max_delay+1, n_post]`` (``SynapseState.dendritic``) read at the cursor.
+``[B, max_delay+1, n_post]`` (``SynapseState.dendritic``) read at the cursor,
+an int32 tensor on the device as the JAX package keeps it (no step reads it
+on the host, so a CUDA graph of the step reads each replay's cursor).
 Per-synapse delays take two kernels a step: the delay scatter adds into a
 float64 scratch that the group owns (one, for the last step's batch size
 and device, zero between steps), and the ring fold scales it, rolls it into a new ring,
@@ -130,8 +132,8 @@ class SynapseState:
     """Per-group dynamic state; every tensor has a leading batch axis [B].
 
     ``dendritic`` is the post-side dendritic-delay ring
-    [B, max_delay+1, n_post]; ``cursor`` is its read position, the same for
-    every batch member and kept on the host.
+    [B, max_delay+1, n_post]; ``cursor`` is its read position, an int32
+    0-dim tensor on the ring's device, the same for every batch member.
     """
 
     psm: Dict[str, torch.Tensor]          # postsynaptic state    [B, n_post]
@@ -140,14 +142,17 @@ class SynapseState:
     g: Optional[torch.Tensor]             # plastic weights [B, n_pre, K]
     syn: Dict[str, torch.Tensor]          # per-synapse vars [B, n_pre, K]
     dendritic: Optional[torch.Tensor]     # delay ring [B, S, n_post]
-    cursor: Optional[int]                 # ring cursor
+    cursor: Optional[torch.Tensor]        # ring cursor, int32 0-dim
 
 
 def _scale(sign: float, gscale: Scale, out: torch.Tensor) -> torch.Tensor:
     """sign * gscale * out, with a per-batch-member gscale [B] broadcast over
-    the trailing axes of ``out``."""
+    the trailing axes of ``out`` (sign 1 is left out of a [B] gscale: the
+    same bits, one device op less a step)."""
     if isinstance(gscale, torch.Tensor) and gscale.dim() == 1:
         gscale = gscale.reshape((-1,) + (1,) * (out.dim() - 1))
+        if sign == 1.0:
+            return gscale * out
     return sign * gscale * out
 
 
@@ -250,7 +255,8 @@ class SynapseGroup:
         self._delay_f = (self.ell.delay.to(torch.float32)
                          if self.ell.delay is not None
                          else torch.tensor(float(self.delay_steps),
-                                           dtype=torch.float32))
+                                           dtype=torch.float32, device=dev))
+        self._t0 = torch.zeros((), dtype=torch.float32, device=dev)
         self._gather = (self.ell.post_ind.long()
                         if self._wu.learn is not None else None)
         self._device = dev
@@ -259,6 +265,17 @@ class SynapseGroup:
         # scatter added)
         self._acc: Optional[torch.Tensor] = None
         self._acc_key: Optional[Tuple[int, torch.device]] = None
+
+    def swap_scratch(self, acc: Optional[torch.Tensor]
+                     ) -> Optional[torch.Tensor]:
+        """Make ``acc`` (a zeroed [S, n_post, B] float64 tensor, or None
+        for one made at the next step) the delay scatter's scratch; returns
+        the one it replaces.  A compiled run keeps its own this way, since
+        its graphs write one scratch at every replay."""
+        old = self._acc
+        self._acc = acc
+        self._acc_key = None if acc is None else (acc.shape[2], acc.device)
+        return old
 
     @property
     def plastic(self) -> bool:
@@ -294,7 +311,7 @@ class SynapseGroup:
              if self.plastic else None)
         if self.needs_ring:
             buf = full((batch, self.ring_slots, n_post), 0.0)
-            cur = 0
+            cur = torch.zeros((), dtype=torch.int32, device=dev)
         else:
             buf, cur = None, None
         return SynapseState(psm=psm, wu_pre=wu_pre, wu_post=wu_post, g=g,
@@ -330,15 +347,16 @@ class SynapseGroup:
                 self._effective_ell(g, syn, externals), spikes)
         return _scale(self.sign, gscale, out)
 
-    def _delay_fold(self, ring: torch.Tensor, cursor: int,
+    def _delay_fold(self, ring: torch.Tensor, cursor: torch.Tensor,
                     spikes: torch.Tensor, gscale: Scale,
                     g: Optional[torch.Tensor], syn: Dict[str, torch.Tensor],
                     externals: Dict[str, object]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Heterogeneous delays: this step's spikes scattered into the
         scratch (slot d = currents due d steps from now), then folded into
         a new ring at row (cursor + d) % S, scaled by sign * gscale, with
-        the cursor's row read out and cleared.  Returns (new_ring, inj)."""
+        the cursor's row read out and cleared.  Returns (new_ring, inj,
+        new_cursor)."""
         key = (spikes.shape[0], spikes.device)
         if key != self._acc_key:
             # one scratch at a time: the old one goes before the new one
@@ -372,9 +390,7 @@ class SynapseGroup:
         Weights (and gscale) are applied at *spike* time, GeNN's dendritic-
         delay semantics; the delay ring buffers the weighted current.
         """
-        wu_ext = {"dt": dt,
-                  "t": t if t is not None else torch.tensor(
-                      0.0, dtype=torch.float32),
+        wu_ext = {"dt": dt, "t": t if t is not None else self._t0,
                   "delay": self._delay_f}
 
         if not self.needs_ring:
@@ -385,19 +401,23 @@ class SynapseGroup:
             S = self.ring_slots
             cur = state.cursor
             if self.ell.delay is None:
-                # homogeneous: one full accumulation, one slot written
+                # homogeneous: one full accumulation, one slot written, the
+                # rows picked by index ops on the device cursor
                 contrib = self._raw_current(spikes, gscale, state.g,
                                             state.syn, wu_ext)
                 ring = state.dendritic.clone()
-                ring[:, (cur + self.delay_steps) % S] += contrib
-                inj = ring[:, cur].clone()
-                ring[:, cur] = 0.0      # `ring` is a fresh tensor: in place
+                row = cur.reshape(1).long()
+                ring.index_add_(1, torch.remainder(row + self.delay_steps, S),
+                                contrib[:, None])
+                inj = ring.index_select(1, row)[:, 0]
+                ring.index_fill_(1, row, 0.0)  # a fresh tensor: in place
+                new_cur = torch.remainder(cur + 1, S).to(torch.int32)
             else:
                 # delay scatter + ring fold; the new ring is a fresh tensor
-                ring, inj = self._delay_fold(state.dendritic, cur, spikes,
-                                             gscale, state.g, state.syn,
-                                             wu_ext)
-            new_buf, new_cur = ring, (cur + 1) % S
+                ring, inj, new_cur = self._delay_fold(
+                    state.dendritic, cur, spikes, gscale, state.g,
+                    state.syn, wu_ext)
+            new_buf = ring
 
         # -- learning (generated weight-update code) -----------------------
         # pre traces and learning fire at spike (emission) time

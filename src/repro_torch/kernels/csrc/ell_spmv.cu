@@ -83,7 +83,11 @@
 //   new_ring[b, r, j] = ring[b, r, j]
 //                       + f32(sign * gscale_b) * f32(acc[(r - cur) mod S, j, b])
 //   inj[b] = new_ring[b, cur];  new_ring[b, cur] = 0;  acc = 0
+//   new_cursor = (cur + 1) mod S
 //
+// The cursor is read from device memory and the advanced one written to
+// another word, as the JAX package keeps it (an int32 in the state): a
+// CUDA graph that captured the step reads each replay's own cursor.
 // with exactly the roundings of those ops (IEEE products and sums, no
 // contraction), so it is bit-equal to its plain version.  It reads the
 // ring and the scratch once and writes the new ring, the zeros and inj:
@@ -378,7 +382,13 @@ delay_ring_fold_kernel(const float* __restrict__ ring,
                        float* __restrict__ inj,
                        const float* __restrict__ gscale, float scale,
                        float sign, int batch, int n_slots, int n_post,
-                       int cur) {
+                       const int* __restrict__ cursor,
+                       int* __restrict__ new_cursor) {
+  // the ring's read row, taken mod n_slots (every thread reads the one
+  // word); one thread writes the advanced cursor to another word
+  const int cur = ((__ldg(cursor) % n_slots) + n_slots) % n_slots;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    *new_cursor = cur + 1 == n_slots ? 0 : cur + 1;
   const long long item =
       static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
   const long long j = item / batch * kVec;
@@ -461,20 +471,22 @@ int ell_spmv_delay_f32(const float* g, long long g_batch_stride,
 // batch] float64 (read, then zeroed), new_ring [batch, n_slots, n_post]
 // float32 and inj [batch, n_post] float32 (written).  gscale: [batch]
 // float32 on the card, or null and then scale (= sign * gscale, rounded to
-// float32) for every member.  vec comes from kernels.delay_ring.launch_plan:
-// vec 4 needs n_post % 4 == 0 and all four arrays 16-byte aligned.
+// float32) for every member.  cursor: the ring's read row, one int32 on the
+// card (taken mod n_slots); new_cursor: another, written with the row after
+// it.  vec comes from kernels.delay_ring.launch_plan: vec 4 needs
+// n_post % 4 == 0 and all four arrays 16-byte aligned.
 int delay_ring_fold_f32(const float* ring, double* acc, float* new_ring,
                         float* inj, const float* gscale, float scale,
                         float sign, int batch, int n_slots, int n_post,
-                        int cur, int vec, void* stream) {
+                        const int* cursor, int* new_cursor, int vec,
+                        void* stream) {
   if ((vec != 1 && vec != 4) ||
       (vec == 4 && (n_post % 4 != 0 || !aligned(ring, 16) ||
                     !aligned(acc, 16) || !aligned(new_ring, 16) ||
                     !aligned(inj, 16))) ||
-      batch < 0 || n_post < 0 || n_slots <= 0 || n_slots > 65535 ||
-      cur < 0 || cur >= n_slots)
+      batch <= 0 || n_post <= 0 || n_slots <= 0 || n_slots > 65535 ||
+      cursor == nullptr || new_cursor == nullptr || cursor == new_cursor)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || n_post == 0) return cudaSuccess;
   const long long items = (static_cast<long long>(n_post) / vec) * batch;
   const long long ctas = (items + kFoldThreads - 1) / kFoldThreads;
   if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -483,11 +495,11 @@ int delay_ring_fold_f32(const float* ring, double* acc, float* new_ring,
   if (vec == 4)
     delay_ring_fold_kernel<4><<<grid, kFoldThreads, 0, s>>>(
         ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
-        n_post, cur);
+        n_post, cursor, new_cursor);
   else
     delay_ring_fold_kernel<1><<<grid, kFoldThreads, 0, s>>>(
         ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
-        n_post, cur);
+        n_post, cursor, new_cursor);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,163 @@
+// JAX's threefry2x32 key schedule and draws on Hopper.
+//
+// Replaces no Pallas kernel: the JAX package draws every random number of a
+// simulation step through jax.random, which XLA computes
+// (jax/_src/prng.py: _threefry_split_foldlike, threefry_fold_in,
+// _threefry_random_bits_partitionable; jax/_src/random.py: _uniform,
+// _normal_real).  The port keeps its keys in device tensors, so a step's key
+// schedule and draws are kernels that a CUDA graph captures like any other.
+//
+//   threefry_split_kernel: keys [B, 2] -> [B, num, 2]; member b's key i
+//     hashes the counter (0, first + i) (split: first = 0; fold_in(k, d):
+//     num = 1, first = d).
+//   threefry_draw_kernel: keys [B, 2] -> [B, n]; element j of member b
+//     hashes the counter (j >> 32, j & 0xffffffff) and keeps the xor of
+//     the two words (the partitionable scheme's 32-bit bits), then writes
+//     the bits, a uniform in [0, 1) (23 mantissa bits under 1.0's exponent,
+//     minus 1) or a normal (sqrt(2) erf_inv(u), u uniform on
+//     (nextafter(-1, 0), 1)), times a float32 scale.
+//
+// erf_inv is XLA's float32 expansion (Giles' two branches on
+// w = -log1p(-x*x)), written out operation by operation with round-to-
+// nearest intrinsics (CUDA's erfinvf is another function); its Horner
+// steps are fused multiply-adds, as XLA's CPU backend contracts them.  Keys,
+// bits and uniforms equal jax.random's bit for bit; normals differ from
+// XLA's CPU build by log1pf's last bits (a few ulp,
+// tests/test_torch_threefry.py).
+//
+// What bounds it: integer operations.  A draw is 20 rounds of add, rotate
+// and xor plus the key injections, ~80-120 32-bit operations for 4 bytes
+// written, far past the card's integer rate against its memory rate.  A
+// thread takes one element; a member's elements are contiguous in x, the
+// members on grid y.  No shared memory, no atomics.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds, as jax/_src/prng.py's _threefry2x32_lowering.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+}
+
+// XLA's float32 erf_inv (chlo.erf_inv), operation by operation.
+__device__ __forceinline__ float erf_inv_xla(float x) {
+  const float w = -log1pf(__fmul_rn(x, -x));
+  const bool small = w < 5.0f;
+  const float z = small ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
+  const float cs[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
+                       -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
+                       -0.00417768164f, 0.246640727f, 1.50140941f};
+  const float cl[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
+                       -0.00367342844f, 0.00573950773f, -0.0076224613f,
+                       0.00943887047f, 1.00167406f, 2.83297682f};
+  float p = small ? cs[0] : cl[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, z, small ? cs[i] : cl[i]);
+  return fabsf(x) == 1.0f ? x * __int_as_float(0x7f800000) : __fmul_rn(p, x);
+}
+
+__global__ void __launch_bounds__(kThreads)
+threefry_split_kernel(const uint32_t* __restrict__ keys,
+                      long long key_stride, uint32_t* __restrict__ out,
+                      int num, uint32_t first) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= num) return;
+  const int b = blockIdx.y;
+  const uint32_t* k = keys + b * key_stride;
+  uint32_t x0 = 0u, x1 = first + static_cast<uint32_t>(i);
+  threefry2x32(k[0], k[1], x0, x1);
+  uint32_t* o = out + (static_cast<long long>(b) * num + i) * 2;
+  o[0] = x0;
+  o[1] = x1;
+}
+
+// dist: 0 bits, 1 uniform, 2 normal
+__global__ void __launch_bounds__(kThreads)
+threefry_draw_kernel(const uint32_t* __restrict__ keys, long long key_stride,
+                     uint32_t* __restrict__ out, long long n, int dist,
+                     float scale) {
+  const long long j = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (j >= n) return;
+  const int b = blockIdx.y;
+  const uint32_t* k = keys + b * key_stride;
+  uint32_t x0 = static_cast<uint32_t>(static_cast<unsigned long long>(j) >> 32);
+  uint32_t x1 = static_cast<uint32_t>(j);
+  threefry2x32(k[0], k[1], x0, x1);
+  const uint32_t bits = x0 ^ x1;
+  uint32_t* o = out + static_cast<long long>(b) * n + j;
+  if (dist == 0) {
+    *o = bits;
+    return;
+  }
+  float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+  if (dist == 2) {
+    const float lo = -0.99999994f;              // nextafter(-1, 0)
+    const float u = fmaxf(lo, __fadd_rn(__fmul_rn(f, 2.0f), lo));
+    f = __fmul_rn(erf_inv_xla(u), 1.41421354f);
+  }
+  *o = __float_as_uint(__fmul_rn(f, scale));
+}
+
+}  // namespace
+
+extern "C" {
+
+// keys: [batch] rows of 2 uint32 words, row b at keys + b * key_stride;
+// out: [batch, num, 2] uint32.
+int threefry_split(const uint32_t* keys, long long key_stride, uint32_t* out,
+                   int batch, int num, unsigned int first, void* stream) {
+  if (batch < 0 || num < 0 || batch > 65535 || key_stride < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || num == 0) return cudaSuccess;
+  dim3 grid((num + kThreads - 1) / kThreads, batch);
+  threefry_split_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(
+      stream)>>>(keys, key_stride, out, num, first);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: [batch, n] uint32 bits (dist 0) or float32 (dist 1 uniform, 2
+// normal), each float draw times scale.
+int threefry_draw(const uint32_t* keys, long long key_stride, void* out,
+                  int batch, long long n, int dist, float scale,
+                  void* stream) {
+  if (batch < 0 || n < 0 || batch > 65535 || key_stride < 2 || dist < 0 ||
+      dist > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || n == 0) return cudaSuccess;
+  const long long ctas = (n + kThreads - 1) / kThreads;
+  if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(ctas), batch);
+  threefry_draw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(
+      stream)>>>(keys, key_stride, static_cast<uint32_t*>(out), n, dist,
+                 scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* threefry_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

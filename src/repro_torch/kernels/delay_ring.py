@@ -70,28 +70,32 @@ def launch_plan(batch: int, n_slots: int, n_post: int,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_spmv")
     lib.delay_ring_fold_f32.argtypes = [P, P, P, P, P, F, F,
-                                        I, I, I, I, I, P]
+                                        I, I, I, P, P, I, P]
     lib.delay_ring_fold_f32.restype = I
     lib.ell_spmv_error_string.argtypes = [I]
     lib.ell_spmv_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
-                    sign: float, gscale: Union[float, torch.Tensor]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Advance a dendritic ring one step: (new_ring, inj).
+def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
+                    cursor: torch.Tensor, sign: float,
+                    gscale: Union[float, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Advance a dendritic ring one step: (new_ring, inj, new_cursor).
 
     ring: [B, S, n_post] float32, left as it is; acc: the delay scatter's
     [S, n_post, B] float64 scratch (slot d = currents due d steps from
-    now), zeroed here; cursor: the ring's read row, 0 <= cursor < S;
-    sign * gscale scales the scatter, gscale a Python number, a 0-dim
-    tensor or a [B] tensor (on the card, for the kernel).
+    now), zeroed here; cursor: the ring's read row, an int32 0-dim tensor
+    beside the ring (taken mod S; never read on the host, so a captured
+    step reads the cursor of its replay); sign * gscale scales the scatter,
+    gscale a Python number, a 0-dim tensor or a [B] tensor (on the card,
+    for the kernel).  With c = cursor mod S:
     new_ring[b, r, j] = ring[b, r, j]
-    + f32(sign * gscale_b) * f32(acc[(r - cursor) mod S, j, b]);
-    inj = new_ring[:, cursor], then new_ring[:, cursor] = 0."""
+    + f32(sign * gscale_b) * f32(acc[(r - c) mod S, j, b]);
+    inj = new_ring[:, c], then new_ring[:, c] = 0; new_cursor = (c + 1)
+    mod S, a fresh int32 0-dim tensor."""
     per_member = isinstance(gscale, torch.Tensor) and gscale.dim() == 1
-    if on_cpu("delay_ring_fold", ring, acc,
+    if on_cpu("delay_ring_fold", ring, acc, cursor,
               gscale if per_member else None):
         return _ref.delay_ring_fold_ref(ring, acc, cursor, sign, gscale)
     if ring.dim() != 3 or tuple(acc.shape) != (ring.shape[1],
@@ -100,10 +104,12 @@ def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
                          f"and acc {tuple(acc.shape)} [S, n_post, B]")
     check_operand("ring", ring, torch.float32)
     check_operand("acc", acc, torch.float64)
+    if cursor.dtype != torch.int32 or cursor.dim() != 0:
+        raise ValueError(f"cursor must be an int32 0-dim tensor, got "
+                         f"{cursor.dtype} {tuple(cursor.shape)}")
     batch, n_slots, n_post = ring.shape
-    if not 0 <= cursor < n_slots:
-        raise ValueError(f"cursor {cursor} outside the ring's {n_slots} "
-                         "slots")
+    if batch == 0 or n_post == 0:
+        raise ValueError(f"an empty ring {tuple(ring.shape)}")
     if per_member:
         if tuple(gscale.shape) != (batch,):
             raise ValueError(f"gscale must be a scalar or [B={batch}], got "
@@ -117,13 +123,14 @@ def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
     new_ring = torch.empty_like(ring)
     inj = torch.empty((batch, n_post), dtype=torch.float32,
                       device=ring.device)
+    new_cursor = torch.empty((), dtype=torch.int32, device=ring.device)
     ptrs = (ring.data_ptr(), acc.data_ptr(), new_ring.data_ptr(),
             inj.data_ptr())
     plan = launch_plan(batch, n_slots, n_post,
                        all(p % 16 == 0 for p in ptrs))
     rc = launch(ring.device, _lib().delay_ring_fold_f32, *ptrs, gs_ptr,
-                scale, float(sign), batch, n_slots, n_post, cursor,
-                plan["vec"])
+                scale, float(sign), batch, n_slots, n_post,
+                cursor.data_ptr(), new_cursor.data_ptr(), plan["vec"])
     launches["delay_ring_fold"] += 1
     raise_on(rc, _lib().ell_spmv_error_string, "delay_ring_fold")
-    return new_ring, inj
+    return new_ring, inj, new_cursor

@@ -73,11 +73,12 @@ def ell_spmv_delay_into(ell, spikes: torch.Tensor,
                            _spikes(spikes), acc)
 
 
-def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
-                    sign: float, gscale):
-    """(new_ring, inj): the scratch ``acc`` scaled by sign * gscale and
-    rolled by ``cursor`` into the ring [B, S, n_post], then the cursor's
-    row read out and cleared; ``acc`` is left zeroed."""
+def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
+                    cursor: torch.Tensor, sign: float, gscale):
+    """(new_ring, inj, new_cursor): the scratch ``acc`` scaled by sign *
+    gscale and rolled by ``cursor`` (an int32 0-dim tensor) into the ring
+    [B, S, n_post], then the cursor's row read out and cleared and the
+    cursor advanced; ``acc`` is left zeroed."""
     return _ring.delay_ring_fold(ring, acc, cursor, sign, gscale)
 
 

@@ -31,6 +31,14 @@ gradient by the recompute schedule of ``repro/kernels/flash_xla.py``.
 
 ``ssd_scan_ref`` is the naive Mamba2 state-space recurrence, the oracle of
 the chunked SSD (``repro_torch.models.ssm.ssd_chunked``) and its kernel.
+
+``threefry_split_ref`` and ``threefry_draw_ref`` are JAX's threefry2x32
+key schedule and draws (``jax_threefry_partitionable``): 32-bit integer
+arithmetic done in int64 masked to 32 bits, keys and bits as int32 tensors
+holding the uint32 bit patterns.  Keys, bits and uniforms equal
+``jax.random``'s bit for bit; normals go through XLA's float32 ``erf_inv``
+polynomial (``erf_inv_ref``) and agree within a few ulp, as ``log1p``
+differs between libraries.
 """
 
 from __future__ import annotations
@@ -43,7 +51,9 @@ import torch
 __all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "ell_spmv_delay_into_ref",
            "delay_scratch_to_bsn", "delay_ring_fold_ref",
            "izhikevich_step_ref", "hh_step_ref", "flash_attention_ref", "flash_attention_fwd_ref",
-           "flash_attention_bwd_ref", "ssd_scan_ref", "chunk_size"]
+           "flash_attention_bwd_ref", "ssd_scan_ref", "chunk_size",
+           "threefry2x32_ref", "threefry_split_ref", "threefry_draw_ref",
+           "erf_inv_ref", "DRAWS"]
 
 
 def _contributions(g: torch.Tensor, valid: torch.Tensor,
@@ -119,24 +129,30 @@ def ell_spmv_delay_ref(g: torch.Tensor, post_ind: torch.Tensor,
     return delay_scratch_to_bsn(acc)
 
 
-def delay_ring_fold_ref(ring: torch.Tensor, acc: torch.Tensor, cursor: int,
-                        sign: float, gscale) -> tuple:
+def delay_ring_fold_ref(ring: torch.Tensor, acc: torch.Tensor,
+                        cursor: torch.Tensor, sign: float, gscale) -> tuple:
     """One step of the dendritic ring [B, S, n_post] float32: the delay
     scatter ``acc`` [S, n_post, B] float64 (slot d = currents due d steps
     from now), rounded to float32 and scaled by ``sign * gscale`` (a scalar
-    or [B]), lands at ring row (cursor + d) % S; the cursor's row is read
-    out and cleared.  Returns (new_ring, inj [B, n_post]), both fresh
-    tensors; ``ring`` is left as it is and ``acc`` is zeroed, as the fold
-    kernel leaves it."""
+    or [B]), lands at ring row (c + d) % S, c = ``cursor`` mod S (an int32
+    0-dim tensor, read by index ops and never on the host); row c is read
+    out and cleared.  Returns (new_ring, inj [B, n_post], new_cursor =
+    (c + 1) mod S), all fresh tensors; ``ring`` is left as it is and
+    ``acc`` is zeroed, as the fold kernel leaves them."""
     contrib = delay_scratch_to_bsn(acc)
     acc.zero_()
     if isinstance(gscale, torch.Tensor) and gscale.dim() == 1:
         gscale = gscale.reshape((-1,) + (1,) * (contrib.dim() - 1))
     contrib = sign * gscale * contrib
-    new_ring = ring + torch.roll(contrib, cursor, dims=1)
-    inj = new_ring[:, cursor].clone()
-    new_ring[:, cursor] = 0.0
-    return new_ring, inj
+    n_slots = ring.shape[1]
+    cur = torch.remainder(cursor.reshape(1).long(), n_slots)
+    rows = torch.remainder(
+        torch.arange(n_slots, device=ring.device) - cur, n_slots)
+    new_ring = ring + contrib.index_select(1, rows)
+    inj = new_ring.index_select(1, cur)[:, 0]
+    new_ring.index_fill_(1, cur, 0.0)
+    new_cursor = torch.remainder(cur + 1, n_slots).to(torch.int32)
+    return new_ring, inj, new_cursor.reshape(())
 
 
 def _clear_if_not_finite(finite, *arrays) -> None:
@@ -349,3 +365,103 @@ def ssd_scan_ref(x, dt, A, B, C, D=None):
     if D is not None:
         y = y + x * D[None, None, :, None]
     return y
+
+
+# -- threefry2x32 -------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+DRAWS = ("bits", "uniform", "normal")
+# normal's uniform range starts at nextafter(-1, 0) in float32
+_NORMAL_LO = -0.99999994039535522
+# XLA's float32 erf_inv (Giles): coefficients for w < 5 and for w >= 5
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2_F32 = 1.41421354
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits (or any integers) as int64 in [0, 2^32)."""
+    return x.to(torch.int64) & _M32
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) as int32 with the same bits."""
+    return torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).to(torch.int32)
+
+
+def threefry2x32_ref(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of counters (x0, x1) under key
+    (k0, k1), all int64 tensors in [0, 2^32) (broadcast together); returns
+    the two output words the same way."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = x0 ^ (((x1 << r) | (x1 >> (32 - r))) & _M32)
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _key_words(keys: torch.Tensor):
+    k = _u32(keys)
+    return k[:, 0:1], k[:, 1:2]
+
+
+def threefry_split_ref(keys: torch.Tensor, num: int,
+                       first: int = 0) -> torch.Tensor:
+    """keys [B, 2] -> [B, num, 2]: member b's key i hashes the counter
+    (0, first + i) under keys[b], as ``jax.random.split`` (first 0) and
+    ``fold_in(key, first)`` (num 1) do."""
+    k0, k1 = _key_words(keys)
+    lo = torch.arange(num, dtype=torch.int64, device=keys.device) + first
+    b0, b1 = threefry2x32_ref(k0, k1, torch.zeros_like(lo), lo)
+    return _as_i32(torch.stack([b0, b1], dim=-1))
+
+
+def erf_inv_ref(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erf_inv as its CPU backend computes it: w =
+    -log1p(-x*x); Giles' polynomial in w - 2.5 (w < 5) or sqrt(w) - 3 by
+    Horner steps that XLA contracts into fused multiply-adds (here the
+    product and sum in float64, rounded to float32 once); times x; +-inf
+    at +-1."""
+    w = -torch.log1p(x * -x)
+    small = w < 5.0
+    z = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):
+        return torch.where(small, torch.tensor(_ERFINV_SMALL[i]),
+                           torch.tensor(_ERFINV_LARGE[i])).double()
+    p = coef(0).float()
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = (coef(i) + p.double() * z).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def threefry_draw_ref(keys: torch.Tensor, n: int, dist: str,
+                      scale: float = 1.0) -> torch.Tensor:
+    """keys [B, 2] -> [B, n]: member b's ``jax.random.bits`` (int32 holding
+    the uint32 bits), ``uniform`` in [0, 1) or ``normal`` of shape (n,)
+    under keys[b] (element j hashes the counter (j >> 32, j & 0xFFFFFFFF)
+    and keeps the xor of the two words).  Draws are float32; ``scale``
+    (float32) multiplies them after the draw."""
+    if dist not in DRAWS:
+        raise ValueError(f"dist must be one of {DRAWS}, got {dist!r}")
+    k0, k1 = _key_words(keys)
+    j = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32_ref(k0, k1, j >> 32, j & _M32)
+    bits = b0 ^ b1
+    if dist == "bits":
+        return _as_i32(bits)
+    # 23 random mantissa bits under the exponent of 1.0: [1, 2), minus 1
+    f = _as_i32((bits >> 9) | 0x3F800000).view(torch.float32) - 1.0
+    if dist == "normal":
+        u = torch.clamp(f * 2.0 + _NORMAL_LO, min=_NORMAL_LO)
+        f = erf_inv_ref(u) * _SQRT2_F32
+    return f * scale if scale != 1.0 else f

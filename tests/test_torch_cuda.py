@@ -21,13 +21,24 @@ gradient tolerance); in bfloat16 within rtol=1e-2 plus 1e-2 of each
 gradient's largest entry of the plain backward on the same saved bf16
 tensors (each gradient is rounded to bf16 once: 2^-8 relative).  The SSD
 scan within rtol=atol=2e-4 of ``ssd_chunked`` (tests/test_kernels.py's
-tolerance), with TF32 off."""
+tolerance), with TF32 off.  The threefry kernels: keys, bits and uniforms
+bit-equal to their plain version, normals within 4 float32 ulp (log1pf's
+last bits).  The compiled step loop: a run replayed from CUDA graphs equals
+the eager run bit for bit (rasters, counts, every state tensor)."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
+from repro_torch import random as R  # noqa: E402
+from repro_torch.core.models import izhikevich_net as TIZ  # noqa: E402
+from repro_torch.core.models import mushroom_body as TMB  # noqa: E402
+from repro_torch.core.snn import graphs as GR  # noqa: E402
+from repro_torch.core.snn import spec as TSPEC  # noqa: E402
+from repro_torch.core.snn import synapses as TSYN  # noqa: E402
 from repro_torch.kernels import delay_ring as DR  # noqa: E402
 from repro_torch.kernels import ell_spmv as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -36,6 +47,8 @@ from repro_torch.kernels import izhikevich_step as IZ  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
+from repro_torch.kernels import threefry as TFK  # noqa: E402
+from repro_torch.sparse import formats as TF  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -259,32 +272,41 @@ def test_cuda_ring_fold_equals_plain_bit_for_bit(cuda_device, b, n_post,
     before = ring.clone()
     for cursor in (0, 7, n_slots - 1):
         acc, acc_ref = acc0.clone(), acc0.clone()
+        cur = torch.tensor(cursor, dtype=torch.int32, device=cuda_device)
         DR.reset_launches()
-        new_ring, inj = DR.delay_ring_fold(ring, acc, cursor, sign, gscale)
+        new_ring, inj, new_cur = DR.delay_ring_fold(ring, acc, cur, sign,
+                                                    gscale)
         assert DR.launches == {"delay_ring_fold": 1}
-        want_ring, want_inj = TR.delay_ring_fold_ref(ring, acc_ref, cursor,
-                                                     sign, gscale)
+        want_ring, want_inj, want_cur = TR.delay_ring_fold_ref(
+            ring, acc_ref, cur, sign, gscale)
         for got, want in ((new_ring, want_ring), (inj, want_inj)):
             assert torch.equal(got, want)
             assert torch.equal(torch.signbit(got), torch.signbit(want))
+        assert int(new_cur) == int(want_cur) == (cursor + 1) % n_slots
         assert not acc.any() and torch.equal(ring, before)
+        assert int(cur) == cursor
 
 
 @pytest.mark.gpu
 def test_cuda_ring_fold_rejects_bad_operands(cuda_device):
     ring = torch.zeros(2, 5, 8, device=cuda_device)
     acc = torch.zeros(5, 8, 2, dtype=torch.float64, device=cuda_device)
+    cur = torch.zeros((), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        DR.delay_ring_fold(ring, acc.float(), 0, 1.0, 1.0)
+        DR.delay_ring_fold(ring, acc.float(), cur, 1.0, 1.0)
+    # the cursor is an int32 0-dim tensor beside the ring (its value is
+    # never read on the host, so it is taken mod S on the card)
+    on_cpu = torch.zeros((), dtype=torch.int32)
+    for bad in (cur.long(), cur.reshape(1), on_cpu):
+        with pytest.raises(ValueError):
+            DR.delay_ring_fold(ring, acc, bad, 1.0, 1.0)
     with pytest.raises(ValueError):
-        DR.delay_ring_fold(ring, acc, 5, 1.0, 1.0)
+        DR.delay_ring_fold(ring, acc, cur, 1.0,
+                           torch.ones(3, device=cuda_device))
     with pytest.raises(ValueError):
-        DR.delay_ring_fold(ring, acc, 0, 1.0, torch.ones(3,
-                                                          device=cuda_device))
+        DR.delay_ring_fold(ring, acc[:4], cur, 1.0, 1.0)
     with pytest.raises(ValueError):
-        DR.delay_ring_fold(ring, acc[:4], 0, 1.0, 1.0)
-    with pytest.raises(ValueError):
-        DR.delay_ring_fold(ring, acc.permute(2, 0, 1).contiguous(), 0, 1.0,
+        DR.delay_ring_fold(ring, acc.permute(2, 0, 1).contiguous(), cur, 1.0,
                            1.0)
 
 
@@ -600,3 +622,155 @@ def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda_device):
         SSD.ssd_scan(x.expand(1, 8, 2, 16).repeat(1, 1, 1, 5), dt, A, B, B)
     with pytest.raises(ValueError):
         SSD.ssd_scan(x, dt.cpu(), A, B, B)
+
+
+# -- threefry and the compiled step loop --------------------------------------
+
+def _ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n", [1, 7, 4097, 80_000])
+def test_cuda_threefry_matches_plain(cuda_device, b, n):
+    keys = R.split(R.PRNGKey(11), b)
+    kd = keys.to(cuda_device)
+    TFK.reset_launches()
+    got_split = TFK.threefry_split(kd, 9)
+    draws = {d: TFK.threefry_draw(kd, n, d, 3.5 if d == "normal" else 1.0)
+             for d in TFK.DRAWS}
+    # a step's subkeys are a strided column of the split
+    col = TFK.threefry_draw(got_split[:, 4], n, "uniform")
+    torch.cuda.synchronize()
+    assert TFK.launches == {"threefry_split": 1, "threefry_draw": 4}
+    assert torch.equal(got_split.cpu(), TR.threefry_split_ref(keys, 9))
+    for d in ("bits", "uniform"):
+        assert torch.equal(draws[d].cpu(), TR.threefry_draw_ref(keys, n, d))
+    assert _ulp(draws["normal"].cpu(),
+                TR.threefry_draw_ref(keys, n, "normal", 3.5)) <= 4
+    assert torch.equal(col.cpu(), TR.threefry_draw_ref(
+        TR.threefry_split_ref(keys, 9)[:, 4], n, "uniform"))
+    # the plain version on the card equals the kernel too
+    assert _ulp(draws["normal"], TR.threefry_draw_ref(kd, n, "normal",
+                                                      3.5)) <= 4
+    assert torch.equal(R.fold_in(kd[0], 77).cpu(),
+                       R.fold_in(keys[0], 77))
+
+
+@pytest.mark.gpu
+def test_cuda_threefry_rejects_bad_keys(cuda_device):
+    keys = torch.zeros(4, 2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        TFK.threefry_draw(keys.long(), 8, "uniform")
+    with pytest.raises(ValueError):
+        TFK.threefry_draw(keys.t(), 8, "uniform")
+    with pytest.raises(ValueError):
+        TFK.threefry_split(keys[:, :1], 2)
+
+
+@pytest.mark.gpu
+def test_cuda_delayed_group_folds_with_its_device_cursor(cuda_device):
+    """A delayed group stepped past a full ring period on the card equals
+    the same group on the CPU bit for bit, its cursor a device tensor that
+    wraps."""
+    rng = np.random.default_rng(4)
+    n_pre, k, n_post = 300, 12, 200
+    arrays = (rng.integers(0, n_post, (n_pre, k)).astype(np.int32),
+              rng.random((n_pre, k)).astype(np.float32),
+              rng.random((n_pre, k)) < 0.8)
+    dly = rng.integers(0, 6, (n_pre, k)).astype(np.int32)
+    groups = [TSYN.SynapseGroup(
+        name="d", pre="a", post="b",
+        ell=TF.triple_to_ell(*arrays, n_post, delay=dly, device=dev),
+        max_delay=5, sign=-1.0) for dev in ("cpu", cuda_device)]
+    states = [g.init_state(2) for g in groups]
+    gs = torch.tensor([0.5, 1.5])
+    for i in range(2 * groups[0].ring_slots + 1):
+        spikes = torch.tensor(rng.random((2, n_pre)) < 0.2)
+        outs = [g.step(st, spikes.to(st.dendritic.device),
+                       gs.to(st.dendritic.device), 1.0)
+                for g, st in zip(groups, states)]
+        states = [o[0] for o in outs]
+        assert torch.equal(outs[1][1].cpu(), outs[0][1])
+        assert torch.equal(states[1].dendritic.cpu(), states[0].dendritic)
+        assert states[1].cursor.device.type == torch.device(cuda_device).type
+        assert int(states[1].cursor) == int(states[0].cursor) == (
+            (i + 1) % groups[0].ring_slots)
+
+
+def _state_leaves(x, prefix=""):
+    if isinstance(x, torch.Tensor):
+        yield prefix, x
+    elif isinstance(x, dict):
+        for key in sorted(x):
+            yield from _state_leaves(x[key], f"{prefix}.{key}")
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _state_leaves(getattr(x, f.name), f"{prefix}.{f.name}")
+
+
+def _assert_runs_equal(a, b):
+    for name in a.spike_counts:
+        assert torch.equal(a.spike_counts[name], b.spike_counts[name]), name
+        assert torch.equal(a.raster[name], b.raster[name]), name
+    la, lb = dict(_state_leaves(a.state)), dict(_state_leaves(b.state))
+    assert la.keys() == lb.keys()
+    for key in la:
+        x, y = la[key], lb[key]
+        assert x.dtype == y.dtype and x.shape == y.shape, key
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), key
+
+
+def _delayed_izhikevich(device):
+    base = TIZ.spec(TIZ.IzhikevichNetConfig(n_total=2000, n_conn=50))
+    ms = TSPEC.ModelSpec("delayed")
+    for pop in base.populations.values():
+        ms.add_neuron_population(pop.name, pop.n, pop.model, pop.params,
+                                 pop.input_fn)
+    for sp in base.synapses:
+        ms.add_synapse_population(
+            sp.name, sp.pre, list(sp.post), sp.connect, sp.weight,
+            representation="sparse",
+            delay=TF.UniformIntDelay(0, 6) if sp.name == "exc" else None)
+    return ms.build(dt=1.0, seed=5, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["izhikevich_delayed", "mushroom_body"])
+def test_cuda_captured_run_equals_eager_run(cuda_device, monkeypatch, net):
+    """Chunks of 8 captured as CUDA graphs (45 steps: 5 replays of 8 and
+    one of 5), two calls through one runner with other gScales: each
+    equals the eager run, and the launch counts are the eager run's."""
+    monkeypatch.setattr(GR, "CHUNK_STEPS", 8)
+    if net == "mushroom_body":
+        model = TMB.compile_model(TMB.MushroomBodyConfig(
+            n_pn=24, n_lhi=6, n_kc=150, n_dn=12), device=cuda_device)
+        group, grid = "PN_KC", ([0.5, 1.0, 50.0], [2.0, 4.0, 8.0])
+    else:
+        model = _delayed_izhikevich(cuda_device)
+        group, grid = "exc", ([0.3, 0.9, 1.2], [0.6, 1.0, 1.1])
+    sim = model.simulator
+    names = model._expand_group(group)
+    st = sim.init_state(3)
+    for values in grid:
+        gs = {n: torch.tensor(values, device=cuda_device) for n in names}
+        for m in GR.launch_counters():
+            for key in m:
+                m[key] = 0
+        eager = sim.run(st, 45, gs, record_raster=True)
+        torch.cuda.synchronize()
+        want = [dict(m) for m in GR.launch_counters()]
+        sim.run_compiled(st, 45, gs, record_raster=True)      # captures
+        for m in GR.launch_counters():
+            for key in m:
+                m[key] = 0
+        comp = sim.run_compiled(st, 45, gs, record_raster=True)
+        torch.cuda.synchronize()
+        assert [dict(m) for m in GR.launch_counters()] == want
+        _assert_runs_equal(eager, comp)
+    assert sim.graph_counts["captures"] == 2
+    assert sim.graph_counts["replays"] == 4 * 6

@@ -7,8 +7,9 @@ KC / 100 DN with every group's gScale scaled by fan-in from the example's
 DN_DN 12/100.  Here the same groups and gScales at 200 KCs (each KC still
 sees ~50 PNs), 1000 steps of dt 0.1 ms.  The PNs are driven by one
 numpy-made set of 50 Hz spike trains, through ``stim``, in both packages
-(a PN model whose V is its stimulus and that spikes above 0.5), so the
-Poisson generators (torch's vs threefry) drop out.
+(a PN model whose V is its stimulus and that spikes above 0.5), which
+holds the KC side to the JAX package apart from the Poisson draws (the
+port's equal the JAX package's: tests/test_torch_mushroom_body.py).
 
 Contract: KC, LHI and DN rates equal within 1% (relative), rasters agree
 on at least 99.8% of neuron-steps, and both runs stay finite.  Measured:

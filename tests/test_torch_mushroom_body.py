@@ -4,12 +4,14 @@ The graph (connectivity, dense matrices, the KC->DN ``r.random`` weights)
 comes from the host numpy generator in both packages and must be bit for
 bit the same.  Dynamics are compared under a drive both packages compute
 alike: ``pn_rate_hz = 10000`` makes ``rand < rate * dt * 1e-3 = 1`` true
-for every PN at every step whatever the generator (an edge-spiking
-population, so the PNs fire one volley at step 1), and numpy currents drive
-LHI, KC and DN.  Contract: rasters agree on at least 99.8% of neuron-steps,
-and the ``finite`` flags are equal.  With the Poisson drive of the
-generators (which differ) the port is held to the JAX suite's own oracles
-(tests/test_snn_system.py)."""
+for every PN at every step (an edge-spiking population, so the PNs fire one
+volley at step 1), and numpy currents drive LHI, KC and DN; and under the
+Poisson drive itself, from the config and seed alone: the port draws each
+step's ``rand`` from the JAX package's threefry keys, so the PN spike
+trains are bit for bit the same.  Contract: rasters agree on at least
+99.8% of neuron-steps (PN's bit for bit over the first 200 steps), and the
+``finite`` flags are equal; the port is also held to the JAX suite's own
+oracles (tests/test_snn_system.py)."""
 
 import numpy as np
 import pytest
@@ -77,6 +79,26 @@ def test_deterministic_drive_matches_jax():
     np.testing.assert_allclose(tr.state.neurons["KC"]["V"][0].numpy(),
                                np.asarray(jr.state.neurons["KC"]["V"]),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("sizes", [EXAMPLE, SMALL], ids=["example", "small"])
+def test_poisson_drive_from_seed_alone_matches_jax(sizes):
+    t = 400
+    cfg = JMB.MushroomBodyConfig(**sizes)
+    jspec = JMB.spec(cfg)
+    for pop in POPS:
+        jspec.probe(pop, pop, "spikes")
+    jr = jspec.build(dt=cfg.dt, seed=cfg.seed).run(t)
+    tm = TMB.compile_model(TMB.MushroomBodyConfig(**sizes), device="cpu")
+    tr = tm.run(t, record_raster=True)
+    pn_j, pn_t = np.asarray(jr.recordings["PN"]), tr.raster["PN"].numpy()
+    np.testing.assert_array_equal(pn_t[:200], pn_j[:200])
+    assert pn_j[:200].sum() > 0
+    for pop in POPS:
+        a, b = np.asarray(jr.recordings[pop]), tr.raster[pop].numpy()
+        assert a.shape == b.shape
+        assert (a == b).mean() >= RASTER_AGREEMENT, pop
+    assert bool(jr.finite) and bool(tr.finite)
 
 
 def test_gscale_overflow_sets_finite_flag():

@@ -1,6 +1,8 @@
 """The port's main path against the JAX package: a small Izhikevich net
 built, run and gScale-swept by both, with the graph and parameters carried
-across by ``repro_torch.convert`` and the same numpy drive.
+across by ``repro_torch.convert`` and the same numpy drive, and built from
+its config and seed alone (the port's threefry keys give JAX's parameters
+and thalamic draws).
 
 The JAX side runs as its own tests run it on the CPU (jit, jnp reference
 kernels).  Contract (ROADMAP parity contract): spike rasters agree on at
@@ -16,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import conductance as JCOND  # noqa: E402
@@ -43,8 +46,9 @@ PORT = dict(spec=TSPEC, neurons=TN, syn=TSYN, formats=TF, iz=TIZ)
 
 
 def _izh_spec(P, inh_representation="sparse"):
-    """izhikevich_net's own spec, without the thalamic noise (the two
-    packages draw different random numbers), one group forced dense."""
+    """izhikevich_net's own spec, without the thalamic noise (these tests
+    drive both packages with the same numpy stim), one group forced
+    dense."""
     cfg = P["iz"].IzhikevichNetConfig(n_total=N_TOTAL, n_conn=N_CONN,
                                       representation="sparse", seed=SEED)
     ms = P["iz"].spec(cfg)
@@ -166,6 +170,56 @@ def test_variants_match_jax(variant):
             assert np.mean(np.abs(jg - tg) <= 2e-4) >= RASTER_AGREEMENT
 
 
+def _seeded_pair():
+    """The cortical net built by both packages from its config and seed
+    alone (thalamic drive on; no numpy-made params or stim), with spike
+    probes on the JAX side."""
+    kw = dict(n_total=N_TOTAL, n_conn=N_CONN, representation="sparse",
+              seed=SEED)
+    jspec = JIZ.spec(JIZ.IzhikevichNetConfig(**kw))
+    jspec.probe("exc_spk", "exc", "spikes")
+    jspec.probe("inh_spk", "inh", "spikes")
+    jm = jspec.build(dt=1.0, seed=SEED)
+    tm = TIZ.compile_model(TIZ.IzhikevichNetConfig(**kw), device="cpu")
+    return jm, tm
+
+
+def test_izhikevich_net_from_seed_alone_matches_jax():
+    """The same seed gives the JAX package's per-neuron parameters bit for
+    bit (threefry keys), its thalamic noise (within 4 ulp) and so its
+    spikes: rasters agree on >= 99.8% of neuron-steps; the key and t after
+    the run are equal."""
+    jm, tm = _seeded_pair()
+    for name in ("exc", "inh"):
+        jp = jm.network.populations[name].params
+        tp = tm.network.populations[name].params
+        for k in "abcd":
+            np.testing.assert_array_equal(tp[k].numpy().view(np.uint32),
+                                          np.asarray(jp[k]).view(np.uint32))
+    jr = jm.run(T)
+    tr = tm.run(T, record_raster=True)
+    _assert_rasters_agree(jr, tr)
+    np.testing.assert_array_equal(
+        tr.state.key[0].numpy().view(np.uint32),
+        np.asarray(jax.random.key_data(jr.state.key)))
+    assert float(tr.state.t) == float(jr.state.t) == float(T)
+
+
+def test_sweep_from_seed_alone_matches_jax():
+    """A sweep shares its key across candidates in both packages: the
+    candidates' rates agree within the raster tolerance."""
+    jm, tm = _seeded_pair()
+    values = [0.5, 1.0, 2.0]
+    js = jm.sweep_gscale("exc", values, T)
+    ts = tm.sweep_gscale("exc", values, T)
+    np.testing.assert_array_equal(ts.finite.numpy(), np.asarray(js.finite))
+    for pop in ("exc", "inh"):
+        np.testing.assert_allclose(ts.rates_hz[pop].numpy(),
+                                   np.asarray(js.rates_hz[pop]),
+                                   atol=(1.0 - RASTER_AGREEMENT) * 1e3)
+    assert float(ts.rates_hz["exc"].min()) > 0
+
+
 def _dc_drive(P):
     """A deterministic per-neuron DC input_fn (the sweep takes no stim)."""
     rng = np.random.default_rng(1)
@@ -174,7 +228,7 @@ def _dc_drive(P):
     if P is JAXPKG:
         return {k: (lambda key, t, n, d=v: jnp.asarray(d))
                 for k, v in drive.items()}
-    return {k: (lambda gen, t, n, d=v: torch.tensor(d, device=gen.device))
+    return {k: (lambda key, t, n, d=v: torch.tensor(d, device=key.device))
             for k, v in drive.items()}
 
 
