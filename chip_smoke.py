@@ -153,7 +153,31 @@ failure ends the run with a non-zero exit):
   8c. one training step of each, 2 layers at full width in float32, with
      the kernels and with the plain versions: losses within 1e-4, every
      gradient within rtol=1e-3 plus 1e-4 of its largest entry, and
-     ``wq``/``wk``/``wv`` gradients nonzero on the card.
+     ``wq``/``wk``/``wv`` gradients nonzero on the card;
+  9a. ``spike_bitmask`` (GeNN's 32x spike words) against its plain version
+     at [1, 80000], [8, 80000], [1, 100000] and [1, 80001], bit-equal
+     (bit 31 and the last neuron set), device and plain ms beside the bytes
+     bound; its ring variant with a device slot and active flag;
+  9b. main's net (100k x 1000, B=1, 1000 steps) with four probes ("exc"
+     spikes every step, packed; "exc" V's mean; "exc" V every 25 in a
+     window of 20; "inh" spikes every 10) and the health monitor (bands
+     1-100 Hz), eagerly and from graphs from one state: recordings, counts,
+     health and state bit-equal, the same launches but for the bitmask
+     (the graph packs every step into its staging rows), the spike probes
+     equal to ``record_raster``'s raster, the health totals the summed
+     counts; us/step of the net with and without the observation, eager
+     and replayed, in turns, and device ops a step (phase 3's, which has
+     none of it, within 1 of PR 19's 33.2 / 33.9);
+  9c. mb_full with ``kc_probe_every=25``, ``kc_dn_normalize=True`` (KC_DN
+     on the ELL path, its g in the state) and the monitor: eager vs graph
+     over 500 steps as in 9b, 2500 steps, then ``custom_update(
+     "normalize_kc_dn")`` on the card within 1e-5 relative of its plain
+     version and a float64 numpy oracle, every DN's total within 1e-5 of
+     ``g_total``; the "post" reduction's time at KC_DN's [100000, 100]
+     (one ``ell_spmv`` launch, every row live, 100 posts: contended
+     atomics) beside ``index_add_`` (a yardstick); us/step with and
+     without the observation; the 12-candidate search with the KC V
+     probe's recordings per candidate.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -230,6 +254,18 @@ RASTER_CHECK_STEPS = 100
 MB_EXAMPLE = dict(n_pn=24, n_lhi=6, n_kc=150, n_dn=12)
 MB_FULL = dict(n_pn=100, n_lhi=20, n_kc=100_000, n_dn=100)
 MB_TABLE = dict(values=(0.5, 1.0, 2.0, 8.0, 50.0), steps=2500)
+# phase 9a: spike rows the bitmask packs (main's exc at B = 1 and the
+# sweep's 8, mb_full's KCs, and a width past a word's boundary)
+BITMASK_SHAPES = ((1, 80_000), (8, 80_000), (1, 100_000), (1, 80_001))
+# phase 9b: main's net with four probes and the monitor; us/step taken in
+# turns (plain, observed, observed, plain) on the same graph
+OBS_MAIN = dict(steps=1000, profile_steps=50, turns=2, bands=(1.0, 100.0))
+# phase 9c: mb_full with the KC V probe and the KC->DN normalisation; eager
+# and replayed from one state over check_steps, then the run and search
+OBS_MB = dict(check_steps=500, steps=2500, kc_probe_every=25, turns=2)
+# PR 19's device ops a step of phase 3 (eager, replayed), which a run
+# without probes, custom updates or a monitor keeps
+MAIN_OPS_PR19 = (33.2, 33.9)
 MB_RUN = dict(steps=2500, plain_steps=200, search_steps=2500,
               # PN_KC candidates around its fan-in gScale (0.24)
               search=tuple(0.24 * 2.0 ** (i / 4 - 1) for i in range(12)))
@@ -397,6 +433,11 @@ def main() -> int:
     launches_qwen = train_full(torch, report, "qwen2-0.5b", "8a")
     launches_mamba = train_full(torch, report, "mamba2-2.7b", "8b")
     train_step_check(torch, report)
+    torch.cuda.empty_cache()
+    kernel_entries += compare_bitmask(torch, report)
+    launches_obs = main_observed(torch, report)
+    torch.cuda.empty_cache()
+    mb_observed(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -405,7 +446,8 @@ def main() -> int:
                "threefry_draw": launches_main,
                "flash_attention": launches_serve,
                "flash_attention_bwd": launches_qwen,
-               "ssd_scan": launches_mamba}
+               "ssd_scan": launches_mamba,
+               "spike_bitmask": launches_obs}
     for e in kernel_entries:
         e["launches"] = path_of[e["name"]][e["name"]]
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
@@ -1287,10 +1329,10 @@ def compare_threefry(torch, report) -> list:
 
 def _kernel_modules():
     from repro_torch.kernels import (delay_ring, ell_spmv, flash_attention,
-                                     hh_step, izhikevich_step, ssd_scan,
-                                     threefry)
+                                     hh_step, izhikevich_step, spike_bitmask,
+                                     ssd_scan, threefry)
     return (ell_spmv, izhikevich_step, hh_step, flash_attention, ssd_scan,
-            delay_ring, threefry)
+            delay_ring, threefry, spike_bitmask)
 
 
 def reset_launches() -> None:
@@ -1311,7 +1353,7 @@ def plain_versions():
     the comparison runs only (the port itself never does this)."""
     from unittest import mock
     from repro_torch.kernels import ref as R
-    K, IZ, HH, FA, SSD, DR, TFK = _kernel_modules()
+    K, IZ, HH, FA, SSD, DR, TFK, SBK = _kernel_modules()
     with mock.patch.object(K, "ell_spmv", R.ell_spmv_ref), \
             mock.patch.object(K, "ell_spmv_delay", R.ell_spmv_delay_ref), \
             mock.patch.object(K, "ell_spmv_delay_into",
@@ -1327,8 +1369,19 @@ def plain_versions():
                               R.flash_attention_bwd_ref), \
             mock.patch.object(SSD, "ssd_scan", SSD._plain), \
             mock.patch.object(TFK, "threefry_split", R.threefry_split_ref), \
-            mock.patch.object(TFK, "threefry_draw", R.threefry_draw_ref):
+            mock.patch.object(TFK, "threefry_draw", R.threefry_draw_ref), \
+            mock.patch.object(SBK, "spike_bitmask", R.spike_bitmask_ref), \
+            mock.patch.object(SBK, "spike_bitmask_into", _bitmask_into_ref):
         yield
+
+
+def _bitmask_into_ref(bits, ring, slot, active=None):
+    """The ring variant's plain version, for a host or a device slot."""
+    from repro_torch.kernels import ref as R
+    if isinstance(slot, int):
+        ring[slot].copy_(R.spike_bitmask_ref(bits))
+    else:
+        R.spike_bitmask_into_ref(bits, ring, slot, active)
 
 
 def _raster_agreement(torch, a, b) -> float:
@@ -2405,6 +2458,411 @@ def train_step_check(torch, report) -> None:
                          "max_rel_grad_err": rel}
             del params, opt, step_fn, gk, gp
             torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: recording and state rewrites on the card
+# ---------------------------------------------------------------------------
+def compare_bitmask(torch, report) -> list:
+    """Phase 9a: the spike bitmask against its plain version at the paths'
+    shapes (bit-equal), the ring variant with a device slot and active
+    flag; device ms beside the bytes bound and the plain version."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import spike_bitmask as SBK
+    dev = torch.device("cuda")
+    rows = []
+    with phase("9a. spike_bitmask against its plain version"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9)
+        for b, n in BITMASK_SHAPES:
+            # ~2% firing, as main's exc population bursts; bit 31 of the
+            # first word and the last neuron set
+            bits = torch.rand((b, n), device=dev, generator=gen) < 0.02
+            bits[:, 31] = True
+            bits[:, -1] = True
+            got = SBK.spike_bitmask(bits)
+            check(bool(torch.equal(got, R.spike_bitmask_ref(bits)))
+                  and bool(torch.equal(got.cpu(), R.spike_bitmask_ref(
+                      bits.cpu()))),
+                  f"spike_bitmask [{b}, {n}]: not bit-equal to its plain "
+                  "version")
+            words = got.shape[1]
+            kern = lambda i, x=bits: SBK.spike_bitmask(x)
+            plain = lambda i, x=bits: R.spike_bitmask_ref(x)
+            t_bytes = (b * n + b * words * 4) / HBM_BYTES_PER_S * 1e3
+            # one compare a neuron and one ballot a word, in integers
+            t_ops = (b * n + b * words) / INT32_OPS * 1e3
+            row = {"name": "spike_bitmask", "B": b, "n": n, "words": words,
+                   "max_abs_err": 0.0,
+                   "ms": _device_ms(torch, kern, 50, "spike_bitmask")[0],
+                   "wall_ms": _time_ms(torch, kern, 50),
+                   "plain_ms": _device_ms(torch, plain, 20)[0],
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None}
+            rows.append(row)
+            print(json.dumps(row))
+        # the ring variant: slot and flag read on the device
+        ring = torch.zeros((40, 1, 2500), dtype=torch.int32, device=dev)
+        slot = torch.tensor(17, dtype=torch.int32, device=dev)
+        active = torch.tensor(True, device=dev)
+        bits = torch.rand((1, 80_000), device=dev, generator=gen) < 0.02
+        SBK.spike_bitmask_into(bits, ring, slot, active)
+        want = torch.zeros_like(ring)
+        want[17] = R.spike_bitmask_ref(bits)
+        check(bool(torch.equal(ring, want)), "ring variant: row 17 wrong")
+        active.fill_(False)
+        SBK.spike_bitmask_into(~bits, ring, slot, active)
+        check(bool(torch.equal(ring, want)), "ring variant wrote while the "
+              "active flag was False")
+        print("ring variant [40, 1, 2500]: device slot 17 written "
+              "bit-equal; nothing written while inactive")
+    report["bitmask_table"] = rows
+    r = rows[0]
+    return [{"name": "spike_bitmask", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/spike_bitmask.cu",
+             "replaces": "src/repro/core/snn/bitmask.py:29", "launches": 0,
+             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}]
+
+
+def _observations_equal(torch, a, b, what: str) -> None:
+    """Two RunResults' recordings (data bits and counts) and health
+    reports, bit for bit."""
+    import dataclasses
+    check(a.recordings.keys() == b.recordings.keys(),
+          f"{what}: other probes")
+    for name in a.recordings.keys():
+        x, y = a.recordings[name], b.recordings[name]
+        same = x.dtype == y.dtype and x.shape == y.shape
+        if same and x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        check(same and bool(torch.equal(x, y))
+              and bool(torch.equal(a.recordings.count(name),
+                                   b.recordings.count(name))),
+              f"{what}: recording {name} differs between eager and graph")
+    check((a.health is None) == (b.health is None), f"{what}: health")
+    if a.health is not None:
+        for f in dataclasses.fields(a.health):
+            x, y = getattr(a.health, f.name), getattr(b.health, f.name)
+            pairs = ([(x[k], y[k]) for k in x] if isinstance(x, dict)
+                     else [(x, y)])
+            check(all(bool(torch.equal(p, q)) for p, q in pairs),
+                  f"{what}: health {f.name} differs between eager and graph")
+
+
+def _timed(torch, fn) -> tuple:
+    """(seconds, result) of ``fn()``, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _ab_us_per_step(torch, runs: dict, steps: dict, turns: int) -> dict:
+    """us/step of each named run, taken in turns (a, b, ..., b, a), the
+    median of each run's times."""
+    import statistics
+    names = list(runs)
+    times = {k: [] for k in names}
+    for t in range(turns):
+        for k in (names if t % 2 == 0 else names[::-1]):
+            times[k].append(_timed(torch, runs[k])[0] / steps[k] * 1e6)
+    return {k: {"us_per_step": statistics.median(v), "all": v}
+            for k, v in times.items()}
+
+
+def main_observed(torch, report) -> dict:
+    """Phase 9b; returns the launch counts of the replayed observed run."""
+    from repro_torch.core.models import izhikevich_net as IZ
+    from repro_torch.core.snn.simulator import Simulator
+    from repro_torch.obs.health import HealthConfig
+    with phase("9b. main path observed: four probes and the monitor"):
+        cfg = IZ.IzhikevichNetConfig(n_total=MAIN["n_total"],
+                                     n_conn=MAIN["n_conn"],
+                                     representation="sparse")
+        ms = IZ.spec(cfg)
+        ms.probe("exc_spk", "exc", "spikes")
+        ms.probe("exc_vmean", "exc", "V", reduce="mean")
+        ms.probe("exc_v25", "exc", "V", every=25, window=20)
+        ms.probe("inh_spk", "inh", "spikes", every=10)
+        mon = HealthConfig(default_band_hz=OBS_MAIN["bands"])
+        t0 = time.perf_counter()
+        model = ms.build(dt=cfg.dt, seed=cfg.seed, monitor=mon)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sim = model.simulator
+        # the same graph with nothing observed: the yardstick of the cost
+        plain = Simulator(model.network, dt=cfg.dt, seed=cfg.seed)
+        steps = OBS_MAIN["steps"]
+        st = sim.init_state()
+        print(f"built {model} in {build_s:.1f} s; probes "
+              f"{[(p.name, p.var, p.every, p.window, p.reduce) for p in sim.probes]}")
+        first_s, _ = _timed(torch, lambda: sim.run_compiled(st, steps))
+        reset_launches()
+        eager_s, e = _timed(torch, lambda: sim.run(st, steps))
+        le = read_launches()
+        reset_launches()
+        graph_s, g = _timed(torch, lambda: sim.run_compiled(st, steps))
+        lg = read_launches()
+        _check_same_run(torch, e, g, "main observed")
+        _observations_equal(torch, e, g, "main observed")
+        n_packed = steps + steps // 10
+        check({k: v for k, v in lg.items() if k != "spike_bitmask"}
+              == {k: v for k, v in le.items() if k != "spike_bitmask"},
+              f"main observed: the graph run launched {lg}, eager {le}")
+        check(le["spike_bitmask"] == n_packed
+              and lg["spike_bitmask"] == 2 * steps,
+              f"spike_bitmask launched {le['spike_bitmask']} / "
+              f"{lg['spike_bitmask']} times (eager / graph)")
+        rec, hl = g.recordings, g.health
+        check(tuple(rec["exc_spk"].shape) == (1, steps, 80_000)
+              and tuple(rec["exc_v25"].shape) == (1, 20, 80_000)
+              and int(rec.count("exc_v25")[0]) == 20
+              and int(rec.count("inh_spk")[0]) == steps // 10,
+              f"recording shapes {[(k, tuple(v.shape)) for k, v in rec.items()]}")
+        for p in ("exc", "inh"):
+            check(int(hl.spike_total[p][0]) == int(g.spike_counts[p].sum()),
+                  f"health spike total of {p} is not the summed counts")
+        check(all(bool(torch.isfinite(v).all()) for k, v in rec.items()
+                  if v.dtype == torch.float32), "a V probe is not finite")
+        # through the entry point: the spike probe is record_raster's
+        reset_launches()
+        r = model.run(steps, record_raster=True)
+        check(bool(torch.equal(r.recordings["exc_spk"], r.raster["exc"]))
+              and bool(torch.equal(r.recordings["inh_spk"],
+                                   r.raster["inh"][9::10])),
+              "the spike probes differ from record_raster's raster")
+        summary = r.health.summary()
+        print(f"eager {eager_s / steps * 1e6:.1f} us/step, graph "
+              f"{graph_s / steps * 1e6:.1f} us/step (first graph run "
+              f"{first_s:.3f} s); recordings, counts, health and state "
+              f"bit-equal; the spike probes equal the raster; health "
+              f"{summary}")
+        # the cost of observing: plain and observed in turns
+        pst = plain.init_state()
+        plain.run_compiled(pst, steps)
+        ab = _ab_us_per_step(torch, {
+            "plain_eager": lambda: plain.run(pst, steps),
+            "observed_eager": lambda: sim.run(st, steps),
+            "observed_graph": lambda: sim.run_compiled(st, steps),
+            "plain_graph": lambda: plain.run_compiled(pst, steps)},
+            {k: steps for k in ("plain_eager", "observed_eager",
+                                "observed_graph", "plain_graph")},
+            OBS_MAIN["turns"])
+        print("us/step in turns: " + ", ".join(
+            f"{k} {v['us_per_step']:.1f}" for k, v in ab.items()))
+        ps = OBS_MAIN["profile_steps"]
+        print("observed, eager:")
+        prof_e = _profile_window(torch, lambda n: sim.run(st, n), ps,
+                                 guard=False)
+        print("observed, graph:")
+        prof_g = _profile_window(torch, lambda n: sim.run_compiled(st, n),
+                                 ps, guard=False)
+        base = report["main"]["profile"]
+        ops3 = (base["eager"]["device_ops_per_step"],
+                base["graph"]["device_ops_per_step"])
+        print(f"phase 3 (nothing observed): {ops3[0]:.1f} / {ops3[1]:.1f} "
+              f"device ops a step eager / graph (PR 19: {MAIN_OPS_PR19}); "
+              f"observed: {prof_e['device_ops_per_step']:.1f} / "
+              f"{prof_g['device_ops_per_step']:.1f}")
+        check(abs(ops3[0] - MAIN_OPS_PR19[0]) <= 1.0
+              and abs(ops3[1] - MAIN_OPS_PR19[1]) <= 1.0,
+              f"phase 3's device ops a step {ops3} moved from PR 19's "
+              f"{MAIN_OPS_PR19}")
+        bm = {n: v for n, v in prof_g["by_name"].items()
+              if "spike_bitmask" in n}
+        report["main_observed"] = {
+            "build_s": build_s, "steps": steps, "first_graph_run_s": first_s,
+            "eager_us_per_step": eager_s / steps * 1e6,
+            "graph_us_per_step": graph_s / steps * 1e6,
+            "launches_eager": le, "launches_graph": lg, "turns": ab,
+            "health": summary, "profile": {"eager": prof_e, "graph": prof_g},
+            "phase3_ops_per_step": ops3, "bitmask_in_graph_profile": bm,
+            "graph_counts": dict(sim.graph_counts)}
+        del e, g, r, model, sim, plain
+        return lg
+
+
+def mb_observed(torch, report) -> None:
+    """Phase 9c: mb_full with the KC V probe, the KC->DN normalisation and
+    the monitor: eager vs graph, the 2500-step run, the normalisation on
+    the card against its plain version and a float64 oracle, the "post"
+    reduction's time, the probe and monitor's cost, and the search with
+    the probe's recordings per candidate."""
+    import numpy as np
+    from repro_torch.core import conductance as C
+    from repro_torch.core.models import mushroom_body as MB
+    from repro_torch.core.snn import custom_updates as CU
+    from repro_torch.obs.health import HealthConfig
+    with phase("9c. mushroom body observed: KC probe, KC->DN normalisation"):
+        cfg = MB.MushroomBodyConfig(**MB_FULL,
+                                    kc_probe_every=OBS_MB["kc_probe_every"],
+                                    kc_dn_normalize=True)
+        ex = MB_EXAMPLE
+        fan_in = {"PN_KC": ex["n_pn"] / cfg.n_pn,
+                  "PN_LHI": ex["n_pn"] / cfg.n_pn,
+                  "LHI_KC": ex["n_lhi"] / cfg.n_lhi,
+                  "KC_DN": ex["n_kc"] / cfg.n_kc,
+                  "DN_DN": ex["n_dn"] / cfg.n_dn}
+        t0 = time.perf_counter()
+        model = MB.compile_model(cfg, monitor=HealthConfig())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sim = model.simulator
+        kc_dn = next(x for x in model.network.synapses if x.name == "KC_DN")
+        check(kc_dn.mutable_g and kc_dn.representation == "sparse",
+              f"KC_DN: mutable {kc_dn.mutable_g}, {kc_dn.representation}")
+        print(f"built {model} in {build_s:.1f} s; KC_DN sparse with its g "
+              "in the state")
+        gs = fan_in
+        n = OBS_MB["check_steps"]
+        st = sim.init_state()
+        first_s, _ = _timed(torch, lambda: sim.run_compiled(st, n, gs))
+        reset_launches()
+        e = sim.run(st, n, gs)
+        le = read_launches()
+        reset_launches()
+        g = sim.run_compiled(st, n, gs)
+        lg = read_launches()
+        check(le == lg, f"mb observed: the graph run launched {lg}, eager "
+              f"{le}")
+        _check_same_run(torch, e, g, "mb observed")
+        _observations_equal(torch, e, g, "mb observed")
+        del e, g
+        steps = OBS_MB["steps"]
+        res, secs, rates = _run_checked(torch, model, steps, "observed run",
+                                        gscales=fan_in)
+        kc_v = res.recordings["kc_v"]
+        check(tuple(kc_v.shape) == (steps // 25, 100_000)
+              and int(res.recordings.count("kc_v")) == steps // 25
+              and bool(torch.isfinite(kc_v).all()),
+              f"kc_v {tuple(kc_v.shape)}")
+        summary = res.health.summary()
+        print(f"health {summary}")
+
+        # the normalisation on the card, plain, and a float64 oracle
+        state = res.state
+        g_total = cfg.n_kc * cfg.g_kc_dn / 2.0
+        first_norm_s, _ = _timed(torch, lambda: model.custom_update(
+            "normalize_kc_dn", state))
+        norm_s, normed = _timed(torch, lambda: model.custom_update(
+            "normalize_kc_dn", state))
+        got = normed.syn["KC_DN"].g[0]
+        with plain_versions():
+            plain_g = model.custom_update("normalize_kc_dn",
+                                          state).syn["KC_DN"].g[0]
+        g0 = state.syn["KC_DN"].g[0].double().cpu().numpy()
+        valid = kc_dn.ell.valid.cpu().numpy()
+        post = kc_dn.ell.post_ind.cpu().numpy().astype(np.int64)
+        tot = np.zeros(cfg.n_dn)
+        np.add.at(tot, post[valid], g0[valid])
+        oracle = np.where(valid, g0 * g_total / np.maximum(tot[post], 1e-9),
+                          g0)
+        gk = got.double().cpu().numpy()
+        err_plain = float(np.max(np.abs(gk - plain_g.double().cpu().numpy())
+                                 / np.maximum(np.abs(oracle), 1e-30)))
+        err_oracle = float(np.max(np.abs(gk - oracle)
+                                  / np.maximum(np.abs(oracle), 1e-30)))
+        after = np.zeros(cfg.n_dn)
+        np.add.at(after, post[valid], gk[valid])
+        err_total = float(np.max(np.abs(after - g_total)) / g_total)
+        print(f"normalize_kc_dn on the card in {norm_s * 1e3:.3f} ms (first "
+              f"call {first_norm_s * 1e3:.3f} ms): "
+              f"relative error against the plain version {err_plain:.3g}, "
+              f"against the float64 oracle {err_oracle:.3g}; every DN's "
+              f"total within {err_total:.3g} of {g_total}")
+        check(err_plain <= 1e-5 and err_oracle <= 1e-5 and err_total <= 1e-5,
+              "the KC->DN normalisation misses 1e-5")
+
+        # the "post" reduction at KC_DN's [100000, 100]: one ell_spmv
+        # launch, every row live, 100 posts
+        gst = state.syn["KC_DN"].g
+        red = lambda i: CU.group_reduce_host("sum", gst, kc_dn.ell, "post",
+                                             0.0, 1)
+        flat_i = kc_dn.ell.post_ind.reshape(-1).long()
+        flat_v = torch.where(kc_dn.ell.valid, gst[0], 0.0).reshape(-1)
+        lib = lambda i: torch.zeros(cfg.n_dn, device="cuda").index_add_(
+            0, flat_i, flat_v)
+        # the bound of the sum alone (the kernel): g, post_ind and valid
+        # read once, the float64 sums written; float64 adds at half the
+        # float32 rate
+        nnz = kc_dn.ell.n_pre * kc_dn.ell.max_conn
+        t_bytes = (nnz * (4 + 4 + 1) + cfg.n_dn * 8) / HBM_BYTES_PER_S * 1e3
+        t_ops = nnz / (FP32_FLOPS / 2) * 1e3
+        with plain_versions():
+            plain_ms = _device_ms(torch, red, 5)[0]
+        red_ms, red_kernel_ms = _device_ms(torch, red, 10, "ell_spmv")
+        post_red = {"shape": [kc_dn.ell.n_pre, kc_dn.ell.max_conn,
+                              cfg.n_dn],
+                    "ms": red_ms, "kernel_ms": red_kernel_ms,
+                    "wall_ms": _time_ms(torch, red, 10),
+                    "plain_ms": plain_ms,
+                    "library_ms": _device_ms(torch, lib, 10)[0],
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "update_ms": norm_s * 1e3}
+        print(f"the post reduction at {post_red['shape']}: "
+              f"{json.dumps(post_red)}")
+
+        # the cost of observing: 6b's configuration on the same card
+        t0 = time.perf_counter()
+        plain_model = MB.compile_model(MB.MushroomBodyConfig(**MB_FULL))
+        torch.cuda.synchronize()
+        pst = plain_model.simulator.init_state()
+        plain_model.simulator.run_compiled(pst, steps, gs)
+        ab = _ab_us_per_step(torch, {
+            "plain_eager": lambda: plain_model.simulator.run(pst, n, gs),
+            "observed_eager": lambda: sim.run(st, n, gs),
+            "observed_graph": lambda: sim.run_compiled(st, steps, gs),
+            "plain_graph": lambda: plain_model.simulator.run_compiled(
+                pst, steps, gs)},
+            {"plain_eager": n, "observed_eager": n, "observed_graph": steps,
+             "plain_graph": steps}, OBS_MB["turns"])
+        print("us/step in turns: " + ", ".join(
+            f"{k} {v['us_per_step']:.1f}" for k, v in ab.items()))
+        del plain_model, pst
+        print("observed, eager:")
+        prof_e = _profile_window(torch, lambda k: sim.run(st, k, gs), 50,
+                                 guard=False)
+        print("observed, graph:")
+        prof_g = _profile_window(
+            torch, lambda k: sim.run_compiled(st, k, gs), 50, guard=False)
+
+        # the search with the KC V probe: recordings per candidate
+        others = {k: v for k, v in fan_in.items() if k != "PN_KC"}
+        seen = {}
+
+        def kc_rate(cands):
+            out = sim.run_compiled(model.init_state(len(cands)), steps,
+                                   {**others,
+                                    "PN_KC": cands.to(model.device)})
+            seen["res"] = out
+            return out.rates_hz["KC"], out.finite
+
+        cands = list(MB_RUN["search"])
+        search_s, pick = _timed(torch, lambda: C.search_sweep(
+            kc_rate, cands, report["mb_table"]["rates_hz"]["KC"][1]))
+        srec = seen["res"].recordings
+        check(tuple(srec["kc_v"].shape) == (len(cands), steps // 25, 100_000)
+              and srec.count("kc_v").tolist() == [steps // 25] * len(cands),
+              f"search recordings {tuple(srec['kc_v'].shape)}")
+        print(f"search of {len(cands)} candidates x {steps} steps in "
+              f"{search_s:.3f} s with kc_v recordings "
+              f"{tuple(srec['kc_v'].shape)}; pick {pick}")
+        report["mb_observed"] = {
+            "build_s": build_s, "check_steps": n, "first_graph_run_s":
+            first_s, "launches": lg, "steps": steps, "seconds": secs,
+            "us_per_step": secs / steps * 1e6, "rates_hz": rates,
+            "health": summary, "normalize": {
+                "ms": norm_s * 1e3, "first_ms": first_norm_s * 1e3,
+                "err_plain": err_plain,
+                "err_oracle": err_oracle, "err_total": err_total},
+            "post_reduction": post_red, "turns": ab,
+            "profile": {"eager": prof_e, "graph": prof_g},
+            "search": {"seconds": search_s, "pick": pick.__dict__},
+            "graph_counts": dict(sim.graph_counts)}
 
 
 if __name__ == "__main__":

@@ -13,15 +13,22 @@ The arrays arrive as plain numpy (this module never imports ``repro`` or
                              "dense": [n_pre, n_post] array or None,
                              "sign": float, "representation": str,
                              "delay_steps": int, "max_delay": int,
-                             "cursor": int (optional)}},
+                             "cursor": int (optional),
+                             "state": {"g": [n_pre, K] array} (optional:
+                                      a state-resident g)}},
      "key": uint32 [2] (optional), "t": float (optional)}
 
 ``load_arrays`` returns a port model that computes what the exported one
 computes: the port model's spec supplies the models and snippets, the
 arrays supply the graph, the parameters and the representation and delay
-settings.  ``init_state`` starts it from the exported state: each
-population's variables and, where given, the JAX state's key
-(``jax.random.key_data(state.key)``), ``t`` and the delay rings' cursors.
+settings, and keeps the model's probes, custom updates and monitor.
+``init_state`` starts it from the exported state: each population's
+variables and, where given, the JAX state's key
+(``jax.random.key_data(state.key)``), ``t``, the delay rings' cursors and
+the state-resident ``g`` of plastic or custom-updated groups.
+``health_state`` makes the monitor's accumulator from a JAX
+``HealthState`` exported to numpy (``{"spike_total": {pop: int},
+"rate_ema_hz": {pop: float}, "steps", "nonfinite", "first_bad_step"}``).
 
 An LM's parameters arrive as the JAX tree exported to numpy: nested dicts
 and lists with the JAX keys and the ``[n, ...]`` / ``[R, n, ...]`` stacking
@@ -42,9 +49,10 @@ from repro_torch.core.snn.simulator import SimState, Simulator
 from repro_torch.core.snn.spec import CompiledModel, _param_on
 from repro_torch.core.snn.synapses import SynapseGroup
 from repro_torch.models.transformer import resolve_dtype
+from repro_torch.obs import health as HE
 from repro_torch.sparse import formats as F
 
-__all__ = ["load_arrays", "init_state", "load_lm_params"]
+__all__ = ["load_arrays", "init_state", "health_state", "load_lm_params"]
 
 
 def _check_names(what: str, have, got) -> None:
@@ -88,8 +96,12 @@ def load_arrays(model: CompiledModel, arrays: Mapping) -> CompiledModel:
             propagation=grp.propagation, wum=grp.wum, psm=grp.psm,
             delay_steps=int(a.get("delay_steps", 0)),
             max_delay=(None if delay is None else int(a["max_delay"])),
-            sign=float(a["sign"])))
-    sim = Simulator(net, dt=model.dt, seed=model.simulator.seed, device=dev)
+            sign=float(a["sign"]), mutable_g=grp.mutable_g))
+    old = model.simulator
+    sim = Simulator(net, dt=model.dt, seed=old.seed, device=dev,
+                    probes=old.probes,
+                    custom_updates=tuple(old.custom_updates.values()),
+                    monitor=old.monitor)
     return CompiledModel(spec=model.spec, network=net, simulator=sim)
 
 
@@ -119,7 +131,37 @@ def init_state(model: CompiledModel, arrays: Mapping,
                                  "for the exported cursor")
             st.syn[name].cursor = torch.tensor(int(entry["cursor"]),
                                                dtype=torch.int32, device=dev)
+        g = entry.get("state", {}).get("g")
+        if g is not None:
+            cur = st.syn[name].g
+            if cur is None:
+                raise ValueError(f"synapse group {name!r} keeps no g in its "
+                                 "state for the exported one")
+            t = torch.tensor(np.asarray(g, np.float32), device=dev)
+            st.syn[name].g = t.expand(cur.shape).clone()
     return st
+
+
+def health_state(model: CompiledModel, arrays: Mapping,
+                 batch: int = 1) -> HE.HealthState:
+    """The monitor's accumulator [batch] of ``model`` from a JAX
+    ``HealthState`` exported to numpy, copied to every batch member."""
+    pops = model.network.populations
+    _check_names("health populations", pops, arrays["spike_total"])
+    dev = model.device
+
+    def leaf(v, dtype):
+        return torch.full((batch,), np.asarray(v).item(), dtype=dtype,
+                          device=dev)
+
+    return HE.HealthState(
+        spike_total={p: leaf(arrays["spike_total"][p], torch.int32)
+                     for p in pops},
+        rate_ema_hz={p: leaf(np.float32(arrays["rate_ema_hz"][p]),
+                             torch.float32) for p in pops},
+        steps=leaf(arrays["steps"], torch.int32),
+        nonfinite=leaf(bool(arrays["nonfinite"]), torch.bool),
+        first_bad_step=leaf(arrays["first_bad_step"], torch.int32))
 
 
 # Mamba2 leaves that the JAX package keeps in float32 whatever cfg.dtype

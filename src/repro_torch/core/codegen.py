@@ -45,6 +45,7 @@ __all__ = [
     "compile_postsynaptic",
     "compile_weight_update",
     "compile_expr",
+    "compile_custom_update",
     "assigned_names",
     "generated_source",
 ]
@@ -582,8 +583,56 @@ def compile_weight_update(model: WeightUpdateModel) -> "CompiledWeightUpdate":
 
 
 def assigned_names(code: str) -> set:
-    """Public view of the assignment-target scan."""
+    """Public view of the assignment-target scan (custom-update validation
+    uses it to find the state variables an update writes)."""
     return _assigned_names(code)
+
+
+# ---------------------------------------------------------------------------
+# Custom updates (GeNN 4's CustomUpdate): on-demand / scheduled snippets that
+# rewrite model state outside the per-step dynamics (weight normalization,
+# homeostatic scaling, state resets).  The same AST whitelist and rewriting
+# as every other snippet; the reductions enter the environment as plain
+# names, computed by the simulator before the code runs.
+# ---------------------------------------------------------------------------
+
+_CU_EXTERNALS = ("dt", "t")
+
+
+def compile_custom_update(name: str, update_code: str, var_keys, param_keys,
+                          reduce_keys):
+    """Generate the executable body of a custom update.
+
+    Returns ``apply(vars, params, reductions, externals) -> new_vars``:
+    - vars:       the target's state tensors (every one returned, assigned
+                  or not, in its own shape; temporaries are discarded)
+    - params:     update (and, for populations, model) parameters
+    - reductions: reduction name -> precomputed tensor, shaped to broadcast
+                  against the vars
+    - externals:  any of dt / t
+    """
+    var_keys = tuple(var_keys)
+    param_keys = tuple(param_keys)
+    reduce_keys = tuple(reduce_keys)
+    allowed = (set(var_keys) | set(param_keys) | set(reduce_keys)
+               | set(_CU_EXTERNALS))
+    allowed |= _assigned_names(update_code)
+    code = _compile_block(update_code, allowed, f"{name}.update")
+
+    def apply(vars: Mapping[str, Any], params: Mapping[str, Any],
+              reductions: Mapping[str, Any],
+              externals: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        env = _env_base()
+        env.update({k: params[k] for k in param_keys})
+        env.update({k: externals[k] for k in _CU_EXTERNALS
+                    if k in externals})
+        env.update({k: reductions[k] for k in reduce_keys})
+        env.update({k: vars[k] for k in var_keys})
+        exec(code, env)  # noqa: S102 - validated, builtins-stripped
+        return {k: _tensor(env[k], vars[k]) for k in var_keys}
+
+    apply.__name__ = f"custom_update_{name}"
+    return apply
 
 
 def generated_source(model: NeuronModel) -> str:

@@ -37,6 +37,9 @@ class IzhikevichNetConfig:
     dt: float = 1.0                # 1 ms, two half-steps on V (as Izhikevich)
     seed: int = 1234
     input_scale: float = 1.0
+    # an excitatory membrane-voltage probe sampled every `probe_v_every`
+    # steps (0: none)
+    probe_v_every: int = 0
 
 
 def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
@@ -72,9 +75,14 @@ def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
         "inh", "inh", ["exc", "inh"], connect=FixedFanout(cfg.n_conn),
         weight=UniformWeight(0.0, -1.0),
         representation=cfg.representation)
+    if cfg.probe_v_every:
+        ms.probe("exc_v", "exc", "V", every=cfg.probe_v_every)
     return ms
 
 
-def compile_model(cfg: IzhikevichNetConfig, device=None) -> CompiledModel:
-    """Build the net on ``device`` ("cuda" unless the caller asks)."""
-    return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device)
+def compile_model(cfg: IzhikevichNetConfig, device=None,
+                  monitor=None) -> CompiledModel:
+    """Build the net on ``device`` ("cuda" unless the caller asks), with
+    the health monitor ``monitor`` (a HealthConfig) if given."""
+    return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device,
+                           monitor=monitor)

@@ -24,9 +24,13 @@ bound (dt / C_m) * inSyn < 2, and gScale ~50 on PN->KC crosses it and trips
 the NaN guard (the paper's float-overflow phenomenon).  Larger populations
 need their gScales rescaled by fan-in, the paper's own method.
 
-Not in this slice: the KC voltage probe (``kc_probe_every``) and the KC->DN
-normalisation custom update (``kc_dn_normalize``) raise NotImplementedError
-until probes and custom updates are ported.
+Observation and intervention, as in the JAX package: a KC membrane-voltage
+probe sampled every ``kc_probe_every`` steps (0: none), and the KC->DN
+incoming-weight normalisation as a declared custom update (each DN's total
+conductance rescaled to its expected build value, on demand through
+``model.custom_update("normalize_kc_dn", state)``).  The normalisation
+makes KC_DN's g state-resident, which takes the ELL path; both are off by
+default, so the default configuration's dynamics are unchanged.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ class MushroomBodyConfig:
     g_lhi_kc: float = 0.40
     g_kc_dn: float = 0.02
     g_dn_dn: float = 0.01
-    # observation / intervention: not ported yet (module docstring)
+    # observation / intervention (module docstring)
     kc_probe_every: int = 0
     kc_dn_normalize: bool = False
 
@@ -104,17 +108,25 @@ def spec(cfg: MushroomBodyConfig) -> ModelSpec:
         weight=cfg.g_dn_dn, representation="dense",
         psm=ExpCond(tau_ms=10.0, e_rev=-92.0))
 
-    # both raise NotImplementedError until probes / custom updates land
     if cfg.kc_probe_every:
         ms.probe("kc_v", "KC", "V", every=cfg.kc_probe_every)
     if cfg.kc_dn_normalize:
-        ms.add_custom_update("normalize_kc_dn", "KC_DN")
+        # hold each DN's total incoming conductance at its expected build
+        # value (n_kc synapses, weights ~ U(0, g_kc_dn): mean g_kc_dn / 2)
+        ms.add_custom_update(
+            "normalize_kc_dn", "KC_DN",
+            update_code="g = g * g_total / maximum(w_sum, eps)",
+            params={"g_total": cfg.n_kc * cfg.g_kc_dn / 2.0, "eps": 1e-9},
+            reduce={"w_sum": ("sum", "g", "post")})
     return ms
 
 
-def compile_model(cfg: MushroomBodyConfig, device=None) -> CompiledModel:
-    """Build the net on ``device`` ("cuda" unless the caller asks)."""
-    return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device)
+def compile_model(cfg: MushroomBodyConfig, device=None,
+                  monitor=None) -> CompiledModel:
+    """Build the net on ``device`` ("cuda" unless the caller asks), with
+    the health monitor ``monitor`` (a HealthConfig) if given."""
+    return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device,
+                           monitor=monitor)
 
 
 def build(cfg: MushroomBodyConfig, device=None) -> tuple[Network, Simulator]:

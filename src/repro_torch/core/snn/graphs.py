@@ -17,6 +17,18 @@ CUDA device each chunk length is captured once as a graph and replayed;
 only K and one remainder length are kept, so a configuration holds at most
 two graphs.  On the CPU the same chunks run eagerly.
 
+Probes, scheduled custom updates and the health monitor ride the same
+chunks.  A probe's ring is sized by the run's step count, which a captured
+graph cannot follow, so the graph writes each step's sample into row i of a
+staging buffer [K, B, ...] per probe (GeNN's bitmask words for spike
+probes, by the hand-written kernel), and after each replay the host copies
+the chunk's due rows (every ``every``-th, on the global schedule from the
+run's starting step, read once before the first replay) into the run's
+rings: consecutive slots modulo the ring's size, so at most two slice
+copies a probe a chunk.  Scheduled updates trigger on the device's ``t``
+inside ``Simulator.step``; the monitor's accumulator joins the static
+buffers.  None of them adds to a runner's cache key.
+
 Everything that changes between replays is a buffer's contents: new gScale
 or stim values are copies into the buffers, never a new capture (a value
 captured as a kernel argument would be stale on the next replay).  So the
@@ -43,6 +55,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.snn import probes as PR
+
 __all__ = ["ChunkedRun", "CHUNK_STEPS", "launch_counters"]
 
 # steps a graph replays: long enough that a replay's host work (a launch and
@@ -54,11 +68,11 @@ CHUNK_STEPS = 32
 def launch_counters() -> Tuple[Dict[str, int], ...]:
     """Every kernel wrapper's launch counter (``launches`` of each module)."""
     from repro_torch.kernels import (delay_ring, ell_spmv, flash_attention,
-                                     hh_step, izhikevich_step, ssd_scan,
-                                     threefry)
+                                     hh_step, izhikevich_step, spike_bitmask,
+                                     ssd_scan, threefry)
     return tuple(m.launches for m in (ell_spmv, delay_ring, izhikevich_step,
                                       hh_step, threefry, flash_attention,
-                                      ssd_scan))
+                                      ssd_scan, spike_bitmask))
 
 
 def _tree_map(fn, x, *ys):
@@ -111,6 +125,13 @@ class ChunkedRun:
         self.raster = ({k: torch.zeros((self.chunk, batch, p.n),
                                        dtype=torch.bool, device=dev)
                         for k, p in pops.items()} if record_raster else None)
+        # a probe's samples of the chunk's steps, row i for step i
+        self.staging = {
+            p.name: torch.zeros((self.chunk,) + PR.ring_row_shape(p, batch),
+                                dtype=PR.ring_dtype(p), device=dev)
+            for p in sim.probes}
+        self.health = (sim._health_init(batch) if sim.monitor is not None
+                       else None)
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         self.graph_launches: Dict[int, list] = {}
         # the delay groups' scratch that the graphs write (group name ->
@@ -119,10 +140,18 @@ class ChunkedRun:
         self._pool = None
 
     # -- the chunk ----------------------------------------------------------
+    def _observe(self, i: int, st, spk, hs):
+        """Step i's probe samples into the staging rows; the monitor's
+        accumulator after the step (None when unmonitored)."""
+        sim = self.sim
+        for p in sim.probes:
+            sim._sample_into(p, self.staging[p.name], i, st, spk)
+        return None if hs is None else sim._health_step(hs, st, spk)
+
     def _steps(self, n: int) -> None:
-        """n steps from the static state into it, counting spikes and
-        filling the raster chunk."""
-        sim, st = self.sim, self.state
+        """n steps from the static state into it, counting spikes, filling
+        the raster chunk, the probes' staging rows and the monitor."""
+        sim, st, hs = self.sim, self.state, self.health
         for i in range(n):
             st, spk = sim.step(st, self.gscales,
                                stim={k: v[i] for k, v in self.stim.items()})
@@ -130,7 +159,10 @@ class ChunkedRun:
                 c += spk[k]
                 if self.raster is not None:
                     self.raster[k][i].copy_(spk[k])
+            hs = self._observe(i, st, spk, hs)
         self._store(st)
+        if hs is not None:
+            _tree_map(lambda s, v: s.copy_(v), self.health, hs)
 
     def _store(self, new) -> None:
         """Copy the chunk's last state into the static buffers (a leaf the
@@ -185,8 +217,12 @@ class ChunkedRun:
             side = torch.cuda.Stream(dev)
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                self.sim.step(self.state, self.gscales,
-                              stim={k: v[0] for k, v in self.stim.items()})
+                st, spk = self.sim.step(
+                    self.state, self.gscales,
+                    stim={k: v[0] for k, v in self.stim.items()})
+                # staging row 0 is rewritten before any copy reads it
+                self._observe(0, st, spk, self.health)
+                del st, spk
             main.wait_stream(side)
             before = [dict(c) for c in counters]
             if self._pool is None:
@@ -224,11 +260,37 @@ class ChunkedRun:
         self.sim.graph_counts["replays"] += 1
 
     # -- a run ----------------------------------------------------------------
+    def _copy_samples(self, rings, caps, start: int, i0: int,
+                      n: int) -> None:
+        """The due staging rows of the chunk of steps i0 .. i0+n-1 into
+        the run's rings: sample j (global step (j + 1) * every) lands at
+        slot (j - base) % cap, so a chunk's samples fill consecutive slots
+        modulo cap (two slice copies at most; a window smaller than the
+        chunk's samples keeps its last cap)."""
+        s0 = start + i0
+        for p in self.sim.probes:
+            e, cap = p.every, caps[p.name]
+            m = (s0 + n) // e - s0 // e
+            if m == 0:
+                continue
+            first = (s0 // e + 1) * e
+            src = self.staging[p.name][first - s0 - 1::e][:m]
+            j0 = first // e - 1 - PR.probe_base(p, start)
+            if m > cap:
+                src, j0, m = src[m - cap:], j0 + m - cap, cap
+            a = j0 % cap
+            k = min(m, cap - a)
+            ring = rings[p.name]
+            ring[a:a + k].copy_(src[:k])
+            if k < m:
+                ring[:m - k].copy_(src[k:])
+
     def run(self, state, n_steps: int, gscales: Mapping[str, object],
             stim: Mapping[str, torch.Tensor]):
         """(final state, spike counts [B, n], raster [n_steps, B, n] or
-        None) of n_steps from ``state``; ``stim`` rows [n_steps, n] or
-        [n_steps, B, n] on the device."""
+        None, Recordings, the monitor's HealthState or None) of n_steps
+        from ``state``; ``stim`` rows [n_steps, n] or [n_steps, B, n] on
+        the device."""
         if state.batch != self.batch:
             raise ValueError(f"state has batch {state.batch}, the run "
                              f"{self.batch}")
@@ -239,6 +301,13 @@ class ChunkedRun:
         if n_steps % K:
             self._graph(n_steps % K)
         _tree_map(_load, self.state, state)
+        sim = self.sim
+        # the run's first global step, read once (before the first replay)
+        start = sim._step_count(self.state) if sim.probes else 0
+        rings, caps = sim._probe_init(n_steps, B)
+        if self.health is not None:
+            _tree_map(lambda s, v: s.copy_(v), self.health,
+                      sim._health_init(B))
         for k, buf in self.gscales.items():
             buf.copy_(torch.as_tensor(gscales[k], dtype=torch.float32)
                       .expand(B))
@@ -257,6 +326,11 @@ class ChunkedRun:
             if raster is not None:
                 for k, r in raster.items():
                     r[i0:i0 + n].copy_(self.raster[k][:n])
+            if rings:
+                self._copy_samples(rings, caps, start, i0, n)
         out = _tree_map(torch.clone, self.state)
         counts = {k: c.clone() for k, c in self.counts.items()}
-        return out, counts, raster
+        rec = sim._probe_finalize(rings, caps, start, n_steps, B)
+        hs = (None if self.health is None
+              else _tree_map(torch.clone, self.health))
+        return out, counts, raster, rec, hs

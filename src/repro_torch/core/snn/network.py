@@ -77,3 +77,7 @@ class Network:
                 f"{self.populations[group.post].n}")
         self.synapses.append(group)
         return group
+
+    def memory_report(self) -> List[dict]:
+        """Each synapse group's ``memory_report``."""
+        return [g.memory_report() for g in self.synapses]

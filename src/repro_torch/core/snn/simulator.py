@@ -37,6 +37,17 @@ state is finite into a carried per-batch-member ``finite`` flag.  A fused
 kernel writes that for its population in its own epilogue (its plain
 version on the CPU folds ``isfinite`` over the same outputs); codegen'd
 populations fold ``isfinite`` over their state here.
+
+Observation and intervention (``repro_torch.core.snn.probes``,
+``custom_updates``, ``repro_torch.obs.health``), as in the JAX package:
+probes sample the state after each step into rings on the device;
+scheduled custom updates run at the end of ``step`` when the advanced
+global step count ``round(t/dt)`` is a multiple of their ``every`` (the
+trigger is a device tensor, so a CUDA graph replays it), masked by it and
+folding their writes into ``finite``; the health monitor accumulates
+spike totals, rate EMAs and the first non-finite step.  A run reads ``t``
+once, before its first step, when it has probes.  With no probe, update
+or monitor, ``step`` and ``run`` launch only what they launched before.
 """
 
 from __future__ import annotations
@@ -50,11 +61,17 @@ import torch
 from repro_torch import random as _random
 from repro_torch._device import resolve_device
 from repro_torch.core import codegen
+from repro_torch.core.snn import bitmask as BM
+from repro_torch.core.snn import custom_updates as CU
 from repro_torch.core.snn import graphs, neurons
+from repro_torch.core.snn import probes as PR
 from repro_torch.core.snn.network import Network, Population
+from repro_torch.core.snn.probes import Recordings
 from repro_torch.core.snn.synapses import SynapseState
 from repro_torch.kernels import hh_step as _hh
 from repro_torch.kernels import izhikevich_step as _iz
+from repro_torch.kernels import ops as kops
+from repro_torch.obs import health as HE
 
 __all__ = ["Simulator", "SimState", "RunResult"]
 
@@ -81,6 +98,8 @@ class RunResult:
     rates_hz: Dict[str, torch.Tensor]       # population mean rate [B]
     finite: torch.Tensor                    # [B]
     raster: Optional[Dict[str, torch.Tensor]] = None   # [steps, B, n] bool
+    recordings: Optional[Recordings] = None  # probe name -> [B, cap, ...]
+    health: Optional[HE.HealthReport] = None  # when built with a monitor
 
 
 def fold_finite(finite: torch.Tensor, arrays) -> torch.Tensor:
@@ -105,13 +124,48 @@ def _scalar(v) -> Optional[float]:
     return float(arr) if arr.ndim == 0 else None
 
 
+def _all_slots(x: torch.Tensor) -> torch.Tensor:
+    """Whether a per-synapse bool tensor is all True over its slots:
+    [B, n_pre, K] -> [B] ([n_pre, K], shared by every member, -> 0-dim)."""
+    return x.flatten(-2).all(dim=-1)
+
+
 class Simulator:
     def __init__(self, net: Network, dt: float = 0.5, seed: int = 0,
-                 device=None):
+                 device=None, probes=(), custom_updates=(), monitor=None):
         self.net = net
         self.dt = float(dt)
         self.seed = seed
         self.device = resolve_device(device)
+        # the opt-in health monitor (None / enabled=False: the step loop
+        # never mentions it)
+        if monitor is not None and monitor.enabled:
+            monitor.validate(net.populations)
+            self.monitor = monitor
+        else:
+            self.monitor = None
+        self._pop_sizes = {name: pop.n
+                           for name, pop in net.populations.items()}
+        self._groups = {g.name: g for g in net.synapses}
+        # probes and custom updates (ModelSpec passes them resolved)
+        self.probes = tuple(probes)
+        self.custom_updates = {cu.name: cu for cu in custom_updates}
+        self._scheduled = [cu for cu in custom_updates
+                           if cu.every is not None]
+        # the invalid ELL slots of every group whose g or per-synapse vars
+        # may be rewritten: the NaN folds of custom updates and the
+        # monitor skip them (isfinite(x) | invalid, one pass fewer than
+        # masking x first)
+        cu_groups = {cu.target for cu in custom_updates
+                     if cu.kind == "group"}
+        self._invalid = {g.name: ~g.ell.valid for g in net.synapses
+                         if g.plastic or g.name in cu_groups}
+        # the "post" mean's denominators, once per group
+        self._degree = {
+            cu.target: CU.post_degree(self._groups[cu.target].ell)
+            for cu in custom_updates if cu.kind == "group"
+            and any(op == "mean" and axis == "post"
+                    for op, _, axis in cu.reduce.values())}
         # population -> "izhikevich_step" | "hh_step" | "codegen"
         self.routes: Dict[str, str] = {}
         self._updates = {}
@@ -310,7 +364,170 @@ class Simulator:
         new_state = SimState(
             neurons=new_neurons, spikes=new_spikes, prev_above=new_prev,
             syn=new_syn, t=t + self._dt_dev, key=keys[:, 0], finite=finite)
+        if self._scheduled:
+            new_state = self._run_scheduled_updates(new_state)
         return new_state, new_spikes
+
+    # -- custom updates (on demand and scheduled) -------------------------
+    def _run_scheduled_updates(self, state: SimState) -> SimState:
+        """Apply every ``every=n`` custom update whose step is due: the
+        trigger is the global step count round(t/dt) of the advanced t, a
+        device tensor (no host read), as the JAX package keys it."""
+        elapsed = torch.round(state.t / self._dt_dev).to(torch.int32)
+        for cu in self._scheduled:
+            trig = torch.remainder(elapsed, cu.every) == 0
+            state = self._apply_custom(state, cu, trig)
+        return state
+
+    def _apply_custom(self, state: SimState, cu,
+                      trig: Optional[torch.Tensor]) -> SimState:
+        """Apply one custom update, masked by ``trig`` (a bool 0-dim
+        tensor; None applies it).  The written arrays (their valid slots,
+        for a group) fold into the NaN guard's flag where it fires: an
+        update that divides by a zero reduction trips ``finite`` as an
+        over-scaled conductance does."""
+        ext = {"dt": self._dt_cpu, "t": state.t}
+        batch = state.batch
+
+        def fold(finite, ok):
+            return finite & (ok if trig is None else ok | ~trig)
+
+        def pick(new, old):
+            return new if trig is None else torch.where(trig, new, old)
+
+        if cu.kind == "group":
+            grp = self._groups[cu.target]
+            st = state.syn[cu.target]
+            g_arr = st.g if st.g is not None else grp.ell.g
+            cu_vars = {"g": g_arr, **st.syn}
+            red = {rname: CU.group_reduce_host(
+                       op, cu_vars[var], grp.ell, axis, cu.denom_all, batch,
+                       self._degree.get(cu.target))
+                   for rname, (op, var, axis) in cu.reduce.items()}
+            new = cu.fn(cu_vars, cu.params, red, ext)
+            valid = grp.ell.valid
+            finite = state.finite
+            for name in sorted(cu.writes):
+                ok = torch.isfinite(new[name]) | self._invalid[cu.target]
+                finite = fold(finite, _all_slots(ok))
+
+            def sel(name, old):
+                if name not in cu.writes:
+                    return old
+                return pick(torch.where(valid, new[name], old), old)
+
+            new_syn = dict(state.syn)
+            new_syn[cu.target] = SynapseState(
+                psm=st.psm, wu_pre=st.wu_pre, wu_post=st.wu_post,
+                g=(sel("g", g_arr) if st.g is not None else None),
+                syn={k: sel(k, v) for k, v in st.syn.items()},
+                dendritic=st.dendritic, cursor=st.cursor)
+            return dataclasses.replace(state, syn=new_syn, finite=finite)
+        # a population
+        cu_vars = dict(state.neurons[cu.target])
+        red = {rname: CU.pop_reduce(op, cu_vars[var], cu.denom_all)
+               for rname, (op, var, _axis) in cu.reduce.items()}
+        new = cu.fn(cu_vars, cu.params, red, ext)
+        finite = state.finite
+        written = {}
+        for name in sorted(cu.writes):
+            old = cu_vars[name]
+            nv = torch.broadcast_to(new[name], old.shape)
+            finite = fold(finite, torch.isfinite(nv).all(dim=-1))
+            written[name] = pick(nv, old)
+        new_neurons = dict(state.neurons)
+        new_neurons[cu.target] = {k: written.get(k, v)
+                                  for k, v in cu_vars.items()}
+        return dataclasses.replace(state, neurons=new_neurons,
+                                   finite=finite)
+
+    def custom_update(self, state: SimState, name: str) -> SimState:
+        """Run one declared custom update on demand (any ``every``)."""
+        if name not in self.custom_updates:
+            raise ValueError(
+                f"unknown custom update {name!r}; declared updates: "
+                f"{sorted(self.custom_updates)}")
+        return self._apply_custom(state, self.custom_updates[name], None)
+
+    # -- probes --------------------------------------------------------------
+    def _step_count(self, state: SimState) -> int:
+        """The global step count round(t/dt), read on the host (once a
+        run): probes sample on it, as the device trigger of scheduled
+        updates does."""
+        return int(torch.round(state.t / self._dt_dev))
+
+    def _probe_init(self, n_steps: int, batch: int):
+        """(rings, capacities): a ring [cap, B, ...] per probe on the
+        device, int32 bitmask words for unreduced spike probes."""
+        rings, caps = {}, {}
+        for p in self.probes:
+            cap = PR.capacity(p, n_steps)
+            caps[p.name] = cap
+            rings[p.name] = torch.zeros(
+                (cap,) + PR.ring_row_shape(p, batch), dtype=PR.ring_dtype(p),
+                device=self.device)
+        return rings, caps
+
+    def _sample_into(self, p, ring: torch.Tensor, slot: int,
+                     state: SimState, spikes) -> None:
+        """Write probe ``p``'s sample of a post-step state at row ``slot``
+        of ``ring`` (packed spike rows by the bitmask kernel)."""
+        if PR.is_packed(p):
+            kops.pack_spikes_into(spikes[p.target].contiguous(), ring, slot)
+        else:
+            PR.write_sample(ring, slot,
+                            PR.host_sample(p, self._groups, state, spikes))
+
+    def _probe_write(self, rings, caps, start: int, i: int,
+                     state: SimState, spikes) -> None:
+        """Step i's samples (the probes whose schedule is due)."""
+        for p in self.probes:
+            active, slot = PR.sample_slot(p, start, PR.probe_base(p, start),
+                                          i, caps[p.name])
+            if active:
+                self._sample_into(p, rings[p.name], slot, state, spikes)
+
+    def _probe_finalize(self, rings, caps, start: int,
+                        n_steps: int, batch: int) -> Recordings:
+        """Recordings [B, cap, ...] in chronological order (packed rings
+        unpacked to bool) and their valid-row counts [B]."""
+        data, counts = {}, {}
+        for p in self.probes:
+            d, c = PR.finalize(rings[p.name], start, n_steps, p,
+                               caps[p.name])
+            d = d.transpose(0, 1)
+            data[p.name] = (BM.unpack_rows(d, p.n) if PR.is_packed(p)
+                            else d.contiguous())
+            counts[p.name] = torch.full((batch,), c, dtype=torch.int32,
+                                        device=self.device)
+        return Recordings(data=data, counts=counts)
+
+    # -- the health monitor ----------------------------------------------------
+    def _health_init(self, batch: int) -> HE.HealthState:
+        return HE.init_state(self._pop_sizes, batch, self.device)
+
+    def _health_step(self, hs: HE.HealthState, state: SimState,
+                     spikes) -> HE.HealthState:
+        """One step of the monitor: per-population spike counts [B] and
+        its own guard (V of every population, state-resident g over valid
+        slots), as the JAX monitor reads them."""
+        counts = {p: spikes[p].sum(dim=-1, dtype=torch.int32)
+                  for p in self._pop_sizes}
+        ok = torch.ones(state.batch, dtype=torch.bool, device=self.device)
+        for name in self.net.populations:
+            v = state.neurons[name].get("V")
+            if v is not None:
+                ok = ok & torch.isfinite(v).all(dim=-1)
+        for g in self.net.synapses:
+            sg = state.syn[g.name].g
+            if sg is not None:
+                ok = ok & _all_slots(torch.isfinite(sg)
+                                     | self._invalid[g.name])
+        return HE.accumulate(self.monitor, hs, counts, ok, self.dt,
+                             self._pop_sizes)
+
+    def _health_report(self, hs: HE.HealthState) -> HE.HealthReport:
+        return HE.finalize(self.monitor, hs, self.dt, self._pop_sizes)
 
     # ------------------------------------------------------------------
     def _stim_tensors(self, stim, n_steps: int) -> Dict[str, torch.Tensor]:
@@ -324,12 +541,14 @@ class Simulator:
         return stim
 
     def _result(self, state: SimState, counts: Dict[str, torch.Tensor],
-                n_steps: int, raster) -> RunResult:
+                n_steps: int, raster, recordings=None,
+                health=None) -> RunResult:
         t_sec = n_steps * self.dt * 1e-3
         rates = {k: v.to(torch.float32).mean(dim=-1) / t_sec
                  for k, v in counts.items()}
         return RunResult(state=state, spike_counts=counts, rates_hz=rates,
-                         finite=state.finite, raster=raster)
+                         finite=state.finite, raster=raster,
+                         recordings=recordings, health=health)
 
     def run(
         self, state: SimState, n_steps: int,
@@ -339,15 +558,20 @@ class Simulator:
     ) -> RunResult:
         """Advance n_steps eagerly, one step at a time (as the JAX
         package's unjitted ``Simulator.run``); returns spike statistics
-        (and rasters [n_steps, B, n] when ``record_raster``).  stim:
+        (and rasters [n_steps, B, n] when ``record_raster``), the probes'
+        recordings and, when monitored, the health report.  stim:
         population name -> [n_steps, n] (or [n_steps, B, n]) currents, one
         row per step."""
         self._validate_gscales(gscales)
         stim = self._stim_tensors(stim, n_steps)
-        counts = {name: torch.zeros((state.batch, pop.n), dtype=torch.int32,
+        batch = state.batch
+        counts = {name: torch.zeros((batch, pop.n), dtype=torch.int32,
                                     device=self.device)
                   for name, pop in self.net.populations.items()}
         raster = {name: [] for name in counts} if record_raster else None
+        start = self._step_count(state) if self.probes else 0
+        rings, caps = self._probe_init(n_steps, batch)
+        hs = self._health_init(batch) if self.monitor is not None else None
         for i in range(n_steps):
             state, spk = self.step(state, gscales,
                                    stim={k: v[i] for k, v in stim.items()})
@@ -355,11 +579,17 @@ class Simulator:
                 counts[k] += spk[k]
                 if raster is not None:
                     raster[k].append(spk[k])
+            if self.probes:
+                self._probe_write(rings, caps, start, i, state, spk)
+            if hs is not None:
+                hs = self._health_step(hs, state, spk)
         if raster is not None:
             raster = {k: (torch.stack(v) if v else torch.zeros(
                 (0,) + tuple(counts[k].shape), dtype=torch.bool,
                 device=self.device)) for k, v in raster.items()}
-        return self._result(state, counts, n_steps, raster)
+        rec = self._probe_finalize(rings, caps, start, n_steps, batch)
+        health = None if hs is None else self._health_report(hs)
+        return self._result(state, counts, n_steps, raster, rec, health)
 
     # -- the compiled step loop -------------------------------------------
     def run_compiled(
@@ -384,8 +614,10 @@ class Simulator:
         if runner is None:
             runner = self._compiled[key] = graphs.ChunkedRun(
                 self, state.batch, key[1], key[2], key[3])
-        state, counts, raster = runner.run(state, n_steps, gscales, stim)
-        return self._result(state, counts, n_steps, raster)
+        state, counts, raster, rec, hs = runner.run(state, n_steps, gscales,
+                                                    stim)
+        health = None if hs is None else self._health_report(hs)
+        return self._result(state, counts, n_steps, raster, rec, health)
 
     def run_jit(self, n_steps: int, record_raster: bool = False) -> Callable:
         """``fn(state, gscales=None) -> RunResult`` running n_steps through

@@ -26,9 +26,17 @@ executables; ``Simulator.run`` stays the eager loop.
 over the concatenated target space and split per post population (the
 paper's cortical-net construction).
 
-Not in this slice: probes, custom updates, health monitors, on-device
-construction (``init="device"``), meshes, serving, ``plan`` and
-``memory_report``.  Declaring or asking for them raises NotImplementedError.
+Observation and intervention, as in the JAX package: ``probe`` declares a
+recording (``run`` and ``sweep_gscale`` return ``Recordings``: [cap, ...]
+for a single run, [n_candidates, cap, ...] for a sweep),
+``add_custom_update`` a codegen'd state rewrite (on demand through
+``CompiledModel.custom_update``, or every n steps inside the run), and
+``build(monitor=HealthConfig(...))`` the health monitor (``RunResult.health``).
+``memory_report`` accounts the graph, the state, the probe rings (spike
+rings at their packed int32 size) and the custom updates.
+
+Not ported yet: on-device construction (``init="device"``), meshes,
+serving and ``plan``.  Asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,11 +49,17 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.codegen import (NeuronModel, PostsynapticModel,
-                                      WeightUpdateModel)
+                                      WeightUpdateModel, assigned_names)
+from repro_torch.core.snn import bitmask as BM
+from repro_torch.core.snn import custom_updates as CU
+from repro_torch.core.snn import probes as PR
+from repro_torch.core.snn.custom_updates import CustomUpdateSpec
 from repro_torch.core.snn.errors import SpecError
 from repro_torch.core.snn.network import InputFn, Network
+from repro_torch.core.snn.probes import ProbeSpec, Recordings
 from repro_torch.core.snn.simulator import RunResult, SimState, Simulator
 from repro_torch.core.snn.synapses import PROPAGATIONS, Pulse, SynapseGroup
+from repro_torch.obs.health import HealthConfig
 from repro_torch.sparse import formats as F
 
 __all__ = ["ModelSpec", "CompiledModel", "SweepResult", "SpecError",
@@ -63,9 +77,6 @@ _REPRESENTATIONS = ("auto", "sparse", "dense")
 # [B, max_delay+1, n_post] ring on the device for the whole simulation.
 # Delays above this bound are almost certainly a unit error (steps vs ms).
 MAX_DELAY_STEPS = 1024
-
-_LATER = ("probes, custom updates and health monitors are not ported to "
-          "repro_torch yet; use the JAX package (repro) for them")
 
 
 @dataclasses.dataclass
@@ -128,6 +139,14 @@ class ModelSpec:
         self.name = name
         self.populations: Dict[str, NeuronPopSpec] = {}
         self.synapses: List[SynapsePopSpec] = []
+        self.probes: List[ProbeSpec] = []
+        self.custom_updates: List[CustomUpdateSpec] = []
+
+    def _declared_targets(self) -> Tuple[set, set]:
+        """(population names, concrete synapse group names) declared so
+        far: the names probes and custom updates address."""
+        groups = {n for s in self.synapses for n in s.group_names()}
+        return set(self.populations), groups
 
     # -- declaration ------------------------------------------------------
     def add_neuron_population(
@@ -317,12 +336,91 @@ class ModelSpec:
         self.synapses.append(spec)
         return spec
 
-    # -- not in this slice --------------------------------------------------
-    def probe(self, *args, **kwargs):
-        raise NotImplementedError(_LATER)
+    # -- observation / intervention ---------------------------------------
+    def probe(self, name: str, target: str, var: str, every: int = 1,
+              window: Optional[int] = None,
+              reduce: Optional[str] = None) -> ProbeSpec:
+        """Declare a recording probe on a population or synapse group.
 
-    def add_custom_update(self, *args, **kwargs):
-        raise NotImplementedError(_LATER)
+        target: a population or a concrete synapse group (declared first);
+        var:    a neuron state variable or ``"spikes"`` (populations); a
+                postsynaptic / trace variable, ``"g"`` (state-resident
+                weights) or a per-synapse variable (groups);
+        every:  sample every k-th step (after the step);
+        window: keep only the last ``window`` samples;
+        reduce: "sum" | "mean" | "max" | "min" over the neuron axis
+                (required for per-synapse variables).
+        """
+        PR.validate_probe_scalars(name, every, window, reduce)
+        if any(p.name == name for p in self.probes):
+            raise SpecError(f"duplicate probe name {name!r}")
+        pops, groups = self._declared_targets()
+        if target not in pops and target not in groups:
+            multi = [n for s in self.synapses
+                     if len(s.post) > 1 and s.name == target
+                     for n in s.group_names()]
+            hint = (f"; {target!r} is a multi-post synapse population: "
+                    f"probe one of its concrete groups {multi}"
+                    if multi else "")
+            raise SpecError(
+                f"probe {name!r}: unknown target {target!r}; declared "
+                f"populations: {sorted(pops)}, synapse groups: "
+                f"{sorted(groups)}{hint}")
+        p = ProbeSpec(name=name, target=target, var=var, every=every,
+                      window=window, reduce=reduce)
+        self.probes.append(p)
+        return p
+
+    def add_custom_update(self, name: str, group: str, update_code: str,
+                          params: Optional[Mapping[str, float]] = None,
+                          reduce: Optional[Mapping[str, tuple]] = None,
+                          every: Optional[int] = None) -> CustomUpdateSpec:
+        """Declare a codegen'd custom update on a population or synapse
+        group (GeNN 4's CustomUpdate).
+
+        group:       target population or concrete synapse group;
+        update_code: statements rewriting the target's state variables
+                     (``g`` and per-synapse variables for groups, model
+                     state for populations), AST-validated as every snippet;
+        params:      update parameters (populations also read their model
+                     parameters);
+        reduce:      reductions computed before the code runs:
+                     ``{"w_sum": ("sum", "g", "post")}`` for groups (axis
+                     "pre" | "post" | "all"), ``{"v_max": ("max", "V")}``
+                     for populations;
+        every:       run every n steps inside the run; None: on demand only
+                     (``CompiledModel.custom_update(name, state)``).
+        """
+        CU.validate_update_scalars(name, every)
+        if any(cu.name == name for cu in self.custom_updates):
+            raise SpecError(f"duplicate custom update name {name!r}")
+        pops, groups = self._declared_targets()
+        if group not in pops and group not in groups:
+            raise SpecError(
+                f"custom update {name!r}: unknown target {group!r}; "
+                f"declared populations: {sorted(pops)}, synapse groups: "
+                f"{sorted(groups)}")
+        cu = CustomUpdateSpec(name=name, target=group,
+                              update_code=update_code,
+                              params=dict(params or {}),
+                              reduce=dict(reduce or {}), every=every)
+        self.custom_updates.append(cu)
+        return cu
+
+    def _mutable_groups(self) -> set:
+        """Synapse groups whose g a declared custom update writes (their
+        conductances become state)."""
+        _, groups = self._declared_targets()
+        out = set()
+        for cu in self.custom_updates:
+            if cu.target in groups:
+                try:
+                    writes = assigned_names(cu.update_code)
+                except SyntaxError:
+                    writes = set()
+                if "g" in writes:
+                    out.add(cu.target)
+        return out
 
     # -- build ------------------------------------------------------------
     def build(self, dt: float = 0.5, seed: int = 0, init: str = "host",
@@ -330,12 +428,24 @@ class ModelSpec:
         """Validate, resolve connectivity on the host (seeded numpy, in
         declaration order) and generate the simulator on ``device``
         ("cuda" unless the caller asks for another; raises when no card is
-        present and none was asked for)."""
+        present and none was asked for).
+
+        monitor: a ``repro_torch.obs.health.HealthConfig``: the run
+        accumulates spike totals, rate EMAs, silent/saturated bands and the
+        first non-finite step, returned as ``RunResult.health``.  None or
+        ``enabled=False`` builds the unmonitored step (no device op of
+        it)."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the sharded engine) is not ported to repro_torch yet")
         if monitor is not None:
-            raise NotImplementedError(_LATER)
+            if not isinstance(monitor, HealthConfig):
+                raise SpecError(f"monitor must be a HealthConfig, got "
+                                f"{type(monitor).__name__}")
+            try:
+                monitor.validate(self.populations)
+            except ValueError as e:
+                raise SpecError(f"monitor: {e}") from None
         if init == "device":
             raise NotImplementedError(
                 "init='device' (on-device construction) is not ported to "
@@ -346,6 +456,7 @@ class ModelSpec:
             raise SpecError(f"model {self.name!r} declares no populations")
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
+        mutable = self._mutable_groups()
         net = Network(name=self.name)
         for pop in self.populations.values():
             net.add_population(
@@ -400,6 +511,8 @@ class ModelSpec:
                     dv = (None if dd is None
                           else np.where(mask, dd, 0).astype(np.int32))
                 try:
+                    # SynapseGroup owns the representation conflict rules
+                    # (dense vs a custom update writing g included)
                     group = SynapseGroup(
                         name=gname, pre=sp.pre, post=pname,
                         ell=F.triple_to_ell(idx, gg, vv, n_p, delay=dv,
@@ -410,13 +523,18 @@ class ModelSpec:
                         delay_steps=delay_steps,
                         max_delay=(None if sp.delay is None
                                    else sp.delay.max_steps),
-                        sign=sp.sign)
+                        sign=sp.sign, mutable_g=gname in mutable)
                 except ValueError as e:
                     raise SpecError(f"{where}: {e}") from None
                 net.add_synapse(group)
                 lo = hi
 
-        sim = Simulator(net, dt=dt, seed=seed, device=dev)
+        # the observation / intervention surface against the built network
+        # (variables, reductions, writability)
+        probes = PR.resolve_probes(self.probes, net)
+        custom = CU.resolve_custom_updates(self.custom_updates, net)
+        sim = Simulator(net, dt=dt, seed=seed, device=dev, probes=probes,
+                        custom_updates=custom, monitor=monitor)
         return CompiledModel(spec=self, network=net, simulator=sim)
 
 
@@ -428,6 +546,17 @@ class SweepResult:
     rates_hz: Dict[str, torch.Tensor]      # pop -> [n_candidates]
     finite: torch.Tensor                   # [n_candidates] bool
     spike_counts: Dict[str, torch.Tensor]  # pop -> [n_candidates, n]
+    recordings: Optional[Recordings] = None  # [n_candidates, cap, ...]
+
+
+def _member(x, i: int = 0):
+    """Member i of every [B]-leading tensor of a dict / dataclass."""
+    if isinstance(x, torch.Tensor):
+        return x[i]
+    if isinstance(x, dict):
+        return {k: _member(v, i) for k, v in x.items()}
+    return type(x)(**{f.name: _member(getattr(x, f.name), i)
+                      for f in dataclasses.fields(x)})
 
 
 def _squeeze(res: RunResult) -> RunResult:
@@ -438,7 +567,10 @@ def _squeeze(res: RunResult) -> RunResult:
         rates_hz={k: v[0] for k, v in res.rates_hz.items()},
         finite=res.finite[0],
         raster=(None if res.raster is None
-                else {k: v[:, 0] for k, v in res.raster.items()}))
+                else {k: v[:, 0] for k, v in res.raster.items()}),
+        recordings=(None if res.recordings is None
+                    else _member(res.recordings)),
+        health=None if res.health is None else _member(res.health))
 
 
 def _expand_state(state: SimState, batch: int) -> SimState:
@@ -485,6 +617,21 @@ class CompiledModel:
     @property
     def device(self) -> torch.device:
         return self.simulator.device
+
+    @property
+    def monitor(self) -> Optional[HealthConfig]:
+        """The HealthConfig the model was built with (None when
+        unmonitored); monitored runs return ``RunResult.health``."""
+        return self.simulator.monitor
+
+    @property
+    def probes(self) -> Tuple:
+        """Resolved probes (declaration order)."""
+        return self.simulator.probes
+
+    @property
+    def custom_update_names(self) -> List[str]:
+        return sorted(self.simulator.custom_updates)
 
     def _expand_group(self, name: str) -> List[str]:
         """Resolve a synapse name to concrete group names: a multi-post
@@ -542,6 +689,14 @@ class CompiledModel:
         currents injected one row per step.  A single-member state reports
         the JAX package's shapes (rates as scalars, counts [n], raster
         [n_steps, n]); a batched state keeps its leading axis."""
+        if record_raster and any(p.name == "spikes"
+                                 for p in self.simulator.probes):
+            # two writers of one recordings key would be last-one-wins
+            raise SpecError(
+                "record_raster=True collides with the declared probe named "
+                "'spikes': the raster and the probe would both be the "
+                "'spikes' recording. Drop record_raster=True (the probe "
+                "already records the raster) or rename the probe.")
         if state is None:
             state = self.init_state()
         res = self.simulator.run_compiled(state, n_steps,
@@ -575,7 +730,73 @@ class CompiledModel:
         res = self.simulator.run_compiled(state, n_steps,
                                           {n: values for n in names})
         return SweepResult(values=values, rates_hz=res.rates_hz,
-                           finite=res.finite, spike_counts=res.spike_counts)
+                           finite=res.finite, spike_counts=res.spike_counts,
+                           recordings=res.recordings)
+
+    # -- custom updates and memory -----------------------------------------
+    def custom_update(self, name: str,
+                      state: Optional[SimState] = None) -> SimState:
+        """Run one declared custom update on demand against ``state``
+        (default: a fresh one); scheduled (``every=n``) updates also run
+        inside ``run`` and ``sweep_gscale``.  The hook between runs, e.g.
+        weight normalization between sweep rounds without rebuilding."""
+        if name not in self.simulator.custom_updates:
+            raise SpecError(
+                f"unknown custom update {name!r}; declared updates: "
+                f"{sorted(self.simulator.custom_updates)}")
+        if state is None:
+            state = self.init_state()
+        return self.simulator.custom_update(state, name)
+
+    def memory_report(self, n_steps: Optional[int] = None,
+                      max_streams: int = 1) -> List[dict]:
+        """The JAX package's live-usage accounting: each synapse group's
+        eq-(1)/(2) elements and dynamic state (delay ring included), each
+        population's neuron state, each probe's ring (``n_steps`` sizes a
+        strided one; spike rings at their packed int32 size), the custom
+        updates, and the state of ``max_streams`` independent simulations
+        (one per batch member or served stream)."""
+        out = [dict(rep) for rep in self.network.memory_report()]
+        stream_state = 0
+        for rep in out:
+            rep["kind"] = "synapse_group"
+            stream_state += rep["state_elements"]
+        for name, pop in self.network.populations.items():
+            n_state = (len(pop.model.state) + 1
+                       + (1 if pop.edge_spikes else 0)) * pop.n
+            stream_state += n_state
+            out.append({"name": name, "kind": "population",
+                        "n": pop.n, "state_elements": n_state})
+        for p in self.simulator.probes:
+            packed = PR.is_packed(p)
+            if packed:
+                bps = BM.words_for(p.n) * 4
+            elif p.reduce is not None:
+                bps = 4
+            else:
+                bps = int(p.n) * 4
+            entry = {"name": p.name, "kind": "probe", "target": p.target,
+                     "var": p.var, "every": p.every,
+                     "elements_per_sample": p.elements_per_sample(),
+                     "is_packed": packed, "bytes_per_sample": bps}
+            cap = None
+            if n_steps is not None:
+                cap = PR.capacity(p, n_steps)
+            elif p.window is not None:
+                cap = p.window
+            if cap is not None:
+                entry["buffer_elements"] = cap * p.elements_per_sample()
+                entry["buffer_bytes"] = cap * bps
+            out.append(entry)
+        for name, cu in sorted(self.simulator.custom_updates.items()):
+            out.append({"name": name, "kind": "custom_update",
+                        "target": cu.target, "every": cu.every,
+                        "n_reductions": len(cu.reduce)})
+        out.append({"name": "streams", "kind": "serving",
+                    "max_streams": max_streams,
+                    "state_elements_per_stream": stream_state,
+                    "stream_state_elements": stream_state * max_streams})
+        return out
 
     def __repr__(self) -> str:
         pops = {p.name: p.n for p in self.spec.populations.values()}

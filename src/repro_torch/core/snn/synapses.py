@@ -170,6 +170,9 @@ class SynapseGroup:
     delay_steps: int = 0                        # homogeneous dendritic delay
     max_delay: Optional[int] = None             # static ring bound
     sign: float = 1.0                           # +1 excitatory / -1 inhibitory
+    # a custom update writes g: the conductances become state, [B, n_pre,
+    # K] per member as a learning rule keeps them, and take the ELL path
+    mutable_g: bool = False
 
     def __post_init__(self) -> None:
         if self.psm is None:
@@ -228,16 +231,19 @@ class SynapseGroup:
         else:
             self.max_delay = self.delay_steps
 
-        # A non-default weight-update model propagates through the ELL
-        # effective-weight path (plastic g lives in state), so a dense
-        # mirror would go stale: 'dense' is a conflict, 'auto' -> sparse.
-        if not self.wum.is_static_pulse:
+        # A non-default weight-update model, or a custom update writing g,
+        # propagates through the ELL effective-weight path (the weights
+        # live in state), so a dense mirror would go stale: 'dense' is a
+        # conflict, 'auto' -> sparse.
+        if not self.wum.is_static_pulse or self.mutable_g:
             if self.representation == "dense":
+                what = ("a custom update writing g"
+                        if self.mutable_g and self.wum.is_static_pulse
+                        else f"weight-update model {self.wum.name!r}")
                 raise ValueError(
                     f"synapse group {self.name!r}: representation='dense' "
-                    f"is incompatible with weight-update model "
-                    f"{self.wum.name!r} (dynamic weights propagate via the "
-                    "ELL path); use 'sparse' or 'auto'")
+                    f"is incompatible with {what} (dynamic weights "
+                    "propagate via the ELL path); use 'sparse' or 'auto'")
             self.representation = "sparse"
         elif self.representation == "auto":
             nnz = self.ell.n_pre * self.ell.max_conn
@@ -279,8 +285,9 @@ class SynapseGroup:
 
     @property
     def plastic(self) -> bool:
-        """True when g is state-resident (a learn_code rewrites it)."""
-        return bool(self.wum.learn_code)
+        """True when g is state-resident: a learn_code rewrites it during
+        the simulation, or a custom update may rewrite it."""
+        return bool(self.wum.learn_code) or self.mutable_g
 
     @property
     def needs_ring(self) -> bool:
@@ -325,8 +332,13 @@ class SynapseGroup:
         or one carrying this step's effective weights (computed once per
         step)."""
         ell = self.ell
-        if self.wum.is_static_pulse and g is None:
-            return ell
+        if self.wum.is_static_pulse:
+            if g is None:
+                return ell
+            # state-resident static weights (mutable_g): the kernel reads
+            # only valid slots, and custom updates write only those
+            return F.ELLSynapses(g=g, post_ind=ell.post_ind, valid=ell.valid,
+                                 n_post=ell.n_post, delay=ell.delay)
         g_cur = ell.g if g is None else g
         w_eff = self._wu.effective_weight(g_cur, syn, self.wum.params,
                                           externals)
@@ -463,3 +475,42 @@ class SynapseGroup:
                                  wu_post=new_post, g=new_g, syn=new_syn,
                                  dendritic=new_buf, cursor=new_cur)
         return new_state, current
+
+    # -- memory accounting (paper eqs (1)/(2)) -------------------------------
+    def state_elements(self) -> int:
+        """Dynamic state one simulation (one batch member) of this group
+        carries: postsynaptic, trace and per-synapse vars, state-resident
+        g, and the dendritic ring with its cursor."""
+        n_pre, n_post = self.ell.n_pre, self.ell.n_post
+        nnz = n_pre * self.ell.max_conn
+        total = (len(self.psm.state) * n_post
+                 + len(self.wum.pre_state) * n_pre
+                 + len(self.wum.post_state) * n_post
+                 + len(self.wum.syn_state) * nnz)
+        if self.plastic:
+            total += nnz
+        if self.needs_ring:
+            total += self.ring_slots * n_post + 1
+        return total
+
+    def memory_report(self) -> dict:
+        """The JAX package's per-group report.  ``propagation_mode``:
+        "dense" for the dense mirror, else "event" (the ELL kernel walks
+        only the spiking rows and needs no capacity)."""
+        nnz = self.ell.n_pre * self.ell.max_conn
+        return {
+            "name": self.name,
+            "representation": self.representation,
+            "propagation": self.propagation,
+            "propagation_mode": ("dense" if self.representation == "dense"
+                                 else "event"),
+            "event_capacity": None,
+            "sparse_elements": F.sparse_memory_elements(
+                nnz, self.ell.n_pre, self.ell.n_post),
+            "dense_elements": F.dense_memory_elements(
+                self.ell.n_pre, self.ell.n_post),
+            "max_delay": self.max_delay,
+            "dendritic_ring_elements": (
+                self.ring_slots * self.ell.n_post if self.needs_ring else 0),
+            "state_elements": self.state_elements(),
+        }

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/ops.py`` for the ELL spmv family, the fused
 neuron updates, flash attention and the SSD scan, plus the dendritic ring's
-scatter-and-fold (``ell_spmv_delay_into``, ``delay_ring_fold``).  There is
+scatter-and-fold (``ell_spmv_delay_into``, ``delay_ring_fold``) and GeNN's
+spike bitmask (``pack_spikes``, ``pack_spikes_into``).  There is
 no backend switch: each op goes by the device its tensors lie on (see
 ``repro_torch.kernels._dispatch``).
 
@@ -23,13 +24,15 @@ from repro_torch.kernels import ell_spmv as _k
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hh_step as _hh
 from repro_torch.kernels import izhikevich_step as _iz
+from repro_torch.kernels import spike_bitmask as _bm
 from repro_torch.kernels import ssd_scan as _ssd
 
 __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
            "ell_spmv_delay_batched", "ell_spmv_delay_into",
            "delay_ring_fold", "ell_spmv_event",
            "ell_spmv_event_delay", "izhikevich_step", "hh_step",
-           "flash_attention", "ssd_scan"]
+           "flash_attention", "ssd_scan", "pack_spikes",
+           "pack_spikes_into"]
 
 
 def _spikes(spikes: torch.Tensor) -> torch.Tensor:
@@ -129,6 +132,22 @@ def hh_step(v, m, h, n, isyn, dt: float, **params):
     scalar conductances/potentials of ``hh_step.hh_step``.  Returns
     (v, m, h, n), as the JAX entry point does."""
     return _hh.hh_step(v, m, h, n, isyn, dt, **params)[:4]
+
+
+# -- spike bitmask ------------------------------------------------------------
+
+def pack_spikes(bits: torch.Tensor) -> torch.Tensor:
+    """bool [B, n] -> GeNN's 32x bitmask words int32 [B, ceil(n / 32)]
+    (``repro/core/snn/bitmask.py``'s layout, uint32 bits in int32)."""
+    return _bm.spike_bitmask(bits)
+
+
+def pack_spikes_into(bits: torch.Tensor, ring: torch.Tensor, slot,
+                     active: Optional[torch.Tensor] = None) -> None:
+    """The words of bits [B, n] written as row ``slot`` of ring
+    [cap, B, W] (slot and active may be device tensors, see
+    ``spike_bitmask.spike_bitmask_into``)."""
+    _bm.spike_bitmask_into(bits, ring, slot, active)
 
 
 # -- LM kernels ---------------------------------------------------------------

@@ -39,6 +39,13 @@ holding the uint32 bit patterns.  Keys, bits and uniforms equal
 ``jax.random``'s bit for bit; normals go through XLA's float32 ``erf_inv``
 polynomial (``erf_inv_ref``) and agree within a few ulp, as ``log1p``
 differs between libraries.
+
+``spike_bitmask_ref`` is GeNN's 32x spike packing, as the JAX package's
+``bitmask.pack_spikes`` computes it: bool [B, n] -> words [B, W] stored as
+int32 with uint32's bit pattern, neuron j at bit j % 32 of word j // 32.
+``spike_bitmask_into_ref`` writes such a row into a ring [cap, B, W] at a
+slot (and under an active flag) given as device tensors, with index ops
+only, as the kernel's ring variant reads them.
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ __all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "ell_spmv_delay_into_ref",
            "izhikevich_step_ref", "hh_step_ref", "flash_attention_ref", "flash_attention_fwd_ref",
            "flash_attention_bwd_ref", "ssd_scan_ref", "chunk_size",
            "threefry2x32_ref", "threefry_split_ref", "threefry_draw_ref",
-           "erf_inv_ref", "DRAWS"]
+           "erf_inv_ref", "DRAWS", "spike_bitmask_ref",
+           "spike_bitmask_into_ref"]
 
 
 def _contributions(g: torch.Tensor, valid: torch.Tensor,
@@ -465,3 +473,33 @@ def threefry_draw_ref(keys: torch.Tensor, n: int, dist: str,
         u = torch.clamp(f * 2.0 + _NORMAL_LO, min=_NORMAL_LO)
         f = erf_inv_ref(u) * _SQRT2_F32
     return f * scale if scale != 1.0 else f
+
+
+# -- spike bitmask -------------------------------------------------------------
+
+def spike_bitmask_ref(bits: torch.Tensor) -> torch.Tensor:
+    """bool [B, n] -> int32 [B, max(1, ceil(n / 32))]: neuron j is bit
+    j % 32 of word j // 32 (least significant first), trailing bits zero.
+    The shifted bits are summed in int64 (bit 31 overflows int32) and the
+    sum wrapped to int32 once."""
+    n = bits.shape[-1]
+    w = max(1, -(-n // 32))
+    b = bits.to(torch.int64)
+    b = torch.nn.functional.pad(b, (0, w * 32 - n))
+    b = b.reshape(b.shape[:-1] + (w, 32))
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    # the bits are disjoint within a word, so the sum is exact (< 2^32)
+    return _as_i32((b << shifts).sum(dim=-1))
+
+
+def spike_bitmask_into_ref(bits: torch.Tensor, ring: torch.Tensor,
+                           slot: torch.Tensor,
+                           active: Optional[torch.Tensor] = None) -> None:
+    """Row ``slot`` (an int32 0-dim tensor) of ``ring`` [cap, B, W] set to
+    ``spike_bitmask_ref(bits)``, unless ``active`` (a bool 0-dim tensor) is
+    False; no value is read on the host."""
+    words = spike_bitmask_ref(bits)
+    row = slot.reshape(1).long()
+    if active is not None:
+        words = torch.where(active, words, ring.index_select(0, row)[0])
+    ring.index_copy_(0, row, words[None])

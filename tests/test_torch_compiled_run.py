@@ -321,3 +321,105 @@ def test_a_dropped_model_frees_its_runners_at_once():
     assert ref() is not None
     del model
     assert ref() is None
+
+
+# ---------------------------------------------------------------------------
+# probes, scheduled custom updates and the health monitor in the chunks
+# ---------------------------------------------------------------------------
+
+def _observed_net(variant: str):
+    """_net's variant with probes of every kind and schedule (a packed
+    spike ring, strided and windowed rings that wrap inside a chunk,
+    reductions over neurons and over a state-resident g), two scheduled
+    custom updates (a population's and a group's that makes exc_exc's g
+    state) and the health monitor."""
+    from repro_torch.obs.health import HealthConfig
+    base = TIZ.spec(TIZ.IzhikevichNetConfig(n_total=N_EXC + N_INH,
+                                            n_conn=N_CONN, seed=SEED))
+    ms = TSPEC.ModelSpec(f"observed_{variant}")
+    for pop in base.populations.values():
+        ms.add_neuron_population(pop.name, pop.n, pop.model, pop.params,
+                                 pop.input_fn)
+    kw = {"delay": {"delay": TF.UniformIntDelay(0, 5)},
+          "stdp": {"wum": TSYN.STDP(lr=0.01, g_max=0.5)}}[variant]
+    ms.add_synapse_population("exc", "exc", ["exc", "inh"],
+                              connect=TF.FixedFanout(N_CONN),
+                              weight=TF.UniformWeight(0.0, 0.5), **kw)
+    ms.add_synapse_population("inh", "inh", ["exc", "inh"],
+                              connect=TF.FixedFanout(N_CONN),
+                              weight=TF.UniformWeight(0.0, -1.0),
+                              psm=TSYN.ExpDecay(3.0))
+    ms.probe("spk", "exc", "spikes")
+    ms.probe("inh_spk", "inh", "spikes", every=10, window=2)
+    ms.probe("v3", "exc", "V", every=3, window=4)
+    ms.probe("vmean", "inh", "V", reduce="mean")
+    ms.probe("gmax", "exc_exc", "g", reduce="max", every=5)
+    ms.probe("insyn", "inh_exc", "in_syn", every=7)
+    ms.add_custom_update("recenter", "inh", "V = V - 0.5 * (v_mean + 65.0)",
+                         reduce={"v_mean": ("mean", "V")}, every=7)
+    ms.add_custom_update("norm", "exc_exc",
+                         "g = g * 4.0 / maximum(w_sum, 1e-9)",
+                         reduce={"w_sum": ("sum", "g", "post")}, every=11)
+    return ms.build(dt=1.0, seed=SEED, device="cpu",
+                    monitor=HealthConfig(ema_tau_ms=10.0))
+
+
+def assert_observations_equal(a, b):
+    """Recordings (data and counts) and health reports bit for bit."""
+    assert a.recordings.keys() == b.recordings.keys()
+    for name in a.recordings.keys():
+        x, y = a.recordings[name], b.recordings[name]
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32
+                           else x, y.view(torch.int32)
+                           if y.dtype == torch.float32 else y), name
+        assert torch.equal(a.recordings.count(name),
+                           b.recordings.count(name)), name
+    la, lb = dict(_leaves(a.health)), dict(_leaves(b.health))
+    assert la.keys() == lb.keys() and la
+    for k in la:
+        assert torch.equal(la[k], lb[k]), k
+
+
+@pytest.mark.parametrize("variant", ["delay", "stdp"])
+@pytest.mark.parametrize("n_steps", [32, 45, 70])
+def test_chunked_observed_run_equals_eager_run(variant, n_steps):
+    """Chunks of 32 (one, one and a remainder of 13, two and 6): the
+    recordings, counts, health report and state equal the eager run's bit
+    for bit, from a fresh state and resumed mid-schedule, at B=1 and 2."""
+    model = _observed_net(variant)
+    sim = model.simulator
+    assert model.network.synapses[0].mutable_g
+    stim = _stim(model, n_steps)
+    for batch, gs in ((1, {}), (2, _exc(torch.tensor([0.8, 1.3])))):
+        st = sim.init_state(batch)
+        eager = sim.run(st, n_steps, gs, stim=stim)
+        comp = sim.run_compiled(st, n_steps, gs, stim=stim)
+        assert_runs_equal(eager, comp)
+        assert_observations_equal(eager, comp)
+        assert int(comp.recordings["spk"].sum()) > 0
+        assert comp.recordings["spk"].shape == (batch, n_steps, N_EXC)
+        # resumed at global step 13: the schedules keep counting from it
+        mid = sim.run(st, 13, gs, stim=_stim(model, 13, seed=1)).state
+        eager = sim.run(mid, n_steps, gs, stim=stim)
+        comp = sim.run_compiled(mid, n_steps, gs, stim=stim)
+        assert_runs_equal(eager, comp)
+        assert_observations_equal(eager, comp)
+        assert int(comp.recordings.count("v3")[0]) == min(
+            (13 + n_steps) // 3 - 13 // 3, 4)
+        assert int(comp.health.steps[0]) == n_steps
+
+
+def test_chunked_spike_probe_equals_the_raster_and_health_totals():
+    """The packed spike ring through chunks unpacks to the raster bit for
+    bit, and the monitor's totals are the summed counts."""
+    model = _observed_net("delay")
+    res = model.run(45, record_raster=True)
+    assert torch.equal(res.recordings["spk"], res.raster["exc"])
+    assert int(res.health.spike_total["exc"]) == int(
+        res.spike_counts["exc"].sum())
+    assert int(res.health.spike_total["inh"]) == int(
+        res.spike_counts["inh"].sum())
+    # a windowed spike ring of 2 rows: the last two samples (steps 30, 40)
+    want = res.raster["inh"][[29, 39]]
+    assert torch.equal(res.recordings["inh_spk"], want)

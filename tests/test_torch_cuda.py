@@ -24,7 +24,11 @@ scan within rtol=atol=2e-4 of ``ssd_chunked`` (tests/test_kernels.py's
 tolerance), with TF32 off.  The threefry kernels: keys, bits and uniforms
 bit-equal to their plain version, normals within 4 float32 ulp (log1pf's
 last bits).  The compiled step loop: a run replayed from CUDA graphs equals
-the eager run bit for bit (rasters, counts, every state tensor)."""
+the eager run bit for bit (rasters, counts, every state tensor), with
+probes, scheduled custom updates and the health monitor too (recordings,
+counts, health report).  The spike bitmask: words bit-equal to the plain
+version, the ring variant's device slot and active flag included, also
+replayed from a CUDA graph."""
 
 import numpy as np
 import pytest
@@ -46,6 +50,7 @@ from repro_torch.kernels import hh_step as HH  # noqa: E402
 from repro_torch.kernels import izhikevich_step as IZ  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
+from repro_torch.kernels import spike_bitmask as SBK  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import threefry as TFK  # noqa: E402
 from repro_torch.sparse import formats as TF  # noqa: E402
@@ -774,3 +779,142 @@ def test_cuda_captured_run_equals_eager_run(cuda_device, monkeypatch, net):
         _assert_runs_equal(eager, comp)
     assert sim.graph_counts["captures"] == 2
     assert sim.graph_counts["replays"] == 4 * 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 80001), (8, 80000), (3, 33),
+                                 (2, 64)])
+def test_cuda_spike_bitmask_equals_plain(cuda_device, b, n):
+    rng = np.random.default_rng(n)
+    bits = torch.tensor(rng.random((b, n)) < 0.3, device=cuda_device)
+    bits[:, -1] = True                      # the last bit of the last word
+    if n >= 32:
+        bits[:, 31] = True                  # bit 31: int32's sign
+    SBK.reset_launches()
+    got = SBK.spike_bitmask(bits)
+    assert SBK.launches["spike_bitmask"] == 1
+    assert got.dtype == torch.int32 and got.shape == (b, -(-n // 32))
+    assert torch.equal(got.cpu(), TR.spike_bitmask_ref(bits.cpu()))
+    assert torch.equal(got, TR.spike_bitmask_ref(bits))
+
+
+@pytest.mark.gpu
+def test_cuda_spike_bitmask_ring_slot_from_the_device(cuda_device):
+    """The ring variant reads its slot and active flag on the device: a
+    CUDA graph captured once writes whatever row they name at each
+    replay, and an inactive replay writes nothing."""
+    rng = np.random.default_rng(1)
+    b, n, cap = 2, 100, 5
+    ring = torch.zeros((cap, b, 4), dtype=torch.int32, device=cuda_device)
+    want = torch.zeros_like(ring)
+    bits = torch.zeros((b, n), dtype=torch.bool, device=cuda_device)
+    slot = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    active = torch.ones((), dtype=torch.bool, device=cuda_device)
+    SBK.spike_bitmask_into(bits, ring, slot, active)          # warm up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        SBK.spike_bitmask_into(bits, ring, slot, active)
+    for i, (s, on) in enumerate([(3, True), (0, True), (3, False),
+                                 (4, True), (3, True)]):
+        new = torch.tensor(rng.random((b, n)) < 0.5, device=cuda_device)
+        bits.copy_(new)
+        slot.fill_(s)
+        active.fill_(on)
+        g.replay()
+        if on:
+            want[s] = TR.spike_bitmask_ref(new)
+        torch.cuda.synchronize()
+        assert torch.equal(ring, want), i
+    # the plain version with the same device tensors agrees
+    plain = torch.zeros_like(ring)
+    TR.spike_bitmask_into_ref(bits, plain, slot, active)
+    assert torch.equal(plain[3], ring[3])
+    # host slots, and a slot past the ring writes nothing
+    SBK.spike_bitmask_into(bits, ring, 1)
+    assert torch.equal(ring[1], TR.spike_bitmask_ref(bits))
+    slot.fill_(cap)
+    before = ring.clone()
+    SBK.spike_bitmask_into(bits, ring, slot)
+    assert torch.equal(ring, before)
+    with pytest.raises(ValueError):
+        SBK.spike_bitmask_into(bits, ring, cap)
+    with pytest.raises(TypeError):
+        SBK.spike_bitmask(bits.to(torch.uint8))
+    with pytest.raises(ValueError):
+        SBK.spike_bitmask_into(bits, ring[:, :1], 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [45, 70])
+def test_cuda_captured_observed_run_equals_eager_run(cuda_device,
+                                                     monkeypatch, n_steps):
+    """Probes (a packed spike ring, strided, windowed and reduced ones),
+    scheduled custom updates (one writes a delayed group's g, its "post"
+    sum one ELL launch) and the health monitor, replayed from CUDA graphs
+    of 8 steps: recordings, counts, health and state equal the eager
+    run's, launches too; the spike probe is the raster."""
+    from repro_torch.obs.health import HealthConfig
+    monkeypatch.setattr(GR, "CHUNK_STEPS", 8)
+    base = TIZ.spec(TIZ.IzhikevichNetConfig(n_total=2000, n_conn=50))
+    ms = TSPEC.ModelSpec("observed")
+    for pop in base.populations.values():
+        ms.add_neuron_population(pop.name, pop.n, pop.model, pop.params,
+                                 pop.input_fn)
+    for sp in base.synapses:
+        ms.add_synapse_population(
+            sp.name, sp.pre, list(sp.post), sp.connect, sp.weight,
+            representation="sparse",
+            delay=TF.UniformIntDelay(0, 6) if sp.name == "exc" else None)
+    ms.probe("spk", "exc", "spikes")
+    ms.probe("inh_spk", "inh", "spikes", every=10)
+    ms.probe("vmean", "exc", "V", reduce="mean")
+    ms.probe("v25", "exc", "V", every=25, window=20)
+    ms.probe("gmax", "exc_exc", "g", reduce="max", every=4)
+    ms.add_custom_update("norm", "exc_exc",
+                         "g = g * 10.0 / maximum(w_sum, 1e-9)",
+                         reduce={"w_sum": ("sum", "g", "post")}, every=9)
+    ms.add_custom_update("recenter", "inh", "V = V - 0.1 * (v_mean + 65.0)",
+                         reduce={"v_mean": ("mean", "V")}, every=6)
+    model = ms.build(dt=1.0, seed=5, device=cuda_device,
+                     monitor=HealthConfig(bands_hz={"exc": (1.0, 100.0)}))
+    sim = model.simulator
+    for batch in (1, 3):
+        st = sim.init_state(batch)
+        for m in GR.launch_counters():
+            for key in m:
+                m[key] = 0
+        eager = sim.run(st, n_steps, record_raster=True)
+        torch.cuda.synchronize()
+        want = [dict(m) for m in GR.launch_counters()]
+        # eagerly the due samples: every step of "spk", every 10th of
+        # "inh_spk"
+        assert want[-1]["spike_bitmask"] == n_steps + n_steps // 10
+        sim.run_compiled(st, n_steps, record_raster=True)      # captures
+        for m in GR.launch_counters():
+            for key in m:
+                m[key] = 0
+        comp = sim.run_compiled(st, n_steps, record_raster=True)
+        torch.cuda.synchronize()
+        got = [dict(m) for m in GR.launch_counters()]
+        # the graph packs every step's spikes into its staging rows
+        assert got[:-1] == want[:-1]
+        assert got[-1]["spike_bitmask"] == 2 * n_steps
+        _assert_runs_equal(eager, comp)
+        for name in eager.recordings.keys():
+            x, y = eager.recordings[name], comp.recordings[name]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), name
+            assert torch.equal(eager.recordings.count(name),
+                               comp.recordings.count(name)), name
+        for f in dataclasses.fields(eager.health):
+            a, b = getattr(eager.health, f.name), getattr(comp.health, f.name)
+            if isinstance(a, dict):
+                assert all(torch.equal(a[k], b[k]) for k in a), f.name
+            else:
+                assert torch.equal(a, b), f.name
+        assert torch.equal(comp.recordings["spk"],
+                           comp.raster["exc"].transpose(0, 1))
+        assert torch.equal(comp.health.spike_total["exc"],
+                           comp.spike_counts["exc"].sum(-1, dtype=torch.int32))

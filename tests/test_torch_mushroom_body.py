@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core.models import mushroom_body as JMB  # noqa: E402
 from repro_torch.core.models import mushroom_body as TMB  # noqa: E402
+from repro_torch.core.snn import spec as TSPEC  # noqa: E402
 from repro_torch.core.snn.network import Network  # noqa: E402
 from repro_torch.core.snn.simulator import Simulator  # noqa: E402
 from repro_torch.kernels import hh_step as HH  # noqa: E402
@@ -124,6 +125,14 @@ def test_mushroom_body_baseline_healthy():
 
 
 def test_unported_observation_raises():
-    for kw in ({"kc_probe_every": 25}, {"kc_dn_normalize": True}):
-        with pytest.raises(NotImplementedError):
-            TMB.spec(TMB.MushroomBodyConfig(**SMALL, **kw))
+    """The KC probe and the KC->DN normalisation are ported: they declare
+    what the JAX package declares; a malformed probe period still raises
+    (tests/test_torch_probes.py holds both to the JAX package)."""
+    ms = TMB.spec(TMB.MushroomBodyConfig(**SMALL, kc_probe_every=25,
+                                         kc_dn_normalize=True))
+    assert [(p.name, p.target, p.var, p.every) for p in ms.probes] == [
+        ("kc_v", "KC", "V", 25)]
+    assert [(c.name, c.target) for c in ms.custom_updates] == [
+        ("normalize_kc_dn", "KC_DN")]
+    with pytest.raises(TSPEC.SpecError):
+        TMB.spec(TMB.MushroomBodyConfig(**SMALL, kc_probe_every=-1))

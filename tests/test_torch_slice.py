@@ -310,13 +310,17 @@ def test_port_model_surface():
         tm.run(5, stim={"nope": np.zeros((5, 3))})
     ms = TSPEC.ModelSpec("x")
     ms.add_neuron_population("a", 4, "lif")
-    for call in (lambda: ms.probe("p", "a", "V"),
-                 lambda: ms.add_custom_update("u", "a", "V = V"),
-                 lambda: ms.build(device="cpu", init="device"),
-                 lambda: ms.build(device="cpu", monitor=object()),
+    # probes, custom updates and monitors are ported (test_torch_probes,
+    # test_torch_health); on-device construction and meshes are not
+    ms.probe("p", "a", "V")
+    ms.add_custom_update("u", "a", "V = V")
+    for call in (lambda: ms.build(device="cpu", init="device"),
                  lambda: ms.build(device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(TSPEC.SpecError, match="HealthConfig"):
+        ms.build(device="cpu", monitor=object())
+    assert ms.build(device="cpu").run(3).recordings["p"].shape == (3, 4)
     with pytest.raises(TSPEC.SpecError):
         ms.add_synapse_population("s", "a", "a", TF.FixedFanout(2),
                                   representation="dense",
