@@ -177,7 +177,26 @@ failure ends the run with a non-zero exit):
      (one ``ell_spmv`` launch, every row live, 100 posts: contended
      atomics) beside ``index_add_`` (a yardstick); us/step with and
      without the observation; the 12-candidate search with the KC V
-     probe's recordings per candidate.
+     probe's recordings per candidate;
+  10. the paper's occupancy model (``kernels.autotune``) against the
+     runtime: every ``H100Limits`` value the card reports equal to it;
+     for every kernel of the port at every block it is compiled for, the
+     model's resident CTAs an SM equal to
+     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (the kernels the
+     model chooses blocks for also at every block of whole warps and at
+     two shared-memory sizes), each limit the runtime does not report
+     (register and shared-memory units, the register file's quarters, the
+     1 KB reserve, 32 CTAs an SM) deciding at least one case; each
+     model-chosen kernel at its path's shape at every compiled block, bit
+     for bit the chosen block's result, with its device time; then the
+     paper's experiment at full width (``benchmarks/
+     gscale_experiments_torch.py``): gScale searched per nConn on the
+     100k-neuron Izhikevich net (nConn 100..1000, 20 candidates x 350
+     steps) and per nPN on the 100k-KC mushroom body (nPN 25..100, 12
+     candidates x 700 steps, PN_KC and PN_LHI), both hyperbola fits,
+     every pick finite; the trace of those builds and runs exported
+     (``chiprun_out/phase10_trace.json``), valid, with the JAX package's
+     span and instant names.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -208,7 +227,9 @@ RASTER_AGREEMENT = 0.998
 
 N_PRE, N_CONN, N_POST, N_SLOTS = 80_000, 1000, 80_000, 21
 # the main path's ELL kernel in the SASS (its mangled name holds this)
-ELL_SASS_KERNEL = "ell_spmv_live_kernelIhLi4E"   # bool spikes, 4 slots
+# at the rows the model chose: ell_spmv_live_kernel<rows, bool spikes, 4
+# slots>
+ELL_SASS_KERNEL = "ell_spmv_live_kernelILi{rows}EhLi4E"
 MAIN = dict(n_total=100_000, n_conn=1000, steps=1000, plain_steps=50)
 # the grid a conductance search scans, below the saturated regime: above
 # gScale ~1.25 this net bursts at ~100 Hz and the rate is no longer monotone
@@ -372,6 +393,29 @@ TRAIN = {
 STEP_CHECK = dict(layers=2, batch=2, seq=512, loss_tol=1e-4, grad_rtol=1e-3,
                   grad_atol_frac=1e-4)
 
+# phase 10: the paper's gScale(nConn) experiment at full width
+# (benchmarks/gscale_experiments_torch.py): Table 1 on the Izhikevich net,
+# Table 2 on the mushroom body (its fan-in-growing groups scaled from
+# MB_EXAMPLE's, as 6b does, so that 100k KCs stay finite)
+EXPERIMENT = {
+    "izhikevich": dict(n_total=100_000,
+                       n_conns=(100, 200, 300, 500, 700, 1000),
+                       n_steps=350, candidates=20),
+    "mushroom": dict(n_kc=100_000, n_lhi=20, n_dn=100,
+                     n_pns=(25, 50, 75, 100), n_steps=700, candidates=12),
+}
+# profiles of each model-chosen kernel at each compiled block, in turns
+BLOCK_ROUNDS = 3
+# a CTA's shared memory at 128 threads where the system's 1 KB and the
+# 128-byte unit decide the count (tests/test_torch_autotune.py)
+OCC_SMEM_WITNESS = (45 * 1024 + 100, 45666)
+# the limits the runtime does not report, each with a value that differs
+# from the card's: a case the real value alone decides is its check
+UNIT_ALTERNATIVES = {"reg_alloc_unit": 32, "reg_sub_partitions": 1,
+                     "smem_alloc_unit": 1, "smem_reserved_per_cta": 0,
+                     "max_ctas_per_sm": 64}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -438,6 +482,8 @@ def main() -> int:
     launches_obs = main_observed(torch, report)
     torch.cuda.empty_cache()
     mb_observed(torch, report)
+    torch.cuda.empty_cache()
+    paper_experiment(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -547,9 +593,10 @@ def compare_kernels(torch, report) -> list:
     dev = torch.device("cuda")
     rows = []
     with phase("2. kernels against their plain versions"):
-        sass = _sass_instructions(str(_build.library_path("ell_spmv")),
-                                  ELL_SASS_KERNEL)
-        print(f"{ELL_SASS_KERNEL}: {sass['instructions']} SASS "
+        name = ELL_SASS_KERNEL.format(rows=K.launch_plan(
+            1, N_PRE, N_CONN, N_POST)["rows_per_cta"])
+        sass = _sass_instructions(str(_build.library_path("ell_spmv")), name)
+        print(f"{name}: {sass['instructions']} SASS "
               f"instructions: {sass['by_opcode']}")
         report["ell_spmv_sass"] = sass
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -771,9 +818,11 @@ def compare_neuron_kernels(torch, report) -> list:
     dev = torch.device("cuda")
     rows = []
     with phase("2b. neuron kernels against their plain versions"):
+        # the instance of mb_full's KCs' block
+        name = f"hh_step_kernelILi{HH.launch_plan(1, 100_000)['block']}E"
         sass = _sass_instructions(str(_build.library_path("neuron_step")),
-                                  "hh_step_kernel")
-        print(f"hh_step_kernel: {sass['instructions']} SASS instructions, "
+                                  name)
+        print(f"{name}: {sass['instructions']} SASS instructions, "
               f"{sass['loop_body']} in one substep (the innermost loop): "
               f"{sass['by_opcode']}")
         report["hh_step_sass"] = sass
@@ -836,10 +885,10 @@ def compare_neuron_kernels(torch, report) -> list:
             torch.cuda.synchronize()
             err = max(float((o - e).abs().max())
                       for o, e in zip(out[:4], ref[:4]))
-            check(all(bool(torch.allclose(o, e, rtol=NEURON_TOL,
-                                          atol=NEURON_TOL))
+            check(all(bool(torch.equal(o, e))
                       for o, e in zip(out[:4], ref[:4])),
-                  f"hh_step [{b}, {n}]: max abs err {err}")
+                  f"hh_step [{b}, {n}]: not bit-equal to its plain version "
+                  f"(max abs err {err})")
             check(bool(torch.equal(out[4], out[0] >= 0.0)),
                   f"hh_step [{b}, {n}]: above is not v >= 0")
             check(bool(flag.all()), f"hh_step [{b}, {n}]: finite inputs "
@@ -2863,6 +2912,545 @@ def mb_observed(torch, report) -> None:
             "profile": {"eager": prof_e, "graph": prof_g},
             "search": {"seconds": search_s, "pick": pick.__dict__},
             "graph_counts": dict(sim.graph_counts)}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the occupancy model against the runtime, and the paper's
+# experiment at full width
+# ---------------------------------------------------------------------------
+
+def _limits_vs_runtime(torch, AT) -> dict:
+    """Every H100Limits value the runtime reports, beside the model's."""
+    got = AT.device_limits()
+    rows = {k: {"model": getattr(AT.H100, k), "runtime": v}
+            for k, v in got.items()}
+    for k, r in rows.items():
+        print(f"  {k}: model {r['model']}, runtime {r['runtime']}")
+        check(r["model"] == r["runtime"],
+              f"H100Limits.{k} = {r['model']}, the card says {r['runtime']}")
+    return rows
+
+
+def _occupancy_vs_runtime(torch, AT) -> dict:
+    """The model's resident CTAs against the runtime's for every kernel at
+    every compiled block; the kernels the model chooses blocks for also at
+    every block of whole warps they may take and, at 128 threads, at
+    OCC_SMEM_WITNESS bytes of shared memory.  Each limit the runtime does
+    not report must decide at least one case (UNIT_ALTERNATIVES: the count
+    that limit alone changes)."""
+    import dataclasses
+    for lib in sorted({k.library for k in AT.KERNELS.values()}):
+        want = sorted(n for n, k in AT.KERNELS.items() if k.library == lib)
+        got = sorted(AT.kernel_names(lib))
+        check(got == want, f"{lib} numbers the kernels {got}, the model "
+              f"lists {want}")
+    alts = {k: dataclasses.replace(AT.H100, **{k: v})
+            for k, v in UNIT_ALTERNATIVES.items()}
+    witnesses = {k: 0 for k in alts}
+    table, mismatches, samples = [], [], 0
+    for name, spec in AT.KERNELS.items():
+        for block in spec.blocks:
+            a = AT.kernel_attributes(name, block)
+            dyn = a["launchDynamicSharedBytes"]
+            regs, static = a["numRegs"], a["sharedSizeBytes"]
+            occ = AT.occupancy(block, regs, static + dyn)
+            rt = AT.runtime_occupancy(name, block)
+            table.append({"kernel": name, "block": block, "regs": regs,
+                          "static_smem": static, "dynamic_smem": dyn,
+                          "spill_bytes": a["localSizeBytes"],
+                          "model_ctas": occ["ctas"], "runtime_ctas": rt,
+                          "occupancy": occ["occupancy"],
+                          "limiter": occ["limiter"]})
+            cases = [(block, dyn)]
+            if len(spec.blocks) > 1 or spec.library == "device_limits":
+                top = a["maxThreadsPerBlock"]
+                cases += [(q, 0) for q in range(32, top + 1, 32)]
+                if top >= 128:
+                    cases += [(128, t - static) for t in OCC_SMEM_WITNESS
+                              if t > static]
+            for q, d in cases:
+                want = AT.runtime_occupancy(name, block, q, d)
+                got = AT.occupancy(q, regs, static + d)["ctas"]
+                samples += 1
+                if got != want:
+                    mismatches.append((name, block, q, d, got, want))
+                for k, lim in alts.items():
+                    if AT.occupancy(q, regs, static + d, lim)["ctas"] != want:
+                        witnesses[k] += 1
+    print(f"  {samples} cases over {len(AT.KERNELS)} kernels; mismatches "
+          f"{mismatches[:10]}; cases each unreported limit decides "
+          f"{witnesses}")
+    check(not mismatches, f"the occupancy model disagrees with the runtime "
+          f"in {len(mismatches)} cases, e.g. {mismatches[:5]}")
+    check(all(w > 0 for w in witnesses.values()),
+          f"a limit decided no case: {witnesses}")
+    return {"table": table, "samples": samples, "witnesses": witnesses}
+
+
+@contextlib.contextmanager
+def _forced_block(module, block):
+    """Patch ``module.launch_plan`` to put ``block`` (rows, for the ELL
+    scatters) in its plan: a measurement of the blocks the model did not
+    choose (the port itself never does this)."""
+    from unittest import mock
+    from repro_torch.kernels import autotune as AT
+    orig = module.launch_plan
+
+    def plan(*args, **kw):
+        p = dict(orig(*args, **kw))
+        p["block"] = block
+        if "rows_per_cta" in p:
+            p["rows_per_cta"] = block
+            p["smem_bytes"] = AT.spmv_smem_bytes(block)
+        if hasattr(module, "GRID_STRIDE_MAX"):
+            p["grid"] = (min(-(-args[1] // block), module.GRID_STRIDE_MAX),
+                         args[0], 1)
+        return p
+    with mock.patch.object(module, "launch_plan", plan):
+        yield
+
+
+def _leaves(x) -> list:
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def _ms_by_block(torch, module, run, kname: str, order, reps: int) -> dict:
+    """Device ms a call of ``run`` at each block of ``order`` (taken in
+    that order, ``reps`` calls each, under ``_forced_block``), from ONE
+    torch.profiler trace: each block is its own instantiation, told apart
+    by the block in the kernel's name (``<kname>...<block`` demangled,
+    ``...ILi<block>`` mangled).  One trace a case, since a process that
+    takes hundreds of traces has had the profiler come back empty."""
+    import re
+    pat = re.compile(re.escape(kname) + r"\w*?(?:<|ILi)(\d+)")
+
+    def calls():
+        for blk in order:
+            with _forced_block(module, blk):
+                for _ in range(reps):
+                    run()
+        torch.cuda.synchronize()
+
+    want = {blk: reps * list(order).count(blk) for blk in set(order)}
+    for _ in range(5):          # a trace that dropped launches is retaken
+        prof = _device_profile(torch, calls, warm=True)
+        seen: dict = {}
+        for name, (c, us) in prof["by_name"].items():
+            m = pat.search(name)
+            if m:
+                n, t = seen.get(int(m.group(1)), (0, 0.0))
+                seen[int(m.group(1))] = (n + c, t + us)
+        kept = {blk: seen.get(blk, (0, 0.0))[0] for blk in want}
+        if all(kept[b] > 0 and kept[b] % want[b] == 0 for b in want):
+            break
+    check(all(kept[b] > 0 and kept[b] % want[b] == 0 for b in want),
+          f"traces of {kname} kept {kept} launches a block, not multiples "
+          f"of {want}")
+    return {blk: seen[blk][1] / seen[blk][0] / 1e3 for blk in want}
+
+
+def _blocks_at_path_shapes(torch, AT, rounds: int = BLOCK_ROUNDS) -> list:
+    """Each kernel whose block the model chooses, at its path's shape: the
+    chosen block, then every compiled one: the result bit-equal to the
+    chosen block's (and at the chosen block to the plain version; normals
+    within NORMAL_ULP), device ms a call, the
+    median of ``rounds`` rounds with the spread (max - min); a round is one
+    profile of every block in turn (ascending, then descending, ...)."""
+    from repro_torch.kernels import (delay_ring, ell_spmv, hh_step,
+                                     izhikevich_step, spike_bitmask,
+                                     threefry)
+    from repro_torch.kernels import ref as R
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def rnd(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    g = rnd(N_PRE, N_CONN)
+    idx = torch.randint(0, N_POST, (N_PRE, N_CONN), device=dev,
+                        generator=gen, dtype=torch.int32)
+    valid = rnd(N_PRE, N_CONN) < 0.8
+    dly = torch.randint(0, N_SLOTS, (N_PRE, N_CONN), device=dev,
+                        generator=gen, dtype=torch.int32)
+    spk = rnd(1, N_PRE) < 0.01
+    n_exc = IZH_SHAPES[0][1]
+    v = -65.0 + 40.0 * rnd(1, n_exc)
+    u, isyn = -13.0 + rnd(1, n_exc), 10.0 * rnd(1, n_exc)
+    pa, pb, pc, pd = (rnd(n_exc) for _ in range(4))
+    n_kc = HH_SHAPES[1][1]
+    hv, hm, hh_, hn, hi = (-60.0 + 10.0 * rnd(1, n_kc), rnd(1, n_kc),
+                           rnd(1, n_kc), rnd(1, n_kc), rnd(1, n_kc))
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, 2), device=dev,
+                         generator=gen, dtype=torch.int32)
+    ring = rnd(*FOLD_SHAPES[0])
+    b, s_, n_post = FOLD_SHAPES[0]
+    acc0 = rnd(s_, n_post, b).double()
+    cur = torch.tensor(11, dtype=torch.int32, device=dev)
+    bits = rnd(1, n_exc) < 0.02
+    cases = [
+        ("ell_spmv", ell_spmv, "ell_spmv_live",
+         lambda: ell_spmv.ell_spmv(g, idx, valid, spk, N_POST),
+         lambda: R.ell_spmv_ref(g, idx, valid, spk, N_POST),
+         lambda: ell_spmv.launch_plan(1, N_PRE, N_CONN, N_POST)),
+        ("ell_spmv_delay", ell_spmv, "ell_spmv_delay_live",
+         lambda: ell_spmv.ell_spmv_delay(g, idx, valid, dly, spk, N_POST,
+                                         N_SLOTS),
+         lambda: R.ell_spmv_delay_ref(g, idx, valid, dly, spk, N_POST,
+                                      N_SLOTS),
+         lambda: ell_spmv.launch_plan(1, N_PRE, N_CONN, N_POST,
+                                      n_slots=N_SLOTS)),
+        ("delay_ring_fold", delay_ring, "delay_ring_fold",
+         lambda: delay_ring.delay_ring_fold(ring, acc0.clone(), cur, 1.0,
+                                            0.7),
+         lambda: R.delay_ring_fold_ref(ring, acc0.clone(), cur, 1.0, 0.7),
+         lambda: delay_ring.launch_plan(b, s_, n_post)),
+        ("izhikevich_step", izhikevich_step, "izhikevich_step",
+         lambda: izhikevich_step.izhikevich_step(v, u, isyn, pa, pb, pc,
+                                                 pd, 1.0),
+         lambda: R.izhikevich_step_ref(v, u, isyn, pa, pb, pc, pd, 1.0),
+         lambda: izhikevich_step.launch_plan(1, n_exc)),
+        ("hh_step", hh_step, "hh_step",
+         lambda: hh_step.hh_step(hv, hm, hh_, hn, hi, 0.1),
+         lambda: R.hh_step_ref(hv, hm, hh_, hn, hi, 0.1),
+         lambda: hh_step.launch_plan(1, n_kc)),
+        ("threefry_split", threefry, "threefry_split",
+         lambda: threefry.threefry_split(keys, THREEFRY_SPLITS[0]),
+         lambda: R.threefry_split_ref(keys, THREEFRY_SPLITS[0]),
+         lambda: threefry.launch_plan("threefry_split", 1,
+                                      THREEFRY_SPLITS[0])),
+        ("threefry_draw", threefry, "threefry_draw",
+         lambda: threefry.threefry_draw(keys, n_exc, "normal", 5.0),
+         lambda: R.threefry_draw_ref(keys, n_exc, "normal", 5.0),
+         lambda: threefry.launch_plan("threefry_draw", 1, n_exc)),
+        ("spike_bitmask", spike_bitmask, "spike_bitmask",
+         lambda: spike_bitmask.spike_bitmask(bits),
+         lambda: R.spike_bitmask_ref(bits),
+         lambda: spike_bitmask.launch_plan(1, n_exc)),
+    ]
+    rows = []
+    for label, module, kname, run, plain, plan_of in cases:
+        plan = plan_of()
+        chosen = plan["block"]
+        want = _leaves(run())
+        ref = _leaves(plain())
+        for a, r in zip(want, ref):
+            if label == "threefry_draw":
+                check(_ulp(torch, a, r) <= NORMAL_ULP,
+                      f"{label}: past {NORMAL_ULP} ulp of its plain version")
+            else:
+                check(bool(torch.equal(a, r)),
+                      f"{label} at block {chosen}: not bit-equal to its "
+                      "plain version")
+        spec_blocks = (AT.SPMV_ROWS if module is ell_spmv
+                       else AT.ELEMENTWISE_BLOCKS)
+        for block in spec_blocks:
+            with _forced_block(module, block):
+                got = _leaves(run())
+            for a, w in zip(got, want):
+                check(bool(torch.equal(a, w)),
+                      f"{label} at block {block}: not bit-equal to the "
+                      f"chosen block {chosen}'s result")
+        samples = {b: [] for b in spec_blocks}
+        for r in range(rounds):
+            ms = _ms_by_block(torch, module, run, kname,
+                              spec_blocks if r % 2 == 0
+                              else spec_blocks[::-1], 20)
+            for block in spec_blocks:
+                samples[block].append(ms[block])
+        times = {b: sorted(t)[len(t) // 2] for b, t in samples.items()}
+        spread = {b: max(t) - min(t) for b, t in samples.items()}
+        row = {"name": label, "chosen": chosen,
+               "occupancy": plan["occupancy"],
+               "resident_ctas": plan["resident_ctas"],
+               "limiter": plan["limiter"], "rounds": rounds,
+               "ms_by_block": times, "spread_by_block": spread,
+               "ms": times[chosen], "ms_256": times[256]}
+        rows.append(row)
+        print(f"  {label}: chosen {chosen} ({plan['resident_ctas']} CTAs "
+              f"an SM, {plan['limiter']}); device ms by block, median of "
+              f"{rounds} (spread) "
+              + ", ".join(f"{k}: {t:.5f} ({spread[k]:.5f})"
+                          for k, t in times.items()))
+    del g, idx, valid, dly
+    return rows
+
+
+def _plan_modules() -> tuple:
+    """The wrappers whose ``launch_plan`` takes its block from the model."""
+    from repro_torch.kernels import (delay_ring, ell_spmv, hh_step,
+                                     izhikevich_step, spike_bitmask,
+                                     threefry)
+    return (delay_ring, ell_spmv, hh_step, izhikevich_step, spike_bitmask,
+            threefry)
+
+
+def _trace_plans(events) -> list:
+    """The plans the wrappers made, one a shape: the trace's
+    ``choose_block_elementwise`` / ``choose_block_spmv`` instants tagged
+    ``launch_plan``, as (key, args); key (kernel, n, batch), or
+    ("ell_spmv" | "ell_spmv_delay", n_pre, k, n_post, b, n_slots)."""
+    plans = {}
+    for e in events:
+        a = e.get("args", {})
+        if a.get("tag") != "launch_plan":
+            continue
+        if e["name"] == "choose_block_spmv":
+            key = ("ell_spmv" if a["n_slots"] is None else "ell_spmv_delay",
+                   a["n_pre"], a["k"], a["n_post"], a["b"], a["n_slots"])
+        elif e["name"] == "choose_block_elementwise":
+            key = (a["kernel"], a["n"], a["batch"])
+        else:
+            continue
+        plans.setdefault(key, a)
+    return list(plans.items())
+
+
+def _blocks_at_experiment_shapes(torch, plans) -> list:
+    """Each plan the experiment's wrappers made (``_trace_plans``), at its
+    own shape on fresh inputs: the wrapper's result at the chosen block
+    against the plain version (as ``_blocks_at_path_shapes`` holds it: bit
+    for bit but the normal draws, within NORMAL_ULP; the ELL plain version
+    member by member) and bit-equal to block 256's, the failures raised
+    together at the end; device ms a call at the chosen block and at 256,
+    in turns (chosen, 256, 256, chosen; 10 calls each) in one profile."""
+    from repro_torch.kernels import ell_spmv, hh_step, izhikevich_step
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import spike_bitmask, threefry
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+
+    def rnd(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    def by_members(fn, b, step=4):
+        return torch.cat([fn(slice(i, min(i + step, b)))
+                          for i in range(0, b, step)])
+
+    rows, failures = [], []
+    for key, a in plans:
+        name, chosen = key[0], a["block"]
+        how = "equal"
+        if name in ("ell_spmv", "ell_spmv_delay"):
+            _, n_pre, k, n_post, b, n_slots = key
+            g = rnd(n_pre, k)
+            idx = torch.randint(0, n_post, (n_pre, k), device=dev,
+                                generator=gen, dtype=torch.int32)
+            valid = rnd(n_pre, k) < 0.8
+            spk = rnd(b, n_pre) < 0.02
+            module, kname = ell_spmv, "ell_spmv"
+            if n_slots is None:
+                run = lambda: ell_spmv.ell_spmv(g, idx, valid, spk, n_post)
+                plain = lambda: by_members(lambda m: R.ell_spmv_ref(
+                    g, idx, valid, spk[m], n_post), b)
+            else:
+                dly = torch.randint(0, n_slots, (n_pre, k), device=dev,
+                                    generator=gen, dtype=torch.int32)
+                run = lambda: ell_spmv.ell_spmv_delay(
+                    g, idx, valid, dly, spk, n_post, n_slots)
+                plain = lambda: by_members(lambda m: R.ell_spmv_delay_ref(
+                    g, idx, valid, dly, spk[m], n_post, n_slots), b)
+            shape = f"[{b}, {n_pre}] x K {k} -> {n_post}" + (
+                f" x {n_slots} slots" if n_slots else "")
+        elif name == "izhikevich_step":
+            _, n, b = key
+            v = -65.0 + 40.0 * rnd(b, n)
+            u, isyn = -13.0 + rnd(b, n), 10.0 * rnd(b, n)
+            pa, pb, pc, pd = (rnd(n) for _ in range(4))
+            module, kname = izhikevich_step, name
+            run = lambda: izhikevich_step.izhikevich_step(
+                v, u, isyn, pa, pb, pc, pd, 1.0)
+            plain = lambda: R.izhikevich_step_ref(v, u, isyn, pa, pb, pc,
+                                                  pd, 1.0)
+            shape = f"[{b}, {n}]"
+        elif name == "hh_step":
+            _, n, b = key
+            hv, hm, hh_, hn, hi = (-60.0 + 10.0 * rnd(b, n), rnd(b, n),
+                                   rnd(b, n), rnd(b, n), rnd(b, n))
+            module, kname = hh_step, name
+            run = lambda: hh_step.hh_step(hv, hm, hh_, hn, hi, 0.1)
+            plain = lambda: R.hh_step_ref(hv, hm, hh_, hn, hi, 0.1)
+            shape = f"[{b}, {n}]"
+        elif name in ("threefry_split", "threefry_draw"):
+            _, n, b = key
+            keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2), device=dev,
+                                 generator=gen, dtype=torch.int32)
+            module, kname = threefry, name
+            if name == "threefry_split":
+                run = lambda: threefry.threefry_split(keys, n)
+                plain = lambda: R.threefry_split_ref(keys, n)
+            else:
+                # the draw's kernel is one for every distribution: uniform
+                # held bit-equal here, normal within NORMAL_ULP below
+                check(bool(torch.equal(
+                    threefry.threefry_draw(keys, n, "uniform"),
+                    R.threefry_draw_ref(keys, n, "uniform"))),
+                    f"threefry uniform at [{b}, {n}]: not bit-equal")
+                how = "normal"
+                run = lambda: threefry.threefry_draw(keys, n, "normal", 5.0)
+                plain = lambda: R.threefry_draw_ref(keys, n, "normal", 5.0)
+            shape = f"[{b}, {n}]"
+        elif name == "spike_bitmask":
+            _, n, b = key
+            bits = rnd(b, n) < 0.02
+            module, kname = spike_bitmask, name
+            run = lambda: spike_bitmask.spike_bitmask(bits)
+            plain = lambda: R.spike_bitmask_ref(bits)
+            shape = f"[{b}, {n}]"
+        else:
+            raise SmokeFailure(f"phase 10 has no case for {name}'s plan "
+                               f"{key}")
+        want = _leaves(run())
+        err = 0.0
+        for x, r in zip(want, _leaves(plain())):
+            if x.dtype == torch.float32:
+                err = max(err, float((x - r).abs().max()))
+            if how == "normal":
+                if _ulp(torch, x, r) > NORMAL_ULP:
+                    failures.append(f"{name} {shape}: past {NORMAL_ULP} "
+                                    "ulp of its plain version")
+            elif not bool(torch.equal(x, r)):
+                failures.append(f"{name} {shape} at block {chosen}: not "
+                                "bit-equal to its plain version")
+        with _forced_block(module, 256):
+            got = _leaves(run())
+        if not all(bool(torch.equal(x, w)) for x, w in zip(got, want)):
+            failures.append(f"{name} {shape}: block 256 not bit-equal to "
+                            f"the chosen {chosen}'s result")
+        ms = _ms_by_block(torch, module, run, kname,
+                          (chosen, 256, 256, chosen), 10)
+        row = {"name": name, "shape": shape, "chosen": chosen,
+               "resident_ctas": a["resident_ctas"], "limiter": a["limiter"],
+               "occupancy": a["occupancy"], "score": a["score"],
+               "max_abs_err": err, "ms": ms[chosen], "ms_256": ms[256]}
+        rows.append(row)
+        print(f"  {name} {shape}: chosen {chosen} ({a['resident_ctas']} "
+              f"CTAs an SM, {a['limiter']}, score {a['score']:.4f}); "
+              f"device ms {ms[chosen]:.5f} at {chosen}, "
+              f"{ms[256]:.5f} at 256; max abs err {err:.3g}")
+        del run, plain, want, got
+        torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return rows
+
+
+def _print_izhikevich(res) -> None:
+    print(f"  target rate {res['target_rate']:.4f} Hz (reference build "
+          f"host_init {res['ref_host_init_s']:.3f} s)")
+    print("   nConn |    gScale |  rate Hz | finite | host_init s | "
+          "candidates/s")
+    for row in zip(res["n_conns"], res["gscales"], res["rates"],
+                   res["finite"], res["host_init_s"],
+                   res["candidates_per_s"]):
+        print("  {:6d} | {:9.5f} | {:8.4f} | {!s:6} | {:11.3f} | {:.3f}"
+              .format(*row))
+    print(f"  fit k1={res['k1']:.6g} k2={res['k2']:.6g} k3={res['k3']:.6g} "
+          f"MAPE={res['mape_pct']:.3f}%")
+
+
+def _print_mushroom(res) -> None:
+    print(f"  KC target {res['target_rate']:.4f} Hz (reference build "
+          f"host_init {res['ref_host_init_s']:.3f} s)")
+    print("   nPN | PN_KC gScale |  KC Hz | finite | PN_LHI gScale | "
+          "finite | host_init s | candidates/s")
+    for row in zip(res["n_pns"], res["gscales"], res["rates"],
+                   res["finite"], res["gscales_lhi"], res["finite_lhi"],
+                   res["host_init_s"], res["candidates_per_s"]):
+        print("  {:4d} | {:12.5f} | {:6.3f} | {!s:6} | {:13.5f} | {!s:6} | "
+              "{:11.3f} | {:.3f}".format(*row))
+    print(f"  PN_KC fit k1={res['k1']:.6g} k2={res['k2']:.6g} "
+          f"k3={res['k3']:.6g} MAPE={res['mape_pct']:.3f}%")
+    print(f"  PN_LHI fit k1={res['k1_lhi']:.6g} k2={res['k2_lhi']:.6g} "
+          f"k3={res['k3_lhi']:.6g} MAPE={res['mape_lhi_pct']:.3f}%")
+
+
+def paper_experiment(torch, report) -> dict:
+    """Phase 10; returns the launch counts of the experiment's runs."""
+    from benchmarks import gscale_experiments_torch as EXP
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.obs import trace as TR
+    with phase("10. the occupancy model against the runtime; the paper's "
+               "gScale(nConn) experiment at full width"):
+        out = report["experiment"] = {}
+        print("H100Limits against the card:")
+        out["limits"] = _limits_vs_runtime(torch, AT)
+        print("resident CTAs an SM, the model against "
+              "cudaOccupancyMaxActiveBlocksPerMultiprocessor:")
+        out["occupancy"] = _occupancy_vs_runtime(torch, AT)
+        for r in out["occupancy"]["table"]:
+            print(f"  {r['kernel']} @ {r['block']}: {r['regs']} registers, "
+                  f"{r['static_smem']} + {r['dynamic_smem']} B shared, "
+                  f"{r['spill_bytes']} B spilled; {r['model_ctas']} CTAs an "
+                  f"SM (runtime {r['runtime_ctas']}), {r['limiter']}")
+        print("the model's blocks at the paths' shapes:")
+        out["blocks"] = _blocks_at_path_shapes(torch, AT)
+        torch.cuda.empty_cache()
+        print(AT.occupancy_report())
+        TR.clear()
+        reset_launches()
+        # every shape the experiment launches is planned anew in its trace
+        for module in _plan_modules():
+            module.launch_plan.cache_clear()
+        cfg = EXPERIMENT["izhikevich"]
+        t0 = time.perf_counter()
+        izh = EXP.izhikevich_gscale_sweep(device="cuda", **cfg)
+        izh_s = time.perf_counter() - t0
+        print(f"Izhikevich net, {cfg['n_total']} neurons, nConn "
+              f"{cfg['n_conns']}, {cfg['candidates']} candidates x "
+              f"{cfg['n_steps']} steps, in {izh_s:.1f} s:")
+        _print_izhikevich(izh)
+        torch.cuda.empty_cache()
+        cfg = EXPERIMENT["mushroom"]
+        t0 = time.perf_counter()
+        mb = EXP.mushroom_gscale_sweep(device="cuda",
+                                       fan_in_from=MB_EXAMPLE, **cfg)
+        mb_s = time.perf_counter() - t0
+        print(f"mushroom body, {cfg['n_kc']} KCs / {cfg['n_lhi']} LHIs / "
+              f"{cfg['n_dn']} DNs, nPN {cfg['n_pns']}, {cfg['candidates']} "
+              f"candidates x {cfg['n_steps']} steps, LHI->KC, KC->DN and "
+              f"DN->DN scaled by fan-in from {MB_EXAMPLE}, in {mb_s:.1f} s:")
+        _print_mushroom(mb)
+        launches = read_launches()
+        print(f"launches in the experiment: {launches}")
+        for name in ("ell_spmv", "izhikevich_step", "hh_step",
+                     "threefry_split", "threefry_draw"):
+            check(launches[name] > 0, f"the experiment launched no {name}")
+        picks = (izh["gscales"] + mb["gscales"] + mb["gscales_lhi"])
+        check(all(math.isfinite(g) for g in picks)
+              and all(izh["finite"]) and all(mb["finite"])
+              and all(mb["finite_lhi"]),
+              f"a pick is not finite: izh {izh['finite']}, mb "
+              f"{mb['finite']}, lhi {mb['finite_lhi']}")
+        doc = TR.chrome_trace()
+        plans = _trace_plans(doc["traceEvents"])
+        print(f"the experiment's blocks, from the trace's {len(plans)} "
+              "launch plans; each against its plain version and block "
+              "256 at its shape:")
+        out["experiment_blocks"] = _blocks_at_experiment_shapes(torch,
+                                                                plans)
+        kinds = {r["name"] for r in out["experiment_blocks"]}
+        check({"ell_spmv", "izhikevich_step", "hh_step", "threefry_split",
+               "threefry_draw"} <= kinds,
+              f"the trace holds plans of only {sorted(kinds)}")
+        path = ROOT / "chiprun_out" / "phase10_trace.json"
+        path.parent.mkdir(exist_ok=True)
+        n_events = TR.export(str(path))
+        bad = TR.validate_chrome_trace(doc)
+        names = {e["name"] for e in doc["traceEvents"]}
+        need = {"build", "validate", "host_init", "codegen", "run",
+                "choose_block_spmv", "choose_propagation"}
+        print(f"trace of the experiment: {n_events} events, "
+              f"{doc['otherData']['dropped_events']} dropped, to {path}; "
+              f"validation {bad or 'ok'}; names {sorted(names)}")
+        check(bad is None, f"the exported trace is invalid: {bad}")
+        check(need <= names, f"the trace lacks {sorted(need - names)}")
+        out.update({"izhikevich": izh, "izhikevich_s": izh_s,
+                    "mushroom": mb, "mushroom_s": mb_s,
+                    "launches": launches, "trace_events": n_events})
+        return launches
 
 
 if __name__ == "__main__":

@@ -2,9 +2,12 @@
 
     python3 experiments/chip_smoke_phases.py [LABEL ...]
 
-Labels: 9a (the spike bitmask), 3 (the main path), 9b (main observed; reads
-phase 3's profile, so list 3 first), 6a (the NaN-guard table) and 9c (the
-mushroom body observed; reads 6a's KC rate, so list 6a first).  Default:
+Labels: 2 (the ELL kernels and the ring fold), 2b (the neuron kernels), 2f
+(threefry), 9a (the spike bitmask), 3 (the main path), 9b (main observed;
+reads phase 3's profile, so list 3 first), 6a (the NaN-guard table), 9c
+(the mushroom body observed; reads 6a's KC rate, so list 6a first) and 10
+(the occupancy model against the runtime, and the paper's experiment at
+full width).  Default:
 ``9a 3 9b 6a 9c``, in that order.  Phase 1 (the card and the kernel build)
 always runs first.  The phases print what ``chip_smoke.py`` prints; the
 report goes to ``chiprun_out/chip_smoke_phases.json``.  Needs one card.
@@ -34,7 +37,15 @@ def main(labels) -> int:
     t0 = time.perf_counter()
     CS.card_and_build(torch, report)
     for label in labels or ["9a", "3", "9b", "6a", "9c"]:
-        if label == "9a":
+        if label == "2":
+            CS.compare_kernels(torch, report)
+        elif label == "2b":
+            CS.compare_neuron_kernels(torch, report)
+        elif label == "2f":
+            CS.compare_threefry(torch, report)
+        elif label == "10":
+            CS.paper_experiment(torch, report)
+        elif label == "9a":
             report["kernel_entries"] = CS.compare_bitmask(torch, report)
         elif label == "3":
             CS.main_path(torch, report)

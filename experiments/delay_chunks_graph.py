@@ -67,7 +67,7 @@ def _chunked_fold(torch):
                         new_ring[b].data_ptr(), inj[b].data_ptr(),
                         gscale[b].data_ptr(), 0.0, float(self.sign),
                         MEMBERS, n_slots, n_post, cursor.data_ptr(),
-                        new_cursor.data_ptr(), plan["vec"])
+                        new_cursor.data_ptr(), plan["vec"], plan["block"])
             DR.launches["delay_ring_fold"] += 1
             raise_on(rc, DR._lib().ell_spmv_error_string, "delay_ring_fold")
         return new_ring, inj, new_cursor

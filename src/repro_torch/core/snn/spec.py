@@ -41,6 +41,7 @@ serving and ``plan``.  Asking for them raises NotImplementedError.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -59,6 +60,8 @@ from repro_torch.core.snn.network import InputFn, Network
 from repro_torch.core.snn.probes import ProbeSpec, Recordings
 from repro_torch.core.snn.simulator import RunResult, SimState, Simulator
 from repro_torch.core.snn.synapses import PROPAGATIONS, Pulse, SynapseGroup
+from repro_torch.kernels import autotune as AT
+from repro_torch.obs import trace
 from repro_torch.obs.health import HealthConfig
 from repro_torch.sparse import formats as F
 
@@ -434,26 +437,22 @@ class ModelSpec:
         accumulates spike totals, rate EMAs, silent/saturated bands and the
         first non-finite step, returned as ``RunResult.health``.  None or
         ``enabled=False`` builds the unmonitored step (no device op of
-        it)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the sharded engine) is not ported to repro_torch yet")
-        if monitor is not None:
-            if not isinstance(monitor, HealthConfig):
-                raise SpecError(f"monitor must be a HealthConfig, got "
-                                f"{type(monitor).__name__}")
-            try:
-                monitor.validate(self.populations)
-            except ValueError as e:
-                raise SpecError(f"monitor: {e}") from None
-        if init == "device":
-            raise NotImplementedError(
-                "init='device' (on-device construction) is not ported to "
-                "repro_torch yet; use init='host'")
-        if init != "host":
-            raise SpecError(f"init must be 'host' or 'device', got {init!r}")
-        if not self.populations:
-            raise SpecError(f"model {self.name!r} declares no populations")
+        it).
+
+        Build phases are trace spans (``repro_torch.obs.trace``) under the
+        JAX package's names: ``build``, ``validate``, ``host_init`` per
+        synapse population, ``codegen``, and a ``choose_block_spmv``
+        instant per group (the rows the ELL kernel would walk)."""
+        with trace.span("build", model=self.name, init=init,
+                        sharded=mesh is not None):
+            return self._build(dt=dt, seed=seed, init=init, device=device,
+                               mesh=mesh, monitor=monitor)
+
+    def _build(self, dt: float, seed: int, init: str, device, mesh,
+               monitor) -> "CompiledModel":
+        with trace.span("validate", populations=len(self.populations),
+                        synapses=len(self.synapses)):
+            self._validate_build(init, mesh, monitor)
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
         mutable = self._mutable_groups()
@@ -489,8 +488,10 @@ class ModelSpec:
                 delay_steps = steps
 
             try:
-                post_ind, g, valid = sp.connect.resolve(
-                    rng, n_pre, n_post_total, _as_weight_fn(sp.weight))
+                with trace.span("host_init", group=sp.name, rows=n_pre,
+                                n_post=n_post_total):
+                    post_ind, g, valid = sp.connect.resolve(
+                        rng, n_pre, n_post_total, _as_weight_fn(sp.weight))
             except ValueError as e:
                 raise SpecError(f"{where}: {e}") from None
             # delays draw from the same rng *after* connectivity and
@@ -531,11 +532,45 @@ class ModelSpec:
 
         # the observation / intervention surface against the built network
         # (variables, reductions, writability)
-        probes = PR.resolve_probes(self.probes, net)
-        custom = CU.resolve_custom_updates(self.custom_updates, net)
-        sim = Simulator(net, dt=dt, seed=seed, device=dev, probes=probes,
-                        custom_updates=custom, monitor=monitor)
+        with trace.span("validate", probes=len(self.probes),
+                        custom_updates=len(self.custom_updates)):
+            probes = PR.resolve_probes(self.probes, net)
+            custom = CU.resolve_custom_updates(self.custom_updates, net)
+        # audit the rows the ELL kernel would walk for every group at the
+        # JAX package's B = 1 (an instant per decision: rows, occupancy,
+        # limiter, shared memory; auditable even for groups the
+        # representation routed to the dense path): a delayed group's is
+        # the delay scatter's plan over its ring's slots
+        for g in net.synapses:
+            AT.choose_block_spmv(
+                g.ell.n_pre, g.ell.max_conn, g.ell.n_post, b=1,
+                n_slots=g.ring_slots if g.ell.delay is not None else None,
+                tag=f"{g.name}:{g.representation}")
+        with trace.span("codegen", populations=len(net.populations)):
+            sim = Simulator(net, dt=dt, seed=seed, device=dev, probes=probes,
+                            custom_updates=custom, monitor=monitor)
         return CompiledModel(spec=self, network=net, simulator=sim)
+
+    def _validate_build(self, init: str, mesh, monitor) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (the sharded engine) is not ported to repro_torch yet")
+        if monitor is not None:
+            if not isinstance(monitor, HealthConfig):
+                raise SpecError(f"monitor must be a HealthConfig, got "
+                                f"{type(monitor).__name__}")
+            try:
+                monitor.validate(self.populations)
+            except ValueError as e:
+                raise SpecError(f"monitor: {e}") from None
+        if init == "device":
+            raise NotImplementedError(
+                "init='device' (on-device construction) is not ported to "
+                "repro_torch yet; use init='host'")
+        if init != "host":
+            raise SpecError(f"init must be 'host' or 'device', got {init!r}")
+        if not self.populations:
+            raise SpecError(f"model {self.name!r} declares no populations")
 
 
 @dataclasses.dataclass
@@ -699,11 +734,23 @@ class CompiledModel:
                 "already records the raster) or rename the probe.")
         if state is None:
             state = self.init_state()
-        res = self.simulator.run_compiled(state, n_steps,
-                                          self._norm_gscales(gscales),
-                                          record_raster=record_raster,
-                                          stim=self._norm_stim(stim))
+        with self._run_span(n_steps, state.batch):
+            res = self.simulator.run_compiled(state, n_steps,
+                                              self._norm_gscales(gscales),
+                                              record_raster=record_raster,
+                                              stim=self._norm_stim(stim))
         return _squeeze(res) if state.batch == 1 else res
+
+    @contextlib.contextmanager
+    def _run_span(self, n_steps: int, batch: int):
+        """The JAX package's ``run`` span (host time only), with the batch,
+        and ``compile`` true when the call captured a graph."""
+        counts = self.simulator.graph_counts
+        with trace.span("run", model=self.spec.name, n_steps=n_steps,
+                        batch=batch, sharded=False) as args:
+            before = counts["captures"]
+            yield
+            args["compile"] = counts["captures"] > before
 
     def sweep_gscale(self, group: Union[str, Sequence[str]],
                      values, n_steps: int,
@@ -727,8 +774,9 @@ class CompiledModel:
         elif state.batch != batch:
             raise ValueError(f"state has batch {state.batch}, values "
                              f"{batch}")
-        res = self.simulator.run_compiled(state, n_steps,
-                                          {n: values for n in names})
+        with self._run_span(n_steps, batch):
+            res = self.simulator.run_compiled(state, n_steps,
+                                              {n: values for n in names})
         return SweepResult(values=values, rates_hz=res.rates_hz,
                            finite=res.finite, spike_counts=res.spike_counts,
                            recordings=res.recordings)

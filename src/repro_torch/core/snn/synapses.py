@@ -14,8 +14,9 @@ gScale sweep.
 Every state tensor carries a leading batch axis ``[B]`` (the JAX package
 vmaps instead).  Sparse propagation runs the hand-written ELL kernel
 (``repro_torch.kernels.ops``), which skips silent presynaptic rows itself,
-so the ``propagation`` option only states intent here: "dense" and "event"
-run the same kernel and give the same result.
+so "dense" and "event" propagation run the same kernel and give the same
+result; the mode the crossover model picks (``kernels.autotune.
+choose_propagation``) is reported, as the JAX package reports it.
 
 Dendritic delays (GeNN's per-synapse delay model): a group may carry an
 integer delay per synapse (``ELLSynapses.delay``) or a homogeneous
@@ -39,6 +40,7 @@ import torch
 from repro_torch.core.codegen import (CompiledWeightUpdate, PostsynapticModel,
                                       WeightUpdateModel, compile_postsynaptic,
                                       compile_weight_update)
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ops as kops
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import ops as sparse_ops
@@ -251,6 +253,30 @@ class SynapseGroup:
                 self.ell.n_pre, self.ell.n_post, nnz)
         if self.representation == "dense" and self.dense is None:
             self.dense = F.ell_to_dense(self.ell)
+
+        # --- propagation mode (declared -> effective), as the JAX package
+        # reports it: 'auto' asks the occupancy/activity crossover model
+        # whether event-driven delivery beats the full pass for this
+        # group's shape; an explicit 'event' keeps the modelled capacity.
+        # Both modes run the one live-row kernel here (it skips silent
+        # rows itself), so the mode is what a planner reads, not a path.
+        # The feasibility term is the card's: with a card the model reads
+        # the built kernel's registers, without one the shape alone.
+        self.propagation_declared = self.propagation
+        if self.representation == "dense" or self.propagation == "dense":
+            self.propagation_mode = "dense"
+            self.event_capacity = None
+        else:
+            cfg = AT.choose_propagation(
+                self.ell.n_pre, self.ell.max_conn, self.ell.n_post,
+                n_slots=(self.ring_slots if self.ell.delay is not None
+                         else 1),
+                tag=self.name)
+            self.propagation_mode = ("event" if self.propagation == "event"
+                                     else cfg["mode"])
+            self.event_capacity = (int(cfg["capacity"])
+                                   if self.propagation_mode == "event"
+                                   else None)
 
         # --- code generation: compile the synapse models once per group ---
         self._psm_step = compile_postsynaptic(self.psm)
@@ -494,17 +520,15 @@ class SynapseGroup:
         return total
 
     def memory_report(self) -> dict:
-        """The JAX package's per-group report.  ``propagation_mode``:
-        "dense" for the dense mirror, else "event" (the ELL kernel walks
-        only the spiking rows and needs no capacity)."""
+        """The JAX package's per-group report, ``propagation_mode`` and
+        ``event_capacity`` from the crossover model (``__post_init__``)."""
         nnz = self.ell.n_pre * self.ell.max_conn
         return {
             "name": self.name,
             "representation": self.representation,
-            "propagation": self.propagation,
-            "propagation_mode": ("dense" if self.representation == "dense"
-                                 else "event"),
-            "event_capacity": None,
+            "propagation": self.propagation_declared,
+            "propagation_mode": self.propagation_mode,
+            "event_capacity": self.event_capacity,
             "sparse_elements": F.sparse_memory_elements(
                 nnz, self.ell.n_pre, self.ell.n_post),
             "dense_elements": F.dense_memory_elements(

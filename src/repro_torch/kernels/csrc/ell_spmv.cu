@@ -28,14 +28,18 @@
 //
 // ell_spmv_live_kernel (the delay-free form) answers that:
 //
-//   * A CTA of 256 threads covers 256 presynaptic rows and up to 8 batch
-//     members (grid: rows on x, groups of 8 members on y).  Each thread
+//   * A CTA of kRows threads covers kRows presynaptic rows and up to 8
+//     batch members (grid: rows on x, groups of 8 members on y).  kRows is
+//     128, 256 or 512, one instantiation each, chosen on the host by the
+//     occupancy model (kernels.autotune.choose_block_spmv) from the
+//     registers the runtime reports for each.  Each thread
 //     first reads its row's spike for every member of the group, keeps
 //     the values in shared memory, and the CTA builds its list of live rows
 //     (a row spiking for any member) with __ballot_sync and a prefix sum
 //     over the warps: the paper's event-driven delivery.  The grid is one
-//     wave at the main path's sizes (313 CTAs for 80,000 rows at B <= 8).
-//   * Then all 256 threads walk the live rows' slots together, 4 slots an
+//     wave at the main path's sizes (625 CTAs of 128 rows, 7 resident an
+//     SM by their registers, for 80,000 rows at B <= 8).
+//   * Then all kRows threads walk the live rows' slots together, 4 slots an
 //     item (16-byte loads of post_ind and g, 4 bytes of valid), 4 items a
 //     thread, and issue every load of their items before their first
 //     atomic: a row costs about one round trip to memory, not one per 32
@@ -102,22 +106,37 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
+
+#include "kernel_info.cuh"
 
 namespace {
 
 // -- the scatter kernels -----------------------------------------------------
 
-constexpr int kRows = 256;       // presynaptic rows (= threads) of a CTA
 constexpr int kMembers = 8;      // batch members of a CTA
 constexpr int kUnroll = 4;       // items a thread loads before its atomics
-constexpr int kWarps = kRows / 32;
+
+// The rows (= threads) a scatter CTA may cover, one instantiation each
+// (kernels.autotune.SPMV_ROWS): with_rows(rows, f) calls
+// f(std::integral_constant<int, R>{}) for R == rows, and refuses any other.
+template <typename F>
+cudaError_t with_rows(int rows, F&& f) {
+  switch (rows) {
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // The CTA's static shared memory: kernels.ell_spmv.launch_plan's
 // "smem_bytes" must equal its size (checked at launch).
+template <int kRows>
 struct LiveSmem {
   float spike[kMembers][kRows];  // the group's spike values, by local row
   uint16_t rows[kRows];          // the live local rows, in order
-  int warp_live[kWarps];         // live rows per warp
+  int warp_live[kRows / 32];     // live rows per warp
 };
 
 __device__ __forceinline__ float spike_value(float s) { return s; }
@@ -191,13 +210,14 @@ template <> struct Delays<1> {
 
 // The walk of both kernels: out[b, d, j] += spike[b, i] * g[i, k] for the
 // CTA's rows (n_slots = 1 and no delay without kDelay).
-template <typename S, int kVec, bool kDelay>
+template <int kRows, typename S, int kVec, bool kDelay>
 __device__ __forceinline__ void live_scatter(
-    LiveSmem& sm, const float* __restrict__ g, long long g_batch_stride,
+    LiveSmem<kRows>& sm, const float* __restrict__ g, long long g_batch_stride,
     const int32_t* __restrict__ post_ind, const uint8_t* __restrict__ valid,
     const int32_t* __restrict__ delay, const S* __restrict__ spikes,
     double* __restrict__ out, int batch, int n_pre, int k, int n_post,
     int n_slots) {
+  constexpr int kWarps = kRows / 32;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int row0 = blockIdx.x * kRows;
@@ -283,20 +303,20 @@ __device__ __forceinline__ void live_scatter(
   }
 }
 
-template <typename S, int kVec>
+template <int kRows, typename S, int kVec>
 __global__ void __launch_bounds__(kRows)
 ell_spmv_live_kernel(const float* __restrict__ g, long long g_batch_stride,
                      const int32_t* __restrict__ post_ind,
                      const uint8_t* __restrict__ valid,
                      const S* __restrict__ spikes, double* __restrict__ out,
                      int batch, int n_pre, int k, int n_post) {
-  __shared__ LiveSmem sm;
-  live_scatter<S, kVec, false>(sm, g, g_batch_stride, post_ind, valid,
-                               nullptr, spikes, out, batch, n_pre, k, n_post,
-                               1);
+  __shared__ LiveSmem<kRows> sm;
+  live_scatter<kRows, S, kVec, false>(sm, g, g_batch_stride, post_ind, valid,
+                                      nullptr, spikes, out, batch, n_pre, k,
+                                      n_post, 1);
 }
 
-template <typename S, int kVec>
+template <int kRows, typename S, int kVec>
 __global__ void __launch_bounds__(kRows)
 ell_spmv_delay_live_kernel(const float* __restrict__ g,
                            long long g_batch_stride,
@@ -306,36 +326,37 @@ ell_spmv_delay_live_kernel(const float* __restrict__ g,
                            const S* __restrict__ spikes,
                            double* __restrict__ out, int batch, int n_pre,
                            int k, int n_post, int n_slots) {
-  __shared__ LiveSmem sm;
-  live_scatter<S, kVec, true>(sm, g, g_batch_stride, post_ind, valid, delay,
-                              spikes, out, batch, n_pre, k, n_post, n_slots);
+  __shared__ LiveSmem<kRows> sm;
+  live_scatter<kRows, S, kVec, true>(sm, g, g_batch_stride, post_ind, valid,
+                                     delay, spikes, out, batch, n_pre, k,
+                                     n_post, n_slots);
 }
 
 // One launch of either scatter (the delay variant when delay is given).
-template <typename S>
-int launch_live(const float* g, long long g_batch_stride,
+template <int kRows, typename S>
+cudaError_t launch_live(const float* g, long long g_batch_stride,
                 const int32_t* post_ind, const uint8_t* valid,
                 const int32_t* delay, const S* spikes, double* out,
                 int batch, int n_pre, int k, int n_post, int n_slots,
                 int vec, cudaStream_t stream) {
   dim3 grid((n_pre + kRows - 1) / kRows, (batch + kMembers - 1) / kMembers);
   if (delay == nullptr && vec == 4)
-    ell_spmv_live_kernel<S, 4><<<grid, kRows, 0, stream>>>(
+    ell_spmv_live_kernel<kRows, S, 4><<<grid, kRows, 0, stream>>>(
         g, g_batch_stride, post_ind, valid, spikes, out, batch, n_pre, k,
         n_post);
   else if (delay == nullptr)
-    ell_spmv_live_kernel<S, 1><<<grid, kRows, 0, stream>>>(
+    ell_spmv_live_kernel<kRows, S, 1><<<grid, kRows, 0, stream>>>(
         g, g_batch_stride, post_ind, valid, spikes, out, batch, n_pre, k,
         n_post);
   else if (vec == 4)
-    ell_spmv_delay_live_kernel<S, 4><<<grid, kRows, 0, stream>>>(
+    ell_spmv_delay_live_kernel<kRows, S, 4><<<grid, kRows, 0, stream>>>(
         g, g_batch_stride, post_ind, valid, delay, spikes, out, batch, n_pre,
         k, n_post, n_slots);
   else
-    ell_spmv_delay_live_kernel<S, 1><<<grid, kRows, 0, stream>>>(
+    ell_spmv_delay_live_kernel<kRows, S, 1><<<grid, kRows, 0, stream>>>(
         g, g_batch_stride, post_ind, valid, delay, spikes, out, batch, n_pre,
         k, n_post, n_slots);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
 bool aligned(const void* p, unsigned bytes) {
@@ -346,28 +367,31 @@ bool aligned(const void* p, unsigned bytes) {
 int scatter(const float* g, long long g_batch_stride, const int32_t* post_ind,
             const uint8_t* valid, const int32_t* delay, const void* spikes,
             int spikes_bool, double* out, int batch, int n_pre, int k,
-            int n_post, int n_slots, int vec, int smem_bytes, void* stream) {
-  if (smem_bytes != static_cast<int>(sizeof(LiveSmem)) ||
-      (vec != 1 && vec != 4) ||
+            int n_post, int n_slots, int vec, int rows, int smem_bytes,
+            void* stream) {
+  if ((vec != 1 && vec != 4) ||
       (vec == 4 && (k % 4 != 0 || !aligned(post_ind, 16) ||
                     !aligned(g, 16) || !aligned(valid, 4) ||
                     (delay != nullptr && !aligned(delay, 16)))))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || n_pre == 0 || k == 0 || n_slots == 0 || n_post == 0)
-    return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (spikes_bool)
-    return launch_live(g, g_batch_stride, post_ind, valid, delay,
-                       static_cast<const uint8_t*>(spikes), out, batch,
-                       n_pre, k, n_post, n_slots, vec, s);
-  return launch_live(g, g_batch_stride, post_ind, valid, delay,
-                     static_cast<const float*>(spikes), out, batch, n_pre, k,
-                     n_post, n_slots, vec, s);
+  return static_cast<int>(with_rows(rows, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (smem_bytes != static_cast<int>(sizeof(LiveSmem<R>)))
+      return cudaErrorInvalidValue;
+    if (batch == 0 || n_pre == 0 || k == 0 || n_slots == 0 || n_post == 0)
+      return cudaSuccess;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (spikes_bool)
+      return launch_live<R>(g, g_batch_stride, post_ind, valid, delay,
+                            static_cast<const uint8_t*>(spikes), out, batch,
+                            n_pre, k, n_post, n_slots, vec, s);
+    return launch_live<R>(g, g_batch_stride, post_ind, valid, delay,
+                          static_cast<const float*>(spikes), out, batch,
+                          n_pre, k, n_post, n_slots, vec, s);
+  }));
 }
 
 // -- the ring fold ------------------------------------------------------------
-
-constexpr int kFoldThreads = 256;
 
 // grid: items (kVec posts x one member, members fastest) on x, ring rows r
 // on y.  Ring row r takes scratch slot (r - cur) mod S, so each scratch
@@ -375,7 +399,7 @@ constexpr int kFoldThreads = 256;
 // on the fast axis a warp reads and zeroes contiguous runs of the
 // scratch (its cells' members side by side) and reads and writes kVec
 // posts of B ring rows.
-template <int kVec>
+template <int kFoldThreads, int kVec>
 __global__ void __launch_bounds__(kFoldThreads)
 delay_ring_fold_kernel(const float* __restrict__ ring,
                        double* __restrict__ acc, float* __restrict__ new_ring,
@@ -434,21 +458,29 @@ delay_ring_fold_kernel(const float* __restrict__ ring,
 
 extern "C" {
 
-// The shared memory of a scatter CTA (launch_plan's "smem_bytes").
-int ell_spmv_smem_bytes() { return static_cast<int>(sizeof(LiveSmem)); }
+// The shared memory of a scatter CTA of `rows` rows (launch_plan's
+// "smem_bytes"), or -1 for rows the source is not compiled for.
+int ell_spmv_smem_bytes(int rows) {
+  int bytes = -1;
+  with_rows(rows, [&](auto r) {
+    bytes = static_cast<int>(sizeof(LiveSmem<decltype(r)::value>));
+    return cudaSuccess;
+  });
+  return bytes;
+}
 
 // out: [batch, n_post] float64, zeroed by the caller.  spikes: [batch,
-// n_pre], float32 (spikes_bool = 0) or bool bytes (1).  vec and smem_bytes
-// come from kernels.ell_spmv.launch_plan: vec 4 needs k % 4 == 0, post_ind
-// and g 16-byte aligned and valid 4-byte aligned; a plan that disagrees
-// with this source is refused.
+// n_pre], float32 (spikes_bool = 0) or bool bytes (1).  vec, rows and
+// smem_bytes come from kernels.ell_spmv.launch_plan: vec 4 needs k % 4 ==
+// 0, post_ind and g 16-byte aligned and valid 4-byte aligned; rows is one
+// of with_rows's; a plan that disagrees with this source is refused.
 int ell_spmv_f32(const float* g, long long g_batch_stride,
                  const int32_t* post_ind, const uint8_t* valid,
                  const void* spikes, int spikes_bool, double* out, int batch,
-                 int n_pre, int k, int n_post, int vec, int smem_bytes,
-                 void* stream) {
+                 int n_pre, int k, int n_post, int vec, int rows,
+                 int smem_bytes, void* stream) {
   return scatter(g, g_batch_stride, post_ind, valid, nullptr, spikes,
-                 spikes_bool, out, batch, n_pre, k, n_post, 1, vec,
+                 spikes_bool, out, batch, n_pre, k, n_post, 1, vec, rows,
                  smem_bytes, stream);
 }
 
@@ -459,12 +491,12 @@ int ell_spmv_delay_f32(const float* g, long long g_batch_stride,
                        const int32_t* post_ind, const uint8_t* valid,
                        const int32_t* delay, const void* spikes,
                        int spikes_bool, double* out, int batch, int n_pre,
-                       int k, int n_post, int n_slots, int vec,
+                       int k, int n_post, int n_slots, int vec, int rows,
                        int smem_bytes, void* stream) {
   if (delay == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return scatter(g, g_batch_stride, post_ind, valid, delay, spikes,
                  spikes_bool, out, batch, n_pre, k, n_post, n_slots, vec,
-                 smem_bytes, stream);
+                 rows, smem_bytes, stream);
 }
 
 // ring [batch, n_slots, n_post] float32 (read), acc [n_slots, n_post,
@@ -473,13 +505,14 @@ int ell_spmv_delay_f32(const float* g, long long g_batch_stride,
 // float32 on the card, or null and then scale (= sign * gscale, rounded to
 // float32) for every member.  cursor: the ring's read row, one int32 on the
 // card (taken mod n_slots); new_cursor: another, written with the row after
-// it.  vec comes from kernels.delay_ring.launch_plan: vec 4 needs
-// n_post % 4 == 0 and all four arrays 16-byte aligned.
+// it.  vec and block come from kernels.delay_ring.launch_plan: vec 4 needs
+// n_post % 4 == 0 and all four arrays 16-byte aligned; block is one of
+// kinfo::with_block's.
 int delay_ring_fold_f32(const float* ring, double* acc, float* new_ring,
                         float* inj, const float* gscale, float scale,
                         float sign, int batch, int n_slots, int n_post,
                         const int* cursor, int* new_cursor, int vec,
-                        void* stream) {
+                        int block, void* stream) {
   if ((vec != 1 && vec != 4) ||
       (vec == 4 && (n_post % 4 != 0 || !aligned(ring, 16) ||
                     !aligned(acc, 16) || !aligned(new_ring, 16) ||
@@ -487,20 +520,79 @@ int delay_ring_fold_f32(const float* ring, double* acc, float* new_ring,
       batch <= 0 || n_post <= 0 || n_slots <= 0 || n_slots > 65535 ||
       cursor == nullptr || new_cursor == nullptr || cursor == new_cursor)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long items = (static_cast<long long>(n_post) / vec) * batch;
-  const long long ctas = (items + kFoldThreads - 1) / kFoldThreads;
-  if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(ctas), n_slots);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4)
-    delay_ring_fold_kernel<4><<<grid, kFoldThreads, 0, s>>>(
-        ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
-        n_post, cursor, new_cursor);
-  else
-    delay_ring_fold_kernel<1><<<grid, kFoldThreads, 0, s>>>(
-        ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
-        n_post, cursor, new_cursor);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    constexpr int B = decltype(bs)::value;
+    const long long items = (static_cast<long long>(n_post) / vec) * batch;
+    const long long ctas = (items + B - 1) / B;
+    if (ctas > 2147483647LL) return cudaErrorInvalidValue;
+    dim3 grid(static_cast<unsigned>(ctas), n_slots);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (vec == 4)
+      delay_ring_fold_kernel<B, 4><<<grid, B, 0, s>>>(
+          ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
+          n_post, cursor, new_cursor);
+    else
+      delay_ring_fold_kernel<B, 1><<<grid, B, 0, s>>>(
+          ring, acc, new_ring, inj, gscale, scale, sign, batch, n_slots,
+          n_post, cursor, new_cursor);
+    return cudaGetLastError();
+  }));
+}
+
+KINFO_NAMES(ell_spmv, "ell_spmv_live<float,4>", "ell_spmv_live<float,1>",
+            "ell_spmv_live<bool,4>", "ell_spmv_live<bool,1>",
+            "ell_spmv_delay_live<float,4>", "ell_spmv_delay_live<float,1>",
+            "ell_spmv_delay_live<bool,4>", "ell_spmv_delay_live<bool,1>",
+            "delay_ring_fold<4>", "delay_ring_fold<1>")
+
+// kernels.autotune.kernel_attributes.  which: 0-3 ell_spmv_live_kernel
+// with <float, 4>, <float, 1>, <bool, 4>, <bool, 1> spikes and slots an
+// item, 4-7 ell_spmv_delay_live_kernel likewise (block = rows: one of
+// with_rows's), 8-9 delay_ring_fold_kernel with vec 4, 1 (block: one of
+// kinfo::with_block's).
+int ell_spmv_kernel_info(int which, int block, int query_block, int dyn_smem,
+                         int* out) {
+  if (which >= 8 && which <= 9)
+    return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+      constexpr int B = decltype(bs)::value;
+      const int q = query_block > 0 ? query_block : B;
+      return static_cast<cudaError_t>(
+          which == 8
+              ? kinfo::kernel_info(delay_ring_fold_kernel<B, 4>, q, dyn_smem,
+                                   out)
+              : kinfo::kernel_info(delay_ring_fold_kernel<B, 1>, q, dyn_smem,
+                                   out));
+    }));
+  if (which < 0 || which > 7) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_rows(block, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    const int q = query_block > 0 ? query_block : R;
+    int rc;
+    switch (which) {
+      case 0: rc = kinfo::kernel_info(ell_spmv_live_kernel<R, float, 4>, q,
+                                      dyn_smem, out); break;
+      case 1: rc = kinfo::kernel_info(ell_spmv_live_kernel<R, float, 1>, q,
+                                      dyn_smem, out); break;
+      case 2: rc = kinfo::kernel_info(ell_spmv_live_kernel<R, uint8_t, 4>,
+                                      q, dyn_smem, out); break;
+      case 3: rc = kinfo::kernel_info(ell_spmv_live_kernel<R, uint8_t, 1>,
+                                      q, dyn_smem, out); break;
+      case 4: rc = kinfo::kernel_info(
+                  ell_spmv_delay_live_kernel<R, float, 4>, q, dyn_smem, out);
+              break;
+      case 5: rc = kinfo::kernel_info(
+                  ell_spmv_delay_live_kernel<R, float, 1>, q, dyn_smem, out);
+              break;
+      case 6: rc = kinfo::kernel_info(
+                  ell_spmv_delay_live_kernel<R, uint8_t, 4>, q, dyn_smem,
+                  out);
+              break;
+      default: rc = kinfo::kernel_info(
+                   ell_spmv_delay_live_kernel<R, uint8_t, 1>, q, dyn_smem,
+                   out);
+    }
+    return static_cast<cudaError_t>(rc);
+  }));
 }
 
 const char* ell_spmv_error_string(int code) {

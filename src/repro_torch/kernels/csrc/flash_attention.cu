@@ -53,6 +53,8 @@
 // the dot products here are explicit fmaf, the rest rounds as written.
 
 #include <cuda_runtime.h>
+
+#include "kernel_info.cuh"
 #include <math_constants.h>
 #include <cstdint>
 
@@ -778,4 +780,53 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_bwd<float>(p, batch, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+KINFO_NAMES(flash_attention, "flash_attention<float,1>",
+            "flash_attention<float,2>", "flash_attention<float,3>",
+            "flash_attention<float,4>", "flash_bwd_delta<float>",
+            "flash_bwd_dkdv<float>", "flash_bwd_dq<float>")
+
+// kernels.autotune.kernel_attributes.  which: 0-3 flash_attention_kernel
+// <float, NJ> for NJ = 1..4 (dyn_smem < 0: its launch's, at D = 64 NJ),
+// 4 flash_bwd_delta_kernel, 5 flash_bwd_dkdv_kernel, 6 flash_bwd_dq_kernel
+// (dyn_smem < 0: their launches').  Every kernel has kThreads threads;
+// the runtime's occupancy is asked at query_block (kThreads when <= 0).
+extern "C" int flash_attention_kernel_info(int which, int block,
+                                           int query_block, int dyn_smem,
+                                           int* out) {
+  (void)block;
+  const int q = query_block > 0 ? query_block : kThreads;
+  auto fwd_smem = [](int nj) {
+    const int d = 64 * nj;
+    return static_cast<int>(sizeof(float) * (2 * d * kLD + kBK * (64 * nj + 4)
+                                              + kBK * kLD));
+  };
+  switch (which) {
+    case 0:
+      return kinfo::kernel_info(flash_attention_kernel<float, 1>, q,
+                                dyn_smem >= 0 ? dyn_smem : fwd_smem(1), out);
+    case 1:
+      return kinfo::kernel_info(flash_attention_kernel<float, 2>, q,
+                                dyn_smem >= 0 ? dyn_smem : fwd_smem(2), out);
+    case 2:
+      return kinfo::kernel_info(flash_attention_kernel<float, 3>, q,
+                                dyn_smem >= 0 ? dyn_smem : fwd_smem(3), out);
+    case 3:
+      return kinfo::kernel_info(flash_attention_kernel<float, 4>, q,
+                                dyn_smem >= 0 ? dyn_smem : fwd_smem(4), out);
+    case 4:
+      return kinfo::kernel_info(flash_bwd_delta_kernel<float>, q,
+                                dyn_smem >= 0 ? dyn_smem : 0, out);
+    case 5:
+      return kinfo::kernel_info(
+          flash_bwd_dkdv_kernel<float>, q,
+          dyn_smem >= 0 ? dyn_smem : static_cast<int>(sizeof(DkdvSmem)), out);
+    case 6:
+      return kinfo::kernel_info(
+          flash_bwd_dq_kernel<float>, q,
+          dyn_smem >= 0 ? dyn_smem : static_cast<int>(sizeof(DqSmem)), out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

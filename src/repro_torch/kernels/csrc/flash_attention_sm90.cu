@@ -92,6 +92,8 @@
 #include <cuda.h>           // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "kernel_info.cuh"
 #include <math_constants.h>
 #include <cstdint>
 
@@ -1221,4 +1223,62 @@ extern "C" int flash_attention_sm90_bwd(
 
 extern "C" const char* flash_attention_sm90_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+KINFO_NAMES(flash_attention_sm90, "flash_bwd_rowsum",
+            "flash_fwd_wgmma<1>", "flash_fwd_wgmma<2>", "flash_fwd_wgmma<3>",
+            "flash_fwd_wgmma<4>", "flash_bwd_dkdv_wgmma<1>",
+            "flash_bwd_dkdv_wgmma<2>", "flash_bwd_dkdv_wgmma<3>",
+            "flash_bwd_dkdv_wgmma<4>", "flash_bwd_dq_wgmma<1>",
+            "flash_bwd_dq_wgmma<2>", "flash_bwd_dq_wgmma<3>",
+            "flash_bwd_dq_wgmma<4>")
+
+// kernels.autotune.kernel_attributes.  which: 0 flash_bwd_rowsum_kernel
+// (256 threads), 1-4 flash_fwd_wgmma_kernel<NP>, 5-8
+// flash_bwd_dkdv_wgmma_kernel<NP>, 9-12 flash_bwd_dq_wgmma_kernel<NP> for
+// NP = 1..4 panels, each at its launch's threads; dyn_smem is the plan's
+// (kernels.flash_attention.launch_plan).  The runtime's occupancy is asked
+// at query_block (the launch's threads when <= 0).
+extern "C" int flash_attention_sm90_kernel_info(int which, int block,
+                                                int query_block, int dyn_smem,
+                                                int* out) {
+  (void)block;
+  if (dyn_smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto at = [&](int threads) {
+    return query_block > 0 ? query_block : threads;
+  };
+  if (which == 0)
+    return kinfo::kernel_info(flash_bwd_rowsum_kernel, at(256), dyn_smem,
+                              out);
+  switch (which) {
+    case 1: return kinfo::kernel_info(flash_fwd_wgmma_kernel<1>,
+                                      at(kFwdThreads), dyn_smem, out);
+    case 2: return kinfo::kernel_info(flash_fwd_wgmma_kernel<2>,
+                                      at(kFwdThreads), dyn_smem, out);
+    case 3: return kinfo::kernel_info(flash_fwd_wgmma_kernel<3>,
+                                      at(kFwdThreads), dyn_smem, out);
+    case 4: return kinfo::kernel_info(flash_fwd_wgmma_kernel<4>,
+                                      at(kFwdThreads), dyn_smem, out);
+    case 5: return kinfo::kernel_info(flash_bwd_dkdv_wgmma_kernel<1>,
+                                      at(DkdvShape<1>::kThreads), dyn_smem,
+                                      out);
+    case 6: return kinfo::kernel_info(flash_bwd_dkdv_wgmma_kernel<2>,
+                                      at(DkdvShape<2>::kThreads), dyn_smem,
+                                      out);
+    case 7: return kinfo::kernel_info(flash_bwd_dkdv_wgmma_kernel<3>,
+                                      at(DkdvShape<3>::kThreads), dyn_smem,
+                                      out);
+    case 8: return kinfo::kernel_info(flash_bwd_dkdv_wgmma_kernel<4>,
+                                      at(DkdvShape<4>::kThreads), dyn_smem,
+                                      out);
+    case 9: return kinfo::kernel_info(flash_bwd_dq_wgmma_kernel<1>,
+                                      at(kBwdThreads), dyn_smem, out);
+    case 10: return kinfo::kernel_info(flash_bwd_dq_wgmma_kernel<2>,
+                                       at(kBwdThreads), dyn_smem, out);
+    case 11: return kinfo::kernel_info(flash_bwd_dq_wgmma_kernel<3>,
+                                       at(kBwdThreads), dyn_smem, out);
+    case 12: return kinfo::kernel_info(flash_bwd_dq_wgmma_kernel<4>,
+                                       at(kBwdThreads), dyn_smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -71,10 +71,14 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "kernel_info.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;          // grid-stride beyond this
+// A launch's block is one of kinfo::with_block's sizes, chosen on the host
+// by the occupancy model (kernels.autotune.choose_block_elementwise) with
+// the grid: a thread an element up to GRID_STRIDE_MAX CTAs along x, a
+// grid-stride loop beyond.
 
 // Constants as PyTorch applies a Python float to a float32 tensor: the
 // double literal rounded to float32.
@@ -104,6 +108,7 @@ __device__ __forceinline__ void clear_if_not_finite(uint8_t* finite,
     finite[blockIdx.y] = 0;
 }
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 izhikevich_step_kernel(const float* __restrict__ v_in,
                        const float* __restrict__ u_in,
@@ -140,10 +145,14 @@ izhikevich_step_kernel(const float* __restrict__ v_in,
   clear_if_not_finite(finite, ok);
 }
 
+// inv_c is 1 / C rounded once from double: PyTorch divides a float32
+// tensor by a Python float c as x * float(1.0 / c), so the plain version's
+// "/ C" is this product.
 struct HHParams {
-  float gNa, ENa, gK, EK, gl, El, C;
+  float gNa, ENa, gK, EK, gl, El, inv_c;
 };
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 hh_step_kernel(const float* __restrict__ v_in, const float* __restrict__ m_in,
                const float* __restrict__ h_in, const float* __restrict__ n_in,
@@ -154,12 +163,12 @@ hh_step_kernel(const float* __restrict__ v_in, const float* __restrict__ m_in,
                int substeps, HHParams p) {
   constexpr float k52 = 52.0, k25 = 25.0, k48 = 48.0, k50 = 50.0, k55 = 55.0;
   constexpr float k4 = 4.0;
-  // x / c for a Python scalar c, as PyTorch computes it on the card
-  constexpr float kInv4 = 1.0f / 4.0f, kInv5 = 1.0f / 5.0f,
-                  kInv18 = 1.0f / 18.0f, kInv40 = 1.0f / 40.0f;
+  // x / c for a Python scalar c, as PyTorch computes it on the card:
+  // x * float(1.0 / c), the reciprocal taken in double
+  constexpr float kInv4 = 1.0 / 4.0, kInv5 = 1.0 / 5.0,
+                  kInv18 = 1.0 / 18.0, kInv40 = 1.0 / 40.0;
   constexpr float kAm = 1.28, kBm = 1.4, kAh = 0.128, kAn = 0.16, kBn = 0.5;
   const float hdt = dt / static_cast<float>(substeps);
-  const float inv_c = 1.0f / p.C;
   const long long row = static_cast<long long>(blockIdx.y) * n_neurons;
   bool ok = true;
   for (int j = blockIdx.x * kThreads + threadIdx.x; j < n_neurons;
@@ -172,7 +181,7 @@ hh_step_kernel(const float* __restrict__ v_in, const float* __restrict__ m_in,
       const float i_na = m * m * m * h * p.gNa * (v - p.ENa);
       const float i_k = n * n * n * n * p.gK * (v - p.EK);
       const float imem = -(i_na + i_k + p.gl * (v - p.El) - isyn);
-      v = v + hdt * imem * inv_c;
+      v = v + hdt * imem * p.inv_c;
       const float a_m = kAm * vtrap((-k52 - v) * kInv4);
       const float b_m = kBm * vtrap((v + k25) * kInv5);
       const float a_h = kAh * expf((-k48 - v) * kInv18);
@@ -193,44 +202,76 @@ hh_step_kernel(const float* __restrict__ v_in, const float* __restrict__ m_in,
   clear_if_not_finite(finite, ok);
 }
 
-int blocks_for(long long elements) {
-  const long long b = (elements + kThreads - 1) / kThreads;
-  return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
 }  // namespace
 
 extern "C" {
 
 // v, u, isyn, v_out, u_out, spiked_out: [batch, n]; a, b, c, d: [n];
-// finite: [batch] bytes, or null for no flag.
+// finite: [batch] bytes, or null for no flag.  block and grid_x are the
+// wrapper's plan (kernels.autotune.choose_block_elementwise); a block the
+// source is not compiled for is refused.
 int izhikevich_step_f32(const float* v, const float* u, const float* isyn,
                         const float* a, const float* b, const float* c,
                         const float* d, float* v_out, float* u_out,
                         uint8_t* spiked_out, uint8_t* finite, int batch,
-                        int n, float dt, void* stream) {
-  if (batch == 0 || n == 0) return cudaSuccess;
-  dim3 grid(blocks_for(n), batch);
-  izhikevich_step_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      v, u, isyn, a, b, c, d, v_out, u_out, spiked_out, finite, n, dt);
-  return static_cast<int>(cudaGetLastError());
+                        int n, float dt, int block, int grid_x,
+                        void* stream) {
+  if (grid_x <= 0 || batch < 0 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    if (batch == 0 || n == 0) return cudaSuccess;
+    izhikevich_step_kernel<decltype(bs)::value>
+        <<<dim3(grid_x, batch), decltype(bs)::value, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            v, u, isyn, a, b, c, d, v_out, u_out, spiked_out, finite, n, dt);
+    return cudaGetLastError();
+  }));
 }
 
 // v, m, h, n, isyn and the outputs: [batch, n_neurons] (above_out bytes);
-// finite: [batch] bytes, or null for no flag.
+// finite: [batch] bytes, or null for no flag; inv_c as in HHParams.  block
+// and grid_x as above.
 int hh_step_f32(const float* v, const float* m, const float* h,
                 const float* n, const float* isyn, float* v_out,
                 float* m_out, float* h_out, float* n_out, uint8_t* above_out,
                 uint8_t* finite, int batch, int n_neurons, float dt,
                 int substeps, float gNa, float ENa, float gK, float EK,
-                float gl, float El, float C, void* stream) {
-  if (batch == 0 || n_neurons == 0) return cudaSuccess;
-  dim3 grid(blocks_for(n_neurons), batch);
-  hh_step_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      v, m, h, n, isyn, v_out, m_out, h_out, n_out, above_out, finite,
-      n_neurons, dt, substeps, HHParams{gNa, ENa, gK, EK, gl, El, C});
-  return static_cast<int>(cudaGetLastError());
+                float gl, float El, float inv_c, int block, int grid_x,
+                void* stream) {
+  if (grid_x <= 0 || batch < 0 || n_neurons < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    if (batch == 0 || n_neurons == 0) return cudaSuccess;
+    hh_step_kernel<decltype(bs)::value>
+        <<<dim3(grid_x, batch), decltype(bs)::value, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            v, m, h, n, isyn, v_out, m_out, h_out, n_out, above_out, finite,
+            n_neurons, dt, substeps,
+            HHParams{gNa, ENa, gK, EK, gl, El, inv_c});
+    return cudaGetLastError();
+  }));
+}
+
+KINFO_NAMES(neuron_step, "izhikevich_step", "hh_step")
+
+// kernels.autotune.kernel_attributes: which 0 izhikevich_step, 1 hh_step,
+// each compiled for one of the blocks of kinfo::with_block.
+int neuron_step_kernel_info(int which, int block, int query_block,
+                            int dyn_smem, int* out) {
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    constexpr int B = decltype(bs)::value;
+    const int q = query_block > 0 ? query_block : B;
+    switch (which) {
+      case 0:
+        return static_cast<cudaError_t>(kinfo::kernel_info(
+            izhikevich_step_kernel<B>, q, dyn_smem, out));
+      case 1:
+        return static_cast<cudaError_t>(
+            kinfo::kernel_info(hh_step_kernel<B>, q, dyn_smem, out));
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }));
 }
 
 const char* neuron_step_error_string(int code) {

@@ -97,6 +97,8 @@
 // the products on the CUDA cores round as written.
 
 #include <cuda_runtime.h>
+
+#include "kernel_info.cuh"
 #include <cstdint>
 
 namespace {
@@ -515,4 +517,24 @@ extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* A,
 
 extern "C" const char* ssd_scan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+KINFO_NAMES(ssd_scan, "ssd_scan_cb", "ssd_scan")
+
+// kernels.autotune.kernel_attributes.  which: 0 ssd_scan_kernel_cb (static
+// shared memory), 1 ssd_scan_kernel (dyn_smem < 0: sizeof(Smem), its
+// launch's); both kThreads threads, the runtime's occupancy asked at
+// query_block (kThreads when <= 0).
+extern "C" int ssd_scan_kernel_info(int which, int block, int query_block,
+                                    int dyn_smem, int* out) {
+  (void)block;
+  const int q = query_block > 0 ? query_block : kThreads;
+  if (which == 0)
+    return kinfo::kernel_info(ssd_scan_kernel_cb, q,
+                              dyn_smem >= 0 ? dyn_smem : 0, out);
+  if (which == 1)
+    return kinfo::kernel_info(
+        ssd_scan_kernel, q,
+        dyn_smem >= 0 ? dyn_smem : static_cast<int>(sizeof(Smem)), out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,9 +34,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+// A launch's block is one of kinfo::with_block's sizes, chosen on the host
+// by the occupancy model (kernels.autotune.choose_block_elementwise).
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -78,6 +81,7 @@ __device__ __forceinline__ float erf_inv_xla(float x) {
   return fabsf(x) == 1.0f ? x * __int_as_float(0x7f800000) : __fmul_rn(p, x);
 }
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 threefry_split_kernel(const uint32_t* __restrict__ keys,
                       long long key_stride, uint32_t* __restrict__ out,
@@ -94,6 +98,7 @@ threefry_split_kernel(const uint32_t* __restrict__ keys,
 }
 
 // dist: 0 bits, 1 uniform, 2 normal
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 threefry_draw_kernel(const uint32_t* __restrict__ keys, long long key_stride,
                      uint32_t* __restrict__ out, long long n, int dist,
@@ -126,34 +131,66 @@ threefry_draw_kernel(const uint32_t* __restrict__ keys, long long key_stride,
 extern "C" {
 
 // keys: [batch] rows of 2 uint32 words, row b at keys + b * key_stride;
-// out: [batch, num, 2] uint32.
+// out: [batch, num, 2] uint32.  block: the wrapper's plan
+// (kernels.autotune.choose_block_elementwise); a block the source is not
+// compiled for is refused.
 int threefry_split(const uint32_t* keys, long long key_stride, uint32_t* out,
-                   int batch, int num, unsigned int first, void* stream) {
+                   int batch, int num, unsigned int first, int block,
+                   void* stream) {
   if (batch < 0 || num < 0 || batch > 65535 || key_stride < 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || num == 0) return cudaSuccess;
-  dim3 grid((num + kThreads - 1) / kThreads, batch);
-  threefry_split_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(
-      stream)>>>(keys, key_stride, out, num, first);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    constexpr int B = decltype(bs)::value;
+    if (batch == 0 || num == 0) return cudaSuccess;
+    dim3 grid((num + B - 1) / B, batch);
+    threefry_split_kernel<B><<<grid, B, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        keys, key_stride, out, num, first);
+    return cudaGetLastError();
+  }));
 }
 
 // out: [batch, n] uint32 bits (dist 0) or float32 (dist 1 uniform, 2
-// normal), each float draw times scale.
+// normal), each float draw times scale.  block as above.
 int threefry_draw(const uint32_t* keys, long long key_stride, void* out,
-                  int batch, long long n, int dist, float scale,
+                  int batch, long long n, int dist, float scale, int block,
                   void* stream) {
   if (batch < 0 || n < 0 || batch > 65535 || key_stride < 2 || dist < 0 ||
       dist > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || n == 0) return cudaSuccess;
-  const long long ctas = (n + kThreads - 1) / kThreads;
-  if (ctas > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(ctas), batch);
-  threefry_draw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(
-      stream)>>>(keys, key_stride, static_cast<uint32_t*>(out), n, dist,
-                 scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    constexpr int B = decltype(bs)::value;
+    if (batch == 0 || n == 0) return cudaSuccess;
+    const long long ctas = (n + B - 1) / B;
+    if (ctas > 2147483647LL) return cudaErrorInvalidValue;
+    dim3 grid(static_cast<unsigned>(ctas), batch);
+    threefry_draw_kernel<B><<<grid, B, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        keys, key_stride, static_cast<uint32_t*>(out), n, dist, scale);
+    return cudaGetLastError();
+  }));
+}
+
+KINFO_NAMES(threefry, "threefry_split", "threefry_draw")
+
+// kernels.autotune.kernel_attributes: which 0 threefry_split, 1
+// threefry_draw, each compiled for one of the blocks of kinfo::with_block.
+int threefry_kernel_info(int which, int block, int query_block,
+                         int dyn_smem, int* out) {
+  return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    constexpr int B = decltype(bs)::value;
+    const int q = query_block > 0 ? query_block : B;
+    switch (which) {
+      case 0:
+        return static_cast<cudaError_t>(
+            kinfo::kernel_info(threefry_split_kernel<B>, q, dyn_smem, out));
+      case 1:
+        return static_cast<cudaError_t>(
+            kinfo::kernel_info(threefry_draw_kernel<B>, q, dyn_smem, out));
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }));
 }
 
 const char* threefry_error_string(int code) {

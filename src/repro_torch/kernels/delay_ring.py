@@ -23,17 +23,15 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
+from repro_torch.kernels._dispatch import (INT_MAX, F, I, P,
                                            check_operand, launch, on_cpu,
                                            raise_on)
 
-__all__ = ["delay_ring_fold", "launch_plan", "launches", "reset_launches",
-           "THREADS"]
+__all__ = ["delay_ring_fold", "launch_plan", "launches", "reset_launches"]
 
 launches: Dict[str, int] = {"delay_ring_fold": 0}
-
-THREADS = 256             # a CTA's threads (kFoldThreads in the .cu)
 
 
 def reset_launches() -> None:
@@ -47,8 +45,12 @@ def launch_plan(batch: int, n_slots: int, n_post: int,
     for each ``vec`` posts and member of a ring row (``vec`` 4 when n_post
     is a multiple of 4 and the operands are ``aligned`` to 16 bytes, else
     1), members fastest, ``block`` threads a CTA (grid x), one ring row a
-    grid row (grid y).  Raises where a grid axis or a size would overflow.
-    The returned dict is shared: do not change it."""
+    grid row (grid y).  The block comes from the occupancy model
+    (``kernels.autotune.choose_block_elementwise``), with the registers the
+    card reports for each compiled block (without a card, the shape
+    alone); the wrapper makes the plan once a shape and it is cached.
+    Raises where a grid axis or a size would overflow.  The
+    returned dict is shared: do not change it."""
     for what, v in (("batch", batch), ("n_slots", n_slots),
                     ("n_post", n_post)):
         if not 0 <= v <= INT_MAX:
@@ -56,21 +58,20 @@ def launch_plan(batch: int, n_slots: int, n_post: int,
     if n_slots < 1:
         raise ValueError("a ring has at least one slot")
     vec = 4 if n_post % 4 == 0 and aligned else 1
-    grid = (-(-(n_post // vec * batch) // THREADS), n_slots, 1)
-    if grid[0] > INT_MAX:
-        raise ValueError(f"{n_post // vec * batch} items need {grid[0]} "
-                         f"CTAs on grid axis x, past its {INT_MAX}")
-    if grid[1] > GRID_Y_MAX:
-        raise ValueError(f"{n_slots} ring slots past grid axis y's "
-                         f"{GRID_Y_MAX}")
-    return {"grid": grid, "block": THREADS, "vec": vec}
+    cfg = AT.choose_block_elementwise(
+        n_post // vec * batch, f"delay_ring_fold<{vec}>", n_slots,
+        tag="launch_plan")
+    return {"grid": cfg["grid"], "block": cfg["block"], "vec": vec,
+            "occupancy": cfg["occupancy"],
+            "resident_ctas": cfg["resident_ctas"],
+            "limiter": cfg["limiter"]}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_spmv")
     lib.delay_ring_fold_f32.argtypes = [P, P, P, P, P, F, F,
-                                        I, I, I, P, P, I, P]
+                                        I, I, I, P, P, I, I, P]
     lib.delay_ring_fold_f32.restype = I
     lib.ell_spmv_error_string.argtypes = [I]
     lib.ell_spmv_error_string.restype = ctypes.c_char_p
@@ -130,7 +131,8 @@ def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
                        all(p % 16 == 0 for p in ptrs))
     rc = launch(ring.device, _lib().delay_ring_fold_f32, *ptrs, gs_ptr,
                 scale, float(sign), batch, n_slots, n_post,
-                cursor.data_ptr(), new_cursor.data_ptr(), plan["vec"])
+                cursor.data_ptr(), new_cursor.data_ptr(), plan["vec"],
+                plan["block"])
     launches["delay_ring_fold"] += 1
     raise_on(rc, _lib().ell_spmv_error_string, "delay_ring_fold")
     return new_ring, inj, new_cursor

@@ -4,8 +4,10 @@
 ``repro/kernels/ell_spmv.py::ell_spmv_pallas`` and ``::ell_spmv_delay_pallas``
 (its header says how, and what bounds it on the card).  ``launch_plan``
 computes on the host what a call of either scatter needs (grid, block,
-shared memory, the slots an item); the kernel refuses a plan whose shared
-memory differs from its own layout.  Both sum in float64: ``ell_spmv`` and
+shared memory, the slots an item), the rows a CTA walks from the occupancy
+model (``kernels.autotune.choose_block_spmv``); the kernel refuses rows it
+is not compiled for and a plan whose shared memory differs from its own
+layout.  Both sum in float64: ``ell_spmv`` and
 ``ell_spmv_delay`` round the sum to float32 once; ``ell_spmv_delay_into``
 adds into a float64 scratch [n_slots, n_post, B] that the simulator keeps
 between steps and folds into its dendritic ring (``kernels.delay_ring``).
@@ -28,33 +30,21 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, I, LL, P,
-                                           check_operand, launch, on_cpu,
-                                           raise_on)
+from repro_torch.kernels._dispatch import (I, LL, P, check_operand, launch,
+                                           on_cpu, raise_on)
 
 __all__ = ["ell_spmv", "ell_spmv_delay", "ell_spmv_delay_into",
-           "launch_plan", "launches", "reset_launches", "ROWS_PER_CTA",
-           "MEMBERS_PER_CTA"]
+           "launch_plan", "launches", "reset_launches", "MEMBERS_PER_CTA"]
 
 # kernel name -> number of launches since the last reset_launches()
 launches: Dict[str, int] = {"ell_spmv": 0, "ell_spmv_delay": 0}
 
-ROWS_PER_CTA = 256        # presynaptic rows (and threads) of a CTA
-MEMBERS_PER_CTA = 8       # batch members whose spikes a CTA reads
-_ITEMS_PER_THREAD = 4     # items a thread loads before its first atomic
-# the CTA's shared memory (``LiveSmem`` in the .cu): spike values
-# [members][rows] float32, the live-row list uint16 [rows], live rows per
-# warp int32 [rows / 32]
-_SMEM_BYTES = (4 * MEMBERS_PER_CTA * ROWS_PER_CTA + 2 * ROWS_PER_CTA
-               + 4 * (ROWS_PER_CTA // 32))
-SMEM_MAX = 232_448        # shared memory one H100 CTA can use
-GRID_X_MAX = INT_MAX
-# the kernel counts a CTA's items (live rows x slots) in 32 bits
-K_MAX = (INT_MAX - ROWS_PER_CTA * _ITEMS_PER_THREAD) // ROWS_PER_CTA
-# the delay kernel's offsets into its scratch [n_slots, n_post, B] are
-# 64-bit
-INDEX_MAX = 2 ** 63 - 1
+MEMBERS_PER_CTA = AT.SPMV_MEMBERS   # batch members whose spikes a CTA reads
+# the widest row any compiled CTA takes (the kernel counts a CTA's items,
+# live rows x slots, in 32 bits; fewer rows a CTA take wider rows)
+K_MAX = max(AT.spmv_k_max(r) for r in AT.SPMV_ROWS)
 
 
 def reset_launches() -> None:
@@ -68,49 +58,43 @@ def launch_plan(batch: int, n_pre: int, k: int, n_post: int,
     """What ``ell_spmv`` (or, with ``n_slots``, the delay scatter) launches
     for spikes [batch, n_pre], K slots a row and n_post targets (n_slots x
     n_post with a delay): a CTA of ``block`` threads for each
-    ``ROWS_PER_CTA`` rows (grid x) and each ``MEMBERS_PER_CTA`` members
+    ``rows_per_cta`` rows (grid x) and each ``MEMBERS_PER_CTA`` members
     (grid y), ``smem_bytes`` of static shared memory, ``vec`` slots an
     item (4 when K is a multiple of 4 and the operands are ``aligned``:
-    16 bytes for post_ind, g and delay, 4 for valid; else 1).  Raises where
-    a grid axis, a CTA's item count or an index would overflow.  The
-    returned dict is shared: do not change it."""
-    sizes = [("batch", batch), ("n_pre", n_pre), ("K", k), ("n_post", n_post)]
-    if n_slots is not None:
-        sizes.append(("n_slots", n_slots))
-    for what, v in sizes:
-        if not 0 <= v <= INT_MAX:
-            raise ValueError(f"{what}={v} outside the kernel's int32 range")
-    grid = (-(-n_pre // ROWS_PER_CTA), -(-batch // MEMBERS_PER_CTA), 1)
-    if grid[1] > GRID_Y_MAX:
-        raise ValueError(f"batch {batch} needs {grid[1]} CTAs on grid axis "
-                         f"y, past its {GRID_Y_MAX}")
-    if grid[0] > GRID_X_MAX:
-        raise ValueError(f"n_pre {n_pre} needs {grid[0]} CTAs on grid axis "
-                         f"x, past its {GRID_X_MAX}")
-    if k > K_MAX:
-        raise ValueError(f"K={k} past the kernel's {K_MAX} slots a row")
-    if n_slots is not None and batch * n_slots * n_post > INDEX_MAX:
-        raise ValueError(f"[{batch}, {n_slots}, {n_post}] past the "
-                         "kernel's 64-bit index")
-    if _SMEM_BYTES > SMEM_MAX:
-        raise ValueError(f"{_SMEM_BYTES} B of shared memory past {SMEM_MAX}")
-    return {"grid": grid, "block": ROWS_PER_CTA, "smem_bytes": _SMEM_BYTES,
-            "vec": 4 if k % 4 == 0 and aligned else 1,
-            "rows_per_cta": ROWS_PER_CTA,
-            "members_per_cta": MEMBERS_PER_CTA,
-            "items_per_thread": _ITEMS_PER_THREAD, "n_slots": n_slots}
+    16 bytes for post_ind, g and delay, 4 for valid; else 1).
 
+    The rows a CTA walks come from the occupancy model
+    (``kernels.autotune.choose_block_spmv``), with the registers the card
+    reports for each compiled CTA shape (without a card, the shape alone);
+    the wrappers make the plan once a shape and it is cached.  Raises where
+    no compiled shape can launch: a grid axis, a CTA's item count or an
+    index would overflow.  The returned dict is shared: do not change
+    it."""
+    cfg = AT.choose_block_spmv(n_pre, k, n_post, batch, n_slots,
+                               tag="launch_plan")
+    if not cfg["feasible"]:
+        raise ValueError(cfg["reason"])
+    return {"grid": cfg["grid"], "block": cfg["block"],
+            "smem_bytes": cfg["smem_bytes"],
+            "vec": 4 if k % 4 == 0 and aligned else 1,
+            "rows_per_cta": cfg["rows"],
+            "members_per_cta": MEMBERS_PER_CTA,
+            "items_per_thread": AT.SPMV_ITEMS, "n_slots": n_slots,
+            "occupancy": cfg["occupancy"],
+            "resident_ctas": cfg["resident_ctas"],
+            "limiter": cfg["limiter"]}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_spmv")
-    lib.ell_spmv_f32.argtypes = [P, LL, P, P, P, I, P, I, I, I, I, I, I, P]
+    lib.ell_spmv_f32.argtypes = [P, LL, P, P, P, I, P, I, I, I, I, I, I, I,
+                                 P]
     lib.ell_spmv_f32.restype = I
     lib.ell_spmv_delay_f32.argtypes = [P, LL, P, P, P, P, I, P,
-                                       I, I, I, I, I, I, I, P]
+                                       I, I, I, I, I, I, I, I, P]
     lib.ell_spmv_delay_f32.restype = I
-    lib.ell_spmv_smem_bytes.argtypes = []
+    lib.ell_spmv_smem_bytes.argtypes = [I]
     lib.ell_spmv_smem_bytes.restype = I
     lib.ell_spmv_error_string.argtypes = [I]
     lib.ell_spmv_error_string.restype = ctypes.c_char_p
@@ -180,7 +164,7 @@ def ell_spmv(g: torch.Tensor, post_ind: torch.Tensor, valid: torch.Tensor,
     rc = launch(spikes.device, _lib().ell_spmv_f32, g_ptr, g_stride, ind_ptr,
                 valid_ptr, spikes.data_ptr(), int(spikes_bool),
                 out.data_ptr(), batch, n_pre, k, n_post, plan["vec"],
-                plan["smem_bytes"])
+                plan["rows_per_cta"], plan["smem_bytes"])
     launches["ell_spmv"] += 1
     raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv")
     return out.to(torch.float32)
@@ -204,7 +188,8 @@ def _delay_scatter(g, post_ind, valid, delay, spikes, out) -> None:
     rc = launch(spikes.device, _lib().ell_spmv_delay_f32, ptrs[0], g_stride,
                 ptrs[1], ptrs[2], ptrs[3], spikes.data_ptr(),
                 int(spikes_bool), out.data_ptr(), batch, n_pre, k, n_post,
-                n_slots, plan["vec"], plan["smem_bytes"])
+                n_slots, plan["vec"], plan["rows_per_cta"],
+                plan["smem_bytes"])
     launches["ell_spmv_delay"] += 1
     raise_on(rc, _lib().ell_spmv_error_string, "ell_spmv_delay")
 

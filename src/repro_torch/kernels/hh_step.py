@@ -20,24 +20,40 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
                                            check_flag, check_operand, launch,
                                            on_cpu, raise_on)
 
-__all__ = ["hh_step", "launches", "reset_launches"]
+__all__ = ["hh_step", "launch_plan", "launches", "reset_launches"]
 
 launches: Dict[str, int] = {"hh_step": 0}
+
+GRID_STRIDE_MAX = 4096    # CTAs along x; the threads loop beyond
 
 
 def reset_launches() -> None:
     launches["hh_step"] = 0
 
 
+@functools.lru_cache(maxsize=256)
+def launch_plan(batch: int, n: int) -> dict:
+    """The block and grid of a launch over [batch, n], from the occupancy
+    model (``kernels.autotune.choose_block_elementwise``) with the
+    registers the card reports for each compiled block: made once a shape
+    (at a configuration's first step, before any capture) and cached.  A
+    thread an element up to ``GRID_STRIDE_MAX`` CTAs along x, a
+    grid-stride loop beyond."""
+    return AT.choose_block_elementwise(n, "hh_step", batch,
+                                       grid_x_max=GRID_STRIDE_MAX,
+                                       tag="launch_plan")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("neuron_step")
-    lib.hh_step_f32.argtypes = [P] * 11 + [I, I, F, I] + [F] * 7 + [P]
+    lib.hh_step_f32.argtypes = [P] * 11 + [I, I, F, I] + [F] * 7 + [I, I, P]
     lib.hh_step_f32.restype = I
     lib.neuron_step_error_string.argtypes = [I]
     lib.neuron_step_error_string.restype = ctypes.c_char_p
@@ -79,13 +95,18 @@ def hh_step(v: torch.Tensor, m: torch.Tensor, h: torch.Tensor,
     batch, n_neurons = (1, v.shape[0]) if v.dim() == 1 else v.shape
     if batch > GRID_Y_MAX or n_neurons > INT_MAX:
         raise ValueError(f"[{batch}, {n_neurons}] exceeds the kernel's grid")
+    plan = launch_plan(batch, n_neurons)
     outs = torch.empty((4,) + v.shape, dtype=torch.float32,
                        device=v.device).unbind(0)
     above = torch.empty(v.shape, dtype=torch.bool, device=v.device)
     rc = launch(v.device, _lib().hh_step_f32,
                 *(t.data_ptr() for t in state), *(o.data_ptr() for o in outs),
                 above.data_ptr(), 0 if finite is None else finite.data_ptr(),
-                batch, n_neurons, float(dt), substeps, *map(float, params))
+                batch, n_neurons, float(dt), substeps,
+                # C as 1 / C rounded once from double: the plain version's
+                # "/ C", as PyTorch divides by a Python float
+                *map(float, params[:-1]), 1.0 / float(C),
+                plan["block"], plan["grid"][0])
     launches["hh_step"] += 1
     raise_on(rc, _lib().neuron_step_error_string, "hh_step")
     return (*outs, above)

@@ -19,24 +19,40 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
                                            check_flag, check_operand, launch,
                                            on_cpu, raise_on)
 
-__all__ = ["izhikevich_step", "launches", "reset_launches"]
+__all__ = ["izhikevich_step", "launch_plan", "launches", "reset_launches"]
 
 launches: Dict[str, int] = {"izhikevich_step": 0}
+
+GRID_STRIDE_MAX = 4096    # CTAs along x; the threads loop beyond
 
 
 def reset_launches() -> None:
     launches["izhikevich_step"] = 0
 
 
+@functools.lru_cache(maxsize=256)
+def launch_plan(batch: int, n: int) -> dict:
+    """The block and grid of a launch over [batch, n], from the occupancy
+    model (``kernels.autotune.choose_block_elementwise``) with the
+    registers the card reports for each compiled block: made once a shape
+    (at a configuration's first step, before any capture) and cached.  A
+    thread an element up to ``GRID_STRIDE_MAX`` CTAs along x, a
+    grid-stride loop beyond."""
+    return AT.choose_block_elementwise(n, "izhikevich_step", batch,
+                                       grid_x_max=GRID_STRIDE_MAX,
+                                       tag="launch_plan")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("neuron_step")
-    lib.izhikevich_step_f32.argtypes = [P] * 11 + [I, I, F, P]
+    lib.izhikevich_step_f32.argtypes = [P] * 11 + [I, I, F, I, I, P]
     lib.izhikevich_step_f32.restype = I
     lib.neuron_step_error_string.argtypes = [I]
     lib.neuron_step_error_string.restype = ctypes.c_char_p
@@ -75,6 +91,7 @@ def izhikevich_step(v: torch.Tensor, u: torch.Tensor, isyn: torch.Tensor,
     check_flag(finite, v)
     if batch > GRID_Y_MAX or n > INT_MAX:
         raise ValueError(f"[{batch}, {n}] exceeds the kernel's grid")
+    plan = launch_plan(batch, n)
     v_out, u_out = torch.empty((2,) + v.shape, dtype=torch.float32,
                                device=v.device).unbind(0)
     spiked = torch.empty(v.shape, dtype=torch.bool, device=v.device)
@@ -83,7 +100,7 @@ def izhikevich_step(v: torch.Tensor, u: torch.Tensor, isyn: torch.Tensor,
                 c.data_ptr(), d.data_ptr(), v_out.data_ptr(),
                 u_out.data_ptr(), spiked.data_ptr(),
                 0 if finite is None else finite.data_ptr(), batch, n,
-                float(dt))
+                float(dt), plan["block"], plan["grid"][0])
     launches["izhikevich_step"] += 1
     raise_on(rc, _lib().neuron_step_error_string, "izhikevich_step")
     return v_out, u_out, spiked

@@ -24,19 +24,31 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, LL, I, P,
                                            check_operand, launch, on_cpu,
                                            raise_on)
 
-__all__ = ["spike_bitmask", "spike_bitmask_into", "words_for", "launches",
-           "reset_launches"]
+__all__ = ["spike_bitmask", "spike_bitmask_into", "words_for", "launch_plan",
+           "launches", "reset_launches"]
 
 launches: Dict[str, int] = {"spike_bitmask": 0}
 
 
 def reset_launches() -> None:
     launches["spike_bitmask"] = 0
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(batch: int, n: int) -> dict:
+    """The block and grid of a launch packing [batch, n] bits (a warp a
+    word: 32 threads a word), from the occupancy model
+    (``kernels.autotune.choose_block_elementwise``) with the registers the
+    card reports for each compiled block: made once a shape (at a
+    configuration's first step, before any capture) and cached."""
+    return AT.choose_block_elementwise(32 * words_for(n), "spike_bitmask",
+                                       batch, tag="launch_plan")
 
 
 def words_for(n: int) -> int:
@@ -47,7 +59,7 @@ def words_for(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("spike_bitmask")
-    lib.spike_bitmask.argtypes = [P, P, I, LL, LL, I, P, I, P, P]
+    lib.spike_bitmask.argtypes = [P, P, I, LL, LL, I, P, I, P, I, P]
     lib.spike_bitmask.restype = I
     lib.spike_bitmask_error_string.argtypes = [I]
     lib.spike_bitmask_error_string.restype = ctypes.c_char_p
@@ -65,9 +77,10 @@ def _check_bits(bits: torch.Tensor) -> None:
 
 def _launch(bits, out, cap, slot_ptr, slot, active_ptr) -> None:
     batch, n = bits.shape
+    plan = launch_plan(batch, n)
     rc = launch(bits.device, _lib().spike_bitmask, bits.data_ptr(),
                 out.data_ptr(), batch, n, words_for(n), cap, slot_ptr, slot,
-                active_ptr)
+                active_ptr, plan["block"])
     launches["spike_bitmask"] += 1
     raise_on(rc, _lib().spike_bitmask_error_string, "spike_bitmask")
 

@@ -23,12 +23,13 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, LL, F, I, P,
                                            launch, on_cpu, raise_on)
 
-__all__ = ["threefry_split", "threefry_draw", "launches", "reset_launches",
-           "DRAWS"]
+__all__ = ["threefry_split", "threefry_draw", "launch_plan", "launches",
+           "reset_launches", "DRAWS"]
 
 DRAWS = _ref.DRAWS                  # "bits", "uniform", "normal"
 
@@ -40,12 +41,23 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+@functools.lru_cache(maxsize=256)
+def launch_plan(kernel: str, batch: int, n: int) -> dict:
+    """The block and grid of ``kernel`` ("threefry_split" or
+    "threefry_draw") over [batch, n] (a thread a key or a draw), from the
+    occupancy model (``kernels.autotune.choose_block_elementwise``) with
+    the registers the card reports for each compiled block: made once a
+    shape (at a configuration's first step, before any capture) and
+    cached."""
+    return AT.choose_block_elementwise(n, kernel, batch, tag="launch_plan")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("threefry")
-    lib.threefry_split.argtypes = [P, LL, P, I, I, ctypes.c_uint, P]
+    lib.threefry_split.argtypes = [P, LL, P, I, I, ctypes.c_uint, I, P]
     lib.threefry_split.restype = I
-    lib.threefry_draw.argtypes = [P, LL, P, I, LL, I, F, P]
+    lib.threefry_draw.argtypes = [P, LL, P, I, LL, I, F, I, P]
     lib.threefry_draw.restype = I
     lib.threefry_error_string.argtypes = [I]
     lib.threefry_error_string.restype = ctypes.c_char_p
@@ -79,8 +91,9 @@ def threefry_split(keys: torch.Tensor, num: int,
     stride = _check_keys(keys)
     out = torch.empty((keys.shape[0], num, 2), dtype=torch.int32,
                       device=keys.device)
+    plan = launch_plan("threefry_split", keys.shape[0], num)
     rc = launch(keys.device, _lib().threefry_split, keys.data_ptr(), stride,
-                out.data_ptr(), keys.shape[0], num, first)
+                out.data_ptr(), keys.shape[0], num, first, plan["block"])
     launches["threefry_split"] += 1
     raise_on(rc, _lib().threefry_error_string, "threefry_split")
     return out
@@ -100,9 +113,10 @@ def threefry_draw(keys: torch.Tensor, n: int, dist: str,
     stride = _check_keys(keys)
     out = torch.empty((keys.shape[0], n), device=keys.device,
                       dtype=torch.int32 if dist == "bits" else torch.float32)
+    plan = launch_plan("threefry_draw", keys.shape[0], n)
     rc = launch(keys.device, _lib().threefry_draw, keys.data_ptr(), stride,
                 out.data_ptr(), keys.shape[0], n, DRAWS.index(dist),
-                float(scale))
+                float(scale), plan["block"])
     launches["threefry_draw"] += 1
     raise_on(rc, _lib().threefry_error_string, "threefry_draw")
     return out

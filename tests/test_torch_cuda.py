@@ -28,7 +28,13 @@ the eager run bit for bit (rasters, counts, every state tensor), with
 probes, scheduled custom updates and the health monitor too (recordings,
 counts, health report).  The spike bitmask: words bit-equal to the plain
 version, the ring variant's device slot and active flag included, also
-replayed from a CUDA graph."""
+replayed from a CUDA graph.  The occupancy model
+(``kernels.autotune``): its resident CTAs an SM equal
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for every kernel at every
+block it is compiled for, every limit it models equals the card's, and
+every kernel whose block it chooses gives, at each compiled block, the
+result it gives at the chosen one (bit for bit) and its plain version's
+(bit for bit)."""
 
 import numpy as np
 import pytest
@@ -43,6 +49,7 @@ from repro_torch.core.models import mushroom_body as TMB  # noqa: E402
 from repro_torch.core.snn import graphs as GR  # noqa: E402
 from repro_torch.core.snn import spec as TSPEC  # noqa: E402
 from repro_torch.core.snn import synapses as TSYN  # noqa: E402
+from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import delay_ring as DR  # noqa: E402
 from repro_torch.kernels import ell_spmv as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -146,17 +153,18 @@ def test_cuda_ell_spmv_refuses_a_plan_unlike_its_layout(cuda_device):
     spk = torch.ones(1, 4, device=cuda_device)
     out = torch.zeros(1, 5, dtype=torch.float64, device=cuda_device)
     lib = K._lib()
-    assert lib.ell_spmv_smem_bytes() == K.launch_plan(1, 4, 8, 5)[
-        "smem_bytes"]
+    plan = K.launch_plan(1, 4, 8, 5)
+    rows = plan["rows_per_cta"]
+    assert lib.ell_spmv_smem_bytes(rows) == plan["smem_bytes"]
+    assert lib.ell_spmv_smem_bytes(64) == -1         # not compiled
     args = (g.data_ptr(), 0, idx.data_ptr(), valid.data_ptr(),
             spk.data_ptr(), 0, out.data_ptr(), 1, 4, 8, 5)
     stream = torch.cuda.current_stream().cuda_stream
-    assert lib.ell_spmv_f32(*args, 4, lib.ell_spmv_smem_bytes() + 4,
-                            stream) != 0
-    assert lib.ell_spmv_f32(*args, 2, lib.ell_spmv_smem_bytes(),
-                            stream) != 0
-    assert lib.ell_spmv_f32(*args, 4, lib.ell_spmv_smem_bytes(),
-                            stream) == 0
+    smem = lib.ell_spmv_smem_bytes(rows)
+    assert lib.ell_spmv_f32(*args, 4, rows, smem + 4, stream) != 0
+    assert lib.ell_spmv_f32(*args, 2, rows, smem, stream) != 0
+    assert lib.ell_spmv_f32(*args, 4, 64, smem, stream) != 0
+    assert lib.ell_spmv_f32(*args, 4, rows, smem, stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full((1, 5), 0.0, dtype=torch.float64,
                                        device=cuda_device)
@@ -220,8 +228,8 @@ def test_cuda_delay_scatter_equals_plain_bit_for_bit(cuda_device, b, p, k,
     into a scratch that holds (float32-exact) values adds to them."""
     rng = np.random.default_rng(13)
     n_pre, n_post, n_slots = 3000, 40, 21
-    assert K.launch_plan(b, n_pre, k, n_post, n_slots=n_slots)["grid"] == (
-        -(-n_pre // 256), -(-b // 8), 1)
+    plan = K.launch_plan(b, n_pre, k, n_post, n_slots=n_slots)
+    assert plan["grid"] == (-(-n_pre // plan["rows_per_cta"]), -(-b // 8), 1)
 
     def t(x, dtype=torch.float32):
         return torch.tensor(x, dtype=dtype, device=cuda_device)
@@ -346,7 +354,7 @@ def test_cuda_neuron_kernels_match_plain(cuda_device, b):
         torch.testing.assert_close(a[agree], e[agree], **NEURON_TOL)
     href = TR.hh_step_ref(*hh_in, 0.1, substeps=5)
     for a, e in zip(hout[:4], href[:4]):
-        torch.testing.assert_close(a, e, **NEURON_TOL)
+        assert torch.equal(a, e)
     assert torch.equal(hout[4], hout[0] >= 0.0)
 
 
@@ -918,3 +926,148 @@ def test_cuda_captured_observed_run_equals_eager_run(cuda_device,
                            comp.raster["exc"].transpose(0, 1))
         assert torch.equal(comp.health.spike_total["exc"],
                            comp.spike_counts["exc"].sum(-1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the occupancy model against the runtime
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_h100_limits_equal_the_cards(cuda_device):
+    got = AT.device_limits()
+    for key, value in got.items():
+        assert getattr(AT.H100, key) == value, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("library", sorted({k.library
+                                            for k in AT.KERNELS.values()}))
+def test_cuda_library_names_the_models_kernels(cuda_device, library):
+    """The built library numbers exactly the kernels the model lists."""
+    want = sorted(n for n, k in AT.KERNELS.items() if k.library == library)
+    assert sorted(AT.kernel_names(library)) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", sorted(AT.KERNELS))
+def test_cuda_occupancy_equals_the_runtime(cuda_device, kernel):
+    """At every compiled block (and, for the kernels the model chooses a
+    block for, at every block of whole warps the kernel may take)."""
+    spec = AT.KERNELS[kernel]
+    for block in spec.blocks:
+        a = AT.kernel_attributes(kernel, block)
+        smem = a["sharedSizeBytes"] + a["launchDynamicSharedBytes"]
+        model = AT.occupancy(block, a["numRegs"], smem)["ctas"]
+        assert model == AT.runtime_occupancy(kernel, block) > 0, block
+        if spec.blocks[0] < 256 or len(spec.blocks) == 1:
+            continue
+        for q in range(32, a["maxThreadsPerBlock"] + 1, 32):
+            want = AT.runtime_occupancy(kernel, block, q,
+                                        a["launchDynamicSharedBytes"])
+            assert AT.occupancy(q, a["numRegs"], smem)["ctas"] == want, q
+
+
+def _forced(module, block):
+    """Patch ``module.launch_plan`` to put ``block`` in its plan."""
+    from unittest import mock
+    orig = module.launch_plan
+
+    def plan(*args, **kw):
+        p = dict(orig(*args, **kw))
+        p["block"] = block
+        if "rows_per_cta" in p:
+            p["rows_per_cta"] = block
+            p["smem_bytes"] = AT.spmv_smem_bytes(block)
+        if module in (IZ, HH):
+            p["grid"] = (min(-(-args[1] // block), module.GRID_STRIDE_MAX),
+                         args[0], 1)
+        return p
+    return mock.patch.object(module, "launch_plan", plan)
+
+
+@pytest.mark.gpu
+def test_cuda_every_compiled_block_gives_the_chosen_blocks_result(
+        cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    dev = cuda_device
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    n_pre, k, n_post, n_slots = 20_000, 200, 20_000, 21
+    g = rnd(n_pre, k)
+    idx = torch.randint(0, n_post, (n_pre, k), device=dev, generator=gen,
+                        dtype=torch.int32)
+    valid = rnd(n_pre, k) < 0.8
+    dly = torch.randint(0, n_slots, (n_pre, k), device=dev, generator=gen,
+                        dtype=torch.int32)
+    spk = rnd(2, n_pre) < 0.02
+    v, u = -65.0 + 40.0 * rnd(2, 30_000), -13.0 + rnd(2, 30_000)
+    isyn = 10.0 * rnd(2, 30_000)
+    pa, pb, pc, pd = (rnd(30_000) for _ in range(4))
+    hv, hm, hh_, hn = (-60.0 + 10 * rnd(1, 5000), rnd(1, 5000),
+                       rnd(1, 5000), rnd(1, 5000))
+    hi = rnd(1, 5000)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, 2), device=dev,
+                         generator=gen, dtype=torch.int32)
+    ring = rnd(2, n_slots, n_post)
+    acc0 = rnd(n_slots, n_post, 2).double()
+    cur = torch.tensor(4, dtype=torch.int32, device=dev)
+    runs = {
+        K: [lambda: K.ell_spmv(g, idx, valid, spk, n_post),
+            lambda: K.ell_spmv_delay(g, idx, valid, dly, spk, n_post,
+                                     n_slots)],
+        IZ: [lambda: IZ.izhikevich_step(v, u, isyn, pa, pb, pc, pd, 1.0)],
+        HH: [lambda: HH.hh_step(hv, hm, hh_, hn, hi, 0.1)],
+        TFK: [lambda: TFK.threefry_split(keys, 5),
+              lambda: TFK.threefry_draw(keys, 30_001, "normal", 2.0)],
+        SBK: [lambda: SBK.spike_bitmask(spk)],
+        DR: [lambda: DR.delay_ring_fold(ring, acc0.clone(), cur, -1.0,
+                                        0.7)],
+    }
+    plains = {
+        K: [lambda: TR.ell_spmv_ref(g, idx, valid, spk, n_post),
+            lambda: TR.ell_spmv_delay_ref(g, idx, valid, dly, spk, n_post,
+                                          n_slots)],
+        IZ: [lambda: TR.izhikevich_step_ref(v, u, isyn, pa, pb, pc, pd,
+                                            1.0)],
+        HH: [lambda: TR.hh_step_ref(hv, hm, hh_, hn, hi, 0.1)],
+        TFK: [lambda: TR.threefry_split_ref(keys, 5),
+              lambda: TR.threefry_draw_ref(keys, 30_001, "normal", 2.0)],
+        SBK: [lambda: TR.spike_bitmask_ref(spk)],
+        DR: [lambda: TR.delay_ring_fold_ref(ring, acc0.clone(), cur, -1.0,
+                                            0.7)],
+    }
+    blocks = {K: AT.SPMV_ROWS}
+    for module, fns in runs.items():
+        chosen = [fn() for fn in fns]
+        for block in blocks.get(module, AT.ELEMENTWISE_BLOCKS):
+            with _forced(module, block):
+                for fn, want in zip(fns, chosen):
+                    got = fn()
+                    for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                                    torch.utils._pytree.tree_leaves(want)):
+                        assert torch.equal(a, b), (module.__name__, block)
+        for i, (fn, plain) in enumerate(zip(fns, plains[module])):
+            if module is TFK and i == 1:
+                continue                       # normals: 4 ulp (above)
+            got, want = fn(), plain()
+            for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                            torch.utils._pytree.tree_leaves(want)):
+                assert torch.equal(a, b), module.__name__
+
+
+@pytest.mark.gpu
+def test_cuda_torch_profiler_trace_writes_the_device_timeline(cuda_device,
+                                                              tmp_path):
+    from repro_torch.obs import profile as TPROF
+    model = TIZ.compile_model(TIZ.IzhikevichNetConfig(n_total=2000,
+                                                      n_conn=50))
+    with TPROF.torch_profiler_trace(str(tmp_path)) as prof:
+        model.run(20)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert any("izhikevich_step_kernel" in n for n in names)
+    import json
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    assert any(e.get("cat") == "kernel" for e in doc["traceEvents"])

@@ -256,12 +256,17 @@ def test_batched_delay_sweep_matches_jax():
 @pytest.mark.parametrize("batch", [1, 8, 65536])
 def test_fold_plan_fits_the_card(batch):
     """A thread takes 4 posts of a ring row for one member: 20,000 x B
-    threads a row."""
+    threads a row, in CTAs of the model's block (off the card, without
+    registers, the smallest compiled block: every candidate is bound by
+    its threads alike)."""
     plan = DR.launch_plan(batch, 21, 80_000)
     gx = plan["grid"][0]
-    assert plan == {"grid": (gx, 21, 1), "block": 256, "vec": 4}
-    assert gx * 256 >= 20_000 * batch > (gx - 1) * 256
-    assert gx == {1: 79, 8: 625, 65536: 5_120_000}[batch]
+    block = plan["block"]
+    assert {k: plan[k] for k in ("grid", "block", "vec")} == {
+        "grid": (gx, 21, 1), "block": block, "vec": 4}
+    assert block == 128
+    assert gx * block >= 20_000 * batch > (gx - 1) * block
+    assert gx == {1: 157, 8: 1250, 65536: 10_240_000}[batch]
 
 
 @pytest.mark.parametrize("n_post,aligned,vec", [(80_000, True, 4),
@@ -271,14 +276,18 @@ def test_fold_plan_fits_the_card(batch):
 def test_fold_vector_width(n_post, aligned, vec):
     plan = DR.launch_plan(2, 6, n_post, aligned)
     assert plan["vec"] == vec
-    assert plan["grid"][0] == -(-(n_post // vec * 2) // 256)
+    assert plan["grid"][0] == -(-(n_post // vec * 2) // plan["block"])
 
 
 def test_fold_plan_raises_past_the_grid():
+    """Grid axis x takes 2^31 - 1 CTAs: past 2^39 items the model moves to
+    the larger blocks the fold is compiled for, and past 1024 x (2^31 - 1)
+    items nothing launches."""
     DR.launch_plan(65535, 65535, 8)
     DR.launch_plan(2 ** 10, 2, 2 ** 31 - 4)           # 2^39 items
+    assert DR.launch_plan(2 ** 12, 2, 2 ** 31 - 4)["block"] == 1024
     with pytest.raises(ValueError, match="axis x"):
-        DR.launch_plan(2 ** 11, 2, 2 ** 31 - 4)
+        DR.launch_plan(2 ** 13, 2, 2 ** 31 - 4)
     with pytest.raises(ValueError, match="axis y"):
         DR.launch_plan(1, 65536, 8)
     with pytest.raises(ValueError, match="int32"):

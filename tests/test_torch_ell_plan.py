@@ -1,6 +1,7 @@
 """``kernels.ell_spmv.launch_plan`` on the CPU: what the ELL kernels
 (``csrc/ell_spmv.cu``: ``ell_spmv_live_kernel`` and, with ``n_slots``,
-``ell_spmv_delay_live_kernel``) launch, held to an H100's limits (232,448 B
+``ell_spmv_delay_live_kernel``) launch, the rows a CTA walks from the
+occupancy model without the card's registers, held to an H100's limits (232,448 B
 of shared memory a CTA, grid axis y <= 65535) at the main path's shapes
 and the delay path's 21 slots, at B = 1, 8 and 65535, and at an n_pre that
 is no multiple of a CTA's rows.  The kernels themselves run only on a card
@@ -10,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import ell_spmv as K  # noqa: E402
 
 SMEM_LIMIT = 232_448           # H100: shared memory one CTA can use
@@ -29,22 +31,30 @@ def test_plan_fits_the_card(n_pre, k, n_post, batch):
     assert gz == 1 and 0 < gy <= GRID_Y_LIMIT and 0 < gx <= GRID_X_LIMIT
     assert gx * plan["rows_per_cta"] >= n_pre > (gx - 1) * plan["rows_per_cta"]
     assert gy * plan["members_per_cta"] >= batch
-    assert plan["block"] == plan["rows_per_cta"] == 256
+    # the rows a CTA walks come from the occupancy model, among the
+    # compiled CTA shapes; off the card (no registers) the threads bound
+    # every candidate alike and the smallest CTA wins the tie
+    assert plan["block"] == plan["rows_per_cta"] == 128
+    assert plan["rows_per_cta"] in AT.SPMV_ROWS
     assert plan["block"] % 32 == 0 and plan["block"] <= 1024
     assert 0 < plan["smem_bytes"] <= SMEM_LIMIT
-    # the CTA's LiveSmem: spike values [8][256] float32, the live-row
-    # list [256] uint16, live rows per warp [8] int32
-    assert plan["smem_bytes"] == 4 * 8 * 256 + 2 * 256 + 4 * 8
+    # the CTA's LiveSmem: spike values [8][rows] float32, the live-row
+    # list [rows] uint16, live rows per warp [rows / 32] int32
+    rows = plan["rows_per_cta"]
+    assert plan["smem_bytes"] == 4 * 8 * rows + 2 * rows + 4 * (rows // 32)
     assert plan["vec"] == 4
     # a CTA's items (live rows x slots / vec) fit the kernel's 32 bits
     assert plan["rows_per_cta"] * k // plan["vec"] < 2 ** 31
 
 
 def test_main_path_is_one_wave():
-    """80,000 rows at B <= 8: 313 CTAs, about 2.4 a Hopper SM."""
+    """80,000 rows at B <= 8: 625 CTAs of 128 rows, one wave of a Hopper's
+    132 SMs at 16 resident CTAs an SM."""
     for b in (1, 8):
-        assert K.launch_plan(b, 80_000, 1000, 80_000)["grid"] == (313, 1, 1)
-    assert K.launch_plan(9, 80_000, 1000, 80_000)["grid"] == (313, 2, 1)
+        plan = K.launch_plan(b, 80_000, 1000, 80_000)
+        assert plan["grid"] == (625, 1, 1)
+        assert plan["grid"][0] <= 132 * plan["resident_ctas"]
+    assert K.launch_plan(9, 80_000, 1000, 80_000)["grid"] == (625, 2, 1)
 
 
 def test_plan_raises_past_the_grid_and_the_index_range():

@@ -613,7 +613,8 @@ def test_memory_report_covers_runtime_state():
     keys = ("state_elements", "sparse_elements", "dense_elements",
             "dendritic_ring_elements", "representation", "buffer_elements",
             "buffer_bytes", "bytes_per_sample", "is_packed",
-            "stream_state_elements", "n_reductions")
+            "stream_state_elements", "n_reductions", "propagation",
+            "propagation_mode", "event_capacity")
     for name, r in by_name.items():
         for k in keys:
             if k in jrep[name]:
