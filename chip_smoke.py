@@ -26,11 +26,14 @@ failure ends the run with a non-zero exit):
        adds/s, its ``launch_plan`` and the SASS instruction count of the
        main path's instance;
      - the dendritic ring's fold at phase 5's [1, 21, 80000] and the
-       sweep's [8, 21, 80000], cursors 0, 11 and 20, sign +-1, a scalar and
-       a per-member gScale: bit-equal to its plain version (the eager
-       sequence it replaces, whose device time stands beside it), the
-       scratch left zeroed; the bound by bytes (read ring and scratch,
-       write the new ring, the zeros and the cursor's row);
+       sweep's [8, 21, 80000], every member's cursor at 0, 11 and 20,
+       sign +-1, a scalar and a per-member gScale: bit-equal to its plain
+       version (the eager sequence it replaces, whose device time stands
+       beside it), the scratch left zeroed; the bound by bytes (read ring
+       and scratch, write the new ring, the zeros and the cursor's row);
+       then at [8, 21, 80000] with a cursor a member, all different (as
+       served streams hold them), bit-equal to its plain version at every
+       block it is compiled for, and its time;
      - izhikevich_step at [1, 80000] and [8, 80000] with per-neuron a..d,
        hh_step at the mushroom body's [1, 20], [1, 100000], [1, 100] and
        [5, 100000] (dt 0.1, 5 substeps), inputs that straddle the
@@ -196,7 +199,29 @@ failure ends the run with a non-zero exit):
      candidates x 700 steps, PN_KC and PN_LHI), both hyperbola fits,
      every pick finite; the trace of those builds and runs exported
      (``chiprun_out/phase10_trace.json``), valid, with the JAX package's
-     span and instant names.
+     span and instant names;
+  11. SNN serving at full width (``repro_torch.launch.snn_serve`` over
+     ``CompiledModel.serve_chunk``, one CUDA graph a configuration): (a)
+     the main path's net (100k x 1000), ``SNNServer(max_streams=8,
+     chunk=50)``, 16 requests of 100-200 steps of 3.0 x normal stim from
+     numpy's default_rng(0), seeds 1000 + i, every stream's spike counts
+     equal to its offline ``CompiledModel.run`` at B=1; (b) the same
+     requests through ``Gateway(buckets=(4, 8))``, a deadline on every
+     other request passed by a fake clock after the first chunk: a
+     mid-flight eviction, a grow and a shrink, the survivors exact; (c)
+     mb_full (100k KCs, phase 6b's fan-in gScales: the default
+     conductances are non-finite at this size) with the KC V probe every
+     5 steps, 8 streams, counts exact and recordings within rtol=1e-5,
+     atol=1e-4; (d) phase 5's delayed net with 4 streams admitted a chunk
+     apart, each stream's final state (rings and cursors) bit-equal to
+     its offline run's; (e) the gateway's HTTP front door at the
+     demo's size, 4 concurrent requests served by the pump thread from
+     graphs captured at registration, each exact.  It prints
+     slot-steps/s, streams/s, chunk ms p50/p99, the chunk's phases (host
+     assembly; stim copy and replay by CUDA events; the call's wait and
+     readback), device ops a served chunk and the card's busy share over
+     it, and the masking's cost (device ops and time a step, served S=8
+     against ``run_compiled`` at B=8 on the same stim, in turns).
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -284,6 +309,13 @@ OBS_MAIN = dict(steps=1000, profile_steps=50, turns=2, bands=(1.0, 100.0))
 # phase 9c: mb_full with the KC V probe and the KC->DN normalisation; eager
 # and replayed from one state over check_steps, then the run and search
 OBS_MB = dict(check_steps=500, steps=2500, kc_probe_every=25, turns=2)
+# phase 11: SNN serving at full width: the main path's net and mb_full,
+# 8 slots, chunks of 50, requests of 100-200 steps; the gateway's buckets;
+# phase 5's net with 4 streams admitted a chunk apart
+SNN_SERVE = dict(streams=8, chunk=50, requests=16, min_steps=100,
+             max_steps=200, izh_scale=3.0, mb_scale=1.5, mb_requests=8,
+             mb_probe_every=5, buckets=(4, 8), delay_streams=4,
+             delay_steps=(200, 180, 160, 140))
 # PR 19's device ops a step of phase 3 (eager, replayed), which a run
 # without probes, custom updates or a monitor keeps
 MAIN_OPS_PR19 = (33.2, 33.9)
@@ -484,6 +516,8 @@ def main() -> int:
     mb_observed(torch, report)
     torch.cuda.empty_cache()
     paper_experiment(torch, report)
+    torch.cuda.empty_cache()
+    serve_snn(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -724,7 +758,7 @@ def compare_kernels(torch, report) -> list:
     # the fold at B = 1, phase 5's own regime; it fuses the eager ring
     # update that the JAX package runs in its step (no TPU kernel)
     r = next(x for x in rows if x["name"] == "delay_ring_fold"
-             and x["B"] == 1)
+             and x["B"] == 1 and "cursors" not in x)
     entries.append({
         "name": "delay_ring_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -739,11 +773,13 @@ def _compare_fold(torch, dev, gen) -> list:
     version (the eager sequence it replaces), bit for bit; times beside
     the bytes bound (read ring and scratch, write the new ring, the
     scratch's zeros and inj)."""
+    from repro_torch.kernels import autotune as AT
     from repro_torch.kernels import delay_ring as DR
     from repro_torch.kernels import ref as R
     rows = []
     for b, n_slots, n_post in FOLD_SHAPES:
-        curs = [torch.tensor(c, dtype=torch.int32, device=dev)
+        # every member's cursor at c (a run or a sweep)
+        curs = [torch.full((b,), c, dtype=torch.int32, device=dev)
                 for c in range(n_slots)]
         ring = torch.randn(b, n_slots, n_post, device=dev, generator=gen)
         ring[:, :, :64] = 0.0
@@ -760,9 +796,9 @@ def _compare_fold(torch, dev, gen) -> list:
                                              gs)
                     want = R.delay_ring_fold_ref(ring, acc_ref,
                                                  curs[cursor], sign, gs)
-                    check(int(got[2]) == int(want[2])
-                          == (cursor + 1) % n_slots,
-                          "delay_ring_fold: the advanced cursor")
+                    check(got[2].tolist() == want[2].tolist()
+                          == [(cursor + 1) % n_slots] * b,
+                          "delay_ring_fold: the advanced cursors")
                     for x, y in zip(got[:2], want[:2]):
                         check(bool(torch.equal(x, y)) and bool(torch.equal(
                             torch.signbit(x), torch.signbit(y))),
@@ -790,7 +826,52 @@ def _compare_fold(torch, dev, gen) -> list:
                "plan": DR.launch_plan(b, n_slots, n_post)}
         rows.append(row)
         print(json.dumps(row))
+        if b > 1:
+            rows.append(_fold_unequal_cursors(torch, DR, R, AT, ring, acc0,
+                                              gscales[1], nbytes))
     return rows
+
+
+def _fold_unequal_cursors(torch, DR, R, AT, ring, acc0, gs, nbytes) -> dict:
+    """The fold with a cursor a member, all different (served streams sit
+    at their own steps): bit-equal to its plain version at every block
+    the source is compiled for, the scratch left zeroed; its time at the
+    chosen block beside the equal-cursor row's."""
+    b, n_slots, n_post = ring.shape
+    cur = torch.tensor([(5 * m + 2) % n_slots for m in range(b)],
+                       dtype=torch.int32, device=ring.device)
+    check(len(set(cur.tolist())) == b, "the cursors are not all different")
+    acc_ref = acc0.clone()
+    want = R.delay_ring_fold_ref(ring, acc_ref, cur, -1.0, gs)
+    check(want[2].tolist() == [(c + 1) % n_slots for c in cur.tolist()],
+          "delay_ring_fold_ref: the advanced cursors")
+    for block in AT.ELEMENTWISE_BLOCKS:
+        acc = acc0.clone()
+        with _forced_block(DR, block):
+            got = DR.delay_ring_fold(ring, acc, cur, -1.0, gs)
+        for x, y in zip(got, want):
+            check(bool(torch.equal(x, y)) and (
+                not x.is_floating_point() or bool(torch.equal(
+                    torch.signbit(x), torch.signbit(y)))),
+                f"delay_ring_fold {list(ring.shape)}, cursors "
+                f"{cur.tolist()}, block {block}: not bit-equal to the plain "
+                "version")
+        check(not bool(acc.any()), "delay_ring_fold left its scratch "
+              "nonzero")
+    accs = [acc0.clone() for _ in range(8)]
+    kern = lambda i: DR.delay_ring_fold(ring, accs[i % 8], cur, -1.0, gs)
+    plain = lambda i: R.delay_ring_fold_ref(ring, accs[i % 8], cur, -1.0,
+                                            gs)
+    ms, kernel_ms = _device_ms(torch, kern, 20, "delay_ring_fold")
+    row = {"name": "delay_ring_fold", "B": b, "shape": list(ring.shape),
+           "cursors": cur.tolist(), "blocks": list(AT.ELEMENTWISE_BLOCKS),
+           "max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+           "wall_ms": _time_ms(torch, kern, 20),
+           "plain_ms": _device_ms(torch, plain, 20)[0],
+           **_bound(nbytes, 0.0), "bytes": nbytes, "library_ms": None,
+           "plan": DR.launch_plan(b, n_slots, n_post)}
+    print("unequal cursors: " + json.dumps(row))
+    return row
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -3088,7 +3169,7 @@ def _blocks_at_path_shapes(torch, AT, rounds: int = BLOCK_ROUNDS) -> list:
     ring = rnd(*FOLD_SHAPES[0])
     b, s_, n_post = FOLD_SHAPES[0]
     acc0 = rnd(s_, n_post, b).double()
-    cur = torch.tensor(11, dtype=torch.int32, device=dev)
+    cur = torch.full((b,), 11, dtype=torch.int32, device=dev)
     bits = rnd(1, n_exc) < 0.02
     cases = [
         ("ell_spmv", ell_spmv, "ell_spmv_live",
@@ -3451,6 +3532,418 @@ def paper_experiment(torch, report) -> dict:
                     "mushroom": mb, "mushroom_s": mb_s,
                     "launches": launches, "trace_events": n_events})
         return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: SNN serving on the card
+# ---------------------------------------------------------------------------
+def _serve_requests(np, n: int, scale: float, count: int, seed: int = 0):
+    """``count`` requests (T, stim [T, n], seed) as the JAX package's
+    serving demo draws them: T in [min_steps, max_steps], ``scale *
+    normal`` from numpy's default_rng(seed), request seeds 1000 + i."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        T = int(rng.integers(SNN_SERVE["min_steps"],
+                             SNN_SERVE["max_steps"] + 1))
+        out.append((T, (scale * rng.normal(size=(T, n))).astype(np.float32),
+                    1000 + i))
+    return out
+
+
+def _offline(model, T: int, stim: dict, seed: int, gscales=None):
+    """The offline oracle of a served stream: ``CompiledModel.run`` at B=1
+    from ``init_state(key=PRNGKey(seed))`` (the graph route)."""
+    from repro_torch import random as RND
+    return model.run(T, stim=stim, gscales=gscales,
+                     state=model.init_state(key=RND.PRNGKey(seed)))
+
+
+def _drain(torch, srv) -> dict:
+    """Serve until the queue drains; per chunk its wall seconds and phases
+    (assemble, stim copy and replay by CUDA events, call and readback)."""
+    chunk_s, phases = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        before = srv.total_chunks
+        more = srv.serve_step()
+        if srv.total_chunks > before:
+            chunk_s.append(srv.last_chunk_wall_s)
+            phases.append(dict(srv.last_chunk_phases))
+        if not more:
+            break
+    wall = time.perf_counter() - t0
+    srt = sorted(chunk_s)
+
+    def pct(q):
+        return srt[min(len(srt) - 1, int(round(q * (len(srt) - 1))))]
+
+    mean = {k: sum(p[k] for p in phases) / len(phases) for k in phases[0]}
+    return {"wall_s": wall, "chunks": len(chunk_s),
+            "slot_steps": srv.total_slot_steps,
+            "slot_steps_per_s": srv.total_slot_steps / wall,
+            "chunk_ms_p50": pct(0.5) * 1e3, "chunk_ms_p99": pct(0.99) * 1e3,
+            "phase_mean_ms": {k: v * 1e3 for k, v in mean.items()},
+            "utilization": srv.stats()["slot_utilization"]}
+
+
+def _masking_cost(torch, model, pop: str, gscales=None) -> dict:
+    """One served chunk (S=8, every lane active for all 50 steps) against
+    ``run_compiled`` of the same 50 steps at B=8 (no masking) on the same
+    stim: device ops and device time a step from torch.profiler, and the
+    card's busy share over the served chunk (host assembly excluded)."""
+    S, C = SNN_SERVE["streams"], SNN_SERVE["chunk"]
+    sim = model.simulator
+    n = model.network.populations[pop].n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    stim = torch.randn(S, C, n, device="cuda", generator=gen)
+    host = torch.empty((S, C, n), pin_memory=True)
+    host.copy_(stim)
+    gs = {k: torch.tensor(v) for k, v in (gscales or {}).items()}
+    st = sim.init_state(S)
+    left = torch.full((S,), C, dtype=torch.int32)
+    norm = model._norm_gscales(gscales)
+
+    def served():
+        model.serve_chunk(st, {pop: host}, left, C, gscales=gs)
+        torch.cuda.synchronize()
+
+    def plain():
+        sim.run_compiled(st, C, norm, stim={pop: stim.transpose(0, 1)})
+        torch.cuda.synchronize()
+
+    out = {}
+    for name, fn in (("served", served), ("run", plain),
+                     ("served_2", served), ("run_2", plain)):
+        fn()
+        prof = _device_profile(torch, fn, warm=True)
+        out[name] = {"device_ops_per_step": prof["device_ops"] / C,
+                     "device_us_per_step": prof["device_busy_us"] / C,
+                     "busy_share": prof["busy_share"],
+                     "device_ops": prof["device_ops"],
+                     "wall_us": prof["wall_us"]}
+    for k in ("device_ops_per_step", "device_us_per_step"):
+        sv = (out["served"][k] + out["served_2"][k]) / 2
+        rn = (out["run"][k] + out["run_2"][k]) / 2
+        out[f"{k}_overhead"] = sv / rn - 1.0
+    print(f"  masking ({pop}, S={S}): served {out['served']} / run "
+          f"{out['run']}; overhead ops "
+          f"{100 * out['device_ops_per_step_overhead']:.1f}%, device time "
+          f"{100 * out['device_us_per_step_overhead']:.1f}%")
+    return out
+
+
+def _assert_same_counts(np, what: str, got: dict, want: dict) -> None:
+    for k, v in want.items():
+        w = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+        g = got[k]
+        if not np.array_equal(g, w):
+            diff = np.nonzero(g != w)[0]
+            raise SmokeFailure(
+                f"{what}: population {k!r} spike counts differ from the "
+                f"offline run at neurons {diff[:8].tolist()} "
+                f"(served {g[diff[:8]].tolist()}, offline "
+                f"{w[diff[:8]].tolist()})")
+
+
+def _serve_http_check(torch, np) -> dict:
+    """(e) The HTTP front door on the card: the gateway demo's Izhikevich
+    net (200 x 30), buckets (2, 4) captured at registration on this
+    thread, then 4 concurrent POST /v1/simulate requests served by the
+    pump thread, which replays those graphs; each reply's spike counts
+    equal the offline run's, and /metrics counts them."""
+    import asyncio
+    from repro_torch.core.models import izhikevich_net as IZ
+    from repro_torch.launch.gateway import Gateway
+    from repro_torch.launch.gateway_http import GatewayHTTP
+    model = IZ.compile_model(IZ.IzhikevichNetConfig(n_total=200, n_conn=30))
+    n = model.network.populations["exc"].n
+    rng = np.random.default_rng(5)
+    bodies = [{"model": "izh", "n_steps": 60, "seed": 70 + i,
+               "stim": {"exc": (3.0 * rng.normal(size=(60, n))).tolist()}}
+              for i in range(4)]
+
+    async def scenario():
+        gw = Gateway(chunk=25, buckets=(2, 4))
+        gw.register("izh", model, stim_pops=("exc",))
+        captures = model.simulator.graph_counts["captures"]
+        srv = GatewayHTTP(gw, "127.0.0.1", 0, idle_sleep_s=0.001)
+        host, port = await srv.start()
+
+        async def http(method, path, body=None):
+            reader, writer = await asyncio.open_connection(host, port)
+            payload = b"" if body is None else json.dumps(body).encode()
+            writer.write((f"{method} {path} HTTP/1.1\r\nHost: t\r\n"
+                          f"Content-Length: {len(payload)}\r\n\r\n")
+                         .encode() + payload)
+            await writer.drain()
+            raw = await reader.read()
+            writer.close()
+            head, _, rest = raw.partition(b"\r\n\r\n")
+            return int(head.split()[1]), rest
+
+        try:
+            replies = await asyncio.gather(
+                *(http("POST", "/v1/simulate", b) for b in bodies))
+            status, metrics = await http("GET", "/metrics")
+        finally:
+            await srv.stop()
+        return replies, metrics.decode(), (
+            model.simulator.graph_counts["captures"] - captures)
+
+    t0 = time.perf_counter()
+    replies, metrics, new_captures = asyncio.run(scenario())
+    secs = time.perf_counter() - t0
+    check(new_captures == 0, f"(e) the pump thread captured "
+          f"{new_captures} graphs")
+    for (status, body), req in zip(replies, bodies):
+        out = json.loads(body)
+        check(status == 200 and out["status"] == "done",
+              f"(e) request {req['seed']}: {status} {out}")
+        res = _offline(model, req["n_steps"],
+                       {"exc": np.asarray(req["stim"]["exc"], np.float32)},
+                       req["seed"])
+        for k, v in res.spike_counts.items():
+            check(v.cpu().tolist() == out["spike_counts"][k],
+                  f"(e) request {req['seed']}: {k} counts differ from "
+                  "the offline run's")
+    check('gateway_completed_total{model="izh"} 4' in metrics,
+          "(e) /metrics does not count the 4 requests")
+    print(f"(e) HTTP front door: 4 concurrent requests served by the "
+          f"pump thread from graphs captured at registration in "
+          f"{secs:.3f} s, each exact; /metrics counts them")
+    return {"seconds": secs, "requests": len(bodies)}
+
+
+def serve_snn(torch, report) -> dict:
+    """Phase 11; returns the serving paths' launch counts."""
+    import numpy as np
+    from repro_torch.core.models import izhikevich_net as IZ
+    from repro_torch.core.models import mushroom_body as MB
+    from repro_torch.launch.gateway import Gateway
+    from repro_torch.launch.snn_serve import (SNNServer, StreamRequest,
+                                              _check_exact)
+    S, C = SNN_SERVE["streams"], SNN_SERVE["chunk"]
+    out = report["serve_snn"] = {"config": {k: (list(v) if isinstance(
+        v, tuple) else v) for k, v in SNN_SERVE.items()}}
+    launches: dict = {}
+    with phase("11. SNN serving at full width"):
+        # (a) the Izhikevich net, 8 slots, 16 requests
+        cfg = IZ.IzhikevichNetConfig(n_total=MAIN["n_total"],
+                                     n_conn=MAIN["n_conn"],
+                                     representation="sparse")
+        t0 = time.perf_counter()
+        model = IZ.compile_model(cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_exc = model.network.populations["exc"].n
+        reqs = _serve_requests(np, n_exc, SNN_SERVE["izh_scale"],
+                               SNN_SERVE["requests"])
+        srv = SNNServer(model, max_streams=S, chunk=C, stim_pops=("exc",))
+        # the chunk's capture, before the timed drain
+        t0 = time.perf_counter()
+        model.serve_chunk(srv.states, {"exc": np.zeros((S, C, n_exc),
+                                                       np.float32)},
+                          np.zeros(S, np.int32), C)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        for i, (T, stim, seed) in enumerate(reqs):
+            srv.submit(StreamRequest(rid=i, n_steps=T, stim={"exc": stim},
+                                     seed=seed))
+        reset_launches()
+        a = _drain(torch, srv)
+        launches.update(read_launches())
+        finished = srv.run()
+        check(len(finished) == len(reqs), f"(a) {len(finished)} of "
+              f"{len(reqs)} streams finished")
+        offline = {}
+        for r in finished:
+            res = _offline(model, r.n_steps, r.stim, r.seed)
+            offline[r.rid] = {k: v.cpu().numpy()
+                              for k, v in res.spike_counts.items()}
+            _assert_same_counts(np, f"(a) stream {r.rid}", r.spike_counts,
+                                res.spike_counts)
+        a.update({"build_s": build_s, "capture_s": capture_s,
+                  "streams_per_s": len(reqs) / a["wall_s"],
+                  "spikes": int(sum(int(np.sum(r.spike_counts["exc"]))
+                                    for r in finished))})
+        a["masking"] = _masking_cost(torch, model, "exc")
+        out["izh"] = a
+        print(f"(a) izhikevich 100k x 1000: {len(reqs)} streams, "
+              f"{a['slot_steps']} slot-steps in {a['wall_s']:.3f} s: "
+              f"{a['slot_steps_per_s']:.1f} slot-steps/s, "
+              f"{a['streams_per_s']:.3f} streams/s; chunk ms p50 "
+              f"{a['chunk_ms_p50']:.3f} p99 {a['chunk_ms_p99']:.3f}; "
+              f"phases ms {a['phase_mean_ms']}; capture {capture_s:.3f} s; "
+              f"every stream's counts equal its offline B=1 run")
+
+        # (b) the same requests through the gateway, shortest first:
+        # buckets (4, 8), a deadline on every other submission, a fake
+        # clock that passes them after the first chunk (mid-flight
+        # eviction); 16 queued grow the table to 8, and once the first
+        # survivors (the shorter) are done, the rest shrink it to 4
+        order = sorted(range(len(reqs)), key=lambda i: reqs[i][0])
+        clk = [0.0]
+        gw = Gateway(chunk=C, buckets=SNN_SERVE["buckets"], max_queue=32,
+                     shrink_patience=1, clock=lambda: clk[0])
+        t0 = time.perf_counter()
+        gw.register("izh", model, stim_pops=("exc",))
+        warm_s = time.perf_counter() - t0
+        greqs = []
+        for k, i in enumerate(order):
+            T, stim, seed = reqs[i]
+            greqs.append(gw.submit("izh", {"exc": stim}, T, seed=seed,
+                                   deadline_ms=500.0 if k % 2 else None))
+        t0 = time.perf_counter()
+        gw.tick()
+        clk[0] += 1.0
+        gw.run_until_drained()
+        gw_s = time.perf_counter() - t0
+        w = gw.workers["izh"]
+        cnt = dict(w.counters)
+        done = gw.collect_finished()
+        survivors = [r for r in done if r.status == "done"]
+        print(f"(b) gateway: counters {cnt}; {len(survivors)} survivors; "
+              f"warm (bucket captures) {warm_s:.3f} s, served in "
+              f"{gw_s:.3f} s")
+        check(cnt["grows"] >= 1 and cnt["shrinks"] >= 1,
+              f"(b) expected a grow and a shrink: {cnt}")
+        check(cnt["evicted_active"] >= 1, f"(b) no mid-flight eviction: "
+              f"{cnt}")
+        check(len(survivors) == len(reqs) // 2 and all(
+            r.rid % 2 == 0 for r in survivors),
+            f"(b) survivors {[r.rid for r in survivors]}")
+        for r in survivors:
+            # the gateway numbers its requests from 0 in submission order
+            i = order[r.rid]
+            _assert_same_counts(np, f"(b) stream {i}", r.spike_counts,
+                                offline[i])
+        out["gateway"] = {"counters": cnt, "warm_s": warm_s,
+                          "served_s": gw_s, "survivors": len(survivors),
+                          "metrics_text_lines":
+                              len(gw.render_metrics().splitlines())}
+        del srv, gw, w, model, greqs
+        torch.cuda.empty_cache()
+
+        # (c) the mushroom body at 100k KCs, 8 streams, the KC V probe
+        # every 5 steps; phase 6b's fan-in gScales (the default
+        # conductances are non-finite at this size in both packages)
+        mcfg = MB.MushroomBodyConfig(
+            **MB_FULL, kc_probe_every=SNN_SERVE["mb_probe_every"])
+        ex = MB_EXAMPLE
+        fan_in = {"PN_KC": ex["n_pn"] / mcfg.n_pn,
+                  "PN_LHI": ex["n_pn"] / mcfg.n_pn,
+                  "LHI_KC": ex["n_lhi"] / mcfg.n_lhi,
+                  "KC_DN": ex["n_kc"] / mcfg.n_kc,
+                  "DN_DN": ex["n_dn"] / mcfg.n_dn}
+        model = MB.compile_model(mcfg)
+        n_kc = model.network.populations["KC"].n
+        mreqs = _serve_requests(np, n_kc, SNN_SERVE["mb_scale"],
+                                SNN_SERVE["mb_requests"])
+        srv = SNNServer(model, max_streams=S, chunk=C, stim_pops=("KC",),
+                        gscales=fan_in)
+        # the chunk's capture, before the timed drain
+        t0 = time.perf_counter()
+        model.serve_chunk(srv.states, {"KC": np.zeros((S, C, n_kc),
+                                                      np.float32)},
+                          np.zeros(S, np.int32), C, gscales=fan_in)
+        torch.cuda.synchronize()
+        mb_capture_s = time.perf_counter() - t0
+        for i, (T, stim, seed) in enumerate(mreqs):
+            srv.submit(StreamRequest(rid=i, n_steps=T, stim={"KC": stim},
+                                     seed=seed))
+        reset_launches()
+        c = _drain(torch, srv)
+        for k, v in read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        finished = srv.run()
+        check(len(finished) == len(mreqs), "(c) not every stream finished")
+        fails = []
+        for r in finished:
+            fails += _check_exact(model, r, gscales=fan_in)
+            check(r.recordings["kc_v"].shape[0] == r.n_steps
+                  // SNN_SERVE["mb_probe_every"],
+                  f"(c) stream {r.rid}: {r.recordings['kc_v'].shape[0]} "
+                  "KC V samples")
+        check(not fails, f"(c) {fails}")
+        c["capture_s"] = mb_capture_s
+        c["masking"] = _masking_cost(torch, model, "KC", fan_in)
+        c["spikes"] = {p: int(sum(int(np.sum(r.spike_counts[p]))
+                                  for r in finished))
+                       for p in model.network.populations}
+        out["mb"] = c
+        print(f"(c) mushroom body 100k KCs: {c['slot_steps']} slot-steps "
+              f"in {c['wall_s']:.3f} s: {c['slot_steps_per_s']:.1f} "
+              f"slot-steps/s; chunk ms p50 {c['chunk_ms_p50']:.3f} p99 "
+              f"{c['chunk_ms_p99']:.3f}; phases ms {c['phase_mean_ms']}; "
+              f"spikes {c['spikes']}; counts exact, KC V within "
+              "rtol=1e-5, atol=1e-4")
+        del srv, model
+        torch.cuda.empty_cache()
+
+        # (d) phase 5's delayed net, 4 streams admitted one chunk apart
+        # (their cursors differ in every chunk after the first; each keeps
+        # its slot, since none ends before the last is admitted): each
+        # stream's final state (rings and cursors included) equals its
+        # offline run's bit for bit
+        model, _ = build_delay_model(torch)
+        n_exc = model.network.populations["exc"].n
+        rng = np.random.default_rng(3)
+        srv = SNNServer(model, max_streams=SNN_SERVE["delay_streams"], chunk=C,
+                        stim_pops=("exc",))
+        dreqs = []
+        reset_launches()
+        for i, T in enumerate(SNN_SERVE["delay_steps"]):
+            stim = (SNN_SERVE["izh_scale"] * rng.normal(size=(T, n_exc))
+                    ).astype(np.float32)
+            dreqs.append(srv.submit(StreamRequest(
+                rid=i, n_steps=T, stim={"exc": stim}, seed=2000 + i)))
+            srv.serve_step()
+        srv.run()
+        for k, v in read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        final = _state_tensors(srv.states)
+        delayed = [g.name for g in model.network.synapses
+                   if g.ell.delay is not None]
+        cursors = {g: srv.states.syn[g].cursor.tolist() for g in delayed}
+        for slot, r in enumerate(dreqs):
+            check(r.done, f"(d) stream {r.rid} did not finish")
+            res = _offline(model, r.n_steps, r.stim, r.seed)
+            _assert_same_counts(np, f"(d) stream {r.rid}", r.spike_counts,
+                                res.spike_counts)
+            for k, v in _state_tensors(res.state).items():
+                x, y = final[k][slot], v[0]
+                if x.dtype == torch.float32:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                check(bool(torch.equal(x, y)),
+                      f"(d) stream {r.rid}: state {k} differs from the "
+                      "offline run's")
+        print(f"(d) delayed net, streams admitted a chunk apart: final "
+              f"cursors {cursors}; every state tensor (rings, cursors) "
+              "equals the offline run's")
+        out["delay"] = {"steps": list(SNN_SERVE["delay_steps"]),
+                        "final_cursors": cursors}
+        del srv, model
+        torch.cuda.empty_cache()
+        out["http"] = _serve_http_check(torch, np)
+        out["launches"] = launches
+        print(f"launches on the serving paths: {launches}")
+        print(f"serving summary ({report['nvidia_smi']}): izh "
+              f"{out['izh']['slot_steps_per_s']:.1f} slot-steps/s, "
+              f"{out['izh']['streams_per_s']:.3f} streams/s, chunk ms p50 "
+              f"{out['izh']['chunk_ms_p50']:.3f} / p99 "
+              f"{out['izh']['chunk_ms_p99']:.3f}, ops a chunk "
+              f"{out['izh']['masking']['served']['device_ops']}, busy "
+              f"{100 * out['izh']['masking']['served']['busy_share']:.1f}%, "
+              f"masking +{100 * out['izh']['masking']['device_us_per_step_overhead']:.1f}% "
+              f"device time; mb {out['mb']['slot_steps_per_s']:.1f} "
+              f"slot-steps/s, ops a chunk "
+              f"{out['mb']['masking']['served']['device_ops']}, busy "
+              f"{100 * out['mb']['masking']['served']['busy_share']:.1f}%, "
+              f"masking +{100 * out['mb']['masking']['device_us_per_step_overhead']:.1f}%")
+    return launches
 
 
 if __name__ == "__main__":

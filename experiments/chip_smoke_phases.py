@@ -3,11 +3,12 @@
     python3 experiments/chip_smoke_phases.py [LABEL ...]
 
 Labels: 2 (the ELL kernels and the ring fold), 2b (the neuron kernels), 2f
-(threefry), 9a (the spike bitmask), 3 (the main path), 9b (main observed;
-reads phase 3's profile, so list 3 first), 6a (the NaN-guard table), 9c
-(the mushroom body observed; reads 6a's KC rate, so list 6a first) and 10
-(the occupancy model against the runtime, and the paper's experiment at
-full width).  Default:
+(threefry), 9a (the spike bitmask), 3 (the main path), 5 (the delay path),
+9b (main observed; reads phase 3's profile, so list 3 first), 6a (the
+NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
+list 6a first), 10 (the occupancy model against the runtime, and the
+paper's experiment at full width) and 11 (SNN serving at full width).
+Default:
 ``9a 3 9b 6a 9c``, in that order.  Phase 1 (the card and the kernel build)
 always runs first.  The phases print what ``chip_smoke.py`` prints; the
 report goes to ``chiprun_out/chip_smoke_phases.json``.  Needs one card.
@@ -49,6 +50,10 @@ def main(labels) -> int:
             report["kernel_entries"] = CS.compare_bitmask(torch, report)
         elif label == "3":
             CS.main_path(torch, report)
+        elif label == "5":
+            CS.delay_path(torch, report)
+        elif label == "11":
+            CS.serve_snn(torch, report)
         elif label == "9b":
             CS.main_observed(torch, report)
         elif label == "6a":

@@ -123,14 +123,15 @@ def init_state(model: CompiledModel, arrays: Mapping,
             t = torch.tensor(np.asarray(v, np.float32), device=cur.device)
             st.neurons[name][var] = t.expand(cur.shape).clone()
     if arrays.get("t") is not None:
-        st.t = torch.tensor(np.float32(arrays["t"]), device=dev)
+        st.t = torch.full((batch,), np.float32(arrays["t"]),
+                          dtype=torch.float32, device=dev)
     for name, entry in arrays["synapses"].items():
         if entry.get("cursor") is not None:
             if st.syn[name].cursor is None:
                 raise ValueError(f"synapse group {name!r} has no delay ring "
                                  "for the exported cursor")
-            st.syn[name].cursor = torch.tensor(int(entry["cursor"]),
-                                               dtype=torch.int32, device=dev)
+            st.syn[name].cursor = torch.full((batch,), int(entry["cursor"]),
+                                             dtype=torch.int32, device=dev)
         g = entry.get("state", {}).get("g")
         if g is not None:
             cur = st.syn[name].g

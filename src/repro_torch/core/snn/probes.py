@@ -25,9 +25,11 @@ them at the end.
 What differs from the JAX package: every state tensor carries the batch
 axis, so a ring is [cap, B, ...] while it fills and a recording
 [B, cap, ...] (a single-member ``run`` reports the JAX package's
-[cap, ...]; a sweep [n_candidates, cap, ...]).  The schedule is the same
-for every member (they share ``t``), so ``sample_slot`` and ``finalize``
-work on host integers: a run reads ``t`` once, before its first step.
+[cap, ...]; a sweep [n_candidates, cap, ...]).  A run's members are at one
+step, so its schedule is one: ``sample_slot`` and ``finalize`` work on
+host integers, and a run reads ``t`` once, before its first step.  A
+served stream samples on its own step count, on the device
+(``graphs.ServedChunk``), with per-stream counts.
 """
 
 from __future__ import annotations
@@ -218,11 +220,13 @@ def ring_row_shape(probe: ResolvedProbe, batch: int) -> Tuple[int, ...]:
 # schedule and ring arithmetic (host integers)
 # ---------------------------------------------------------------------------
 
-def capacity(probe: ResolvedProbe, n_steps: int) -> int:
+def capacity(probe: ResolvedProbe, n_steps: int,
+             serving: bool = False) -> int:
     """Ring rows for an n_steps run: ``window`` when set, else every
-    sample the run can take."""
+    sample the run can take.  A serving chunk streams every sample, so
+    ``window`` does not cap it (clients window the stitched stream)."""
     cap = int(math.ceil(n_steps / probe.every))
-    if probe.window is not None:
+    if probe.window is not None and not serving:
         cap = probe.window
     return max(cap, 1)
 

@@ -25,8 +25,12 @@ What differs from the JAX package:
     subkeys, as ``vmap`` over keys does.  A sweep's members start from one
     key, as the JAX sweep shares its key across candidates, so the same
     seed gives the JAX package's draws.
-  * ``t`` (ms, float32) and the delay rings' cursors live on the device,
-    as in the JAX state: no step reads a value on the host.
+  * ``t`` (ms, float32 [B]) and the delay rings' cursors ([B] int32) live
+    on the device, one a member, as in the JAX state under ``vmap``: no
+    step reads a value on the host.  ``run``, ``run_compiled`` and a sweep
+    keep every member's equal; a served stream has its own.  An input
+    function or model code that reads ``t`` gets it as [B, 1] (a synapse
+    matrix's code as [B, 1, 1]), which broadcasts against its operands.
 
 External stimuli (``stim``): ``step``/``run`` accept per-population injected
 currents, added to Isyn after the population's input_fn, consuming no
@@ -48,6 +52,15 @@ folding their writes into ``finite``; the health monitor accumulates
 spike totals, rate EMAs and the first non-finite step.  A run reads ``t``
 once, before its first step, when it has probes.  With no probe, update
 or monitor, ``step`` and ``run`` launch only what they launched before.
+
+Streaming / serving (``init_stream_state``, ``select_streams``,
+``serve_chunk``), as in the JAX package: the batch axis is the stream
+axis, each slot an independent simulation with its own state, key, ``t``
+and ring cursors.  ``serve_chunk`` advances every slot up to ``n_steps``
+with per-slot ``steps_left`` masking: a lane at or past its budget is
+restored leaf by leaf (``torch.where``), so idle and finished slots are
+exact no-ops.  It runs through ``graphs.ServedChunk`` (a CUDA graph on the
+card, the same chunk eagerly on the CPU).
 """
 
 from __future__ import annotations
@@ -82,7 +95,7 @@ class SimState:
     spikes: Dict[str, torch.Tensor]       # last step's spikes, bool [B, n]
     prev_above: Dict[str, torch.Tensor]   # for edge-spike populations
     syn: Dict[str, SynapseState]          # per synapse group
-    t: torch.Tensor                       # ms, float32 0-dim on the device
+    t: torch.Tensor                       # ms, float32 [B] on the device
     key: torch.Tensor                     # threefry keys, int32 [B, 2]
     finite: torch.Tensor                  # bool [B]: no NaN/Inf so far
 
@@ -293,7 +306,8 @@ class Simulator:
         syn = {g.name: g.init_state(batch) for g in self.net.synapses}
         return SimState(neurons=neurons, spikes=spikes,
                         prev_above=prev_above, syn=syn,
-                        t=torch.zeros((), dtype=torch.float32, device=dev),
+                        t=torch.zeros(batch, dtype=torch.float32,
+                                      device=dev),
                         key=key.expand(batch, 2).clone(),
                         finite=torch.ones(batch, dtype=torch.bool,
                                           device=dev))
@@ -314,6 +328,7 @@ class Simulator:
         stim = stim or {}
         batch = state.batch
         t = state.t
+        t_col = t[:, None]
         # JAX's schedule: key, *subkeys = split(key, 1 + 2P); then
         # (k_in, k_rand) per population in declaration order
         keys = _random.split(state.key, 1 + 2 * len(net.populations))
@@ -338,10 +353,10 @@ class Simulator:
             k_in, k_rand = keys[:, 1 + 2 * i], keys[:, 2 + 2 * i]
             cur = isyn[name]
             if pop.input_fn is not None:
-                cur = cur + pop.input_fn(k_in, t, pop.n)
+                cur = cur + pop.input_fn(k_in, t_col, pop.n)
             if name in stim:
                 cur = cur + stim[name]
-            ext = {"Isyn": cur, "dt": self._dt_cpu, "t": t}
+            ext = {"Isyn": cur, "dt": self._dt_cpu, "t": t_col}
             if pop.model.needs_rand:
                 ext["rand"] = _random.uniform(k_rand, pop.n)
             update = self._updates[name]
@@ -371,9 +386,10 @@ class Simulator:
     # -- custom updates (on demand and scheduled) -------------------------
     def _run_scheduled_updates(self, state: SimState) -> SimState:
         """Apply every ``every=n`` custom update whose step is due: the
-        trigger is the global step count round(t/dt) of the advanced t, a
-        device tensor (no host read), as the JAX package keys it."""
-        elapsed = torch.round(state.t / self._dt_dev).to(torch.int32)
+        trigger is each member's global step count round(t/dt) of the
+        advanced t, a [B] device tensor (no host read), as the JAX package
+        keys it."""
+        elapsed = self._stream_steps(state)
         for cu in self._scheduled:
             trig = torch.remainder(elapsed, cu.every) == 0
             state = self._apply_custom(state, cu, trig)
@@ -381,19 +397,23 @@ class Simulator:
 
     def _apply_custom(self, state: SimState, cu,
                       trig: Optional[torch.Tensor]) -> SimState:
-        """Apply one custom update, masked by ``trig`` (a bool 0-dim
-        tensor; None applies it).  The written arrays (their valid slots,
-        for a group) fold into the NaN guard's flag where it fires: an
-        update that divides by a zero reduction trips ``finite`` as an
+        """Apply one custom update, masked by ``trig`` (a bool [B] tensor,
+        one a member; None applies it).  The written arrays (their valid
+        slots, for a group) fold into the NaN guard's flag where it fires:
+        an update that divides by a zero reduction trips ``finite`` as an
         over-scaled conductance does."""
-        ext = {"dt": self._dt_cpu, "t": state.t}
         batch = state.batch
+        # t and the trigger as the target's tensors broadcast them: [B, 1]
+        # against [B, n], [B, 1, 1] against a group's [B, n_pre, K]
+        lead = (batch, 1, 1) if cu.kind == "group" else (batch, 1)
+        ext = {"dt": self._dt_cpu, "t": state.t.reshape(lead)}
+        trig_b = None if trig is None else trig.reshape(lead)
 
         def fold(finite, ok):
             return finite & (ok if trig is None else ok | ~trig)
 
         def pick(new, old):
-            return new if trig is None else torch.where(trig, new, old)
+            return new if trig is None else torch.where(trig_b, new, old)
 
         if cu.kind == "group":
             grp = self._groups[cu.target]
@@ -453,8 +473,21 @@ class Simulator:
     def _step_count(self, state: SimState) -> int:
         """The global step count round(t/dt), read on the host (once a
         run): probes sample on it, as the device trigger of scheduled
-        updates does."""
-        return int(torch.round(state.t / self._dt_dev))
+        updates does.  A run samples one schedule, so every member must be
+        at the same step (a served stream samples on its own:
+        ``serve_chunk``)."""
+        steps = self._stream_steps(state).cpu()
+        if bool((steps != steps[0]).any()):
+            raise ValueError(
+                f"a run's probes sample one schedule, but its members are "
+                f"at steps {steps.tolist()}; serve_chunk samples each "
+                "stream on its own")
+        return int(steps[0])
+
+    def _stream_steps(self, state: SimState) -> torch.Tensor:
+        """Each member's global step count round(t/dt), int32 [B] on the
+        device (no host read)."""
+        return torch.round(state.t / self._dt_dev).to(torch.int32)
 
     def _probe_init(self, n_steps: int, batch: int):
         """(rings, capacities): a ring [cap, B, ...] per probe on the
@@ -507,10 +540,12 @@ class Simulator:
         return HE.init_state(self._pop_sizes, batch, self.device)
 
     def _health_step(self, hs: HE.HealthState, state: SimState,
-                     spikes) -> HE.HealthState:
+                     spikes, gate: Optional[torch.Tensor] = None
+                     ) -> HE.HealthState:
         """One step of the monitor: per-population spike counts [B] and
         its own guard (V of every population, state-resident g over valid
-        slots), as the JAX monitor reads them."""
+        slots), as the JAX monitor reads them; ``gate`` [B] (serving's
+        lane mask) leaves a masked member's accumulator as it was."""
         counts = {p: spikes[p].sum(dim=-1, dtype=torch.int32)
                   for p in self._pop_sizes}
         ok = torch.ones(state.batch, dtype=torch.bool, device=self.device)
@@ -524,7 +559,7 @@ class Simulator:
                 ok = ok & _all_slots(torch.isfinite(sg)
                                      | self._invalid[g.name])
         return HE.accumulate(self.monitor, hs, counts, ok, self.dt,
-                             self._pop_sizes)
+                             self._pop_sizes, gate=gate)
 
     def _health_report(self, hs: HE.HealthState) -> HE.HealthReport:
         return HE.finalize(self.monitor, hs, self.dt, self._pop_sizes)
@@ -634,3 +669,106 @@ class Simulator:
                                          record_raster=cache_key[1])
             self._run_jit_cache[cache_key] = fn
         return fn
+
+    # -- streaming / serving ------------------------------------------------
+    def init_stream_state(self, keys) -> SimState:
+        """State of ``len(keys)`` stream slots, one independent simulation
+        each: keys [S, 2] threefry keys (one a slot); slot s starts equal to
+        ``init_state(1, keys[s])``."""
+        keys = torch.as_tensor(keys)
+        if keys.dim() != 2 or keys.shape[1] != 2:
+            raise ValueError(f"keys must be [S, 2], got {tuple(keys.shape)}")
+        return self.init_state(int(keys.shape[0]), keys)
+
+    def select_streams(self, state: SimState, idx, keys) -> SimState:
+        """Re-pack the stream axis between chunks (slot reclamation and
+        elastic resize): new slot j continues old slot ``idx[j]`` bit for
+        bit where ``idx[j] >= 0``, else starts fresh from ``keys[j]``;
+        ``len(idx)`` sets the new slot count, so one call grows, shrinks,
+        compacts or re-keys the table.  Survivors are gathers and selects,
+        no arithmetic: eviction and resizing never touch the streams that
+        stay."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64))
+        if idx.dim() != 1 or idx.numel() == 0:
+            raise ValueError(f"idx must be a non-empty 1-D index, got shape "
+                             f"{tuple(idx.shape)}")
+        if int(idx.max()) >= state.batch:
+            raise ValueError(f"idx {idx.tolist()} names a slot past the "
+                             f"state's {state.batch}")
+        keys = torch.as_tensor(keys)
+        if keys.shape[0] != idx.shape[0]:
+            raise ValueError(f"keys has {keys.shape[0]} rows for "
+                             f"{idx.shape[0]} slots")
+        fresh = self.init_stream_state(keys)
+        take = idx.clamp(min=0).to(self.device)
+        keep = (idx >= 0).to(self.device)
+
+        def mix(old, fr):
+            return torch.where(graphs._lanes(keep, fr),
+                               old.index_select(0, take), fr)
+        return graphs._tree_map(mix, state, fresh)
+
+    def serve_chunk(
+        self, state: SimState, stim: Mapping[str, object],
+        steps_left, n_steps: int,
+        gscales: Optional[Mapping[str, object]] = None,
+        record_raster: bool = False,
+    ):
+        """Advance every stream slot by up to ``n_steps`` (one serving
+        chunk).
+
+        state: SimState with the stream axis as its batch
+        (``init_stream_state``); stim: population -> [S, n_steps, n]
+        currents (a host tensor in pinned memory is copied without waiting
+        for the host); steps_left: [S] int -- slot s advances
+        min(steps_left[s], n_steps) steps, a lane at or past its budget is
+        restored leaf by leaf, so idle and finished slots are exact no-ops
+        (key, t, cursors, rings, traces, g, monitor).
+
+        Returns (state, counts, raster, recordings), and the per-slot
+        HealthReport as a fifth element when monitored: counts population
+        -> [S, n] spikes of the chunk (masked steps add nothing); raster
+        population -> [S, n_steps, n] (masked steps all False) when
+        ``record_raster``, else None; recordings with a leading stream axis
+        and per-slot sample counts (each slot samples on its own global
+        step count, so stitched chunks equal the offline run's).  The
+        chunk runs through a ``graphs.ServedChunk`` cached per (S,
+        n_steps, gscale keys, stim keys, record_raster, device): a CUDA
+        graph on the card, captured once."""
+        self._validate_gscales(gscales)
+        self._validate_stim(stim)
+        gscales = dict(gscales or {})
+        if not isinstance(n_steps, int) or n_steps < 1:
+            raise ValueError(f"n_steps must be a positive int, got "
+                             f"{n_steps!r}")
+        S = state.batch
+        stim = {k: torch.as_tensor(v, dtype=torch.float32)
+                for k, v in (stim or {}).items()}
+        for k, v in stim.items():
+            want = (S, n_steps, self._pop_sizes[k])
+            if tuple(v.shape) != want:
+                raise ValueError(f"stim[{k!r}] has shape {tuple(v.shape)}, "
+                                 f"expected {want}")
+        left = torch.as_tensor(np.asarray(steps_left), dtype=torch.int32)
+        if tuple(left.shape) != (S,):
+            raise ValueError(f"steps_left must be [{S}], got "
+                             f"{tuple(left.shape)}")
+        key = ("serve", S, n_steps, tuple(sorted(gscales)),
+               tuple(sorted(stim)), bool(record_raster), str(self.device))
+        runner = self._compiled.get(key)
+        if runner is None:
+            runner = self._compiled[key] = graphs.ServedChunk(
+                self, S, n_steps, key[3], key[4], key[5])
+        state, counts, raster, rec, hs = runner.run(state, stim, left,
+                                                    gscales)
+        self._last_served = runner
+        if hs is None:
+            return state, counts, raster, rec
+        return state, counts, raster, rec, self._health_report(hs)
+
+    def last_serve_device_ms(self) -> Optional[Tuple[float, float]]:
+        """(stim copy ms, chunk ms) of the last ``serve_chunk`` on the card
+        by CUDA events, once the caller has waited for it (None on the CPU
+        or before the first chunk)."""
+        runner = getattr(self, "_last_served", None)
+        return None if runner is None else runner.device_ms()

@@ -35,8 +35,13 @@ for a single run, [n_candidates, cap, ...] for a sweep),
 ``memory_report`` accounts the graph, the state, the probe rings (spike
 rings at their packed int32 size) and the custom updates.
 
-Not ported yet: on-device construction (``init="device"``), meshes,
-serving and ``plan``.  Asking for them raises NotImplementedError.
+Serving: ``init_stream_state`` / ``select_streams`` / ``serve_chunk`` and
+``serve`` (a ``repro_torch.launch.snn_serve.SNNServer``), the stream axis
+being the batch axis; ``serve_chunk`` replays one CUDA graph a
+configuration.
+
+Not ported yet: on-device construction (``init="device"``), meshes (ROADMAP
+Queue 1 item 7) and ``plan``.  Asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -554,7 +559,8 @@ class ModelSpec:
     def _validate_build(self, init: str, mesh, monitor) -> None:
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (the sharded engine) is not ported to repro_torch yet")
+                "mesh= (the sharded engine, ROADMAP Queue 1 item 7) is not "
+                "ported to repro_torch yet")
         if monitor is not None:
             if not isinstance(monitor, HealthConfig):
                 raise SpecError(f"monitor must be a HealthConfig, got "
@@ -610,8 +616,8 @@ def _squeeze(res: RunResult) -> RunResult:
 
 def _expand_state(state: SimState, batch: int) -> SimState:
     """A single-member state copied to ``batch`` members (the sweep's
-    shared starting point, its key included); ``t`` and the rings' cursors
-    are shared by every member as they are."""
+    shared starting point, its key, ``t`` and the rings' cursors
+    included)."""
     def rep(x):
         if isinstance(x, torch.Tensor):
             if x.dim() == 0:
@@ -626,7 +632,7 @@ def _expand_state(state: SimState, batch: int) -> SimState:
         return x
     return SimState(neurons=rep(state.neurons), spikes=rep(state.spikes),
                     prev_above=rep(state.prev_above), syn=rep(state.syn),
-                    t=state.t.clone(), key=rep(state.key),
+                    t=rep(state.t), key=rep(state.key),
                     finite=rep(state.finite))
 
 
@@ -780,6 +786,63 @@ class CompiledModel:
         return SweepResult(values=values, rates_hz=res.rates_hz,
                            finite=res.finite, spike_counts=res.spike_counts,
                            recordings=res.recordings)
+
+    # -- streaming / serving ----------------------------------------------
+    def init_stream_state(self, keys) -> SimState:
+        """State of ``len(keys)`` stream slots on the model's device, one
+        independent simulation each; keys [S, 2] threefry keys, slot s
+        starting equal to ``init_state(1, keys[s])``."""
+        return self.simulator.init_stream_state(keys)
+
+    def select_streams(self, state: SimState, idx, keys) -> SimState:
+        """Re-pack the stream axis between chunks: new slot j continues
+        old slot ``idx[j]`` bit for bit when ``idx[j] >= 0``, else starts
+        fresh from ``keys[j]``; ``len(idx)`` sets the new slot count.  The
+        gateway's slot reclamation and elastic resize, surviving streams
+        untouched (``Simulator.select_streams``)."""
+        return self.simulator.select_streams(state, idx, keys)
+
+    def serve_chunk(self, state: SimState, stim, steps_left, n_steps: int,
+                    gscales: Optional[Mapping[str, object]] = None,
+                    record_raster: bool = False):
+        """Advance every stream slot by up to ``n_steps`` (one serving
+        chunk), replaying the chunk's CUDA graph, captured once per
+        (streams, n_steps, gscale keys, stim populations, record_raster).
+        Returns (state, counts, raster, recordings), plus a per-slot
+        HealthReport as a fifth element when built with ``monitor=``; see
+        ``Simulator.serve_chunk`` for the masking contract.  SNNServer
+        (``repro_torch.launch.snn_serve``) drives this."""
+        if record_raster and any(p.name == "spikes"
+                                 for p in self.simulator.probes):
+            raise SpecError(
+                "record_raster=True collides with the declared probe named "
+                "'spikes'; drop record_raster=True or rename the probe")
+        stim = {k: (v if isinstance(v, torch.Tensor)
+                    else torch.as_tensor(np.asarray(v, np.float32)))
+                for k, v in (stim or {}).items()}
+        unknown = set(stim) - set(self.network.populations)
+        if unknown:
+            raise SpecError(
+                f"unknown stim population(s) {sorted(unknown)}; declared "
+                f"populations: {sorted(self.network.populations)}")
+        counts = self.simulator.graph_counts
+        with trace.span("serve_chunk", model=self.spec.name,
+                        n_steps=n_steps, streams=state.batch,
+                        sharded=False) as args:
+            before = counts["captures"]
+            out = self.simulator.serve_chunk(
+                state, stim, steps_left, n_steps,
+                self._norm_gscales(gscales), record_raster=record_raster)
+            args["compile"] = counts["captures"] > before
+        return out
+
+    def serve(self, max_streams: int = 4, chunk: int = 50, **kwargs):
+        """A streaming SNNServer over this model: ``max_streams`` slots on
+        the stream (batch) axis, advanced ``chunk`` steps a ``serve_step``.
+        See ``repro_torch.launch.snn_serve``."""
+        from repro_torch.launch.snn_serve import SNNServer
+        return SNNServer(self, max_streams=max_streams, chunk=chunk,
+                         **kwargs)
 
     # -- custom updates and memory -----------------------------------------
     def custom_update(self, name: str,

@@ -21,9 +21,11 @@ choose_propagation``) is reported, as the JAX package reports it.
 Dendritic delays (GeNN's per-synapse delay model): a group may carry an
 integer delay per synapse (``ELLSynapses.delay``) or a homogeneous
 ``delay_steps``; both land weighted currents in a post-side ring
-``[B, max_delay+1, n_post]`` (``SynapseState.dendritic``) read at the cursor,
-an int32 tensor on the device as the JAX package keeps it (no step reads it
-on the host, so a CUDA graph of the step reads each replay's cursor).
+``[B, max_delay+1, n_post]`` (``SynapseState.dendritic``) read at each
+member's cursor, an int32 [B] tensor on the device as the JAX package keeps
+it a stream (no step reads it on the host, so a CUDA graph of the step reads
+each replay's cursors; a served stream's ring sits where its own steps left
+it).
 Per-synapse delays take two kernels a step: the delay scatter adds into a
 float64 scratch that the group owns (one, for the last step's batch size
 and device, zero between steps), and the ring fold scales it, rolls it into a new ring,
@@ -134,8 +136,9 @@ class SynapseState:
     """Per-group dynamic state; every tensor has a leading batch axis [B].
 
     ``dendritic`` is the post-side dendritic-delay ring
-    [B, max_delay+1, n_post]; ``cursor`` is its read position, an int32
-    0-dim tensor on the ring's device, the same for every batch member.
+    [B, max_delay+1, n_post]; ``cursor`` is each member's read position,
+    an int32 [B] tensor on the ring's device (equal for every member of a
+    run or a sweep, a stream's own when served).
     """
 
     psm: Dict[str, torch.Tensor]          # postsynaptic state    [B, n_post]
@@ -144,7 +147,7 @@ class SynapseState:
     g: Optional[torch.Tensor]             # plastic weights [B, n_pre, K]
     syn: Dict[str, torch.Tensor]          # per-synapse vars [B, n_pre, K]
     dendritic: Optional[torch.Tensor]     # delay ring [B, S, n_post]
-    cursor: Optional[torch.Tensor]        # ring cursor, int32 0-dim
+    cursor: Optional[torch.Tensor]        # ring cursors, int32 [B]
 
 
 def _scale(sign: float, gscale: Scale, out: torch.Tensor) -> torch.Tensor:
@@ -297,6 +300,9 @@ class SynapseGroup:
         # scatter added)
         self._acc: Optional[torch.Tensor] = None
         self._acc_key: Optional[Tuple[int, torch.device]] = None
+        # each member's first ring row in the flattened ring [B * S, n_post]
+        # (the homogeneous delay's index ops), by (B, device)
+        self._row0: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def swap_scratch(self, acc: Optional[torch.Tensor]
                      ) -> Optional[torch.Tensor]:
@@ -308,6 +314,16 @@ class SynapseGroup:
         self._acc = acc
         self._acc_key = None if acc is None else (acc.shape[2], acc.device)
         return old
+
+    def _ring_row0(self, batch: int, n_slots: int,
+                   device: torch.device) -> torch.Tensor:
+        """[B] int64: member b's first row b * S in the flattened ring
+        (made at a group's first eager step, before any capture)."""
+        row0 = self._row0.get((batch, device))
+        if row0 is None:
+            row0 = self._row0[(batch, device)] = (
+                torch.arange(batch, device=device) * n_slots)
+        return row0
 
     @property
     def plastic(self) -> bool:
@@ -344,7 +360,7 @@ class SynapseGroup:
              if self.plastic else None)
         if self.needs_ring:
             buf = full((batch, self.ring_slots, n_post), 0.0)
-            cur = torch.zeros((), dtype=torch.int32, device=dev)
+            cur = torch.zeros(batch, dtype=torch.int32, device=dev)
         else:
             buf, cur = None, None
         return SynapseState(psm=psm, wu_pre=wu_pre, wu_post=wu_post, g=g,
@@ -423,38 +439,45 @@ class SynapseGroup:
         [B, n_post]).
 
         spikes/post_spikes: last step's bool spikes [B, n_pre] / [B, n_post];
-        gscale: a scalar or a per-batch-member [B] tensor.
+        gscale: a scalar or a per-batch-member [B] tensor; t: the members'
+        times [B] (code reads it as [B, 1], a synapse matrix's as
+        [B, 1, 1]).
 
         Weights (and gscale) are applied at *spike* time, GeNN's dendritic-
         delay semantics; the delay ring buffers the weighted current.
         """
-        wu_ext = {"dt": dt, "t": t if t is not None else self._t0,
-                  "delay": self._delay_f}
+        t = self._t0 if t is None else t[:, None]
+        wu_ext = {"dt": dt, "t": t, "delay": self._delay_f}
+        syn_ext = {**wu_ext, "t": t[..., None]}
 
         if not self.needs_ring:
             inj = self._raw_current(spikes, gscale, state.g, state.syn,
-                                    wu_ext)
+                                    syn_ext)
             new_buf, new_cur = state.dendritic, state.cursor
         else:
             S = self.ring_slots
             cur = state.cursor
             if self.ell.delay is None:
-                # homogeneous: one full accumulation, one slot written, the
-                # rows picked by index ops on the device cursor
+                # homogeneous: one full accumulation, one slot a member
+                # written, the rows picked by index ops on the device
+                # cursors, in the ring flattened to [B * S, n_post]
                 contrib = self._raw_current(spikes, gscale, state.g,
-                                            state.syn, wu_ext)
+                                            state.syn, syn_ext)
                 ring = state.dendritic.clone()
-                row = cur.reshape(1).long()
-                ring.index_add_(1, torch.remainder(row + self.delay_steps, S),
-                                contrib[:, None])
-                inj = ring.index_select(1, row)[:, 0]
-                ring.index_fill_(1, row, 0.0)  # a fresh tensor: in place
+                flat = ring.view(-1, ring.shape[-1])
+                row0 = self._ring_row0(ring.shape[0], S, ring.device)
+                row = cur.long()
+                flat.index_add_(0, row0 + torch.remainder(
+                    row + self.delay_steps, S), contrib)
+                at = row0 + row
+                inj = flat.index_select(0, at)
+                flat.index_fill_(0, at, 0.0)  # a fresh tensor: in place
                 new_cur = torch.remainder(cur + 1, S).to(torch.int32)
             else:
                 # delay scatter + ring fold; the new ring is a fresh tensor
                 ring, inj, new_cur = self._delay_fold(
                     state.dendritic, cur, spikes, gscale, state.g,
-                    state.syn, wu_ext)
+                    state.syn, syn_ext)
             new_buf = ring
 
         # -- learning (generated weight-update code) -----------------------
@@ -483,7 +506,7 @@ class SynapseGroup:
                 traces.update({k: v[:, :, None] for k, v in new_pre.items()})
                 traces.update({k: v[:, gather] for k, v in new_post.items()})
                 g_learn, new_syn = self._wu.learn(
-                    state.g, state.syn, traces, self.wum.params, wu_ext)
+                    state.g, state.syn, traces, self.wum.params, syn_ext)
                 new_g = torch.where(self.ell.valid, g_learn, state.g)
 
         # -- postsynaptic dynamics (generated decay/apply code) ------------

@@ -85,20 +85,30 @@
 // (scale, roll, add, read the cursor's slot, clear it):
 //
 //   new_ring[b, r, j] = ring[b, r, j]
-//                       + f32(sign * gscale_b) * f32(acc[(r - cur) mod S, j, b])
-//   inj[b] = new_ring[b, cur];  new_ring[b, cur] = 0;  acc = 0
-//   new_cursor = (cur + 1) mod S
+//                       + f32(sign * gscale_b) * f32(acc[(r - cur_b) mod S, j, b])
+//   inj[b] = new_ring[b, cur_b];  new_ring[b, cur_b] = 0;  acc = 0
+//   new_cursor[b] = (cur_b + 1) mod S
 //
-// The cursor is read from device memory and the advanced one written to
-// another word, as the JAX package keeps it (an int32 in the state): a
-// CUDA graph that captured the step reads each replay's own cursor.
-// with exactly the roundings of those ops (IEEE products and sums, no
-// contraction), so it is bit-equal to its plain version.  It reads the
+// Each member has its own cursor cur_b (a served stream admitted at
+// another step than its neighbours sits elsewhere in its ring; a run or a
+// sweep keeps them all equal).  The cursors are read from device memory
+// and the advanced ones written to other words, as the JAX package keeps
+// them (an int32 a stream in the state): a CUDA graph that captured the
+// step reads each replay's own cursors.  The fold rounds exactly as
+// those ops do (IEEE products and sums, no contraction), so it is
+// bit-equal to its plain version.  It reads the
 // ring and the scratch once and writes the new ring, the zeros and inj:
 // memory-bound, ~24 bytes an element.  A thread takes 4 posts of one ring
 // row and one member, the members of a post on neighbouring threads, so a
 // warp's scratch accesses are contiguous and its ring accesses 16 bytes a
-// thread.
+// thread.  That holds while the members' cursors are equal (a run, a
+// sweep): with a cursor a member, member b's ring row r reads scratch slot
+// (r - cur_b) mod S, so a warp's members read B different slots, 8 bytes
+// each, and the fold costs several times more (served streams; PERF.md).
+// Each thread needs its member's cursor before its scratch address: lane
+// l < B loads member l's first thing, overlapping the 64-bit index
+// arithmetic, and a shuffle hands it on (a load after that arithmetic,
+// the first form, cost +70% at B = 1).
 //
 // Out-of-range targets (post_ind >= n_post, delay >= n_slots) are skipped
 // rather than written: the containers are checked when they are built, and
@@ -393,11 +403,16 @@ int scatter(const float* g, long long g_batch_stride, const int32_t* post_ind,
 
 // -- the ring fold ------------------------------------------------------------
 
+// a cursor taken mod n_slots (into [0, n_slots))
+__device__ __forceinline__ int wrap_slot(int c, int n_slots) {
+  return ((c % n_slots) + n_slots) % n_slots;
+}
+
 // grid: items (kVec posts x one member, members fastest) on x, ring rows r
-// on y.  Ring row r takes scratch slot (r - cur) mod S, so each scratch
-// element is read, and zeroed, by exactly one thread.  With the members
-// on the fast axis a warp reads and zeroes contiguous runs of the
-// scratch (its cells' members side by side) and reads and writes kVec
+// on y.  Ring row r of member b takes scratch slot (r - cur_b) mod S, so
+// each scratch element is read, and zeroed, by exactly one thread.  With
+// the members on the fast axis a warp reads and zeroes contiguous runs of
+// the scratch (its cells' members side by side) and reads and writes kVec
 // posts of B ring rows.
 template <int kFoldThreads, int kVec>
 __global__ void __launch_bounds__(kFoldThreads)
@@ -408,17 +423,25 @@ delay_ring_fold_kernel(const float* __restrict__ ring,
                        float sign, int batch, int n_slots, int n_post,
                        const int* __restrict__ cursor,
                        int* __restrict__ new_cursor) {
-  // the ring's read row, taken mod n_slots (every thread reads the one
-  // word); one thread writes the advanced cursor to another word
-  const int cur = ((__ldg(cursor) % n_slots) + n_slots) % n_slots;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
-    *new_cursor = cur + 1 == n_slots ? 0 : cur + 1;
+  // member b's read row, taken mod n_slots.  Lane l < batch loads member
+  // l's cursor first thing, so the load overlaps the index arithmetic
+  // below, and the thread of member b takes lane b's by one shuffle (its
+  // own load past 32 members); every lane shuffles before any returns.
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int mine = lane < batch ? wrap_slot(__ldg(cursor + lane), n_slots)
+                                : 0;
   const long long item =
       static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
   const long long j = item / batch * kVec;
-  if (j >= n_post) return;
   const int b = static_cast<int>(item % batch);
+  const int shuffled = __shfl_sync(0xffffffffu, mine, b & 31);
+  if (j >= n_post) return;
+  const int cur =
+      batch <= 32 ? shuffled : wrap_slot(__ldg(cursor + b), n_slots);
   const int r = blockIdx.y;
+  // the thread of member b's first posts in ring row 0 writes its
+  // advanced cursor (to another word)
+  if (r == 0 && j == 0) new_cursor[b] = cur + 1 == n_slots ? 0 : cur + 1;
   const int src = r >= cur ? r - cur : r - cur + n_slots;
   // sign * gscale, rounded to float32 as PyTorch rounds it
   const float sc = gscale != nullptr ? __fmul_rn(sign, gscale[b]) : scale;
@@ -439,7 +462,7 @@ delay_ring_fold_kernel(const float* __restrict__ ring,
     a[e * batch] = 0.0;                     // leave the scratch zeroed
     v[e] = __fadd_rn(v[e], __fmul_rn(sc, __double2float_rn(av[e])));
   }
-  if (r == cur) {                            // uniform across the CTA
+  if (r == cur) {
     float* out = inj + static_cast<long long>(b) * n_post + j;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
@@ -503,9 +526,9 @@ int ell_spmv_delay_f32(const float* g, long long g_batch_stride,
 // batch] float64 (read, then zeroed), new_ring [batch, n_slots, n_post]
 // float32 and inj [batch, n_post] float32 (written).  gscale: [batch]
 // float32 on the card, or null and then scale (= sign * gscale, rounded to
-// float32) for every member.  cursor: the ring's read row, one int32 on the
-// card (taken mod n_slots); new_cursor: another, written with the row after
-// it.  vec and block come from kernels.delay_ring.launch_plan: vec 4 needs
+// float32) for every member.  cursor: each member's read row, [batch] int32
+// on the card (taken mod n_slots); new_cursor: another [batch], written
+// with the rows after them.  vec and block come from kernels.delay_ring.launch_plan: vec 4 needs
 // n_post % 4 == 0 and all four arrays 16-byte aligned; block is one of
 // kinfo::with_block's.
 int delay_ring_fold_f32(const float* ring, double* acc, float* new_ring,

@@ -86,15 +86,15 @@ def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
 
     ring: [B, S, n_post] float32, left as it is; acc: the delay scatter's
     [S, n_post, B] float64 scratch (slot d = currents due d steps from
-    now), zeroed here; cursor: the ring's read row, an int32 0-dim tensor
+    now), zeroed here; cursor: each member's read row, an int32 [B] tensor
     beside the ring (taken mod S; never read on the host, so a captured
-    step reads the cursor of its replay); sign * gscale scales the scatter,
-    gscale a Python number, a 0-dim tensor or a [B] tensor (on the card,
-    for the kernel).  With c = cursor mod S:
+    step reads the cursors of its replay); sign * gscale scales the
+    scatter, gscale a Python number, a 0-dim tensor or a [B] tensor (on
+    the card, for the kernel).  With c_b = cursor[b] mod S:
     new_ring[b, r, j] = ring[b, r, j]
-    + f32(sign * gscale_b) * f32(acc[(r - c) mod S, j, b]);
-    inj = new_ring[:, c], then new_ring[:, c] = 0; new_cursor = (c + 1)
-    mod S, a fresh int32 0-dim tensor."""
+    + f32(sign * gscale_b) * f32(acc[(r - c_b) mod S, j, b]);
+    inj[b] = new_ring[b, c_b], then new_ring[b, c_b] = 0; new_cursor[b] =
+    (c_b + 1) mod S, a fresh int32 [B] tensor."""
     per_member = isinstance(gscale, torch.Tensor) and gscale.dim() == 1
     if on_cpu("delay_ring_fold", ring, acc, cursor,
               gscale if per_member else None):
@@ -105,12 +105,13 @@ def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
                          f"and acc {tuple(acc.shape)} [S, n_post, B]")
     check_operand("ring", ring, torch.float32)
     check_operand("acc", acc, torch.float64)
-    if cursor.dtype != torch.int32 or cursor.dim() != 0:
-        raise ValueError(f"cursor must be an int32 0-dim tensor, got "
-                         f"{cursor.dtype} {tuple(cursor.shape)}")
     batch, n_slots, n_post = ring.shape
     if batch == 0 or n_post == 0:
         raise ValueError(f"an empty ring {tuple(ring.shape)}")
+    if cursor.dtype != torch.int32 or tuple(cursor.shape) != (batch,):
+        raise ValueError(f"cursor must be an int32 [B={batch}] tensor, got "
+                         f"{cursor.dtype} {tuple(cursor.shape)}")
+    check_operand("cursor", cursor, torch.int32)
     if per_member:
         if tuple(gscale.shape) != (batch,):
             raise ValueError(f"gscale must be a scalar or [B={batch}], got "
@@ -124,7 +125,7 @@ def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
     new_ring = torch.empty_like(ring)
     inj = torch.empty((batch, n_post), dtype=torch.float32,
                       device=ring.device)
-    new_cursor = torch.empty((), dtype=torch.int32, device=ring.device)
+    new_cursor = torch.empty(batch, dtype=torch.int32, device=ring.device)
     ptrs = (ring.data_ptr(), acc.data_ptr(), new_ring.data_ptr(),
             inj.data_ptr())
     plan = launch_plan(batch, n_slots, n_post,

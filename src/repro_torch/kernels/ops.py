@@ -79,9 +79,9 @@ def ell_spmv_delay_into(ell, spikes: torch.Tensor,
 def delay_ring_fold(ring: torch.Tensor, acc: torch.Tensor,
                     cursor: torch.Tensor, sign: float, gscale):
     """(new_ring, inj, new_cursor): the scratch ``acc`` scaled by sign *
-    gscale and rolled by ``cursor`` (an int32 0-dim tensor) into the ring
-    [B, S, n_post], then the cursor's row read out and cleared and the
-    cursor advanced; ``acc`` is left zeroed."""
+    gscale and rolled by each member's ``cursor`` (an int32 [B] tensor)
+    into the ring [B, S, n_post], then each cursor's row read out and
+    cleared and the cursors advanced; ``acc`` is left zeroed."""
     return _ring.delay_ring_fold(ring, acc, cursor, sign, gscale)
 
 

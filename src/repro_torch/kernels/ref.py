@@ -142,25 +142,28 @@ def delay_ring_fold_ref(ring: torch.Tensor, acc: torch.Tensor,
     """One step of the dendritic ring [B, S, n_post] float32: the delay
     scatter ``acc`` [S, n_post, B] float64 (slot d = currents due d steps
     from now), rounded to float32 and scaled by ``sign * gscale`` (a scalar
-    or [B]), lands at ring row (c + d) % S, c = ``cursor`` mod S (an int32
-    0-dim tensor, read by index ops and never on the host); row c is read
-    out and cleared.  Returns (new_ring, inj [B, n_post], new_cursor =
-    (c + 1) mod S), all fresh tensors; ``ring`` is left as it is and
-    ``acc`` is zeroed, as the fold kernel leaves them."""
+    or [B]), lands at member b's ring row (c_b + d) % S, c_b =
+    ``cursor[b]`` mod S (``cursor`` an int32 [B] tensor, read by index ops
+    and never on the host); member b's row c_b is read out and cleared.
+    Returns (new_ring, inj [B, n_post], new_cursor = (c + 1) mod S [B]),
+    all fresh tensors; ``ring`` is left as it is and ``acc`` is zeroed, as
+    the fold kernel leaves them."""
     contrib = delay_scratch_to_bsn(acc)
     acc.zero_()
     if isinstance(gscale, torch.Tensor) and gscale.dim() == 1:
         gscale = gscale.reshape((-1,) + (1,) * (contrib.dim() - 1))
     contrib = sign * gscale * contrib
-    n_slots = ring.shape[1]
-    cur = torch.remainder(cursor.reshape(1).long(), n_slots)
+    batch, n_slots, n_post = ring.shape
+    cur = torch.remainder(cursor.reshape(batch, 1).long(), n_slots)
     rows = torch.remainder(
         torch.arange(n_slots, device=ring.device) - cur, n_slots)
-    new_ring = ring + contrib.index_select(1, rows)
-    inj = new_ring.index_select(1, cur)[:, 0]
-    new_ring.index_fill_(1, cur, 0.0)
-    new_cursor = torch.remainder(cur + 1, n_slots).to(torch.int32)
-    return new_ring, inj, new_cursor.reshape(())
+    new_ring = ring + torch.gather(
+        contrib, 1, rows[:, :, None].expand(batch, n_slots, n_post))
+    at = cur[:, :, None].expand(batch, 1, n_post)
+    inj = torch.gather(new_ring, 1, at)[:, 0]
+    new_ring.scatter_(1, at, 0.0)
+    new_cursor = torch.remainder(cur[:, 0] + 1, n_slots).to(torch.int32)
+    return new_ring, inj, new_cursor
 
 
 def _clear_if_not_finite(finite, *arrays) -> None:

@@ -13,7 +13,8 @@ saturated population is the failure mode.  ``HealthConfig`` (passed as
   ``g`` (invalid ELL slots masked), recording the first bad step.
 
 Every leaf carries the batch axis [B] (the JAX package vmaps instead);
-``run`` reports a single member in the JAX package's scalar shapes.
+``run`` reports a single member in the JAX package's scalar shapes, and
+``serve_chunk`` one report a chunk with a stream axis (``summary(slot)``).
 Monitoring off (``monitor=None`` or ``enabled=False``) adds no device op:
 the step loop never mentions it.  The guard here is the JAX monitor's, not
 the simulator's carried ``finite`` flag (which also folds u, m, h, n and
@@ -109,11 +110,12 @@ class HealthReport:
     nonfinite: torch.Tensor                 # bool
     first_bad_step: torch.Tensor            # int32, -1 when never tripped
 
-    def summary(self, member: Optional[int] = None) -> dict:
-        """Plain-Python view (of one batch member, for a batched report)."""
+    def summary(self, slot: Optional[int] = None) -> dict:
+        """Plain-Python view (of one batch member or served stream slot,
+        for a batched report)."""
         def sel(x):
             a = x.detach().cpu().numpy()
-            return a[member] if member is not None else a
+            return a[slot] if slot is not None else a
 
         pops = {}
         for p in sorted(self.spike_total):
@@ -150,10 +152,12 @@ def init_state(pop_sizes: Mapping[str, int], batch: int,
 
 def accumulate(cfg: HealthConfig, hs: HealthState,
                counts: Mapping[str, torch.Tensor], ok: torch.Tensor,
-               dt_ms: float, pop_sizes: Mapping[str, int]) -> HealthState:
+               dt_ms: float, pop_sizes: Mapping[str, int],
+               gate: Optional[torch.Tensor] = None) -> HealthState:
     """One post-step update.  counts: population -> int32 [B] spikes this
     step; ok: bool [B], True where V and state-resident g are all finite
-    this step."""
+    this step; gate: bool [B] (serving's lane mask), where False the
+    member's accumulator passes through untouched."""
     alpha = _f32(cfg.alpha(dt_ms))
     new_total, new_ema = {}, {}
     for p, n in pop_sizes.items():
@@ -169,9 +173,18 @@ def accumulate(cfg: HealthConfig, hs: HealthState,
         nonfinite = hs.nonfinite | bad
     else:
         first, nonfinite = hs.first_bad_step, hs.nonfinite
-    return HealthState(spike_total=new_total, rate_ema_hz=new_ema,
-                       steps=hs.steps + 1, nonfinite=nonfinite,
-                       first_bad_step=first)
+    new = HealthState(spike_total=new_total, rate_ema_hz=new_ema,
+                      steps=hs.steps + 1, nonfinite=nonfinite,
+                      first_bad_step=first)
+    if gate is None:
+        return new
+
+    def pick(a, b):
+        return {k: torch.where(gate, a[k], b[k]) for k in a} \
+            if isinstance(a, dict) else torch.where(gate, a, b)
+    return HealthState(**{f.name: pick(getattr(new, f.name),
+                                       getattr(hs, f.name))
+                          for f in dataclasses.fields(HealthState)})
 
 
 def finalize(cfg: HealthConfig, hs: HealthState, dt_ms: float,

@@ -124,12 +124,12 @@ def test_chunked_run_equals_eager_run(monkeypatch, variant, n_steps):
         comp = sim.run_compiled(st, n_steps, gs, record_raster=True,
                                 stim=stim)
         assert_runs_equal(eager, comp)
-        assert float(comp.state.t) == float(n_steps)
+        assert comp.state.t.tolist() == [float(n_steps)] * batch
         assert int(comp.spike_counts["exc"].sum()) > 0
         for g in model.network.synapses:
             if g.needs_ring:
-                assert int(comp.state.syn[g.name].cursor) == (
-                    n_steps % g.ring_slots)
+                assert comp.state.syn[g.name].cursor.tolist() == (
+                    [n_steps % g.ring_slots] * batch)
     # the caller's state is left as it was, and the result owns its tensors
     st = sim.init_state()
     before = {k: v.clone() for k, v in _leaves(st)}
@@ -239,7 +239,7 @@ def test_init_state_takes_the_jax_state():
     tm = TIZ.compile_model(TIZ.IzhikevichNetConfig(
         n_total=N_EXC + N_INH, n_conn=N_CONN, seed=SEED), device="cpu")
     st = convert.init_state(tm, arrays, batch=2)
-    assert st.key.shape == (2, 2) and float(st.t) == 7.0
+    assert st.key.shape == (2, 2) and st.t.tolist() == [7.0, 7.0]
     np.testing.assert_array_equal(st.key[1].numpy().view(np.uint32),
                                   np.asarray(jax.random.key_data(
                                       jr.state.key)))
@@ -263,7 +263,7 @@ def test_init_state_keys_and_batch():
     sim = model.simulator
     st = sim.init_state(3)
     assert st.key.dtype == torch.int32 and st.key.shape == (3, 2)
-    assert st.t.dtype == torch.float32 and st.t.dim() == 0
+    assert st.t.dtype == torch.float32 and st.t.shape == (3,)
     keys = torch.tensor([[0, 1], [0, 2]], dtype=torch.int32)
     st2 = sim.init_state(2, keys)
     r = sim.run(st2, 5)

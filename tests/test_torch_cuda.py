@@ -285,7 +285,8 @@ def test_cuda_ring_fold_equals_plain_bit_for_bit(cuda_device, b, n_post,
     before = ring.clone()
     for cursor in (0, 7, n_slots - 1):
         acc, acc_ref = acc0.clone(), acc0.clone()
-        cur = torch.tensor(cursor, dtype=torch.int32, device=cuda_device)
+        cur = torch.full((b,), cursor, dtype=torch.int32,
+                         device=cuda_device)
         DR.reset_launches()
         new_ring, inj, new_cur = DR.delay_ring_fold(ring, acc, cur, sign,
                                                     gscale)
@@ -295,22 +296,94 @@ def test_cuda_ring_fold_equals_plain_bit_for_bit(cuda_device, b, n_post,
         for got, want in ((new_ring, want_ring), (inj, want_inj)):
             assert torch.equal(got, want)
             assert torch.equal(torch.signbit(got), torch.signbit(want))
-        assert int(new_cur) == int(want_cur) == (cursor + 1) % n_slots
+        assert new_cur.tolist() == want_cur.tolist() == [
+            (cursor + 1) % n_slots] * b
         assert not acc.any() and torch.equal(ring, before)
-        assert int(cur) == cursor
+        assert cur.tolist() == [cursor] * b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [3, 8])
+def test_cuda_ring_fold_with_a_cursor_a_member(cuda_device, b):
+    """Members at different ring positions (served streams): at every
+    block the fold is compiled for, the new ring, inj and the advanced
+    cursors equal the plain version's bit for bit, and the scratch is left
+    zeroed."""
+    rng = np.random.default_rng(b)
+    n_slots, n_post = 21, 2000
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=cuda_device)
+
+    ring = t(rng.standard_normal((b, n_slots, n_post)))
+    acc0 = t(rng.standard_normal((n_slots, n_post, b)), torch.float64)
+    gscale = t(rng.uniform(0.1, 3.0, b))
+    cur = t([(5 * m + 2) % n_slots for m in range(b)], torch.int32)
+    assert len(set(cur.tolist())) == b
+    want = TR.delay_ring_fold_ref(ring, acc0.clone(), cur, -1.0, gscale)
+    assert want[2].tolist() == [(c + 1) % n_slots for c in cur.tolist()]
+    for block in AT.ELEMENTWISE_BLOCKS:
+        acc = acc0.clone()
+        with _forced(DR, block):
+            got = DR.delay_ring_fold(ring, acc, cur, -1.0, gscale)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), block
+            if x.is_floating_point():
+                assert torch.equal(torch.signbit(x), torch.signbit(y))
+        assert not acc.any()
+
+
+@pytest.mark.gpu
+def test_cuda_served_streams_equal_offline_runs(cuda_device):
+    """The served chunk replayed from a CUDA graph: streams of a delayed
+    net admitted a chunk apart (their cursors differ) equal their offline
+    B=1 runs bit for bit, counts and every state tensor."""
+    from repro_torch.launch.snn_serve import SNNServer, StreamRequest
+    ms = TSPEC.ModelSpec("served_delay")
+    ms.add_neuron_population(
+        "a", 400, "izhikevich",
+        input_fn=lambda k, t, n: R.normal(k, (n,), scale=5.0))
+    ms.add_neuron_population(
+        "b", 300, "izhikevich",
+        input_fn=lambda k, t, n: R.normal(k, (n,), scale=5.0))
+    ms.add_synapse_population("ab", "a", ["a", "b"],
+                              connect=TF.FixedFanout(40),
+                              weight=TF.UniformWeight(0.0, 0.5),
+                              delay=TF.UniformIntDelay(0, 6))
+    model = ms.build(dt=1.0, seed=3, device=cuda_device)
+    srv = SNNServer(model, max_streams=3, chunk=16, stim_pops=("a",))
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, T in enumerate((50, 45, 40)):
+        stim = {"a": (3.0 * rng.normal(size=(T, 400))).astype(np.float32)}
+        reqs.append(srv.submit(StreamRequest(rid=i, n_steps=T, stim=stim,
+                                             seed=10 + i)))
+        srv.serve_step()
+    srv.run()
+    assert model.simulator.graph_counts["captures"] >= 1
+    final = dict(_state_leaves(srv.states))
+    for slot, r in enumerate(reqs):
+        assert r.done
+        res = model.run(r.n_steps, stim=r.stim,
+                        state=model.init_state(key=R.PRNGKey(r.seed)))
+        for k, v in res.spike_counts.items():
+            assert np.array_equal(v.cpu().numpy(), r.spike_counts[k]), k
+        for name, v in _state_leaves(res.state):
+            assert torch.equal(final[name][slot], v[0]), (r.rid, name)
+    assert int(sum(r.spike_counts["b"].sum() for r in reqs)) > 0
 
 
 @pytest.mark.gpu
 def test_cuda_ring_fold_rejects_bad_operands(cuda_device):
     ring = torch.zeros(2, 5, 8, device=cuda_device)
     acc = torch.zeros(5, 8, 2, dtype=torch.float64, device=cuda_device)
-    cur = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    cur = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         DR.delay_ring_fold(ring, acc.float(), cur, 1.0, 1.0)
-    # the cursor is an int32 0-dim tensor beside the ring (its value is
-    # never read on the host, so it is taken mod S on the card)
-    on_cpu = torch.zeros((), dtype=torch.int32)
-    for bad in (cur.long(), cur.reshape(1), on_cpu):
+    # the cursors are an int32 [B] tensor beside the ring (their values
+    # are never read on the host, so they are taken mod S on the card)
+    on_cpu = torch.zeros(2, dtype=torch.int32)
+    for bad in (cur.long(), cur[:1], cur[0], on_cpu):
         with pytest.raises(ValueError):
             DR.delay_ring_fold(ring, acc, bad, 1.0, 1.0)
     with pytest.raises(ValueError):
@@ -709,8 +782,8 @@ def test_cuda_delayed_group_folds_with_its_device_cursor(cuda_device):
         assert torch.equal(outs[1][1].cpu(), outs[0][1])
         assert torch.equal(states[1].dendritic.cpu(), states[0].dendritic)
         assert states[1].cursor.device.type == torch.device(cuda_device).type
-        assert int(states[1].cursor) == int(states[0].cursor) == (
-            (i + 1) % groups[0].ring_slots)
+        assert states[1].cursor.tolist() == states[0].cursor.tolist() == [
+            (i + 1) % groups[0].ring_slots] * 2
 
 
 def _state_leaves(x, prefix=""):
@@ -1012,7 +1085,7 @@ def test_cuda_every_compiled_block_gives_the_chosen_blocks_result(
                          generator=gen, dtype=torch.int32)
     ring = rnd(2, n_slots, n_post)
     acc0 = rnd(n_slots, n_post, 2).double()
-    cur = torch.tensor(4, dtype=torch.int32, device=dev)
+    cur = torch.tensor([4, 9], dtype=torch.int32, device=dev)
     runs = {
         K: [lambda: K.ell_spmv(g, idx, valid, spk, n_post),
             lambda: K.ell_spmv_delay(g, idx, valid, dly, spk, n_post,

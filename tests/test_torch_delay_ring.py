@@ -74,12 +74,14 @@ def test_fold_equals_the_sequence_it_replaces(where, sign, gscale_kind,
     ring_before = ring.clone()
     want_ring, want_inj = _replaced(ring, acc, cursor, sign, gscale)
     DR.reset_launches()
-    # the cursor is an int32 tensor (read by index ops, never on the host)
-    cur = torch.tensor(cursor, dtype=torch.int32)
+    # the cursors are an int32 [B] tensor (read by index ops, never on the
+    # host)
+    cur = torch.full((batch,), cursor, dtype=torch.int32)
     new_ring, inj, new_cur = DR.delay_ring_fold(ring, acc, cur, sign, gscale)
     assert DR.launches == {"delay_ring_fold": 0}
-    assert new_cur.dtype == torch.int32 and new_cur.dim() == 0
-    assert int(new_cur) == (cursor + 1) % n_slots and int(cur) == cursor
+    assert new_cur.dtype == torch.int32 and new_cur.shape == (batch,)
+    assert new_cur.tolist() == [(cursor + 1) % n_slots] * batch
+    assert cur.tolist() == [cursor] * batch
     _same_bits(new_ring, want_ring)
     _same_bits(inj, want_inj)
     _same_bits(ring, ring_before)                 # the input is not written
@@ -207,9 +209,10 @@ def test_step_leaves_its_input_ring_untouched():
     before = st.dendritic.clone()
     spikes = torch.tensor(np.random.default_rng(4).random((2, N_EXC)) < 0.3)
     new, cur = g.step(st, spikes, torch.tensor([1.0, 2.0]), 1.0)
-    assert torch.equal(st.dendritic, before) and int(st.cursor) == 0
-    assert new.dendritic is not st.dendritic and int(new.cursor) == 1
-    assert new.cursor.dtype == torch.int32 and new.cursor.dim() == 0
+    assert torch.equal(st.dendritic, before) and st.cursor.tolist() == [0, 0]
+    assert new.dendritic is not st.dendritic
+    assert new.cursor.tolist() == [1, 1]
+    assert new.cursor.dtype == torch.int32 and new.cursor.shape == (2,)
     # the scratch is zero again, ready for the next step
     acc = g._acc
     assert acc.dtype == torch.float64 and acc.shape == (6, N_EXC, 2)
