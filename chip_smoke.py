@@ -63,7 +63,13 @@ failure ends the run with a non-zero exit):
      and uniforms bit-equal, normals within 4 float32 ulp; times beside
      the bound (integer operations against bytes) and, as a yardstick
      only, ``torch.randn`` at the same shape (Philox, not threefry: no
-     library time);
+     library time); then on-device construction's entries at main's exc
+     group (80,000 row keys, 1000 targets a row): ``threefry_fold_in``
+     (the rows into one key; a word into each row key) and
+     ``threefry_draw``'s randint draw at spans 100000, 21, 1 and 2^31 - 1
+     (its launches counted as ``threefry_draw.randint``), bit-equal
+     to their plain versions on the card (and the first 512 rows on the
+     CPU), and the weights' affine uniform draw likewise;
   Phases 3-6b each run their model once eagerly (``Simulator.run``) and
      once through the graph route (``Simulator.run_compiled``: CUDA graphs
      of 32 steps and a remainder, which ``CompiledModel.run`` and
@@ -222,6 +228,21 @@ failure ends the run with a non-zero exit):
      readback), device ops a served chunk and the card's busy share over
      it, and the masking's cost (device ops and time a step, served S=8
      against ``run_compiled`` at B=8 on the same stim, in turns).
+  12. on-device construction and the SNN benchmark scripts: (a) main's
+     net (phase 3's) built with ``compile_model(init="device")``: build s
+     beside phase 3's host build, each synapse population's
+     ``device_init`` span and redraw rounds, peak memory, the
+     construction kernels' launches; every row 1000 distinct sorted
+     targets; rows [0, 2048) and 2048 sampled rows equal to a CPU build of
+     those rows (``rows=``, the plain versions) bit for bit; the whole
+     graph's digest equal to ``DEVICE_INIT_DIGESTS`` (the JAX package's,
+     ``experiments/device_init_digests.py``); (b) the same for phase 5's
+     delayed net (``UniformIntDelay(0, 20)``); (c) the device-built main
+     net for 1000 steps from graphs, bit-equal to its eager run, us/step
+     beside phase 3's; (d) ``benchmarks/snn_{scaling,event,probes,
+     health}_torch.py`` at the main path's width (100k neurons x 1000;
+     snn_scaling's construction at 25k, 50k and 100k), steps cut, their
+     JSON printed (and written under ``chiprun_out/phase12_bench``).
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line; the last line is
@@ -448,6 +469,46 @@ UNIT_ALTERNATIVES = {"reg_alloc_unit": 32, "reg_sub_partitions": 1,
                      "max_ctas_per_sm": 64}
 
 
+# phase 2f's construction entries: the row keys of main's exc group
+# (80000 rows) and its sampler's draw of 1000 targets a row, at the
+# sampler's span (100000 posts), phase 5's delay span (21) and the edges of
+# the span arithmetic
+CONSTRUCT = dict(rows=80_000, k=1000, spans=(100_000, 21, 1, 2 ** 31 - 1),
+                 cpu_rows=512)
+# operations of a randint element beyond its two hashes: three remainders,
+# a product and two adds (a remainder counted as one, a lower bound; each
+# CTA's split and multiplier are counted once a row)
+RANDINT_EXTRA_OPS = 6
+# phase 12: on-device construction of phases 3's and 5's nets; rows held
+# against a CPU build of them through the plain versions; the 100k net
+# replayed for MAIN["steps"]; the benchmark scripts at the main path's
+# width (snn_scaling at 25k, 50k and 100k neurons), their steps cut
+CONSTRUCT_CHECK = dict(first_rows=2048, sampled_rows=2048, seed=0)
+# experiments/device_init_digests.py's digests of the JAX package's
+# init="device" graphs of phases 3's and 5's nets (100k x 1000, seed 1234),
+# computed on the CPU
+DEVICE_INIT_DIGESTS = {
+    "main": "c67edc449439b8e186e23c84ccf9568650b0568d10940b2946ce8436bd11e0ab",
+    "delay": "87dce920575e0f03747facce3d1f10c2ceda3064aa06a9fa28074e333ac6f877",
+}
+SCRIPTS = (
+    ("snn_scaling", {"SNN_BENCH_PER_DEV": "25000", "SNN_BENCH_NCONN": "1000",
+                     "SNN_BENCH_STEPS": "200"}),
+    ("snn_event", {"SNN_EVENT_BENCH_N": "100000",
+                   "SNN_EVENT_BENCH_NCONN": "1000",
+                   "SNN_EVENT_BENCH_STEPS": "50",
+                   "SNN_EVENT_BENCH_REPS": "2"}),
+    ("snn_probes", {"SNN_PROBE_BENCH_N": "100000",
+                    "SNN_PROBE_BENCH_NCONN": "1000",
+                    "SNN_PROBE_BENCH_STEPS": "200",
+                    "SNN_PROBE_BENCH_REPS": "2"}),
+    ("snn_health", {"SNN_HEALTH_BENCH_N": "100000",
+                    "SNN_HEALTH_BENCH_NCONN": "1000",
+                    "SNN_HEALTH_BENCH_STEPS": "200",
+                    "SNN_HEALTH_BENCH_REPS": "2"}),
+)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -518,12 +579,16 @@ def main() -> int:
     paper_experiment(torch, report)
     torch.cuda.empty_cache()
     serve_snn(torch, report)
+    torch.cuda.empty_cache()
+    launches_construct = device_construction(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
                "izhikevich_step": launches_main, "hh_step": launches_mb,
                "threefry_split": launches_main,
                "threefry_draw": launches_main,
+               "threefry_fold_in": launches_construct,
+               "threefry_draw.randint": launches_construct,
                "flash_attention": launches_serve,
                "flash_attention_bwd": launches_qwen,
                "ssd_scan": launches_mamba,
@@ -1440,13 +1505,18 @@ def compare_threefry(torch, report) -> list:
                        "randn_ms": _device_ms(torch, randn, 50)[0]}
                 rows.append(row)
                 print(json.dumps(row))
+        rows += _compare_construction_draws(torch, dev)
     report["threefry_table"] = rows
     entries = []
     for name, replaces, pick in (
             ("threefry_split", "src/repro/core/snn/simulator.py:210",
              lambda r: r["B"] == 1 and r["num"] == THREEFRY_SPLITS[0]),
             ("threefry_draw", "src/repro/core/models/izhikevich_net.py:62",
-             lambda r: r["B"] == 1 and r["case"] == "main exc")):
+             lambda r: r["B"] == 1 and r["case"] == "main exc"),
+            ("threefry_fold_in", "src/repro/sparse/device_init.py:163",
+             lambda r: r["case"] == "a word into each row key"),
+            ("threefry_draw.randint", "src/repro/sparse/device_init.py:158",
+             lambda r: r["span"] == CONSTRUCT["spans"][0])):
         r = next(x for x in rows if x["name"] == name and pick(x))
         entries.append({
             "name": name, "route": "cuda",
@@ -1455,6 +1525,93 @@ def compare_threefry(torch, report) -> list:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}})
     return entries
+
+
+def _compare_construction_draws(torch, dev) -> list:
+    """Phase 2f's construction entries on the card at main's exc group's
+    shapes: ``threefry_fold_in`` (the rows' indices into one key, and one
+    word into each of 80000 row keys) and ``threefry_draw``'s randint draw
+    at [80000 keys, 1000] for each span of CONSTRUCT, bit-equal to their plain
+    versions on the card, and the first rows to the plain versions on the
+    CPU; the affine uniform draw (the weights') likewise.  Times beside the
+    bound and, as a yardstick, torch.randint (Philox, another function)."""
+    from repro_torch import random as RND
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import threefry as TFK
+    n, k, m = CONSTRUCT["rows"], CONSTRUCT["k"], CONSTRUCT["cpu_rows"]
+    key = RND.PRNGKey(1234).to(dev).reshape(1, 2)
+    rks = TFK.threefry_split(key, n)[0]
+    rows_t = torch.arange(n, dtype=torch.int32, device=dev)
+    out = []
+    for what, keys, data in (("the rows into one key", key, rows_t),
+                             ("a word into each row key", rks, 7)):
+        got = TFK.threefry_fold_in(keys, data)
+        cpu_data = data.cpu() if isinstance(data, torch.Tensor) else data
+        check(bool(torch.equal(got, R.threefry_fold_in_ref(keys, data)))
+              and bool(torch.equal(got.cpu(), R.threefry_fold_in_ref(
+                  keys.cpu(), cpu_data))),
+              f"threefry_fold_in ({what}) at {n} keys: not bit-equal")
+        kern = lambda i: TFK.threefry_fold_in(keys, data)
+        plain = lambda i: R.threefry_fold_in_ref(keys, data)
+        nbytes = keys.shape[0] * 8 + n * 8 + (
+            n * 4 if isinstance(data, torch.Tensor) else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n * THREEFRY_INT_OPS / INT32_OPS * 1e3
+        row = {"name": "threefry_fold_in", "case": what, "n": n,
+               "max_abs_err": 0.0,
+               "ms": _device_ms(torch, kern, 50, "threefry")[0],
+               "wall_ms": _time_ms(torch, kern, 50),
+               "plain_ms": _device_ms(torch, plain, 20)[0],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        out.append(row)
+        print(json.dumps(row))
+    for span in CONSTRUCT["spans"]:
+        got = TFK.threefry_draw(rks, k, "randint", span=span)
+        want = R.threefry_draw_ref(rks, k, "randint", span=span)
+        check(bool(torch.equal(got, want)) and bool(torch.equal(
+            got[:m].cpu(), R.threefry_draw_ref(rks[:m].cpu(), k, "randint",
+                                               span=span))),
+              f"randint draw span {span} at [{n}, {k}]: not bit-equal")
+        check(int(got.min()) >= 0 and int(got.max()) < span,
+              f"randint draw span {span}: a draw out of range")
+        del want
+        if span != CONSTRUCT["spans"][0]:
+            continue
+        kern = lambda i: TFK.threefry_draw(rks, k, "randint", span=span)
+        plain = lambda i: R.threefry_draw_ref(rks, k, "randint", span=span)
+        randint = lambda i: torch.randint(0, span, (n, k), device=dev,
+                                          dtype=torch.int32)
+        # the least work: each row's two keys once, each element's two
+        # words and its arithmetic
+        ops = n * 2 * THREEFRY_INT_OPS + n * k * (2 * THREEFRY_INT_OPS
+                                                  + RANDINT_EXTRA_OPS)
+        t_ops = ops / INT32_OPS * 1e3
+        t_bytes = (n * 8 + n * k * 4) / HBM_BYTES_PER_S * 1e3
+        row = {"name": "threefry_draw.randint", "span": span, "rows": n,
+               "k": k,
+               "max_abs_err": 0.0,
+               "ms": _device_ms(torch, kern, 10, "threefry")[0],
+               "wall_ms": _time_ms(torch, kern, 10),
+               "plain_ms": _device_ms(torch, plain, 3)[0],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None,
+               "randint_ms": _device_ms(torch, randint, 10)[0]}
+        out.append(row)
+        print(json.dumps(row))
+        torch.cuda.empty_cache()
+    # the weights' affine uniform draw (lo = 0 and lo != 0) at the same rows
+    for scale, offset in ((0.5, None), (-1.3, 0.25)):
+        got = TFK.threefry_draw(rks, k, "uniform", scale, offset)
+        want = R.threefry_draw_ref(rks, k, "uniform", scale, offset)
+        check(bool(torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))),
+              f"affine uniform draw ({scale}, {offset}): not bit-equal")
+    print(f"  affine uniform draws at [{n}, {k}] bit-equal to the plain "
+          "version (lo = 0 and lo != 0)")
+    return out
 
 
 def _kernel_modules():
@@ -1500,6 +1657,8 @@ def plain_versions():
             mock.patch.object(SSD, "ssd_scan", SSD._plain), \
             mock.patch.object(TFK, "threefry_split", R.threefry_split_ref), \
             mock.patch.object(TFK, "threefry_draw", R.threefry_draw_ref), \
+            mock.patch.object(TFK, "threefry_fold_in",
+                              R.threefry_fold_in_ref), \
             mock.patch.object(SBK, "spike_bitmask", R.spike_bitmask_ref), \
             mock.patch.object(SBK, "spike_bitmask_into", _bitmask_into_ref):
         yield
@@ -1898,10 +2057,10 @@ def sweep(torch, report, model) -> None:
                            "pick": pick.__dict__, "eager_vs_graph": graph}
 
 
-def build_delay_model(torch):
+def build_delay_model(torch, init: str = "host"):
     """Phase 5's net: the main path's, with per-synapse delays
-    ``UniformIntDelay(0, DELAY["max_delay"])`` on the excitatory groups.
-    Returns (model, build seconds)."""
+    ``UniformIntDelay(0, DELAY["max_delay"])`` on the excitatory groups,
+    built with ``init``.  Returns (model, build seconds)."""
     from repro_torch.core.models import izhikevich_net as IZ
     from repro_torch.core.snn.spec import ModelSpec
     from repro_torch.sparse.formats import UniformIntDelay
@@ -1920,7 +2079,7 @@ def build_delay_model(torch):
             delay=(UniformIntDelay(0, DELAY["max_delay"])
                    if sp.name == "exc" else None))
     t0 = time.perf_counter()
-    model = ms.build(dt=cfg.dt, seed=cfg.seed)
+    model = ms.build(dt=cfg.dt, seed=cfg.seed, init=init)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
@@ -2588,6 +2747,217 @@ def train_step_check(torch, report) -> None:
                          "max_rel_grad_err": rel}
             del params, opt, step_fn, gk, gp
             torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: on-device construction and the SNN benchmark scripts
+# ---------------------------------------------------------------------------
+def _population_arrays(torch, model, sp) -> dict:
+    """post_ind, g, valid and delay of synapse population ``sp`` (a spec
+    entry), [n_pre, K] on the card, put back together from the groups the
+    build split it into by post population (a slot is valid in one)."""
+    groups = {g.name: g.ell for g in model.network.synapses}
+    out, lo = {}, 0
+    for pname, gname in zip(sp.post, sp.group_names()):
+        e = groups[gname]
+        if not out:
+            out = {"post_ind": torch.zeros_like(e.post_ind),
+                   "g": torch.zeros_like(e.g),
+                   "valid": torch.zeros_like(e.valid),
+                   "delay": (None if e.delay is None
+                             else torch.zeros_like(e.delay))}
+        out["post_ind"] = torch.where(e.valid, e.post_ind + lo,
+                                      out["post_ind"])
+        out["g"] = torch.where(e.valid, e.g, out["g"])
+        if e.delay is not None:
+            out["delay"] = torch.where(e.valid, e.delay, out["delay"])
+        check(not bool((out["valid"] & e.valid).any()),
+              f"{gname}: a slot valid in two groups")
+        out["valid"] = out["valid"] | e.valid
+        lo += model.network.populations[pname].n
+    return out
+
+
+def _build_spans(events) -> list:
+    """Each synapse population's ``device_init`` span (seconds) with the
+    redraw rounds its samplers reported inside it, in build order."""
+    out, rounds = [], []
+    for e in events:
+        if e.get("name") == "device_init.redraw":
+            rounds.append(e["args"]["rounds"])
+        elif e.get("name") == "device_init" and e.get("ph") == "X":
+            out.append({"group": e["args"]["group"],
+                        "rows": e["args"]["rows"],
+                        "n_post": e["args"]["n_post"],
+                        "seconds": e["dur"] / 1e6, "redraw_rounds": rounds})
+            rounds = []
+    return out
+
+
+def _device_build(torch, what: str, build, host_build_s) -> tuple:
+    """Build ``what``'s net with init="device" (``build()`` -> (model,
+    seconds)) and check it: every row k distinct sorted targets, the
+    first and sampled rows equal to a CPU build of those rows through the
+    plain versions bit for bit, the whole graph's digest the JAX package's.
+    Returns (the numbers, the model, the build's launches)."""
+    import numpy as np
+    from experiments.graph_digest import FIELDS, graph_digest
+    from repro_torch import random as RND
+    from repro_torch.obs import trace
+    from repro_torch.sparse import device_init as DI
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trace.clear()
+    reset_launches()
+    model, build_s = build()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    resident = torch.cuda.memory_allocated() - mem0
+    spans = _build_spans(trace.events())
+    print(f"{what}: built on the card in {build_s:.3f} s (host build "
+          f"{host_build_s if host_build_s is None else round(host_build_s, 3)}"
+          f" s); peak {peak} B above the {mem0} B before it, {resident} B "
+          f"resident after; launches {launches}")
+    for sp in spans:
+        print(f"  device_init {sp['group']}: {sp['seconds']:.4f} s, "
+              f"{sp['rows']} rows, redraw rounds {sp['redraw_rounds']}")
+    check(launches["threefry_draw.randint"] > 0
+          and launches["threefry_fold_in"] > 0,
+          f"{what}: the construction kernels did not launch: {launches}")
+    rng = np.random.default_rng(CONSTRUCT_CHECK["seed"])
+    seed = model.simulator.seed
+    checked = {}
+    for sidx, sp in enumerate(model.spec.synapses):
+        n_pre = model.spec.populations[sp.pre].n
+        n_post = sum(model.spec.populations[p].n for p in sp.post)
+        k = sp.connect.n_conn
+        arr = _population_arrays(torch, model, sp)
+        post = arr["post_ind"]
+        check(bool(arr["valid"].all()) and post.shape == (n_pre, k)
+              and bool((post[:, 1:] > post[:, :-1]).all())
+              and int(post.min()) >= 0 and int(post.max()) < n_post,
+              f"{what} {sp.name}: a row without {k} distinct sorted targets")
+        first = CONSTRUCT_CHECK["first_rows"]
+        rest = rng.choice(np.arange(first, n_pre), size=min(
+            CONSTRUCT_CHECK["sampled_rows"], n_pre - first), replace=False)
+        rows = torch.from_numpy(np.concatenate(
+            [np.arange(first), np.sort(rest)]).astype(np.int32))
+        key = RND.fold_in(RND.PRNGKey(seed), sidx)
+        t0 = time.perf_counter()
+        cpu = dict(zip(("post_ind", "g", "valid"), DI.device_resolve(
+            sp.connect, key, n_pre, n_post, sp.weight, rows=rows)))
+        cpu["delay"] = (None if sp.delay is None else DI.device_delays(
+            key, n_pre, k, sp.delay, rows=rows))
+        cpu_s = time.perf_counter() - t0
+        at = rows.to(post.device).long()
+        for f in ("post_ind", "g", "valid", "delay"):
+            if cpu[f] is None:
+                check(arr[f] is None, f"{what} {sp.name}: a {f} array")
+                continue
+            x = arr[f].index_select(0, at).cpu()
+            y = cpu[f]
+            if f == "g":
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            check(bool(torch.equal(x, y)),
+                  f"{what} {sp.name}: {f} of the checked rows differs from "
+                  "the CPU build through the plain versions")
+        checked[sp.name] = {"rows": int(rows.numel()), "cpu_s": cpu_s}
+        print(f"  {sp.name}: {rows.numel()} rows equal to the CPU build "
+              f"bit for bit ({cpu_s:.2f} s on the CPU); every row {k} "
+              "distinct sorted targets")
+        del arr, post
+    t0 = time.perf_counter()
+    digest = graph_digest(
+        (g.name, {f: getattr(g.ell, f) for f in FIELDS})
+        for g in model.network.synapses)
+    digest_s = time.perf_counter() - t0
+    key = "delay" if "delayed" in model.spec.name else "main"
+    print(f"  digest {digest} ({digest_s:.2f} s); the JAX package's "
+          f"{DEVICE_INIT_DIGESTS[key]}")
+    check(digest == DEVICE_INIT_DIGESTS[key],
+          f"{what}: the graph's digest differs from the JAX package's")
+    out = {"build_s": build_s, "host_build_s": host_build_s,
+           "peak_bytes": peak, "resident_bytes": resident,
+           "bytes_before": mem0, "spans": spans, "launches": launches,
+           "rows_checked": checked, "digest": digest,
+           "digest_s": digest_s}
+    return out, model, launches
+
+
+def _run_script(torch, name: str, env: dict, out_dir) -> dict:
+    """One benchmark script's ``main`` in this process with its env knobs
+    (restored after); its JSON is printed on a line of its own."""
+    import importlib
+    import os
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        mod = importlib.import_module(f"benchmarks.{name}_torch")
+        payload = mod.main(["--out", str(out_dir)])
+        secs = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    print(f"{name}_torch ({secs:.1f} s): " + json.dumps(payload,
+                                                         default=float))
+    return {"seconds": secs, "result": payload}
+
+
+def device_construction(torch, report) -> dict:
+    """Phase 12: main's and the delayed net built on the card (init=
+    "device") and checked, the device-built main net replayed for
+    MAIN["steps"] steps bit-equal to its eager run, and the four SNN
+    benchmark scripts at the main path's width.  Returns the launches of
+    main's build."""
+    from repro_torch.core.models import izhikevich_net as IZ
+    with phase("12. on-device construction and the SNN benchmark "
+               "scripts"):
+        cfg = IZ.IzhikevichNetConfig(n_total=MAIN["n_total"],
+                                     n_conn=MAIN["n_conn"],
+                                     representation="sparse")
+
+        def build_main():
+            t0 = time.perf_counter()
+            m = IZ.compile_model(cfg, init="device")
+            torch.cuda.synchronize()
+            return m, time.perf_counter() - t0
+
+        main, model, launches = _device_build(
+            torch, "12a main", build_main,
+            report.get("main", {}).get("build_s"))
+        graph, runs, _ = _eager_vs_graph(torch, model, "12c device-built "
+                                         "main", MAIN["steps"])
+        rates = {k: float(v) for k, v in runs[0].rates_hz.items()}
+        check(bool(runs[0].finite) and all(
+            0.0 < r < float("inf") for r in rates.values()),
+            f"12c: the device-built net's run: finite "
+            f"{bool(runs[0].finite)}, rates {rates}")
+        us = graph["sets"][0]["graph_us_per_step"]
+        ref = report.get("main", {}).get("eager_vs_graph", {})
+        ref_us = ref["sets"][0]["graph_us_per_step"] if ref else None
+        print(f"12c: device-built main replayed {us:.1f} us/step (phase 3's "
+              f"host-built {ref_us if ref_us is None else round(ref_us, 1)});"
+              f" rates Hz {rates} ({report['nvidia_smi']})")
+        main.update({"eager_vs_graph": graph, "rates_hz": rates,
+                     "us_per_step": us, "phase3_us_per_step": ref_us})
+        del model, runs
+        delay, model, _ = _device_build(
+            torch, "12b delay", lambda: build_delay_model(torch, "device"),
+            report.get("delay", {}).get("build_s"))
+        del model
+        out_dir = ROOT / "chiprun_out" / "phase12_bench"
+        scripts = {name: _run_script(torch, name, env, out_dir)
+                   for name, env in SCRIPTS}
+        report["construction"] = {"main": main, "delay": delay,
+                                  "scripts": scripts}
+        return launches
 
 
 # ---------------------------------------------------------------------------

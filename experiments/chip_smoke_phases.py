@@ -7,7 +7,9 @@ Labels: 2 (the ELL kernels and the ring fold), 2b (the neuron kernels), 2f
 9b (main observed; reads phase 3's profile, so list 3 first), 6a (the
 NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
 list 6a first), 10 (the occupancy model against the runtime, and the
-paper's experiment at full width) and 11 (SNN serving at full width).
+paper's experiment at full width), 11 (SNN serving at full width) and 12
+(on-device construction and the SNN benchmark scripts; reads phases 3's
+and 5's host builds and phase 3's us/step when they ran before it).
 Default:
 ``9a 3 9b 6a 9c``, in that order.  Phase 1 (the card and the kernel build)
 always runs first.  The phases print what ``chip_smoke.py`` prints; the
@@ -54,6 +56,8 @@ def main(labels) -> int:
             CS.delay_path(torch, report)
         elif label == "11":
             CS.serve_snn(torch, report)
+        elif label == "12":
+            CS.device_construction(torch, report)
         elif label == "9b":
             CS.main_observed(torch, report)
         elif label == "6a":

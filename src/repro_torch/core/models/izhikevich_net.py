@@ -81,8 +81,9 @@ def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
 
 
 def compile_model(cfg: IzhikevichNetConfig, device=None,
-                  monitor=None) -> CompiledModel:
+                  monitor=None, init: str = "host") -> CompiledModel:
     """Build the net on ``device`` ("cuda" unless the caller asks), with
-    the health monitor ``monitor`` (a HealthConfig) if given."""
+    the health monitor ``monitor`` (a HealthConfig) if given; ``init``
+    ("host" or "device") is ``ModelSpec.build``'s."""
     return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device,
-                           monitor=monitor)
+                           monitor=monitor, init=init)

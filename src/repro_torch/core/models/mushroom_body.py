@@ -122,11 +122,12 @@ def spec(cfg: MushroomBodyConfig) -> ModelSpec:
 
 
 def compile_model(cfg: MushroomBodyConfig, device=None,
-                  monitor=None) -> CompiledModel:
+                  monitor=None, init: str = "host") -> CompiledModel:
     """Build the net on ``device`` ("cuda" unless the caller asks), with
-    the health monitor ``monitor`` (a HealthConfig) if given."""
+    the health monitor ``monitor`` (a HealthConfig) if given; ``init``
+    ("host" or "device") is ``ModelSpec.build``'s."""
     return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device,
-                           monitor=monitor)
+                           monitor=monitor, init=init)
 
 
 def build(cfg: MushroomBodyConfig, device=None) -> tuple[Network, Simulator]:

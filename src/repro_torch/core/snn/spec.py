@@ -1,11 +1,13 @@
 """ModelSpec: the declarative front-end for spiking networks.
 
-Counterpart of ``repro/core/snn/spec.py``, host-init path.  The network is
-declared as data and code snippets, then `build` validates the spec,
-resolves the seeded connectivity initializers on the host (numpy, in
-declaration order: the same spec and seed give the JAX package's graph bit
-for bit), runs the paper's representation choice (eqs. (1)/(2)), moves the
-graph to the device and generates the simulator.
+Counterpart of ``repro/core/snn/spec.py``.  The network is declared as
+data and code snippets, then `build` validates the spec, resolves the
+seeded connectivity initializers (``init="host"``: numpy on the host, in
+declaration order, then moved to the device; ``init="device"``:
+``repro_torch.sparse.device_init`` on the device itself, from counter-based
+threefry keys; either way the same spec and seed give the JAX package's
+graph of that ``init`` bit for bit), runs the paper's representation
+choice (eqs. (1)/(2)) and generates the simulator.
 
     spec = ModelSpec("demo")
     spec.add_neuron_population("exc", 160, "izhikevich", input_fn=thalamic)
@@ -40,8 +42,8 @@ Serving: ``init_stream_state`` / ``select_streams`` / ``serve_chunk`` and
 being the batch axis; ``serve_chunk`` replays one CUDA graph a
 configuration.
 
-Not ported yet: on-device construction (``init="device"``), meshes (ROADMAP
-Queue 1 item 7) and ``plan``.  Asking for them raises NotImplementedError.
+Not ported yet: meshes (ROADMAP Queue 1 item 7) and ``plan``.  Asking for
+a mesh raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
+from repro_torch import random as RND
 from repro_torch._device import resolve_device
 from repro_torch.core.codegen import (NeuronModel, PostsynapticModel,
                                       WeightUpdateModel, assigned_names)
@@ -68,6 +71,7 @@ from repro_torch.core.snn.synapses import PROPAGATIONS, Pulse, SynapseGroup
 from repro_torch.kernels import autotune as AT
 from repro_torch.obs import trace
 from repro_torch.obs.health import HealthConfig
+from repro_torch.sparse import device_init as DI
 from repro_torch.sparse import formats as F
 
 __all__ = ["ModelSpec", "CompiledModel", "SweepResult", "SpecError",
@@ -117,6 +121,17 @@ class SynapsePopSpec:
         if len(self.post) == 1:
             return [self.name]
         return [f"{self.name}_{p}" for p in self.post]
+
+
+def _where(xp, mask, a, b, dtype):
+    """``where(mask, a, b)`` as ``dtype`` in numpy (a host build) or torch
+    (a device build, on the mask's device)."""
+    if xp is np:
+        return np.where(mask, a, b).astype(dtype)
+    if not isinstance(a, torch.Tensor):
+        a = torch.tensor(a, device=mask.device)
+    return torch.where(mask, a, torch.tensor(b, dtype=a.dtype,
+                                             device=mask.device)).to(dtype)
 
 
 def _as_weight_fn(weight: WeightInit):
@@ -433,10 +448,23 @@ class ModelSpec:
     # -- build ------------------------------------------------------------
     def build(self, dt: float = 0.5, seed: int = 0, init: str = "host",
               device=None, mesh=None, monitor=None) -> "CompiledModel":
-        """Validate, resolve connectivity on the host (seeded numpy, in
-        declaration order) and generate the simulator on ``device``
-        ("cuda" unless the caller asks for another; raises when no card is
-        present and none was asked for).
+        """Validate, resolve connectivity (seeded) and generate the
+        simulator on ``device`` ("cuda" unless the caller asks for another;
+        raises when no card is present and none was asked for).
+
+        init="host" (default): initializers are resolved in declaration
+        order from one numpy generator seeded with ``seed`` and the graph is
+        copied to the device.
+
+        init="device": connectivity is generated on ``device`` itself by
+        ``repro_torch.sparse.device_init`` (the threefry kernels on a card,
+        their plain versions on the CPU), O(nnz) memory, counter-based: the
+        base key is ``PRNGKey(seed)`` and synapse population i's key
+        ``fold_in(base, i)``, so the graph equals the JAX package's
+        ``build(init="device")`` whatever the row chunking.  Weights must be
+        snippets (UniformWeight / NormalWeight / ConstantWeight) or scalars;
+        per-synapse delays are DelaySnippets, drawn through the same key
+        schedule.
 
         monitor: a ``repro_torch.obs.health.HealthConfig``: the run
         accumulates spike totals, rate EMAs, silent/saturated bands and the
@@ -445,9 +473,12 @@ class ModelSpec:
         it).
 
         Build phases are trace spans (``repro_torch.obs.trace``) under the
-        JAX package's names: ``build``, ``validate``, ``host_init`` per
+        JAX package's names: ``build``, ``validate``, ``host_init`` (or
+        ``device_init``, its time including the device's work) per
         synapse population, ``codegen``, and a ``choose_block_spmv``
-        instant per group (the rows the ELL kernel would walk)."""
+        instant per group (the rows the ELL kernel would walk); a device
+        build's samplers add ``device_init.redraw`` instants (their redraw
+        rounds)."""
         with trace.span("build", model=self.name, init=init,
                         sharded=mesh is not None):
             return self._build(dt=dt, seed=seed, init=init, device=device,
@@ -460,6 +491,7 @@ class ModelSpec:
             self._validate_build(init, mesh, monitor)
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
+        base_key = RND.PRNGKey(seed, device=dev) if init == "device" else None
         mutable = self._mutable_groups()
         net = Network(name=self.name)
         for pop in self.populations.values():
@@ -468,7 +500,7 @@ class ModelSpec:
                 params={k: _param_on(v, dev) for k, v in pop.params.items()},
                 input_fn=pop.input_fn, edge_spikes=pop.edge_spikes)
 
-        for sp in self.synapses:
+        for sidx, sp in enumerate(self.synapses):
             n_pre = self.populations[sp.pre].n
             sizes = [self.populations[p].n for p in sp.post]
             n_post_total = int(sum(sizes))
@@ -492,18 +524,29 @@ class ModelSpec:
                         f"capacity MAX_DELAY_STEPS={MAX_DELAY_STEPS}")
                 delay_steps = steps
 
-            try:
-                with trace.span("host_init", group=sp.name, rows=n_pre,
-                                n_post=n_post_total):
-                    post_ind, g, valid = sp.connect.resolve(
-                        rng, n_pre, n_post_total, _as_weight_fn(sp.weight))
-            except ValueError as e:
-                raise SpecError(f"{where}: {e}") from None
-            # delays draw from the same rng *after* connectivity and
-            # weights, so delay-free specs reproduce their graphs bit for bit
-            dd = None if sp.delay is None else sp.delay(rng, post_ind.shape)
+            if init == "device":
+                post_ind, g, valid, dd = self._device_init(
+                    sp, base_key, sidx, n_pre, n_post_total, where)
+                xp = torch
+            else:
+                try:
+                    with trace.span("host_init", group=sp.name, rows=n_pre,
+                                    n_post=n_post_total):
+                        post_ind, g, valid = sp.connect.resolve(
+                            rng, n_pre, n_post_total,
+                            _as_weight_fn(sp.weight))
+                except ValueError as e:
+                    raise SpecError(f"{where}: {e}") from None
+                # delays draw from the same rng *after* connectivity and
+                # weights, so delay-free specs reproduce their graphs bit
+                # for bit
+                dd = (None if sp.delay is None
+                      else sp.delay(rng, post_ind.shape))
+                xp = np
+            # zero delay draws in invalid slots (the ELLSynapses contract:
+            # invalid slots -> 0)
             if dd is not None:
-                dd = np.where(valid, dd, 0).astype(np.int32)
+                dd = _where(xp, valid, dd, 0, xp.int32)
             lo = 0
             for pname, n_p, gname in zip(sp.post, sizes, sp.group_names()):
                 hi = lo + n_p
@@ -511,11 +554,11 @@ class ModelSpec:
                     idx, gg, vv, dv = post_ind, g, valid, dd
                 else:
                     mask = (post_ind >= lo) & (post_ind < hi) & valid
-                    idx = np.where(mask, post_ind - lo, 0).astype(np.int32)
-                    gg = np.where(mask, g, 0.0).astype(np.float32)
+                    idx = _where(xp, mask, post_ind - lo, 0, xp.int32)
+                    gg = _where(xp, mask, g, 0.0, xp.float32)
                     vv = mask
                     dv = (None if dd is None
-                          else np.where(mask, dd, 0).astype(np.int32))
+                          else _where(xp, mask, dd, 0, xp.int32))
                 try:
                     # SynapseGroup owns the representation conflict rules
                     # (dense vs a custom update writing g included)
@@ -556,11 +599,35 @@ class ModelSpec:
                             custom_updates=custom, monitor=monitor)
         return CompiledModel(spec=self, network=net, simulator=sim)
 
+    @staticmethod
+    def _device_init(sp: SynapsePopSpec, base_key: torch.Tensor, sidx: int,
+                     n_pre: int, n_post_total: int, where: str) -> tuple:
+        """(post_ind, g, valid, delay or None) of synapse population ``sp``
+        (the ``sidx``-th), generated on the base key's device from
+        ``fold_in(base_key, sidx)``.  The span's time includes the device's
+        work (it synchronizes the card at its end: a build-time wait)."""
+        key = RND.fold_in(base_key, sidx)
+        try:
+            with trace.span("device_init", group=sp.name, rows=n_pre,
+                            n_post=n_post_total):
+                post_ind, g, valid = DI.device_resolve(
+                    sp.connect, key, n_pre, n_post_total, sp.weight)
+                dd = (None if sp.delay is None
+                      else DI.device_delays(key, n_pre, post_ind.shape[1],
+                                            sp.delay))
+                if key.device.type == "cuda":
+                    torch.cuda.synchronize(key.device)
+        except (ValueError, TypeError, NotImplementedError) as e:
+            # TypeError here is the declaration check (numpy weight
+            # callables cannot run on the device), not a user bug
+            raise SpecError(f"{where}: {e}") from None
+        return post_ind, g, valid, dd
+
     def _validate_build(self, init: str, mesh, monitor) -> None:
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (the sharded engine, ROADMAP Queue 1 item 7) is not "
-                "ported to repro_torch yet")
+                "mesh= (the sharded engine and device_init_local, ROADMAP "
+                "Queue 1 item 7) is not ported to repro_torch yet")
         if monitor is not None:
             if not isinstance(monitor, HealthConfig):
                 raise SpecError(f"monitor must be a HealthConfig, got "
@@ -569,11 +636,7 @@ class ModelSpec:
                 monitor.validate(self.populations)
             except ValueError as e:
                 raise SpecError(f"monitor: {e}") from None
-        if init == "device":
-            raise NotImplementedError(
-                "init='device' (on-device construction) is not ported to "
-                "repro_torch yet; use init='host'")
-        if init != "host":
+        if init not in ("host", "device"):
             raise SpecError(f"init must be 'host' or 'device', got {init!r}")
         if not self.populations:
             raise SpecError(f"model {self.name!r} declares no populations")

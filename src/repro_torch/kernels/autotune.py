@@ -112,7 +112,8 @@ KERNELS: Dict[str, KernelInfo] = {
               ELEMENTWISE_BLOCKS),
     **_family("neuron_step", ["izhikevich_step", "hh_step"],
               ELEMENTWISE_BLOCKS),
-    **_family("threefry", ["threefry_split", "threefry_draw"],
+    **_family("threefry", ["threefry_split", "threefry_draw",
+                           "threefry_fold_in"],
               ELEMENTWISE_BLOCKS),
     **_family("spike_bitmask", ["spike_bitmask"], ELEMENTWISE_BLOCKS),
     # designed tiles: the blocks the wgmma / mma shapes fix

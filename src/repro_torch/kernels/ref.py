@@ -38,7 +38,11 @@ arithmetic done in int64 masked to 32 bits, keys and bits as int32 tensors
 holding the uint32 bit patterns.  Keys, bits and uniforms equal
 ``jax.random``'s bit for bit; normals go through XLA's float32 ``erf_inv``
 polynomial (``erf_inv_ref``) and agree within a few ulp, as ``log1p``
-differs between libraries.
+differs between libraries.  ``threefry_fold_in_ref`` folds a word into
+each of many keys, and the "randint" draw is ``jax.random.randint`` over
+int32; ``fma_f32`` is a float32 fused multiply-add rounded once (the
+product and sum in float64, rounded to odd, then to float32), the affine
+draw's ``lo + (hi - lo) * u`` as XLA's CPU backend contracts it.
 
 ``spike_bitmask_ref`` is GeNN's 32x spike packing, as the JAX package's
 ``bitmask.pack_spikes`` computes it: bool [B, n] -> words [B, W] stored as
@@ -60,6 +64,7 @@ __all__ = ["ell_spmv_ref", "ell_spmv_delay_ref", "ell_spmv_delay_into_ref",
            "izhikevich_step_ref", "hh_step_ref", "flash_attention_ref", "flash_attention_fwd_ref",
            "flash_attention_bwd_ref", "ssd_scan_ref", "chunk_size",
            "threefry2x32_ref", "threefry_split_ref", "threefry_draw_ref",
+           "threefry_fold_in_ref", "fma_f32",
            "erf_inv_ref", "DRAWS", "spike_bitmask_ref",
            "spike_bitmask_into_ref"]
 
@@ -382,7 +387,7 @@ def ssd_scan_ref(x, dt, A, B, C, D=None):
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-DRAWS = ("bits", "uniform", "normal")
+DRAWS = ("bits", "uniform", "normal", "randint")
 # normal's uniform range starts at nextafter(-1, 0) in float32
 _NORMAL_LO = -0.99999994039535522
 # XLA's float32 erf_inv (Giles): coefficients for w < 5 and for w >= 5
@@ -436,6 +441,29 @@ def threefry_split_ref(keys: torch.Tensor, num: int,
     return _as_i32(torch.stack([b0, b1], dim=-1))
 
 
+def sqrt_f32(w: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt of ``w``, correctly rounded whatever the library's
+    sqrt returns: two Newton steps in float64 from it, then the float32
+    root moved to the neighbour whose rounding interval holds the exact
+    root (a midpoint of two float32 numbers, squared, is exact in float64
+    and never equals a float32 w).  On the CPU, torch's sqrt of a large
+    tensor goes to MKL on its worker threads, and a whole thread's chunk
+    of a process's first call has come back ~1e-4 off."""
+    w64 = w.double()
+    s = torch.sqrt(w64)
+    ok = torch.isfinite(s) & (s > 0)
+    for _ in range(2):
+        s = torch.where(ok, 0.5 * (s + w64 / s), s)
+    c = s.float()
+    c64 = c.double()
+    below = torch.nextafter(c, torch.zeros_like(c))
+    above = torch.nextafter(c, torch.full_like(c, float("inf")))
+    c = torch.where(ok & (((c64 + below.double()) * 0.5) ** 2 > w64),
+                    below, c)
+    return torch.where(ok & (((c64 + above.double()) * 0.5) ** 2 < w64),
+                       above, c)
+
+
 def erf_inv_ref(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 erf_inv as its CPU backend computes it: w =
     -log1p(-x*x); Giles' polynomial in w - 2.5 (w < 5) or sqrt(w) - 3 by
@@ -444,7 +472,7 @@ def erf_inv_ref(x: torch.Tensor) -> torch.Tensor:
     at +-1."""
     w = -torch.log1p(x * -x)
     small = w < 5.0
-    z = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    z = torch.where(small, w - 2.5, sqrt_f32(w) - 3.0).double()
 
     def coef(i):
         return torch.where(small, torch.tensor(_ERFINV_SMALL[i]),
@@ -455,15 +483,40 @@ def erf_inv_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as ``fmaf`` rounds it: the
+    product of two float32 numbers is exact in float64, their sum with c
+    is rounded there to odd (the nearest float64, moved one step towards
+    the exact sum where it is inexact and its last bit even), and that
+    rounds to the nearest float32 as the exact sum would."""
+    a = a.double()
+    b = torch.as_tensor(b, dtype=torch.float32, device=a.device).double()
+    c = torch.as_tensor(c, dtype=torch.float32, device=a.device).double()
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)          # p + c == s + err exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def threefry_draw_ref(keys: torch.Tensor, n: int, dist: str,
-                      scale: float = 1.0) -> torch.Tensor:
+                      scale: float = 1.0, offset: Optional[float] = None, *,
+                      lo: int = 0, span: Optional[int] = None
+                      ) -> torch.Tensor:
     """keys [B, 2] -> [B, n]: member b's ``jax.random.bits`` (int32 holding
     the uint32 bits), ``uniform`` in [0, 1) or ``normal`` of shape (n,)
     under keys[b] (element j hashes the counter (j >> 32, j & 0xFFFFFFFF)
     and keeps the xor of the two words).  Draws are float32; ``scale``
-    (float32) multiplies them after the draw."""
+    (float32) multiplies them after the draw, or with an ``offset``
+    ``fma_f32(draw, scale, offset)``.  The "randint" draw is int32
+    ``jax.random.randint(keys[b], (n,), lo, lo + span)`` (``_randint_ref``)."""
     if dist not in DRAWS:
         raise ValueError(f"dist must be one of {DRAWS}, got {dist!r}")
+    if dist == "randint":
+        return _randint_ref(keys, n, lo, span)
     k0, k1 = _key_words(keys)
     j = torch.arange(n, dtype=torch.int64, device=keys.device)
     b0, b1 = threefry2x32_ref(k0, k1, j >> 32, j & _M32)
@@ -475,7 +528,46 @@ def threefry_draw_ref(keys: torch.Tensor, n: int, dist: str,
     if dist == "normal":
         u = torch.clamp(f * 2.0 + _NORMAL_LO, min=_NORMAL_LO)
         f = erf_inv_ref(u) * _SQRT2_F32
+    if offset is not None:
+        return fma_f32(f, scale, offset)
     return f * scale if scale != 1.0 else f
+
+
+def threefry_fold_in_ref(keys: torch.Tensor, data) -> torch.Tensor:
+    """keys [B, 2] (or [1, 2] for every row) and data (an int32 [B] tensor
+    of uint32 bits, or one uint32) -> [B, 2]: ``fold_in(keys[b],
+    data[b])``, the hash of the counter (0, data[b])."""
+    k0, k1 = _key_words(keys)
+    if isinstance(data, torch.Tensor):
+        d = _u32(data)
+    else:
+        d = torch.full((keys.shape[0],), int(data) & _M32,
+                       dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32_ref(k0[:, 0], k1[:, 0], torch.zeros_like(d), d)
+    return _as_i32(torch.stack([b0, b1], dim=-1))
+
+
+def _rem_u32(x: torch.Tensor, span: int) -> torch.Tensor:
+    """x mod span for x in [0, 2^32), and x where span is 0 (XLA's unsigned
+    remainder by zero)."""
+    return x % span if span else x
+
+
+def _randint_ref(keys: torch.Tensor, n: int, lo: int,
+                 span: int) -> torch.Tensor:
+    """keys [R, 2] -> [R, n] int32: ``jax.random.randint(keys[r], (n,),
+    lo, lo + span)`` for an int32 ``lo`` and a uint32 ``span`` (0 standing
+    for 2^32): k1, k2 = split(key); offset = ((hi mod span) * m + lo_bits
+    mod span) mod span in uint32 arithmetic, m = (2^16 mod span)^2 mod
+    span; uint32 held in int64."""
+    sub = threefry_split_ref(keys, 2)
+    hi = _u32(threefry_draw_ref(sub[:, 0], n, "bits"))
+    lob = _u32(threefry_draw_ref(sub[:, 1], n, "bits"))
+    m0 = 65536 % span if span else 65536
+    mult = ((m0 * m0) & _M32) % span if span else (m0 * m0) & _M32
+    off = _rem_u32(((_rem_u32(hi, span) * mult) + _rem_u32(lob, span))
+                   & _M32, span)
+    return _as_i32((off + (int(lo) & _M32)) & _M32)
 
 
 # -- spike bitmask -------------------------------------------------------------

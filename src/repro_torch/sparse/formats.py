@@ -7,8 +7,12 @@ numpy copies of the host initializers.  The initializers consume the numpy
 generator in the same order as the JAX package's, so the same seed gives
 bit-identical graphs in both packages.
 
-Only the host path is ported here (``__call__`` / ``resolve``); the
-initializers' on-device ``device`` methods are not.
+The weight and delay initializers also carry the JAX package's
+``device(key, shape)`` path, over the port's threefry keys (int32 [..., 2]
+tensors, ``repro_torch.random``): one draw of ``shape`` per key, on the
+key's device, bit-equal to JAX's (the normal within its 4 ulp).  The
+connectivity initializers' on-device counterparts are in
+``repro_torch.sparse.device_init``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import random as RND
+from repro_torch.kernels import threefry as _tf
 
 __all__ = [
     "ELLSynapses",
@@ -118,15 +125,21 @@ def ell_to_dense(s: ELLSynapses) -> torch.Tensor:
     return w
 
 
-def triple_to_ell(post_ind: np.ndarray, g: np.ndarray, valid: np.ndarray,
-                  n_post: int, delay: Optional[np.ndarray] = None,
+def triple_to_ell(post_ind, g, valid, n_post: int, delay=None,
                   device=None) -> ELLSynapses:
-    """ELL container on ``device`` from a resolved host connectivity triple
-    (plus an optional per-synapse dendritic-delay slot).
+    """ELL container on ``device`` from a resolved connectivity triple
+    (plus an optional per-synapse dendritic-delay slot): host numpy arrays
+    (copied to ``device``, default the CPU), or tensors from on-device
+    construction (kept where they lie when ``device`` is None or theirs;
+    never copied through the host).
 
     The arrays index the propagation ops' outputs, so they are checked
     here, where they enter: every slot (invalid ones hold 0) must target
-    ``[0, n_post)`` and valid delays must be non-negative."""
+    ``[0, n_post)`` and valid delays must be non-negative.  On tensors the
+    checks are reductions on their device, read once."""
+    if isinstance(post_ind, torch.Tensor):
+        return _tensor_triple_to_ell(post_ind, g, valid, n_post, delay,
+                                     device)
     post_ind = np.asarray(post_ind, np.int32)
     valid = np.asarray(valid, bool)
     g = np.asarray(g, np.float32)
@@ -153,14 +166,53 @@ def triple_to_ell(post_ind: np.ndarray, g: np.ndarray, valid: np.ndarray,
         delay=None if delay is None else torch.tensor(delay, device=dev))
 
 
+def _tensor_triple_to_ell(post_ind: torch.Tensor, g: torch.Tensor,
+                          valid: torch.Tensor, n_post: int,
+                          delay: Optional[torch.Tensor],
+                          device) -> ELLSynapses:
+    dev = post_ind.device if device is None else torch.device(device)
+    post_ind = post_ind.to(dev, torch.int32)
+    g = g.to(dev, torch.float32)
+    valid = valid.to(dev, torch.bool)
+    if post_ind.dim() != 2 or valid.shape != post_ind.shape \
+            or g.shape != post_ind.shape:
+        raise ValueError(f"ELL triple shapes differ: post_ind "
+                         f"{tuple(post_ind.shape)}, g {tuple(g.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    bad = ((post_ind < 0) | (post_ind >= n_post)).any()
+    if delay is not None:
+        delay = delay.to(dev, torch.int32)
+        if delay.shape != post_ind.shape:
+            raise ValueError(f"delay shape {tuple(delay.shape)} != synapse "
+                             f"shape {tuple(post_ind.shape)}")
+        bad = torch.stack([bad, ((delay < 0) & valid).any()])
+    bad = bad.reshape(-1).tolist()
+    if bad[0]:
+        raise ValueError(f"post_ind outside [0, {n_post})")
+    if len(bad) > 1 and bad[1]:
+        raise ValueError("negative per-synapse delay")
+    return ELLSynapses(g=g, post_ind=post_ind, valid=valid,
+                       n_post=int(n_post), delay=delay)
+
+
 # ---------------------------------------------------------------------------
-# Weight initializers (GeNN's InitVarSnippet), host path.
+# Weight initializers (GeNN's InitVarSnippet): the host path ``(rng, shape)
+# -> array`` and the device path ``device(key, shape)`` over threefry keys.
 # ---------------------------------------------------------------------------
+
+def _shape(shape) -> tuple:
+    return (int(shape),) if isinstance(shape, int) else tuple(shape)
+
 
 class WeightSnippet:
-    """Base class for weight initializers: ``(rng, shape) -> array``."""
+    """Base class for weight initializers: ``(rng, shape) -> array`` on
+    the host, ``device(key, shape)`` -> float32 [..., *shape] for keys
+    [..., 2]."""
 
     def __call__(self, rng: np.random.Generator, shape) -> np.ndarray:
+        raise NotImplementedError
+
+    def device(self, key: torch.Tensor, shape) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -171,10 +223,17 @@ class ConstantWeight(WeightSnippet):
     def __call__(self, rng, shape) -> np.ndarray:
         return np.full(shape, self.value, np.float32)
 
+    def device(self, key, shape) -> torch.Tensor:
+        return torch.full(key.shape[:-1] + _shape(shape), self.value,
+                          dtype=torch.float32, device=key.device)
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformWeight(WeightSnippet):
-    """U(lo, hi) scaled draws: ``lo + (hi - lo) * rng.random``."""
+    """U(lo, hi) scaled draws: ``lo + (hi - lo) * rng.random`` on the
+    host; on the device ``lo + (hi - lo) * u`` in float32 as XLA's CPU
+    backend compiles the JAX package's draw: one fused multiply-add, and
+    with lo = 0 the add dropped (so u = 0 times a negative hi is -0.0)."""
 
     lo: float = 0.0
     hi: float = 1.0
@@ -182,6 +241,9 @@ class UniformWeight(WeightSnippet):
     def __call__(self, rng, shape) -> np.ndarray:
         return (self.lo + (self.hi - self.lo) * rng.random(shape)).astype(
             np.float32)
+
+    def device(self, key, shape) -> torch.Tensor:
+        return _affine(key, shape, "uniform", self.hi - self.lo, self.lo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +255,22 @@ class NormalWeight(WeightSnippet):
         return (self.mean + self.std * rng.standard_normal(shape)).astype(
             np.float32)
 
+    def device(self, key, shape) -> torch.Tensor:
+        return _affine(key, shape, "normal", self.std, self.mean)
+
+
+def _affine(key: torch.Tensor, shape, dist: str, scale: float,
+            offset: float) -> torch.Tensor:
+    """offset + scale * draw(key, shape) in float32, as one fused
+    multiply-add (a zero offset dropped, as XLA drops it)."""
+    shape = _shape(shape)
+    keys = key.reshape(-1, 2)
+    n = int(np.prod(shape, dtype=np.int64))
+    out = (_tf.threefry_draw(keys, n, dist, scale)
+           if np.float32(offset) == 0.0
+           else _tf.threefry_draw(keys, n, dist, scale, offset))
+    return out.reshape(key.shape[:-1] + shape)
+
 
 # ---------------------------------------------------------------------------
 # Per-synapse delay initializers (GeNN's dendritic-delay model), host path.
@@ -200,7 +278,9 @@ class NormalWeight(WeightSnippet):
 # ---------------------------------------------------------------------------
 
 class DelaySnippet:
-    """Base class for per-synapse delay initializers (in dt steps)."""
+    """Base class for per-synapse delay initializers (in dt steps): host
+    ``(rng, shape)``, device ``device(key, shape)`` -> int32 [..., *shape]
+    for keys [..., 2]."""
 
     @property
     def max_steps(self) -> int:
@@ -208,6 +288,9 @@ class DelaySnippet:
         raise NotImplementedError
 
     def __call__(self, rng: np.random.Generator, shape) -> np.ndarray:
+        raise NotImplementedError
+
+    def device(self, key: torch.Tensor, shape) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -230,6 +313,10 @@ class ConstantDelay(DelaySnippet):
     def __call__(self, rng, shape) -> np.ndarray:
         return np.full(shape, self.steps, np.int32)
 
+    def device(self, key, shape) -> torch.Tensor:
+        return torch.full(key.shape[:-1] + _shape(shape), self.steps,
+                          dtype=torch.int32, device=key.device)
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformIntDelay(DelaySnippet):
@@ -251,6 +338,9 @@ class UniformIntDelay(DelaySnippet):
 
     def __call__(self, rng, shape) -> np.ndarray:
         return rng.integers(self.lo, self.hi + 1, size=shape).astype(np.int32)
+
+    def device(self, key, shape) -> torch.Tensor:
+        return RND.randint(key, shape, self.lo, self.hi + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -726,11 +726,13 @@ def test_cuda_threefry_matches_plain(cuda_device, b, n):
     TFK.reset_launches()
     got_split = TFK.threefry_split(kd, 9)
     draws = {d: TFK.threefry_draw(kd, n, d, 3.5 if d == "normal" else 1.0)
-             for d in TFK.DRAWS}
+             for d in ("bits", "uniform", "normal")}
     # a step's subkeys are a strided column of the split
     col = TFK.threefry_draw(got_split[:, 4], n, "uniform")
     torch.cuda.synchronize()
-    assert TFK.launches == {"threefry_split": 1, "threefry_draw": 4}
+    assert TFK.launches == {"threefry_split": 1, "threefry_draw": 4,
+                            "threefry_draw.randint": 0,
+                            "threefry_fold_in": 0}
     assert torch.equal(got_split.cpu(), TR.threefry_split_ref(keys, 9))
     for d in ("bits", "uniform"):
         assert torch.equal(draws[d].cpu(), TR.threefry_draw_ref(keys, n, d))
@@ -743,6 +745,81 @@ def test_cuda_threefry_matches_plain(cuda_device, b, n):
                                                       3.5)) <= 4
     assert torch.equal(R.fold_in(kd[0], 77).cpu(),
                        R.fold_in(keys[0], 77))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 3, 70_000])
+@pytest.mark.parametrize("lo,hi", [(0, 100_000), (0, 21), (5, 6),
+                                   (0, 2 ** 31 - 1), (-7, 13)])
+def test_cuda_threefry_fold_in_and_randint_match_plain(cuda_device, rows,
+                                                       lo, hi):
+    """The construction's entries past grid axis y's 65535 keys: fold_in
+    by a tensor and by a word, the randint draw at the sampler's spans,
+    and the affine uniform draw (each draw a launch per 65535 keys),
+    bit-equal to their plain versions on the card and on the CPU."""
+    keys = R.split(R.PRNGKey(3), rows)
+    kd = keys.to(cuda_device)
+    data = torch.arange(rows, dtype=torch.int32) * 7 - 3
+    TFK.reset_launches()
+    f1 = TFK.threefry_fold_in(kd, data.to(cuda_device))
+    f2 = TFK.threefry_fold_in(kd[:1], data.to(cuda_device))
+    f3 = TFK.threefry_fold_in(kd, 2 ** 32 - 1)
+    lo_, span = TFK.randint_span(lo, hi)
+    ri = TFK.threefry_draw(kd, 37, "randint", lo=lo_, span=span)
+    aff = TFK.threefry_draw(kd, 37, "uniform", -1.3, 0.25)
+    torch.cuda.synchronize()
+    assert TFK.launches["threefry_fold_in"] == 3
+    assert TFK.launches["threefry_draw.randint"] == -(-rows // 65535)
+    assert TFK.launches["threefry_draw"] == -(-rows // 65535)
+    assert torch.equal(f1.cpu(), TR.threefry_fold_in_ref(keys, data))
+    assert torch.equal(f2.cpu(), TR.threefry_fold_in_ref(keys[:1], data))
+    assert torch.equal(f3.cpu(), TR.threefry_fold_in_ref(keys, 2 ** 32 - 1))
+    assert torch.equal(ri.cpu(), TR.threefry_draw_ref(
+        keys, 37, "randint", lo=lo_, span=span))
+    assert torch.equal(ri, TR.threefry_draw_ref(kd, 37, "randint", lo=lo_,
+                                                span=span))
+    assert torch.equal(aff.cpu().view(torch.int32), TR.threefry_draw_ref(
+        keys, 37, "uniform", -1.3, 0.25).view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_device_build_equals_the_cpu_build(cuda_device):
+    """init="device" on the card: the kernels launch (no CPU fallback) and
+    every group's arrays equal the plain versions' CPU build bit for bit,
+    delays included; the run from graphs equals the eager run."""
+    from repro_torch.core.snn.spec import ModelSpec
+    from repro_torch.sparse import formats as TSF
+
+    def spec():
+        ms = ModelSpec("dev")
+        ms.add_neuron_population("a", 3000, "izhikevich")
+        ms.add_neuron_population("b", 1000, "izhikevich")
+        ms.add_synapse_population("ab", "a", ["a", "b"],
+                                  connect=TSF.FixedFanout(300),
+                                  weight=TSF.UniformWeight(0.0, -0.5),
+                                  delay=TSF.UniformIntDelay(0, 7))
+        ms.add_synapse_population("ba", "b", "a",
+                                  connect=TSF.FixedProbability(0.05),
+                                  weight=TSF.NormalWeight(0.1, 0.02))
+        ms.add_synapse_population("bb", "b", "b",
+                                  connect=TSF.FixedFanout(700), weight=0.2)
+        return ms
+
+    TFK.reset_launches()
+    gd = spec().build(dt=1.0, seed=9, init="device", device=cuda_device)
+    torch.cuda.synchronize()
+    assert TFK.launches["threefry_draw.randint"] > 0
+    assert TFK.launches["threefry_fold_in"] > 0
+    gc = spec().build(dt=1.0, seed=9, init="device", device="cpu")
+    for a, b in zip(gd.network.synapses, gc.network.synapses):
+        for f in ("post_ind", "valid", "delay"):
+            x, y = getattr(a.ell, f), getattr(b.ell, f)
+            assert (x is None and y is None) or torch.equal(x.cpu(), y), f
+        if a.name == "ba":
+            assert _ulp(a.ell.g.cpu(), b.ell.g) <= 4
+        else:
+            assert torch.equal(a.ell.g.cpu().view(torch.int32),
+                               b.ell.g.view(torch.int32)), a.name
 
 
 @pytest.mark.gpu
@@ -1093,7 +1170,10 @@ def test_cuda_every_compiled_block_gives_the_chosen_blocks_result(
         IZ: [lambda: IZ.izhikevich_step(v, u, isyn, pa, pb, pc, pd, 1.0)],
         HH: [lambda: HH.hh_step(hv, hm, hh_, hn, hi, 0.1)],
         TFK: [lambda: TFK.threefry_split(keys, 5),
-              lambda: TFK.threefry_draw(keys, 30_001, "normal", 2.0)],
+              lambda: TFK.threefry_draw(keys, 30_001, "normal", 2.0),
+              lambda: TFK.threefry_fold_in(keys, 77),
+              lambda: TFK.threefry_draw(keys, 30_001, "randint",
+                                        span=100_000)],
         SBK: [lambda: SBK.spike_bitmask(spk)],
         DR: [lambda: DR.delay_ring_fold(ring, acc0.clone(), cur, -1.0,
                                         0.7)],
@@ -1106,7 +1186,10 @@ def test_cuda_every_compiled_block_gives_the_chosen_blocks_result(
                                             1.0)],
         HH: [lambda: TR.hh_step_ref(hv, hm, hh_, hn, hi, 0.1)],
         TFK: [lambda: TR.threefry_split_ref(keys, 5),
-              lambda: TR.threefry_draw_ref(keys, 30_001, "normal", 2.0)],
+              lambda: TR.threefry_draw_ref(keys, 30_001, "normal", 2.0),
+              lambda: TR.threefry_fold_in_ref(keys, 77),
+              lambda: TR.threefry_draw_ref(keys, 30_001, "randint",
+                                           span=100_000)],
         SBK: [lambda: TR.spike_bitmask_ref(spk)],
         DR: [lambda: TR.delay_ring_fold_ref(ring, acc0.clone(), cur, -1.0,
                                             0.7)],

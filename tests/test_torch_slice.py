@@ -310,14 +310,15 @@ def test_port_model_surface():
         tm.run(5, stim={"nope": np.zeros((5, 3))})
     ms = TSPEC.ModelSpec("x")
     ms.add_neuron_population("a", 4, "lif")
-    # probes, custom updates and monitors are ported (test_torch_probes,
-    # test_torch_health); on-device construction and meshes are not
+    # probes, custom updates, monitors (test_torch_probes,
+    # test_torch_health) and on-device construction
+    # (test_torch_device_init) are ported; meshes are not
     ms.probe("p", "a", "V")
     ms.add_custom_update("u", "a", "V = V")
-    for call in (lambda: ms.build(device="cpu", init="device"),
-                 lambda: ms.build(device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert ms.build(device="cpu", init="device").run(3).recordings[
+        "p"].shape == (3, 4)
+    with pytest.raises(NotImplementedError):
+        ms.build(device="cpu", mesh=object())
     with pytest.raises(TSPEC.SpecError, match="HealthConfig"):
         ms.build(device="cpu", monitor=object())
     assert ms.build(device="cpu").run(3).recordings["p"].shape == (3, 4)

@@ -163,7 +163,9 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_check_arguments():
     assert not col.is_contiguous()
     assert torch.equal(TF.threefry_draw(col, 9, "uniform"),
                        TF.threefry_draw(col.contiguous(), 9, "uniform"))
-    assert TF.launches == {"threefry_split": 0, "threefry_draw": 0}
+    assert TF.launches == {"threefry_split": 0, "threefry_draw": 0,
+                           "threefry_draw.randint": 0,
+                           "threefry_fold_in": 0}
     with pytest.raises(ValueError):
         TF.threefry_draw(keys, 4, "gamma")
     with pytest.raises(ValueError):
