@@ -243,9 +243,24 @@ failure ends the run with a non-zero exit):
      health}_torch.py`` at the main path's width (100k neurons x 1000;
      snn_scaling's construction at 25k, 50k and 100k), steps cut, their
      JSON printed (and written under ``chiprun_out/phase12_bench``).
+  13. the sharded engine (``core/snn/engine.py``) at one NCCL rank
+     (``launch.mesh.make_snn_mesh``: a world of one, the collectives
+     issued all the same): the NCCL all-gather of main's exc words timed
+     alone; (a) phase 12c's net built over the mesh (``init="device"``:
+     ``device_init_local``), its blocks equal to ``partition_ell_by_post``
+     of the graph, 1000 steps eager and replayed from CUDA graphs (the
+     all-gathers inside the capture) bit-equal, the run's counts, rasters
+     and state bit-equal to phase 12c's, us/step, device ops a step and
+     the busy share beside the model's own Simulator (the exchange's
+     cost); (c) phase 4's sweep on it, candidates/s beside phase 4's,
+     counts equal to the Simulator's; (d) 8 streams served on it, each
+     equal to its offline run; (b) phase 5's delayed net, 200 steps,
+     bit-equal to phase 5's run; (e) phase 6a's NaN-guard table on the
+     engine (the ``hh_step`` route), equal to phase 6a's.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
-limit and a ``{"kernels": [...]}`` JSON line; the last line is
+limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
+path, and ``engine_launches`` on phase 13's); the last line is
 ``{"ok": true, "device": {...}}``.  The full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -340,6 +355,9 @@ SNN_SERVE = dict(streams=8, chunk=50, requests=16, min_steps=100,
 # PR 19's device ops a step of phase 3 (eager, replayed), which a run
 # without probes, custom updates or a monitor keeps
 MAIN_OPS_PR19 = (33.2, 33.9)
+# phase 13: the sharded engine at one NCCL rank: the all-gather timed
+# alone, a profile's steps (13d serves phase 11's SNN_SERVE requests)
+ENGINE = dict(nccl_reps=200, profile_steps=50)
 MB_RUN = dict(steps=2500, plain_steps=200, search_steps=2500,
               # PN_KC candidates around its fan-in gScale (0.24)
               search=tuple(0.24 * 2.0 ** (i / 4 - 1) for i in range(12)))
@@ -581,6 +599,8 @@ def main() -> int:
     serve_snn(torch, report)
     torch.cuda.empty_cache()
     launches_construct = device_construction(torch, report)
+    torch.cuda.empty_cache()
+    launches_engine = sharded_engine(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -593,9 +613,21 @@ def main() -> int:
                "flash_attention_bwd": launches_qwen,
                "ssd_scan": launches_mamba,
                "spike_bitmask": launches_obs}
+    # and, for those on the engine's paths, their launches there
+    engine_path = {"ell_spmv": "main", "izhikevich_step": "main",
+                   "threefry_split": "main", "threefry_draw": "main",
+                   "spike_bitmask": "main", "ell_spmv_delay": "delay",
+                   "delay_ring_fold": "delay", "hh_step": "mb",
+                   "threefry_fold_in": "build",
+                   "threefry_draw.randint": "build"}
     for e in kernel_entries:
         e["launches"] = path_of[e["name"]][e["name"]]
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
+        on = engine_path.get(e["name"])
+        e["engine_launches"] = (launches_engine[on][e["name"]] if on
+                                else 0)
+        check(on is None or e["engine_launches"] > 0,
+              f"{e['name']} never launched on the engine's path")
     report["kernels"] = kernel_entries
     report["build"] = kernels
     out = ROOT / "chiprun_out"
@@ -1692,14 +1724,15 @@ def _device_profile(torch, fn, warm: bool = False) -> dict:
     short kernel and SNN traces) ``fn`` runs twice and only the second run
     is kept, since a trace that starts cold can miss the device ops of its
     first milliseconds; the LM phases trace one run.  In both modes a trace
-    that holds no device op at all is taken again, up to three times, so
+    that holds no device op at all is taken again, up to six times, so
     ``fn`` may run again: on the card, in two of three full runs one such
     trace came back empty after ~50 earlier ones in the process (and once
-    the first trace of phase 2e's SDPA backward)."""
+    the first trace of phase 2e's SDPA backward; once three running, in
+    phase 9a)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(3):
+    for _ in range(6):
         if warm:
             with profile(activities=activities,
                          schedule=schedule(wait=0, warmup=1, active=1,
@@ -1862,16 +1895,17 @@ def _check_same_run(torch, a, b, what: str, raster: bool = False) -> None:
 
 
 def _eager_vs_graph(torch, model, what: str, steps: int, batch: int = 1,
-                    grids=None) -> tuple:
+                    grids=None, sim=None) -> tuple:
     """Each gScale set of ``grids`` (group name -> value) run for ``steps``
     from one fresh state, eagerly (``Simulator.run``) and through the graph
     route (``Simulator.run_compiled``, as ``CompiledModel.run`` and
     ``sweep_gscale`` run), after one graph run that captures: the graph
     runs must equal the eager ones bit for bit, launch the same kernels as
     often, and later sets replay the first set's capture; then rasters over
-    RASTER_CHECK_STEPS.  Returns (the numbers, the graph runs, the graph
-    runs' launch counts)."""
-    sim = model.simulator
+    RASTER_CHECK_STEPS.  ``sim``: what runs them (default the model's
+    Simulator; phase 13 passes its ShardedEngine).  Returns (the numbers,
+    the graph runs, the graph runs' launch counts)."""
+    sim = model.simulator if sim is None else sim
     grids = list(grids or [{}])
     st = sim.init_state(batch)
     captures0 = sim.graph_counts["captures"]
@@ -1929,6 +1963,25 @@ def _eager_vs_graph(torch, model, what: str, steps: int, batch: int = 1,
           f"equals eager bit for bit (state, counts; rasters over {n} "
           "steps)")
     return out, runs, launches
+
+
+def _run_digest(torch, res, state=None) -> str:
+    """sha256 over a run's spike counts, raster (when recorded) and every
+    tensor of its state (``state``: in place of ``res.state``), name by
+    name: phase 13 holds the engine's runs to phases 5's and 12c's by it
+    (the digest of one run is a few hundred MB less to keep)."""
+    import hashlib
+    tensors = {f"counts.{k}": v for k, v in res.spike_counts.items()}
+    if res.raster is not None:
+        tensors.update({f"raster.{k}": v for k, v in res.raster.items()})
+    tensors.update(_state_tensors(res.state if state is None else state,
+                                  "state"))
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k].detach().contiguous().cpu()
+        h.update(f"{k} {t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def _run_checked(torch, model, steps, what, **kw):
@@ -2057,10 +2110,11 @@ def sweep(torch, report, model) -> None:
                            "pick": pick.__dict__, "eager_vs_graph": graph}
 
 
-def build_delay_model(torch, init: str = "host"):
+def build_delay_model(torch, init: str = "host", mesh=None):
     """Phase 5's net: the main path's, with per-synapse delays
     ``UniformIntDelay(0, DELAY["max_delay"])`` on the excitatory groups,
-    built with ``init``.  Returns (model, build seconds)."""
+    built with ``init`` (over ``mesh``, phase 13).  Returns (model, build
+    seconds)."""
     from repro_torch.core.models import izhikevich_net as IZ
     from repro_torch.core.snn.spec import ModelSpec
     from repro_torch.sparse.formats import UniformIntDelay
@@ -2079,7 +2133,7 @@ def build_delay_model(torch, init: str = "host"):
             delay=(UniformIntDelay(0, DELAY["max_delay"])
                    if sp.name == "exc" else None))
     t0 = time.perf_counter()
-    model = ms.build(dt=cfg.dt, seed=cfg.seed, init=init)
+    model = ms.build(dt=cfg.dt, seed=cfg.seed, init=init, mesh=mesh)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
@@ -2109,6 +2163,8 @@ def delay_path(torch, report) -> dict:
         _, secs, rates = _run_checked(torch, model, steps, "delay run")
         launches = read_launches()
         print(f"launches in the delay run: {launches}")
+        # phase 13 holds the engine's run of this net to this one
+        run_digest = _run_digest(torch, model.run(steps, record_raster=True))
         for name in ("ell_spmv_delay", "delay_ring_fold", "ell_spmv"):
             check(launches[name] == 2 * steps,
                   f"{name} launched {launches[name]} times for 2 groups x "
@@ -2136,7 +2192,7 @@ def delay_path(torch, report) -> dict:
                            "rates_hz": rates, "launches": launches,
                            "plain_raster_agreement": agree,
                            "rings_bit_equal": rings_equal, "profile": prof,
-                           "eager_vs_graph": graph}
+                           "eager_vs_graph": graph, "run_digest": run_digest}
         return launches, model
 
 
@@ -2945,8 +3001,12 @@ def device_construction(torch, report) -> dict:
         print(f"12c: device-built main replayed {us:.1f} us/step (phase 3's "
               f"host-built {ref_us if ref_us is None else round(ref_us, 1)});"
               f" rates Hz {rates} ({report['nvidia_smi']})")
+        # phase 13 holds the engine's run of this net to this one
+        ref = model.run(MAIN["steps"], record_raster=True)
         main.update({"eager_vs_graph": graph, "rates_hz": rates,
-                     "us_per_step": us, "phase3_us_per_step": ref_us})
+                     "us_per_step": us, "phase3_us_per_step": ref_us,
+                     "run_digest": _run_digest(torch, ref)})
+        del ref
         del model, runs
         delay, model, _ = _device_build(
             torch, "12b delay", lambda: build_delay_model(torch, "device"),
@@ -2958,6 +3018,291 @@ def device_construction(torch, report) -> dict:
         report["construction"] = {"main": main, "delay": delay,
                                   "scripts": scripts}
         return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the sharded engine at one NCCL rank
+# ---------------------------------------------------------------------------
+def _engine_profiles(torch, model, steps: int) -> dict:
+    """Profiles of ``steps`` steps of a model built over a mesh: its
+    engine eagerly and replayed from graphs, and its own single-device
+    Simulator replayed (the same net: the difference is the engine's)."""
+    eng, sim = model.engine, model.simulator
+    out = {}
+    for what, run, st in (("engine eager", eng.run, eng.init_state()),
+                          ("engine graph", eng.run_compiled,
+                           eng.init_state()),
+                          ("simulator graph", sim.run_compiled,
+                           sim.init_state())):
+        print(f"{what}:")
+        out[what] = _profile_window(
+            torch, lambda n, run=run, st=st: run(st, n), steps, guard=False)
+    return out
+
+
+def _engine_vs_simulator(torch, model, what: str, steps: int, **kw):
+    """The engine's replayed run of ``steps`` from a fresh state against
+    its model's single-device Simulator's, bit for bit (counts, state)."""
+    eng, sim = model.engine, model.simulator
+    a = eng.run_compiled(eng.init_state(), steps, **kw)
+    b = sim.run_compiled(sim.init_state(), steps, **kw)
+    _check_same_run(torch, a, b, f"{what} (engine vs simulator)")
+
+
+def sharded_engine(torch, report) -> dict:
+    """Phase 13; returns the launches of the engine's paths (main's
+    build over the mesh and its run, delay, the mushroom body)."""
+    import numpy as np
+    from experiments.graph_digest import FIELDS, graph_digest
+    from repro_torch.core.models import izhikevich_net as IZ
+    from repro_torch.core.models import mushroom_body as MB
+    from repro_torch.launch.mesh import make_snn_mesh
+    from repro_torch.launch.snn_serve import SNNServer, StreamRequest
+    from repro_torch.sparse import device_init as DI
+    out = report["engine"] = {}
+    launches: dict = {}
+    with phase("13. the sharded engine at one NCCL rank"):
+        mesh = make_snn_mesh(1)
+        print(f"{mesh} ({report['nvidia_smi']})")
+        check(mesh.backend == "nccl" and mesh.world_size == 1,
+              f"expected one NCCL rank: {mesh}")
+        # the exchange's collective alone, at main's exc words (B = 1)
+        words = torch.zeros((1, MAIN["n_total"] * 4 // 5 // 32),
+                            dtype=torch.int32, device=mesh.device)
+
+        def gather(i):
+            return mesh.all_gather(words, tiled=False)
+
+        nccl_ms, _ = _device_ms(torch, gather, ENGINE["nccl_reps"])
+        nccl_event_ms = _time_ms(torch, gather, ENGINE["nccl_reps"])
+        out["nccl_all_gather"] = {"words": int(words.shape[1]),
+                                  "device_ms": nccl_ms,
+                                  "event_ms": nccl_event_ms}
+        print(f"NCCL all_gather of {words.shape[1]} int32 words at world "
+              f"size 1: {nccl_ms:.5f} ms device time a call, "
+              f"{nccl_event_ms:.5f} ms back to back")
+
+        # (a) phase 12c's net, built over the mesh (device_init_local)
+        cfg = IZ.IzhikevichNetConfig(n_total=MAIN["n_total"],
+                                     n_conn=MAIN["n_conn"],
+                                     representation="sparse")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = IZ.compile_model(cfg, init="device", mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches["build"] = build_launches = read_launches()
+        eng = model.engine
+        print(f"13a: built {model} over the mesh in {build_s:.3f} s "
+              f"(the full graph and every block drawn); routes "
+              f"{eng.routes}; launches {build_launches}")
+        check(eng.routes == {"exc": "izhikevich_step",
+                             "inh": "izhikevich_step"},
+              f"13a: neuron routes {eng.routes}")
+        digest = graph_digest(
+            (g.name, {f: getattr(g.ell, f) for f in FIELDS})
+            for g in model.network.synapses)
+        check(digest == DEVICE_INIT_DIGESTS["main"],
+              "13a: the full graph's digest differs from the JAX "
+              "package's (phase 12a's)")
+        for g in model.network.synapses:
+            ref = DI.partition_ell_by_post(g.ell, 1)
+            blk = eng._conn[g.name].ell
+            check(ref[5] == blk.max_conn,
+                  f"13a {g.name}: k_local {blk.max_conn}, partition "
+                  f"{ref[5]}")
+            for f, x in zip(("g", "post_ind", "valid"), ref[:3]):
+                y = getattr(blk, f)
+                x = x[0]
+                if f == "g":
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                check(bool(torch.equal(x, y)), f"13a {g.name}: the "
+                      f"device_init_local block's {f} differs from "
+                      "partition_ell_by_post of the graph")
+            del ref
+        block_digest = graph_digest(
+            (g.name, {f: getattr(eng._conn[g.name].ell, f) for f in FIELDS})
+            for g in model.network.synapses)
+        print(f"13a: blocks equal partition_ell_by_post of the graph (phase "
+              f"12c's), block digest {block_digest}")
+        graph, _, _ = _eager_vs_graph(torch, model, "13a engine main",
+                                      MAIN["steps"], sim=eng)
+        model.run(MAIN["steps"], record_raster=True)      # captures
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.run(MAIN["steps"], record_raster=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches["main"] = la = read_launches()
+        print(f"13a: engine run of {MAIN['steps']} steps in {secs:.3f} s; "
+              f"launches {la}")
+        steps = MAIN["steps"]
+        for name, per_step in (("spike_bitmask", 2), ("izhikevich_step", 2),
+                               ("threefry_split", 1), ("threefry_draw", 2)):
+            check(la[name] == per_step * steps,
+                  f"13a: {name} launched {la[name]} times for {per_step} x "
+                  f"{steps} steps")
+        check(la["ell_spmv"] >= 4 * steps,
+              f"13a: ell_spmv launched {la['ell_spmv']} times")
+        run_digest = _run_digest(torch, res, eng.gather_state(res.state))
+        want = report.get("construction", {}).get("main", {}).get(
+            "run_digest")
+        if want is None:        # phase 12 did not run: its run, here
+            ref_model = IZ.compile_model(cfg, init="device")
+            want = _run_digest(torch, ref_model.run(steps,
+                                                    record_raster=True))
+            del ref_model
+        check(run_digest == want, "13a: the engine's run (counts, "
+              "rasters, state) differs from phase 12c's")
+        print(f"13a: counts, rasters and state bit-equal to phase 12c's run "
+              f"({run_digest[:16]})")
+        del res
+        prof = _engine_profiles(torch, model, ENGINE["profile_steps"])
+        ops = {k: v["device_ops_per_step"] for k, v in prof.items()}
+        print(f"13a: device ops a step {ops}; the exchange "
+              f"{ops['engine graph'] - ops['simulator graph']:.1f} ops a "
+              "step replayed")
+        out["main"] = {
+            "build_s": build_s, "build_launches": build_launches,
+            "block_digest": block_digest, "eager_vs_graph": graph,
+            "seconds": secs, "launches": la, "run_digest": run_digest,
+            "us_per_step": {
+                "eager": graph["sets"][0]["eager_us_per_step"],
+                "graph": graph["sets"][0]["graph_us_per_step"],
+                "phase12c_graph": report.get("construction", {}).get(
+                    "main", {}).get("us_per_step")},
+            "profile": prof,
+            "exchange_ops_per_step": (ops["engine graph"]
+                                      - ops["simulator graph"])}
+
+        # (c) phase 4's sweep on the engine
+        values, sweep_steps = list(SWEEP["values"]), SWEEP["steps"]
+        model.sweep_gscale("exc", values, sweep_steps)     # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw = model.sweep_gscale("exc", values, sweep_steps)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sim = model.simulator
+        names = model._expand_group("exc")
+        gs = {n: torch.tensor(values, device=mesh.device) for n in names}
+        ref = sim.run_compiled(sim.init_state(len(values)), sweep_steps, gs)
+        for k, v in ref.spike_counts.items():
+            check(bool(torch.equal(v, sw.spike_counts[k])),
+                  f"13c: {k} counts differ from the simulator's sweep")
+        check(bool(torch.equal(ref.finite, sw.finite)),
+              "13c: finite differs from the simulator's sweep")
+        cps = len(values) / sweep_s
+        cps4 = report.get("sweep", {}).get("candidates_per_s")
+        print(f"13c: {len(values)} x {sweep_steps} steps in {sweep_s:.3f} s:"
+              f" {cps:.3f} candidates/s (phase 4's {cps4}); counts equal "
+              "the simulator's sweep")
+        out["sweep"] = {"seconds": sweep_s, "candidates_per_s": cps,
+                        "phase4_candidates_per_s": cps4,
+                        "rates_hz": {k: v.tolist()
+                                     for k, v in sw.rates_hz.items()}}
+        del ref, sw
+
+        # (d) phase 11's 16 requests served on the engine in 8 slots
+        S, C = SNN_SERVE["streams"], SNN_SERVE["chunk"]
+        n_exc = model.network.populations["exc"].n
+        reqs = _serve_requests(np, n_exc, SNN_SERVE["izh_scale"],
+                               SNN_SERVE["requests"])
+        srv = SNNServer(model, max_streams=S, chunk=C, stim_pops=("exc",))
+        t0 = time.perf_counter()
+        model.serve_chunk(srv.states, {"exc": np.zeros((S, C, n_exc),
+                                                       np.float32)},
+                          np.zeros(S, np.int32), C)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        for i, (T, stim, seed) in enumerate(reqs):
+            srv.submit(StreamRequest(rid=i, n_steps=T, stim={"exc": stim},
+                                     seed=seed))
+        d = _drain(torch, srv)
+        finished = srv.run()
+        check(len(finished) == len(reqs), f"13d: {len(finished)} of "
+              f"{len(reqs)} streams finished")
+        for r in finished:
+            off = _offline(model, r.n_steps, r.stim, r.seed)
+            _assert_same_counts(np, f"13d stream {r.rid}", r.spike_counts,
+                                off.spike_counts)
+        d["capture_s"] = capture_s
+        d["phase11_slot_steps_per_s"] = report.get("serve_snn", {}).get(
+            "izh", {}).get("slot_steps_per_s")
+        out["serve"] = d
+        print(f"13d: {len(reqs)} streams, {d['chunks']} chunks, "
+              f"{d['slot_steps']} slot-steps in {d['wall_s']:.3f} s "
+              f"({d['slot_steps_per_s']:.1f} slot-steps/s, phase 11's "
+              f"{d['phase11_slot_steps_per_s']}; chunk ms p50 "
+              f"{d['chunk_ms_p50']:.3f} p99 {d['chunk_ms_p99']:.3f}); every "
+              "stream's counts equal its offline run on the engine")
+        del srv, finished, model, eng, sim
+        torch.cuda.empty_cache()
+
+        # (b) phase 5's delayed net, host-built over the mesh
+        model, build_s = build_delay_model(torch, "host", mesh=mesh)
+        eng = model.engine
+        graph_b, _, _ = _eager_vs_graph(torch, model, "13b engine delay",
+                                        DELAY["steps"], sim=eng)
+        model.run(DELAY["steps"], record_raster=True)     # captures
+        reset_launches()
+        res = model.run(DELAY["steps"], record_raster=True)
+        torch.cuda.synchronize()
+        launches["delay"] = lb = read_launches()
+        for name in ("ell_spmv_delay", "delay_ring_fold", "spike_bitmask"):
+            check(lb[name] == 2 * DELAY["steps"],
+                  f"13b: {name} launched {lb[name]} times")
+        digest_b = _run_digest(torch, res, eng.gather_state(res.state))
+        want = report.get("delay", {}).get("run_digest")
+        if want is not None:
+            check(digest_b == want, "13b: the engine's run differs from "
+                  "phase 5's")
+        _engine_vs_simulator(torch, model, "13b", DELAY["steps"])
+        print(f"13b: delayed net built in {build_s:.1f} s; engine run "
+              f"bit-equal to {'phase 5' if want else 'its simulator'}'s; "
+              f"launches {lb}")
+        out["delay"] = {"build_s": build_s, "eager_vs_graph": graph_b,
+                        "launches": lb, "run_digest": digest_b,
+                        "phase5_digest": want}
+        del res, model, eng
+        torch.cuda.empty_cache()
+
+        # (e) phase 6a's NaN-guard table on the engine (the hh_step route)
+        mb = MB.compile_model(MB.MushroomBodyConfig(**MB_EXAMPLE), mesh=mesh)
+        check(set(mb.engine.routes.values()) == {"codegen", "hh_step"},
+              f"13e: routes {mb.engine.routes}")
+        values, steps = list(MB_TABLE["values"]), MB_TABLE["steps"]
+        mb.sweep_gscale("PN_KC", values, steps)            # captures
+        reset_launches()
+        tab = mb.sweep_gscale("PN_KC", values, steps)
+        launches["mb"] = le = read_launches()
+        check(le["hh_step"] == 3 * steps,
+              f"13e: hh_step launched {le['hh_step']} times")
+        rates = {k: v.tolist() for k, v in tab.rates_hz.items()}
+        finite = tab.finite.tolist()
+        want = report.get("mb_table")
+        if want is not None:
+            check(rates == want["rates_hz"] and finite == want["finite"],
+                  "13e: the table differs from phase 6a's")
+        else:
+            sim = mb.simulator
+            ref = sim.run_compiled(sim.init_state(len(values)), steps, {
+                "PN_KC": torch.tensor(values, device=mesh.device)})
+            check(all(bool(torch.equal(ref.spike_counts[k],
+                                       tab.spike_counts[k]))
+                      for k in ref.spike_counts), "13e: counts differ "
+                  "from the simulator's")
+        check(finite[0] and finite[1] and not finite[-1],
+              f"13e: the NaN guard's table {finite}")
+        print(f"13e: the mushroom body's table on the engine equals "
+              f"{'phase 6a' if want else 'its simulator'}'s: finite "
+              f"{finite}; launches {le}")
+        out["mb_table"] = {"rates_hz": rates, "finite": finite,
+                           "launches": le}
+        del mb, tab
+    return launches
 
 
 # ---------------------------------------------------------------------------

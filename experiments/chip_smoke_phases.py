@@ -9,7 +9,9 @@ NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
 list 6a first), 10 (the occupancy model against the runtime, and the
 paper's experiment at full width), 11 (SNN serving at full width) and 12
 (on-device construction and the SNN benchmark scripts; reads phases 3's
-and 5's host builds and phase 3's us/step when they ran before it).
+and 5's host builds and phase 3's us/step when they ran before it) and 13
+(the sharded engine at one NCCL rank; holds its runs to phases 12c's, 5's
+and 6a's when they ran before it, else to its model's Simulator).
 Default:
 ``9a 3 9b 6a 9c``, in that order.  Phase 1 (the card and the kernel build)
 always runs first.  The phases print what ``chip_smoke.py`` prints; the
@@ -58,6 +60,8 @@ def main(labels) -> int:
             CS.serve_snn(torch, report)
         elif label == "12":
             CS.device_construction(torch, report)
+        elif label == "13":
+            CS.sharded_engine(torch, report)
         elif label == "9b":
             CS.main_observed(torch, report)
         elif label == "6a":

@@ -41,7 +41,8 @@ def _chunked_fold(torch):
     from repro_torch.kernels import ell_spmv as K
     from repro_torch.kernels._dispatch import launch, raise_on
 
-    def fold(self, ring, cursor, spikes, gscale, g, syn, externals):
+    def fold(self, ring, cursor, spikes, gscale, g, syn, externals,
+             ell=None):
         batch, n_slots, n_post = ring.shape
         if not (isinstance(gscale, torch.Tensor) and gscale.dim() == 1
                 and batch % MEMBERS == 0):
@@ -52,7 +53,8 @@ def _chunked_fold(torch):
                 torch.zeros((n_slots, n_post, MEMBERS), dtype=torch.float64,
                             device=ring.device)
                 for _ in range(batch // MEMBERS)]
-        ell = self._effective_ell(g, syn, externals)
+        ell = self._effective_ell(g, syn, externals,
+                                  self.ell if ell is None else ell)
         new_ring = torch.empty_like(ring)
         inj = torch.empty((batch, n_post), dtype=torch.float32,
                           device=ring.device)

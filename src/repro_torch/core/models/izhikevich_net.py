@@ -81,9 +81,11 @@ def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
 
 
 def compile_model(cfg: IzhikevichNetConfig, device=None,
-                  monitor=None, init: str = "host") -> CompiledModel:
+                  monitor=None, init: str = "host",
+                  mesh=None) -> CompiledModel:
     """Build the net on ``device`` ("cuda" unless the caller asks), with
     the health monitor ``monitor`` (a HealthConfig) if given; ``init``
-    ("host" or "device") is ``ModelSpec.build``'s."""
+    ("host" or "device") and ``mesh`` (a ``launch.mesh.Mesh``: the
+    sharded engine on the mesh's device) are ``ModelSpec.build``'s."""
     return spec(cfg).build(dt=cfg.dt, seed=cfg.seed, device=device,
-                           monitor=monitor, init=init)
+                           monitor=monitor, init=init, mesh=mesh)

@@ -10,10 +10,13 @@ Word w holds neurons [32w, 32w+32); neuron n is bit n % 32 of word n // 32
 The port stores words as int32 holding uint32's bit pattern (PyTorch has no
 uint32 arithmetic on the card).  Packing runs the hand-written kernel
 (``repro_torch.kernels.spike_bitmask``; its plain version on the CPU);
-unpacking is plain tensor ops, off the step's path.
+unpacking is plain tensor ops (on the step's path only in the sharded
+engine's spike exchange, ``unpack_segments``).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -40,11 +43,23 @@ def pack_spikes(bits: torch.Tensor) -> torch.Tensor:
     return kops.pack_spikes(rows).reshape(lead + (words_for(n),))
 
 
+_SHIFTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _shifts(device: torch.device) -> torch.Tensor:
+    """0..31 as int32 on ``device``, made once a device (the first unpack
+    runs eagerly, so a captured step finds it made)."""
+    s = _SHIFTS.get(device)
+    if s is None:
+        s = _SHIFTS[device] = torch.arange(_BITS, dtype=torch.int32,
+                                           device=device)
+    return s
+
+
 def unpack_spikes(words: torch.Tensor, n: int) -> torch.Tensor:
     """int32 [..., W] -> bool [..., n] (the inverse of pack_spikes).  The
     shift is arithmetic, so bit 31 is masked with ``& 1`` after it."""
-    shifts = torch.arange(_BITS, dtype=torch.int32, device=words.device)
-    bits = (words.to(torch.int32)[..., :, None] >> shifts) & 1
+    bits = (words.to(torch.int32)[..., :, None] >> _shifts(words.device)) & 1
     flat = bits.reshape(bits.shape[:-2] + (-1,))
     return flat[..., :n].to(torch.bool)
 
@@ -61,7 +76,12 @@ def unpack_rows(words: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def unpack_segments(words: torch.Tensor, n_per_seg: int) -> torch.Tensor:
-    """int32 [D, W] (one packed segment per shard) -> bool [D * n_per_seg]:
-    rows unpacked on their own and concatenated, as an all-gather of
-    per-shard bool segments would hold them."""
-    return unpack_spikes(words, n_per_seg).reshape(-1)
+    """int32 [D, ..., W] (one packed segment per shard, shard-major as an
+    all-gather stacks them) -> bool [..., D * n_per_seg]: each segment
+    unpacked on its own and the segments concatenated along the neuron
+    axis, as an all-gather of per-shard bool segments would hold them
+    ([D, W] -> [D * n_per_seg]; the engine's [D, B, W] -> [B, D * n])."""
+    bits = unpack_spikes(words, n_per_seg)          # [D, ..., n_per_seg]
+    if bits.dim() > 2:
+        bits = bits.movedim(0, -2)                  # [..., D, n_per_seg]
+    return bits.reshape(bits.shape[:-2] + (-1,))

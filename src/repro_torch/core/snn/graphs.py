@@ -48,7 +48,9 @@ that scratch (``SynapseGroup.swap_scratch``): the graphs write it at every
 replay, so no eager step of the group may hold it.  The kernel wrappers count
 their launches once while a chunk is captured; those counts are taken back
 and added again at every replay.  A capture or replay that fails raises:
-nothing runs eagerly in its place.
+nothing runs eagerly in its place.  A sharded engine's chunks capture its
+NCCL all-gathers with them (``capture_mode`` "thread_local": the process
+group's watchdog thread may query its events while this thread captures).
 """
 
 from __future__ import annotations
@@ -60,7 +62,6 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.snn import bitmask as BM
 from repro_torch.core.snn import probes as PR
 
 __all__ = ["ChunkedRun", "ServedChunk", "CHUNK_STEPS", "launch_counters"]
@@ -129,7 +130,8 @@ def _capture(runner, warm, body) -> Tuple[torch.cuda.CUDAGraph, list]:
             runner._pool = torch.cuda.graph_pool_handle()
         g = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(g, pool=runner._pool):
+            with torch.cuda.graph(g, pool=runner._pool,
+                                  capture_error_mode=runner.sim.capture_mode):
                 body()
         finally:
             # the capture launched nothing: its counts come back at every
@@ -195,21 +197,21 @@ class ChunkedRun:
         self.chunk = CHUNK_STEPS
         dev = sim.device
         self.device = dev
-        pops = sim.net.populations
+        width = sim._width
         self.state = sim.init_state(batch)
         self.gscales = {k: torch.ones(batch, dtype=torch.float32, device=dev)
                         for k in gscale_keys}
-        self.stim = {k: torch.zeros((self.chunk, batch, pops[k].n),
+        self.stim = {k: torch.zeros((self.chunk, batch, width[k]),
                                     dtype=torch.float32, device=dev)
                      for k in stim_keys}
-        self.counts = {k: torch.zeros((batch, p.n), dtype=torch.int32,
-                                      device=dev) for k, p in pops.items()}
-        self.raster = ({k: torch.zeros((self.chunk, batch, p.n),
+        self.counts = {k: torch.zeros((batch, w), dtype=torch.int32,
+                                      device=dev) for k, w in width.items()}
+        self.raster = ({k: torch.zeros((self.chunk, batch, w),
                                        dtype=torch.bool, device=dev)
-                        for k, p in pops.items()} if record_raster else None)
+                        for k, w in width.items()} if record_raster else None)
         # a probe's samples of the chunk's steps, row i for step i
         self.staging = {
-            p.name: torch.zeros((self.chunk,) + PR.ring_row_shape(p, batch),
+            p.name: torch.zeros((self.chunk,) + sim._ring_row_shape(p, batch),
                                 dtype=PR.ring_dtype(p), device=dev)
             for p in sim.probes}
         self.health = (sim._health_init(batch) if sim.monitor is not None
@@ -235,8 +237,8 @@ class ChunkedRun:
         the raster chunk, the probes' staging rows and the monitor."""
         sim, st, hs = self.sim, self.state, self.health
         for i in range(n):
-            st, spk = sim.step(st, self.gscales,
-                               stim={k: v[i] for k, v in self.stim.items()})
+            st, spk = sim._local_step(st, self.gscales,
+                                      {k: v[i] for k, v in self.stim.items()})
             for k, c in self.counts.items():
                 c += spk[k]
                 if self.raster is not None:
@@ -266,9 +268,9 @@ class ChunkedRun:
         """One eager warm-up step (its result dropped), then the n-step
         chunk captured on the run's own delay scratch."""
         def warm():
-            st, spk = self.sim.step(
+            st, spk = self.sim._local_step(
                 self.state, self.gscales,
-                stim={k: v[0] for k, v in self.stim.items()})
+                {k: v[0] for k, v in self.stim.items()})
             # staging row 0 is rewritten before any copy reads it
             self._observe(0, st, spk, self.health)
 
@@ -401,22 +403,22 @@ class ServedChunk:
         self.n_steps = n = n_steps
         dev = sim.device
         self.device = dev
-        pops = sim.net.populations
+        width = sim._width
         self.state = sim.init_state(S)
         self.gscales = {k: torch.ones(S, dtype=torch.float32, device=dev)
                         for k in gscale_keys}
-        self.stim = {k: torch.zeros((S, n, pops[k].n), dtype=torch.float32,
+        self.stim = {k: torch.zeros((S, n, width[k]), dtype=torch.float32,
                                     device=dev) for k in stim_keys}
         self.steps_left = torch.zeros(S, dtype=torch.int32, device=dev)
-        self.counts = {k: torch.zeros((S, p.n), dtype=torch.int32,
-                                      device=dev) for k, p in pops.items()}
-        self.raster = ({k: torch.zeros((n, S, p.n), dtype=torch.bool,
+        self.counts = {k: torch.zeros((S, w), dtype=torch.int32,
+                                      device=dev) for k, w in width.items()}
+        self.raster = ({k: torch.zeros((n, S, w), dtype=torch.bool,
                                        device=dev)
-                        for k, p in pops.items()} if record_raster else None)
+                        for k, w in width.items()} if record_raster else None)
         self.staging, self.samples, self.sample_counts = {}, {}, {}
         self._k = {}
         for p in sim.probes:
-            row = PR.ring_row_shape(p, S)
+            row = sim._ring_row_shape(p, S)
             cap = PR.capacity(p, n, serving=True)
             self.staging[p.name] = torch.zeros(
                 (n,) + row, dtype=PR.ring_dtype(p), device=dev)
@@ -453,9 +455,8 @@ class ServedChunk:
         start = sim._stream_steps(st) if sim.probes else None
         for i in range(self.n_steps):
             act = self.steps_left > i
-            st2, spk = sim.step(
-                st, self.gscales,
-                stim={k: v[:, i] for k, v in self.stim.items()})
+            st2, spk = sim._local_step(
+                st, self.gscales, {k: v[:, i] for k, v in self.stim.items()})
             st2 = _tree_map(lambda a, b: a if a is b else torch.where(
                 _lanes(act, a), a, b), st2, st)
             spk = {k: v & act[:, None] for k, v in spk.items()}
@@ -498,8 +499,8 @@ class ServedChunk:
         """One eager step on the static buffers with its observation (the
         result dropped), before the capture."""
         sim = self.sim
-        st, spk = sim.step(self.state, self.gscales,
-                           stim={k: v[:, 0] for k, v in self.stim.items()})
+        st, spk = sim._local_step(self.state, self.gscales,
+                                  {k: v[:, 0] for k, v in self.stim.items()})
         for p in sim.probes:
             sim._sample_into(p, self.staging[p.name], 0, st, spk)
         if self.health is not None:
@@ -547,9 +548,7 @@ class ServedChunk:
                    for k, r in self.raster.items()})
         # fresh tensors: packed rows unpacked to bool
         rec = PR.Recordings(
-            data={p.name: (BM.unpack_rows(self.samples[p.name], p.n)
-                           if PR.is_packed(p)
-                           else self.samples[p.name].clone())
+            data={p.name: sim._finish_samples(p, self.samples[p.name])
                   for p in sim.probes},
             counts={k: c.clone() for k, c in self.sample_counts.items()})
         hs = (None if self.health is None

@@ -144,6 +144,9 @@ def _all_slots(x: torch.Tensor) -> torch.Tensor:
 
 
 class Simulator:
+    # torch.cuda.graph's capture_error_mode for the compiled chunks
+    capture_mode = "global"
+
     def __init__(self, net: Network, dt: float = 0.5, seed: int = 0,
                  device=None, probes=(), custom_updates=(), monitor=None):
         self.net = net
@@ -159,6 +162,9 @@ class Simulator:
             self.monitor = None
         self._pop_sizes = {name: pop.n
                            for name, pop in net.populations.items()}
+        # the neuron axis a step's tensors carry, by population (a sharded
+        # engine's is its rank's shard)
+        self._width = dict(self._pop_sizes)
         self._groups = {g.name: g for g in net.synapses}
         # probes and custom updates (ModelSpec passes them resolved)
         self.probes = tuple(probes)
@@ -489,6 +495,10 @@ class Simulator:
         device (no host read)."""
         return torch.round(state.t / self._dt_dev).to(torch.int32)
 
+    def _ring_row_shape(self, p, batch: int) -> Tuple[int, ...]:
+        """One row of probe ``p``'s ring or staging buffer [B, ...]."""
+        return PR.ring_row_shape(p, batch)
+
     def _probe_init(self, n_steps: int, batch: int):
         """(rings, capacities): a ring [cap, B, ...] per probe on the
         device, int32 bitmask words for unreduced spike probes."""
@@ -497,8 +507,8 @@ class Simulator:
             cap = PR.capacity(p, n_steps)
             caps[p.name] = cap
             rings[p.name] = torch.zeros(
-                (cap,) + PR.ring_row_shape(p, batch), dtype=PR.ring_dtype(p),
-                device=self.device)
+                (cap,) + self._ring_row_shape(p, batch),
+                dtype=PR.ring_dtype(p), device=self.device)
         return rings, caps
 
     def _sample_into(self, p, ring: torch.Tensor, slot: int,
@@ -528,12 +538,17 @@ class Simulator:
         for p in self.probes:
             d, c = PR.finalize(rings[p.name], start, n_steps, p,
                                caps[p.name])
-            d = d.transpose(0, 1)
-            data[p.name] = (BM.unpack_rows(d, p.n) if PR.is_packed(p)
-                            else d.contiguous())
+            data[p.name] = self._finish_samples(p, d.transpose(0, 1))
             counts[p.name] = torch.full((batch,), c, dtype=torch.int32,
                                         device=self.device)
         return Recordings(data=data, counts=counts)
+
+    def _finish_samples(self, p, samples: torch.Tensor) -> torch.Tensor:
+        """A probe's samples [B, cap, ...] as a fresh recording (packed
+        rows unpacked to bool)."""
+        if PR.is_packed(p):
+            return BM.unpack_rows(samples, p.n)
+        return samples.clone(memory_format=torch.contiguous_format)
 
     # -- the health monitor ----------------------------------------------------
     def _health_init(self, batch: int) -> HE.HealthState:
@@ -585,6 +600,17 @@ class Simulator:
                          finite=state.finite, raster=raster,
                          recordings=recordings, health=health)
 
+    def _local_step(self, state: SimState, gscales, stim):
+        """The step the run loops and the compiled chunks take (a sharded
+        engine's works on its rank's lanes)."""
+        return self.step(state, gscales, stim=stim)
+
+    def _run_result(self, state: SimState, counts, n_steps: int, raster,
+                    rec, hs) -> RunResult:
+        """A run's RunResult from what its loop or chunks left."""
+        health = None if hs is None else self._health_report(hs)
+        return self._result(state, counts, n_steps, raster, rec, health)
+
     def run(
         self, state: SimState, n_steps: int,
         gscales: Optional[Mapping[str, object]] = None,
@@ -600,16 +626,16 @@ class Simulator:
         self._validate_gscales(gscales)
         stim = self._stim_tensors(stim, n_steps)
         batch = state.batch
-        counts = {name: torch.zeros((batch, pop.n), dtype=torch.int32,
+        counts = {name: torch.zeros((batch, w), dtype=torch.int32,
                                     device=self.device)
-                  for name, pop in self.net.populations.items()}
+                  for name, w in self._width.items()}
         raster = {name: [] for name in counts} if record_raster else None
         start = self._step_count(state) if self.probes else 0
         rings, caps = self._probe_init(n_steps, batch)
         hs = self._health_init(batch) if self.monitor is not None else None
         for i in range(n_steps):
-            state, spk = self.step(state, gscales,
-                                   stim={k: v[i] for k, v in stim.items()})
+            state, spk = self._local_step(
+                state, gscales, {k: v[i] for k, v in stim.items()})
             for k in counts:
                 counts[k] += spk[k]
                 if raster is not None:
@@ -623,8 +649,7 @@ class Simulator:
                 (0,) + tuple(counts[k].shape), dtype=torch.bool,
                 device=self.device)) for k, v in raster.items()}
         rec = self._probe_finalize(rings, caps, start, n_steps, batch)
-        health = None if hs is None else self._health_report(hs)
-        return self._result(state, counts, n_steps, raster, rec, health)
+        return self._run_result(state, counts, n_steps, raster, rec, hs)
 
     # -- the compiled step loop -------------------------------------------
     def run_compiled(
@@ -651,8 +676,7 @@ class Simulator:
                 self, state.batch, key[1], key[2], key[3])
         state, counts, raster, rec, hs = runner.run(state, n_steps, gscales,
                                                     stim)
-        health = None if hs is None else self._health_report(hs)
-        return self._result(state, counts, n_steps, raster, rec, health)
+        return self._run_result(state, counts, n_steps, raster, rec, hs)
 
     def run_jit(self, n_steps: int, record_raster: bool = False) -> Callable:
         """``fn(state, gscales=None) -> RunResult`` running n_steps through
@@ -753,18 +777,28 @@ class Simulator:
         if tuple(left.shape) != (S,):
             raise ValueError(f"steps_left must be [{S}], got "
                              f"{tuple(left.shape)}")
+        stim = self._serve_stim(stim)
         key = ("serve", S, n_steps, tuple(sorted(gscales)),
                tuple(sorted(stim)), bool(record_raster), str(self.device))
         runner = self._compiled.get(key)
         if runner is None:
             runner = self._compiled[key] = graphs.ServedChunk(
                 self, S, n_steps, key[3], key[4], key[5])
-        state, counts, raster, rec, hs = runner.run(state, stim, left,
-                                                    gscales)
+        state, counts, raster, rec, hs = self._served_result(
+            *runner.run(state, stim, left, gscales))
         self._last_served = runner
         if hs is None:
             return state, counts, raster, rec
         return state, counts, raster, rec, self._health_report(hs)
+
+    def _serve_stim(self, stim: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A chunk's stim [S, n_steps, n] as the chunk's buffers take it."""
+        return stim
+
+    def _served_result(self, state, counts, raster, rec, hs):
+        """A served chunk's outputs as ``serve_chunk`` returns them."""
+        return state, counts, raster, rec, hs
 
     def last_serve_device_ms(self) -> Optional[Tuple[float, float]]:
         """(stim copy ms, chunk ms) of the last ``serve_chunk`` on the card

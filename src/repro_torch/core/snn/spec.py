@@ -42,8 +42,15 @@ Serving: ``init_stream_state`` / ``select_streams`` / ``serve_chunk`` and
 being the batch axis; ``serve_chunk`` replays one CUDA graph a
 configuration.
 
-Not ported yet: meshes (ROADMAP Queue 1 item 7) and ``plan``.  Asking for
-a mesh raises NotImplementedError.
+Meshes: ``build(mesh=make_snn_mesh(...))`` (``repro_torch.launch.mesh``,
+called by every rank) partitions every population along the neuron axis
+over the mesh's ranks, and ``run``, ``step``, ``sweep_gscale``, the serving
+calls and ``custom_update`` run on the ``ShardedEngine``
+(``core/snn/engine.py``) with the single-device results; ``init="device"``
+with a mesh makes each rank's blocks from its own rows
+(``device_init_local``), though every rank also holds the full graph and a
+full ``Simulator`` (see ``build``).  ``plan`` sizes a spec's per-device
+memory at any device count without building.
 """
 
 from __future__ import annotations
@@ -445,6 +452,187 @@ class ModelSpec:
                     out.add(cu.target)
         return out
 
+    # -- pre-flight capacity planning --------------------------------------
+    def _plan_groups(self, dt: float) -> List[dict]:
+        """Static per-group geometry the planner sizes from: nothing is
+        allocated or resolved; connectivity widths come from the bounds
+        ``device_init`` pads its slots to."""
+        mutable = self._mutable_groups()
+        groups = []
+        for sp in self.synapses:
+            n_pre = self.populations[sp.pre].n
+            sizes = [self.populations[p].n for p in sp.post]
+            n_post_total = int(sum(sizes))
+            c = sp.connect
+            if isinstance(c, F.FixedFanout):
+                k = int(c.n_conn)
+            elif isinstance(c, F.FixedProbability):
+                k = DI._binomial_slots(n_post_total, c.p)
+            elif isinstance(c, F.OneToOne):
+                k = 1
+            else:                       # DenseInit / unknown: worst case
+                k = n_post_total
+            if sp.delay is not None:
+                ring_slots = sp.delay.max_steps + 1
+            elif sp.delay_ms is not None:
+                ring_slots = int(round(sp.delay_ms / dt)) + 1
+            elif sp.delay_steps > 0:
+                ring_slots = sp.delay_steps + 1
+            else:
+                ring_slots = 0
+            wum = sp.wum
+            plastic = ((wum is not None and not wum.is_static_pulse)
+                       or any(g in mutable for g in sp.group_names()))
+            for pname, n_p, gname in zip(sp.post, sizes, sp.group_names()):
+                groups.append({
+                    "name": gname, "pre": sp.pre, "post": pname,
+                    "n_pre": n_pre, "n_post": n_p,
+                    "n_post_total": n_post_total, "k": k,
+                    "has_delay": sp.delay is not None,
+                    "ring_slots": ring_slots, "plastic": plastic,
+                    "n_pre_state": len(wum.pre_state) if wum else 0,
+                    "n_post_state": len(wum.post_state) if wum else 0,
+                    "n_syn_state": len(wum.syn_state) if wum else 0,
+                    "n_psm_state": len(sp.psm.state)})
+        return groups
+
+    def _plan_at(self, D: int, dt: float, n_steps: Optional[int],
+                 max_streams: int) -> dict:
+        """Per-device byte breakdown at device count D (the planner's
+        core; the JAX package's arithmetic)."""
+        components = []
+
+        def shard(n):
+            return -(-int(n) // D)
+
+        constr_fused = constr_part = 0
+        steady = 0
+        for gi in self._plan_groups(dt):
+            K = gi["k"]
+            # the post-partitioned slot width concentrates each row's K
+            # slots onto D shards: binomial mean + 6 sigma
+            q = min(1.0, shard(gi["n_post"]) / max(gi["n_post_total"], 1))
+            k_local = int(min(K, np.ceil(
+                K * q + 6.0 * np.sqrt(max(K * q * (1.0 - q), 0.0)) + 1)))
+            k_local = max(k_local, 1)
+            slot_b = F.ell_slot_bytes(gi["has_delay"])
+            block_b = gi["n_pre"] * k_local * slot_b
+            dyn_b = (gi["n_pre"] * k_local * 4
+                     * ((1 if gi["plastic"] else 0) + gi["n_syn_state"])
+                     + shard(gi["n_post"]) * 4
+                     * (gi["n_psm_state"] + gi["n_post_state"])
+                     + shard(gi["n_pre"]) * 4 * gi["n_pre_state"]
+                     + gi["ring_slots"] * shard(gi["n_post"]) * 4)
+            peak = DI.construction_peak_model(
+                gi["n_pre"], K, D, k_local, has_delay=gi["has_delay"])
+            constr_fused += peak["fused_local_bytes"]
+            constr_part += peak["generate_partition_bytes"]
+            steady += block_b + dyn_b * max_streams
+            components.append({
+                "name": gi["name"], "kind": "synapse_group",
+                "bytes_per_device": block_b + dyn_b * max_streams,
+                "construction_fused_bytes": peak["fused_local_bytes"],
+                "construction_partition_bytes":
+                    peak["generate_partition_bytes"],
+                "k": K, "k_local": k_local})
+        for name, pop in self.populations.items():
+            nb = (len(pop.model.state) + 2) * shard(pop.n) * 4 \
+                * max_streams
+            steady += nb
+            components.append({"name": name, "kind": "population",
+                               "bytes_per_device": nb})
+        if n_steps is not None:
+            # probe rings (packed spike rows at their word size)
+            pops, _ = self._declared_targets()
+            for p in self.probes:
+                cap = int(np.ceil(n_steps / p.every))
+                if p.window is not None:
+                    cap = min(cap, p.window)
+                if p.reduce is not None:
+                    bps = 4
+                elif p.target in pops and p.var == "spikes":
+                    bps = BM.words_for(shard(
+                        self.populations[p.target].n)) * 4
+                else:
+                    width = (self.populations[p.target].n
+                             if p.target in pops else max(
+                                 (gi["n_post"]
+                                  for gi in self._plan_groups(dt)
+                                  if gi["name"] == p.target), default=1))
+                    bps = shard(width) * 4
+                nb = cap * bps * max_streams
+                steady += nb
+                components.append({"name": p.name, "kind": "probe",
+                                   "bytes_per_device": nb,
+                                   "is_packed": (p.reduce is None
+                                                 and p.var == "spikes")})
+        return {"steady_state_bytes": int(steady),
+                "construction_fused_bytes": int(constr_fused),
+                "construction_partition_bytes": int(constr_part),
+                "peak_bytes": int(max(steady + constr_fused, steady)),
+                "components": components}
+
+    def plan(self, mesh_shape: int = 1, host_gib: float = 16.0,
+             dt: float = 0.5, n_steps: Optional[int] = None,
+             max_streams: int = 1) -> dict:
+        """Pre-flight capacity planner: per-device construction and
+        steady-state bytes at ``mesh_shape`` devices against a
+        ``host_gib`` budget per device, without building anything (host
+        arithmetic over ``construction_peak_model``; the JAX package's
+        numbers for the same spec).
+
+        Returns ``devices``, ``budget_bytes_per_device``, ``per_device``
+        (``construction_fused_bytes`` for ``device_init_local``,
+        ``construction_partition_bytes`` for generate-then-partition,
+        ``steady_state_bytes``, ``peak_bytes``), the per-component
+        breakdown, ``fits``, ``first_overflow`` (the first component that
+        pushes the running total past the budget), ``min_devices`` and
+        ``needs`` ("this spec needs N hosts" when it does not fit).
+
+        The fused figure is the peak of a rank that holds only its own
+        blocks.  ``build(mesh=)`` does not reach it yet: every rank also
+        holds the full graph and a full ``Simulator`` (see ``build``)."""
+        if not isinstance(mesh_shape, int) or mesh_shape <= 0:
+            raise SpecError(f"plan: mesh_shape must be a positive int, "
+                            f"got {mesh_shape!r}")
+        budget = int(host_gib * (1 << 30))
+        res = self._plan_at(mesh_shape, dt, n_steps, max_streams)
+        first_overflow = None
+        running = 0
+        for comp in res["components"]:
+            running += (comp["bytes_per_device"]
+                        + comp.get("construction_fused_bytes", 0))
+            if first_overflow is None and running > budget:
+                first_overflow = comp["name"]
+        fits = res["peak_bytes"] <= budget
+        out = {"devices": mesh_shape,
+               "budget_bytes_per_device": budget,
+               "per_device": {
+                   "construction_fused_bytes":
+                       res["construction_fused_bytes"],
+                   "construction_partition_bytes":
+                       res["construction_partition_bytes"],
+                   "steady_state_bytes": res["steady_state_bytes"],
+                   "peak_bytes": res["peak_bytes"]},
+               "components": res["components"],
+               "fits": fits,
+               "first_overflow": first_overflow}
+        if not fits:
+            D = mesh_shape
+            while D < (1 << 24):
+                D *= 2
+                if self._plan_at(D, dt, n_steps,
+                                 max_streams)["peak_bytes"] <= budget:
+                    break
+            out["min_devices"] = D
+            out["needs"] = (f"this spec needs {D} hosts "
+                            f"({host_gib} GiB each); first component over "
+                            f"budget: {first_overflow}")
+        else:
+            out["min_devices"] = mesh_shape
+            out["needs"] = "fits"
+        return out
+
     # -- build ------------------------------------------------------------
     def build(self, dt: float = 0.5, seed: int = 0, init: str = "host",
               device=None, mesh=None, monitor=None) -> "CompiledModel":
@@ -465,6 +653,20 @@ class ModelSpec:
         snippets (UniformWeight / NormalWeight / ConstantWeight) or scalars;
         per-synapse delays are DelaySnippets, drawn through the same key
         schedule.
+
+        mesh: a ``repro_torch.launch.mesh.Mesh`` (``make_snn_mesh``; every
+        rank builds): populations are partitioned along the neuron axis
+        over its ranks and the model runs on the ``ShardedEngine`` on the
+        mesh's device (``device``, if given, must be it).  With
+        ``init="device"`` each rank draws only its own rows of every group
+        (``device_init_local``).  The full graph is drawn too, on every
+        rank's device, for the network's accounting and ``gather_state``;
+        every rank also builds a full single-device ``Simulator``, and the
+        engine builds the full tables before it swaps in its blocks.  So a
+        rank's device holds O(nnz) at any rank count: the JAX package's
+        one-process mesh makes that full copy once, the port once a rank.
+        A net larger than one card cannot be built over a mesh until it
+        goes (ROADMAP Queue 1).
 
         monitor: a ``repro_torch.obs.health.HealthConfig``: the run
         accumulates spike totals, rate EMAs, silent/saturated bands and the
@@ -489,6 +691,11 @@ class ModelSpec:
         with trace.span("validate", populations=len(self.populations),
                         synapses=len(self.synapses)):
             self._validate_build(init, mesh, monitor)
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise SpecError(f"device {str(device)!r} is not the mesh's "
+                                f"{str(mesh.device)!r}")
+            device = mesh.device
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
         base_key = RND.PRNGKey(seed, device=dev) if init == "device" else None
@@ -499,6 +706,9 @@ class ModelSpec:
                 pop.name, pop.model, pop.n,
                 params={k: _param_on(v, dev) for k, v in pop.params.items()},
                 input_fn=pop.input_fn, edge_spikes=pop.edge_spikes)
+        # init="device" with a mesh: each group's plan for the engine's
+        # fused construction (every rank draws only its own rows)
+        local_plans: Dict[str, DI.LocalInitPlan] = {}
 
         for sidx, sp in enumerate(self.synapses):
             n_pre = self.populations[sp.pre].n
@@ -576,6 +786,13 @@ class ModelSpec:
                 except ValueError as e:
                     raise SpecError(f"{where}: {e}") from None
                 net.add_synapse(group)
+                if init == "device" and mesh is not None:
+                    local_plans[gname] = DI.LocalInitPlan(
+                        connect=sp.connect, key=RND.fold_in(base_key, sidx),
+                        n_pre=n_pre, n_post_total=n_post_total,
+                        weight=sp.weight, delay=sp.delay,
+                        post_window=((lo, hi) if len(sp.post) > 1
+                                     else None))
                 lo = hi
 
         # the observation / intervention surface against the built network
@@ -594,10 +811,19 @@ class ModelSpec:
                 g.ell.n_pre, g.ell.max_conn, g.ell.n_post, b=1,
                 n_slots=g.ring_slots if g.ell.delay is not None else None,
                 tag=f"{g.name}:{g.representation}")
+        engine = None
+        if mesh is not None:
+            from repro_torch.core.snn.engine import ShardedEngine
+            with trace.span("shard", devices=mesh.world_size):
+                engine = ShardedEngine(net, mesh, dt=dt, seed=seed,
+                                       probes=probes, custom_updates=custom,
+                                       monitor=monitor,
+                                       local_init=local_plans or None)
         with trace.span("codegen", populations=len(net.populations)):
             sim = Simulator(net, dt=dt, seed=seed, device=dev, probes=probes,
                             custom_updates=custom, monitor=monitor)
-        return CompiledModel(spec=self, network=net, simulator=sim)
+        return CompiledModel(spec=self, network=net, simulator=sim,
+                             engine=engine)
 
     @staticmethod
     def _device_init(sp: SynapsePopSpec, base_key: torch.Tensor, sidx: int,
@@ -624,10 +850,11 @@ class ModelSpec:
         return post_ind, g, valid, dd
 
     def _validate_build(self, init: str, mesh, monitor) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the sharded engine and device_init_local, ROADMAP "
-                "Queue 1 item 7) is not ported to repro_torch yet")
+        if mesh is not None and not all(
+                hasattr(mesh, a) for a in ("rank", "world_size", "device",
+                                           "all_gather")):
+            raise SpecError(f"mesh must be a repro_torch.launch.mesh.Mesh "
+                            f"(make_snn_mesh), got {type(mesh).__name__}")
         if monitor is not None:
             if not isinstance(monitor, HealthConfig):
                 raise SpecError(f"monitor must be a HealthConfig, got "
@@ -702,13 +929,22 @@ def _expand_state(state: SimState, batch: int) -> SimState:
 class CompiledModel:
     """A built network: validated spec + generated simulator, with `run`,
     `step` and the batched `sweep_gscale` the conductance-scaling study
-    drives."""
+    drives.  Built with a mesh, every call runs on the ``ShardedEngine``
+    (``engine``; the same results, the neuron axis over the mesh's ranks,
+    states sharded)."""
 
     def __init__(self, spec: ModelSpec, network: Network,
-                 simulator: Simulator):
+                 simulator: Simulator, engine=None):
         self.spec = spec
         self.network = network
         self.simulator = simulator
+        self.engine = engine
+
+    @property
+    def backend(self) -> Simulator:
+        """What runs the model: the engine when sharded, else the
+        simulator."""
+        return self.simulator if self.engine is None else self.engine
 
     @property
     def group_names(self) -> List[str]:
@@ -751,7 +987,7 @@ class CompiledModel:
 
     def init_state(self, batch: int = 1,
                    key: Optional[torch.Tensor] = None) -> SimState:
-        return self.simulator.init_state(batch, key)
+        return self.backend.init_state(batch, key)
 
     def _norm_stim(self, stim) -> Dict[str, torch.Tensor]:
         out = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
@@ -777,8 +1013,8 @@ class CompiledModel:
     def step(self, state: SimState,
              gscales: Optional[Mapping[str, object]] = None,
              stim: Optional[Mapping[str, object]] = None):
-        return self.simulator.step(state, self._norm_gscales(gscales),
-                                   stim=self._norm_stim(stim))
+        return self.backend.step(state, self._norm_gscales(gscales),
+                                 stim=self._norm_stim(stim))
 
     def run(self, n_steps: int,
             gscales: Optional[Mapping[str, object]] = None,
@@ -804,7 +1040,7 @@ class CompiledModel:
         if state is None:
             state = self.init_state()
         with self._run_span(n_steps, state.batch):
-            res = self.simulator.run_compiled(state, n_steps,
+            res = self.backend.run_compiled(state, n_steps,
                                               self._norm_gscales(gscales),
                                               record_raster=record_raster,
                                               stim=self._norm_stim(stim))
@@ -814,9 +1050,9 @@ class CompiledModel:
     def _run_span(self, n_steps: int, batch: int):
         """The JAX package's ``run`` span (host time only), with the batch,
         and ``compile`` true when the call captured a graph."""
-        counts = self.simulator.graph_counts
+        counts = self.backend.graph_counts
         with trace.span("run", model=self.spec.name, n_steps=n_steps,
-                        batch=batch, sharded=False) as args:
+                        batch=batch, sharded=self.engine is not None) as args:
             before = counts["captures"]
             yield
             args["compile"] = counts["captures"] > before
@@ -844,8 +1080,8 @@ class CompiledModel:
             raise ValueError(f"state has batch {state.batch}, values "
                              f"{batch}")
         with self._run_span(n_steps, batch):
-            res = self.simulator.run_compiled(state, n_steps,
-                                              {n: values for n in names})
+            res = self.backend.run_compiled(state, n_steps,
+                                            {n: values for n in names})
         return SweepResult(values=values, rates_hz=res.rates_hz,
                            finite=res.finite, spike_counts=res.spike_counts,
                            recordings=res.recordings)
@@ -855,7 +1091,7 @@ class CompiledModel:
         """State of ``len(keys)`` stream slots on the model's device, one
         independent simulation each; keys [S, 2] threefry keys, slot s
         starting equal to ``init_state(1, keys[s])``."""
-        return self.simulator.init_stream_state(keys)
+        return self.backend.init_stream_state(keys)
 
     def select_streams(self, state: SimState, idx, keys) -> SimState:
         """Re-pack the stream axis between chunks: new slot j continues
@@ -863,7 +1099,7 @@ class CompiledModel:
         fresh from ``keys[j]``; ``len(idx)`` sets the new slot count.  The
         gateway's slot reclamation and elastic resize, surviving streams
         untouched (``Simulator.select_streams``)."""
-        return self.simulator.select_streams(state, idx, keys)
+        return self.backend.select_streams(state, idx, keys)
 
     def serve_chunk(self, state: SimState, stim, steps_left, n_steps: int,
                     gscales: Optional[Mapping[str, object]] = None,
@@ -888,12 +1124,12 @@ class CompiledModel:
             raise SpecError(
                 f"unknown stim population(s) {sorted(unknown)}; declared "
                 f"populations: {sorted(self.network.populations)}")
-        counts = self.simulator.graph_counts
+        counts = self.backend.graph_counts
         with trace.span("serve_chunk", model=self.spec.name,
                         n_steps=n_steps, streams=state.batch,
-                        sharded=False) as args:
+                        sharded=self.engine is not None) as args:
             before = counts["captures"]
-            out = self.simulator.serve_chunk(
+            out = self.backend.serve_chunk(
                 state, stim, steps_left, n_steps,
                 self._norm_gscales(gscales), record_raster=record_raster)
             args["compile"] = counts["captures"] > before
@@ -920,7 +1156,7 @@ class CompiledModel:
                 f"{sorted(self.simulator.custom_updates)}")
         if state is None:
             state = self.init_state()
-        return self.simulator.custom_update(state, name)
+        return self.backend.custom_update(state, name)
 
     def memory_report(self, n_steps: Optional[int] = None,
                       max_streams: int = 1) -> List[dict]:

@@ -27,9 +27,14 @@ it a stream (no step reads it on the host, so a CUDA graph of the step reads
 each replay's cursors; a served stream's ring sits where its own steps left
 it).
 Per-synapse delays take two kernels a step: the delay scatter adds into a
-float64 scratch that the group owns (one, for the last step's batch size
-and device, zero between steps), and the ring fold scales it, rolls it into a new ring,
-reads and clears the cursor's row and zeroes the scratch.
+float64 scratch that the group owns (one, for the last step's batch size,
+device and post width, zero between steps), and the ring fold scales it,
+rolls it into a new ring, reads and clears the cursor's row and zeroes the
+scratch.
+
+The sharded engine (``core/snn/engine.py``) steps a group on its rank's
+post-shard block through ``step(conn=LocalConnectivity(...))``, with the
+pre traces it keeps sharded passed in as ``pre_traces``.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from repro_torch.sparse import formats as F
 from repro_torch.sparse import ops as sparse_ops
 
 __all__ = [
-    "SynapseGroup", "SynapseState",
+    "SynapseGroup", "SynapseState", "LocalConnectivity",
     "Pulse", "ExpDecay", "ExpCond", "Alpha",
     "StaticPulse", "STDP", "PROPAGATIONS",
 ]
@@ -159,6 +164,25 @@ def _scale(sign: float, gscale: Scale, out: torch.Tensor) -> torch.Tensor:
         if sign == 1.0:
             return gscale * out
     return sign * gscale * out
+
+
+class LocalConnectivity:
+    """A step-time connectivity override: the sharded engine passes each
+    rank's post-shard block of a group's connectivity through
+    ``SynapseGroup.step(conn=...)`` and reuses the group's compiled
+    snippets on it unchanged.  ``ell``'s ``n_post`` is the rank's post
+    shard and its ``post_ind`` shard-local; ``dense`` is the column block
+    of a dense mirror.  What the step derives from the connectivity (the
+    snippets' float32 ``delay``, the learn rule's post gather) is made
+    here, once, on the block's device."""
+
+    def __init__(self, ell: F.ELLSynapses,
+                 dense: Optional[torch.Tensor] = None):
+        self.ell = ell
+        self.dense = dense
+        self.delay_f = (None if ell.delay is None
+                        else ell.delay.to(torch.float32))
+        self.gather = ell.post_ind.long()
 
 
 @dataclasses.dataclass
@@ -296,10 +320,10 @@ class SynapseGroup:
                         if self._wu.learn is not None else None)
         self._device = dev
         # the delay scatter's float64 scratch [S, n_post, B] for the last
-        # step's (B, device), zero between steps (the fold zeroes what the
-        # scatter added)
+        # step's (B, device, n_post), zero between steps (the fold zeroes
+        # what the scatter added)
         self._acc: Optional[torch.Tensor] = None
-        self._acc_key: Optional[Tuple[int, torch.device]] = None
+        self._acc_key: Optional[Tuple[int, torch.device, int]] = None
         # each member's first ring row in the flattened ring [B * S, n_post]
         # (the homogeneous delay's index ops), by (B, device)
         self._row0: Dict[Tuple[int, torch.device], torch.Tensor] = {}
@@ -312,7 +336,8 @@ class SynapseGroup:
         its graphs write one scratch at every replay."""
         old = self._acc
         self._acc = acc
-        self._acc_key = None if acc is None else (acc.shape[2], acc.device)
+        self._acc_key = (None if acc is None
+                         else (acc.shape[2], acc.device, acc.shape[1]))
         return old
 
     def _ring_row0(self, batch: int, n_slots: int,
@@ -369,11 +394,11 @@ class SynapseGroup:
     # -- propagation -------------------------------------------------------
     def _effective_ell(self, g: Optional[torch.Tensor],
                        syn: Dict[str, torch.Tensor],
-                       externals: Dict[str, object]) -> F.ELLSynapses:
-        """The ELL to propagate this step: the stored one for static groups,
-        or one carrying this step's effective weights (computed once per
-        step)."""
-        ell = self.ell
+                       externals: Dict[str, object],
+                       ell: F.ELLSynapses) -> F.ELLSynapses:
+        """The ELL to propagate this step: ``ell`` (the stored one, or a
+        rank's block) for static groups, or one carrying this step's
+        effective weights (computed once per step)."""
         if self.wum.is_static_pulse:
             if g is None:
                 return ell
@@ -390,38 +415,40 @@ class SynapseGroup:
 
     def _raw_current(self, spikes: torch.Tensor, gscale: Scale,
                      g: Optional[torch.Tensor], syn: Dict[str, torch.Tensor],
-                     externals: Dict[str, object]) -> torch.Tensor:
+                     externals: Dict[str, object], ell: F.ELLSynapses,
+                     dense: Optional[torch.Tensor]) -> torch.Tensor:
         """sign * gscale * sum_i spike_i * w_eff_ij for this step's arriving
         spikes [B, n_pre] -> [B, n_post]."""
         if (self.wum.is_static_pulse and g is None
                 and self.representation == "dense"):
-            out = sparse_ops.accumulate_dense(self.dense, spikes)
+            out = sparse_ops.accumulate_dense(dense, spikes)
         else:
             out = kops.ell_spmv_batched(
-                self._effective_ell(g, syn, externals), spikes)
+                self._effective_ell(g, syn, externals, ell), spikes)
         return _scale(self.sign, gscale, out)
 
     def _delay_fold(self, ring: torch.Tensor, cursor: torch.Tensor,
                     spikes: torch.Tensor, gscale: Scale,
                     g: Optional[torch.Tensor], syn: Dict[str, torch.Tensor],
-                    externals: Dict[str, object]
+                    externals: Dict[str, object], ell: F.ELLSynapses
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Heterogeneous delays: this step's spikes scattered into the
         scratch (slot d = currents due d steps from now), then folded into
         a new ring at row (cursor + d) % S, scaled by sign * gscale, with
         the cursor's row read out and cleared.  Returns (new_ring, inj,
         new_cursor)."""
-        key = (spikes.shape[0], spikes.device)
+        key = (spikes.shape[0], spikes.device, ell.n_post)
         if key != self._acc_key:
             # one scratch at a time: the old one goes before the new one
             self._acc = self._acc_key = None
-            self._acc = torch.zeros((self.ring_slots, self.ell.n_post,
-                                     key[0]), dtype=torch.float64,
+            self._acc = torch.zeros((self.ring_slots, ell.n_post, key[0]),
+                                    dtype=torch.float64,
                                     device=spikes.device)
             self._acc_key = key
         try:
-            kops.ell_spmv_delay_into(self._effective_ell(g, syn, externals),
-                                     spikes, self._acc)
+            kops.ell_spmv_delay_into(
+                self._effective_ell(g, syn, externals, ell), spikes,
+                self._acc)
             return kops.delay_ring_fold(ring, self._acc, cursor, self.sign,
                                         gscale)
         except BaseException:
@@ -434,6 +461,8 @@ class SynapseGroup:
         dt: float, v_post: Optional[torch.Tensor] = None,
         post_spikes: Optional[torch.Tensor] = None,
         t: Optional[torch.Tensor] = None,
+        conn: Optional[LocalConnectivity] = None,
+        pre_traces: Optional[Dict[str, torch.Tensor]] = None,
     ) -> tuple[SynapseState, torch.Tensor]:
         """Advance one step; returns (new_state, current into post neurons
         [B, n_post]).
@@ -443,26 +472,42 @@ class SynapseGroup:
         times [B] (code reads it as [B, 1], a synapse matrix's as
         [B, 1, 1]).
 
+        ``conn`` overrides the stored connectivity (the sharded engine's
+        post-shard block); every post-side shape then follows it, and a
+        delayed group's scatter takes the block's delays into the same
+        float64 scratch and fold.  ``pre_traces``: when not None the caller
+        owns the pre traces (the engine advances its pre-sharded copy):
+        the pre step is skipped, ``state.wu_pre`` passes through, and the
+        learn rule reads these full-size [B, n_pre] traces.
+
         Weights (and gscale) are applied at *spike* time, GeNN's dendritic-
         delay semantics; the delay ring buffers the weighted current.
         """
+        if conn is None:
+            ell, dense = self.ell, self.dense
+            delay_f, gather = self._delay_f, self._gather
+        else:
+            ell, dense = conn.ell, conn.dense
+            delay_f = (conn.delay_f if conn.delay_f is not None
+                       else self._delay_f)
+            gather = conn.gather
         t = self._t0 if t is None else t[:, None]
-        wu_ext = {"dt": dt, "t": t, "delay": self._delay_f}
+        wu_ext = {"dt": dt, "t": t, "delay": delay_f}
         syn_ext = {**wu_ext, "t": t[..., None]}
 
         if not self.needs_ring:
             inj = self._raw_current(spikes, gscale, state.g, state.syn,
-                                    syn_ext)
+                                    syn_ext, ell, dense)
             new_buf, new_cur = state.dendritic, state.cursor
         else:
             S = self.ring_slots
             cur = state.cursor
-            if self.ell.delay is None:
+            if ell.delay is None:
                 # homogeneous: one full accumulation, one slot a member
                 # written, the rows picked by index ops on the device
                 # cursors, in the ring flattened to [B * S, n_post]
                 contrib = self._raw_current(spikes, gscale, state.g,
-                                            state.syn, syn_ext)
+                                            state.syn, syn_ext, ell, dense)
                 ring = state.dendritic.clone()
                 flat = ring.view(-1, ring.shape[-1])
                 row0 = self._ring_row0(ring.shape[0], S, ring.device)
@@ -477,7 +522,7 @@ class SynapseGroup:
                 # delay scatter + ring fold; the new ring is a fresh tensor
                 ring, inj, new_cur = self._delay_fold(
                     state.dendritic, cur, spikes, gscale, state.g,
-                    state.syn, syn_ext)
+                    state.syn, syn_ext, ell)
             new_buf = ring
 
         # -- learning (generated weight-update code) -----------------------
@@ -488,10 +533,10 @@ class SynapseGroup:
             pre_spk = spikes.to(torch.float32)
             post_spk = (post_spikes.to(torch.float32)
                         if post_spikes is not None
-                        else torch.zeros((spikes.shape[0], self.ell.n_post),
+                        else torch.zeros((spikes.shape[0], ell.n_post),
                                          dtype=torch.float32,
                                          device=spikes.device))
-            if self._wu.pre_step is not None:
+            if pre_traces is None and self._wu.pre_step is not None:
                 new_pre = self._wu.pre_step(
                     state.wu_pre, self.wum.params,
                     {**wu_ext, "pre_spike": pre_spk})
@@ -500,14 +545,14 @@ class SynapseGroup:
                     state.wu_post, self.wum.params,
                     {**wu_ext, "post_spike": post_spk})
             if self._wu.learn is not None:
-                gather = self._gather
                 traces = {"pre_spike": pre_spk[:, :, None],
                           "post_spike": post_spk[:, gather]}
-                traces.update({k: v[:, :, None] for k, v in new_pre.items()})
+                pre_read = new_pre if pre_traces is None else pre_traces
+                traces.update({k: v[:, :, None] for k, v in pre_read.items()})
                 traces.update({k: v[:, gather] for k, v in new_post.items()})
                 g_learn, new_syn = self._wu.learn(
                     state.g, state.syn, traces, self.wum.params, syn_ext)
-                new_g = torch.where(self.ell.valid, g_learn, state.g)
+                new_g = torch.where(ell.valid, g_learn, state.g)
 
         # -- postsynaptic dynamics (generated decay/apply code) ------------
         psm_ext = {"inj": inj, "dt": dt, "t": wu_ext["t"]}

@@ -458,18 +458,20 @@ class Gateway:
 # ---------------------------------------------------------------------------
 
 def _demo_models(devices: int, device=None):
+    mesh = None
     if devices:
-        raise NotImplementedError(
-            "--devices (a sharded build over a mesh, ROADMAP Queue 1 item "
-            "7) is not ported to repro_torch yet")
+        # every rank serves the same traffic (torchrun for more than one)
+        from repro_torch.launch.mesh import make_snn_mesh
+        mesh = make_snn_mesh(devices, device=device)
+        device = None
     from repro_torch.core.models.izhikevich_net import (IzhikevichNetConfig,
                                                         compile_model)
     izh = compile_model(IzhikevichNetConfig(n_total=200, n_conn=30),
-                        device=device)
+                        device=device, mesh=mesh)
     from repro_torch.core.models.mushroom_body import (
         MushroomBodyConfig, compile_model as compile_mb)
     mb = compile_mb(MushroomBodyConfig(n_pn=20, n_lhi=5, n_kc=100, n_dn=20),
-                    device=device)
+                    device=device, mesh=mesh)
     return {"izhikevich": (izh, ("exc",), 3.0),
             "mushroom_body": (mb, ("KC",), 1.5)}
 
@@ -491,7 +493,9 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu for a check "
                          "without a card)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard over N devices (not ported: raises)")
+                    help="shard over N ranks, one device each (0: the "
+                         "single-device build; N > 1 under torchrun "
+                         "--nproc-per-node N)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--http", default="",
                     help="host:port — serve the async HTTP front door "

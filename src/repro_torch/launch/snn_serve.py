@@ -28,6 +28,10 @@ Demo CLI (the card unless ``--device cpu``):
       --model mushroom_body --streams 8 --chunk 50
   PYTHONPATH=src python -m repro_torch.launch.snn_serve \\
       --model izhikevich --full --check
+  # the sharded engine: one rank a device (gloo ranks on the CPU here)
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+      repro_torch.launch.snn_serve --model izhikevich --device cpu \\
+      --devices 2 --check
 """
 
 from __future__ import annotations
@@ -178,6 +182,10 @@ class SNNServer:
         self._cursor = np.zeros(self.max_streams, np.int64)  # steps served
         # pinned host stim buffers [S, chunk, n] by S (a gateway's buckets)
         self._stim_host: Dict[int, Dict[str, torch.Tensor]] = {}
+        # the starting slot count's, now: pinning a large buffer takes a
+        # tenth of a second or more, which would otherwise land on the
+        # first chunk (a gateway's other buckets pin theirs at first use)
+        self._host_buffers()
         # accounting
         self.total_chunks = 0
         self.total_slot_steps = 0      # steps actually served (masked out
@@ -326,7 +334,7 @@ class SNNServer:
                 self.sched.release(slot)
                 finished.append(req)
         self.last_chunk_wall_s = time.perf_counter() - t0
-        dev = self.model.simulator.last_serve_device_ms()
+        dev = self.model.backend.last_serve_device_ms()
         self.last_chunk_phases = {
             "assemble_s": t1 - t0,
             "h2d_s": None if dev is None else dev[0] * 1e-3,
@@ -375,11 +383,14 @@ class SNNServer:
 
 def _build_model(name: str, devices: int, full: bool, device=None,
                  monitor=None):
-    """(model, stim populations, stimulus current scale) for the demo."""
+    """(model, stim populations, stimulus current scale) for the demo;
+    ``devices`` > 0 builds over a mesh of that many ranks (every rank runs
+    this; more than one needs a launcher: ``torchrun --nproc-per-node``)."""
+    mesh = None
     if devices:
-        raise NotImplementedError(
-            "--devices (a sharded build over a mesh, ROADMAP Queue 1 item "
-            "7) is not ported to repro_torch yet")
+        from repro_torch.launch.mesh import make_snn_mesh
+        mesh = make_snn_mesh(devices, device=device)
+        device = None
     if name == "mushroom_body":
         from repro_torch.core.models.mushroom_body import (
             MushroomBodyConfig, compile_model)
@@ -388,15 +399,15 @@ def _build_model(name: str, devices: int, full: bool, device=None,
         cfg = (MushroomBodyConfig(kc_probe_every=5) if full else
                MushroomBodyConfig(n_pn=20, n_lhi=5, n_kc=100, n_dn=20,
                                   kc_probe_every=5))
-        return (compile_model(cfg, device=device, monitor=monitor), ("KC",),
-                1.5)
+        return (compile_model(cfg, device=device, monitor=monitor,
+                              mesh=mesh), ("KC",), 1.5)
     if name == "izhikevich":
         from repro_torch.core.models.izhikevich_net import (
             IzhikevichNetConfig, compile_model)
         cfg = (IzhikevichNetConfig() if full else
                IzhikevichNetConfig(n_total=200, n_conn=30))
-        return (compile_model(cfg, device=device, monitor=monitor), ("exc",),
-                3.0)
+        return (compile_model(cfg, device=device, monitor=monitor,
+                              mesh=mesh), ("exc",), 3.0)
     raise SystemExit(f"unknown --model {name!r} "
                      "(expected mushroom_body or izhikevich)")
 
@@ -490,7 +501,9 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu for a check "
                          "without a card)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard over N devices (not ported: raises)")
+                    help="shard over N ranks, one device each (0: the "
+                         "single-device build; N > 1 under torchrun "
+                         "--nproc-per-node N)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--steps", type=int, default=200,
                     help="stimulus length per request (dt steps)")

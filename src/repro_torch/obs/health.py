@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["HealthConfig", "HealthState", "HealthReport", "NO_BAD_STEP",
-           "init_state", "accumulate", "finalize"]
+           "init_state", "accumulate", "combine_across_devices",
+           "finalize"]
 
 # "no non-finite value seen yet"; -1 in the finalized report
 NO_BAD_STEP = 2 ** 31 - 1
@@ -185,6 +186,18 @@ def accumulate(cfg: HealthConfig, hs: HealthState,
     return HealthState(**{f.name: pick(getattr(new, f.name),
                                        getattr(hs, f.name))
                           for f in dataclasses.fields(HealthState)})
+
+
+def combine_across_devices(hs: HealthState, mesh) -> HealthState:
+    """Merge the ranks' NaN-guard verdicts at a run's end (the sharded
+    engine): spike totals, EMAs and step counts are the same on every rank
+    (built from all-reduced counts); only the guard differs, so
+    ``nonfinite`` ORs (pmax) and ``first_bad_step`` takes the earliest
+    step (pmin over the NO_BAD_STEP sentinel)."""
+    return HealthState(spike_total=hs.spike_total,
+                       rate_ema_hz=hs.rate_ema_hz, steps=hs.steps,
+                       nonfinite=mesh.pmax(hs.nonfinite),
+                       first_bad_step=mesh.pmin(hs.first_bad_step))
 
 
 def finalize(cfg: HealthConfig, hs: HealthState, dt_ms: float,

@@ -26,13 +26,19 @@ declarations the host path resolves.
   sorts, the duplicate masks and the binomial are plain torch.
 
 The device is the key's: a key on a CUDA device builds there (the kernels
-or an error, never the CPU).  ``device_init_local`` and ``LocalInitPlan``
-(the fused per-device path) need a mesh and wait for ROADMAP Queue 1 item
-7; ``partition_ell_by_post`` repacks a built ELL into post-shard blocks.
+or an error, never the CPU).  ``partition_ell_by_post`` repacks a built ELL
+into post-shard blocks; ``device_init_local`` (with ``LocalInitPlan``)
+fuses generation and partitioning over a mesh (``repro_torch.launch.mesh``):
+each rank draws only its own rows and the ranks trade post-shard slots with
+one ``all_to_all``, so the blocks are made without the full ELL.
+``ModelSpec.build(mesh=)`` still draws the full graph as well, on every
+rank, and builds a full single-device ``Simulator`` there: a rank's device
+holds O(nnz) at any rank count until that goes (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -47,7 +53,7 @@ __all__ = [
     "device_resolve", "device_fixed_fanout", "device_fixed_probability",
     "device_one_to_one", "device_dense", "partition_ell_by_post",
     "as_device_weight", "as_device_delay", "device_delays",
-    "construction_peak_model",
+    "construction_peak_model", "LocalInitPlan", "device_init_local",
 ]
 
 _Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # post, g, valid
@@ -264,15 +270,19 @@ def _report_overflow(n_rows: int, *, n_pre: int, n_post: int, p: float,
 
 
 def device_fixed_probability(key: torch.Tensor, n_pre: int, n_post: int,
-                             p: float, weight=None, rows=None) -> _Triple:
-    """Each (pre, post) pair connected independently with probability p."""
+                             p: float, weight=None, rows=None,
+                             report: bool = True) -> _Triple:
+    """Each (pre, post) pair connected independently with probability p.
+    ``report``: trace the clamped rows here (``device_init_local`` reports
+    once, from its all-reduced count, instead)."""
     if not 0.0 <= p <= 1.0:
         raise ValueError(f"FixedProbability p={p} outside [0, 1]")
     rows = _rows_or_default(rows, n_pre, key.device)
     k = _binomial_slots(n_post, p)
     post, counts, over = _fixed_probability_rows(key, rows, n_post, p, k,
                                                  n_pre=n_pre)
-    _report_overflow(over.sum(), n_pre=n_pre, n_post=n_post, p=p, k=k)
+    if report:
+        _report_overflow(over.sum(), n_pre=n_pre, n_post=n_post, p=p, k=k)
     valid = (torch.arange(k, dtype=torch.int32, device=key.device)[None, :]
              < counts[:, None])
     g = _row_weights(as_device_weight(weight), key, rows, n_pre, k)
@@ -305,7 +315,7 @@ def device_dense(key: torch.Tensor, n_pre: int, n_post: int, weight=None,
 
 def device_resolve(connect: F.ConnectivityInit, key: torch.Tensor,
                    n_pre: int, n_post: int, weight=None,
-                   rows=None) -> _Triple:
+                   rows=None, report: bool = True) -> _Triple:
     """Dispatch a ConnectivityInit declaration to its device initializer:
     (post_ind int32, g float32, valid bool), [len(rows), K] on the key's
     device."""
@@ -314,7 +324,7 @@ def device_resolve(connect: F.ConnectivityInit, key: torch.Tensor,
                                    weight, rows)
     if isinstance(connect, F.FixedProbability):
         return device_fixed_probability(key, n_pre, n_post, connect.p,
-                                        weight, rows)
+                                        weight, rows, report=report)
     if isinstance(connect, F.OneToOne):
         return device_one_to_one(key, n_pre, n_post, weight, rows)
     if isinstance(connect, F.DenseInit):
@@ -409,6 +419,108 @@ def partition_ell_by_post(ell: F.ELLSynapses, n_shards: int) -> tuple:
     g_out, post_out, valid_out, delay_out = _partition_rows(
         ell.g, ell.post_ind, ell.valid, ell.delay, n_shards, shard_size,
         k_local)
+    return g_out, post_out, valid_out, delay_out, shard_size, k_local
+
+
+# ---------------------------------------------------------------------------
+# fused local construction: generate only the rows a rank owns, partition
+# them in place, exchange slots -- this function's peak memory O(nnz / ranks)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LocalInitPlan:
+    """What ``device_init_local`` needs to build one synapse group's
+    post-shard block without the full ELL: the declaration, its key, and
+    the generation space.  ``n_post_total`` is the generation post space
+    (the concatenated post populations); ``post_window`` restricts to one
+    group's [lo, hi) slice of it (None: the whole space)."""
+    connect: F.ConnectivityInit
+    key: torch.Tensor
+    n_pre: int
+    n_post_total: int
+    weight: object = None
+    delay: object = None
+    post_window: Optional[Tuple[int, int]] = None
+
+
+def _fp_row_overflow(key: torch.Tensor, rows: torch.Tensor, n_post: int,
+                     p: float) -> torch.Tensor:
+    """[rows] int32 flags: FixedProbability rows whose raw Binomial degree
+    exceeds the static slot padding (the key schedule of
+    ``_fixed_probability_rows`` without drawing targets)."""
+    k = _binomial_slots(n_post, p)
+    rks = _row_keys(RND.fold_in(key, 0xDE), rows, 0)
+    raw = RND.binomial(RND.fold_in(rks, 1), n_post, p).to(torch.int32)
+    return (raw > k).to(torch.int32)
+
+
+def device_init_local(connect: F.ConnectivityInit, key: torch.Tensor,
+                      n_pre: int, n_post: int, mesh, weight=None,
+                      delay=None,
+                      post_window: Optional[Tuple[int, int]] = None
+                      ) -> tuple:
+    """``device_resolve`` + ``partition_ell_by_post`` fused over ``mesh``
+    (every rank calls it; the key is the same on every rank).
+
+    Rank d draws only rows [d * R, (d + 1) * R), R = ceil(n_pre / D),
+    through the counter-based ``rows=`` path (so the draws equal a global
+    generation's), partitions them into [D, R, k_local] post-shard blocks,
+    and trades them with one ``all_to_all``: block s of every rank goes to
+    rank s, whose received [D, R, k_local] stack is its block in global
+    row order.  ``k_local`` is the ``pmax`` of every rank's widest row, so
+    every rank builds the same shapes; a FixedProbability declaration
+    reports its clamped rows once, from their ``psum``.
+
+    Returns (g, post_local, valid, delay_local or None, shard_size,
+    k_local), the tensors [n_pre, k_local]: this rank's block, equal to
+    ``partition_ell_by_post(full ELL, D)[d]`` bit for bit.  ``n_post`` is
+    the generation post space; ``post_window=(lo, hi)`` keeps one
+    population's window of it."""
+    D, d = mesh.world_size, mesh.rank
+    lo, hi = (0, int(n_post)) if post_window is None else (
+        int(post_window[0]), int(post_window[1]))
+    shard_size = -(-(hi - lo) // D)   # the engine's post shard
+    R = -(-int(n_pre) // D)           # rows a rank draws (the last padded)
+    dev = key.device
+    rows = d * R + torch.arange(R, dtype=torch.int32, device=dev)
+    real = rows < n_pre
+    # rows past n_pre are drawn, then invalidated: their draws never reach
+    # the output
+    post, g, valid = device_resolve(connect, key, n_pre, n_post, weight,
+                                    rows=rows, report=False)
+    valid = valid & real[:, None]
+    dd = None
+    if delay is not None:
+        dd = device_delays(key, n_pre, post.shape[1], delay, rows=rows)
+        dd = torch.where(valid, dd, torch.zeros_like(dd))
+    if post_window is not None:
+        mask = (post >= lo) & (post < hi) & valid
+        post = torch.where(mask, post - lo, torch.zeros_like(post))
+        g = torch.where(mask, g, torch.zeros_like(g))
+        dd = None if dd is None else torch.where(mask, dd,
+                                                 torch.zeros_like(dd))
+        valid = mask
+    post = post.to(torch.int32)
+    counts = _shard_counts(post, valid, D, shard_size)
+    widest = counts.max().reshape(1).to(torch.int32)
+    k_local = max(1, int(mesh.pmax(widest)))          # a build-time read
+    if isinstance(connect, F.FixedProbability):
+        over = torch.where(real, _fp_row_overflow(key, rows, n_post,
+                                                  connect.p), 0)
+        _report_overflow(int(mesh.psum(over.sum().reshape(1))),
+                         n_pre=n_pre, n_post=n_post, p=connect.p,
+                         k=_binomial_slots(n_post, connect.p))
+    parts = _partition_rows(g, post, valid, dd, D, shard_size, k_local)
+    out = []
+    for arr in parts:
+        if arr is None:
+            out.append(None)
+            continue
+        # [D, R, kl], [s] = this rank's rows' slots for shard s; after the
+        # exchange [s] = rank s's rows' slots for this rank's shard
+        blk = mesh.all_to_all(arr, split_axis=0, concat_axis=0)
+        out.append(blk.reshape(D * R, k_local)[:n_pre])
+    g_out, post_out, valid_out, delay_out = out
     return g_out, post_out, valid_out, delay_out, shard_size, k_local
 
 

@@ -426,21 +426,28 @@ def test_fold_with_unequal_cursors_matches_jax_ring():
 
 
 # ---------------------------------------------------------------------------
-# entry points: the card unless asked, the mesh not ported
+# entry points: the card unless asked; a mesh of several ranks needs a
+# launcher (tests/test_torch_engine_serving.py serves on the mesh)
 # ---------------------------------------------------------------------------
 
 def test_serving_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.launch import gateway as TGW
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     argv = ["--model", "izhikevich", "--requests", "1", "--steps", "4"]
     with pytest.raises(RuntimeError, match="CUDA"):
         TSRV.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         TGW.main(["--requests", "1"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSRV.main(argv + ["--devices", "1"])
+    # a group left up by an earlier test would answer for the launcher
+    assert not torch.distributed.is_initialized(), "a process group leaked"
+    with pytest.raises(RuntimeError, match="rendezvous"):
         TSRV.main(argv + ["--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="rendezvous"):
         TGW.main(["--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(SpecError, match="Mesh"):
         TIZ.spec(TIZ.IzhikevichNetConfig(n_total=20, n_conn=4)).build(
             device="cpu", mesh=object())

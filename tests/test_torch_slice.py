@@ -312,12 +312,13 @@ def test_port_model_surface():
     ms.add_neuron_population("a", 4, "lif")
     # probes, custom updates, monitors (test_torch_probes,
     # test_torch_health) and on-device construction
-    # (test_torch_device_init) are ported; meshes are not
+    # (test_torch_device_init) are ported; a mesh is a launch.mesh.Mesh
+    # (tests/test_torch_engine.py)
     ms.probe("p", "a", "V")
     ms.add_custom_update("u", "a", "V = V")
     assert ms.build(device="cpu", init="device").run(3).recordings[
         "p"].shape == (3, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TSPEC.SpecError, match="Mesh"):
         ms.build(device="cpu", mesh=object())
     with pytest.raises(TSPEC.SpecError, match="HealthConfig"):
         ms.build(device="cpu", monitor=object())

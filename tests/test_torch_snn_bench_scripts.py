@@ -42,13 +42,23 @@ def _run(name, monkeypatch, tmp_path):
 
 
 def test_snn_scaling_torch(monkeypatch, tmp_path):
-    out = _run("snn_scaling", monkeypatch, tmp_path)
+    """One rank without a launcher (a world of one, torn down after; the
+    D > 1 rows: tests/test_torch_engine.py's gloo ranks)."""
+    up = torch.distributed.is_initialized()
+    try:
+        out = _run("snn_scaling", monkeypatch, tmp_path)
+    finally:
+        if not up and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     assert [r["n"] for r in out["construction"]] == [256, 512, 1024]
     for r in out["construction"]:
         assert r["host_s"] > 0 and r["device_s"] > 0 and r["n_conn"] == 32
     assert [r["devices"] for r in out["weak_scaling"]] == [1]
     assert out["weak_scaling"][0]["us_per_step"] > 0
-    assert out["construction_memory"] == [] and "item 7" in out["left_out"]
+    assert [(r["path"], r["devices"]) for r in out["construction_memory"]] \
+        == [("fused_local", 1), ("generate_partition", 1)]
+    assert out["construction_memory"][0]["k_local"] == 32
+    assert out["devices"] == 1 and "gloo" in out["left_out"]
 
 
 def test_snn_probes_torch(monkeypatch, tmp_path):
