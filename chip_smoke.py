@@ -137,7 +137,11 @@ failure ends the run with a non-zero exit):
      (no single PyTorch call computes the scan); the count of tensor-core
      (HMMA) instructions in the built kernel; and the time of
      ``SSDScan``'s backward (autograd of ``ssd_chunked``) at the training
-     shape;
+     shape; then the prefill form (``ssd_scan_state``: y and the state
+     after the last chunk) against ``ssd_chunked(return_final_state=True)``
+     within 2e-4 at mamba2's serving prefill [8, 2048, 80, 64] / 128,
+     zamba2's [8, 2048, 112, 64] / 64 and t = 1037, its time beside the
+     stateless kernel's and the bound (x, B, C, dt, y and the state);
   2e. the flash-attention backward against its plain version
      (``flash_attention_bwd_ref``, on the same saved tensors) and against
      autograd through ``flash_attention_ref``: Qwen2-0.5B's training
@@ -258,9 +262,33 @@ failure ends the run with a non-zero exit):
      bit-equal to phase 5's run; (e) phase 6a's NaN-guard table on the
      engine (the ``hh_step`` route), equal to phase 6a's.
 
+  14. the MoE, SSM and hybrid families at full width (random bf16 weights
+     from a seeded generator): (a) granite-moe-1b-a400m, (b) mixtral-8x22b
+     cut to 2 layers (56 do not fit one card), (c) mamba2-2.7b and (d)
+     zamba2-7b (81 slots: 13 shared-attention applications, 68 mamba
+     layers) each serve 8 greedy requests of 512-1024 prompt tokens
+     (numpy's default_rng(0)) x 16 new tokens in one wave through
+     ``Server(max_batch=8, max_seq=2048)``: every request its tokens below
+     the vocab, finite logits, ``flash_attention`` launched once an
+     attention layer and ``ssd_scan.state`` (the SSD kernel writing its
+     final state) once a mamba layer a wave, nothing else; the MoE's
+     capacity drops in the prefill and the decode steps; prefill
+     tokens/s, decode ms/step, device ops a decode step and the card's
+     busy share; for 14a, c and d phase 7's float32 prefill check at full
+     depth (the MoE's plain run pinned to the kernel run's routing, where
+     a choice may differ only at a near tie of 1e-6); (e) training
+     granite-moe at full depth (4 x 2048, 4 steps: 48 ``flash_attention``
+     and 24 ``flash_attention_bwd`` a step, finite ce and aux; ms/step,
+     tokens/s, model TFLOP/s on the active parameters, peak memory) and
+     (f) zamba2 at 15 layer slots (2 x 2048, 3 steps: 26 ``ssd_scan``, 2
+     ``flash_attention`` and 2 ``flash_attention_bwd`` a step), then one
+     float32 step of zamba2 at 2 groups with the kernels and with the
+     plain versions as 8c.
+
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
-path, and ``engine_launches`` on phase 13's); the last line is
+path, ``engine_launches`` on phase 13's and ``family_launches`` on phase
+14's); the last line is
 ``{"ok": true, "device": {...}}``.  The full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -392,6 +420,23 @@ FLASH_CASES = (
     ("prefill_noncausal", (8, 14, 2, 2048, 64), "bfloat16",
      {"causal": False}, 1e-2),
 )
+# phase 14: the MoE, SSM and hybrid families served at full width, one
+# wave of 8 greedy requests (prompts of 512-1024 tokens from numpy's
+# default_rng(0), 16 new tokens each), caches to 2048 positions; mixtral
+# with its depth cut to 2 layers (its 56, ~141B parameters, do not fit one
+# card); the float32 kernel-vs-plain prefill of phase 7 (2 prompts of 512
+# tokens) at full depth, mixtral's skipped; the decode's device ops from a
+# profile of 10 steps
+FAMILIES = (
+    ("14a", "granite-moe-1b-a400m", None, True),
+    ("14b", "mixtral-8x22b", 2, False),
+    ("14c", "mamba2-2.7b", None, True),
+    ("14d", "zamba2-7b", None, True),
+)
+FAMILY_SERVE = dict(max_batch=8, max_seq=2048, requests=8,
+                    prompt_len=(512, 1024), max_new=16, check_prompts=2,
+                    check_len=512, tol=1e-3, decode_profile_steps=10,
+                    tie=1e-6)
 SERVE = dict(arch="qwen2-0.5b", max_batch=8, max_seq=4096, requests=16,
              prompt_len=(1024, 2048), max_new=32, check_prompts=2,
              check_len=512, tol=1e-3, decode_profile_steps=20)
@@ -408,6 +453,14 @@ SSD_CASES = (
     ("h3_small", (1, 300, 3, 16, 16)),
 )
 SSD_TOL = 2e-4
+# the prefill form (``ssd_scan_state``: y and the state after the last
+# chunk): mamba2's serving prefill (8 x 2048, 80 heads, state 128),
+# zamba2's (112 heads, state 64) and a t that 32 does not divide
+SSD_STATE_CASES = (
+    ("mamba2_prefill", (8, 2048, 80, 64, 128)),
+    ("zamba2_prefill", (8, 2048, 112, 64, 64)),
+    ("t1037", (1, 1037, 80, 64, 128)),
+)
 SSD_Q = 32                       # the kernel's chunk (csrc/ssd_scan.cu)
 # the training shape's time on the CUDA-core kernel that the tensor-core
 # one replaced (PERF.md) and what the redesign predicted, in ms; both
@@ -457,6 +510,18 @@ TRAIN = {
                        first_loss_cuda_cores=12.07),
     "mamba2-2.7b": dict(batch=2, seq=2048, steps=3, lr=3e-3,
                         per_step={"ssd_scan": 128}),
+    # phase 14e: every layer's attention forward twice (remat) and its
+    # backward once; 14f: zamba2 at 15 layer slots (2 groups of 5 mamba +
+    # the shared block, a tail of 3 mamba): the 13 mamba layers' SSD twice
+    # (remat), the shared block once a group (not rematerialised) and its
+    # backward
+    "granite-moe-1b-a400m": dict(batch=4, seq=2048, steps=4, lr=3e-3,
+                                 per_step={"flash_attention": 48,
+                                           "flash_attention_bwd": 24}),
+    "zamba2-7b@15": dict(arch="zamba2-7b", n_layers=15, batch=2, seq=2048,
+                         steps=3, lr=3e-3,
+                         per_step={"ssd_scan": 26, "flash_attention": 2,
+                                   "flash_attention_bwd": 2}),
 }
 # 8c: one step at full width, 2 layers, float32, kernels vs plain versions:
 # losses within 1e-4; each gradient within rtol=1e-3 plus 1e-4 of its
@@ -589,6 +654,8 @@ def main() -> int:
     launches_mamba = train_full(torch, report, "mamba2-2.7b", "8b")
     train_step_check(torch, report)
     torch.cuda.empty_cache()
+    launches_families = families(torch, report)
+    torch.cuda.empty_cache()
     kernel_entries += compare_bitmask(torch, report)
     launches_obs = main_observed(torch, report)
     torch.cuda.empty_cache()
@@ -612,6 +679,7 @@ def main() -> int:
                "flash_attention": launches_serve,
                "flash_attention_bwd": launches_qwen,
                "ssd_scan": launches_mamba,
+               "ssd_scan.state": launches_families["14c"],
                "spike_bitmask": launches_obs}
     # and, for those on the engine's paths, their launches there
     engine_path = {"ell_spmv": "main", "izhikevich_step": "main",
@@ -628,6 +696,10 @@ def main() -> int:
                                 else 0)
         check(on is None or e["engine_launches"] > 0,
               f"{e['name']} never launched on the engine's path")
+        # and its launches on each of phase 14's paths that runs it
+        e["family_launches"] = {
+            label: n[e["name"]] for label, n in launches_families.items()
+            if n.get(e["name"])}
     report["kernels"] = kernel_entries
     report["build"] = kernels
     out = ROOT / "chiprun_out"
@@ -1314,13 +1386,63 @@ def compare_ssd(torch, report) -> list:
             print(json.dumps(row))
             del x, dt, A, B, C, D, y, ref
         torch.cuda.empty_cache()
+        state_rows = [_ssd_state_case(torch, SSD, gen, name, shape)
+                      for name, shape in SSD_STATE_CASES]
     report["ssd_table"] = rows
-    r = rows[0]                       # the training shape
+    report["ssd_state_table"] = state_rows
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    r, rs = rows[0], state_rows[0]    # the training and prefill shapes
     return [{"name": "ssd_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "replaces": "src/repro/kernels/ssd_scan.py:76", "launches": 0,
-             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}}]
+             **{k: r[k] for k in keys}},
+            {"name": "ssd_scan.state", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:76", "launches": 0,
+             **{k: rs[k] for k in keys}}]
+
+
+def _ssd_state_case(torch, SSD, gen, name, shape) -> dict:
+    """2d's prefill form: y and the final state against ``ssd_chunked(...,
+    return_final_state=True)``, times beside the stateless kernel's at the
+    same shape and the bound (the bytes of x, B, C, dt, y and the
+    state)."""
+    from repro_torch.models.ssm import ssd_chunked
+    b, t, h, dh, ds = shape
+    dev = gen.device
+    x = torch.randn((b, t, h, dh), device=dev, generator=gen)
+    dt = 0.001 + 0.1 * torch.rand((b, t, h), device=dev, generator=gen)
+    A = -torch.exp(2.0 * torch.rand(h, device=dev, generator=gen))
+    B, C = (torch.randn((b, t, 1, ds), device=dev, generator=gen)
+            for _ in range(2))
+    D = torch.randn(h, device=dev, generator=gen)
+    y, st = SSD.ssd_scan_state(x, dt, A, B, C, D)
+    ref_y, ref_s = ssd_chunked(x, dt, A, B, C, D, return_final_state=True)
+    torch.cuda.synchronize()
+    err_y = float((y - ref_y).abs().max())
+    err_s = float((st - ref_s).abs().max())
+    check(bool(torch.allclose(y, ref_y, rtol=SSD_TOL, atol=SSD_TOL)),
+          f"ssd_scan_state {name}: y max abs err {err_y} > {SSD_TOL}")
+    check(bool(torch.allclose(st, ref_s, rtol=SSD_TOL, atol=SSD_TOL)),
+          f"ssd_scan_state {name}: state max abs err {err_s} > {SSD_TOL}")
+    del ref_y, ref_s
+    ms = _time_ms(torch, lambda i: SSD.ssd_scan_state(x, dt, A, B, C, D), 20)
+    no_state_ms = _time_ms(torch, lambda i: SSD.ssd_scan(x, dt, A, B, C, D),
+                           20)
+    plain_ms = _time_ms(torch, lambda i: ssd_chunked(
+        x, dt, A, B, C, D, return_final_state=True), 3)
+    nbytes, ops = _ssd_work(b, t, h, dh, ds)
+    nbytes += 4 * b * h * ds * dh
+    row = {"name": "ssd_scan.state", "case": name, "shape": list(shape),
+           "max_abs_err": max(err_y, err_s), "state_max_abs_err": err_s,
+           "tol": SSD_TOL, "ms": ms, "no_state_ms": no_state_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           **_tc_bound(nbytes, ops), "bytes": nbytes, "ops": ops}
+    print(json.dumps(row))
+    del x, dt, A, B, C, D, y, st
+    torch.cuda.empty_cache()
+    return row
 
 
 def _ssd_bwd_ms(torch, SSD, *inputs) -> float:
@@ -1687,6 +1809,7 @@ def plain_versions():
             mock.patch.object(FA, "flash_attention_bwd",
                               R.flash_attention_bwd_ref), \
             mock.patch.object(SSD, "ssd_scan", SSD._plain), \
+            mock.patch.object(SSD, "ssd_scan_state", _ssd_state_plain), \
             mock.patch.object(TFK, "threefry_split", R.threefry_split_ref), \
             mock.patch.object(TFK, "threefry_draw", R.threefry_draw_ref), \
             mock.patch.object(TFK, "threefry_fold_in",
@@ -1694,6 +1817,14 @@ def plain_versions():
             mock.patch.object(SBK, "spike_bitmask", R.spike_bitmask_ref), \
             mock.patch.object(SBK, "spike_bitmask_into", _bitmask_into_ref):
         yield
+
+
+def _ssd_state_plain(x, dt, A, B, C, D=None, initial_state=None):
+    """``ssd_scan_state``'s plain version (``ssd_chunked`` with the final
+    state)."""
+    from repro_torch.kernels import ssd_scan as SSD
+    return SSD._plain(x, dt, A, B, C, D, initial_state=initial_state,
+                      return_final_state=True)
 
 
 def _bitmask_into_ref(bits, ring, slot, active=None):
@@ -2548,6 +2679,386 @@ def serve_full(torch, report) -> dict:
         return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+def _layer_kinds(cfg) -> dict:
+    """How many attention and mamba layers a pass runs (a shared block
+    counts once a group)."""
+    from repro_torch.models import transformer as T
+    kinds = [k for k, *_ in T._layers(cfg)]
+    return {"attn": sum(k != "mamba" for k in kinds),
+            "mamba": kinds.count("mamba")}
+
+
+@contextlib.contextmanager
+def _routes_seen(seen):
+    """Hand each MoE layer's routing (``moe_route``'s result) to
+    ``seen``, in layer order."""
+    from unittest import mock
+    from repro_torch.models import moe as M
+    real = M.moe_route
+
+    def route(p, cfg, xg, cap):
+        out = real(p, cfg, xg, cap)
+        seen(out)
+        return out
+
+    with mock.patch.object(M, "moe_route", route):
+        yield
+
+
+def _count_drops(counts: dict):
+    """A ``_routes_seen`` callback: the (token, slot) pairs routed and
+    dropped (a host read a layer: outside timed runs only)."""
+    def seen(out):
+        counts["pairs"] += out[2].numel()
+        counts["dropped"] += int((~out[2]).sum())
+    return seen
+
+
+@contextlib.contextmanager
+def _pinned_routes(torch, recorded: list, tie: float, ties: dict):
+    """Each MoE layer's routing as ``recorded`` (a run's (expert_idx, place,
+    keep) in layer order), its gates and aux from this run's probabilities;
+    a choice that differs from this run's own is allowed only as a near
+    tie (the two competing probabilities within ``tie``), counted in
+    ``ties``.  So a float32 comparison of two runs is not cut by a
+    discontinuous routing flip."""
+    from unittest import mock
+    from repro_torch.models import moe as M
+    calls = iter(recorded)
+    real = M.moe_route
+
+    def route(p, cfg, xg, cap):
+        idx, place, keep = next(calls)
+        own = real(p, cfg, xg, cap)
+        probs = torch.softmax(xg.float() @ p["router"], dim=-1)
+        differ = (own[0] != idx).any(-1)
+        if bool(differ.any()):
+            top = torch.sort(probs[differ], dim=-1, descending=True).values
+            gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+            check(bool((gap <= tie).all()),
+                  f"a routing choice differs by {float(gap.max())} > {tie}")
+            ties["n"] += int(differ.sum())
+        gate = torch.gather(probs, -1, idx)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        onehot = torch.nn.functional.one_hot(idx, cfg.n_experts)
+        f_e = onehot.sum(dim=(0, 1, 2)).float() / idx.numel()
+        aux = cfg.aux_loss_weight * cfg.n_experts * torch.sum(
+            f_e * probs.mean(dim=(0, 1)))
+        return idx, place, keep, gate * keep, aux
+
+    with mock.patch.object(M, "moe_route", route):
+        yield
+
+
+def _family_config(arch: str, n_layers):
+    """The arch's config at full width, registered under its own name
+    with its depth cut to ``n_layers`` where that is given (``Server``
+    takes a registered name)."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    if n_layers is None:
+        return arch, cfg
+    name = f"{arch}@{n_layers}L"
+    configs.ARCHS[name] = dataclasses.replace(cfg, name=name,
+                                              n_layers=n_layers)
+    return name, configs.ARCHS[name]
+
+
+def serve_family(torch, report, label: str, arch: str, n_layers,
+                 f32_check: bool) -> dict:
+    """Phases 14a-14d: serve ``arch`` at full width; returns the launch
+    counts of the serving run."""
+    import numpy as np
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import transformer as T
+    fs = FAMILY_SERVE
+    depth = "full depth" if n_layers is None else f"{n_layers} layers"
+    with phase(f"{label}. {arch} served at full width, {depth}"):
+        name, cfg = _family_config(arch, n_layers)
+        t0 = time.perf_counter()
+        srv = Server(name, use_reduced=False, max_batch=fs["max_batch"],
+                     max_seq=fs["max_seq"], seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = T.count_params(srv.params)
+        leaves = tree_leaves(srv.params)
+        param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+        kinds = _layer_kinds(cfg)
+        print(f"{name} ({cfg.family}): {n_params} params ({param_bytes} B), "
+              f"{kinds['attn']} attention and {kinds['mamba']} mamba layer "
+              f"slots, drawn in {init_s:.2f} s")
+        check(cfg.dtype == "bfloat16" and all(
+            x.dtype in (torch.bfloat16, torch.float32) for x in leaves),
+            "the full-width weights are not bf16 (float32 where the JAX "
+            "package keeps them)")
+
+        warm = torch.randint(3, cfg.vocab, (1, 64), device="cuda")
+        logits, caches = T.prefill(srv.params, cfg, warm, max_seq=80)
+        T.decode_step(srv.params, cfg, caches, logits.argmax(-1))
+        torch.cuda.synchronize()
+        del caches
+
+        rng = np.random.default_rng(0)
+        lo, hi = fs["prompt_len"]
+        lens = rng.integers(lo, hi + 1, size=fs["requests"])
+        reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
+                                                   size=int(n)).tolist(),
+                        max_new=fs["max_new"])
+                for i, n in enumerate(lens)]
+        rows_seen = {"n": 0, "finite": True}
+        sample = srv._sample
+
+        def checked_sample(logits, req):
+            rows_seen["n"] += 1
+            rows_seen["finite"] &= bool(np.isfinite(logits[:cfg.vocab]).all())
+            return sample(logits, req)
+
+        srv._sample = checked_sample
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_submit = time.perf_counter()
+        for r in reqs:
+            srv.submit(r)
+        srv.run()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t_submit
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        n_waves = len(srv.waves)
+        print(f"served {len(reqs)} requests in {total_s:.3f} s, {n_waves} "
+              f"wave(s); launches {launches}; peak device memory {peak} B")
+        check(all(r.done and len(r.out) == fs["max_new"] for r in reqs),
+              f"a request did not get its tokens: {[len(r.out) for r in reqs]}")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+              "a sampled token is a pad id")
+        check(rows_seen["finite"] and rows_seen["n"] == len(reqs)
+              * fs["max_new"], f"logit rows: {rows_seen}")
+        want = {"flash_attention": kinds["attn"] * n_waves,
+                "ssd_scan.state": kinds["mamba"] * n_waves}
+        check(all(launches[k] == n for k, n in want.items())
+              and not any(v for k, v in launches.items() if k not in want),
+              f"launches {launches}, expected {want} and nothing else")
+        waves = []
+        for w in srv.waves:
+            tokens = w["size"] * w["prompt_len"]
+            waves.append({
+                **w, "prefill_tokens": tokens,
+                "prefill_tok_per_s": tokens / w["prefill_s"],
+                "ttft_s": w["first_token_at"] - t_submit,
+                "decode_ms_per_step": w["decode_s"] / w["decode_steps"] * 1e3,
+                "decode_tok_per_s": w["size"] * w["decode_steps"]
+                / w["decode_s"]})
+            print("wave: " + json.dumps(waves[-1]))
+        out = report[f"serve_{label}"] = {
+            "arch": name, "family": cfg.family, "config": fs,
+            "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+            "prompt_lens": lens.tolist(), "total_s": total_s, "waves": waves,
+            "launches": launches, "peak_mem_bytes": peak}
+
+        # the wave again, outside the timed run: what capacity dropped in
+        # the prefill and in the decode steps the requests took
+        maxlen = max(len(r.prompt) for r in reqs)
+        wave = np.zeros((len(reqs), maxlen), np.int64)
+        for i, r in enumerate(reqs):
+            wave[i, maxlen - len(r.prompt):] = r.prompt
+        wave = torch.from_numpy(wave).cuda()
+        if cfg.family == "moe":
+            pre = {"pairs": 0, "dropped": 0}
+            dec = {"pairs": 0, "dropped": 0}
+            with _routes_seen(_count_drops(pre)):
+                _, caches = T.prefill(srv.params, cfg, wave,
+                                      max_seq=fs["max_seq"])
+            with _routes_seen(_count_drops(dec)):
+                for j in range(fs["max_new"] - 1):
+                    tok = torch.tensor([r.out[j] for r in reqs],
+                                       device="cuda")
+                    _, caches = T.decode_step(srv.params, cfg, caches, tok)
+            del caches
+            out["prefill_dropped"] = pre
+            out["decode_dropped"] = dec
+            print(f"capacity dropped {pre['dropped']} of {pre['pairs']} "
+                  f"(token, slot) pairs in the prefill "
+                  f"({100 * pre['dropped'] / pre['pairs']:.3f}%), "
+                  f"{dec['dropped']} of {dec['pairs']} in "
+                  f"{fs['max_new'] - 1} decode steps "
+                  f"({100 * dec['dropped'] / dec['pairs']:.3f}%)")
+
+        # where the device time goes: the prefill wave, 10 decode steps
+        box = {}
+
+        def prefill():
+            box["logits"], box["caches"] = T.prefill(
+                srv.params, cfg, wave, max_seq=fs["max_seq"])
+            torch.cuda.synchronize()
+
+        prof_prefill = _device_profile(torch, prefill)
+        token = box["logits"].argmax(-1)
+
+        def decode():
+            caches, tok = box["caches"], token
+            for _ in range(fs["decode_profile_steps"]):
+                logits, caches = T.decode_step(srv.params, cfg, caches, tok)
+                tok = logits.argmax(-1)
+            tok.cpu()
+
+        prof_decode = _device_profile(torch, decode)
+        steps = fs["decode_profile_steps"]
+        cats = _categories(prof_prefill)
+        print(f"prefill wave {tuple(wave.shape)} profiled: device busy "
+              f"{prof_prefill['device_busy_us']:.0f} us of "
+              f"{prof_prefill['wall_us']:.0f}, {prof_prefill['device_ops']} "
+              "device ops; by category "
+              + "; ".join(f"{k} {v['launches']} x, {v['us']:.0f} us "
+                          f"({100 * v['share']:.1f}%)"
+                          for k, v in sorted(cats.items(),
+                                             key=lambda kv: -kv[1]["us"]))
+              + f"; top {prof_prefill['top'][:5]}")
+        print(f"{steps} decode steps profiled: card busy "
+              f"{100 * prof_decode['busy_share']:.1f}% of "
+              f"{prof_decode['wall_us']:.0f} us, "
+              f"{prof_decode['device_ops'] / steps:.1f} device ops/step, "
+              f"{prof_decode['device_busy_us'] / steps:.0f} device us/step; "
+              f"top {prof_decode['top'][:4]}")
+        out["profile_prefill"] = prof_prefill
+        out["prefill_categories"] = cats
+        out["profile_decode"] = prof_decode
+        out["decode_device_ops_per_step"] = prof_decode["device_ops"] / steps
+        del box
+
+        if f32_check:
+            out["f32_check"] = _family_f32_check(torch, srv, cfg, rng)
+        del srv
+        torch.cuda.empty_cache()
+        return launches
+
+
+def _family_f32_check(torch, srv, cfg, rng) -> dict:
+    """Phase 7's check on a family: a float32 copy of the weights prefills
+    2 prompts of 512 tokens through the kernels and through the plain
+    versions; last-token logits within FAMILY_SERVE["tol"], equal argmax.
+    An MoE's plain run takes the kernel run's routing (``_pinned_routes``),
+    where a choice may differ only at a near tie."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.models import transformer as T
+    fs = FAMILY_SERVE
+    p32 = tree_map(lambda t: t.float(), srv.params)
+    toks = torch.tensor(rng.integers(
+        3, cfg.vocab, (fs["check_prompts"], fs["check_len"])), device="cuda")
+    kinds = _layer_kinds(cfg)
+    recorded: list = []
+    reset_launches()
+    with _routes_seen(lambda out: recorded.append(out[:3])):
+        lk, ck = T.prefill(p32, cfg, toks)
+    launches_k = read_launches()
+    check(launches_k["flash_attention"] == kinds["attn"]
+          and launches_k["ssd_scan.state"] == kinds["mamba"],
+          f"the float32 prefill launched {launches_k}")
+    ties = {"n": 0}
+    reset_launches()
+    with plain_versions(), _pinned_routes(torch, recorded, fs["tie"], ties):
+        lp, cp = T.prefill(p32, cfg, toks)
+    check(not any(read_launches().values()), "the plain prefill launched")
+    lk, lp = lk[:, :cfg.vocab], lp[:, :cfg.vocab]
+    torch.cuda.synchronize()
+    err = float((lk - lp).abs().max())
+    state_err = 0.0
+    for a, b in zip(_state_leaves(ck), _state_leaves(cp)):
+        state_err = max(state_err, float((a - b).abs().max()))
+    print(f"float32 prefill of {tuple(toks.shape)} ({cfg.n_layers} layer "
+          f"slots), kernel vs plain last-token logits: max abs err {err}, "
+          f"argmax {lk.argmax(-1).tolist()} vs {lp.argmax(-1).tolist()}; "
+          f"mamba states max abs err {state_err}; routing near ties "
+          f"{ties['n']}")
+    check(bool(torch.allclose(lk, lp, rtol=fs["tol"], atol=fs["tol"])),
+          f"float32 logits differ by {err}")
+    check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+          "float32 argmax differs between kernel and plain")
+    res = {"shape": list(toks.shape), "layers": cfg.n_layers,
+           "max_abs_err": err, "state_max_abs_err": state_err,
+           "near_ties": ties["n"]}
+    del p32, lk, lp, ck, cp
+    torch.cuda.empty_cache()
+    return res
+
+
+def _state_leaves(caches):
+    """The mamba caches' conv and ssd tensors of a cache tree."""
+    return [seg[k] for where in ("segments", "tail") for seg in caches[where]
+            if "ssd" in seg for k in ("conv", "ssd")]
+
+
+def train_hybrid_check(torch, report) -> None:
+    """Phase 14f's float32 step: zamba2 at full width, 2 groups (12 layer
+    slots: the shared block's gradient sums over its 2 applications),
+    kernels against plain versions, as 8c."""
+    import dataclasses
+    from torch.utils._pytree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    c = STEP_CHECK
+    with phase("14f. one float32 zamba2 step (2 groups): kernels against "
+               "plain versions"):
+        cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=12,
+                                  dtype="float32")
+        params, opt, step_fn, pipe = _train_setup(
+            torch, cfg, c["batch"], c["seq"], 1, 1e-3, seed=1)
+        batch = pipe.next_batch()
+        lk, gk, launches_k = _grads_of_step(torch, step_fn, params, opt,
+                                            batch)
+        with plain_versions():
+            lp, gp, launches_p = _grads_of_step(torch, step_fn, params, opt,
+                                                batch)
+        print(f"zamba2 (12 layer slots, float32): loss kernel {lk} plain {lp}"
+              f"; launches {launches_k} / plain {launches_p}")
+        check(abs(lk - lp) <= c["loss_tol"],
+              f"zamba2: losses differ by {abs(lk - lp)}")
+        check(not any(launches_p.values()),
+              f"zamba2: the plain run launched {launches_p}")
+        want = {"ssd_scan": 20, "flash_attention": 2,
+                "flash_attention_bwd": 2}
+        check(all(launches_k[k] == n for k, n in want.items()),
+              f"zamba2: kernel launches {launches_k}, expected {want}")
+        worst = {}
+        for (path, a), (_, w) in zip(tree_flatten_with_path(gk)[0],
+                                     tree_flatten_with_path(gp)[0]):
+            key = "".join(str(x) for x in path)
+            err = float((a - w).abs().max())
+            scale = float(w.abs().max())
+            worst[key] = [err, scale]
+            check(bool(torch.allclose(a, w, rtol=c["grad_rtol"],
+                                      atol=c["grad_atol_frac"] * scale)),
+                  f"zamba2: gradient {key} differs by {err} (largest entry "
+                  f"{scale})")
+        shared = gk["segments"][1]["attn"]["wq"]
+        check(bool(shared.abs().sum() > 0),
+              "zamba2: the shared block has no gradient on the card")
+        rel = max(e / max(s, 1e-30) for e, s in worst.values())
+        print(f"zamba2: {len(worst)} gradients within tolerance; largest "
+              f"error relative to its leaf's scale {rel:.3g}")
+        report["train_step_check_zamba2"] = {
+            "loss_kernel": lk, "loss_plain": lp, "launches": launches_k,
+            "grad_err": worst, "max_rel_grad_err": rel}
+        del params, opt, step_fn, gk, gp
+        torch.cuda.empty_cache()
+
+
+def families(torch, report) -> dict:
+    """Phase 14: the MoE, SSM and hybrid families at full width, served
+    (14a-14d) and trained (14e, 14f); returns each sub-phase's launches."""
+    out = {}
+    for label, arch, n_layers, f32 in FAMILIES:
+        out[label] = serve_family(torch, report, label, arch, n_layers, f32)
+    out["14e"] = train_full(torch, report, "granite-moe-1b-a400m", "14e")
+    out["14f"] = train_full(torch, report, "zamba2-7b@15", "14f")
+    train_hybrid_check(torch, report)
+    return out
+
+
 def _train_setup(torch, cfg, batch: int, seq: int, steps: int, lr: float,
                  seed: int):
     """What ``launch.train.run`` builds: weights from a seeded generator,
@@ -2595,26 +3106,46 @@ def _categories(prof) -> dict:
     return out
 
 
-def train_full(torch, report, arch: str, label: str) -> dict:
-    """Phases 8a / 8b: train ``arch`` at full width and depth; returns the
-    launch counts of the run (warm-up step included)."""
+def _active_params(cfg, params) -> int:
+    """The parameters a token uses: all of them but the MoE experts', and
+    ``top_k / n_experts`` of those."""
+    from repro_torch.models import transformer as T
+    total = T.count_params(params)
+    if cfg.family != "moe":
+        return total
+    experts = sum(T.count_params(seg["moe"][k]) for seg in params["segments"]
+                  for k in ("w_gate", "w_up", "w_out"))
+    return total - experts + experts * cfg.top_k // cfg.n_experts
+
+
+def train_full(torch, report, name: str, label: str) -> dict:
+    """Phases 8a / 8b / 14e / 14f: train ``TRAIN[name]``'s arch at full
+    width (at full depth unless it names ``n_layers``); returns the launch
+    counts of the run (warm-up step included)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    spec = TRAIN[arch]
+    spec = TRAIN[name]
+    arch = spec.get("arch", name)
     b, t, steps = spec["batch"], spec["seq"], spec["steps"]
-    with phase(f"{label}. train {arch} at full width and depth"):
+    depth = ("full depth" if "n_layers" not in spec
+             else f"{spec['n_layers']} layer slots")
+    with phase(f"{label}. train {arch} at full width, {depth}"):
         cfg = get_config(arch)
+        if "n_layers" in spec:
+            cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
         t0 = time.perf_counter()
         params, opt, step_fn, pipe = _train_setup(torch, cfg, b, t, steps,
                                                   spec["lr"], seed=0)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = T.count_params(params)
-        flops_tok = T.model_flops_per_token(cfg, n_params)
+        n_active = _active_params(cfg, params)
+        flops_tok = T.model_flops_per_token(cfg, n_params, n_active)
         print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {n_params} "
-              f"params ({cfg.dtype}, fp32 master and moments), remat "
-              f"{cfg.remat} ({cfg.remat_policy}); batch {b} x {t}; init "
-              f"{init_s:.2f} s")
+              f"params ({n_active} active a token; {cfg.dtype}, fp32 master "
+              f"and moments), remat {cfg.remat} ({cfg.remat_policy}); "
+              f"batch {b} x {t}; init {init_s:.2f} s")
         check(cfg.remat and cfg.dtype == "bfloat16",
               f"{arch}: expected the full config (bf16, remat)")
         rows = []
@@ -2634,7 +3165,8 @@ def train_full(torch, report, arch: str, label: str) -> dict:
             now = read_launches()
             step_launches = {k: now[k] - before[k] for k in now}
             before = now
-            rows.append({"step": i + 1, "loss": loss, "ms": secs * 1e3,
+            rows.append({"step": i + 1, "loss": loss, "ce": float(m["ce"]),
+                         "aux": float(m["aux"]), "ms": secs * 1e3,
                          "tokens_per_s": b * t / secs,
                          "model_tflops": flops_tok * b * t / secs / 1e12,
                          "grad_norm": float(m["grad_norm"]),
@@ -2646,7 +3178,12 @@ def train_full(torch, report, arch: str, label: str) -> dict:
                 print(f"{arch}: first step's loss {loss:.4f} beside "
                       f"{spec['first_loss_cuda_cores']} on the CUDA-core "
                       "flash kernels (same seed and data)")
-            check(math.isfinite(loss), f"{arch}: step {i + 1} loss {loss}")
+            check(all(math.isfinite(rows[-1][k]) for k in
+                      ("loss", "ce", "aux")),
+                  f"{arch}: step {i + 1} loss {loss}, ce {rows[-1]['ce']}, "
+                  f"aux {rows[-1]['aux']}")
+            check((rows[-1]["aux"] > 0) == (cfg.family == "moe"),
+                  f"{arch}: step {i + 1} aux {rows[-1]['aux']}")
             for k, want in spec["per_step"].items():
                 check(step_launches[k] == want,
                       f"{arch}: {k} launched {step_launches[k]} times in "
@@ -2658,7 +3195,7 @@ def train_full(torch, report, arch: str, label: str) -> dict:
         summary = {"ms_per_step": ms, "tokens_per_s": b * t / ms * 1e3,
                    "model_tflops": flops_tok * b * t / ms / 1e9,
                    "peak_mem_bytes": peak}
-        if bwd_calls["SSDScan"]:
+        if name == "mamba2-2.7b":
             # the SSD backward's share of a step: its calls a step times its
             # CUDA-event time at this shape (phase 2d)
             calls = bwd_calls["SSDScan"] / steps
@@ -2695,9 +3232,10 @@ def train_full(torch, report, arch: str, label: str) -> dict:
                           for k, v in sorted(cats.items(),
                                              key=lambda kv: -kv[1]["us"]))
               + f"; top {prof['top'][:6]}")
-        report[f"train_{arch}"] = {
-            "config": {**spec, "params": n_params, "flops_per_token":
-                       flops_tok}, "init_s": init_s, "steps": rows,
+        report[f"train_{name}"] = {
+            "config": {**spec, "params": n_params, "active_params": n_active,
+                       "flops_per_token": flops_tok},
+            "init_s": init_s, "steps": rows,
             **summary, "launches": launches, "profile": prof,
             "categories": cats}
         del params, opt, box, step_fn

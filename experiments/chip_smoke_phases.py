@@ -2,8 +2,10 @@
 
     python3 experiments/chip_smoke_phases.py [LABEL ...]
 
-Labels: 2 (the ELL kernels and the ring fold), 2b (the neuron kernels), 2f
-(threefry), 9a (the spike bitmask), 3 (the main path), 5 (the delay path),
+Labels: 2 (the ELL kernels and the ring fold), 2b (the neuron kernels), 2c
+(flash attention), 2d (the SSD scan, its prefill form with the final state
+included), 2f (threefry), 9a (the spike bitmask), 14 (the MoE, SSM and
+hybrid families: 14a-14d served, 14e and 14f trained; each also alone), 3 (the main path), 5 (the delay path),
 9b (main observed; reads phase 3's profile, so list 3 first), 6a (the
 NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
 list 6a first), 10 (the occupancy model against the runtime, and the
@@ -44,6 +46,20 @@ def main(labels) -> int:
     for label in labels or ["9a", "3", "9b", "6a", "9c"]:
         if label == "2":
             CS.compare_kernels(torch, report)
+        elif label == "2c":
+            CS.compare_flash(torch, report)
+        elif label == "2d":
+            CS.compare_ssd(torch, report)
+        elif label == "14":
+            CS.families(torch, report)
+        elif label in ("14a", "14b", "14c", "14d"):
+            fam = next(f for f in CS.FAMILIES if f[0] == label)
+            CS.serve_family(torch, report, *fam)
+        elif label == "14e":
+            CS.train_full(torch, report, "granite-moe-1b-a400m", "14e")
+        elif label == "14f":
+            CS.train_full(torch, report, "zamba2-7b@15", "14f")
+            CS.train_hybrid_check(torch, report)
         elif label == "2b":
             CS.compare_neuron_kernels(torch, report)
         elif label == "2f":

@@ -165,8 +165,9 @@ def health_state(model: CompiledModel, arrays: Mapping,
         first_bad_step=leaf(arrays["first_bad_step"], torch.int32))
 
 
-# Mamba2 leaves that the JAX package keeps in float32 whatever cfg.dtype
-_FLOAT32_LEAVES = ("dt_bias", "A_log", "D")
+# leaves that the JAX package keeps in float32 whatever cfg.dtype: Mamba2's
+# dt_bias, A_log and D, and the MoE router
+_FLOAT32_LEAVES = ("dt_bias", "A_log", "D", "router")
 
 
 def load_lm_params(cfg, arrays, device=None) -> Any:
@@ -174,10 +175,12 @@ def load_lm_params(cfg, arrays, device=None) -> Any:
     tensors in ``cfg.dtype`` on ``device`` (default: ``cuda``, raising
     without a card), the structure and keys unchanged.  That covers the
     dense family (embed, final_norm, lm_head; each layer's ln1, attn, ln2,
-    mlp) and Mamba2's (each layer's norm and ssm: w_in, conv_w, conv_b,
-    dt_bias, A_log, D, norm_scale, w_out); Mamba2's dt_bias, A_log and D
-    stay float32, as in the JAX package.  bfloat16 leaves (numpy's
-    ``ml_dtypes`` type) pass through float32, which holds them exactly."""
+    mlp), the MoE layers' (ln1, attn, ln2 and moe: router, w_gate, w_up,
+    w_out), Mamba2's (each layer's norm and ssm: w_in, conv_w, conv_b,
+    dt_bias, A_log, D, norm_scale, w_out) and zamba2's unstacked shared
+    block; Mamba2's dt_bias, A_log and D and the router stay float32, as in
+    the JAX package.  bfloat16 leaves (numpy's ``ml_dtypes`` type) pass
+    through float32, which holds them exactly."""
     dev = resolve_device(device)
     dtype = resolve_dtype(cfg.dtype)
 

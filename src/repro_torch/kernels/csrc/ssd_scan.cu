@@ -73,6 +73,13 @@
 // The chunk is the kernel's own: the function does not depend on it (up
 // to rounding); a t that 32 does not divide is masked by index (rows past
 // t load as x = B = C = dt = 0, so they decay nothing and add nothing).
+// Prefill asks for the final state too (`fs`, not null): after its last
+// chunk each scan CTA stores the S [ds, 32 columns] it carries in
+// registers into fs[b, h, :, its columns] ([b, h, ds, dh] float32, rows
+// past ds not written); the padded rows of the last chunk left it as it
+// was, so neither t nor the chunk changes it.  It adds b h ds dh floats of
+// stores (21 MB at mamba2's prefill [8, 2048, 80, 64] / ds 128, beside
+// the 693 MB of x, B, C, dt and y) and no other work.
 //
 // Grid at the training shape (x [2, 2048, 80, 64], ds 128): pass 1 is
 // 128 CTAs (2 x 64 chunks); pass 2 is 320 CTAs of 75,776 bytes of shared
@@ -124,6 +131,7 @@ struct Params {
   const float* D;    // nullptr: no skip term
   float* y;
   float* cb;         // C B^T of every chunk: [batch, chunks, Q, Q]
+  float* fs;         // nullptr, or the final state [batch, h, ds, dh]
   int t, h, dh, ds;
 };
 
@@ -482,26 +490,45 @@ ssd_scan_kernel(Params p) {
           make_float2(st[n][2], st[n][3]);
     }
   }
+  if (p.fs == nullptr) return;
+  // the state after the last chunk, rows 16 warp + g (+ 8), this CTA's
+  // columns 8 n + 2 q (+ 1)
+  float* out = p.fs + static_cast<long long>(bh) * p.ds * p.dh + col0;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int d = 8 * n + 2 * q;
+    if (d >= ncols) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int s = 16 * warp + g + 8 * hr;
+      if (s < p.ds)
+        *reinterpret_cast<float2*>(out + static_cast<long long>(s) * p.dh +
+                                   d) =
+            make_float2(st[n][2 * hr], st[n][2 * hr + 1]);
+    }
+  }
 }
 
 }  // namespace
 
 // Returns the first failing launch's cudaError_t.  D may be null; `cb` is
-// float32 scratch of batch * ceil(t / 32) * 32 * 32 entries; `smem` is the
+// float32 scratch of batch * ceil(t / 32) * 32 * 32 entries; `fs` null or
+// the final state's [batch, h, ds, dh] float32; `smem` is the
 // wrapper's launch plan (repro_torch.kernels.ssd_scan.launch_plan: the
 // scan's "smem"), refused unless it equals sizeof(Smem).
 // Pass 1's grid is batch * chunks; pass 2's (batch * h, the head dim's
 // blocks of 32 columns).
 extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* A,
                             const float* B, const float* C, const float* D,
-                            float* y, float* cb, int batch, int t, int h,
-                            int dh, int ds, int smem, void* stream) {
+                            float* y, float* cb, float* fs, int batch,
+                            int t, int h, int dh, int ds, int smem,
+                            void* stream) {
   if (dh <= 0 || dh > kDH || dh % 4 || ds <= 0 || ds > kDS || ds % 4 ||
       t <= 0 || h <= 0 || batch <= 0 ||
       smem != static_cast<int>(sizeof(Smem)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Params p{x, dt, A, B, C, D, y, cb, t, h, dh, ds};
+  const Params p{x, dt, A, B, C, D, y, cb, fs, t, h, dh, ds};
   const long long nc = (t + kQ - 1) / kQ;
   ssd_scan_kernel_cb<<<static_cast<unsigned>(batch * nc), kThreads, 0, s>>>(
       p);

@@ -31,7 +31,7 @@ __all__ = ["ell_spmv", "ell_spmv_batched", "ell_spmv_delay",
            "ell_spmv_delay_batched", "ell_spmv_delay_into",
            "delay_ring_fold", "ell_spmv_event",
            "ell_spmv_event_delay", "izhikevich_step", "hh_step",
-           "flash_attention", "ssd_scan", "pack_spikes",
+           "flash_attention", "ssd_scan", "ssd_scan_state", "pack_spikes",
            "pack_spikes_into"]
 
 
@@ -177,3 +177,11 @@ def ssd_scan(x, dt, A, B, C, D=None):
     autograd through ``ssd_chunked`` on both, as the JAX package trains).
     The JAX entry point's roofline stand-in has no counterpart here."""
     return _ssd.SSDScan.apply(x, dt, A, B, C, D)
+
+
+def ssd_scan_state(x, dt, A, B, C, D=None, initial_state=None):
+    """Mamba2 SSD for prefill: (y [b, t, h, dh], the state after the last
+    chunk [b, h, ds, dh] float32).  The kernel with its final state on the
+    card (from a zero state), ``ssd_chunked(..., return_final_state=True)``
+    on the CPU; no gradient."""
+    return _ssd.ssd_scan_state(x, dt, A, B, C, D, initial_state)

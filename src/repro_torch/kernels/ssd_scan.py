@@ -11,8 +11,13 @@ own layout.
 
 ``ssd_scan`` dispatches by where the tensors lie: on the CPU the plain
 version ``repro_torch.models.ssm.ssd_chunked``; on a CUDA device the
-kernel's two passes, on the current stream, or an error.  ``launches``
-counts kernel calls, one for the two passes (plain-version calls are not
+kernel's two passes, on the current stream, or an error.
+``ssd_scan_state`` is the same kernel for prefill: it also writes the
+state each scan CTA carries after the last chunk, float32 [b, h, ds, dh]
+(its plain version ``ssd_chunked(..., return_final_state=True)``); the
+kernel starts from a zero state, so an ``initial_state`` is taken on the
+CPU only.  ``launches`` counts kernel calls, one for the two passes,
+``"ssd_scan"`` and ``"ssd_scan.state"`` apart (plain-version calls are not
 counted).
 
 ``SSDScan`` is its ``torch.autograd.Function``.  Its backward recomputes
@@ -34,10 +39,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import (INT_MAX, I, P, check_operand,
                                            on_cpu, raise_on)
 
-__all__ = ["ssd_scan", "SSDScan", "launches", "reset_launches",
+__all__ = ["ssd_scan", "ssd_scan_state", "SSDScan", "launches",
+           "reset_launches",
            "launch_plan", "MAX_HEAD_DIM", "MAX_STATE_DIM", "CHUNK", "COLS"]
 
-launches: Dict[str, int] = {"ssd_scan": 0}
+launches: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.state": 0}
 
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
@@ -78,22 +84,23 @@ def launch_plan(b: int, t: int, h: int, dh: int, ds: int) -> dict:
 
 
 def reset_launches() -> None:
-    launches["ssd_scan"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.ssd_scan_fwd.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.ssd_scan_fwd.restype = I
     lib.ssd_scan_error_string.argtypes = [I]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _plain(x, dt, A, B, C, D):
+def _plain(x, dt, A, B, C, D, **kw):
     from repro_torch.models.ssm import ssd_chunked
-    return ssd_chunked(x, dt, A, B, C, D)
+    return ssd_chunked(x, dt, A, B, C, D, **kw)
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -110,6 +117,29 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     No autograd: ``SSDScan.apply`` is the differentiable form."""
     if on_cpu("ssd_scan", x, dt, A, B, C, D):
         return _plain(x, dt, A, B, C, D)
+    return _launch(x, dt, A, B, C, D, final_state=False)[0]
+
+
+def ssd_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   D: Optional[torch.Tensor] = None,
+                   initial_state: Optional[torch.Tensor] = None):
+    """``ssd_scan`` that also returns the state after the last chunk:
+    (y [b, t, h, dh] in x's dtype, state [b, h, ds, dh] float32).  On a
+    CUDA device the scan starts from zeros, and ``initial_state`` raises.
+    No autograd (prefill)."""
+    if on_cpu("ssd_scan", x, dt, A, B, C, D, initial_state):
+        return _plain(x, dt, A, B, C, D, initial_state=initial_state,
+                      return_final_state=True)
+    if initial_state is not None:
+        raise ValueError("the ssd_scan kernel starts from a zero state; "
+                         "it takes no initial_state")
+    return _launch(x, dt, A, B, C, D, final_state=True)
+
+
+def _launch(x, dt, A, B, C, D, final_state: bool):
+    """The kernel's two passes: (y, the final state, or None without
+    ``final_state``), counted as ``"ssd_scan.state"`` or ``"ssd_scan"``."""
     if x.dim() != 4 or dt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
         raise ValueError("x must be [b, t, h, dh], dt [b, t, h] and B, C "
                          "[b, t, g, ds]")
@@ -140,8 +170,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for name, a in zip(("x", "dt", "A", "B", "C"), ops):
         check_operand(name, a, torch.float32)
     y = torch.empty_like(ops[0])
+    fs = (torch.empty((b, h, ds, dh), dtype=torch.float32, device=x.device)
+          if final_state else None)
     if y.numel() == 0:
-        return y.to(x.dtype)
+        return y.to(x.dtype), None if fs is None else fs.zero_()
     plan = launch_plan(b, t, h, dh, ds)
     cb = torch.empty(plan["scratch_bytes"] // 4, dtype=torch.float32,
                      device=x.device)
@@ -149,11 +181,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().ssd_scan_fwd(
             *(a.data_ptr() for a in ops), None if d is None else d.data_ptr(),
-            y.data_ptr(), cb.data_ptr(), b, t, h, dh, ds,
-            plan["scan"]["smem"], stream)
-    launches["ssd_scan"] += 1
+            y.data_ptr(), cb.data_ptr(), None if fs is None else fs.data_ptr(),
+            b, t, h, dh, ds, plan["scan"]["smem"], stream)
+    launches["ssd_scan.state" if final_state else "ssd_scan"] += 1
     raise_on(rc, _lib().ssd_scan_error_string, "ssd_scan")
-    return y.to(x.dtype)
+    return y.to(x.dtype), fs
 
 
 class SSDScan(torch.autograd.Function):

@@ -1,6 +1,10 @@
 """Token server: batched prefill + decode loop with continuous batching,
 the counterpart of ``repro/launch/serve.py``.
 
+It serves every decoder-only family through ``models/transformer.py``'s
+``prefill`` and ``decode_step``: dense, moe (each decode step routes the
+wave's tokens as one MoE group, pad and finished slots included, as the
+JAX package does), ssm (float32 conv and SSD states a request) and hybrid.
 Requests (prompt token lists) enter a queue; the slot scheduler
 (``launch/scheduling.py``) packs up to ``max_batch`` of them into a wave
 when no request is active; the wave's prompts are left-padded with token 0
@@ -16,6 +20,7 @@ host.  ``model_parallel`` is not ported (ROADMAP Queue 1 item 7).
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --full
   python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
 """
 
 from __future__ import annotations

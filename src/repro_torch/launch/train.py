@@ -10,7 +10,10 @@ another; without a card that raises).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 3 --device cpu                          # the plain versions
 
-The trained families are dense and ssm (mamba2).  NaN containment follows
+Every decoder-only family trains: dense, moe (granite-moe, mixtral: the
+loss is ce plus the load-balance aux, both printed), ssm (mamba2) and
+hybrid (zamba2, its shared block's gradient summed over its
+applications).  NaN containment follows
 the paper's Fig-1 guard in the JAX package: a non-finite loss rolls back to
 the last checkpoint with the LR halved.  Checkpoints
 (``checkpoint/manager.py``) wait for ROADMAP Queue 1 item 8.6, so
@@ -110,8 +113,9 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
                 f"non-finite loss at step {i} and no checkpoint")
         losses.append(loss)
         if (i + 1) % log_every == 0 or i + 1 == steps:
-            print(f"[train] step {i + 1:5d} loss {loss:.4f} "
-                  f"({dt*1e3:.0f} ms/step)")
+            ce, aux = float(metrics["ce"]), float(metrics["aux"])
+            print(f"[train] step {i + 1:5d} loss {loss:.4f} (ce {ce:.4f}, "
+                  f"aux {aux:.4f}) ({dt*1e3:.0f} ms/step)")
     return losses
 
 

@@ -9,9 +9,14 @@ depthwise conv on (x, B, C), the SSD core through ``kernels.ops.ssd_scan``,
 gated RMSNorm, output projection): the hand-written kernel on the card,
 its plain version (``ssd_chunked``) on the CPU.
 
-The recurrent forms (``ssm_apply(return_state=True)``, ``ssm_init_cache``,
-``ssm_decode_step``) serve prefill and decode; they wait for the SSM
-serving port (ROADMAP Queue 1 item 8.3) and raise until then.
+The recurrent forms serve prefill and decode: ``ssm_apply(return_state=
+True)`` also returns the block's state after the prompt (the conv
+history, the padded input's last ``d_conv - 1`` rows before the conv, and
+the SSD state after the last chunk, float32 ``[b, h, ds, dh]``), the SSD
+through the same kernel, which then writes its final state
+(``kernels.ops.ssd_scan_state``); ``ssm_init_cache`` makes the float32
+caches and ``ssm_decode_step`` runs one token in O(1), in plain torch
+with the JAX package's float32 promotions.
 """
 
 from __future__ import annotations
@@ -28,10 +33,6 @@ from repro_torch.models.layers import dense_init, rmsnorm
 
 __all__ = ["SSMConfig", "ssm_init", "ssm_apply", "ssm_decode_step",
            "ssm_init_cache", "ssd_chunked", "chunk_size"]
-
-_SERVING = ("SSM serving (the recurrent state for prefill and decode) is "
-            "not ported yet (ROADMAP Queue 1 item 8.3)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
@@ -87,12 +88,14 @@ def ssm_init(gen: torch.Generator, cfg: SSMConfig, dtype=torch.float32):
 # chunked SSD core
 # ---------------------------------------------------------------------------
 
-def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 256):
+def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 256,
+                initial_state=None, return_final_state: bool = False):
     """O(T) chunked SSD, the plain version of the ``ssd_scan`` kernel.
     x [b, t, h, dh], dt [b, t, h], A [h], B/C [b, t, g, ds] -> y [b, t, h,
-    dh].  Differentiable by autograd (the kernel's backward recomputes it).
-    The JAX function's ``initial_state`` / ``return_final_state`` serve
-    prefill and wait for item 8.3."""
+    dh], and with ``return_final_state`` the state after the last chunk
+    [b, h, ds, dh]; ``initial_state`` (default zeros) is the state entering
+    the first chunk.  Differentiable by autograd (the kernel's backward
+    recomputes it)."""
     b, t, h, dh = x.shape
     g, ds = B.shape[2], B.shape[3]
     rep = h // g
@@ -130,7 +133,8 @@ def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 256):
     S = torch.einsum("bcjh,bcjhs,bcjhd->bchsd", w, Bc, xc)   # [b,nc,h,ds,dh]
 
     # inter-chunk: the state entering each chunk
-    s_prev = torch.zeros(b, h, ds, dh, dtype=x.dtype, device=x.device)
+    s_prev = (initial_state if initial_state is not None else
+              torch.zeros(b, h, ds, dh, dtype=x.dtype, device=x.device))
     prevs = []
     for c in range(nc):
         prevs.append(s_prev)
@@ -144,6 +148,8 @@ def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 256):
     y = (y_intra + y_inter).reshape(b, t, h, dh)
     if D is not None:
         y = y + x * D[None, None, :, None]
+    if return_final_state:
+        return y, s_prev
     return y
 
 
@@ -160,10 +166,13 @@ def _split_proj(cfg: SSMConfig, zxbcdt: torch.Tensor):
 
 
 def ssm_apply(p, cfg: SSMConfig, u: torch.Tensor, conv_state=None,
-              ssd_state=None, return_state: bool = False) -> torch.Tensor:
-    """u: [B, T, d_model] -> [B, T, d_model] (full sequence)."""
-    if return_state or conv_state is not None or ssd_state is not None:
-        raise NotImplementedError(_SERVING)
+              ssd_state=None, return_state: bool = False):
+    """u: [B, T, d_model] -> [B, T, d_model] (full sequence); with
+    ``return_state`` also (conv state [B, d_conv - 1, conv_dim] in u's
+    dtype, SSD state [B, h, ds, dh] float32).  ``conv_state`` replaces the
+    zero history before the first row; ``ssd_state`` is the SSD's initial
+    state (the plain version takes one, the kernel starts from zeros, as
+    prefill does)."""
     b, t, _ = u.shape
     di, g, n, h, dh = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                        cfg.d_head)
@@ -174,9 +183,13 @@ def ssm_apply(p, cfg: SSMConfig, u: torch.Tensor, conv_state=None,
     w = p["conv_w"]                                  # [d_conv, conv_dim]
     pad = cfg.d_conv - 1
     xbc_pad = F.pad(xbc, (0, 0, pad, 0))
+    if conv_state is not None:
+        xbc_pad = torch.cat([conv_state.to(xbc_pad.dtype), xbc_pad[:, pad:]],
+                            dim=1)
     xbc_conv = sum(xbc_pad[:, i: i + t] * w[i][None, None, :]
                    for i in range(cfg.d_conv)) + p["conv_b"]
     xbc_conv = F.silu(xbc_conv)
+    new_conv_state = xbc_pad[:, t: t + pad]
 
     xs = xbc_conv[..., :di].reshape(b, t, h, dh)
     Bmat = xbc_conv[..., di: di + g * n].reshape(b, t, g, n)
@@ -184,16 +197,69 @@ def ssm_apply(p, cfg: SSMConfig, u: torch.Tensor, conv_state=None,
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
-    y = kops.ssd_scan(xs.float(), dt, A, Bmat.float(), Cmat.float(), p["D"])
+    args = (xs.float(), dt, A, Bmat.float(), Cmat.float(), p["D"])
+    if return_state:
+        y, s_last = kops.ssd_scan_state(*args, initial_state=ssd_state)
+    elif ssd_state is not None:
+        raise ValueError("ssd_state is an initial state for return_state="
+                         "True")
+    else:
+        y = kops.ssd_scan(*args)
     y = y.reshape(b, t, di).to(u.dtype)
     y = rmsnorm(y * F.silu(z), p["norm_scale"])
-    return y @ p["w_out"]
+    out = y @ p["w_out"]
+    if return_state:
+        return out, (new_conv_state, s_last)
+    return out
 
 
 def ssm_init_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
                    device=None):
-    raise NotImplementedError(_SERVING)
+    """Zero caches of one block: ``conv`` [batch, d_conv - 1, conv_dim] in
+    ``dtype`` (float32 by default, as the JAX package's), ``ssd`` [batch,
+    h, ds, dh] float32."""
+    conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "ssd": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.d_head),
+                           dtype=torch.float32, device=device),
+    }
 
 
 def ssm_decode_step(p, cfg: SSMConfig, u: torch.Tensor, cache):
-    raise NotImplementedError(_SERVING)
+    """u: [B, 1, d_model] -> (out [B, 1, d_model], new cache): the O(1)
+    recurrent step.  The conv history is held in the cache's dtype and
+    convolved in float32; the state update is float32."""
+    b = u.shape[0]
+    di, g, n, h, dh = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
+                       cfg.d_head)
+    zxbcdt = u[:, 0] @ p["w_in"]
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
+
+    hist = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)],
+                     dim=1)                          # [b, d_conv, conv_dim]
+    w = p["conv_w"]
+    xbc_conv = torch.einsum("btc,tc->bc", hist.float(), w.float()) \
+        + p["conv_b"]
+    xbc_conv = F.silu(xbc_conv)
+    new_conv = hist[:, 1:]
+
+    xs = xbc_conv[..., :di].reshape(b, h, dh)
+    Bm = xbc_conv[..., di: di + g * n].reshape(b, g, n)
+    Cm = xbc_conv[..., di + g * n:].reshape(b, g, n)
+    rep = h // g
+    Bm = Bm.repeat_interleave(rep, dim=1)            # [b, h, n]
+    Cm = Cm.repeat_interleave(rep, dim=1)
+    dt = F.softplus(dt.float() + p["dt_bias"])       # [b, h]
+    A = -torch.exp(p["A_log"])
+
+    s = cache["ssd"]
+    decay = torch.exp(dt * A[None, :])[:, :, None, None]
+    s_new = s * decay + (dt[:, :, None] * xs)[:, :, None, :] \
+        * Bm[:, :, :, None]                          # [b, h, n, dh]
+    y = torch.einsum("bhsd,bhs->bhd", s_new, Cm) + xs * p["D"][None, :, None]
+    y = y.reshape(b, di).to(u.dtype)
+    y = rmsnorm(y * F.silu(z), p["norm_scale"])
+    out = (y @ p["w_out"])[:, None, :]
+    return out, {"conv": new_conv, "ssd": s_new}

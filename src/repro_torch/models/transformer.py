@@ -1,5 +1,5 @@
-"""Model assembly for the dense and ssm LM families, the counterpart of
-``repro/models/transformer.py``.
+"""Model assembly for the decoder-only LM families (dense, moe, ssm and
+hybrid), the counterpart of ``repro/models/transformer.py``.
 
 The layer stack follows the arch's ``LayerProgram`` (``configs/base.py``):
 ``repeats`` groups of segments plus a tail, each segment's layers stacked
@@ -9,8 +9,12 @@ tree has them, so that JAX weights carry over with one walk
 a stack, the port loops in Python over its layers, and each segment keeps
 its own cache stack (ring caches for windowed layers, dense for global: the
 paper's sparse-vs-dense representation choice applied to the KV "synapse
-matrix").  Both programs of the dense family run: uniform (``repeats ==
-1``) and gemma3's local:global groups (``repeats > 1``).
+matrix").  Layer kinds: ``attn`` / ``attn_local`` / ``attn_global``
+(attention and MLP), ``moe`` (attention and the MoE FFN, ``models/moe.py``),
+``mamba`` (a Mamba2 block) and zamba2's ``shared_attn``: one unstacked
+attention layer (``ln1``, ``attn``, ``ln2``, ``mlp``) applied at every
+group, its weights shared, its caches one a group (``[R, ...]``, no ``n``
+axis), and never rematerialised (as in the JAX package).
 
 Entry points:
   init_params(cfg, generator)                      -> params
@@ -21,18 +25,18 @@ Entry points:
 
 ``forward`` and ``loss_fn`` are differentiable (attention through the
 ``FlashAttention`` Function, Mamba2's SSD through ``SSDScan``); with
-``cfg.remat`` each layer is recomputed in the backward
-(``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the JAX package.
+``cfg.remat`` each stacked layer is recomputed in the backward
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the JAX
+package.  ``forward``'s aux is the sum of the MoE layers' load-balance
+losses (0 for the other families) and ``loss_fn``'s loss is ``ce + aux``.
 
-A cache tree is ``{"segments": [...], "tail": [...], "index": int}``; each
-segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``, ``pos``
-``[(R,) n, S]`` and ``ring`` (a Python bool).  ``decode_step`` writes the
-new token's keys and values into the caches in place and returns the same
-tensors with ``index + 1``.
-
-The ssm family (mamba2) trains (``forward``, ``loss_fn``); its serving
-(``prefill``, ``decode_step``, ``init_caches``) raises until ROADMAP Queue 1
-item 8.3.  The other families (moe, hybrid, encdec, vlm) raise
+A cache tree is ``{"segments": [...], "tail": [...], "index": int}``; an
+attention segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``,
+``pos`` ``[(R,) n, S]`` and ``ring`` (a Python bool); a mamba segment's
+``conv`` ``[(R,) n, B, d_conv - 1, conv_dim]`` and ``ssd`` ``[(R,) n, B, h,
+ds, dh]``, both float32.  ``decode_step`` writes the new token's keys,
+values and states into the caches in place and returns the same tensors
+with ``index + 1``.  The encdec and vlm families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -46,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (cross_entropy, dense_init, embed_init,
                                        mlp_apply, mlp_init, norm_apply,
@@ -59,9 +64,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 # family -> the ROADMAP (Queue 1, item 8) step that ports it
-_LATER = {"moe": "8.2 (moe)", "ssm": "8.3 (ssm/hybrid serving)",
-          "hybrid": "8.3 (ssm/hybrid serving)", "encdec": "8.4 (encdec)",
-          "vlm": "8.5 (vlm)"}
+_LATER = {"encdec": "8.4 (encdec)", "vlm": "8.5 (vlm)"}
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -74,16 +77,14 @@ def padded_vocab(v: int, multiple: int = 256) -> int:
     return (v + multiple - 1) // multiple * multiple
 
 
-def _check_family(cfg: ArchConfig, train: bool = False) -> None:
-    """Raise for a family the port does not run: the dense family runs
-    every entry point, the ssm family ``init_params``, ``forward`` and
-    ``loss_fn`` (``train``) only."""
-    if cfg.family == "dense" or (train and cfg.family == "ssm"):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-        f"(ROADMAP Queue 1 item {_LATER.get(cfg.family, '8')}); the "
-        "port serves the dense family and trains the dense and ssm ones")
+def _check_family(cfg: ArchConfig) -> None:
+    """Raise for a family the port does not run: every entry point runs
+    the dense, moe, ssm and hybrid families."""
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP Queue 1 item {_LATER[cfg.family]}); the port runs "
+            "the dense, moe, ssm and hybrid families")
 
 
 # ---------------------------------------------------------------------------
@@ -109,59 +110,99 @@ def _ssm_cfg(cfg: ArchConfig) -> S.SSMConfig:
                        n_groups=cfg.ssm_groups)
 
 
+def _moe_cfg(cfg: ArchConfig) -> M.MoEConfig:
+    return M.MoEConfig(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, activation=cfg.activation,
+        capacity_factor=cfg.moe_capacity_factor, dispatch=cfg.moe_dispatch,
+        group_size=cfg.moe_group_size, expert_sharding=cfg.expert_sharding)
+
+
 def _layer_init(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype):
     d, dev = cfg.d_model, gen.device
     if kind == "mamba":
         return {"norm": norm_init(cfg.norm, d, dtype, dev),
                 "ssm": S.ssm_init(gen, _ssm_cfg(cfg), dtype)}
-    return {"ln1": norm_init(cfg.norm, d, dtype, dev),
-            "attn": A.attn_init(gen, _attn_cfg(cfg, kind), dtype),
-            "ln2": norm_init(cfg.norm, d, dtype, dev),
-            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, dtype)}
+    p = {"ln1": norm_init(cfg.norm, d, dtype, dev),
+         "attn": A.attn_init(gen, _attn_cfg(cfg, kind), dtype),
+         "ln2": norm_init(cfg.norm, d, dtype, dev)}
+    if kind == "moe":
+        p["moe"] = M.moe_init(gen, _moe_cfg(cfg), dtype)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, dtype)
+    return p
 
 
 def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """Full-sequence layer: returns (x, (k, v)); a mamba layer returns
-    (x, None)."""
+                 positions: torch.Tensor, want_cache: bool = False):
+    """Full-sequence layer: returns (x, aux, cache entry): aux the MoE
+    load-balance loss (None for other kinds); with ``want_cache`` the
+    attention layer's (k, v) or the mamba block's (conv, ssd) state, else
+    None."""
     if kind == "mamba":
-        return x + S.ssm_apply(p["ssm"], _ssm_cfg(cfg),
-                               norm_apply(cfg.norm, x, p["norm"])), None
+        h = norm_apply(cfg.norm, x, p["norm"])
+        if want_cache:
+            y, state = S.ssm_apply(p["ssm"], _ssm_cfg(cfg), h,
+                                   return_state=True)
+            return x + y, None, state
+        return x + S.ssm_apply(p["ssm"], _ssm_cfg(cfg), h), None, None
     h = norm_apply(cfg.norm, x, p["ln1"])
     y, kv = A.attention_forward(p["attn"], _attn_cfg(cfg, kind), h,
                                 positions=positions, return_kv=True)
     x = x + y
     h = norm_apply(cfg.norm, x, p["ln2"])
-    return x + mlp_apply(p["mlp"], h, cfg.activation), kv
+    aux = None
+    if kind == "moe":
+        y, aux = M.moe_apply(p["moe"], _moe_cfg(cfg), h)
+    else:
+        y = mlp_apply(p["mlp"], h, cfg.activation)
+    return x + y, aux, kv if want_cache else None
 
 
 def _layer_decode(cfg: ArchConfig, kind: str, p, x: torch.Tensor, cache,
                   index: int) -> torch.Tensor:
     """One-token layer step (the cache is written in place)."""
+    if kind == "mamba":
+        y, new = S.ssm_decode_step(p["ssm"], _ssm_cfg(cfg),
+                                   norm_apply(cfg.norm, x, p["norm"]), cache)
+        cache["conv"].copy_(new["conv"])
+        cache["ssd"].copy_(new["ssd"])
+        return x + y
     h = norm_apply(cfg.norm, x, p["ln1"])
     y, _ = A.attention_decode(p["attn"], _attn_cfg(cfg, kind), h, cache,
                               index)
     x = x + y
     h = norm_apply(cfg.norm, x, p["ln2"])
-    return x + mlp_apply(p["mlp"], h, cfg.activation)
+    if kind == "moe":
+        y, _ = M.moe_apply(p["moe"], _moe_cfg(cfg), h)
+    else:
+        y = mlp_apply(p["mlp"], h, cfg.activation)
+    return x + y
 
 
 # ---------------------------------------------------------------------------
 # the stacked layout
 # ---------------------------------------------------------------------------
 
-def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, str, int, tuple]]:
-    """(kind, where, i, idx) for every layer in execution order: the layer's
-    params are ``_take(params[where][i], idx)``, its cache likewise."""
+def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, str, int, tuple, tuple]]:
+    """(kind, where, i, pidx, cidx) for every layer in execution order: the
+    layer's params are ``_take(params[where][i], pidx)`` and its cache
+    ``_take(caches[where][i], cidx)``.  The two differ only for
+    ``shared_attn`` (kind ``"attn"`` here): its params are one unstacked
+    tree (pidx ``()``), its caches one a group."""
     prog = cfg.program()
+    grouped = prog.repeats > 1
     for r in range(prog.repeats):
         for i, seg in enumerate(prog.segments):
+            if seg.kind == "shared_attn":
+                yield "attn", "segments", i, (), (r,) if grouped else ()
+                continue
             for l in range(seg.n):
-                yield (seg.kind, "segments", i,
-                       (r, l) if prog.repeats > 1 else (l,))
+                idx = (r, l) if grouped else (l,)
+                yield seg.kind, "segments", i, idx, idx
     for i, seg in enumerate(prog.tail):
         for l in range(seg.n):
-            yield seg.kind, "tail", i, (l,)
+            yield seg.kind, "tail", i, (l,), (l,)
 
 
 def _take(tree, idx: tuple):
@@ -187,13 +228,17 @@ def _split(tree, n: int) -> List[Any]:
 
 
 def _per_layer(params, cfg: ArchConfig) -> Dict[tuple, Any]:
-    """(where, i, idx) of ``_layers`` -> that layer's params, for a pass
-    that differentiates them (``forward``)."""
+    """(where, i, pidx) of ``_layers`` -> that layer's params, for a pass
+    that differentiates them (``forward``).  A shared block's tree is used
+    as it is at every application, so that its gradient sums over them."""
     prog = cfg.program()
     out: Dict[tuple, Any] = {}
     for where, segs in (("segments", prog.segments), ("tail", prog.tail)):
         grouped = where == "segments" and prog.repeats > 1
         for i, seg in enumerate(segs):
+            if seg.kind == "shared_attn":
+                out[(where, i, ())] = params[where][i]
+                continue
             groups = (_split(params[where][i], prog.repeats) if grouped
                       else [params[where][i]])
             for r, tree in enumerate(groups):
@@ -212,7 +257,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random weights on ``gen``'s device, with the JAX initializers'
     distributions (embeddings N(0, 0.02^2), projections N(0, 1/fan_in),
     norm scales as the JAX package sets them, biases 0)."""
-    _check_family(cfg, train=True)
+    _check_family(cfg)
     dtype = resolve_dtype(cfg.dtype)
     prog = cfg.program()
     pv = padded_vocab(cfg.vocab)
@@ -224,15 +269,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
         params["lm_head"] = dense_init(gen, cfg.d_model, pv, dtype)
 
     def seg_init(seg):
+        if seg.kind == "shared_attn":       # one tree, unstacked
+            return _layer_init(cfg, "attn", gen, dtype)
         return _stack([_layer_init(cfg, seg.kind, gen, dtype)
                        for _ in range(seg.n)])
 
-    if prog.repeats > 1:
-        params["segments"] = [_stack([seg_init(seg)
-                                      for _ in range(prog.repeats)])
-                              for seg in prog.segments]
-    else:
-        params["segments"] = [seg_init(seg) for seg in prog.segments]
+    params["segments"] = [
+        _stack([seg_init(seg) for _ in range(prog.repeats)])
+        if prog.repeats > 1 and seg.kind != "shared_attn" else seg_init(seg)
+        for seg in prog.segments]
     params["tail"] = [seg_init(seg) for seg in prog.tail]
     return params
 
@@ -286,21 +331,32 @@ def _remat(cfg: ArchConfig, body):
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
-    """Logits over a full sequence: (logits [B, T, V], aux loss 0)."""
-    _check_family(cfg, train=True)
+    """Logits over a full sequence: (logits [B, T, V], aux float32 scalar:
+    the sum of the MoE layers' load-balance losses, 0 without any)."""
+    _check_family(cfg)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = _per_layer(params, cfg)
-    for kind, where, i, idx in _layers(cfg):
+    shared = {i for i, seg in enumerate(cfg.program().segments)
+              if seg.kind == "shared_attn"}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, where, i, pidx, _ in _layers(cfg):
         def body(h, p, kind=kind):
-            return _layer_apply(cfg, kind, p, h, positions)[0]
-        x = _remat(cfg, body)(x, layers[(where, i, idx)])
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+            h, aux, _ = _layer_apply(cfg, kind, p, h, positions)
+            return h, aux
+        # the shared block is not rematerialised (as in the JAX package)
+        run = body if where == "segments" and i in shared \
+            else _remat(cfg, body)
+        x, aux = run(x, layers[(where, i, pidx)])
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _logits(params, cfg, x), aux_total
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
     """batch: {'tokens': [B, T+1] integer}: next-token cross entropy over
-    the padded vocab with its pad entries masked -> (loss, {'ce', 'aux'})."""
+    the padded vocab with its pad entries masked, plus the MoE aux loss ->
+    (loss, {'ce', 'aux'})."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(params, cfg, inp)
@@ -308,52 +364,69 @@ def loss_fn(params, cfg: ArchConfig, batch):
     return ce + aux, {"ce": ce, "aux": aux}
 
 
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                 dtype, device):
+    if kind == "mamba":               # float32 whatever ``dtype`` is
+        return S.ssm_init_cache(_ssm_cfg(cfg), batch, device=device)
+    return A.init_cache(_attn_cfg(cfg, kind), batch, max_seq, dtype, device)
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device=None):
-    """Empty caches in the layer program's structure (``index`` 0)."""
+    """Empty caches in the layer program's structure (``index`` 0): a
+    segment's caches ``[n, ...]`` (``[R, n, ...]`` grouped), a shared
+    block's one a group (``[R, ...]``)."""
     _check_family(cfg)
     prog = cfg.program()
 
-    def seg_cache(seg, lead: tuple):
-        c = A.init_cache(_attn_cfg(cfg, seg.kind), batch, max_seq, dtype,
-                         device)
+    def seg_cache(seg, reps: tuple):
+        c = _layer_cache(cfg, seg.kind, batch, max_seq, dtype, device)
+        lead = reps + (() if seg.kind == "shared_attn" else (seg.n,))
         return {k: (v.expand(lead + tuple(v.shape)).clone()
                     if isinstance(v, torch.Tensor) else v)
                 for k, v in c.items()}
 
     grouped = (prog.repeats,) if prog.repeats > 1 else ()
     return {
-        "segments": [seg_cache(s, grouped + (s.n,)) for s in prog.segments],
-        "tail": [seg_cache(s, (s.n,)) for s in prog.tail],
+        "segments": [seg_cache(s, grouped) for s in prog.segments],
+        "tail": [seg_cache(s, ()) for s in prog.tail],
         "index": 0,
     }
 
 
-def _write_prefill_caches(cfg: ArchConfig, caches, kv_raw: List[tuple]):
-    """Write each layer's prompt (k, v) (``kv_raw``, in layer order) into
-    its cache, in place; a ring keeps the last positions (``fill_cache``)."""
-    for (_, where, i, idx), (k, v) in zip(_layers(cfg), kv_raw):
-        A.fill_cache(_take(caches[where][i], idx), k, v, 0)
+def _write_prefill_caches(cfg: ArchConfig, caches, states: List[Any]):
+    """Write each layer's prompt state (``states``, in layer order) into
+    its cache, in place: an attention layer's (k, v) by ``fill_cache`` (a
+    ring keeps the last positions), a mamba block's conv history (cast to
+    the cache's float32) and SSD state."""
+    for (kind, where, i, _, cidx), st in zip(_layers(cfg), states):
+        cache = _take(caches[where][i], cidx)
+        if kind == "mamba":
+            conv, ssd = st
+            cache["conv"].copy_(conv)
+            cache["ssd"].copy_(ssd)
+        else:
+            A.fill_cache(cache, *st, 0)
     return caches
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
             cache_dtype=torch.bfloat16, max_seq: Optional[int] = None):
     """Run the prompts [B, T]: (last-token logits [B, V], caches).  The
-    caches are bfloat16 by default whatever the weights' dtype, as in the
-    JAX package."""
+    attention caches are bfloat16 by default whatever the weights' dtype,
+    the mamba caches float32, as in the JAX package."""
     _check_family(cfg)
     b, t = tokens.shape
     max_seq = max(max_seq or t, t)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(t, device=x.device)
-    kv_raw = []
-    for kind, where, i, idx in _layers(cfg):
-        x, kv = _layer_apply(cfg, kind, _take(params[where][i], idx), x,
-                             positions)
-        kv_raw.append(kv)
+    states = []
+    for kind, where, i, pidx, _ in _layers(cfg):
+        x, _, st = _layer_apply(cfg, kind, _take(params[where][i], pidx), x,
+                                positions, want_cache=True)
+        states.append(st)
     caches = init_caches(cfg, b, max_seq, cache_dtype, x.device)
-    _write_prefill_caches(cfg, caches, kv_raw)
+    _write_prefill_caches(cfg, caches, states)
     caches["index"] = t
     logits = _logits(params, cfg, x[:, -1:, :], mask_pad=True)
     return logits[:, 0], caches
@@ -362,13 +435,15 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
 def decode_step(params, cfg: ArchConfig, caches, token: torch.Tensor,
                 index: Optional[int] = None):
     """token [B] -> (logits [B, V], caches): one step at position ``index``
-    (default ``caches["index"]``); the caches are written in place."""
+    (default ``caches["index"]``); the caches are written in place.  An
+    MoE layer routes the wave's B tokens as one group (its aux is
+    dropped)."""
     _check_family(cfg)
     index = caches["index"] if index is None else int(index)
     x = _embed(params, cfg, token)[:, None, :]
-    for kind, where, i, idx in _layers(cfg):
-        x = _layer_decode(cfg, kind, _take(params[where][i], idx), x,
-                          _take(caches[where][i], idx), index)
+    for kind, where, i, pidx, cidx in _layers(cfg):
+        x = _layer_decode(cfg, kind, _take(params[where][i], pidx), x,
+                          _take(caches[where][i], cidx), index)
     logits = _logits(params, cfg, x, mask_pad=True)[:, 0]
     return logits, {"segments": caches["segments"], "tail": caches["tail"],
                     "index": index + 1}

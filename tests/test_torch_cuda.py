@@ -681,7 +681,7 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case, with_d):
     SSD.reset_launches()
     y = SSD.ssd_scan(x, dt, A, B, C, D)
     torch.cuda.synchronize()
-    assert SSD.launches == {"ssd_scan": 1}
+    assert SSD.launches == {"ssd_scan": 1, "ssd_scan.state": 0}
     ref = TS.ssd_chunked(x, dt, A, B, C, D)
     torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(y, TR.ssd_scan_ref(x, dt, A, B, C, D),
@@ -694,6 +694,60 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case, with_d):
     (gr,) = torch.autograd.grad(TS.ssd_chunked(xr, dt, A, B, C, D).sum(),
                                 [xr])
     torch.testing.assert_close(gx, gr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES + [(1, 1037, 5, 64, 64)])
+def test_cuda_ssd_scan_final_state_matches_plain(cuda_device, case):
+    """The prefill form: y and the state after the last chunk against
+    ``ssd_chunked(return_final_state=True)``; t = 1037 and 1000 leave a
+    partial last chunk of 32, whose padded rows must leave the state as it
+    was."""
+    b, t, h, dh, ds = case
+    rng = np.random.default_rng(6)
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda_device)
+
+    x = f(rng.standard_normal((b, t, h, dh)))
+    dt = f(0.001 + 0.1 * rng.random((b, t, h)))
+    A = f(-np.exp(rng.uniform(0, 2, h)))
+    B = f(rng.standard_normal((b, t, 1, ds)))
+    C = f(rng.standard_normal((b, t, 1, ds)))
+    D = f(rng.standard_normal(h))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    SSD.reset_launches()
+    y, state = kops.ssd_scan_state(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert SSD.launches == {"ssd_scan": 0, "ssd_scan.state": 1}
+    assert state.shape == (b, h, ds, dh) and state.dtype == torch.float32
+    ref_y, ref_s = TS.ssd_chunked(x, dt, A, B, C, D, return_final_state=True)
+    torch.testing.assert_close(y, ref_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, ref_s, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="initial_state"):
+        kops.ssd_scan_state(x, dt, A, B, C, D, initial_state=state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [512, 2048])
+def test_cuda_flash_attention_bf16_at_zamba2s_head_dim(cuda_device, t):
+    """zamba2's shared attention, 32 heads of D = 112 on the tensor cores:
+    the second 64-column panel's last 16 columns come from TMA's zero fill,
+    which must reach the scores and P V and never the output past D (the
+    output rows are 112 wide, so a store past D lands on the next row)."""
+    assert FA.launch_plan(torch.bfloat16, 1, 32, 32, t, t, 112)["panels"] \
+        == 2
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn((1, 32, t, 112), generator=gen,
+                           device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    FA.reset_launches()
+    out = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == 1
+    ref = TR.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True)
+    torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.gpu

@@ -1,7 +1,10 @@
-"""repro_torch's dense LM serving path against the JAX package's, on the CPU
-at the reduced sizes, with the JAX weights carried over
-(``repro_torch.convert.load_lm_params``).  The JAX package runs its default
-(plain jnp) attention; the port its plain flash-attention version.
+"""repro_torch's LM serving path against the JAX package's, on the CPU at
+the reduced sizes, with the JAX weights carried over
+(``repro_torch.convert.load_lm_params``): the dense family, the MoE
+(granite-moe, mixtral; reduced() makes them dropless, capacity 8.0), the
+SSM (mamba2: conv and SSD caches) and the hybrid (zamba2: its shared
+block's ``[R, ...]`` caches).  The JAX package runs its default (plain
+jnp) attention and ``ssd_chunked``; the port its plain versions.
 
 Tolerances, and why:
 - layers, attention and logits with float32 caches: rtol=atol=1e-4 on
@@ -43,9 +46,13 @@ from repro_torch.models import transformer as TT  # noqa: E402
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 ACT_TOL = dict(rtol=1e-5, atol=1e-5)
 # arch -> reduced() overrides; gemma3 at 7 layers runs 2 local:global
-# groups (repeats > 1) and a local tail
+# groups (repeats > 1) and a local tail, as zamba2's 7 run 2 groups of (2
+# mamba + the shared block) and a mamba tail
 ARCHS = {"qwen2-0.5b": {}, "qwen3-8b": {}, "starcoder2-15b": {},
-         "gemma3-12b": {"n_layers": 7}}
+         "gemma3-12b": {"n_layers": 7}, "granite-moe-1b-a400m": {},
+         "mixtral-8x22b": {}, "mamba2-2.7b": {}, "zamba2-7b": {}}
+# the state caches (mamba blocks), float32 in both packages
+SSM_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _np(x):
@@ -160,14 +167,21 @@ def _models(arch):
     return jc, tc, jp, tp
 
 
-def _cache_pairs(jcache, tcache):
+def _cache_pairs(jcache, tcache, keys=("k", "v")):
+    """(JAX leaf, port leaf) of every attention cache (``keys``: ``k`` and
+    ``v``) or, with ``keys=("conv", "ssd")``, every mamba cache."""
     for where in ("segments", "tail"):
+        assert len(jcache[where]) == len(tcache[where])
         for a, b in zip(jcache[where], tcache[where]):
-            np.testing.assert_array_equal(b["pos"].numpy(),
-                                          np.asarray(a["pos"]))
-            assert np.all(np.asarray(a["ring"]) == b["ring"])
-            for key in ("k", "v"):
-                yield _np(a[key]), b[key]
+            assert sorted(a) == sorted(b)
+            if "pos" in a and "k" in keys:
+                np.testing.assert_array_equal(b["pos"].numpy(),
+                                              np.asarray(a["pos"]))
+                assert np.all(np.asarray(a["ring"]) == b["ring"])
+            for key in keys:
+                if key in a:
+                    assert tuple(b[key].shape) == a[key].shape, key
+                    yield _np(a[key]), b[key]
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
@@ -196,6 +210,9 @@ def test_prefill_and_decode_match_jax(arch):
     assert tcache["index"] == int(jcache["index"]) == 46
     for a, b in _cache_pairs(jcache, tcache):
         np.testing.assert_allclose(b.numpy(), a, **ACT_TOL)
+    for a, b in _cache_pairs(jcache, tcache, ("conv", "ssd")):
+        assert b.dtype == torch.float32
+        np.testing.assert_allclose(b.numpy(), a, **SSM_TOL)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma3-12b"])
@@ -221,19 +238,23 @@ def test_bf16_caches_round_as_jax(arch):
 
 
 def test_other_families_name_their_roadmap_item():
-    for arch in ("granite-moe-1b-a400m", "zamba2-7b", "whisper-tiny",
-                 "paligemma-3b"):
+    """encdec and vlm wait for items 8.4 and 8.5; the moe, ssm and hybrid
+    families run every entry point."""
+    for arch, item in (("whisper-tiny", "8.4"), ("paligemma-3b", "8.5")):
         cfg = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             TT.init_params(cfg, torch.Generator().manual_seed(0))
-    # mamba2 trains (its weights init), but its serving waits for 8.3
-    cfg = reduced(get_config("mamba2-2.7b"))
-    params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            TT.init_caches(cfg, 1, 8)
     toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8.3"):
-        TT.prefill(params, cfg, toks)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8.3"):
-        TT.init_caches(cfg, 1, 8)
+    for arch in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-7b"):
+        cfg = reduced(get_config(arch))
+        params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+        logits, caches = TT.prefill(params, cfg, toks, max_seq=8)
+        assert logits.shape == (1, TT.padded_vocab(cfg.vocab))
+        loss, metrics = TT.loss_fn(params, cfg, {"tokens": toks})
+        assert torch.isfinite(loss) and set(metrics) == {"ce", "aux"}
+        assert (float(metrics["aux"]) > 0) == (cfg.family == "moe")
 
 
 # ---------------------------------------------------------------------------

@@ -67,7 +67,7 @@ def test_ssd_matches_jax_ref_chunked_and_pallas(b, t, h, dh, ds, chunk):
     outs = {"ssd_chunked": TS.ssd_chunked(*ts, chunk=chunk),
             "ops.ssd_scan": kops.ssd_scan(*ts),
             "ssd_scan_ref": TR.ssd_scan_ref(*ts)}
-    assert SSD.launches == {"ssd_scan": 0}
+    assert SSD.launches == {"ssd_scan": 0, "ssd_scan.state": 0}
     for name, y in outs.items():
         assert y.shape == (b, t, h, dh) and y.dtype == torch.float32, name
         for want in (ref, jchk, pls):
@@ -121,13 +121,21 @@ def test_fast_decay_never_exponentiates_the_upper_triangle():
 
 
 def test_ssm_block_serving_waits_for_8_3():
+    """The block's serving forms, which waited for ROADMAP item 8.3, run:
+    the prompt with its state, the float32 caches and a decode step, whose
+    output is the full-sequence block's at the next row."""
     cfg = TS.SSMConfig(d_model=32, d_state=8, d_head=8)
     p = TS.ssm_init(torch.Generator().manual_seed(0), cfg)
-    u = torch.randn(1, 8, 32)
-    assert TS.ssm_apply(p, cfg, u).shape == (1, 8, 32)
-    with pytest.raises(NotImplementedError, match="8.3"):
-        TS.ssm_apply(p, cfg, u, return_state=True)
-    with pytest.raises(NotImplementedError, match="8.3"):
-        TS.ssm_init_cache(cfg, 1)
-    with pytest.raises(NotImplementedError, match="8.3"):
-        TS.ssm_decode_step(p, cfg, u[:, :1], None)
+    u = torch.randn(1, 9, 32, generator=torch.Generator().manual_seed(1))
+    full = TS.ssm_apply(p, cfg, u)
+    assert full.shape == (1, 9, 32)
+    y, (conv, ssd) = TS.ssm_apply(p, cfg, u[:, :8], return_state=True)
+    torch.testing.assert_close(y, full[:, :8])
+    cache = TS.ssm_init_cache(cfg, 1)
+    assert cache["conv"].shape == conv.shape == (1, 3, 64 + 16)
+    assert cache["ssd"].shape == ssd.shape == (1, 8, 8, 8)
+    assert cache["conv"].dtype == cache["ssd"].dtype == torch.float32
+    out, new = TS.ssm_decode_step(p, cfg, u[:, 8:9],
+                                  {"conv": conv, "ssd": ssd})
+    torch.testing.assert_close(out[:, 0], full[:, 8], rtol=1e-4, atol=1e-4)
+    assert new["conv"].shape == conv.shape and new["ssd"].shape == ssd.shape

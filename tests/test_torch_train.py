@@ -1,7 +1,10 @@
 """repro_torch's training path on the CPU against the JAX package's: the
 token pipeline, the LR schedules, AdamW, cross entropy, ``loss_fn`` with
-every parameter's gradient (reduced mamba2-2.7b and qwen2-0.5b, the JAX
-weights carried over by ``convert.load_lm_params``), remat, and the
+every parameter's gradient (reduced mamba2-2.7b, qwen2-0.5b,
+granite-moe-1b-a400m and mixtral-8x22b (ce plus the MoE aux) and
+zamba2-7b (the shared block's gradient summed over its two
+applications), the JAX weights carried over by
+``convert.load_lm_params``), remat, and the
 ``launch.train.run`` loop.  On the CPU the port takes the kernels' plain
 versions: attention's forward and backward (``flash_attention_fwd_ref`` /
 ``_bwd_ref``) and the SSD's ``ssd_chunked``.
@@ -13,7 +16,7 @@ Tolerances, and why:
   float32; XLA's and torch's cos, sqrt and division may differ in the
   last bit);
 - AdamW params, mu, nu: within 1e-6 (float32, the same statements);
-- cross entropy and loss_fn: within rtol=1e-5; gradients within rtol=1e-4
+- cross entropy, loss_fn and its aux: within rtol=1e-5; gradients within rtol=1e-4
   plus an absolute 2e-5 of each leaf's largest entry (float32 sums in
   another order through 4 layers; the largest differences seen are ~3e-6
   of the leaf's scale);
@@ -52,7 +55,8 @@ from repro_torch.models.model import build  # noqa: E402
 from repro_torch.optim import adamw as TAW  # noqa: E402
 from repro_torch.optim import schedule as TSC  # noqa: E402
 
-ARCHS = ("mamba2-2.7b", "qwen2-0.5b")
+ARCHS = ("mamba2-2.7b", "qwen2-0.5b", "granite-moe-1b-a400m",
+         "mixtral-8x22b", "zamba2-7b")
 
 
 def _leaves(tree, path=""):
@@ -224,6 +228,9 @@ def test_loss_and_every_gradient_match_jax(arch):
     assert not any({**FA.launches, **SSD.launches}.values())
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     np.testing.assert_allclose(float(tm["ce"].detach()), float(jm["ce"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["aux"].detach()), float(jm["aux"]),
+                               rtol=1e-5)
+    assert (float(jm["aux"]) > 0) == (jc.family == "moe")
     jleaves = dict(_leaves(jgrads))
     assert sorted(jleaves) == sorted(tg)
     for path, g in tg.items():
@@ -234,6 +241,8 @@ def test_loss_and_every_gradient_match_jax(arch):
     if arch == "qwen2-0.5b":         # the repaired fault: attention learns
         for k in ("wq", "wk", "wv", "bq", "bk", "bv"):
             assert tg[f"/segments/0/attn/{k}"].abs().sum() > 0, k
+    if jc.family == "moe":           # the router learns through gates and aux
+        assert tg["/segments/0/moe/router"].abs().sum() > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
