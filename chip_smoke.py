@@ -285,6 +285,27 @@ failure ends the run with a non-zero exit):
      float32 step of zamba2 at 2 groups with the kernels and with the
      plain versions as 8c.
 
+  15. whisper-tiny (encdec) at full width (4 + 4 layers, d 384, 1500
+     audio frames; random bf16 weights from a seeded generator): (a)
+     8 greedy requests of 32-224 prompt tokens x 32 new tokens in one wave
+     over the Server's zero audio, caches to 448: 12 ``flash_attention``
+     launches a wave (4 encoder, 4 decoder self-, 4 cross-attentions) and
+     nothing else, no PyTorch attention kernel in the profiles; (b) 3
+     training steps at 8 x 448 tokens with the trainer's threefry audio
+     (24 ``flash_attention`` and 12 ``flash_attention_bwd`` a step;
+     TFLOP/s by 6N, N split between the tokens and the frames); (c) one
+     float32 step (2 x 448) through the kernels and through the plain
+     versions: logits within 1e-3, the loss and every gradient (the
+     encoder's and the cross-attention's among them) within 8c's
+     tolerances.  Phase 13 ends its NCCL group
+     (``launch.mesh.shutdown_distributed``).
+
+  16. the paper's harness: ``benchmarks/run_torch.py`` with every row on
+     the card and ``benchmarks/determinism_smoke_torch.py`` (the
+     Simulator against one NCCL rank), each in a process of its own,
+     every row present and timed rows positive, the smoke's checks true
+     and its output free of PyTorch's NCCL leak warning.
+
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, ``engine_launches`` on phase 13's and ``family_launches`` on phase
@@ -419,6 +440,15 @@ FLASH_CASES = (
     # tensor-core kernel per visible pair
     ("prefill_noncausal", (8, 14, 2, 2048, 64), "bfloat16",
      {"causal": False}, 1e-2),
+    # whisper-tiny (phase 15): the encoder's self-attention over 1500 frames
+    # (no tile divides 1500) and the decoder's cross-attention, Tq != Tk,
+    # both non-causal; T as (Tq, Tk) where they differ
+    ("whisper_encoder", (8, 6, 6, 1500, 64), "bfloat16", {"causal": False},
+     1e-2),
+    ("whisper_cross", (8, 6, 6, (224, 1500), 64), "bfloat16",
+     {"causal": False}, 1e-2),
+    ("whisper_cross_f32", (2, 6, 6, (37, 1500), 64), "float32",
+     {"causal": False}, 2e-5),
 )
 # phase 14: the MoE, SSM and hybrid families served at full width, one
 # wave of 8 greedy requests (prompts of 512-1024 tokens from numpy's
@@ -437,6 +467,20 @@ FAMILY_SERVE = dict(max_batch=8, max_seq=2048, requests=8,
                     prompt_len=(512, 1024), max_new=16, check_prompts=2,
                     check_len=512, tol=1e-3, decode_profile_steps=10,
                     tie=1e-6)
+# phase 15: whisper-tiny at full width (4 + 4 layers, d 384, 1500 audio
+# frames; random bf16 weights from a seeded generator): one wave of 8
+# greedy requests over zero audio (the Server's), prompts of 32-224 tokens
+# from numpy's default_rng(0), 32 new tokens, caches to 448 positions (the
+# decoder's context); 3 training steps at 8 x 448 tokens with the
+# trainer's audio; a float32 step (2 x 448) with the kernels and with the
+# plain versions, under 8c's tolerances and the family check's logit
+# tolerance
+WHISPER = dict(arch="whisper-tiny", max_batch=8, max_seq=448, requests=8,
+               prompt_len=(32, 224), max_new=32, decode_profile_steps=10,
+               check_batch=2, check_seq=448)
+# device kernels of PyTorch's own attention (SDPA's flash, memory-efficient
+# and cuDNN routes), which no path of the port may run
+SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "cudnn")
 SERVE = dict(arch="qwen2-0.5b", max_batch=8, max_seq=4096, requests=16,
              prompt_len=(1024, 2048), max_new=32, check_prompts=2,
              check_len=512, tol=1e-3, decode_profile_steps=20)
@@ -490,6 +534,13 @@ FLASH_BWD_CASES = (
     ("zamba2_d112", (1, 32, 32, 2048, 112), "bfloat16", {"causal": True}),
     ("d40_bf16", (1, 4, 2, 256, 40), "bfloat16", {"causal": True}),
     ("train_noncausal", (4, 14, 2, 2048, 64), "bfloat16", {"causal": False}),
+    # whisper-tiny's training (phase 15): the encoder over 1500 frames and
+    # the decoder's cross-attention at 448 queries, non-causal
+    ("whisper_encoder", (8, 6, 6, 1500, 64), "bfloat16", {"causal": False}),
+    ("whisper_cross", (8, 6, 6, (448, 1500), 64), "bfloat16",
+     {"causal": False}),
+    ("whisper_cross_f32", (2, 6, 6, (37, 1500), 64), "float32",
+     {"causal": False}),
 )
 # float32: tests/test_kernels.py's gradient tolerance.  bf16: against the
 # plain backward on the same saved bf16 tensors, 1e-2 of each gradient's
@@ -522,6 +573,14 @@ TRAIN = {
                          steps=3, lr=3e-3,
                          per_step={"ssd_scan": 26, "flash_attention": 2,
                                    "flash_attention_bwd": 2}),
+    # phase 15b: whisper-tiny's 12 attentions (4 encoder layers, 4 decoder
+    # self- and 4 cross-attentions) forward twice (remat) and backward
+    # once; the batch's audio, one fold_in and one normal draw
+    "whisper-tiny": dict(batch=8, seq=448, steps=3, lr=3e-3,
+                         per_step={"flash_attention": 24,
+                                   "flash_attention_bwd": 12,
+                                   "threefry_fold_in": 1,
+                                   "threefry_draw": 1}),
 }
 # 8c: one step at full width, 2 layers, float32, kernels vs plain versions:
 # losses within 1e-4; each gradient within rtol=1e-3 plus 1e-4 of its
@@ -629,6 +688,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     report: dict = {}
     kernels = card_and_build(torch, report)
     kernel_entries = compare_kernels(torch, report)
@@ -668,6 +728,10 @@ def main() -> int:
     launches_construct = device_construction(torch, report)
     torch.cuda.empty_cache()
     launches_engine = sharded_engine(torch, report)
+    torch.cuda.empty_cache()
+    launches_families.update(whisper(torch, report))
+    torch.cuda.empty_cache()
+    paper_harness(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -696,7 +760,8 @@ def main() -> int:
                                 else 0)
         check(on is None or e["engine_launches"] > 0,
               f"{e['name']} never launched on the engine's path")
-        # and its launches on each of phase 14's paths that runs it
+        # and its launches on each of phases 14's and 15's paths that
+        # runs it
         e["family_launches"] = {
             label: n[e["name"]] for label, n in launches_families.items()
             if n.get(e["name"])}
@@ -704,7 +769,9 @@ def main() -> int:
     report["build"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
+    report["seconds"] = time.perf_counter() - t_start
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"chip_smoke: every phase passed in {report['seconds']:.1f} s")
     print(report["nvidia_smi"])
     print(json.dumps({"kernels": kernel_entries}))
     print(json.dumps({"ok": True, "device": {
@@ -755,10 +822,10 @@ def _device_ms(torch, fn, reps: int, kernel: str = "") -> tuple:
     Unlike ``_time_ms`` it leaves out the gaps between launches, which set
     the wall time of a kernel of a few microseconds.  Every call runs the
     same device ops, so a trace whose count of them (of ``kernel``'s, when
-    named) is no multiple of ``reps`` dropped some: it is taken again, up
-    to five times (on the card one trace once kept a tenth of its
-    launches, and traces of 5 calls of a 14 ms kernel three times running
-    kept 4)."""
+    named) is no multiple of ``reps`` dropped or gained some: it is taken
+    again, up to ten times (on the card one trace once kept a tenth of its
+    launches, traces of 5 calls of a 14 ms kernel three times running kept
+    4, and five traces running of 50 threefry draws kept 62)."""
     fn(0)
     torch.cuda.synchronize()
 
@@ -767,7 +834,7 @@ def _device_ms(torch, fn, reps: int, kernel: str = "") -> tuple:
             fn(i + 1)
         torch.cuda.synchronize()
 
-    for _ in range(5):
+    for _ in range(10):
         prof = _device_profile(torch, calls, warm=True)
         mine = [(c, t) for n, (c, t) in prof["by_name"].items() if kernel in n]
         seen = sum(c for c, _ in mine)
@@ -1197,17 +1264,18 @@ def compare_flash(torch, report) -> list:
         gen = torch.Generator(device=dev).manual_seed(2)
         for name, (b, hq, hkv, t, d), dt, kw, tol in FLASH_CASES:
             dtype = getattr(torch, dt)
+            tq, tk = t if isinstance(t, tuple) else (t, t)
             q, k, v = (torch.randn(shape, device=dev, generator=gen
                                    ).to(dtype)
-                       for shape in ((b, hq, t, d), (b, hkv, t, d),
-                                     (b, hkv, t, d)))
+                       for shape in ((b, hq, tq, d), (b, hkv, tk, d),
+                                     (b, hkv, tk, d)))
             out = FA.flash_attention(q, k, v, **kw)
             ref = R.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
             torch.cuda.synchronize()
             err = float((out.float() - ref).abs().max())
             check(bool(torch.allclose(out.float(), ref, rtol=tol, atol=tol)),
                   f"flash_attention {name}: max abs err {err} > {tol}")
-            pairs, mask = _visible_pairs(torch, t, t, **kw)
+            pairs, mask = _visible_pairs(torch, tq, tk, **kw)
             lib = None
             if "softcap" not in kw:       # no PyTorch call soft-caps
                 lib_kw = ({"is_causal": kw["causal"]} if set(kw) == {"causal"}
@@ -1221,14 +1289,14 @@ def compare_flash(torch, report) -> list:
                 check(lib_err < (2e-2 if dt == "bfloat16" else 1e-3),
                       f"flash_attention {name}: the library yardstick "
                       f"computes another function (max abs err {lib_err})")
-            reps = 10 if b * hq * t * t * d > 1e9 else 50
+            reps = 10 if b * hq * tq * tk * d > 1e9 else 50
             ms = _time_ms(torch, lambda i: FA.flash_attention(q, k, v, **kw),
                           reps)
             plain_ms = _time_ms(torch, lambda i: R.flash_attention_ref(
                 q, k, v, **kw), max(3, reps // 5))
             lib_ms = None if lib is None else _time_ms(torch, lib, reps)
             es = q.element_size()
-            nbytes = es * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+            nbytes = es * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
             flops = 4.0 * b * hq * d * pairs
             peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1477,10 +1545,11 @@ def compare_flash_bwd(torch, report) -> list:
         gen = torch.Generator(device=dev).manual_seed(4)
         for name, (b, hq, hkv, t, d), dt, kw in FLASH_BWD_CASES:
             dtype = getattr(torch, dt)
+            tq, tk = t if isinstance(t, tuple) else (t, t)
             q, k, v, g = (torch.randn(shape, device=dev, generator=gen
                                       ).to(dtype)
-                          for shape in ((b, hq, t, d), (b, hkv, t, d),
-                                        (b, hkv, t, d), (b, hq, t, d)))
+                          for shape in ((b, hq, tq, d), (b, hkv, tk, d),
+                                        (b, hkv, tk, d), (b, hq, tq, d)))
             out, lse = FA.flash_attention_fwd(q, k, v, **kw)
             got = FA.flash_attention_bwd(q, k, v, out, lse, g, **kw)
             # the plain backward on the same saved tensors
@@ -1514,7 +1583,7 @@ def compare_flash_bwd(torch, report) -> list:
                       "(autograd)")
             del want, auto, ins
             torch.cuda.empty_cache()
-            pairs, mask = _visible_pairs(torch, t, t, **kw)
+            pairs, mask = _visible_pairs(torch, tq, tk, **kw)
             lib_ms = lib_backend = None
             if "softcap" not in kw:       # no PyTorch call soft-caps
                 lib_kw = ({"is_causal": kw["causal"]} if set(kw) == {"causal"}
@@ -1541,7 +1610,7 @@ def compare_flash_bwd(torch, report) -> list:
                     torch.cuda.synchronize()
 
                 lib_backend = _sdpa_backend(torch, lib_once)
-            reps = 5 if b * hq * t * t * d > 1e9 else 20
+            reps = 5 if b * hq * tq * tk * d > 1e9 else 20
             ms = _time_ms(torch, lambda i: FA.flash_attention_bwd(
                 q, k, v, out, lse, g, **kw), reps)
             plain_ms = _time_ms(torch, lambda i: R.flash_attention_bwd_ref(
@@ -1550,8 +1619,8 @@ def compare_flash_bwd(torch, report) -> list:
                 lib_ms = _time_ms(torch, lib, reps)
                 del lo, lq, lk, lv
             es = q.element_size()
-            nbytes = (es * (4 * b * hq * t * d + 4 * b * hkv * t * d)
-                      + 4 * b * hq * t)
+            nbytes = (es * (4 * b * hq * tq * d + 4 * b * hkv * tk * d)
+                      + 4 * b * hq * tq)
             flops = 10.0 * b * hq * d * pairs
             peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2683,12 +2752,15 @@ def serve_full(torch, report) -> dict:
 # phase 14: the MoE, SSM and hybrid families
 # ---------------------------------------------------------------------------
 def _layer_kinds(cfg) -> dict:
-    """How many attention and mamba layers a pass runs (a shared block
-    counts once a group)."""
+    """How many attentions and mamba layers a pass runs (a shared block
+    counts once a group; an encdec model's encoder layers and each decoder
+    layer's cross-attention count too)."""
     from repro_torch.models import transformer as T
     kinds = [k for k, *_ in T._layers(cfg)]
-    return {"attn": sum(k != "mamba" for k in kinds),
-            "mamba": kinds.count("mamba")}
+    attn = sum(k != "mamba" for k in kinds)
+    if cfg.family == "encdec":
+        attn += cfg.n_enc_layers + cfg.n_layers
+    return {"attn": attn, "mamba": kinds.count("mamba")}
 
 
 @contextlib.contextmanager
@@ -2769,14 +2841,13 @@ def _family_config(arch: str, n_layers):
 
 
 def serve_family(torch, report, label: str, arch: str, n_layers,
-                 f32_check: bool) -> dict:
-    """Phases 14a-14d: serve ``arch`` at full width; returns the launch
-    counts of the serving run."""
+                 f32_check: bool, fs: dict = FAMILY_SERVE) -> dict:
+    """Phases 14a-14d and 15a: serve ``arch`` at full width, one wave as
+    ``fs`` sizes it; returns the launch counts of the serving run."""
     import numpy as np
-    from torch.utils._pytree import tree_leaves, tree_map
+    from torch.utils._pytree import tree_leaves
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import transformer as T
-    fs = FAMILY_SERVE
     depth = "full depth" if n_layers is None else f"{n_layers} layers"
     with phase(f"{label}. {arch} served at full width, {depth}"):
         name, cfg = _family_config(arch, n_layers)
@@ -2798,7 +2869,8 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
             "package keeps them)")
 
         warm = torch.randint(3, cfg.vocab, (1, 64), device="cuda")
-        logits, caches = T.prefill(srv.params, cfg, warm, max_seq=80)
+        logits, caches = T.prefill(srv.params, cfg, warm, srv._extra(1),
+                                   max_seq=80)
         T.decode_step(srv.params, cfg, caches, logits.argmax(-1))
         torch.cuda.synchronize()
         del caches
@@ -2868,6 +2940,7 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
         for i, r in enumerate(reqs):
             wave[i, maxlen - len(r.prompt):] = r.prompt
         wave = torch.from_numpy(wave).cuda()
+        extra = srv._extra(len(reqs))
         if cfg.family == "moe":
             pre = {"pairs": 0, "dropped": 0}
             dec = {"pairs": 0, "dropped": 0}
@@ -2894,7 +2967,7 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
 
         def prefill():
             box["logits"], box["caches"] = T.prefill(
-                srv.params, cfg, wave, max_seq=fs["max_seq"])
+                srv.params, cfg, wave, extra, max_seq=fs["max_seq"])
             torch.cuda.synchronize()
 
         prof_prefill = _device_profile(torch, prefill)
@@ -2910,6 +2983,8 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
         prof_decode = _device_profile(torch, decode)
         steps = fs["decode_profile_steps"]
         cats = _categories(prof_prefill)
+        sdpa = _sdpa_kernels(prof_prefill) + _sdpa_kernels(prof_decode)
+        check(not sdpa, f"PyTorch's attention kernels ran: {sdpa}")
         print(f"prefill wave {tuple(wave.shape)} profiled: device busy "
               f"{prof_prefill['device_busy_us']:.0f} us of "
               f"{prof_prefill['wall_us']:.0f}, {prof_prefill['device_ops']} "
@@ -3125,6 +3200,7 @@ def train_full(torch, report, name: str, label: str) -> dict:
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
+    from repro_torch.launch.train import extra_inputs
     spec = TRAIN[name]
     arch = spec.get("arch", name)
     b, t, steps = spec["batch"], spec["seq"], spec["steps"]
@@ -3142,6 +3218,18 @@ def train_full(torch, report, name: str, label: str) -> dict:
         n_params = T.count_params(params)
         n_active = _active_params(cfg, params)
         flops_tok = T.model_flops_per_token(cfg, n_params, n_active)
+        flops_step = flops_tok * b * t
+        if cfg.family == "encdec":
+            # 6 N a token, N split by what it runs over: the decoder's
+            # tokens (b x t) or the audio frames (b x enc_seq); attention's
+            # own products are not counted
+            n_frame = _frame_params(params)
+            flops_step = 6.0 * ((n_params - n_frame) * b * t
+                                + n_frame * b * cfg.enc_seq)
+            print(f"{arch}: {n_frame} of the params run over the "
+                  f"{cfg.enc_seq} frames; model FLOPs a step 6 x "
+                  f"({n_params - n_frame} x {b * t} + {n_frame} x "
+                  f"{b * cfg.enc_seq}) = {flops_step:.4g}")
         print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {n_params} "
               f"params ({n_active} active a token; {cfg.dtype}, fp32 master "
               f"and moments), remat {cfg.remat} ({cfg.remat_policy}); "
@@ -3155,6 +3243,7 @@ def train_full(torch, report, name: str, label: str) -> dict:
         bwd_calls = {"SSDScan": 0}
         for i in range(steps):
             batch = pipe.next_batch()
+            batch.update(extra_inputs(cfg, b, i, 0, "cuda"))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             with _counting_ssd_backward(bwd_calls):
@@ -3168,7 +3257,7 @@ def train_full(torch, report, name: str, label: str) -> dict:
             rows.append({"step": i + 1, "loss": loss, "ce": float(m["ce"]),
                          "aux": float(m["aux"]), "ms": secs * 1e3,
                          "tokens_per_s": b * t / secs,
-                         "model_tflops": flops_tok * b * t / secs / 1e12,
+                         "model_tflops": flops_step / secs / 1e12,
                          "grad_norm": float(m["grad_norm"]),
                          "lr": float(m["lr"]),
                          "launches": {k: v for k, v in step_launches.items()
@@ -3193,7 +3282,7 @@ def train_full(torch, report, name: str, label: str) -> dict:
         timed = rows[1:]                # the first step is the warm-up
         ms = sum(r["ms"] for r in timed) / len(timed)
         summary = {"ms_per_step": ms, "tokens_per_s": b * t / ms * 1e3,
-                   "model_tflops": flops_tok * b * t / ms / 1e9,
+                   "model_tflops": flops_step / ms / 1e9,
                    "peak_mem_bytes": peak}
         if name == "mamba2-2.7b":
             # the SSD backward's share of a step: its calls a step times its
@@ -3213,6 +3302,7 @@ def train_full(torch, report, name: str, label: str) -> dict:
         # where the device time of one more step goes
         box = {"p": params, "o": opt}
         batch = pipe.next_batch()
+        batch.update(extra_inputs(cfg, b, steps, 0, "cuda"))
 
         def one_step():
             box["p"], box["o"], box["m"] = step_fn(box["p"], box["o"], batch)
@@ -3221,9 +3311,13 @@ def train_full(torch, report, name: str, label: str) -> dict:
 
         prof = _device_profile(torch, one_step)
         cats = _categories(prof)
+        sdpa = _sdpa_kernels(prof)
+        check(not sdpa, f"{arch}: PyTorch's attention kernels ran: {sdpa}")
         for k in spec["per_step"]:
-            check(cats.get(k, {}).get("us", 0) > 0,
-                  f"{arch}: the step's profile shows no {k} kernel by name")
+            if k in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+                check(cats.get(k, {}).get("us", 0) > 0,
+                      f"{arch}: the step's profile shows no {k} kernel by "
+                      "name")
         print(f"profiled step: device busy {prof['device_busy_us']:.0f} of "
               f"{prof['wall_us']:.0f} us ({100 * prof['busy_share']:.1f}%), "
               f"{prof['device_ops']} device ops; by category "
@@ -3234,7 +3328,8 @@ def train_full(torch, report, name: str, label: str) -> dict:
               + f"; top {prof['top'][:6]}")
         report[f"train_{name}"] = {
             "config": {**spec, "params": n_params, "active_params": n_active,
-                       "flops_per_token": flops_tok},
+                       "flops_per_token": flops_tok,
+                       "flops_per_step": flops_step},
             "init_s": init_s, "steps": rows,
             **summary, "launches": launches, "profile": prof,
             "categories": cats}
@@ -3840,6 +3935,16 @@ def sharded_engine(torch, report) -> dict:
         out["mb_table"] = {"rates_hz": rates, "finite": finite,
                            "launches": le}
         del mb, tab
+        # the group ends here: every model (and graph) over it first
+        import gc
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import shutdown_distributed
+        mesh = model = None
+        gc.collect()
+        torch.cuda.synchronize()
+        check(shutdown_distributed() and not dist.is_initialized(),
+              "13: the NCCL process group did not end")
+        print("13: the NCCL process group ended (shutdown_distributed)")
     return launches
 
 
@@ -5197,6 +5302,184 @@ def serve_snn(torch, report) -> dict:
               f"{100 * out['mb']['masking']['served']['busy_share']:.1f}%, "
               f"masking +{100 * out['mb']['masking']['device_us_per_step_overhead']:.1f}%")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the encdec family (whisper-tiny)
+# ---------------------------------------------------------------------------
+def _sdpa_kernels(prof) -> list:
+    """PyTorch's own attention kernels in a profile, by name."""
+    return [n for n in prof["by_name"] if any(p in n for p in SDPA_KERNELS)]
+
+
+def _frame_params(params) -> int:
+    """The parameters that run once an audio frame: the encoder's and each
+    decoder layer's cross-attention keys and values."""
+    from repro_torch.models import transformer as T
+    xattn = params["segments"][0]["xattn"]
+    return T.count_params(params["enc"]) + sum(
+        T.count_params(xattn[k]) for k in ("wk", "wv", "bk", "bv")
+        if k in xattn)
+
+
+def whisper_check(torch, report) -> None:
+    """Phase 15c: one float32 whisper-tiny step at full width (2 x 448
+    tokens, the trainer's audio) through the kernels and through the plain
+    versions: the forward's logits, the loss and every gradient (the
+    encoder's and the cross-attention's named)."""
+    import dataclasses
+    from torch.utils._pytree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.models import transformer as T
+    w, c = WHISPER, STEP_CHECK
+    with phase("15c. one float32 whisper-tiny step: kernels against plain "
+               "versions"):
+        cfg = dataclasses.replace(get_config(w["arch"]), dtype="float32")
+        b, t = w["check_batch"], w["check_seq"]
+        params, opt, step_fn, pipe = _train_setup(torch, cfg, b, t, 1, 1e-3,
+                                                  seed=1)
+        batch = pipe.next_batch()
+        batch.update(extra_inputs(cfg, b, 0, 1, "cuda"))
+        extra = {"audio": batch["audio"]}
+        inp = batch["tokens"][:, :-1]
+        attn = cfg.n_enc_layers + 2 * cfg.n_layers
+        reset_launches()
+        with torch.no_grad():
+            lk, _ = T.forward(params, cfg, inp, extra)
+        launches_f = read_launches()
+        with plain_versions(), torch.no_grad():
+            lp, _ = T.forward(params, cfg, inp, extra)
+        lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
+        torch.cuda.synchronize()
+        logit_err = float((lk - lp).abs().max())
+        check(launches_f["flash_attention"] == attn,
+              f"the float32 forward launched {launches_f}")
+        check(bool(torch.allclose(lk, lp, rtol=FAMILY_SERVE["tol"],
+                                  atol=FAMILY_SERVE["tol"])),
+              f"whisper float32 logits differ by {logit_err}")
+        del lk, lp
+        lossk, gk, launches_k = _grads_of_step(torch, step_fn, params, opt,
+                                               batch)
+        with plain_versions():
+            lossp, gp, launches_p = _grads_of_step(torch, step_fn, params,
+                                                   opt, batch)
+        print(f"whisper (float32, {b} x {t}): logits max abs err "
+              f"{logit_err}; loss kernel {lossk} plain {lossp}; launches "
+              f"{launches_k} / plain {launches_p}")
+        check(abs(lossk - lossp) <= c["loss_tol"],
+              f"whisper: losses differ by {abs(lossk - lossp)}")
+        check(not any(launches_p.values()),
+              f"whisper: the plain run launched {launches_p}")
+        want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn}
+        check(all(launches_k[k] == n for k, n in want.items()),
+              f"whisper: kernel launches {launches_k}, expected {want}")
+        worst = {}
+        for (path, a), (_, wt) in zip(tree_flatten_with_path(gk)[0],
+                                      tree_flatten_with_path(gp)[0]):
+            key = "".join(str(x) for x in path)
+            err = float((a - wt).abs().max())
+            scale = float(wt.abs().max())
+            worst[key] = [err, scale]
+            check(bool(torch.allclose(a, wt, rtol=c["grad_rtol"],
+                                      atol=c["grad_atol_frac"] * scale)),
+                  f"whisper: gradient {key} differs by {err} (largest entry "
+                  f"{scale})")
+        named = {k: v for k, v in worst.items()
+                 if k.startswith("['enc']") or "xattn" in k}
+        check(len(named) > 0 and all(s > 0 for _, s in named.values()),
+              "whisper: the encoder or the cross-attention has no gradient")
+        rel = max(e / max(s, 1e-30) for e, s in worst.values())
+        rel_named = max(e / max(s, 1e-30) for e, s in named.values())
+        print(f"whisper: {len(worst)} gradients within tolerance ({len(named)}"
+              f" of the encoder and the cross-attention); largest error "
+              f"relative to its leaf's scale {rel:.3g} (encoder and "
+              f"cross-attention {rel_named:.3g})")
+        report["whisper_check"] = {
+            "logit_max_abs_err": logit_err, "loss_kernel": lossk,
+            "loss_plain": lossp, "launches": launches_k, "grad_err": worst,
+            "max_rel_grad_err": rel, "max_rel_grad_err_enc_xattn": rel_named}
+        del params, opt, step_fn, gk, gp
+        torch.cuda.empty_cache()
+
+
+def whisper(torch, report) -> dict:
+    """Phase 15: whisper-tiny served (15a), trained (15b) and held to the
+    plain versions in float32 (15c); returns 15a's and 15b's launches."""
+    out = {"15a": serve_family(torch, report, "15a", WHISPER["arch"], None,
+                               False, fs=WHISPER),
+           "15b": train_full(torch, report, WHISPER["arch"], "15b")}
+    whisper_check(torch, report)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the paper's benchmark harness and the determinism smoke
+# ---------------------------------------------------------------------------
+# every row run_torch.py prints, by its name's prefix
+HARNESS_ROWS = ("table1_", "table2_", "fig2_", "eq12_", "speed_", "kernel_",
+                "occupancy_", "lm_scaling_not_ported", "roofline_not_ported")
+NCCL_LEAK = "destroy_process_group() was not called"
+
+
+def _script(args, timeout_s: float) -> tuple:
+    """``python -m args...`` from the checkout's root, its output
+    captured: (rc, stdout, stderr, seconds)."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *args], cwd=str(ROOT),
+                       env=env, capture_output=True, text=True,
+                       timeout=timeout_s)
+    return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def paper_harness(torch, report) -> None:
+    """Phase 16: ``benchmarks/run_torch.py`` with every row on the card
+    and ``benchmarks/determinism_smoke_torch.py`` at one NCCL rank, each
+    in a process of its own; neither leaves its process group up."""
+    out_dir = ROOT / "chiprun_out" / "bench_torch"
+    out = report["harness"] = {}
+    with phase("16. the paper's benchmark harness and the determinism "
+               "smoke"):
+        rc, so, se, secs = _script(
+            ["benchmarks.run_torch", "--out", str(out_dir)], 600)
+        rows = [ln for ln in so.splitlines() if ln.count(",") >= 2]
+        print("\n".join(rows))
+        check(rc == 0, f"run_torch.py exited {rc}:\n{se[-3000:]}")
+        check(rows and rows[0] == "name,us_per_call,derived",
+              "run_torch.py printed no CSV header")
+        names = [r.split(",", 1)[0] for r in rows[1:]]
+        missing = [p for p in HARNESS_ROWS
+                   if not any(n.startswith(p) for n in names)]
+        check(not missing, f"run_torch.py printed no {missing} rows")
+        timed = [r.split(",", 2) for r in rows[1:]
+                 if r.startswith(("speed_step", "kernel_"))]
+        check(timed and all(float(us) > 0 for _, us, _ in timed),
+              f"a timed row is not positive: {timed}")
+        print(f"run_torch.py: {len(rows) - 1} rows in {secs:.1f} s")
+        out["run_torch"] = {"rows": rows[1:], "seconds": secs}
+
+        rc, so, se, secs = _script(
+            ["benchmarks.determinism_smoke_torch", "--out", str(out_dir)],
+            300)
+        print(so.strip())
+        check(rc == 0, f"determinism_smoke_torch.py exited {rc}:\n"
+              f"{se[-3000:]}")
+        payload = json.loads((out_dir / "BENCH_determinism_torch.json")
+                             .read_text())
+        check(payload["backend"] == "nccl" and all(
+            payload["checks"].values()) and payload["checks"].get(
+            "process_group_ended"), f"determinism smoke: {payload}")
+        check(NCCL_LEAK not in so + se,
+              "the determinism smoke left its NCCL group up")
+        print(f"determinism smoke: Simulator vs one NCCL rank, "
+              f"{payload['checks']} in {secs:.1f} s; no NCCL leak warning "
+              "in its output")
+        out["determinism"] = {**payload, "seconds": secs}
 
 
 if __name__ == "__main__":

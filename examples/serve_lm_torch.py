@@ -1,16 +1,18 @@
 """Batched serving on the PyTorch/CUDA port: submit concurrent requests and
 watch the scheduler prefill and decode them as a batch (KV caches, ring
 buffers for windowed archs, O(1) conv and SSD states for the SSM and
-hybrid archs, top-k expert routing for the MoE archs).
+hybrid archs, top-k expert routing for the MoE archs, cross-attention
+caches over the encoder's frames for whisper).
 
 The flow of ``examples/serve_lm.py`` through ``repro_torch``, on a reduced
-config of any decoder-only arch.  Runs on the card (``cuda``) unless asked
-otherwise:
+config of any arch but paligemma-3b (ROADMAP Queue 1 item 8.5).  Runs on
+the card (``cuda``) unless asked otherwise:
 
   PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2-0.5b
   PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-2.7b
   PYTHONPATH=src python examples/serve_lm_torch.py \\
       --arch granite-moe-1b-a400m --device cpu
+  PYTHONPATH=src python examples/serve_lm_torch.py --arch whisper-tiny
 """
 
 import argparse
@@ -24,7 +26,8 @@ from repro_torch.launch.serve import Request, Server
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="a dense, moe, ssm or hybrid arch (reduced)")
+                    help="a dense, moe, ssm, hybrid or encdec arch "
+                         "(reduced)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--temperature", type=float, default=0.8)

@@ -4,10 +4,11 @@ kernels on the card), AdamW and the NaN guard.
 
 The flow of ``examples/train_lm.py`` through ``repro_torch``.  Default: a
 ~20M-param qwen2-family model, 150 steps; ``--hundred-m`` a ~100M-param
-one; ``--arch NAME`` the reduced config of any decoder-only arch instead
-(e.g. ``mamba2-2.7b``, ``granite-moe-1b-a400m``, ``mixtral-8x22b``,
-``zamba2-7b``: the MoE archs print their load-balance aux beside the
-cross entropy).  Checkpoint and restart wait for the port of
+one; ``--arch NAME`` the reduced config of any arch but paligemma-3b
+instead (e.g. ``mamba2-2.7b``, ``granite-moe-1b-a400m``,
+``mixtral-8x22b``, ``zamba2-7b``: the MoE archs print their load-balance
+aux beside the cross entropy; ``whisper-tiny``: each batch carries the
+trainer's audio frames).  Checkpoint and restart wait for the port of
 ``checkpoint/manager.py`` (ROADMAP Queue 1 item 8.6): a non-finite loss
 raises.  Runs on the card (``cuda``) unless asked otherwise:
 
@@ -15,6 +16,8 @@ raises.  Runs on the card (``cuda``) unless asked otherwise:
   PYTHONPATH=src python examples/train_lm_torch.py --hundred-m --steps 300
   PYTHONPATH=src python examples/train_lm_torch.py --arch zamba2-7b \\
       --steps 20 --device cpu
+  PYTHONPATH=src python examples/train_lm_torch.py --arch whisper-tiny \\
+      --steps 20 --seq 64
 """
 
 import argparse

@@ -5,7 +5,11 @@
 Labels: 2 (the ELL kernels and the ring fold), 2b (the neuron kernels), 2c
 (flash attention), 2d (the SSD scan, its prefill form with the final state
 included), 2f (threefry), 9a (the spike bitmask), 14 (the MoE, SSM and
-hybrid families: 14a-14d served, 14e and 14f trained; each also alone), 3 (the main path), 5 (the delay path),
+hybrid families: 14a-14d served, 14e and 14f trained; each also alone),
+15 (whisper-tiny: 15a served, 15b trained, 15c the float32 step; each
+also alone), 16 (the paper's harness, run_torch.py, and the determinism
+smoke at one NCCL rank), 2e (the flash backward), 3 (the main path), 5
+(the delay path),
 9b (main observed; reads phase 3's profile, so list 3 first), 6a (the
 NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
 list 6a first), 10 (the occupancy model against the runtime, and the
@@ -60,6 +64,19 @@ def main(labels) -> int:
         elif label == "14f":
             CS.train_full(torch, report, "zamba2-7b@15", "14f")
             CS.train_hybrid_check(torch, report)
+        elif label == "15":
+            CS.whisper(torch, report)
+        elif label == "15a":
+            CS.serve_family(torch, report, "15a", CS.WHISPER["arch"], None,
+                            False, fs=CS.WHISPER)
+        elif label == "15b":
+            CS.train_full(torch, report, CS.WHISPER["arch"], "15b")
+        elif label == "15c":
+            CS.whisper_check(torch, report)
+        elif label == "16":
+            CS.paper_harness(torch, report)
+        elif label == "2e":
+            CS.compare_flash_bwd(torch, report)
         elif label == "2b":
             CS.compare_neuron_kernels(torch, report)
         elif label == "2f":

@@ -82,7 +82,7 @@ from repro_torch.sparse import device_init as DI
 from repro_torch.sparse import formats as F
 
 __all__ = ["ModelSpec", "CompiledModel", "SweepResult", "SpecError",
-           "MAX_DELAY_STEPS"]
+           "Recordings", "MAX_DELAY_STEPS"]
 
 # weight initialization: scalar, or (rng, shape) -> array
 WeightInit = Union[None, float, int, Callable[..., np.ndarray]]

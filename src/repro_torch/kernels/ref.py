@@ -310,7 +310,11 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             q_chunk: int = 512, k_chunk: int = 1024):
     """(dq, dk, dv) of attention from its saved (q, k, v, o, lse) and the
     output's gradient ``do``, by ``flash_xla.py``'s recompute schedule
-    (``_bwd``): per (query chunk, key chunk) block the probabilities are
+    (``_bwd``), over chunks of ``q_chunk`` queries and ``k_chunk`` keys, the
+    last ones shorter where they do not divide T (the JAX package halves
+    its chunks until they divide T: chunks of 4 at whisper's 1500 frames,
+    ~10^5 blocks a call): per (query chunk, key chunk) block the
+    probabilities are
     recomputed as exp(logits - lse), masked to 0 where the key is hidden
     (and so everywhere in a row with lse = -inf); delta = rowsum(do * o);
     dS = P (dP - delta), times 1 - tanh^2(raw / softcap) under a softcap,
@@ -321,7 +325,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     hkv, tk = k.shape[1], k.shape[2]
     rep = hq // hkv
     s = scale if scale is not None else 1.0 / math.sqrt(d)
-    qc, kc = chunk_size(tq, q_chunk), chunk_size(tk, k_chunk)
+    qc, kc = min(q_chunk, tq), min(k_chunk, tk)
     qf = q.float().reshape(b, hkv, rep, tq, d)
     gf = do.float().reshape(b, hkv, rep, tq, d)
     delta = (gf * o.float().reshape(b, hkv, rep, tq, d)).sum(-1)
@@ -333,28 +337,29 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.zeros_like(dk)
     zero = torch.zeros((), device=q.device)
     for q0 in range(0, tq, qc):
-        qpos = torch.arange(q0, q0 + qc, device=q.device) + q_offset
-        qb, gb = qf[:, :, :, q0:q0 + qc], gf[:, :, :, q0:q0 + qc]
-        lb = lse_safe[..., q0:q0 + qc, None]
-        db = delta[..., q0:q0 + qc, None]
+        q1 = min(q0 + qc, tq)
+        qpos = torch.arange(q0, q1, device=q.device) + q_offset
+        qb, gb = qf[:, :, :, q0:q1], gf[:, :, :, q0:q1]
+        lb = lse_safe[..., q0:q1, None]
+        db = delta[..., q0:q1, None]
         for k0 in range(0, tk, kc):
-            kb, vb = kf[:, :, k0:k0 + kc], vf[:, :, k0:k0 + kc]
-            msk = _attn_mask(qpos, torch.arange(k0, k0 + kc, device=q.device),
+            k1 = min(k0 + kc, tk)
+            kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+            msk = _attn_mask(qpos, torch.arange(k0, k1, device=q.device),
                              causal, window, prefix)
             raw = torch.einsum("bgrqd,bgkd->bgrqk", qb, kb) * s
             capped = (softcap * torch.tanh(raw / softcap)
                       if softcap is not None else raw)
             p = torch.where(msk, torch.exp(capped - lb), zero)
-            dv[:, :, k0:k0 + kc] += torch.einsum("bgrqk,bgrqd->bgkd", p, gb)
+            dv[:, :, k0:k1] += torch.einsum("bgrqk,bgrqd->bgkd", p, gb)
             dp = torch.einsum("bgrqd,bgkd->bgrqk", gb, vb)
             ds = p * (dp - db)
             if softcap is not None:
                 th = torch.tanh(raw / softcap)
                 ds = ds * (1.0 - th * th)
             ds = ds * s
-            dq[:, :, :, q0:q0 + qc] += torch.einsum("bgrqk,bgkd->bgrqd", ds,
-                                                    kb)
-            dk[:, :, k0:k0 + kc] += torch.einsum("bgrqk,bgrqd->bgkd", ds, qb)
+            dq[:, :, :, q0:q1] += torch.einsum("bgrqk,bgkd->bgrqd", ds, kb)
+            dk[:, :, k0:k1] += torch.einsum("bgrqk,bgrqd->bgkd", ds, qb)
     return (dq.reshape(b, hq, tq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 

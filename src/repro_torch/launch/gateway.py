@@ -477,6 +477,16 @@ def _demo_models(devices: int, device=None):
 
 
 def main(argv=None) -> int:
+    """The demo; a process group that ``--devices`` started is ended on
+    the way out, whatever the outcome."""
+    from repro_torch.launch.mesh import shutdown_distributed
+    try:
+        return _main(argv)
+    finally:
+        shutdown_distributed()
+
+
+def _main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="multi-model SNN serving gateway demo")
     ap.add_argument("--requests", type=int, default=48)

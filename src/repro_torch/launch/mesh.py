@@ -14,6 +14,8 @@ short-circuited, so a one-rank mesh on the card runs NCCL for real.
 
     # one rank, no launcher (a HashStore group of size 1)
     mesh = make_snn_mesh(device="cpu")
+    ...
+    shutdown_distributed()                  # at the end, on every rank
     # N ranks: torchrun --nproc-per-node N ... (rank and world size from
     # the environment), then in every rank
     mesh = make_snn_mesh(device="cpu")      # gloo
@@ -36,8 +38,8 @@ import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 
-__all__ = ["SNN_AXIS", "Mesh", "init_distributed", "make_snn_mesh",
-           "sub_mesh", "snn_axis", "backend_for"]
+__all__ = ["SNN_AXIS", "Mesh", "init_distributed", "shutdown_distributed",
+           "make_snn_mesh", "sub_mesh", "snn_axis", "backend_for"]
 
 #: the axis the SNN engine partitions neuron populations over
 SNN_AXIS = "neuron"
@@ -45,6 +47,10 @@ SNN_AXIS = "neuron"
 # seconds a collective may wait for its peers before the group raises (a
 # rank that dies must bring the others down, not hang them)
 DEFAULT_TIMEOUT_S = 300.0
+
+# whether init_distributed started the default process group (and so
+# shutdown_distributed ends it); a group someone else started is theirs
+_started = False
 
 
 def backend_for(device: torch.device) -> str:
@@ -104,7 +110,25 @@ def init_distributed(rank: Optional[int] = None,
             f"a world of {world_size} ranks needs a rendezvous: launch with "
             "torchrun (MASTER_ADDR/RANK/WORLD_SIZE) or pass init_method "
             "('file://...' or 'tcp://host:port')")
+    global _started
+    _started = True
     return dist.get_rank(), dist.get_world_size()
+
+
+def shutdown_distributed() -> bool:
+    """End the default process group (and every group made from it, such
+    as ``sub_mesh``'s) if ``init_distributed`` started it: one
+    ``destroy_process_group()``, so that NCCL's communicators are freed
+    before the program exits.  A group this module did not start is left
+    up.  Returns whether it ended one; a second call does nothing."""
+    global _started
+    if not _started:
+        return False
+    _started = False
+    if not dist.is_initialized():
+        return False
+    dist.destroy_process_group()
+    return True
 
 
 def _as_wire(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Token server: batched prefill + decode loop with continuous batching,
 the counterpart of ``repro/launch/serve.py``.
 
-It serves every decoder-only family through ``models/transformer.py``'s
+It serves every family but vlm through ``models/transformer.py``'s
 ``prefill`` and ``decode_step``: dense, moe (each decode step routes the
 wave's tokens as one MoE group, pad and finished slots included, as the
-JAX package does), ssm (float32 conv and SSD states a request) and hybrid.
+JAX package does), ssm (float32 conv and SSD states a request), hybrid
+and encdec (whisper: the prefill gets zero audio frames [b, enc_seq,
+d_model] float32, as the JAX server feeds it, and fills each decoder
+layer's cross cache from the encoder's output once a wave).
 Requests (prompt token lists) enter a queue; the slot scheduler
 (``launch/scheduling.py``) packs up to ``max_batch`` of them into a wave
 when no request is active; the wave's prompts are left-padded with token 0
@@ -21,6 +24,7 @@ host.  ``model_parallel`` is not ported (ROADMAP Queue 1 item 7).
   python -m repro_torch.launch.serve --arch qwen2-0.5b --full
   python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
   python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
+  python -m repro_torch.launch.serve --arch whisper-tiny --full
 """
 
 from __future__ import annotations
@@ -81,6 +85,16 @@ class Server:
         self.sched.submit(req)
 
     # -- internals ------------------------------------------------------------
+    def _extra(self, b: int) -> dict:
+        """The prefill's extra inputs for a wave of ``b``: zero audio
+        frames for an encdec model."""
+        extra = {}
+        if self.cfg.family == "encdec":
+            extra["audio"] = torch.zeros(
+                (b, self.cfg.enc_seq, self.cfg.d_model), dtype=torch.float32,
+                device=self.device)
+        return extra
+
     def _admit(self) -> None:
         """Prefill queued requests into free slots (one wave per admit)."""
         assigned = self.sched.admit()
@@ -94,7 +108,7 @@ class Server:
             toks[i, maxlen - len(r.prompt):] = r.prompt          # left-pad
         logits, caches = T.prefill(
             self.params, self.cfg, torch.from_numpy(toks).to(self.device),
-            max_seq=self.max_seq)
+            self._extra(len(reqs)), max_seq=self.max_seq)
         logits_np = logits.float().cpu().numpy()
         for i, r in enumerate(reqs):
             r.out.append(self._sample(logits_np[i], r))

@@ -489,6 +489,16 @@ def _run_gateway_demo(model, stim_pops, scale, args) -> int:
 
 
 def main(argv=None) -> int:
+    """The demo; a process group that ``--devices`` started is ended on
+    the way out, whatever the outcome."""
+    from repro_torch.launch.mesh import shutdown_distributed
+    try:
+        return _main(argv)
+    finally:
+        shutdown_distributed()
+
+
+def _main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="streaming SNN serving demo (continuous batching)")
     ap.add_argument("--model", default="mushroom_body",

@@ -10,12 +10,15 @@ another; without a card that raises).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 3 --device cpu                          # the plain versions
 
-Every decoder-only family trains: dense, moe (granite-moe, mixtral: the
-loss is ce plus the load-balance aux, both printed), ssm (mamba2) and
-hybrid (zamba2, its shared block's gradient summed over its
-applications).  NaN containment follows
-the paper's Fig-1 guard in the JAX package: a non-finite loss rolls back to
-the last checkpoint with the LR halved.  Checkpoints
+Every family but vlm trains: dense, moe (granite-moe, mixtral: the loss
+is ce plus the load-balance aux, both printed), ssm (mamba2), hybrid
+(zamba2, its shared block's gradient summed over its applications) and
+encdec (whisper: step i's batch carries audio frames ``0.1 *
+normal(fold_in(PRNGKey(seed), i), (b, enc_seq, d_model))``, drawn by
+``repro_torch.random``'s threefry as the JAX trainer draws them).  NaN
+containment follows the paper's Fig-1 guard in the JAX package: a
+non-finite loss rolls back to the last checkpoint with the LR halved.
+Checkpoints
 (``checkpoint/manager.py``) wait for ROADMAP Queue 1 item 8.6, so
 ``ckpt_dir`` raises and a non-finite loss raises ``FloatingPointError``,
 as the JAX trainer does when it has no checkpoint; ``model_parallel > 1``
@@ -37,11 +40,12 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models import transformer as T
+from repro_torch import random as RND
 from repro_torch.optim import adamw, schedule
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.runtime.straggler import StragglerPolicy
 
-__all__ = ["make_train_step", "run", "main"]
+__all__ = ["make_train_step", "run", "main", "extra_inputs"]
 
 
 def make_train_step(cfg, ocfg: adamw.AdamWConfig):
@@ -61,6 +65,19 @@ def make_train_step(cfg, ocfg: adamw.AdamWConfig):
             "loss": loss.detach(),
             **{k: v.detach() for k, v in metrics.items()}, **om}
     return train_step
+
+
+def extra_inputs(cfg, batch_size: int, step: int, seed: int,
+                 device) -> dict:
+    """Step ``step``'s extra inputs for a batch of ``batch_size``: an
+    encdec model's audio frames ``0.1 * normal(fold_in(PRNGKey(seed),
+    step), (b, enc_seq, d_model))`` float32 (the JAX trainer's draw, within
+    the normal's 4 ulp), else none."""
+    if cfg.family != "encdec":
+        return {}
+    key = RND.fold_in(RND.PRNGKey(seed, device=device), step)
+    return {"audio": RND.normal(
+        key, (batch_size, cfg.enc_seq, cfg.d_model), scale=0.1)}
 
 
 def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
@@ -100,6 +117,8 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
     losses = []
     for i in range(steps):
         batch_data = pipe.next_batch()
+        batch_data.update(extra_inputs(
+            cfg, batch_data["tokens"].shape[0], i, seed, dev))
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch_data)
         loss = float(metrics["loss"])

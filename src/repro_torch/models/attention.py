@@ -12,7 +12,12 @@ cache of ``max_seq``) is chosen with the paper's eq. (1)/(2) memory model
                       the card, its plain version on the CPU)
   attention_decode  : one token against a KV cache (dense or ring), plain
                       torch with the JAX casts; it writes the new key and
-                      value into the cache in place
+                      value into the cache in place, or (``cross=True``)
+                      attends to an encoder's cached keys and values
+
+Cross-attention (the encdec family) passes the encoder's projected keys
+and values as ``kv=``: the query is projected (bias, qk-norm) without
+rope, and the keys are not causal-masked.
 
 A layer's cache is ``{"k", "v": [B, S, n_kv, D], "pos": [S] int32 (absolute
 positions, -1 = empty), "ring": bool}``; ``ring`` is a Python bool, so a
@@ -101,16 +106,25 @@ def _project_qkv(p, cfg: AttnConfig, x: torch.Tensor,
 def attention_forward(p, cfg: AttnConfig, x: torch.Tensor,
                       positions: Optional[torch.Tensor] = None,
                       window: Optional[int] = None,
+                      kv: Optional[tuple] = None,
                       return_kv: bool = False,
                       prefix: Optional[int] = None):
-    """x: [B, T, d] -> [B, T, d] (and the layer's (k, v) [B, T, n_kv, D]
-    with ``return_kv``).  ``window`` overrides ``cfg.window``.  The JAX
-    function's cross-attention source (``kv=``) waits for the encdec port
-    (ROADMAP Queue 1 item 8.4)."""
+    """x: [B, T, d] -> [B, T, d] (and the layer's (k, v) [B, Tk, n_kv, D]
+    with ``return_kv``).  ``window`` overrides ``cfg.window``.  ``kv``:
+    a cross-attention source (k, v) [B, Tk, n_kv, D], taken as given; the
+    query then gets no rope."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if kv is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+    else:
+        q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+        if cfg.qkv_bias:
+            q = q + p["bq"].reshape(cfg.n_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"]["scale"])
+        k, v = kv
     eff_window = window if window is not None else cfg.window
     out = kops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -173,31 +187,35 @@ def fill_cache(cache, k: torch.Tensor, v: torch.Tensor, start: int = 0):
 
 
 def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
-                     index: int):
+                     index: int, cross: bool = False):
     """One-token step.  x: [B, 1, d]; index: the token's absolute position.
     Writes its key and value into ``cache`` (in place) and returns
-    (y [B, 1, d], cache).  The JAX function's cross-attention mode
-    (``cross=``) waits for the encdec port."""
+    (y [B, 1, d], cache).  With ``cross`` the cache holds an encoder's keys
+    and values: nothing is written, no rope is applied, and every slot with
+    ``pos >= 0`` is attended to."""
     b = x.shape[0]
-    pos1 = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    k1 = (x @ p["wk"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
-    v1 = (x @ p["wv"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(cfg.n_heads, cfg.head_dim)
-        k1 = k1 + p["bk"].reshape(cfg.n_kv, cfg.head_dim)
-        v1 = v1 + p["bv"].reshape(cfg.n_kv, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["scale"])
-        k1 = rmsnorm(k1, p["k_norm"]["scale"])
-    q = apply_rope(q, pos1, cfg.rope_theta)
-    k1 = apply_rope(k1, pos1, cfg.rope_theta)
     kc, vc, kpos = cache["k"], cache["v"], cache["pos"]
-    s = kc.shape[1]
-    slot = index % s if cache["ring"] else min(index, s - 1)
-    kc[:, slot] = k1[:, 0]
-    vc[:, slot] = v1[:, 0]
-    kpos[slot] = index
+    if not cross:
+        pos1 = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
+        k1 = (x @ p["wk"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
+        v1 = (x @ p["wv"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
+        if cfg.qkv_bias:
+            k1 = k1 + p["bk"].reshape(cfg.n_kv, cfg.head_dim)
+            v1 = v1 + p["bv"].reshape(cfg.n_kv, cfg.head_dim)
+        if cfg.qk_norm:
+            k1 = rmsnorm(k1, p["k_norm"]["scale"])
+        q = apply_rope(q, pos1, cfg.rope_theta)
+        k1 = apply_rope(k1, pos1, cfg.rope_theta)
+        s = kc.shape[1]
+        slot = index % s if cache["ring"] else min(index, s - 1)
+        kc[:, slot] = k1[:, 0]
+        vc[:, slot] = v1[:, 0]
+        kpos[slot] = index
 
     # one query against the cache, grouped: the GQA-repeated cache is never
     # built.  Logits in float32; the softmax weights are cast to the cache's
@@ -208,9 +226,11 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
     logits = logits / math.sqrt(cfg.head_dim)
     if cfg.softcap is not None:
         logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
-    valid = (kpos >= 0) & (kpos <= index)
-    if cfg.window is not None:
-        valid = valid & (kpos > index - cfg.window)
+    valid = kpos >= 0
+    if not cross:
+        valid = valid & (kpos <= index)
+        if cfg.window is not None:
+            valid = valid & (kpos > index - cfg.window)
     logits = logits.masked_fill(~valid, float("-inf"))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", w.to(vc.dtype).float(), vc.float())

@@ -30,11 +30,14 @@ class Model:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return T.init_params(self.cfg, gen)
 
+    # ``extra``: the inputs beside the tokens (an encdec model's
+    # ``{"audio": [B, enc_seq, d_model]}``), passed through as given
     def forward(self, params, tokens, extra=None):
         return T.forward(params, self.cfg, tokens, extra)
 
     def loss(self, params, batch):
-        """(loss, metrics) of a batch ``{"tokens": [B, T+1]}``."""
+        """(loss, metrics) of a batch ``{"tokens": [B, T+1]}`` (and an
+        encdec model's ``"audio"``)."""
         return T.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, tokens, extra=None, max_seq=None):

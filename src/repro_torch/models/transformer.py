@@ -1,5 +1,5 @@
-"""Model assembly for the decoder-only LM families (dense, moe, ssm and
-hybrid), the counterpart of ``repro/models/transformer.py``.
+"""Model assembly for the LM families (dense, moe, ssm, hybrid and
+encdec), the counterpart of ``repro/models/transformer.py``.
 
 The layer stack follows the arch's ``LayerProgram`` (``configs/base.py``):
 ``repeats`` groups of segments plus a tail, each segment's layers stacked
@@ -16,11 +16,21 @@ attention layer (``ln1``, ``attn``, ``ln2``, ``mlp``) applied at every
 group, its weights shared, its caches one a group (``[R, ...]``, no ``n``
 axis), and never rematerialised (as in the JAX package).
 
+The encdec family (whisper) adds an encoder: ``params["enc"]`` holds its
+layers stacked ``[n_enc_layers, ...]`` (``ln1``, ``attn``, ``ln2``,
+``mlp``), a final ``norm`` and ``pos_embed`` ``[enc_seq, d]``.  It runs
+non-causal, windowless self-attention with rope over ``extra["audio"]``
+(frame embeddings ``[B, enc_seq, d]``: the conv front end is a stub, as
+in the JAX package).  Each decoder layer adds ``ln_x`` and ``xattn``, a
+non-causal cross-attention over the encoder's output projected by its own
+``wk``/``wv``; its cache is ``{"self", "cross"}``, the cross cache
+windowless at ``enc_seq`` slots, filled once by ``prefill``.
+
 Entry points:
   init_params(cfg, generator)                      -> params
-  forward(params, cfg, tokens)                     -> (logits, aux)
+  forward(params, cfg, tokens, extra)              -> (logits, aux)
   loss_fn(params, cfg, batch)                      -> (loss, metrics)
-  prefill(params, cfg, tokens, max_seq=)           -> (last_logits, caches)
+  prefill(params, cfg, tokens, extra, max_seq=)    -> (last_logits, caches)
   decode_step(params, cfg, caches, token, index=)  -> (logits, caches)
 
 ``forward`` and ``loss_fn`` are differentiable (attention through the
@@ -36,12 +46,13 @@ attention segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``,
 ``conv`` ``[(R,) n, B, d_conv - 1, conv_dim]`` and ``ssd`` ``[(R,) n, B, h,
 ds, dh]``, both float32.  ``decode_step`` writes the new token's keys,
 values and states into the caches in place and returns the same tensors
-with ``index + 1``.  The encdec and vlm families raise
-``NotImplementedError`` naming their ROADMAP item.
+with ``index + 1``.  The vlm family raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -64,7 +75,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 # family -> the ROADMAP (Queue 1, item 8) step that ports it
-_LATER = {"encdec": "8.4 (encdec)", "vlm": "8.5 (vlm)"}
+_LATER = {"vlm": "8.5 (vlm)"}
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -79,12 +90,12 @@ def padded_vocab(v: int, multiple: int = 256) -> int:
 
 def _check_family(cfg: ArchConfig) -> None:
     """Raise for a family the port does not run: every entry point runs
-    the dense, moe, ssm and hybrid families."""
+    the dense, moe, ssm, hybrid and encdec families."""
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP Queue 1 item {_LATER[cfg.family]}); the port runs "
-            "the dense, moe, ssm and hybrid families")
+            "the dense, moe, ssm, hybrid and encdec families")
 
 
 # ---------------------------------------------------------------------------
@@ -130,15 +141,47 @@ def _layer_init(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype):
         p["moe"] = M.moe_init(gen, _moe_cfg(cfg), dtype)
     else:
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, dtype)
+    if cfg.family == "encdec" and kind == "attn":
+        p["ln_x"] = norm_init(cfg.norm, d, dtype, dev)
+        p["xattn"] = A.attn_init(gen, _attn_cfg(cfg, "attn"), dtype)
     return p
 
 
+def _enc_attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
+    """The encoder's self-attention: non-causal, windowless."""
+    return dataclasses.replace(_attn_cfg(cfg, "attn"), causal=False,
+                               window=None)
+
+
+def _enc_layer_init(cfg: ArchConfig, gen: torch.Generator, dtype):
+    d, dev = cfg.d_model, gen.device
+    return {"ln1": norm_init(cfg.norm, d, dtype, dev),
+            "attn": A.attn_init(gen, _enc_attn_cfg(cfg), dtype),
+            "ln2": norm_init(cfg.norm, d, dtype, dev),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, dtype)}
+
+
+def _enc_kv(cfg: ArchConfig, p_x, enc_out: torch.Tensor):
+    """The encoder's output [B, Ta, d] projected to one decoder layer's
+    cross-attention (k, v) [B, Ta, n_kv, D]."""
+    b, t, _ = enc_out.shape
+    k = (enc_out @ p_x["wk"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    v = (enc_out @ p_x["wv"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    if cfg.qkv_bias:
+        k = k + p_x["bk"].reshape(cfg.n_kv, cfg.head_dim)
+        v = v + p_x["bv"].reshape(cfg.n_kv, cfg.head_dim)
+    return k, v
+
+
 def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
-                 positions: torch.Tensor, want_cache: bool = False):
+                 positions: torch.Tensor, want_cache: bool = False,
+                 enc_out: Optional[torch.Tensor] = None):
     """Full-sequence layer: returns (x, aux, cache entry): aux the MoE
     load-balance loss (None for other kinds); with ``want_cache`` the
-    attention layer's (k, v) or the mamba block's (conv, ssd) state, else
-    None."""
+    attention layer's (k, v) (an encdec decoder layer's ((k, v), (kx,
+    vx)), the cross-attention's beside it) or the mamba block's (conv,
+    ssd) state, else None.  ``enc_out``: the encoder's output, which an
+    encdec decoder layer cross-attends to."""
     if kind == "mamba":
         h = norm_apply(cfg.norm, x, p["norm"])
         if want_cache:
@@ -147,9 +190,17 @@ def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
             return x + y, None, state
         return x + S.ssm_apply(p["ssm"], _ssm_cfg(cfg), h), None, None
     h = norm_apply(cfg.norm, x, p["ln1"])
-    y, kv = A.attention_forward(p["attn"], _attn_cfg(cfg, kind), h,
-                                positions=positions, return_kv=True)
+    acfg = _attn_cfg(cfg, kind)
+    y, kv = A.attention_forward(p["attn"], acfg, h, positions=positions,
+                                return_kv=True)
     x = x + y
+    if "xattn" in p:
+        enc_kv = _enc_kv(cfg, p["xattn"], enc_out)
+        h = norm_apply(cfg.norm, x, p["ln_x"])
+        x = x + A.attention_forward(
+            p["xattn"], dataclasses.replace(acfg, causal=False), h,
+            kv=enc_kv)
+        kv = (kv, enc_kv)
     h = norm_apply(cfg.norm, x, p["ln2"])
     aux = None
     if kind == "moe":
@@ -168,9 +219,16 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, x: torch.Tensor, cache,
         cache["conv"].copy_(new["conv"])
         cache["ssd"].copy_(new["ssd"])
         return x + y
+    acfg = _attn_cfg(cfg, kind)
     h = norm_apply(cfg.norm, x, p["ln1"])
-    y, _ = A.attention_decode(p["attn"], _attn_cfg(cfg, kind), h, cache,
-                              index)
+    if "xattn" in p:
+        y, _ = A.attention_decode(p["attn"], acfg, h, cache["self"], index)
+        x = x + y
+        h = norm_apply(cfg.norm, x, p["ln_x"])
+        y, _ = A.attention_decode(p["xattn"], acfg, h, cache["cross"], index,
+                                  cross=True)
+    else:
+        y, _ = A.attention_decode(p["attn"], acfg, h, cache, index)
     x = x + y
     h = norm_apply(cfg.norm, x, p["ln2"])
     if kind == "moe":
@@ -279,6 +337,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
         if prog.repeats > 1 and seg.kind != "shared_attn" else seg_init(seg)
         for seg in prog.segments]
     params["tail"] = [seg_init(seg) for seg in prog.tail]
+    if cfg.family == "encdec":
+        params["enc"] = {
+            "layers": _stack([_enc_layer_init(cfg, gen, dtype)
+                              for _ in range(cfg.n_enc_layers)]),
+            "norm": norm_init(cfg.norm, cfg.d_model, dtype, gen.device),
+            "pos_embed": embed_init(gen, cfg.enc_seq, cfg.d_model, dtype)}
     return params
 
 
@@ -330,36 +394,69 @@ def _remat(cfg: ArchConfig, body):
     return run
 
 
+def _encode(params, cfg: ArchConfig, audio: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over frame embeddings [B, enc_seq, d] (any
+    float dtype; cast to the model's) -> [B, enc_seq, d]: each layer
+    rematerialised in the backward under ``cfg.remat``."""
+    x = audio.to(resolve_dtype(cfg.dtype)) + params["enc"]["pos_embed"]
+    acfg = _enc_attn_cfg(cfg)
+
+    def body(h, p):
+        h = h + A.attention_forward(p["attn"], acfg,
+                                    norm_apply(cfg.norm, h, p["ln1"]))
+        return h + mlp_apply(p["mlp"], norm_apply(cfg.norm, h, p["ln2"]),
+                             cfg.activation)
+
+    run = _remat(cfg, body)
+    for p in _split(params["enc"]["layers"], cfg.n_enc_layers):
+        x = run(x, p)
+    return norm_apply(cfg.norm, x, params["enc"]["norm"])
+
+
+def _enc_out(params, cfg: ArchConfig, extra) -> Optional[torch.Tensor]:
+    """The encoder's output for an encdec model (``extra["audio"]``
+    required), else None."""
+    if cfg.family != "encdec":
+        return None
+    if not extra or "audio" not in extra:
+        raise ValueError(f"{cfg.name}: an encdec model needs "
+                         "extra['audio'] [B, enc_seq, d_model]")
+    return _encode(params, cfg, extra["audio"])
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
     """Logits over a full sequence: (logits [B, T, V], aux float32 scalar:
-    the sum of the MoE layers' load-balance losses, 0 without any)."""
+    the sum of the MoE layers' load-balance losses, 0 without any).
+    ``extra``: ``{"audio": [B, enc_seq, d]}`` for an encdec model."""
     _check_family(cfg)
     x = _embed(params, cfg, tokens)
+    enc_out = _enc_out(params, cfg, extra)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = _per_layer(params, cfg)
     shared = {i for i, seg in enumerate(cfg.program().segments)
               if seg.kind == "shared_attn"}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, where, i, pidx, _ in _layers(cfg):
-        def body(h, p, kind=kind):
-            h, aux, _ = _layer_apply(cfg, kind, p, h, positions)
+        def body(h, p, e, kind=kind):
+            h, aux, _ = _layer_apply(cfg, kind, p, h, positions, enc_out=e)
             return h, aux
         # the shared block is not rematerialised (as in the JAX package)
         run = body if where == "segments" and i in shared \
             else _remat(cfg, body)
-        x, aux = run(x, layers[(where, i, pidx)])
+        x, aux = run(x, layers[(where, i, pidx)], enc_out)
         if aux is not None:
             aux_total = aux_total + aux
     return _logits(params, cfg, x), aux_total
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """batch: {'tokens': [B, T+1] integer}: next-token cross entropy over
-    the padded vocab with its pad entries masked, plus the MoE aux loss ->
-    (loss, {'ce', 'aux'})."""
+    """batch: {'tokens': [B, T+1] integer, and 'audio' for an encdec
+    model}: next-token cross entropy over the padded vocab with its pad
+    entries masked, plus the MoE aux loss -> (loss, {'ce', 'aux'})."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(params, cfg, inp)
+    extra = {"audio": batch["audio"]} if "audio" in batch else None
+    logits, aux = forward(params, cfg, inp, extra)
     ce = cross_entropy(logits, labels, true_vocab=cfg.vocab)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -368,7 +465,23 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                  dtype, device):
     if kind == "mamba":               # float32 whatever ``dtype`` is
         return S.ssm_init_cache(_ssm_cfg(cfg), batch, device=device)
-    return A.init_cache(_attn_cfg(cfg, kind), batch, max_seq, dtype, device)
+    acfg = _attn_cfg(cfg, kind)
+    c = A.init_cache(acfg, batch, max_seq, dtype, device)
+    if cfg.family == "encdec":
+        cross = A.init_cache(dataclasses.replace(acfg, window=None), batch,
+                             cfg.enc_seq, dtype, device)
+        return {"self": c, "cross": cross}
+    return c
+
+
+def _expand(tree, lead: tuple):
+    """Every tensor of a cache tree broadcast to ``lead + shape`` (a copy);
+    other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _expand(v, lead) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.expand(lead + tuple(tree.shape)).clone()
+    return tree
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
@@ -382,9 +495,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
     def seg_cache(seg, reps: tuple):
         c = _layer_cache(cfg, seg.kind, batch, max_seq, dtype, device)
         lead = reps + (() if seg.kind == "shared_attn" else (seg.n,))
-        return {k: (v.expand(lead + tuple(v.shape)).clone()
-                    if isinstance(v, torch.Tensor) else v)
-                for k, v in c.items()}
+        return _expand(c, lead)
 
     grouped = (prog.repeats,) if prog.repeats > 1 else ()
     return {
@@ -397,14 +508,18 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
 def _write_prefill_caches(cfg: ArchConfig, caches, states: List[Any]):
     """Write each layer's prompt state (``states``, in layer order) into
     its cache, in place: an attention layer's (k, v) by ``fill_cache`` (a
-    ring keeps the last positions), a mamba block's conv history (cast to
-    the cache's float32) and SSD state."""
+    ring keeps the last positions; an encdec layer's cross cache takes the
+    encoder's (kx, vx)), a mamba block's conv history (cast to the cache's
+    float32) and SSD state."""
     for (kind, where, i, _, cidx), st in zip(_layers(cfg), states):
         cache = _take(caches[where][i], cidx)
         if kind == "mamba":
             conv, ssd = st
             cache["conv"].copy_(conv)
             cache["ssd"].copy_(ssd)
+        elif "cross" in cache:
+            A.fill_cache(cache["self"], *st[0], 0)
+            A.fill_cache(cache["cross"], *st[1], 0)
         else:
             A.fill_cache(cache, *st, 0)
     return caches
@@ -412,18 +527,20 @@ def _write_prefill_caches(cfg: ArchConfig, caches, states: List[Any]):
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
             cache_dtype=torch.bfloat16, max_seq: Optional[int] = None):
-    """Run the prompts [B, T]: (last-token logits [B, V], caches).  The
-    attention caches are bfloat16 by default whatever the weights' dtype,
-    the mamba caches float32, as in the JAX package."""
+    """Run the prompts [B, T] (and an encdec model's ``extra["audio"]``):
+    (last-token logits [B, V], caches).  The attention caches are bfloat16
+    by default whatever the weights' dtype, the mamba caches float32, as in
+    the JAX package."""
     _check_family(cfg)
     b, t = tokens.shape
     max_seq = max(max_seq or t, t)
     x = _embed(params, cfg, tokens)
+    enc_out = _enc_out(params, cfg, extra)
     positions = torch.arange(t, device=x.device)
     states = []
     for kind, where, i, pidx, _ in _layers(cfg):
         x, _, st = _layer_apply(cfg, kind, _take(params[where][i], pidx), x,
-                                positions, want_cache=True)
+                                positions, want_cache=True, enc_out=enc_out)
         states.append(st)
     caches = init_caches(cfg, b, max_seq, cache_dtype, x.device)
     _write_prefill_caches(cfg, caches, states)

@@ -496,6 +496,10 @@ FLASH_CASES = [
     (1, 2, 1, 96, 96, 112, True, None, None, None, 0),
     # D = 40: the tensor-core kernels pad the contraction with zeros
     (1, 2, 1, 200, 200, 40, True, None, None, None, 0),
+    # whisper: the decoder's cross-attention (non-causal, Tq != Tk) and the
+    # encoder's self-attention over 1500 frames (no tile divides 1500)
+    (2, 6, 6, 37, 1500, 64, False, None, None, None, 0),
+    (1, 6, 6, 1500, 1500, 64, False, None, None, None, 0),
 ]
 
 

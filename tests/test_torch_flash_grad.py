@@ -106,6 +106,27 @@ def test_lse_and_bwd_ref_match_flash_xla(case):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GTOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_ref_takes_chunks_that_do_not_divide_t(causal):
+    """Chunks of 16 queries and 64 keys at Tq = 37, Tk = 150 (a shorter
+    last chunk each way, as at whisper's 1500 frames): the gradients of
+    one whole block and of autograd through the plain forward."""
+    q, k, v, g = _inputs((2, 4, 2, 37, 150, 32), seed=11)
+    kw = dict(causal=causal, q_offset=113 if causal else 0)
+    tq, tk, tv, tg = map(torch.tensor, (q, k, v, g))
+    out, lse = TR.flash_attention_fwd_ref(tq, tk, tv, **kw)
+    got = TR.flash_attention_bwd_ref(tq, tk, tv, out, lse, tg, q_chunk=16,
+                                     k_chunk=64, **kw)
+    whole = TR.flash_attention_bwd_ref(tq, tk, tv, out, lse, tg, **kw)
+    rs = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    rg = torch.autograd.grad(TR.flash_attention_ref(*rs, **kw), rs, tg)
+    for name, a, w, r in zip("qkv", got, whole, rg):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"d{name} vs whole")
+        np.testing.assert_allclose(a.numpy(), r.numpy(), **GTOL,
+                                   err_msg=f"d{name} vs autograd")
+
+
 def test_rows_that_see_no_key_have_lse_minus_inf_and_no_gradient():
     q, k, v, g = map(torch.tensor, _inputs((1, 2, 1, 16, 16, 8), seed=5))
     out, lse = FA.flash_attention_fwd(q, k, v, q_offset=-4)

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from torch.utils._pytree import tree_map  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
@@ -113,6 +114,12 @@ def _granite(**overrides):
     return jc, tc, jp, tp
 
 
+@pytest.fixture(scope="module")
+def granite():
+    """``_granite()``, drawn once for the module's tests."""
+    return _granite()
+
+
 def _counting_drops():
     """Patch ``moe_route`` to count the pairs each call drops."""
     seen = []
@@ -126,8 +133,8 @@ def _counting_drops():
     return seen, mock.patch.object(TM, "moe_route", route)
 
 
-def test_granite_with_drops_prefill_and_decode_match_jax():
-    jc, tc, jp, tp = _granite()
+def test_granite_with_drops_prefill_and_decode_match_jax(granite):
+    jc, tc, jp, tp = granite
     rng = np.random.default_rng(3)
     toks = rng.integers(0, jc.vocab, (2, 40)).astype(np.int32)
     jl, jcache = JT.prefill(jp, jc, jnp.asarray(toks), max_seq=64,
@@ -149,8 +156,9 @@ def test_granite_with_drops_prefill_and_decode_match_jax():
                                        **ACT_TOL)
 
 
-def test_granite_with_drops_loss_and_gradients_match_jax():
-    jc, tc, jp, tp = _granite()
+def test_granite_with_drops_loss_and_gradients_match_jax(granite):
+    jc, tc, jp, tp = granite
+    tp = tree_map(torch.clone, tp)    # the gradient's leaves are its own
     toks = np.random.default_rng(1).integers(0, jc.vocab, (2, 33)) \
         .astype(np.int32)
     (jl, jm), jgrads = jax.value_and_grad(

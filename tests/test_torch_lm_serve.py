@@ -167,6 +167,19 @@ def _models(arch):
     return jc, tc, jp, tp
 
 
+@pytest.fixture(scope="module")
+def models():
+    """``_models(arch)``, drawn once an arch for the module's tests (none
+    of them writes into the weights)."""
+    drawn = {}
+
+    def get(arch):
+        if arch not in drawn:
+            drawn[arch] = _models(arch)
+        return drawn[arch]
+    return get
+
+
 def _cache_pairs(jcache, tcache, keys=("k", "v")):
     """(JAX leaf, port leaf) of every attention cache (``keys``: ``k`` and
     ``v``) or, with ``keys=("conv", "ssd")``, every mamba cache."""
@@ -185,10 +198,10 @@ def _cache_pairs(jcache, tcache, keys=("k", "v")):
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_prefill_and_decode_match_jax(arch):
+def test_prefill_and_decode_match_jax(arch, models):
     """Prompts of 40 tokens into 64-slot caches (gemma3's local layers: a
     32-slot ring, which 6 decode steps wrap), float32 caches."""
-    jc, tc, jp, tp = _models(arch)
+    jc, tc, jp, tp = models(arch)
     assert TT.count_params(tp) == JT.count_params(jp)
     rng = np.random.default_rng(3)
     toks = rng.integers(0, jc.vocab, (2, 40)).astype(np.int32)
@@ -216,8 +229,8 @@ def test_prefill_and_decode_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma3-12b"])
-def test_bf16_caches_round_as_jax(arch):
-    jc, tc, jp, tp = _models(arch)
+def test_bf16_caches_round_as_jax(arch, models):
+    jc, tc, jp, tp = models(arch)
     toks = np.random.default_rng(4).integers(0, jc.vocab, (2, 40))
     jl, jcache = JT.prefill(jp, jc, jnp.asarray(toks, jnp.int32), max_seq=64)
     tl, tcache = TT.prefill(tp, tc, _t(toks).long(), max_seq=64)
@@ -238,21 +251,26 @@ def test_bf16_caches_round_as_jax(arch):
 
 
 def test_other_families_name_their_roadmap_item():
-    """encdec and vlm wait for items 8.4 and 8.5; the moe, ssm and hybrid
-    families run every entry point."""
-    for arch, item in (("whisper-tiny", "8.4"), ("paligemma-3b", "8.5")):
+    """vlm waits for item 8.5; the moe, ssm, hybrid and encdec families run
+    every entry point (encdec over its audio frames)."""
+    for arch, item in (("paligemma-3b", "8.5"),):
         cfg = reduced(get_config(arch))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             TT.init_params(cfg, torch.Generator().manual_seed(0))
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             TT.init_caches(cfg, 1, 8)
     toks = torch.zeros(1, 4, dtype=torch.long)
-    for arch in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-7b"):
+    for arch in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-7b",
+                 "whisper-tiny"):
         cfg = reduced(get_config(arch))
+        extra = ({"audio": torch.zeros(1, cfg.enc_seq, cfg.d_model)}
+                 if cfg.family == "encdec" else {})
         params = TT.init_params(cfg, torch.Generator().manual_seed(0))
-        logits, caches = TT.prefill(params, cfg, toks, max_seq=8)
+        logits, caches = TT.prefill(params, cfg, toks, extra, max_seq=8)
         assert logits.shape == (1, TT.padded_vocab(cfg.vocab))
-        loss, metrics = TT.loss_fn(params, cfg, {"tokens": toks})
+        logits, caches = TT.decode_step(params, cfg, caches, toks[:, 0])
+        assert logits.shape == (1, TT.padded_vocab(cfg.vocab))
+        loss, metrics = TT.loss_fn(params, cfg, {"tokens": toks, **extra})
         assert torch.isfinite(loss) and set(metrics) == {"ce", "aux"}
         assert (float(metrics["aux"]) > 0) == (cfg.family == "moe")
 

@@ -107,6 +107,33 @@ def test_many_ranks_need_a_rendezvous(monkeypatch):
         M.init_distributed(rank=3, world_size=2)
 
 
+def test_shutdown_ends_the_group_it_started(monkeypatch):
+    """One gloo rank through init_distributed and a one-rank mesh, then
+    shutdown_distributed: the group is down, and a second call (or a
+    group this module did not start) is left alone."""
+    dist = torch.distributed
+    for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    try:
+        assert M.init_distributed(backend="gloo") == (0, 1)
+        mesh = M.make_snn_mesh(1, device="cpu")
+        assert int(mesh.psum(torch.ones(1, dtype=torch.int32))) == 1
+        assert M.shutdown_distributed() is True
+        assert not dist.is_initialized()
+        assert M.shutdown_distributed() is False
+        # a group someone else started stays up
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        assert M.shutdown_distributed() is False
+        assert dist.is_initialized()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert not dist.is_initialized()
+
+
 @pytest.mark.parametrize("n,d", [(10, 4), (8, 4), (1, 8), (37, 8), (5, 1)])
 def test_padding_equals_jax(n, d):
     assert SH.neuron_pad(n, d) == JSH.neuron_pad(n, d)
