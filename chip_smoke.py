@@ -55,7 +55,12 @@ failure ends the run with a non-zero exit):
      [1, 4, 256, 64] / [1, 2, 256, 64], in float32 and in bf16; non-causal
      ragged T=200 in both; in bf16 also q_offset 100, zamba2's D=112
      ([1, 32, 2048, 112]), D=40 (a contraction padded with zeros) and the
-     prefill shape without the causal mask;
+     prefill shape without the causal mask; paligemma's D = 256 under MQA
+     8:1 with a prefix-LM span: its prefill wave [8, 8, 1024, 256] and
+     training batch [2, 8, 1280, 256] with the image's 256 positions as
+     the prefix, and a prefix of 200 ending inside a tile at T = 456, in
+     bf16 and float32; for a prefix case, the SDPA backend that takes the
+     explicit mask;
   2f. the threefry kernels (``threefry_split``, ``threefry_draw``)
      against their plain version on the card at the SNN paths' shapes
      (main's 5 keys a step and normal draws of 80,000 x 5.0 and 20,000 x
@@ -306,10 +311,41 @@ failure ends the run with a non-zero exit):
      every row present and timed rows positive, the smoke's checks true
      and its output free of PyTorch's NCCL leak warning.
 
+  17. paligemma-3b (vlm) at full width (18 layers, d 2048, 8 query heads
+     over 1 kv head of 256, vocab 257216; random bf16 weights from a
+     seeded generator): (a) 8 greedy requests of 256-768 prompt tokens x
+     32 new tokens in one wave after the Server's zero image (256
+     positions under the prefix-LM mask), caches to 2048: 18
+     ``flash_attention`` launches a wave and nothing else, no PyTorch
+     attention kernel; prefill tokens/s with the image's positions counted
+     apart, TTFT, decode ms/step, device ops a decode step, busy share;
+     phase 7's float32 prefill check (2 prompts of 512 tokens after the
+     image); (b) 3 training steps of 2 x 1024 tokens, 256 image positions
+     a row (the trainer's threefry image): 36 ``flash_attention`` and 18
+     ``flash_attention_bwd`` a step, finite losses, ms/step, TFLOP/s by 6N
+     over all 1280 positions, peak memory, a profiled step; (c) one
+     float32 step of 2 layers at full width (2 x 512 tokens after the
+     image) through the kernels and through the plain versions: logits,
+     loss and every gradient under 8c's tolerances, ``img_proj``'s and
+     ``wq``/``wk``/``wv``'s gradients nonzero.
+
+  18. the trainer's checkpoints (``launch.train.run(ckpt_dir=)``) at full
+     width: qwen2-0.5b cut to 2 layers (a ~2.3 GB checkpoint of bf16
+     params and float32 master copies and moments), 6 steps of 2 x 512
+     tokens with a checkpoint every 3, in a temporary directory: an
+     uninterrupted run, a second one, and that second one restarted from
+     step 3 once its step-6 manifest is removed: the restarted losses 4-6
+     and step-6 checkpoint equal the uninterrupted run's bit for bit (or
+     within the two uninterrupted runs' own gap, printed); a non-finite
+     loss injected at step 5 rolls back to step 3 with ``lr_scale`` 0.5;
+     a restore adds at most one leaf's bytes on the card (the trainer
+     restores into its live tensors); the checkpoint's bytes and its host
+     copy, write and restore seconds.
+
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
-path, ``engine_launches`` on phase 13's and ``family_launches`` on phase
-14's); the last line is
+path, ``engine_launches`` on phase 13's and ``family_launches`` on phases
+14's, 15's and 17's); the last line is
 ``{"ok": true, "device": {...}}``.  The full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -449,6 +485,18 @@ FLASH_CASES = (
      {"causal": False}, 1e-2),
     ("whisper_cross_f32", (2, 6, 6, (37, 1500), 64), "float32",
      {"causal": False}, 2e-5),
+    # paligemma-3b (phase 17): D = 256, MQA 8:1, a prefix-LM span of 256
+    # image positions: the prefill wave (256 + 768 text positions), the
+    # training batch (256 + 1024), and a prefix of 200 that ends inside a
+    # tile, in both dtypes
+    ("paligemma_prefill", (8, 8, 1, 1024, 256), "bfloat16",
+     {"causal": True, "prefix": 256}, 1e-2),
+    ("paligemma_train", (2, 8, 1, 1280, 256), "bfloat16",
+     {"causal": True, "prefix": 256}, 1e-2),
+    ("paligemma_prefix200", (1, 8, 1, 456, 256), "bfloat16",
+     {"causal": True, "prefix": 200}, 1e-2),
+    ("paligemma_prefix200_f32", (1, 8, 1, 456, 256), "float32",
+     {"causal": True, "prefix": 200}, 2e-5),
 )
 # phase 14: the MoE, SSM and hybrid families served at full width, one
 # wave of 8 greedy requests (prompts of 512-1024 tokens from numpy's
@@ -478,6 +526,24 @@ FAMILY_SERVE = dict(max_batch=8, max_seq=2048, requests=8,
 WHISPER = dict(arch="whisper-tiny", max_batch=8, max_seq=448, requests=8,
                prompt_len=(32, 224), max_new=32, decode_profile_steps=10,
                check_batch=2, check_seq=448)
+# phase 17: paligemma-3b (vlm) at full width (18 layers, d 2048, 8 query
+# heads over 1 kv head of 256, ff 16384, vocab 257216; random bf16 weights
+# from a seeded generator): one wave of 8 greedy requests after the
+# Server's zero image (256 positions), prompts of 256-768 tokens from
+# numpy's default_rng(0), 32 new tokens, caches to 2048 positions; phase
+# 7's float32 prefill check on 2 prompts of 512 tokens; 3 training steps
+# (TRAIN) and a float32 step of 2 layers (2 x 512 tokens, the image
+# before them)
+PALIGEMMA = dict(arch="paligemma-3b", max_batch=8, max_seq=2048, requests=8,
+                 prompt_len=(256, 768), max_new=32, check_prompts=2,
+                 check_len=512, tol=1e-3, decode_profile_steps=10,
+                 check_layers=2, check_batch=2, check_seq=512)
+# phase 18: checkpoints on the card: qwen2-0.5b at full width cut to 2
+# layers (a checkpoint of ~2.3 GB: bf16 params, float32 master copies and
+# moments), the trainer's run of 6 steps with a checkpoint every 3; the
+# rollback's non-finite loss injected at step 5
+CKPT = dict(arch="qwen2-0.5b", n_layers=2, steps=6, every=3, batch=2,
+            seq=512, lr=3e-3, nan_at=5)
 # device kernels of PyTorch's own attention (SDPA's flash, memory-efficient
 # and cuDNN routes), which no path of the port may run
 SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "cudnn")
@@ -541,6 +607,15 @@ FLASH_BWD_CASES = (
      {"causal": False}),
     ("whisper_cross_f32", (2, 6, 6, (37, 1500), 64), "float32",
      {"causal": False}),
+    # paligemma-3b's training (phase 17b) and prefill, and a prefix of 200
+    ("paligemma_train", (2, 8, 1, 1280, 256), "bfloat16",
+     {"causal": True, "prefix": 256}),
+    ("paligemma_prefill", (8, 8, 1, 1024, 256), "bfloat16",
+     {"causal": True, "prefix": 256}),
+    ("paligemma_prefix200", (1, 8, 1, 456, 256), "bfloat16",
+     {"causal": True, "prefix": 200}),
+    ("paligemma_prefix200_f32", (1, 8, 1, 456, 256), "float32",
+     {"causal": True, "prefix": 200}),
 )
 # float32: tests/test_kernels.py's gradient tolerance.  bf16: against the
 # plain backward on the same saved bf16 tensors, 1e-2 of each gradient's
@@ -579,6 +654,14 @@ TRAIN = {
     "whisper-tiny": dict(batch=8, seq=448, steps=3, lr=3e-3,
                          per_step={"flash_attention": 24,
                                    "flash_attention_bwd": 12,
+                                   "threefry_fold_in": 1,
+                                   "threefry_draw": 1}),
+    # phase 17b: paligemma-3b's 18 attentions forward twice (remat) and
+    # backward once, each over 256 image + 1024 text positions; the
+    # batch's image, one fold_in and one normal draw
+    "paligemma-3b": dict(batch=2, seq=1024, steps=3, lr=3e-3,
+                         per_step={"flash_attention": 36,
+                                   "flash_attention_bwd": 18,
                                    "threefry_fold_in": 1,
                                    "threefry_draw": 1}),
 }
@@ -732,6 +815,10 @@ def main() -> int:
     launches_families.update(whisper(torch, report))
     torch.cuda.empty_cache()
     paper_harness(torch, report)
+    torch.cuda.empty_cache()
+    launches_families.update(paligemma(torch, report))
+    torch.cuda.empty_cache()
+    checkpoints(torch, report)
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -760,7 +847,7 @@ def main() -> int:
                                 else 0)
         check(on is None or e["engine_launches"] > 0,
               f"{e['name']} never launched on the engine's path")
-        # and its launches on each of phases 14's and 15's paths that
+        # and its launches on each of phases 14's, 15's and 17's paths that
         # runs it
         e["family_launches"] = {
             label: n[e["name"]] for label, n in launches_families.items()
@@ -1289,6 +1376,15 @@ def compare_flash(torch, report) -> list:
                 check(lib_err < (2e-2 if dt == "bfloat16" else 1e-3),
                       f"flash_attention {name}: the library yardstick "
                       f"computes another function (max abs err {lib_err})")
+            lib_backend = None
+            if lib is not None and "prefix" in kw:
+                # which SDPA backend takes the explicit prefix-LM mask
+
+                def lib_once(lib=lib):
+                    lib(0)
+                    torch.cuda.synchronize()
+
+                lib_backend = _sdpa_backend(torch, lib_once)
             reps = 10 if b * hq * tq * tk * d > 1e9 else 50
             ms = _time_ms(torch, lambda i: FA.flash_attention(q, k, v, **kw),
                           reps)
@@ -1305,6 +1401,7 @@ def compare_flash(torch, report) -> list:
                    "shape": [b, hq, hkv, t, d], "dtype": dt,
                    "options": kw, "tol": tol, "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_kernels": lib_backend,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "flops": flops,
@@ -2926,6 +3023,13 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
                 "decode_ms_per_step": w["decode_s"] / w["decode_steps"] * 1e3,
                 "decode_tok_per_s": w["size"] * w["decode_steps"]
                 / w["decode_s"]})
+            if cfg.family == "vlm":
+                # the image's positions, counted apart from the text's
+                img = w["size"] * cfg.img_tokens
+                waves[-1].update({
+                    "prefill_image_positions": img,
+                    "prefill_positions_per_s": (tokens + img)
+                    / w["prefill_s"]})
             print("wave: " + json.dumps(waves[-1]))
         out = report[f"serve_{label}"] = {
             "arch": name, "family": cfg.family, "config": fs,
@@ -2972,6 +3076,10 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
 
         prof_prefill = _device_profile(torch, prefill)
         token = box["logits"].argmax(-1)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_leaves(box["caches"])
+                          if isinstance(x, torch.Tensor))
+        print(f"the wave's caches: {cache_bytes} B")
 
         def decode():
             caches, tok = box["caches"], token
@@ -3001,6 +3109,7 @@ def serve_family(torch, report, label: str, arch: str, n_layers,
               f"{prof_decode['device_busy_us'] / steps:.0f} device us/step; "
               f"top {prof_decode['top'][:4]}")
         out["profile_prefill"] = prof_prefill
+        out["cache_bytes"] = cache_bytes
         out["prefill_categories"] = cats
         out["profile_decode"] = prof_decode
         out["decode_device_ops_per_step"] = prof_decode["device_ops"] / steps
@@ -3028,8 +3137,9 @@ def _family_f32_check(torch, srv, cfg, rng) -> dict:
     kinds = _layer_kinds(cfg)
     recorded: list = []
     reset_launches()
+    extra = srv._extra(fs["check_prompts"])
     with _routes_seen(lambda out: recorded.append(out[:3])):
-        lk, ck = T.prefill(p32, cfg, toks)
+        lk, ck = T.prefill(p32, cfg, toks, extra)
     launches_k = read_launches()
     check(launches_k["flash_attention"] == kinds["attn"]
           and launches_k["ssd_scan.state"] == kinds["mamba"],
@@ -3037,7 +3147,7 @@ def _family_f32_check(torch, srv, cfg, rng) -> dict:
     ties = {"n": 0}
     reset_launches()
     with plain_versions(), _pinned_routes(torch, recorded, fs["tie"], ties):
-        lp, cp = T.prefill(p32, cfg, toks)
+        lp, cp = T.prefill(p32, cfg, toks, extra)
     check(not any(read_launches().values()), "the plain prefill launched")
     lk, lp = lk[:, :cfg.vocab], lp[:, :cfg.vocab]
     torch.cuda.synchronize()
@@ -3219,6 +3329,12 @@ def train_full(torch, report, name: str, label: str) -> dict:
         n_active = _active_params(cfg, params)
         flops_tok = T.model_flops_per_token(cfg, n_params, n_active)
         flops_step = flops_tok * b * t
+        if cfg.family == "vlm":
+            # 6 N over every position the layers run: the image's and the
+            # text's
+            flops_step = flops_tok * b * (t + cfg.img_tokens)
+            print(f"{arch}: model FLOPs a step by 6N over all {t} + "
+                  f"{cfg.img_tokens} positions a row: {flops_step:.4g}")
         if cfg.family == "encdec":
             # 6 N a token, N split by what it runs over: the decoder's
             # tokens (b x t) or the audio frames (b x enc_seq); attention's
@@ -5322,85 +5438,95 @@ def _frame_params(params) -> int:
         if k in xattn)
 
 
+def _float32_step(torch, report, key: str, cfg, b: int, t: int, named):
+    """One float32 training step at full width (``b`` x ``t`` tokens, the
+    trainer's audio or image) through the kernels and through the plain
+    versions: the forward's logits within the family check's tolerance,
+    the loss and every gradient within 8c's; the gradients whose path
+    ``named`` accepts must be nonzero."""
+    from torch.utils._pytree import tree_flatten_with_path
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.models import transformer as T
+    c = STEP_CHECK
+    arch = cfg.name
+    params, opt, step_fn, pipe = _train_setup(torch, cfg, b, t, 1, 1e-3,
+                                              seed=1)
+    batch = pipe.next_batch()
+    batch.update(extra_inputs(cfg, b, 0, 1, "cuda"))
+    extra = {k: batch[k] for k in ("audio", "img") if k in batch}
+    inp = batch["tokens"][:, :-1]
+    attn = _layer_kinds(cfg)["attn"]
+    reset_launches()
+    with torch.no_grad():
+        lk, _ = T.forward(params, cfg, inp, extra)
+    launches_f = read_launches()
+    with plain_versions(), torch.no_grad():
+        lp, _ = T.forward(params, cfg, inp, extra)
+    lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
+    torch.cuda.synchronize()
+    logit_err = float((lk - lp).abs().max())
+    check(launches_f["flash_attention"] == attn,
+          f"the float32 forward launched {launches_f}")
+    check(bool(torch.allclose(lk, lp, rtol=FAMILY_SERVE["tol"],
+                              atol=FAMILY_SERVE["tol"])),
+          f"{arch} float32 logits differ by {logit_err}")
+    del lk, lp
+    lossk, gk, launches_k = _grads_of_step(torch, step_fn, params, opt,
+                                           batch)
+    with plain_versions():
+        lossp, gp, launches_p = _grads_of_step(torch, step_fn, params, opt,
+                                               batch)
+    print(f"{arch} (float32, {b} x {t}): logits max abs err {logit_err}; "
+          f"loss kernel {lossk} plain {lossp}; launches {launches_k} / "
+          f"plain {launches_p}")
+    check(abs(lossk - lossp) <= c["loss_tol"],
+          f"{arch}: losses differ by {abs(lossk - lossp)}")
+    check(not any(launches_p.values()),
+          f"{arch}: the plain run launched {launches_p}")
+    want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn}
+    check(all(launches_k[k] == n for k, n in want.items()),
+          f"{arch}: kernel launches {launches_k}, expected {want}")
+    worst = {}
+    for (path, a), (_, wt) in zip(tree_flatten_with_path(gk)[0],
+                                  tree_flatten_with_path(gp)[0]):
+        name = "".join(str(x) for x in path)
+        err = float((a - wt).abs().max())
+        scale = float(wt.abs().max())
+        worst[name] = [err, scale]
+        check(bool(torch.allclose(a, wt, rtol=c["grad_rtol"],
+                                  atol=c["grad_atol_frac"] * scale)),
+              f"{arch}: gradient {name} differs by {err} (largest entry "
+              f"{scale})")
+    picked = {k: v for k, v in worst.items() if named(k)}
+    check(len(picked) > 0 and all(s > 0 for _, s in picked.values()),
+          f"{arch}: a gradient of {sorted(picked)} is zero")
+    rel = max(e / max(s, 1e-30) for e, s in worst.values())
+    rel_named = max(e / max(s, 1e-30) for e, s in picked.values())
+    print(f"{arch}: {len(worst)} gradients within tolerance ({len(picked)} "
+          f"named: {rel_named:.3g} of their scale at most); largest error "
+          f"relative to its leaf's scale {rel:.3g}")
+    report[key] = {
+        "logit_max_abs_err": logit_err, "loss_kernel": lossk,
+        "loss_plain": lossp, "launches": launches_k, "grad_err": worst,
+        "max_rel_grad_err": rel, "max_rel_grad_err_named": rel_named}
+    del params, opt, step_fn, gk, gp
+    torch.cuda.empty_cache()
+
+
 def whisper_check(torch, report) -> None:
     """Phase 15c: one float32 whisper-tiny step at full width (2 x 448
     tokens, the trainer's audio) through the kernels and through the plain
     versions: the forward's logits, the loss and every gradient (the
     encoder's and the cross-attention's named)."""
     import dataclasses
-    from torch.utils._pytree import tree_flatten_with_path
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import extra_inputs
-    from repro_torch.models import transformer as T
-    w, c = WHISPER, STEP_CHECK
+    w = WHISPER
     with phase("15c. one float32 whisper-tiny step: kernels against plain "
                "versions"):
         cfg = dataclasses.replace(get_config(w["arch"]), dtype="float32")
-        b, t = w["check_batch"], w["check_seq"]
-        params, opt, step_fn, pipe = _train_setup(torch, cfg, b, t, 1, 1e-3,
-                                                  seed=1)
-        batch = pipe.next_batch()
-        batch.update(extra_inputs(cfg, b, 0, 1, "cuda"))
-        extra = {"audio": batch["audio"]}
-        inp = batch["tokens"][:, :-1]
-        attn = cfg.n_enc_layers + 2 * cfg.n_layers
-        reset_launches()
-        with torch.no_grad():
-            lk, _ = T.forward(params, cfg, inp, extra)
-        launches_f = read_launches()
-        with plain_versions(), torch.no_grad():
-            lp, _ = T.forward(params, cfg, inp, extra)
-        lk, lp = lk[..., :cfg.vocab], lp[..., :cfg.vocab]
-        torch.cuda.synchronize()
-        logit_err = float((lk - lp).abs().max())
-        check(launches_f["flash_attention"] == attn,
-              f"the float32 forward launched {launches_f}")
-        check(bool(torch.allclose(lk, lp, rtol=FAMILY_SERVE["tol"],
-                                  atol=FAMILY_SERVE["tol"])),
-              f"whisper float32 logits differ by {logit_err}")
-        del lk, lp
-        lossk, gk, launches_k = _grads_of_step(torch, step_fn, params, opt,
-                                               batch)
-        with plain_versions():
-            lossp, gp, launches_p = _grads_of_step(torch, step_fn, params,
-                                                   opt, batch)
-        print(f"whisper (float32, {b} x {t}): logits max abs err "
-              f"{logit_err}; loss kernel {lossk} plain {lossp}; launches "
-              f"{launches_k} / plain {launches_p}")
-        check(abs(lossk - lossp) <= c["loss_tol"],
-              f"whisper: losses differ by {abs(lossk - lossp)}")
-        check(not any(launches_p.values()),
-              f"whisper: the plain run launched {launches_p}")
-        want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn}
-        check(all(launches_k[k] == n for k, n in want.items()),
-              f"whisper: kernel launches {launches_k}, expected {want}")
-        worst = {}
-        for (path, a), (_, wt) in zip(tree_flatten_with_path(gk)[0],
-                                      tree_flatten_with_path(gp)[0]):
-            key = "".join(str(x) for x in path)
-            err = float((a - wt).abs().max())
-            scale = float(wt.abs().max())
-            worst[key] = [err, scale]
-            check(bool(torch.allclose(a, wt, rtol=c["grad_rtol"],
-                                      atol=c["grad_atol_frac"] * scale)),
-                  f"whisper: gradient {key} differs by {err} (largest entry "
-                  f"{scale})")
-        named = {k: v for k, v in worst.items()
-                 if k.startswith("['enc']") or "xattn" in k}
-        check(len(named) > 0 and all(s > 0 for _, s in named.values()),
-              "whisper: the encoder or the cross-attention has no gradient")
-        rel = max(e / max(s, 1e-30) for e, s in worst.values())
-        rel_named = max(e / max(s, 1e-30) for e, s in named.values())
-        print(f"whisper: {len(worst)} gradients within tolerance ({len(named)}"
-              f" of the encoder and the cross-attention); largest error "
-              f"relative to its leaf's scale {rel:.3g} (encoder and "
-              f"cross-attention {rel_named:.3g})")
-        report["whisper_check"] = {
-            "logit_max_abs_err": logit_err, "loss_kernel": lossk,
-            "loss_plain": lossp, "launches": launches_k, "grad_err": worst,
-            "max_rel_grad_err": rel, "max_rel_grad_err_enc_xattn": rel_named}
-        del params, opt, step_fn, gk, gp
-        torch.cuda.empty_cache()
+        _float32_step(torch, report, "whisper_check", cfg, w["check_batch"],
+                      w["check_seq"],
+                      lambda k: k.startswith("['enc']") or "xattn" in k)
 
 
 def whisper(torch, report) -> dict:
@@ -5411,6 +5537,206 @@ def whisper(torch, report) -> dict:
            "15b": train_full(torch, report, WHISPER["arch"], "15b")}
     whisper_check(torch, report)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the vlm family (paligemma-3b)
+# ---------------------------------------------------------------------------
+def paligemma_check(torch, report) -> None:
+    """Phase 17c: one float32 paligemma-3b step at full width, 2 layers
+    (2 x 512 tokens after the trainer's image): the float32 route's
+    prefix-LM mask at D = 256, the image projection's and the attention's
+    gradients named."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    p = PALIGEMMA
+    with phase("17c. one float32 paligemma-3b step (2 layers): kernels "
+               "against plain versions"):
+        cfg = dataclasses.replace(get_config(p["arch"]),
+                                  n_layers=p["check_layers"], dtype="float32")
+        _float32_step(torch, report, "paligemma_check", cfg,
+                      p["check_batch"], p["check_seq"],
+                      lambda k: "img_proj" in k or any(
+                          f"['attn']['{w}']" in k for w in ("wq", "wk",
+                                                              "wv")))
+
+
+def paligemma(torch, report) -> dict:
+    """Phase 17: paligemma-3b served (17a), trained (17b) and held to the
+    plain versions in float32 (17c); returns 17a's and 17b's launches."""
+    out = {"17a": serve_family(torch, report, "17a", PALIGEMMA["arch"], None,
+                               True, fs=PALIGEMMA),
+           "17b": train_full(torch, report, PALIGEMMA["arch"], "17b")}
+    paligemma_check(torch, report)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: checkpoints on the card
+# ---------------------------------------------------------------------------
+def _ckpt_gap(torch, x: dict, y: dict) -> dict:
+    """How far two checkpoints' leaves (key -> the numpy array written)
+    lie apart: the leaves that differ and the largest absolute difference
+    (bf16 leaves by value)."""
+    import numpy as np
+    check(sorted(x) == sorted(y), "the checkpoints hold other leaves")
+    gap = {"leaves": len(x), "differ": [], "max_abs": 0.0}
+    for k in x:
+        if np.array_equal(x[k], y[k]):
+            continue
+        u, v = (torch.from_numpy(t.view(np.int16)).view(torch.bfloat16)
+                .float() if t.dtype == np.uint16
+                else torch.from_numpy(t).double() for t in (x[k], y[k]))
+        gap["differ"].append(k)
+        gap["max_abs"] = max(gap["max_abs"], float((u - v).abs().max()))
+    return gap
+
+
+def checkpoints(torch, report) -> None:
+    """Phase 18: the trainer's checkpoints at full width (qwen2-0.5b, 2
+    layers): a run restarted from step 3 equals an uninterrupted run (its
+    losses 4-6 and its step-6 checkpoint), and a non-finite loss at step 5
+    rolls back to step 3 with the LR halved; the checkpoint's bytes and
+    its host copy, write and restore seconds, and the card memory a
+    restore adds (the trainer restores in place: at most one leaf)."""
+    import io
+    import shutil
+    import tempfile
+    from unittest import mock
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    c = CKPT
+    out = report["checkpoints"] = {}
+    with phase("18. checkpoints on the card: restart and rollback"):
+        name, cfg = _family_config(c["arch"], c["n_layers"])
+        times = {"host_copy_s": [], "write_s": [], "restore_s": [],
+                 "restore_extra_bytes": []}
+        # each directory's last step as written: {directory: {key: array}}
+        written = {}
+
+        class Timed(CM.CheckpointManager):
+            def save(self, step, tree, blocking=False):
+                self.wait()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().save(step, tree, blocking)
+                times["host_copy_s"].append(time.perf_counter() - t0)
+
+            def _write(self, step, host_leaves):
+                t0 = time.perf_counter()
+                super()._write(step, host_leaves)
+                times["write_s"].append(time.perf_counter() - t0)
+                if step == c["steps"]:
+                    written[self.dir] = dict(host_leaves)
+
+            def restore(self, step, like, in_place=False):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                tree = super().restore(step, like, in_place)
+                torch.cuda.synchronize()
+                times["restore_s"].append(time.perf_counter() - t0)
+                # what the restore adds on the card above the live state
+                times["restore_extra_bytes"].append(
+                    torch.cuda.max_memory_allocated() - before)
+                return tree
+
+        def train(d):
+            log = io.StringIO()
+            with mock.patch.object(TR, "CheckpointManager", Timed), \
+                    contextlib.redirect_stdout(log):
+                losses = TR.run(name, steps=c["steps"], batch=c["batch"],
+                                seq=c["seq"], use_reduced=False,
+                                ckpt_dir=str(d), ckpt_every=c["every"],
+                                lr=c["lr"], log_every=1, device="cuda")
+            return losses, log.getvalue()
+
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+        try:
+            free = shutil.disk_usage(tmp).free
+            step_dir = f"step_{c['steps']:09d}"
+            a, b = tmp / "a", tmp / "b"
+            t0 = time.perf_counter()
+            full, _ = train(a)
+            run_s = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in (a / step_dir).iterdir())
+            again, _ = train(b)
+            # two uninterrupted runs: the card's own run-to-run gap
+            gap = _ckpt_gap(torch, written[a], written[b])
+            (b / step_dir / "manifest.json").unlink()
+            resumed, log = train(b)
+            check(f"[train] restored step {c['every']}" in log,
+                  f"the run did not restart from step {c['every']}:\n{log}")
+            rgap = _ckpt_gap(torch, written[a], written[b])
+            # the trainer restores into its live tensors: at most one
+            # leaf's staging on the card, never a second state
+            leaf_max = max(v.nbytes for v in written[a].values())
+            print(f"{name}: a checkpoint of {nbytes} B ({free} B free in "
+                  f"{tmp.parent}); uninterrupted losses {full}, a second "
+                  f"run {again}, resumed from step {c['every']} "
+                  f"{resumed}; step {c['steps']} state: two runs differ in "
+                  f"{len(gap['differ'])} of {gap['leaves']} leaves (max abs "
+                  f"{gap['max_abs']}), restarted vs uninterrupted in "
+                  f"{len(rgap['differ'])} (max abs {rgap['max_abs']}); "
+                  f"a run of {c['steps']} steps with 2 saves {run_s:.2f} s")
+            # bit for bit where two uninterrupted runs are; else within
+            # their gap
+            loss_gap = max(abs(x - y) for x, y in zip(full, again))
+            check(max(abs(x - y) for x, y in zip(resumed, full[c["every"]:]))
+                  <= loss_gap and len(resumed) == c["steps"] - c["every"]
+                  and rgap["max_abs"] <= gap["max_abs"]
+                  and (gap["differ"] or not rgap["differ"]),
+                  "the restarted run differs from the uninterrupted one by "
+                  "more than two uninterrupted runs differ")
+            shutil.rmtree(a)
+            shutil.rmtree(b)
+            written.clear()
+
+            real, calls = T.loss_fn, []
+
+            def nan_at(params, cfg_, batch):
+                loss, metrics = real(params, cfg_, batch)
+                calls.append(1)
+                if len(calls) == c["nan_at"]:
+                    loss = loss + float("nan")
+                return loss, metrics
+
+            with mock.patch.object(T, "loss_fn", nan_at):
+                rolled, log = train(tmp / "rollback")
+            print(f"rollback: losses {rolled}; "
+                  + " | ".join(ln for ln in log.splitlines() if "NaN" in ln))
+            check(f"NaN at step {c['nan_at'] - 1}; rollback to {c['every']}, "
+                  "lr_scale=0.5" in log,
+                  f"no rollback to {c['every']}:\n{log}")
+            # steps 1-4, then step 4 again from the step-3 checkpoint
+            n = c["nan_at"] - 1
+            check(len(rolled) == c["steps"] + n - c["every"]
+                  and all(abs(x - y) <= loss_gap for x, y in
+                          zip(rolled[:n] + [rolled[n]],
+                              full[:n] + [full[c["every"]]]))
+                  and all(math.isfinite(x) for x in rolled),
+                  f"the rollback's losses {rolled} against {full}")
+            check(max(times["restore_extra_bytes"]) <= leaf_max,
+                  f"a restore added {max(times['restore_extra_bytes'])} B "
+                  f"on the card (largest leaf {leaf_max} B)")
+            out.update({
+                "config": {**c, "name": name}, "bytes": nbytes,
+                "free_bytes": free, "run_s": run_s, **times,
+                "losses": full, "second_run": again, "resumed": resumed,
+                "run_gap": gap, "restart_gap": rgap, "loss_gap": loss_gap,
+                "rollback": rolled})
+            print(f"checkpoint {nbytes} B: host copy "
+                  f"{min(times['host_copy_s']):.3f}-"
+                  f"{max(times['host_copy_s']):.3f} s, write "
+                  f"{min(times['write_s']):.3f}-{max(times['write_s']):.3f}"
+                  f" s, restore {min(times['restore_s']):.3f}-"
+                  f"{max(times['restore_s']):.3f} s, adding at most "
+                  f"{max(times['restore_extra_bytes'])} B on the card")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

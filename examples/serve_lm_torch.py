@@ -2,17 +2,19 @@
 watch the scheduler prefill and decode them as a batch (KV caches, ring
 buffers for windowed archs, O(1) conv and SSD states for the SSM and
 hybrid archs, top-k expert routing for the MoE archs, cross-attention
-caches over the encoder's frames for whisper).
+caches over the encoder's frames for whisper, an image prefix under the
+prefix-LM mask for paligemma).
 
-The flow of ``examples/serve_lm.py`` through ``repro_torch``, on a reduced
-config of any arch but paligemma-3b (ROADMAP Queue 1 item 8.5).  Runs on
-the card (``cuda``) unless asked otherwise:
+The flow of ``examples/serve_lm.py`` through ``repro_torch``, on the
+reduced config of any arch.  Runs on the card (``cuda``) unless asked
+otherwise:
 
   PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2-0.5b
   PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-2.7b
   PYTHONPATH=src python examples/serve_lm_torch.py \\
       --arch granite-moe-1b-a400m --device cpu
   PYTHONPATH=src python examples/serve_lm_torch.py --arch whisper-tiny
+  PYTHONPATH=src python examples/serve_lm_torch.py --arch paligemma-3b
 """
 
 import argparse
@@ -26,7 +28,7 @@ from repro_torch.launch.serve import Request, Server
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="a dense, moe, ssm, hybrid or encdec arch "
+                    help="a dense, moe, ssm, hybrid, encdec or vlm arch "
                          "(reduced)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=24)

@@ -1,18 +1,21 @@
 """End-to-end LM training on the PyTorch/CUDA port: the deterministic
 token pipeline, the model's loss and backward (the flash-attention and SSD
-kernels on the card), AdamW and the NaN guard.
+kernels on the card), AdamW, checkpoint/restart and the NaN guard.
 
 The flow of ``examples/train_lm.py`` through ``repro_torch``.  Default: a
 ~20M-param qwen2-family model, 150 steps; ``--hundred-m`` a ~100M-param
-one; ``--arch NAME`` the reduced config of any arch but paligemma-3b
-instead (e.g. ``mamba2-2.7b``, ``granite-moe-1b-a400m``,
-``mixtral-8x22b``, ``zamba2-7b``: the MoE archs print their load-balance
-aux beside the cross entropy; ``whisper-tiny``: each batch carries the
-trainer's audio frames).  Checkpoint and restart wait for the port of
-``checkpoint/manager.py`` (ROADMAP Queue 1 item 8.6): a non-finite loss
-raises.  Runs on the card (``cuda``) unless asked otherwise:
+one; ``--arch NAME`` the reduced config of any arch instead (e.g.
+``mamba2-2.7b``, ``granite-moe-1b-a400m``, ``mixtral-8x22b``,
+``zamba2-7b``: the MoE archs print their load-balance aux beside the
+cross entropy; ``whisper-tiny`` and ``paligemma-3b``: each batch carries
+the trainer's audio frames or image).  Checkpoints are saved every
+``--ckpt-every`` steps and at the last one; a non-finite loss rolls back
+to the latest with the LR halved.  With ``--ckpt-dir`` a run restarts
+from the latest checkpoint there (run it again after an interruption);
+without one they go to a temporary directory removed at exit.  Runs on
+the card (``cuda``) unless asked otherwise:
 
-  PYTHONPATH=src python examples/train_lm_torch.py
+  PYTHONPATH=src python examples/train_lm_torch.py --ckpt-dir ckpt_lm
   PYTHONPATH=src python examples/train_lm_torch.py --hundred-m --steps 300
   PYTHONPATH=src python examples/train_lm_torch.py --arch zamba2-7b \\
       --steps 20 --device cpu
@@ -21,7 +24,9 @@ raises.  Runs on the card (``cuda``) unless asked otherwise:
 """
 
 import argparse
+import contextlib
 import dataclasses
+import tempfile
 
 from repro_torch import configs
 from repro_torch.launch import train as train_mod
@@ -35,6 +40,10 @@ def main():
                     help="train this arch's reduced config instead")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="keep checkpoints here and restart from the "
+                         "latest (default: a temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
 
@@ -56,9 +65,16 @@ def main():
         # register the custom config under a name so train.run finds it
         arch, use_reduced = "_example_lm", False
         configs.ARCHS[arch] = dataclasses.replace(cfg, name=arch)
-    losses = train_mod.run(
-        arch, steps=args.steps, batch=args.batch, seq=args.seq,
-        use_reduced=use_reduced, lr=1e-3, log_every=10, device=args.device)
+    with (contextlib.nullcontext(args.ckpt_dir) if args.ckpt_dir
+          else tempfile.TemporaryDirectory(prefix="train_lm_torch_")) as ckpt:
+        losses = train_mod.run(
+            arch, steps=args.steps, batch=args.batch, seq=args.seq,
+            use_reduced=use_reduced, ckpt_dir=ckpt,
+            ckpt_every=args.ckpt_every, lr=1e-3, log_every=10,
+            device=args.device)
+    if not losses:
+        print(f"\nnothing to train: {args.ckpt_dir} holds step {args.steps}")
+        return
     n = min(10, len(losses))
     print(f"\nfirst-{n} mean loss {sum(losses[:n])/n:.3f} -> "
           f"last-{n} mean {sum(losses[-n:])/n:.3f}")

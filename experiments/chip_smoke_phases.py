@@ -8,7 +8,9 @@ included), 2f (threefry), 9a (the spike bitmask), 14 (the MoE, SSM and
 hybrid families: 14a-14d served, 14e and 14f trained; each also alone),
 15 (whisper-tiny: 15a served, 15b trained, 15c the float32 step; each
 also alone), 16 (the paper's harness, run_torch.py, and the determinism
-smoke at one NCCL rank), 2e (the flash backward), 3 (the main path), 5
+smoke at one NCCL rank), 17 (paligemma-3b: 17a served, 17b trained, 17c
+the float32 step; each also alone), 18 (the trainer's checkpoints:
+restart and rollback), 2e (the flash backward), 3 (the main path), 5
 (the delay path),
 9b (main observed; reads phase 3's profile, so list 3 first), 6a (the
 NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
@@ -75,6 +77,17 @@ def main(labels) -> int:
             CS.whisper_check(torch, report)
         elif label == "16":
             CS.paper_harness(torch, report)
+        elif label == "17":
+            CS.paligemma(torch, report)
+        elif label == "17a":
+            CS.serve_family(torch, report, "17a", CS.PALIGEMMA["arch"], None,
+                            True, fs=CS.PALIGEMMA)
+        elif label == "17b":
+            CS.train_full(torch, report, CS.PALIGEMMA["arch"], "17b")
+        elif label == "17c":
+            CS.paligemma_check(torch, report)
+        elif label == "18":
+            CS.checkpoints(torch, report)
         elif label == "2e":
             CS.compare_flash_bwd(torch, report)
         elif label == "2b":

@@ -180,7 +180,8 @@ def load_lm_params(cfg, arrays, device=None) -> Any:
     dt_bias, A_log, D, norm_scale, w_out), zamba2's unstacked shared
     block, and whisper's encoder (``enc``: its stacked layers' ln1, attn,
     ln2, mlp, its norm and pos_embed) with each decoder layer's ln_x and
-    xattn (the cross-attention's wq, wk, wv, wo); Mamba2's dt_bias, A_log and D and the router stay float32, as in
+    xattn (the cross-attention's wq, wk, wv, wo), and paligemma's
+    img_proj; Mamba2's dt_bias, A_log and D and the router stay float32, as in
     the JAX package.  bfloat16 leaves (numpy's ``ml_dtypes`` type) pass
     through float32, which holds them exactly."""
     dev = resolve_device(device)

@@ -1,13 +1,15 @@
 """Token server: batched prefill + decode loop with continuous batching,
 the counterpart of ``repro/launch/serve.py``.
 
-It serves every family but vlm through ``models/transformer.py``'s
-``prefill`` and ``decode_step``: dense, moe (each decode step routes the
-wave's tokens as one MoE group, pad and finished slots included, as the
-JAX package does), ssm (float32 conv and SSD states a request), hybrid
-and encdec (whisper: the prefill gets zero audio frames [b, enc_seq,
+It serves every family through ``models/transformer.py``'s ``prefill``
+and ``decode_step``: dense, moe (each decode step routes the wave's
+tokens as one MoE group, pad and finished slots included, as the JAX
+package does), ssm (float32 conv and SSD states a request), hybrid,
+encdec (whisper: the prefill gets zero audio frames [b, enc_seq,
 d_model] float32, as the JAX server feeds it, and fills each decoder
-layer's cross cache from the encoder's output once a wave).
+layer's cross cache from the encoder's output once a wave) and vlm
+(paligemma: a zero image [b, img_tokens, img_embed_dim] float32 before
+each left-padded prompt, as the JAX server feeds it).
 Requests (prompt token lists) enter a queue; the slot scheduler
 (``launch/scheduling.py``) packs up to ``max_batch`` of them into a wave
 when no request is active; the wave's prompts are left-padded with token 0
@@ -25,6 +27,7 @@ host.  ``model_parallel`` is not ported (ROADMAP Queue 1 item 7).
   python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
   python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
   python -m repro_torch.launch.serve --arch whisper-tiny --full
+  python -m repro_torch.launch.serve --arch paligemma-3b --device cpu
 """
 
 from __future__ import annotations
@@ -87,13 +90,13 @@ class Server:
     # -- internals ------------------------------------------------------------
     def _extra(self, b: int) -> dict:
         """The prefill's extra inputs for a wave of ``b``: zero audio
-        frames for an encdec model."""
-        extra = {}
-        if self.cfg.family == "encdec":
-            extra["audio"] = torch.zeros(
-                (b, self.cfg.enc_seq, self.cfg.d_model), dtype=torch.float32,
-                device=self.device)
-        return extra
+        frames for an encdec model, a zero image for a vlm model."""
+        spec = T.extra_input(self.cfg)
+        if spec is None:
+            return {}
+        name, row = spec
+        return {name: torch.zeros((b,) + row, dtype=torch.float32,
+                                  device=self.device)}
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots (one wave per admit)."""

@@ -1,34 +1,40 @@
 """The trainer, the counterpart of ``repro/launch/train.py``: the
-token pipeline, the model's loss, its backward, AdamW, and the paper's
-NaN guard, on one device (``cuda`` unless ``device=`` / ``--device`` names
-another; without a card that raises).
+token pipeline, the model's loss, its backward, AdamW, checkpoint and
+restart, and the paper's NaN guard, on one device (``cuda`` unless
+``device=`` / ``--device`` names another; without a card that raises).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
-      --steps 100 --batch 8 --seq 256                 # reduced config
+      --steps 100 --batch 8 --seq 256 --ckpt-dir ckpt   # reduced config
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
       --full --steps 3 --batch 2 --seq 2048           # full width, on a card
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 3 --device cpu                          # the plain versions
 
-Every family but vlm trains: dense, moe (granite-moe, mixtral: the loss
-is ce plus the load-balance aux, both printed), ssm (mamba2), hybrid
-(zamba2, its shared block's gradient summed over its applications) and
-encdec (whisper: step i's batch carries audio frames ``0.1 *
-normal(fold_in(PRNGKey(seed), i), (b, enc_seq, d_model))``, drawn by
-``repro_torch.random``'s threefry as the JAX trainer draws them).  NaN
-containment follows the paper's Fig-1 guard in the JAX package: a
-non-finite loss rolls back to the last checkpoint with the LR halved.
-Checkpoints
-(``checkpoint/manager.py``) wait for ROADMAP Queue 1 item 8.6, so
-``ckpt_dir`` raises and a non-finite loss raises ``FloatingPointError``,
-as the JAX trainer does when it has no checkpoint; ``model_parallel > 1``
-waits for item 7.  The JAX trainer does not use ``cfg.microbatches``
-either: one step is one batch.
+Every family trains: dense, moe (granite-moe, mixtral: the loss is ce
+plus the load-balance aux, both printed), ssm (mamba2), hybrid (zamba2,
+its shared block's gradient summed over its applications), encdec
+(whisper) and vlm (paligemma).  Step i's batch carries an encdec model's
+audio frames ``0.1 * normal(fold_in(PRNGKey(seed), i), (b, enc_seq,
+d_model))`` or a vlm model's image ``0.1 * normal(fold_in(PRNGKey(seed),
+i), (b, img_tokens, img_embed_dim))``, drawn by ``repro_torch.random``'s
+threefry as the JAX trainer draws them.
+
+With ``ckpt_dir`` the trainer keeps the last two checkpoints
+(``checkpoint/manager.py``) of ``{"params", "opt"}``, saved every
+``ckpt_every`` steps and at the last one; a run that finds one restarts
+from the latest, the pipeline at that step.  NaN containment follows the
+paper's Fig-1 guard as the JAX trainer applies it: a non-finite loss
+rolls back to the latest checkpoint with the LR (the "conductance")
+halved, down to ``lr_floor_scale``; without a checkpoint it raises
+``FloatingPointError``.  ``model_parallel > 1`` waits for ROADMAP Queue 1
+item 7.  The JAX trainer does not use ``cfg.microbatches`` either: one
+step is one batch.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import time
 from typing import Optional
@@ -37,6 +43,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models import transformer as T
@@ -71,13 +78,15 @@ def extra_inputs(cfg, batch_size: int, step: int, seed: int,
                  device) -> dict:
     """Step ``step``'s extra inputs for a batch of ``batch_size``: an
     encdec model's audio frames ``0.1 * normal(fold_in(PRNGKey(seed),
-    step), (b, enc_seq, d_model))`` float32 (the JAX trainer's draw, within
-    the normal's 4 ulp), else none."""
-    if cfg.family != "encdec":
+    step), (b, enc_seq, d_model))`` float32, a vlm model's image ``0.1 *
+    normal(fold_in(PRNGKey(seed), step), (b, img_tokens, img_embed_dim))``
+    (the JAX trainer's draws, within the normal's 4 ulp), else none."""
+    spec = T.extra_input(cfg)
+    if spec is None:
         return {}
+    name, row = spec
     key = RND.fold_in(RND.PRNGKey(seed, device=device), step)
-    return {"audio": RND.normal(
-        key, (batch_size, cfg.enc_seq, cfg.d_model), scale=0.1)}
+    return {name: RND.normal(key, (batch_size,) + row, scale=0.1)}
 
 
 def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
@@ -85,12 +94,10 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
         ckpt_every: int = 25, lr: float = 3e-3, seed: int = 0,
         model_parallel: int = 1, log_every: int = 10,
         lr_floor_scale: float = 0.125, device: DeviceLike = "cuda"):
-    """Train ``steps`` steps; returns the losses.  Weights are drawn from
-    a ``torch.Generator`` seeded with ``seed`` on the device."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            "checkpoints (checkpoint/manager.py) are not ported yet "
-            "(ROADMAP Queue 1 item 8.6)")
+    """Train to step ``steps`` (from the latest checkpoint in ``ckpt_dir``
+    when there is one); returns the losses of the steps this call ran,
+    a rolled-back step's included.  Weights are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the device."""
     if model_parallel != 1:
         raise NotImplementedError(
             "model parallelism is not ported yet (ROADMAP Queue 1 item 7)")
@@ -105,17 +112,35 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                       seed=seed)
     pipe = TokenPipeline(dcfg, device=dev)
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=2) if ckpt_dir else None
 
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     opt_state = adamw.init(ocfg, params)
     step_fn = make_train_step(cfg, ocfg)
+
+    def restored(step):
+        # into the live tensors: the card never holds two training states
+        snap = mgr.restore(step, {"params": params, "opt": opt_state},
+                           in_place=True)
+        cursor = {"step": step, "shard_index": 0, "num_shards": 1,
+                  "seed": seed}
+        return (snap["params"], snap["opt"],
+                TokenPipeline.restore(dcfg, cursor, device=dev))
+
+    start = 0
+    if mgr and mgr.latest_step() is not None:
+        start = mgr.latest_step()
+        params, opt_state, pipe = restored(start)
+        print(f"[train] restored step {start}")
 
     host = "host0"
     monitor = HeartbeatMonitor([host])
     straggler = StragglerPolicy()
 
     losses = []
-    for i in range(steps):
+    lr_scale = 1.0
+    i = start
+    while i < steps:
         batch_data = pipe.next_batch()
         batch_data.update(extra_inputs(
             cfg, batch_data["tokens"].shape[0], i, seed, dev))
@@ -126,15 +151,32 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
         monitor.beat(host)
         straggler.observe(host, dt)
         if not math.isfinite(loss):
-            # the paper's Fig-1 guard rolls back to a checkpoint, and
-            # there is none without checkpoint/ (item 8.6)
-            raise FloatingPointError(
-                f"non-finite loss at step {i} and no checkpoint")
+            # the paper's Fig-1 guard: roll back, halve the scale
+            if mgr:
+                mgr.wait()            # a write in flight becomes visible
+            if mgr is None or mgr.latest_step() is None:
+                raise FloatingPointError(
+                    f"non-finite loss at step {i} and no checkpoint")
+            lr_scale = max(lr_scale * 0.5, lr_floor_scale)
+            back = mgr.latest_step()
+            print(f"[train] NaN at step {i}; rollback to {back}, "
+                  f"lr_scale={lr_scale}")
+            ocfg = dataclasses.replace(ocfg,
+                                       lr=lambda s: sched(s) * lr_scale)
+            step_fn = make_train_step(cfg, ocfg)
+            params, opt_state, pipe = restored(back)
+            i = back
+            continue
         losses.append(loss)
-        if (i + 1) % log_every == 0 or i + 1 == steps:
+        i += 1
+        if i % log_every == 0 or i == steps:
             ce, aux = float(metrics["ce"]), float(metrics["aux"])
-            print(f"[train] step {i + 1:5d} loss {loss:.4f} (ce {ce:.4f}, "
+            print(f"[train] step {i:5d} loss {loss:.4f} (ce {ce:.4f}, "
                   f"aux {aux:.4f}) ({dt*1e3:.0f} ms/step)")
+        if mgr and (i % ckpt_every == 0 or i == steps):
+            mgr.save(i, {"params": params, "opt": opt_state})
+    if mgr:
+        mgr.wait()
     return losses
 
 
@@ -160,6 +202,9 @@ def main(argv=None):
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                  lr=args.lr, seed=args.seed,
                  model_parallel=args.model_parallel, device=args.device)
+    if not losses:
+        print(f"[train] {args.ckpt_dir} already holds step {args.steps}")
+        return
     print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
 
 

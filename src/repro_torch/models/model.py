@@ -31,13 +31,14 @@ class Model:
         return T.init_params(self.cfg, gen)
 
     # ``extra``: the inputs beside the tokens (an encdec model's
-    # ``{"audio": [B, enc_seq, d_model]}``), passed through as given
+    # ``{"audio": [B, enc_seq, d_model]}``, a vlm model's ``{"img": [B,
+    # img_tokens, img_embed_dim]}``), passed through as given
     def forward(self, params, tokens, extra=None):
         return T.forward(params, self.cfg, tokens, extra)
 
     def loss(self, params, batch):
         """(loss, metrics) of a batch ``{"tokens": [B, T+1]}`` (and an
-        encdec model's ``"audio"``)."""
+        encdec model's ``"audio"``, a vlm model's ``"img"``)."""
         return T.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, tokens, extra=None, max_seq=None):

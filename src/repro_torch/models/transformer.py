@@ -1,5 +1,5 @@
-"""Model assembly for the LM families (dense, moe, ssm, hybrid and
-encdec), the counterpart of ``repro/models/transformer.py``.
+"""Model assembly for the LM families (dense, moe, ssm, hybrid, encdec
+and vlm), the counterpart of ``repro/models/transformer.py``.
 
 The layer stack follows the arch's ``LayerProgram`` (``configs/base.py``):
 ``repeats`` groups of segments plus a tail, each segment's layers stacked
@@ -26,6 +26,16 @@ non-causal cross-attention over the encoder's output projected by its own
 ``wk``/``wv``; its cache is ``{"self", "cross"}``, the cross cache
 windowless at ``enc_seq`` slots, filled once by ``prefill``.
 
+The vlm family (paligemma) puts an image prefix before the tokens:
+``extra["img"]`` (patch embeddings ``[B, img_tokens, img_embed_dim]``:
+the vision tower is a stub, as in the JAX package) projected by
+``params["img_proj"]`` ``[img_embed_dim, d]``, unscaled, while the token
+embeddings are scaled by sqrt(d).  Every attention layer runs the
+prefix-LM mask (the image positions see each other both ways, the text
+causally), positions run over ``img_tokens + T``, ``loss_fn`` drops the
+image positions' logits, and ``prefill`` caches them (``index`` starts at
+``img_tokens + T``); decode runs the plain causal step.
+
 Entry points:
   init_params(cfg, generator)                      -> params
   forward(params, cfg, tokens, extra)              -> (logits, aux)
@@ -46,8 +56,7 @@ attention segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``,
 ``conv`` ``[(R,) n, B, d_conv - 1, conv_dim]`` and ``ssd`` ``[(R,) n, B, h,
 ds, dh]``, both float32.  ``decode_step`` writes the new token's keys,
 values and states into the caches in place and returns the same tensors
-with ``index + 1``.  The vlm family raises ``NotImplementedError``
-naming its ROADMAP item.
+with ``index + 1``.
 """
 
 from __future__ import annotations
@@ -74,9 +83,6 @@ __all__ = ["init_params", "forward", "loss_fn", "prefill", "decode_step",
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
-# family -> the ROADMAP (Queue 1, item 8) step that ports it
-_LATER = {"vlm": "8.5 (vlm)"}
-
 
 def resolve_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
@@ -86,16 +92,6 @@ def padded_vocab(v: int, multiple: int = 256) -> int:
     """Vocab rounded up as the JAX package pads it (for even model-axis
     sharding there); sampling masks the pad entries to -inf."""
     return (v + multiple - 1) // multiple * multiple
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run: every entry point runs
-    the dense, moe, ssm, hybrid and encdec families."""
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item {_LATER[cfg.family]}); the port runs "
-            "the dense, moe, ssm, hybrid and encdec families")
 
 
 # ---------------------------------------------------------------------------
@@ -175,13 +171,15 @@ def _enc_kv(cfg: ArchConfig, p_x, enc_out: torch.Tensor):
 
 def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                  positions: torch.Tensor, want_cache: bool = False,
-                 enc_out: Optional[torch.Tensor] = None):
+                 enc_out: Optional[torch.Tensor] = None,
+                 prefix: Optional[int] = None):
     """Full-sequence layer: returns (x, aux, cache entry): aux the MoE
     load-balance loss (None for other kinds); with ``want_cache`` the
     attention layer's (k, v) (an encdec decoder layer's ((k, v), (kx,
     vx)), the cross-attention's beside it) or the mamba block's (conv,
     ssd) state, else None.  ``enc_out``: the encoder's output, which an
-    encdec decoder layer cross-attends to."""
+    encdec decoder layer cross-attends to; ``prefix``: the prefix-LM
+    span of a vlm model's self-attention."""
     if kind == "mamba":
         h = norm_apply(cfg.norm, x, p["norm"])
         if want_cache:
@@ -192,7 +190,7 @@ def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
     h = norm_apply(cfg.norm, x, p["ln1"])
     acfg = _attn_cfg(cfg, kind)
     y, kv = A.attention_forward(p["attn"], acfg, h, positions=positions,
-                                return_kv=True)
+                                return_kv=True, prefix=prefix)
     x = x + y
     if "xattn" in p:
         enc_kv = _enc_kv(cfg, p["xattn"], enc_out)
@@ -315,7 +313,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random weights on ``gen``'s device, with the JAX initializers'
     distributions (embeddings N(0, 0.02^2), projections N(0, 1/fan_in),
     norm scales as the JAX package sets them, biases 0)."""
-    _check_family(cfg)
     dtype = resolve_dtype(cfg.dtype)
     prog = cfg.program()
     pv = padded_vocab(cfg.vocab)
@@ -337,6 +334,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
         if prog.repeats > 1 and seg.kind != "shared_attn" else seg_init(seg)
         for seg in prog.segments]
     params["tail"] = [seg_init(seg) for seg in prog.tail]
+    if cfg.family == "vlm":
+        params["img_proj"] = dense_init(gen, cfg.img_embed_dim, cfg.d_model,
+                                        dtype)
     if cfg.family == "encdec":
         params["enc"] = {
             "layers": _stack([_enc_layer_init(cfg, gen, dtype)
@@ -351,13 +351,46 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings, scaled by sqrt(d) for gemma-style configs
+    and the vlm family."""
     x = params["embed"][tokens]
-    if cfg.embed_scale:
+    if cfg.embed_scale or cfg.family == "vlm":
         # the scale is rounded to the activations' dtype first, as JAX
         # rounds a Python scalar that multiplies an array
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
+
+
+def _embed_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
+                  extra) -> torch.Tensor:
+    """The sequence the layers run over: the tokens' embeddings, after a
+    vlm model's projected image prefix (``extra["img"]`` required)."""
+    x = _embed(params, cfg, tokens)
+    if cfg.family != "vlm":
+        return x
+    if not extra or "img" not in extra:
+        raise ValueError(f"{cfg.name}: a vlm model needs extra['img'] "
+                         "[B, img_tokens, img_embed_dim]")
+    img = extra["img"].to(x.dtype) @ params["img_proj"]
+    return torch.cat([img, x], dim=1)
+
+
+def extra_input(cfg: ArchConfig) -> Optional[Tuple[str, tuple]]:
+    """The input beside the tokens that the family needs, as (name, the
+    shape of one row): an encdec model's audio frames, a vlm model's
+    image; None for the others."""
+    if cfg.family == "encdec":
+        return "audio", (cfg.enc_seq, cfg.d_model)
+    if cfg.family == "vlm":
+        return "img", (cfg.img_tokens, cfg.img_embed_dim)
+    return None
+
+
+def _prefix(cfg: ArchConfig) -> Optional[int]:
+    """The prefix-LM span of a vlm model's attention (its image), else
+    None."""
+    return cfg.img_tokens if cfg.family == "vlm" else None
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
@@ -427,18 +460,21 @@ def _enc_out(params, cfg: ArchConfig, extra) -> Optional[torch.Tensor]:
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
     """Logits over a full sequence: (logits [B, T, V], aux float32 scalar:
     the sum of the MoE layers' load-balance losses, 0 without any).
-    ``extra``: ``{"audio": [B, enc_seq, d]}`` for an encdec model."""
-    _check_family(cfg)
-    x = _embed(params, cfg, tokens)
+    ``extra``: ``{"audio": [B, enc_seq, d]}`` for an encdec model,
+    ``{"img": [B, img_tokens, img_embed_dim]}`` for a vlm model, whose
+    logits then cover ``img_tokens + T`` positions."""
+    x = _embed_inputs(params, cfg, tokens, extra)
     enc_out = _enc_out(params, cfg, extra)
     positions = torch.arange(x.shape[1], device=x.device)
+    prefix = _prefix(cfg)
     layers = _per_layer(params, cfg)
     shared = {i for i, seg in enumerate(cfg.program().segments)
               if seg.kind == "shared_attn"}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, where, i, pidx, _ in _layers(cfg):
         def body(h, p, e, kind=kind):
-            h, aux, _ = _layer_apply(cfg, kind, p, h, positions, enc_out=e)
+            h, aux, _ = _layer_apply(cfg, kind, p, h, positions, enc_out=e,
+                                     prefix=prefix)
             return h, aux
         # the shared block is not rematerialised (as in the JAX package)
         run = body if where == "segments" and i in shared \
@@ -450,13 +486,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """batch: {'tokens': [B, T+1] integer, and 'audio' for an encdec
-    model}: next-token cross entropy over the padded vocab with its pad
-    entries masked, plus the MoE aux loss -> (loss, {'ce', 'aux'})."""
+    """batch: {'tokens': [B, T+1] integer, 'audio' for an encdec model,
+    'img' for a vlm model}: next-token cross entropy over the padded vocab
+    with its pad entries masked (a vlm model's image positions give no
+    loss), plus the MoE aux loss -> (loss, {'ce', 'aux'})."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    extra = {"audio": batch["audio"]} if "audio" in batch else None
+    extra = {k: batch[k] for k in ("audio", "img") if k in batch}
     logits, aux = forward(params, cfg, inp, extra)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.img_tokens:]
     ce = cross_entropy(logits, labels, true_vocab=cfg.vocab)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -489,7 +528,6 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
     """Empty caches in the layer program's structure (``index`` 0): a
     segment's caches ``[n, ...]`` (``[R, n, ...]`` grouped), a shared
     block's one a group (``[R, ...]``)."""
-    _check_family(cfg)
     prog = cfg.program()
 
     def seg_cache(seg, reps: tuple):
@@ -527,24 +565,24 @@ def _write_prefill_caches(cfg: ArchConfig, caches, states: List[Any]):
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
             cache_dtype=torch.bfloat16, max_seq: Optional[int] = None):
-    """Run the prompts [B, T] (and an encdec model's ``extra["audio"]``):
-    (last-token logits [B, V], caches).  The attention caches are bfloat16
-    by default whatever the weights' dtype, the mamba caches float32, as in
-    the JAX package."""
-    _check_family(cfg)
-    b, t = tokens.shape
-    max_seq = max(max_seq or t, t)
-    x = _embed(params, cfg, tokens)
+    """Run the prompts [B, T] (and an encdec model's ``extra["audio"]``, a
+    vlm model's ``extra["img"]`` before them): (last-token logits [B, V],
+    caches).  The attention caches are bfloat16 by default whatever the
+    weights' dtype, the mamba caches float32, as in the JAX package."""
+    x = _embed_inputs(params, cfg, tokens, extra)
+    b, total_t = x.shape[:2]          # a vlm model's image positions too
+    max_seq = max(max_seq or total_t, total_t)
     enc_out = _enc_out(params, cfg, extra)
-    positions = torch.arange(t, device=x.device)
+    positions = torch.arange(total_t, device=x.device)
     states = []
     for kind, where, i, pidx, _ in _layers(cfg):
         x, _, st = _layer_apply(cfg, kind, _take(params[where][i], pidx), x,
-                                positions, want_cache=True, enc_out=enc_out)
+                                positions, want_cache=True, enc_out=enc_out,
+                                prefix=_prefix(cfg))
         states.append(st)
     caches = init_caches(cfg, b, max_seq, cache_dtype, x.device)
     _write_prefill_caches(cfg, caches, states)
-    caches["index"] = t
+    caches["index"] = total_t
     logits = _logits(params, cfg, x[:, -1:, :], mask_pad=True)
     return logits[:, 0], caches
 
@@ -555,7 +593,6 @@ def decode_step(params, cfg: ArchConfig, caches, token: torch.Tensor,
     (default ``caches["index"]``); the caches are written in place.  An
     MoE layer routes the wave's B tokens as one group (its aux is
     dropped)."""
-    _check_family(cfg)
     index = caches["index"] if index is None else int(index)
     x = _embed(params, cfg, token)[:, None, :]
     for kind, where, i, pidx, cidx in _layers(cfg):

@@ -2,8 +2,8 @@
 
 At 1000+ nodes, node loss is routine; the control plane here provides the
 three pieces a training job needs (the data plane — checkpoint/restart,
-deterministic data resharding — lives in checkpoint/, ROADMAP Queue 1
-item 8.6, and repro_torch.data):
+deterministic data resharding — lives in repro_torch.checkpoint and
+repro_torch.data):
 
   * HeartbeatMonitor   — per-host liveness with configurable timeout.
   * FailureDetector    — turns missed heartbeats / NaN watchdogs into

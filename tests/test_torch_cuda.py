@@ -500,6 +500,12 @@ FLASH_CASES = [
     # encoder's self-attention over 1500 frames (no tile divides 1500)
     (2, 6, 6, 37, 1500, 64, False, None, None, None, 0),
     (1, 6, 6, 1500, 1500, 64, False, None, None, None, 0),
+    # paligemma: D = 256, MQA 8:1, a prefix-LM span of 256 image positions
+    # (training at 256 + 1024, prefill at 1024), and a prefix of 200 that
+    # ends inside a tile
+    (2, 8, 1, 1280, 1280, 256, True, None, None, 256, 0),
+    (8, 8, 1, 1024, 1024, 256, True, None, None, 256, 0),
+    (1, 8, 1, 456, 456, 256, True, None, None, 200, 0),
 ]
 
 

@@ -70,7 +70,6 @@ BY_DESIGN = {
 # module -> {name: ROADMAP Queue 1 item}
 WAITING = {
     "core.scaling": {"*": "8.7"},
-    "checkpoint.manager": {"*": "8.6"},
     "launch.dryrun": {"*": "8.7"},
     "optim.grad_compression": {"*": "7"},
     "launch.mesh": {name: "7" for name in (

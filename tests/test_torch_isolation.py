@@ -49,6 +49,12 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_scan_covers_the_checkpoint_package():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "checkpoint" / "__init__.py",
+            port / "checkpoint" / "manager.py"} <= set(PORT_FILES)
+
+
 def test_importing_the_port_leaves_jax_unloaded():
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"

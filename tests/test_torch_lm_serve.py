@@ -251,23 +251,22 @@ def test_bf16_caches_round_as_jax(arch, models):
 
 
 def test_other_families_name_their_roadmap_item():
-    """vlm waits for item 8.5; the moe, ssm, hybrid and encdec families run
-    every entry point (encdec over its audio frames)."""
-    for arch, item in (("paligemma-3b", "8.5"),):
-        cfg = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            TT.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            TT.init_caches(cfg, 1, 8)
+    """Every family runs every entry point, and none names a ROADMAP item
+    any more: moe, ssm, hybrid, encdec (over its audio frames) and vlm
+    (after its image)."""
     toks = torch.zeros(1, 4, dtype=torch.long)
     for arch in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-7b",
-                 "whisper-tiny"):
+                 "whisper-tiny", "paligemma-3b"):
         cfg = reduced(get_config(arch))
         extra = ({"audio": torch.zeros(1, cfg.enc_seq, cfg.d_model)}
-                 if cfg.family == "encdec" else {})
+                 if cfg.family == "encdec" else
+                 {"img": torch.zeros(1, cfg.img_tokens, cfg.img_embed_dim)}
+                 if cfg.family == "vlm" else {})
         params = TT.init_params(cfg, torch.Generator().manual_seed(0))
-        logits, caches = TT.prefill(params, cfg, toks, extra, max_seq=8)
+        TT.init_caches(cfg, 1, 8)
+        logits, caches = TT.prefill(params, cfg, toks, extra, max_seq=16)
         assert logits.shape == (1, TT.padded_vocab(cfg.vocab))
+        assert caches["index"] == 4 + cfg.img_tokens
         logits, caches = TT.decode_step(params, cfg, caches, toks[:, 0])
         assert logits.shape == (1, TT.padded_vocab(cfg.vocab))
         loss, metrics = TT.loss_fn(params, cfg, {"tokens": toks, **extra})

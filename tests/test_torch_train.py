@@ -300,14 +300,24 @@ def test_non_finite_loss_raises_without_a_checkpoint():
             TTR.run("qwen2-0.5b", steps=2, batch=1, seq=8, device="cpu")
 
 
-def test_trainer_defaults_to_cuda_and_names_what_waits(monkeypatch):
+def test_trainer_defaults_to_cuda_and_names_what_waits(monkeypatch,
+                                                       tmp_path, capsys):
+    """Checkpoints no longer wait (``ckpt_dir`` saves the last step, and a
+    second call on that directory says so and trains nothing); model
+    parallelism still names item 7."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TTR.main(["--arch", "qwen2-0.5b", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         TTR.run("qwen2-0.5b", steps=1)
-    with pytest.raises(NotImplementedError, match="8.6"):
-        TTR.run("qwen2-0.5b", steps=1, device="cpu", ckpt_dir="ckpt")
+    TTR.main(["--arch", "qwen2-0.5b", "--steps", "1", "--batch", "1",
+              "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert (tmp_path / "step_000000001" / "manifest.json").exists()
+    capsys.readouterr()
+    TTR.main(["--arch", "qwen2-0.5b", "--steps", "1", "--batch", "1",
+              "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "restored step 1" in out and "already holds step 1" in out
     with pytest.raises(NotImplementedError, match="item 7"):
         TTR.run("qwen2-0.5b", steps=1, device="cpu", model_parallel=2)
 
