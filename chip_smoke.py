@@ -342,10 +342,32 @@ failure ends the run with a non-zero exit):
      restores into its live tensors); the checkpoint's bytes and its host
      copy, write and restore seconds.
 
+  19. LM model parallelism on a ("data", "model") mesh of one NCCL rank
+     (``init_distributed``; ``make_local_mesh(1)`` inside ``Server`` and
+     ``run``; ended by ``shutdown_distributed``): (a) qwen2-0.5b served
+     at full width, 8 greedy requests of 1024-2048 prompt tokens x 16 new
+     tokens, params placed by ``param_specs``, caches in
+     ``cache_shardings``' layout: its tokens equal the unmeshed server's
+     wherever that run's top-2 margin exceeds 1e-3, 24
+     ``flash_attention`` launches a wave on the mesh, prefill s and
+     decode ms/step beside the unmeshed run's and phase 7's; a float32
+     prefill (2 x 512) on the mesh within 1e-4 of the unmeshed one; (b)
+     granite-moe trained at full width through ``run(model_parallel=1)``
+     (4 x 2048, 3 steps, experts on "model"): losses within rtol 1e-5 of
+     the unmeshed trainer's, 48 ``flash_attention`` and 24
+     ``flash_attention_bwd`` a step, ms/step and peak memory beside the
+     unmeshed run's and phase 14e's; (c) qwen2-0.5b at 2 layers, a placed training state
+     after one step saved on the mesh (rank 0 writes the joined leaves)
+     and restored in place by the unmeshed trainer, bit for bit; (d)
+     ``optim.grad_compression`` round-tripping qwen2-0.5b's gradient tree
+     (2 x 512 tokens): int8 codes, each entry within half a step of its
+     block's scale, deq + new error equal to the gradient, bytes before
+     and after, compress and decompress ms.
+
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, ``engine_launches`` on phase 13's and ``family_launches`` on phases
-14's, 15's and 17's); the last line is
+14's, 15's, 17's and 19's); the last line is
 ``{"ok": true, "device": {...}}``.  The full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -544,6 +566,15 @@ PALIGEMMA = dict(arch="paligemma-3b", max_batch=8, max_seq=2048, requests=8,
 # rollback's non-finite loss injected at step 5
 CKPT = dict(arch="qwen2-0.5b", n_layers=2, steps=6, every=3, batch=2,
             seq=512, lr=3e-3, nan_at=5)
+# phase 19: the LM stack on a one-rank NCCL mesh
+LM_MESH = dict(serve_arch="qwen2-0.5b", max_batch=8, max_seq=4096,
+               requests=8, prompt_len=(1024, 2048), max_new=16, margin=1e-3,
+               f32_prompts=2, f32_len=512, f32_tol=1e-4,
+               train_arch="granite-moe-1b-a400m", batch=4, seq=2048, steps=3,
+               lr=3e-3, loss_rtol=1e-5,
+               per_step={"flash_attention": 48, "flash_attention_bwd": 24},
+               ckpt_arch="qwen2-0.5b", ckpt_layers=2, ckpt_batch=2,
+               ckpt_seq=512, gc_batch=2, gc_seq=512)
 # device kernels of PyTorch's own attention (SDPA's flash, memory-efficient
 # and cuDNN routes), which no path of the port may run
 SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "cudnn")
@@ -819,6 +850,8 @@ def main() -> int:
     launches_families.update(paligemma(torch, report))
     torch.cuda.empty_cache()
     checkpoints(torch, report)
+    torch.cuda.empty_cache()
+    launches_families.update(lm_mesh(torch, report))
     # each kernel's launches come from the run of its own path
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
@@ -847,8 +880,8 @@ def main() -> int:
                                 else 0)
         check(on is None or e["engine_launches"] > 0,
               f"{e['name']} never launched on the engine's path")
-        # and its launches on each of phases 14's, 15's and 17's paths that
-        # runs it
+        # and its launches on each of phases 14's, 15's, 17's and 19's
+        # paths that runs it
         e["family_launches"] = {
             label: n[e["name"]] for label, n in launches_families.items()
             if n.get(e["name"])}
@@ -5737,6 +5770,345 @@ def checkpoints(torch, report) -> None:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: LM model parallelism on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+def _margins(srv, rows: list):
+    """Wrap ``srv``'s sampler to record each request's sampled rows:
+    (token, top-2 margin) in order."""
+    import numpy as np
+    sample = srv._sample
+
+    def recorded(logits, req):
+        top = np.sort(logits[:srv.cfg.vocab].astype(np.float64))[-2:]
+        tok = sample(logits, req)
+        rows.setdefault(req.rid, []).append((tok, float(top[1] - top[0])))
+        return tok
+
+    srv._sample = recorded
+
+
+def _mesh_requests(np, cfg, spec):
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(19)
+    lo, hi = spec["prompt_len"]
+    lens = rng.integers(lo, hi + 1, size=spec["requests"])
+    return [Request(rid=i, prompt=rng.integers(3, cfg.vocab,
+                                               size=int(n)).tolist(),
+                    max_new=spec["max_new"]) for i, n in enumerate(lens)]
+
+
+def _wave_numbers(waves) -> dict:
+    w = waves[0]
+    return {"prefill_s": w["prefill_s"],
+            "decode_ms_per_step": w["decode_s"] / w["decode_steps"] * 1e3}
+
+
+def _timed_steps(TR, times: list):
+    """``make_train_step`` whose steps are timed on the card's clock
+    (synchronized), appended to ``times`` in ms."""
+    import torch
+    real = TR.make_train_step
+
+    def make(cfg, ocfg, mesh=None):
+        step = real(cfg, ocfg, mesh)
+
+        def timed(params, opt, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            float(out[2]["loss"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    return make
+
+
+def lm_mesh(torch, report) -> dict:
+    """Phase 19: the LM stack on a ("data", "model") mesh of one NCCL rank
+    (``init_distributed``, then ``make_local_mesh(1)`` inside ``Server``
+    and ``run``): (a) qwen2-0.5b served at full width, tokens equal to the
+    unmeshed server's where its top-2 margin exceeds 1e-3, a float32
+    prefill within 1e-4; (b) granite-moe trained at full width for 3
+    steps, losses within rtol 1e-5 of the unmeshed trainer's; (c) a save
+    of a placed training state restored by the unmeshed trainer, bit for
+    bit; (d) grad_compression round-tripping qwen2-0.5b's gradient tree.
+    Returns the launches of (a)'s and (b)'s mesh runs."""
+    import io
+    import shutil
+    import tempfile
+    from unittest import mock
+    import numpy as np
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten, tree_map
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import serve as S
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim import grad_compression as GC
+    c = LM_MESH
+    out = report["lm_mesh"] = {}
+    launches = {}
+    with phase("19. LM model parallelism on a one-rank NCCL mesh"):
+        check(not dist.is_initialized(), "a process group is already up")
+        # the unmeshed runs first: no group yet
+        plain = S.Server(c["serve_arch"], use_reduced=False,
+                         max_batch=c["max_batch"], max_seq=c["max_seq"],
+                         seed=0)
+        cfg = plain.cfg
+        # warm-up (cuBLAS handles, allocator), as phase 7's
+        warm = torch.randint(3, cfg.vocab, (1, 64), device="cuda")
+        logits, caches = T.prefill(plain.params, cfg, warm, max_seq=80)
+        T.decode_step(plain.params, cfg, caches, logits.argmax(-1))
+        torch.cuda.synchronize()
+        del caches, logits
+        plain_rows: dict = {}
+        _margins(plain, plain_rows)
+        for r in _mesh_requests(np, cfg, c):
+            plain.submit(r)
+        plain.run()
+        torch.cuda.synchronize()
+        arch_t = c["train_arch"]
+        log = io.StringIO()
+        plain_times: list = []
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(TR, "make_train_step",
+                               _timed_steps(TR, plain_times)), \
+                contextlib.redirect_stdout(log):
+            plain_losses = TR.run(arch_t, steps=c["steps"], batch=c["batch"],
+                                  seq=c["seq"], use_reduced=False,
+                                  lr=c["lr"], log_every=100, device="cuda")
+        plain_peak = torch.cuda.max_memory_allocated()
+        plain_ms = sum(plain_times[1:]) / len(plain_times[1:])
+        torch.cuda.empty_cache()
+
+        MESH.init_distributed(backend="nccl")
+        try:
+            # (a) served on the mesh
+            srv = S.Server(c["serve_arch"], use_reduced=False,
+                           max_batch=c["max_batch"], max_seq=c["max_seq"],
+                           seed=0, model_parallel=1)
+            check(srv.mesh is not None and dict(srv.mesh.shape) ==
+                  {"data": 1, "model": 1}
+                  and dist.get_backend() == "nccl",
+                  f"expected a 1 x 1 NCCL mesh: {srv.mesh}")
+            print(f"{srv.mesh} ({report['nvidia_smi']})")
+            rows: dict = {}
+            _margins(srv, rows)
+            reqs = _mesh_requests(np, cfg, c)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                srv.submit(r)
+            srv.run()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            launches["19a"] = read_launches()
+            n_waves = len(srv.waves)
+            check(launches["19a"]["flash_attention"]
+                  == cfg.n_layers * n_waves,
+                  f"flash_attention launched "
+                  f"{launches['19a']['flash_attention']} times on the mesh "
+                  f"for {cfg.n_layers} layers x {n_waves} waves")
+            compared = differ = 0
+            for rid, want in plain_rows.items():
+                for (tok, margin), (got, _) in zip(want, rows[rid]):
+                    if margin <= c["margin"]:
+                        break       # past a near tie the runs may part
+                    compared += 1
+                    differ += tok != got
+            check(differ == 0 and compared > 0,
+                  f"{differ} of {compared} greedy tokens differ from the "
+                  "unmeshed server's")
+            mine, phase7 = _wave_numbers(srv.waves), _wave_numbers(
+                plain.waves)
+            print(f"19a: {len(reqs)} requests served on the mesh in "
+                  f"{serve_s:.3f} s; {compared} tokens compared with the "
+                  f"unmeshed server, all equal; prefill "
+                  f"{mine['prefill_s']:.4f} s, decode "
+                  f"{mine['decode_ms_per_step']:.2f} ms/step (unmeshed here: "
+                  f"{phase7['prefill_s']:.4f} s, "
+                  f"{phase7['decode_ms_per_step']:.2f} ms/step; phase 7: "
+                  + (f"{report['serve']['waves'][0]['prefill_s']:.4f} s, "
+                     f"{report['serve']['waves'][0]['decode_ms_per_step']:.2f}"
+                     " ms/step" if "serve" in report else "not run")
+                  + f"); launches {launches['19a']}")
+            # float32 prefill on the mesh against the unmeshed one
+            p32 = tree_map(lambda t: t.float(), plain.params)
+            toks = torch.tensor(np.random.default_rng(7).integers(
+                3, cfg.vocab, (c["f32_prompts"], c["f32_len"])),
+                device="cuda")
+            lp, _ = T.prefill(p32, cfg, toks)
+            placed = SH.place_params(p32, srv.mesh)
+            with SH.activate(srv.mesh, batch_sharded=True), \
+                    torch.no_grad():
+                lm, _ = T.prefill(placed, cfg, toks)
+            err = float((lm[:, :cfg.vocab] - lp[:, :cfg.vocab]).abs().max())
+            check(err <= c["f32_tol"], f"float32 prefill logits on the mesh "
+                  f"differ by {err}")
+            print(f"19a: float32 prefill {tuple(toks.shape)} on the mesh vs "
+                  f"unmeshed: max abs err {err}")
+            out["serve"] = {"requests": len(reqs), "seconds": serve_s,
+                            "compared": compared, **mine,
+                            "unmeshed": phase7, "f32_max_abs_err": err,
+                            "launches": launches["19a"]}
+            del srv, plain, p32, placed, lm, lp
+            torch.cuda.empty_cache()
+
+            # (b) granite-moe trained on the mesh
+            times: list = []
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with mock.patch.object(TR, "make_train_step",
+                                   _timed_steps(TR, times)), \
+                    contextlib.redirect_stdout(log):
+                losses = TR.run(arch_t, steps=c["steps"], batch=c["batch"],
+                                seq=c["seq"], use_reduced=False, lr=c["lr"],
+                                log_every=100, model_parallel=1,
+                                device="cuda")
+            torch.cuda.synchronize()
+            launches["19b"] = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            gap = max(abs(x - y) / abs(y) for x, y in zip(losses,
+                                                           plain_losses))
+            check(len(losses) == c["steps"] and gap <= c["loss_rtol"],
+                  f"losses on the mesh {losses} vs unmeshed {plain_losses}")
+            for k, n in c["per_step"].items():
+                check(launches["19b"][k] == n * c["steps"],
+                      f"{k} launched {launches['19b'][k]} times in "
+                      f"{c['steps']} steps on the mesh, expected "
+                      f"{n} a step")
+            ms = sum(times[1:]) / len(times[1:])
+            e14 = report.get(f"train_{arch_t}", {})
+            print(f"19b: {arch_t} on the mesh, losses {losses} (unmeshed "
+                  f"{plain_losses}, largest relative gap {gap}); "
+                  f"{ms:.1f} ms/step after the first ({times}), peak "
+                  f"{peak} B (unmeshed here: {plain_ms:.1f} ms/step "
+                  f"({plain_times}), peak {plain_peak} B; phase 14e: "
+                  + (f"{e14['ms_per_step']:.1f} ms/step, "
+                     f"{e14['peak_mem_bytes']} B" if e14 else "not run")
+                  + f"); launches {launches['19b']}")
+            out["train"] = {"losses": losses, "unmeshed": plain_losses,
+                            "rel_gap": gap, "step_ms": times,
+                            "ms_per_step": ms, "peak_mem_bytes": peak,
+                            "unmeshed_step_ms": plain_times,
+                            "unmeshed_ms_per_step": plain_ms,
+                            "unmeshed_peak_mem_bytes": plain_peak,
+                            "launches": launches["19b"]}
+            torch.cuda.empty_cache()
+
+            # (c) a placed state saved on the mesh, restored unmeshed
+            mesh = MESH.make_local_mesh(1)
+            name, ccfg = _family_config(c["ckpt_arch"], c["ckpt_layers"])
+            ocfg = adamw.AdamWConfig(lr=c["lr"], grad_clip=1.0)
+            params = SH.place_params(T.init_params(
+                ccfg, torch.Generator(device="cuda").manual_seed(0)), mesh)
+            opt = adamw.init(ocfg, params)
+            pipe = TokenPipeline(DataConfig(
+                vocab=ccfg.vocab, seq_len=c["ckpt_seq"],
+                global_batch=c["ckpt_batch"], seed=0), device="cuda")
+            params, opt, _ = TR.make_train_step(ccfg, ocfg, mesh)(
+                params, opt, pipe.next_batch())
+            state = {"params": params, "opt": opt}
+            want = {k: CM._to_host(v.full_tensor() if hasattr(
+                v, "full_tensor") else v) for k, v in CM._flatten(state)}
+            tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_"))
+            try:
+                t0 = time.perf_counter()
+                mgr = CM.CheckpointManager(tmp)
+                mgr.save(1, state)
+                mgr.wait()
+                save_s = time.perf_counter() - t0
+                del state, params, opt
+                torch.cuda.empty_cache()
+                plain_p = T.init_params(
+                    ccfg, torch.Generator(device="cuda").manual_seed(1))
+                like = {"params": plain_p, "opt": adamw.init(ocfg, plain_p)}
+                back = CM.CheckpointManager(tmp).restore(1, like,
+                                                         in_place=True)
+                got = {k: CM._to_host(v) for k, v in CM._flatten(back)}
+                nbytes = sum(f.stat().st_size for f in
+                             (tmp / "step_000000001").iterdir())
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            bad = [k for k in want if not np.array_equal(
+                np.atleast_1d(got[k]).view(np.uint8),
+                np.atleast_1d(want[k]).view(np.uint8))]
+            check(set(got) == set(want) and not bad,
+                  f"leaves restored unmeshed differ from the mesh's: {bad}")
+            print(f"19c: {name}'s placed state after one step ({nbytes} B, "
+                  f"{len(want)} leaves) saved on the mesh in {save_s:.2f} s "
+                  "and restored by the unmeshed trainer, bit for bit")
+            out["checkpoint"] = {"bytes": nbytes, "leaves": len(want),
+                                 "save_s": save_s}
+            del back, like, plain_p, got, want
+            torch.cuda.empty_cache()
+
+            # (d) grad_compression on qwen2-0.5b's gradient tree
+            gparams = T.init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(0))
+            leaves, spec = tree_flatten(gparams)
+            for p in leaves:
+                p.requires_grad_(True)
+            batch = TokenPipeline(DataConfig(
+                vocab=cfg.vocab, seq_len=c["gc_seq"],
+                global_batch=c["gc_batch"], seed=0),
+                device="cuda").next_batch()
+            loss, _ = T.loss_fn(gparams, cfg, batch)
+            grads = list(torch.autograd.grad(loss, leaves))
+            del gparams, leaves, loss
+            err0 = GC.init_error(grads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, s, new_err = GC.ef_compress(grads, err0)
+            torch.cuda.synchronize()
+            comp_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            deq = GC.ef_decompress_apply(q, s, grads)
+            torch.cuda.synchronize()
+            decomp_ms = (time.perf_counter() - t0) * 1e3
+            before = sum(g.numel() * 4 for g in grads)
+            after = sum(a.numel() * a.element_size() for a in q) + \
+                sum(b.numel() * b.element_size() for b in s)
+            worst = max(float((d - g.float()).abs().max())
+                        for d, g in zip(deq, grads))
+            # each entry within half a step of its block's scale; deq +
+            # new error == g + error
+            half = max(float(((d - g.float()).abs().reshape(-1)
+                              .narrow(0, 0, g.numel()).max()))
+                       / float(sc.max()) for d, g, sc in zip(deq, grads, s))
+            ef = max(float(((d + e) - g.float()).abs().max())
+                     for d, e, g in zip(deq, new_err, grads))
+            check(all(a.dtype == torch.int8 for a in q) and half <= 0.5001
+                  and ef <= 1e-5 * max(float(g.float().abs().max())
+                                       for g in grads),
+                  f"grad compression: int8 {[a.dtype for a in q][:2]}, "
+                  f"half-step ratio {half}, error feedback gap {ef}")
+            print(f"19d: qwen2-0.5b's gradient tree ({len(grads)} leaves): "
+                  f"{before} B as float32 -> {after} B int8 + scales "
+                  f"({before / after:.2f}x); largest error {worst} "
+                  f"(<= {half:.4f} of a block's scale), deq + new error vs "
+                  f"g: {ef}; compress {comp_ms:.2f} ms, decompress "
+                  f"{decomp_ms:.2f} ms")
+            out["grad_compression"] = {
+                "leaves": len(grads), "bytes_f32": before,
+                "bytes_int8": after, "max_abs_err": worst,
+                "compress_ms": comp_ms, "decompress_ms": decomp_ms}
+            del grads, err0, q, s, new_err, deq
+        finally:
+            ended = MESH.shutdown_distributed()
+        check(ended and not dist.is_initialized(),
+              "the process group did not end")
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------

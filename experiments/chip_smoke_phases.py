@@ -10,7 +10,9 @@ hybrid families: 14a-14d served, 14e and 14f trained; each also alone),
 also alone), 16 (the paper's harness, run_torch.py, and the determinism
 smoke at one NCCL rank), 17 (paligemma-3b: 17a served, 17b trained, 17c
 the float32 step; each also alone), 18 (the trainer's checkpoints:
-restart and rollback), 2e (the flash backward), 3 (the main path), 5
+restart and rollback), 19 (LM model parallelism on a one-rank NCCL
+mesh: qwen2-0.5b served, granite-moe trained, a placed checkpoint, the
+gradient compression), 2e (the flash backward), 3 (the main path), 5
 (the delay path),
 9b (main observed; reads phase 3's profile, so list 3 first), 6a (the
 NaN-guard table), 9c (the mushroom body observed; reads 6a's KC rate, so
@@ -88,6 +90,8 @@ def main(labels) -> int:
             CS.paligemma_check(torch, report)
         elif label == "18":
             CS.checkpoints(torch, report)
+        elif label == "19":
+            CS.lm_mesh(torch, report)
         elif label == "2e":
             CS.compare_flash_bwd(torch, report)
         elif label == "2b":

@@ -21,6 +21,16 @@ manifest is ignored by ``steps``/``latest_step`` and, once older than
 (the ``torch.distributed`` rank when a group is up, else 0) writes its
 own shard.
 
+A tree of placed leaves (DTensors, ``launch/sharding.py``) is saved whole:
+every rank joins each leaf's blocks (``full_tensor``, a collective), and
+rank 0 alone writes them, in the same keys and layout, so a checkpoint
+written on a mesh restores on one device and in the JAX package.
+``restore(shardings=)`` places each leaf by a tree of
+``sharding.NamedSharding`` (this rank's block of it, as a DTensor), and a
+placed leaf of ``like`` by its own placements (with ``in_place``, its
+block is overwritten).  ``wait()`` then also waits, on every rank, for
+rank 0's writer.
+
 ``save`` copies every leaf to host memory before it returns: the port's
 AdamW updates params, moments and master copies in place, so a writer
 holding the device tensors would write a later step's values under this
@@ -36,6 +46,7 @@ import json
 import math
 import shutil
 import struct
+import sys
 import threading
 import time
 import warnings
@@ -146,6 +157,33 @@ def _read_shard(path: Path) -> Dict[str, np.ndarray]:
     return out
 
 
+def _placed(x) -> bool:
+    # no DTensor exists before its module is imported (importing it costs
+    # seconds, which an unmeshed save need not pay)
+    dt = sys.modules.get("torch.distributed.tensor")
+    return dt is not None and isinstance(x, dt.DTensor)
+
+
+def _place(arr: np.ndarray, ref, sharding, in_place: bool):
+    """``arr`` (the whole leaf) placed as ``sharding`` says, or as the
+    placed ``ref`` is: this rank's block, on ``ref``'s device and dtype
+    (with ``in_place``, copied into ``ref``'s block)."""
+    from torch.distributed.tensor import distribute_tensor
+    local_ref = ref.to_local() if _placed(ref) else ref
+    full = _from_host(arr, local_ref.new_empty(0) if in_place else
+                      local_ref, False)
+    if sharding is not None:
+        t = sharding.distribute(full)
+    else:   # every rank holds ``full``: its block, no communication
+        t = distribute_tensor(full, ref.device_mesh, ref.placements,
+                              src_data_rank=None)
+    if in_place:
+        with torch.no_grad():
+            local_ref.copy_(t.to_local())
+        return ref
+    return t
+
+
 def _from_host(arr: np.ndarray, ref, in_place: bool = False):
     """``arr`` (which may be a read-only view of a file) as a leaf like
     ``ref``, copied: a tensor on its device and dtype (with ``in_place``,
@@ -171,6 +209,11 @@ def _from_host(arr: np.ndarray, ref, in_place: bool = False):
     return arr.astype(ref_dtype)
 
 
+def _flat_device(flat) -> torch.device:
+    """The device of the first placed leaf's blocks."""
+    return next(v.to_local().device for _, v in flat if _placed(v))
+
+
 def _shape(ref) -> tuple:
     return tuple(ref.shape) if hasattr(ref, "shape") else ()
 
@@ -187,13 +230,25 @@ class CheckpointManager:
         self.async_writes = async_writes
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        # the device a placed save's ranks meet on (None: no placed save)
+        self._one_writer: Optional[torch.device] = None
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Dict[str, Any],
              blocking: bool = False) -> None:
         """Snapshot now (every leaf copied to host memory before this
         returns); the disk write runs on the writer thread."""
-        host_leaves = [(k, _to_host(v)) for k, v in _flatten(tree)]
+        flat = list(_flatten(tree))
+        if any(_placed(v) for _, v in flat):
+            # every rank joins the blocks; rank 0 writes the whole leaves
+            self._one_writer = _flat_device(flat)
+            host_leaves = [(k, _to_host(v.full_tensor() if _placed(v)
+                                        else v)) for k, v in flat]
+            if _group()[0] != 0:
+                self.wait()
+                return
+        else:
+            host_leaves = [(k, _to_host(v)) for k, v in flat]
         self.wait()
 
         def _write():
@@ -220,7 +275,7 @@ class CheckpointManager:
             "step": step,
             "status": "COMPLETE",
             "time": time.time(),
-            "process_count": _group()[1],
+            "process_count": 1 if self._one_writer else _group()[1],
             "keys": [k for k, _ in host_leaves],
         }
         mtmp = d / "manifest.tmp.json"
@@ -229,10 +284,19 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def wait(self) -> None:
-        """Join the writer; raise its error, if it had one."""
+        """Join the writer; raise its error, if it had one.  After a placed
+        save every rank calls this, and it returns on each once rank 0's
+        writer has finished."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._one_writer is not None:
+            ok = torch.tensor([self._error is None], dtype=torch.int32,
+                              device=self._one_writer)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            if not bool(ok.item()) and self._error is None:
+                raise RuntimeError("async checkpoint write failed on "
+                                   "rank 0")
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"async checkpoint write failed: {err!r}")
@@ -256,18 +320,23 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, step: int, like: Dict[str, Any],
-                in_place: bool = False) -> Dict[str, Any]:
+                in_place: bool = False, shardings=None) -> Dict[str, Any]:
         """Step ``step``'s leaves in the structure of ``like``; every
         leaf's key and shape checked, each put on the device and dtype of
         its ``like`` leaf.  With ``in_place``, each tensor leaf of ``like``
         is overwritten and returned (its other leaves are made anew), so
-        the device never holds two copies of the state."""
+        the device never holds two copies of the state.  ``shardings``: a
+        tree of ``NamedSharding`` in ``like``'s structure (None leaves:
+        as ``like``'s), by which each leaf is placed; a placed leaf of
+        ``like`` places its leaf as it is placed."""
         d = self.dir / f"step_{step:09d}"
         if not (d / "manifest.json").exists():
             raise FileNotFoundError(f"no COMPLETE checkpoint at {d}")
         data: Dict[str, np.ndarray] = {}
         for shard in sorted(d.glob("shard_*.npz")):
             data.update(_read_shard(shard))
+
+        where = dict(_flatten(shardings)) if shardings is not None else {}
 
         def leaf(key, ref):
             if key not in data:
@@ -276,6 +345,8 @@ class CheckpointManager:
             if tuple(arr.shape) != _shape(ref):
                 raise ValueError(
                     f"leaf {key!r} shape {arr.shape} != {_shape(ref)}")
+            if key in where or _placed(ref):
+                return _place(arr, ref, where.get(key), in_place)
             return _from_host(arr, ref, in_place)
 
         return _rebuild(like, leaf)

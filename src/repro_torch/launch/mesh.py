@@ -1,8 +1,9 @@
-"""The SNN engine's mesh: one rank a device, over ``torch.distributed``.
+"""Meshes over ``torch.distributed``: one rank a device, the counterpart of
+``repro/launch/mesh.py``.
 
-Counterpart of ``repro/launch/mesh.py``'s SNN half.  The JAX package runs
-the sharded engine as one program over a device mesh (``shard_map``); the
-port runs it SPMD in PyTorch's idiom: each rank is one process holding one
+The JAX package runs the sharded engine, and the LM stack, as one program
+over a device mesh (``shard_map``, GSPMD); the port runs them SPMD in
+PyTorch's idiom: each rank is one process holding one
 device, joined by a process group (NCCL for CUDA tensors, gloo for CPU
 ones), and every rank calls the same entry points.
 
@@ -22,24 +23,38 @@ short-circuited, so a one-rank mesh on the card runs NCCL for real.
     mesh = make_snn_mesh()                  # NCCL on cuda:{LOCAL_RANK}
 
 The backend follows the device and a mismatch raises: there is no
-fallback from NCCL to gloo, or from the card to the CPU.  ``MeshPlan``,
-``make_local_mesh``, ``make_production_mesh`` and ``batch_axes`` (the LM
-half's meshes) are not ported (ROADMAP Queue 1 item 7).
+fallback from NCCL to gloo, or from the card to the CPU.
+
+The LM half: ``make_mesh(shape, axes)`` lays the default group's ranks
+out row-major on named axes (``("data", "model")``, or ``("pod", "data",
+"model")``) as a ``NamedMesh``: a ``DeviceMesh`` (which carries the
+DTensors of placed params) and a process group for "model" and for the
+batch axes together (every axis but "model", rank-major in their order),
+which carry the model code's collectives (``models/layers.py``).
+
+    init_distributed()                      # or torchrun
+    mesh = make_local_mesh(2)               # (world // 2, 2)
+    with sharding.activate(mesh): ...
+    shutdown_distributed()
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 
-__all__ = ["SNN_AXIS", "Mesh", "init_distributed", "shutdown_distributed",
-           "make_snn_mesh", "sub_mesh", "snn_axis", "backend_for"]
+__all__ = ["SNN_AXIS", "Mesh", "NamedMesh", "init_distributed",
+           "shutdown_distributed", "make_mesh", "make_production_mesh",
+           "make_local_mesh", "make_snn_mesh", "sub_mesh", "snn_axis",
+           "batch_axes", "MeshPlan", "backend_for", "join_launcher"]
 
 #: the axis the SNN engine partitions neuron populations over
 SNN_AXIS = "neuron"
@@ -51,6 +66,10 @@ DEFAULT_TIMEOUT_S = 300.0
 # whether init_distributed started the default process group (and so
 # shutdown_distributed ends it); a group someone else started is theirs
 _started = False
+
+# make_mesh's meshes of the current default group, by (shape, axes,
+# device): a second call reuses the first's process groups
+_MESHES: dict = {}
 
 
 def backend_for(device: torch.device) -> str:
@@ -122,6 +141,7 @@ def shutdown_distributed() -> bool:
     before the program exits.  A group this module did not start is left
     up.  Returns whether it ended one; a second call does nothing."""
     global _started
+    _MESHES.clear()
     if not _started:
         return False
     _started = False
@@ -291,3 +311,171 @@ def snn_axis(mesh) -> str:
     raise ValueError(
         f"mesh axes {names} have no {SNN_AXIS!r} axis; build the mesh "
         "with make_snn_mesh or name one axis 'neuron'")
+
+
+# ---------------------------------------------------------------------------
+# the LM half: named meshes of the default group's ranks
+# ---------------------------------------------------------------------------
+
+class NamedMesh:
+    """The default group's ranks laid out row-major on named axes, with
+    this rank's device.  ``shape`` maps each axis to its size (JAX's
+    ``mesh.shape``); ``devices`` is the rank grid (``devices.size`` the
+    world); ``device_mesh`` the ``torch.distributed`` DeviceMesh of the
+    same layout.  ``group(name)`` / ``size(name)`` / ``coord(name)`` give
+    the process group, size and this rank's index along "model" or along
+    the batch axes together ("batch": its index runs rank-major over the
+    axes in their order); ``coord`` also takes any axis's name."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 device: torch.device):
+        from torch.distributed.device_mesh import init_device_mesh
+        self.axis_names = tuple(axes)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                               (int(n) for n in shape)))
+        self.devices = np.arange(math.prod(self.shape.values())).reshape(
+            tuple(self.shape.values()))
+        self.device = torch.device(device)
+        self.rank = dist.get_rank()
+        self.device_mesh = init_device_mesh(
+            self.device.type, tuple(self.shape.values()),
+            mesh_dim_names=self.axis_names)
+        self._coord = dict(zip(self.axis_names, (
+            int(c) for c in np.argwhere(self.devices == self.rank)[0])))
+        # one group along "model" and one over the batch axes together;
+        # every rank makes every group, in the same order
+        self._groups = {}
+        for name, along in (("model", ("model",)),
+                            ("batch", batch_axes(self))):
+            along = tuple(a for a in along if a in self.shape)
+            for ranks in _lines(self.devices, self.axis_names, along):
+                g = dist.new_group(ranks, backend=dist.get_backend())
+                if self.rank in ranks:
+                    mine = (g, len(ranks), ranks.index(self.rank))
+            self._groups[name] = mine
+
+    def group(self, name: str):
+        return self._groups[name][0]
+
+    def size(self, name: str) -> int:
+        return self._groups[name][1]
+
+    def coord(self, name: str) -> int:
+        if name in self._groups:
+            return self._groups[name][2]
+        return self._coord[name]
+
+    def barrier(self) -> None:
+        """A collective on every group of the mesh (the first creates each
+        group's communicator: NCCL's are made lazily)."""
+        t = torch.zeros(1, dtype=torch.int32, device=self.device)
+        dist.all_reduce(t)
+        for group, _, _ in self._groups.values():
+            dist.all_reduce(t, group=group)
+
+    def __repr__(self) -> str:
+        return (f"NamedMesh({self.shape}, rank={self.rank}, "
+                f"device={str(self.device)!r})")
+
+
+def _lines(devices: np.ndarray, names: Tuple[str, ...],
+           along: Tuple[str, ...]):
+    """The rank lists of every sub-grid spanning the axes ``along`` (the
+    others fixed), each rank-major in the order of ``along``."""
+    keep = [names.index(a) for a in along]
+    rest = [i for i in range(len(names)) if i not in keep]
+    grid = devices.transpose(rest + keep).reshape(
+        -1, math.prod(devices.shape[i] for i in keep) if keep else 1)
+    return [[int(r) for r in row] for row in grid]
+
+
+def _mesh_device(device=None) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def join_launcher(device=None) -> bool:
+    """Join the process group a launcher describes (``WORLD_SIZE`` in the
+    environment, as ``torchrun`` sets it), with the backend of
+    ``device``; returns whether it started one (then the caller ends it
+    with ``shutdown_distributed``)."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    init_distributed(backend=backend_for(_mesh_device(device)))
+    return True
+
+
+def make_mesh(shape, axes, device=None) -> NamedMesh:
+    """The default group's ranks on the named axes ``axes`` of ``shape``
+    (joined through ``init_distributed`` when no group is up; the world
+    must be the product of ``shape``); the same mesh again for the same
+    arguments while the group is up.  device: None or "cuda" ->
+    ``cuda:{LOCAL_RANK}`` over NCCL; "cpu" -> gloo."""
+    dev = _mesh_device(device)
+    key = (tuple(shape), tuple(axes), str(dev))
+    if dist.is_initialized() and key in _MESHES \
+            and _MESHES[key][0] is dist.group.WORLD:
+        return _MESHES[key][1]
+    _, world = init_distributed(
+        world_size=None if dist.is_initialized() else math.prod(shape),
+        backend=backend_for(dev))
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {tuple(shape)} needs "
+                         f"{math.prod(shape)} ranks; the process group has "
+                         f"{world}")
+    if dist.get_backend() != backend_for(dev):
+        raise RuntimeError(f"a {dist.get_backend()} group cannot carry "
+                           f"tensors on {dev}")
+    mesh = NamedMesh(shape, axes, dev)
+    # the first collective creates the communicator (NCCL's lazily)
+    mesh.barrier()
+    _MESHES[key] = (dist.group.WORLD, mesh)
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> NamedMesh:
+    """16 x 16 ("data", "model"), or 2 x 16 x 16 ("pod", "data", "model")
+    with ``multi_pod``: needs a process group of 256 (512) ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs "
+                         f"{math.prod(shape)} ranks; the world has {world}")
+    return make_mesh(shape, axes, device)
+
+
+def make_local_mesh(model_parallel: int = 1, device=None) -> NamedMesh:
+    """("data", "model") over the default group's world n (one rank when
+    no group is up): model_parallel clamped to [1, n], shape (n // mp,
+    mp), as the JAX package builds it over its devices."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    mp = max(1, min(int(model_parallel), n))
+    return make_mesh((n // mp, mp), ("data", "model"), device)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """Axes the global batch (and FSDP shards) ride on."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+class MeshPlan:
+    """Mesh + axis bookkeeping passed through launch entry points."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.batch = batch_axes(mesh)
+        self.model = "model" if "model" in mesh.axis_names else None
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.devices.size
+
+    def __repr__(self) -> str:
+        axes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        return f"MeshPlan({axes})"

@@ -18,7 +18,20 @@ as in the JAX server) and prefilled together, with the KV caches allocated
 to ``max_seq``; decode steps then run the wave through ``decode_step``
 until every request has ``max_new`` tokens.  Sampling (greedy, or
 temperature with a numpy generator seeded with ``seed``) happens on the
-host.  ``model_parallel`` is not ported (ROADMAP Queue 1 item 7).
+host.
+
+Model parallelism (``model_parallel``): with a process group up
+(``launch.mesh.init_distributed``, or ``torchrun``) the server builds
+``make_local_mesh(model_parallel)`` and places its params by
+``param_specs`` (DTensors); every rank runs the same requests.  A wave's
+prompts are split over the batch axes when they divide it; prefill and
+decode run under ``activate`` on the compute view of the params (made
+once), the logits are joined on every rank and every rank samples the
+same token, so their generators stay in step.  Between steps the caches
+are kept in ``cache_shardings``' layout (DTensors); a step joins what it
+needs whole (a sequence dim split over "model" or the batch axes, the
+conv history's channels) and takes its blocks back after.  Without a
+group the server runs on one device, as before.
 
 ``waves`` records each wave's size, padded prompt length, prefill seconds
 (up to the first tokens on the host), decode steps and decode seconds.
@@ -28,6 +41,8 @@ host.  ``model_parallel`` is not ported (ROADMAP Queue 1 item 7).
   python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
   python -m repro_torch.launch.serve --arch whisper-tiny --full
   python -m repro_torch.launch.serve --arch paligemma-3b --device cpu
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen2-0.5b --device cpu --model-parallel 2
 """
 
 from __future__ import annotations
@@ -39,10 +54,14 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch import sharding as SH
 from repro_torch.launch.scheduling import SlotScheduler
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 __all__ = ["Server", "Request", "main"]
@@ -58,18 +77,85 @@ class Request:
     done: bool = False
 
 
+class _CacheLayout:
+    """A wave's caches between steps: each leaf that ``cache_shardings``
+    splits is a DTensor in that layout, the others plain tensors.  The
+    layout the modules compute in is the same but for a k/v sequence dim
+    and the conv history's channels, which they take whole: a step joins
+    those (``load``) and takes its blocks back (``store``)."""
+
+    def __init__(self, cfg, mesh, batch: int, max_seq: int, dtype):
+        self.mesh = mesh
+        like = T.init_caches(cfg, batch, max_seq, dtype, device="meta")
+        self.plans = self._plan(like, SH.cache_shardings(like, mesh))
+
+    def _plan(self, like, specs, name=""):
+        """Per leaf: None (kept as it is), or (compute placements, stored
+        placements, whole shape, whole stride)."""
+        if isinstance(like, dict):
+            return {k: self._plan(like[k], specs[k], k) for k in like}
+        if isinstance(like, list):
+            return [self._plan(a, b, name) for a, b in zip(like, specs)]
+        if not isinstance(like, torch.Tensor) or not any(specs):
+            return None
+        comp = list(specs)
+        whole = {"k": -3, "v": -3, "conv": -1}.get(name)
+        if whole is not None:
+            comp[len(comp) + whole] = None
+        return (SH.NamedSharding(self.mesh, tuple(comp)).placements,
+                SH.NamedSharding(self.mesh, specs).placements,
+                like.shape, like.stride())
+
+    def _walk(self, fn, tree, plans):
+        if isinstance(tree, dict):
+            return {k: self._walk(fn, tree[k], plans[k]) for k in tree}
+        if isinstance(tree, list):
+            return [self._walk(fn, a, b) for a, b in zip(tree, plans)]
+        return tree if plans is None else fn(tree, *plans)
+
+    def store(self, caches):
+        """Caches in the compute layout -> the stored layout."""
+        from torch.distributed.tensor import DTensor
+        dm = self.mesh.device_mesh
+
+        def fn(x, comp, stored, shape, stride):
+            t = DTensor.from_local(x, dm, comp, run_check=False,
+                                   shape=shape, stride=stride)
+            return t if comp == stored else t.redistribute(dm, stored)
+        return self._walk(fn, caches, self.plans)
+
+    def load(self, caches):
+        """Stored caches -> the compute layout (plain local tensors)."""
+        dm = self.mesh.device_mesh
+
+        def fn(x, comp, stored, shape, stride):
+            return (x if comp == stored else x.redistribute(dm, comp)
+                    ).to_local()
+        return self._walk(fn, caches, self.plans)
+
+
 class Server:
     def __init__(self, arch: str, use_reduced: bool = True,
                  max_batch: int = 4, max_seq: int = 512, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, model_parallel: int = 1):
         self.cfg = make_reduced(get_config(arch)) if use_reduced \
             else get_config(arch)
         self.device = resolve_device(device)
+        self.mesh = None
+        if dist.is_available() and dist.is_initialized():
+            self.mesh = MESH.make_local_mesh(model_parallel, self.device)
+            self.device = self.mesh.device
         self.max_batch = max_batch
         self.max_seq = max_seq
         self._rng = np.random.default_rng(seed)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = T.init_params(self.cfg, gen)
+        self._view = self.params
+        if self.mesh is not None:
+            self.params = SH.place_params(self.params, self.mesh)
+            with SH.activate(self.mesh), torch.no_grad():
+                self._view = T.compute_view(self.params, self.cfg)
+        self._layout = None
         self.sched = SlotScheduler(max_batch)
         self.finished: List[Request] = []
         self.waves: List[dict] = []
@@ -109,9 +195,29 @@ class Server:
         toks = np.zeros((len(reqs), maxlen), np.int64)
         for i, r in enumerate(reqs):
             toks[i, maxlen - len(r.prompt):] = r.prompt          # left-pad
-        logits, caches = T.prefill(
-            self.params, self.cfg, torch.from_numpy(toks).to(self.device),
-            self._extra(len(reqs)), max_seq=self.max_seq)
+        toks_t = torch.from_numpy(toks).to(self.device)
+        if self.mesh is None:
+            logits, caches = T.prefill(self.params, self.cfg, toks_t,
+                                       self._extra(len(reqs)),
+                                       max_seq=self.max_seq)
+        else:
+            split = len(reqs) % self.mesh.size("batch") == 0
+            extra = {k: SH.local_rows(v, self.mesh, split)
+                     for k, v in self._extra(len(reqs)).items()}
+            with SH.activate(self.mesh, batch_sharded=split), \
+                    torch.no_grad():
+                logits, caches = T.prefill(
+                    self._view, self.cfg, SH.local_rows(toks_t, self.mesh,
+                                                     split),
+                    extra, max_seq=self.max_seq)
+                if split:
+                    logits = L.batch_gather(logits, 0)
+            # the whole wave's caches (prefill's: bfloat16 attention)
+            self._layout = _CacheLayout(
+                self.cfg, self.mesh, len(reqs),
+                max(self.max_seq, caches["index"]), torch.bfloat16)
+            self._split = split
+            caches = self._layout.store(caches)
         logits_np = logits.float().cpu().numpy()
         for i, r in enumerate(reqs):
             r.out.append(self._sample(logits_np[i], r))
@@ -143,8 +249,19 @@ class Server:
         last = torch.tensor([r.out[-1] if r.out else r.prompt[-1]
                              for r in reqs], dtype=torch.int64,
                             device=self.device)
-        logits, self._admit_caches = T.decode_step(
-            self.params, self.cfg, self._admit_caches, last)
+        if self.mesh is None:
+            logits, self._admit_caches = T.decode_step(
+                self.params, self.cfg, self._admit_caches, last)
+        else:
+            with SH.activate(self.mesh, batch_sharded=self._split), \
+                    torch.no_grad():
+                local = self._layout.load(self._admit_caches)
+                logits, local = T.decode_step(
+                    self._view, self.cfg, local,
+                    SH.local_rows(last, self.mesh, self._split))
+                if self._split:
+                    logits = L.batch_gather(logits, 0)
+                self._admit_caches = self._layout.store(local)
         logits_np = logits.float().cpu().numpy()
         for i, (s, r) in enumerate(sorted(self.active.items())):
             r.out.append(self._sample(logits_np[i], r))
@@ -186,10 +303,23 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a card)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the mesh's model axis, under a launcher "
+                         "(torchrun) that starts a process group")
     args = ap.parse_args(argv)
 
+    started = MESH.join_launcher(args.device)
+    try:
+        _serve(args)
+    finally:
+        if started:
+            MESH.shutdown_distributed()
+
+
+def _serve(args):
     srv = Server(args.arch, use_reduced=not args.full,
-                 max_batch=args.max_batch, device=args.device)
+                 max_batch=args.max_batch, device=args.device,
+                 model_parallel=args.model_parallel)
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(args.requests):

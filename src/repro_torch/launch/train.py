@@ -9,6 +9,8 @@ restart, and the paper's NaN guard, on one device (``cuda`` unless
       --full --steps 3 --batch 2 --seq 2048           # full width, on a card
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 3 --device cpu                          # the plain versions
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen2-0.5b --steps 3 --device cpu --model-parallel 2
 
 Every family trains: dense, moe (granite-moe, mixtral: the loss is ce
 plus the load-balance aux, both printed), ssm (mamba2), hybrid (zamba2,
@@ -26,9 +28,20 @@ from the latest, the pipeline at that step.  NaN containment follows the
 paper's Fig-1 guard as the JAX trainer applies it: a non-finite loss
 rolls back to the latest checkpoint with the LR (the "conductance")
 halved, down to ``lr_floor_scale``; without a checkpoint it raises
-``FloatingPointError``.  ``model_parallel > 1`` waits for ROADMAP Queue 1
-item 7.  The JAX trainer does not use ``cfg.microbatches`` either: one
-step is one batch.
+``FloatingPointError``.  The JAX trainer does not use ``cfg.microbatches``
+either: one step is one batch.
+
+Model parallelism: with a process group up (``launch.mesh.
+init_distributed``, or ``torchrun``, which ``main`` joins) ``run`` builds
+``make_local_mesh(model_parallel)``; the params, and with them AdamW's
+moments and master copies, are placed by ``param_specs`` (DTensors: FSDP
+over the batch axes, tensor parallelism over "model"); each step's batch
+is split over the batch axes by ``batch_specs`` (whole on every rank when
+they do not divide it), the loss and its gradient run under ``activate``,
+and the clip's global norm sums every block once.  Checkpoints hold whole
+leaves (rank 0 writes them) and restore into the blocks.  Without a group
+(the JAX package's one device) ``model_parallel`` is clamped to 1 and the
+trainer runs on one device, as before.
 """
 
 from __future__ import annotations
@@ -40,12 +53,15 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch import random as RND
 from repro_torch.optim import adamw, schedule
@@ -55,17 +71,32 @@ from repro_torch.runtime.straggler import StragglerPolicy
 __all__ = ["make_train_step", "run", "main", "extra_inputs"]
 
 
-def make_train_step(cfg, ocfg: adamw.AdamWConfig):
+def make_train_step(cfg, ocfg: adamw.AdamWConfig, mesh=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss, the gradient of every parameter, and the AdamW update (in
-    place).  The params are made leaves that require grad."""
+    place).  The params are made leaves that require grad.  With ``mesh``
+    the params are placed, ``batch`` is the global batch (the same on
+    every rank), and the step takes this rank's rows of it by
+    ``batch_specs``."""
+    def grad_of(params, leaves, batch):
+        loss, metrics = T.loss_fn(params, cfg, batch)
+        return loss, metrics, torch.autograd.grad(loss, leaves)
+
     def train_step(params, opt_state, batch):
         leaves, spec = tree_flatten(params)
         for p in leaves:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        loss, metrics = T.loss_fn(params, cfg, batch)
-        grads = tree_unflatten(list(torch.autograd.grad(loss, leaves)), spec)
+        if mesh is None:
+            loss, metrics, grads = grad_of(params, leaves, batch)
+        else:
+            split = any(SH.batch_specs(batch["tokens"], mesh))
+            local = {k: SH.local_rows(v, mesh, split)
+                     for k, v in batch.items()}
+            # the backward's collectives read the axis env too
+            with SH.activate(mesh, batch_sharded=split):
+                loss, metrics, grads = grad_of(params, leaves, local)
+        grads = tree_unflatten(list(grads), spec)
         new_params, new_opt, om = adamw.update(ocfg, grads, opt_state,
                                                params)
         return new_params, new_opt, {
@@ -98,10 +129,11 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
     when there is one); returns the losses of the steps this call ran,
     a rolled-back step's included.  Weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` on the device."""
-    if model_parallel != 1:
-        raise NotImplementedError(
-            "model parallelism is not ported yet (ROADMAP Queue 1 item 7)")
     dev = resolve_device(device)
+    mesh = None
+    if dist.is_available() and dist.is_initialized():
+        mesh = MESH.make_local_mesh(model_parallel, dev)
+        dev = mesh.device
     cfg = get_config(arch)
     if use_reduced:
         cfg = make_reduced(cfg)
@@ -115,8 +147,10 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
     mgr = CheckpointManager(ckpt_dir, max_to_keep=2) if ckpt_dir else None
 
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    if mesh is not None:
+        params = SH.place_params(params, mesh)
     opt_state = adamw.init(ocfg, params)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_train_step(cfg, ocfg, mesh)
 
     def restored(step):
         # into the live tensors: the card never holds two training states
@@ -163,7 +197,7 @@ def run(arch: str, steps: int = 50, batch: int = 8, seq: int = 256,
                   f"lr_scale={lr_scale}")
             ocfg = dataclasses.replace(ocfg,
                                        lr=lambda s: sched(s) * lr_scale)
-            step_fn = make_train_step(cfg, ocfg)
+            step_fn = make_train_step(cfg, ocfg, mesh)
             params, opt_state, pipe = restored(back)
             i = back
             continue
@@ -197,6 +231,15 @@ def main(argv=None):
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
     args = ap.parse_args(argv)
+    started = MESH.join_launcher(args.device)
+    try:
+        _train(args)
+    finally:
+        if started:
+            MESH.shutdown_distributed()
+
+
+def _train(args):
     losses = run(args.arch, steps=args.steps, batch=args.batch,
                  seq=args.seq, use_reduced=not args.full,
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

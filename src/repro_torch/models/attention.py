@@ -22,6 +22,17 @@ rope, and the keys are not causal-masked.
 A layer's cache is ``{"k", "v": [B, S, n_kv, D], "pos": [S] int32 (absolute
 positions, -1 = empty), "ring": bool}``; ``ring`` is a Python bool, so a
 decode step needs no host sync.
+
+With a mesh active (``launch/sharding.py``'s ``activate``) and the heads
+divisible by the "model" axis, each rank computes its block of the heads
+(the JAX package's ``shard(q, "batch", None, "heads", None)``): ``wq``
+and ``wo`` hold the rank's head blocks, the input enters through
+``model_enter`` and ``wo``'s partial sums reduce (``model_reduce``).  KV
+heads that the axis divides are split the same way; others (qwen2's 2 on
+a 4-wide axis) are projected whole and each local query head takes its
+group's (``_heads_plan``), and the cache then holds every KV head.  Heads
+the axis does not divide (qwen2-0.5b's 14 on 4) run whole on every rank,
+with every weight joined.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
 from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
                                        rmsnorm)
 
@@ -65,6 +77,38 @@ class AttnConfig:
         return self.n_kv * self.head_dim
 
 
+def _heads_plan(cfg: AttnConfig):
+    """This rank's share of the heads with a mesh active: None when the
+    heads run whole (no mesh, or "model" does not divide them), else
+    (local config, kv_sel): the config's ``n_heads`` is the rank's block
+    of query heads and its ``n_kv`` the KV heads the rank projects (its
+    block, or all of them); ``kv_sel`` (a list, or None) picks each local
+    query head's KV head out of all of them."""
+    if not L.parallel() or cfg.n_heads % L.model_size():
+        return None
+    mp, r = L.model_size(), L.model_rank()
+    hl = cfg.n_heads // mp
+    if cfg.n_kv % mp == 0:
+        return dataclasses.replace(cfg, n_heads=hl, n_kv=cfg.n_kv // mp), None
+    rep = cfg.n_heads // cfg.n_kv
+    sel = [(r * hl + i) // rep for i in range(hl)]
+    return dataclasses.replace(cfg, n_heads=hl), sel
+
+
+def _pick_heads(t: torch.Tensor, sel) -> torch.Tensor:
+    """[B, T, n_kv, D] -> the KV head of each local query head."""
+    if sel is None:
+        return t
+    return t.index_select(2, torch.tensor(sel, device=t.device))
+
+
+def _cache_config(cfg: AttnConfig) -> AttnConfig:
+    """The config whose ``n_kv`` is the KV heads this rank's cache holds."""
+    plan = _heads_plan(cfg)
+    return cfg if plan is None else dataclasses.replace(
+        cfg, n_kv=plan[0].n_kv)
+
+
 def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32):
     d = cfg.d_model
     p = {
@@ -85,9 +129,10 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32):
 
 
 def _project_qkv(p, cfg: AttnConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, xq: Optional[torch.Tensor] = None):
+    """q from ``xq`` (default ``x``), k and v from ``x``."""
     b, t, _ = x.shape
-    q = x @ p["wq"]
+    q = (x if xq is None else xq) @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
@@ -116,23 +161,40 @@ def attention_forward(p, cfg: AttnConfig, x: torch.Tensor,
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)
+    plan = _heads_plan(cfg)
+    sel, xq = None, x
+    if plan is not None:
+        # x enters this rank's heads; with the KV heads whole, k and v are
+        # projected whole and enter as they are picked (below)
+        cfg, sel = plan
+        xq = L.model_enter(x)
+        if sel is None:
+            x = xq
     if kv is None:
-        q, k, v = _project_qkv(p, cfg, x, positions)
+        q, k, v = _project_qkv(p, cfg, x, positions, xq)
     else:
-        q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+        q = (xq @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
         if cfg.qkv_bias:
             q = q + p["bq"].reshape(cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"]["scale"])
         k, v = kv
     eff_window = window if window is not None else cfg.window
+    # the kernel runs on the local heads (a KV head per local query head
+    # when the KV heads are whole)
+    kl, vl = k, v
+    if sel is not None:
+        kl = _pick_heads(L.model_enter(k), sel)
+        vl = _pick_heads(L.model_enter(v), sel)
     out = kops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        q.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
         causal=cfg.causal, window=eff_window,
         scale=1.0 / math.sqrt(cfg.head_dim), softcap=cfg.softcap,
         prefix=prefix)
     out = out.transpose(1, 2).reshape(b, t, cfg.q_dim)
     y = out @ p["wo"]
+    if plan is not None:
+        y = L.model_reduce(y)
     if return_kv:
         return y, (k, v)
     return y
@@ -157,7 +219,7 @@ def init_cache(cfg: AttnConfig, batch: int, max_seq: int,
         cfg.window, cfg.n_kv, cfg.head_dim) < dense_cache_elements(
         max_seq, cfg.n_kv, cfg.head_dim))
     s = cfg.window if use_ring else max_seq
-    shape = (batch, s, cfg.n_kv, cfg.head_dim)
+    shape = (batch, s, _cache_config(cfg).n_kv, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -194,6 +256,11 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
     and values: nothing is written, no rope is applied, and every slot with
     ``pos >= 0`` is attended to."""
     b = x.shape[0]
+    plan = _heads_plan(cfg)
+    sel = None
+    if plan is not None:
+        cfg, sel = plan
+        x = L.model_enter(x)
     q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(cfg.n_heads, cfg.head_dim)
@@ -220,8 +287,11 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
     # one query against the cache, grouped: the GQA-repeated cache is never
     # built.  Logits in float32; the softmax weights are cast to the cache's
     # dtype before p . v, as the JAX package does.
-    rep = cfg.n_heads // cfg.n_kv
-    qg = q.reshape(b, cfg.n_kv, rep, cfg.head_dim).float()
+    if sel is not None:
+        kc, vc = _pick_heads(kc, sel), _pick_heads(vc, sel)
+    n_kv = kc.shape[2]
+    rep = cfg.n_heads // n_kv
+    qg = q.reshape(b, n_kv, rep, cfg.head_dim).float()
     logits = torch.einsum("bgrd,bsgd->bgrs", qg, kc.float())
     logits = logits / math.sqrt(cfg.head_dim)
     if cfg.softcap is not None:
@@ -235,4 +305,6 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", w.to(vc.dtype).float(), vc.float())
     y = out.reshape(b, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
+    if plan is not None:
+        y = L.model_reduce(y)
     return y, cache

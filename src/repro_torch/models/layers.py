@@ -4,21 +4,261 @@ dicts of tensors), the counterpart of ``repro/models/layers.py``.
 Initializers draw from an explicit ``torch.Generator``, on its device, with
 the JAX initializers' distributions (the numbers differ: a test that holds
 the port to the JAX package carries the JAX weights over with
-``repro_torch.convert.load_lm_params``).  The JAX package's sharding hints
-(``shard``) have no counterpart: the port runs on one device.
+``repro_torch.convert.load_lm_params``).
+
+Model parallelism (``launch/sharding.py``'s ``activate``): the JAX package
+binds logical axes ("batch", "heads", "ffn", "vocab", ...) to mesh axes
+and leaves the collectives to GSPMD.  The port runs SPMD over
+``torch.distributed``: every rank holds its block of each tensor and the
+model code issues the collectives that GSPMD would insert, through the
+autograd functions below (Megatron's conjugate pairs, named for the axis
+they run over):
+
+  model_enter   identity forward, all-reduce of the gradient: a tensor
+                that is whole on every "model" rank enters a computation
+                that differs by rank (a column-parallel product, local
+                heads, local experts)
+  model_reduce  all-reduce forward, identity backward: the partial sums of
+                a row-parallel product (``wo``, ``w_out``), the vocab
+                reductions of the cross entropy
+  model_gather / model_split (and batch_*): a tensor's blocks joined, or
+                this rank's block taken; each the other's backward
+
+The loss is whole and equal on every rank, so a gradient that reaches a
+tensor whole on every rank is the whole gradient.  ``shard()`` is the
+identity when no mesh is active; with one it takes this rank's block of a
+tensor that is whole on the ranks along the dims whose logical axis
+resolves to "model" (``model_split``), by the JAX package's divisibility
+rule.  The batch is split by the entry points (``launch/serve.py``,
+``launch/train.py``), so "batch" resolves to nothing here.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "embed_init", "rmsnorm", "layernorm", "norm_apply",
+__all__ = ["set_axis_env", "clear_axis_env", "shard", "parallel",
+           "batch_sharded", "model_size", "model_rank", "model_enter",
+           "model_reduce", "model_max", "model_gather", "model_split",
+           "batch_reduce", "batch_gather", "batch_split", "from_placed",
+           "dense_init", "embed_init", "rmsnorm", "layernorm", "norm_apply",
            "norm_init", "rope_freqs", "apply_rope", "mlp_init", "mlp_apply",
            "ACTIVATIONS", "cross_entropy"]
+
+
+# ---------------------------------------------------------------------------
+# logical-axis resolution (set by repro_torch.launch.sharding.activate()),
+# divisibility-aware as the JAX package's: a logical axis is dropped for a
+# dim the mesh axis does not divide
+# ---------------------------------------------------------------------------
+_AXIS_ENV: dict = {
+    "active": False, "batch": None, "model": None,
+    "batch_size": 1, "model_size": 1, "mesh": None, "batch_sharded": False,
+}
+
+
+def set_axis_env(batch_axes, model_axis, batch_size: int = 1,
+                 model_size: int = 1, mesh=None,
+                 batch_sharded: bool = False) -> None:
+    """Bind the logical axes (the JAX signature); ``mesh``: the
+    ``launch.mesh.NamedMesh`` whose process groups carry the collectives;
+    ``batch_sharded``: whether the entry point split the batch over the
+    batch axes (a batch they do not divide stays whole on every rank)."""
+    _AXIS_ENV.update(active=True, batch=batch_axes, model=model_axis,
+                     batch_size=batch_size, model_size=model_size, mesh=mesh,
+                     batch_sharded=bool(batch_sharded))
+
+
+def clear_axis_env() -> None:
+    _AXIS_ENV.update(active=False, batch=None, model=None, batch_size=1,
+                     model_size=1, mesh=None, batch_sharded=False)
+
+
+_LOGICAL = {
+    "batch": "batch", "heads": "model", "ffn": "model", "vocab": "model",
+    "experts": "model", "kv_heads": "model", "model_d": None, "seq": None,
+}
+
+
+def parallel() -> bool:
+    """Whether a mesh is active (the model code then runs on blocks)."""
+    return _AXIS_ENV["active"] and _AXIS_ENV["mesh"] is not None
+
+
+def batch_sharded() -> bool:
+    return parallel() and _AXIS_ENV["batch_sharded"]
+
+
+def model_size() -> int:
+    return _AXIS_ENV["model_size"] if parallel() else 1
+
+
+def model_rank() -> int:
+    return _AXIS_ENV["mesh"].coord("model") if parallel() else 0
+
+
+def _group(axis: str):
+    """(process group, size, this rank's index) of "model" or "batch"."""
+    mesh = _AXIS_ENV["mesh"]
+    return mesh.group(axis), mesh.size(axis), mesh.coord(axis)
+
+
+def _all_gather(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """The blocks of every rank along ``axis``, joined along ``dim`` in
+    rank order (a group of one: ``x`` itself)."""
+    group, n, _ = _group(axis)
+    if n == 1:
+        return x
+    xs = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
+                      dtype=xs.dtype, device=xs.device)
+    dist.all_gather_into_tensor(out, xs, group=group)
+    return out.movedim(0, dim)
+
+
+def _block(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (its size divides)."""
+    _, n, r = _group(axis)
+    if n == 1:
+        return x
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size).contiguous()
+
+
+def _all_reduce(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    # issued at a group of one too, so a one-rank mesh runs it for real
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=_group(axis)[0])
+    return out
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.axis), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _block(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.dim, ctx.axis), None, None
+
+
+def model_enter(x: torch.Tensor) -> torch.Tensor:
+    return _Enter.apply(x, "model")
+
+
+def model_reduce(x: torch.Tensor) -> torch.Tensor:
+    return _Reduce.apply(x, "model")
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over the "model" ranks (no gradient)."""
+    return _all_reduce(x.detach(), "model", dist.ReduceOp.MAX)
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return _Gather.apply(x, dim % x.dim(), "model")
+
+
+def model_split(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return _Split.apply(x, dim % x.dim(), "model")
+
+
+def batch_reduce(x: torch.Tensor) -> torch.Tensor:
+    return _Reduce.apply(x, "batch")
+
+
+def batch_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return _Gather.apply(x, dim % x.dim(), "batch")
+
+
+def batch_split(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return _Split.apply(x, dim % x.dim(), "batch")
+
+
+def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """This rank's block of ``x`` (whole on the "model" ranks) along the
+    dims whose logical axis resolves to "model" and which the axis
+    divides; the identity when no mesh is active.  Its gradient joins the
+    blocks again (``model_split``)."""
+    if not parallel():
+        return x
+    for i, name in enumerate(logical):
+        if i < x.dim() and _LOGICAL.get(name) == "model" \
+                and _AXIS_ENV["model"] \
+                and x.shape[i] % max(1, _AXIS_ENV["model_size"]) == 0:
+            x = model_split(x, i)
+    return x
+
+
+def from_placed(t, keep_model: bool = True,
+                batch_specific: bool = True) -> torch.Tensor:
+    """A placed parameter (a DTensor on the active mesh, or a plain tensor,
+    taken as it is) as the tensor the model code computes with: its
+    blocks on the batch axes joined (FSDP's gather; the gradient keeps
+    this rank's block), and on "model" joined too unless ``keep_model``
+    (the module computes on the model rank's block).  ``batch_specific``:
+    the model runs it on this rank's part of the batch, so its gradient
+    sums over the batch axes (a module that runs on the whole batch on
+    every rank, the MoE, passes False)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is None or not isinstance(t, dt.DTensor):
+        return t
+    mesh = _AXIS_ENV["mesh"]
+    x = t.to_local()
+    batch_dim = model_dim = None
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            if name == "model":
+                model_dim = pl.dim
+            else:
+                batch_dim = pl.dim
+    if batch_dim is not None:
+        x = _Gather.apply(x, batch_dim, "batch")
+    if batch_specific and mesh.size("batch") > 1 and batch_sharded():
+        x = _Enter.apply(x, "batch")
+    if model_dim is not None and not keep_model:
+        x = _Gather.apply(x, model_dim, "model")
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +369,21 @@ def mlp_init(gen: torch.Generator, d: int, f: int, gated: bool,
     return {"w_out": dense_init(gen, f, d, dtype), "w_in": first}
 
 
-def mlp_apply(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, activation: str = "silu",
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """With a mesh active and ``w_out`` holding this rank's block of the
+    ``d_ff`` rows (the JAX package's ``shard(h, "batch", None, "ffn")``):
+    column-parallel in, row-parallel out, the partial sums all-reduced."""
     act = ACTIVATIONS[activation]
+    tp = parallel() and d_ff is not None and p["w_out"].shape[-2] != d_ff
+    if tp:
+        x = model_enter(x)
     if "w_gate" in p:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = act(x @ p["w_in"])
-    return h @ p["w_out"]
+    y = h @ p["w_out"]
+    return model_reduce(y) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -144,23 +392,37 @@ def mlp_apply(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1,
-                  true_vocab: Optional[int] = None) -> torch.Tensor:
+                  true_vocab: Optional[int] = None,
+                  vocab_start: Optional[int] = None) -> torch.Tensor:
     """Mean CE over non-ignored tokens; logits [.., V], labels [..].
 
     As the JAX package computes it: in float32, padded vocab entries
     (``true_vocab`` and up) masked to -inf, the row max held out of the
     gradient, and the label's logit picked by an iota mask (a sum over
-    the vocab), not a gather."""
+    the vocab), not a gather.  With ``vocab_start`` (a mesh active) the
+    logits are this rank's block of the vocab, from that entry on: the row
+    max, the sum of exponentials and the label term reduce over "model".
+    Under a mesh that split the batch, the loss and the token count sum
+    over the batch axes."""
     v = logits.shape[-1]
     x = logits.float()
-    vidx = torch.arange(v, device=x.device)
-    if true_vocab is not None and true_vocab < v:
+    par = vocab_start is not None and parallel()
+    vidx = torch.arange(v, device=x.device) + (vocab_start if par else 0)
+    if true_vocab is not None and (par or true_vocab < v):
         x = x.masked_fill(vidx >= true_vocab, float("-inf"))
     lmax = torch.amax(x, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(x - lmax), dim=-1)) + lmax[..., 0]
+    if par:
+        lmax = model_max(lmax)
+    sumexp = torch.sum(torch.exp(x - lmax), dim=-1)
     label_hit = vidx == labels[..., None].clamp(min=0)
     ll = torch.sum(torch.where(label_hit, x, torch.zeros((), device=x.device)),
                    dim=-1)
+    if par:
+        sumexp, ll = model_reduce(sumexp), model_reduce(ll)
+    lse = torch.log(sumexp) + lmax[..., 0]
     mask = (labels != ignore_id).float()
     nll = (lse - ll) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = torch.sum(nll), torch.sum(mask)
+    if batch_sharded():
+        total, count = batch_reduce(total), batch_reduce(count)
+    return total / torch.clamp(count, min=1.0)

@@ -22,9 +22,20 @@ products per expert (``torch.bmm``, plain large matrix products, as the
 JAX package leaves them to XLA), and each pair gathers its place's output,
 weighted by the pair's gate; both moves are gathers in the backward too
 (``_Moved``).  At granite's prefill the dense one-hot tensors would be
-~168M elements a layer; the index route moves none of them.  Any sharding
-hint (``expert_sharding``) is kept for the signature: the port runs on
-one device.
+~168M elements a layer; the index route moves none of them.
+
+With a mesh active (``launch/sharding.py``): the rule table gives the
+experts' leading axis to "model" when it divides the experts (granite's
+32: ``expert_sharding="expert"``), else their ffn axis (mixtral's 8 on a
+16-wide axis: ``"ffn"``), so the placed weights say which.  The block's
+input is joined over the batch axes when the batch is split
+(``batch_gather``: groups, capacity and queue places are then the
+single-device ones) and routed whole on every rank.  "expert": each rank
+dispatches the pairs of its own experts into their queues and runs
+``_Moved`` and the products on them; "ffn": each rank runs every expert
+on its ffn block, ``w_out`` row-parallel.  Either way the combined output
+is a partial sum over "model" (``model_reduce``), and this rank's rows of
+the batch are taken back out.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
 from repro_torch.models.layers import ACTIVATIONS, dense_init
 
 __all__ = ["MoEConfig", "moe_init", "moe_apply", "moe_route",
@@ -54,7 +66,7 @@ class MoEConfig:
     activation: str = "silu"
     aux_loss_weight: float = 0.01
     group_size: int = 1024
-    expert_sharding: str = "expert"   # 'expert' | 'ffn' (one device: unused)
+    expert_sharding: str = "expert"   # 'expert' | 'ffn' (the full config's)
     dispatch: str = "onehot"          # 'onehot' | 'gather' (both by index)
 
 
@@ -147,6 +159,9 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     if cfg.dispatch not in _DISPATCHES:
         raise ValueError(f"dispatch must be one of {_DISPATCHES}, got "
                          f"{cfg.dispatch!r}")
+    split = L.batch_sharded()
+    if split:
+        x = L.batch_gather(x, 0)          # the whole batch on every rank
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     gs, cap = group_and_capacity(cfg, b * t)
@@ -154,12 +169,22 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     xg = x.reshape(g, gs, d)
     expert_idx, place, keep, gate, aux = moe_route(p, cfg, xg, cap)
 
-    # each pair's slot in the experts' queues [e, g, cap] (n_slots when it
-    # was dropped), and each slot's pair (n_pairs when it is empty)
+    # this rank's experts [lo, lo + el) ("expert"), or every expert on an
+    # ffn block ("ffn"); tp: the output is a partial sum over "model"
+    el = p["w_gate"].shape[0]
+    tp = L.parallel() and (el != e or p["w_gate"].shape[-1] != cfg.d_ff)
+    lo = L.model_rank() * el if el != e else 0
+    if tp:
+        x, gate = L.model_enter(x), L.model_enter(gate)
+        keep = keep & (expert_idx >= lo) & (expert_idx < lo + el)
+
+    # each pair's slot in the experts' queues [el, g, cap] (n_slots when it
+    # was dropped or is another rank's), and each slot's pair (n_pairs when
+    # it is empty)
     dev = x.device
     grp = torch.arange(g, device=dev)[:, None, None]
-    n_slots, n_pairs = e * g * cap, g * gs * k
-    pair_slot = torch.where(keep, (expert_idx * g + grp) * cap + place,
+    n_slots, n_pairs = el * g * cap, g * gs * k
+    pair_slot = torch.where(keep, ((expert_idx - lo) * g + grp) * cap + place,
                             n_slots).reshape(-1)
     slot_pair = torch.full((n_slots + 1,), n_pairs, dtype=torch.long,
                            device=dev)
@@ -170,7 +195,7 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     # row, as in the JAX package)
     slot_tok = torch.where(slot_pair < n_pairs, slot_pair // k, g * gs)
     xe = _Moved.apply(x.reshape(g * gs, d), slot_tok, pair_slot, k)
-    xe = xe.reshape(e, g * cap, d)
+    xe = xe.reshape(el, g * cap, d)
 
     act = ACTIVATIONS[cfg.activation]
     h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
@@ -180,4 +205,9 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     # row), weighted by its gate, summed over the k slots of a token
     picked = _Moved.apply(ye, pair_slot, slot_pair, 1).reshape(g, gs, k, d)
     y = (picked * gate[..., None].to(picked.dtype)).sum(dim=2)
-    return y.reshape(b, t, d), aux
+    y = y.reshape(b, t, d)
+    if tp:
+        y = L.model_reduce(y)
+    if split:
+        y = L.batch_split(y, 0)
+    return y, aux

@@ -17,6 +17,16 @@ through the same kernel, which then writes its final state
 (``kernels.ops.ssd_scan_state``); ``ssm_init_cache`` makes the float32
 caches and ``ssm_decode_step`` runs one token in O(1), in plain torch
 with the JAX package's float32 promotions.
+
+With a mesh active and the heads divisible by "model", each rank runs its
+block of the heads (the JAX package's ``shard(xs, "batch", None, "heads",
+None)``): the input projection ``w_in`` concatenates z, x, B, C and dt,
+so a contiguous block of its columns is not a block of heads; it is
+joined and projected whole (as are the conv over x, B and C and its
+cache), then each rank takes its heads' z, x and dt (``shard``), B and C
+(their group block, or whole for one group), runs the SSD on its heads,
+normalises with the sum of squares reduced over "model", and
+``w_out``'s partial sums reduce.  The SSD cache holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import chunk_size
+from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, rmsnorm
 
 __all__ = ["SSMConfig", "ssm_init", "ssm_apply", "ssm_decode_step",
@@ -157,6 +168,52 @@ def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 256,
 # full block
 # ---------------------------------------------------------------------------
 
+def _local_heads(cfg: SSMConfig):
+    """This rank's number of heads with a mesh active, None when they run
+    whole."""
+    if not L.parallel() or cfg.n_heads % L.model_size():
+        return None
+    return cfg.n_heads // L.model_size()
+
+
+def _to_local_heads(cfg: SSMConfig, z, xs, dt, Bm, Cm):
+    """Each rank's block of the heads of z [.., di], xs [.., h, dh], dt
+    [.., h] and of the groups of B / C [.., g, n] (a group per local head
+    when the groups and the axis do not divide evenly; one group is kept
+    whole), all of them whole on the model ranks before."""
+    mp = L.model_size()
+    z = L.model_split(z, -1)
+    xs = L.shard(xs, *(["batch"] + [None] * (xs.dim() - 3)
+                       + ["heads", None]))
+    dt = L.model_split(dt, -1)
+    g = Bm.shape[-2]
+    if g == 1:
+        Bm, Cm = L.model_enter(Bm), L.model_enter(Cm)
+    else:
+        if g % mp:
+            rep = cfg.n_heads // g
+            Bm = Bm.repeat_interleave(rep, dim=-2)
+            Cm = Cm.repeat_interleave(rep, dim=-2)
+        Bm, Cm = L.model_split(Bm, -2), L.model_split(Cm, -2)
+    return z, xs, dt, Bm, Cm
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                d_inner: int, tp: bool) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) over d_inner; with ``tp`` y and z hold this
+    rank's block and the sum of squares reduces over "model"."""
+    if not tp:
+        return rmsnorm(y * F.silu(z), scale)
+    x = y * F.silu(z)
+    dt = x.dtype
+    x = x.float()
+    # the whole sum, on every rank, then used by this rank's block alone
+    ss = L.model_enter(L.model_reduce(torch.sum(x * x, dim=-1,
+                                                keepdim=True)))
+    x = x * torch.rsqrt(ss / d_inner + 1e-6)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
 def _split_proj(cfg: SSMConfig, zxbcdt: torch.Tensor):
     di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
     z = zxbcdt[..., :di]
@@ -194,6 +251,10 @@ def ssm_apply(p, cfg: SSMConfig, u: torch.Tensor, conv_state=None,
     xs = xbc_conv[..., :di].reshape(b, t, h, dh)
     Bmat = xbc_conv[..., di: di + g * n].reshape(b, t, g, n)
     Cmat = xbc_conv[..., di + g * n:].reshape(b, t, g, n)
+    hl = _local_heads(cfg)
+    if hl is not None:
+        z, xs, dt, Bmat, Cmat = _to_local_heads(cfg, z, xs, dt, Bmat, Cmat)
+        di = hl * dh
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
@@ -206,8 +267,10 @@ def ssm_apply(p, cfg: SSMConfig, u: torch.Tensor, conv_state=None,
     else:
         y = kops.ssd_scan(*args)
     y = y.reshape(b, t, di).to(u.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])
+    y = _gated_norm(y, z, p["norm_scale"], cfg.d_inner, hl is not None)
     out = y @ p["w_out"]
+    if hl is not None:
+        out = L.model_reduce(out)
     if return_state:
         return out, (new_conv_state, s_last)
     return out
@@ -219,10 +282,11 @@ def ssm_init_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
     ``dtype`` (float32 by default, as the JAX package's), ``ssd`` [batch,
     h, ds, dh] float32."""
     conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
+    heads = _local_heads(cfg) or cfg.n_heads
     return {
         "conv": torch.zeros((batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
                             device=device),
-        "ssd": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.d_head),
+        "ssd": torch.zeros((batch, heads, cfg.d_state, cfg.d_head),
                            dtype=torch.float32, device=device),
     }
 
@@ -248,6 +312,10 @@ def ssm_decode_step(p, cfg: SSMConfig, u: torch.Tensor, cache):
     xs = xbc_conv[..., :di].reshape(b, h, dh)
     Bm = xbc_conv[..., di: di + g * n].reshape(b, g, n)
     Cm = xbc_conv[..., di + g * n:].reshape(b, g, n)
+    hl = _local_heads(cfg)
+    if hl is not None:
+        z, xs, dt, Bm, Cm = _to_local_heads(cfg, z, xs, dt, Bm, Cm)
+        h, di, g = hl, hl * dh, Bm.shape[-2]
     rep = h // g
     Bm = Bm.repeat_interleave(rep, dim=1)            # [b, h, n]
     Cm = Cm.repeat_interleave(rep, dim=1)
@@ -260,6 +328,8 @@ def ssm_decode_step(p, cfg: SSMConfig, u: torch.Tensor, cache):
         * Bm[:, :, :, None]                          # [b, h, n, dh]
     y = torch.einsum("bhsd,bhs->bhd", s_new, Cm) + xs * p["D"][None, :, None]
     y = y.reshape(b, di).to(u.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])
-    out = (y @ p["w_out"])[:, None, :]
-    return out, {"conv": new_conv, "ssd": s_new}
+    y = _gated_norm(y, z, p["norm_scale"], cfg.d_inner, hl is not None)
+    out = y @ p["w_out"]
+    if hl is not None:
+        out = L.model_reduce(out)
+    return out[:, None, :], {"conv": new_conv, "ssd": s_new}

@@ -57,12 +57,25 @@ attention segment's entry holds ``k``/``v`` ``[(R,) n, B, S, n_kv, D]``,
 ds, dh]``, both float32.  ``decode_step`` writes the new token's keys,
 values and states into the caches in place and returns the same tensors
 with ``index + 1``.
+
+Under a mesh (``launch/sharding.py``'s ``activate``) the entry points take
+placed params (DTensors, laid out by ``param_specs``) and this rank's
+part of the batch; ``compute_view`` turns the params into the tensors
+each module computes with (``layers.from_placed``: joined over the batch
+axes, and over "model" where the module runs whole), the embedding is
+looked up vocab-parallel (the JAX package's ``shard(x, "batch", None,
+None)`` after a masked lookup summed over "model"), the head's logits are
+this rank's vocab block (``shard(logits, "batch", None, "vocab")``),
+which ``loss_fn``'s cross entropy reduces over "model" and the others
+join, and the caches are in the layout the modules compute in (the
+local KV heads, the local SSD heads).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -70,6 +83,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (cross_entropy, dense_init, embed_init,
@@ -161,11 +175,16 @@ def _enc_kv(cfg: ArchConfig, p_x, enc_out: torch.Tensor):
     """The encoder's output [B, Ta, d] projected to one decoder layer's
     cross-attention (k, v) [B, Ta, n_kv, D]."""
     b, t, _ = enc_out.shape
-    k = (enc_out @ p_x["wk"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
-    v = (enc_out @ p_x["wv"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    acfg = _attn_cfg(cfg, "attn")
+    n_kv = A._cache_config(acfg).n_kv
+    if n_kv != cfg.n_kv:
+        # this rank's KV heads (whole ones enter in attention_forward)
+        enc_out = L.model_enter(enc_out)
+    k = (enc_out @ p_x["wk"]).reshape(b, t, n_kv, cfg.head_dim)
+    v = (enc_out @ p_x["wv"]).reshape(b, t, n_kv, cfg.head_dim)
     if cfg.qkv_bias:
-        k = k + p_x["bk"].reshape(cfg.n_kv, cfg.head_dim)
-        v = v + p_x["bv"].reshape(cfg.n_kv, cfg.head_dim)
+        k = k + p_x["bk"].reshape(n_kv, cfg.head_dim)
+        v = v + p_x["bv"].reshape(n_kv, cfg.head_dim)
     return k, v
 
 
@@ -204,7 +223,7 @@ def _layer_apply(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
     if kind == "moe":
         y, aux = M.moe_apply(p["moe"], _moe_cfg(cfg), h)
     else:
-        y = mlp_apply(p["mlp"], h, cfg.activation)
+        y = mlp_apply(p["mlp"], h, cfg.activation, cfg.d_ff)
     return x + y, aux, kv if want_cache else None
 
 
@@ -232,7 +251,7 @@ def _layer_decode(cfg: ArchConfig, kind: str, p, x: torch.Tensor, cache,
     if kind == "moe":
         y, _ = M.moe_apply(p["moe"], _moe_cfg(cfg), h)
     else:
-        y = mlp_apply(p["mlp"], h, cfg.activation)
+        y = mlp_apply(p["mlp"], h, cfg.activation, cfg.d_ff)
     return x + y
 
 
@@ -350,10 +369,30 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
 # embeddings / heads
 # ---------------------------------------------------------------------------
 
+def _vocab_start(params, cfg: ArchConfig) -> Optional[int]:
+    """The first vocab entry of this rank's block of the embedding (and
+    tied head) rows / the head's columns under a mesh that splits the
+    vocab, else None."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    if not L.parallel() or head.shape[0] == padded_vocab(cfg.vocab):
+        return None
+    return L.model_rank() * head.shape[0]
+
+
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The tokens' embeddings, scaled by sqrt(d) for gemma-style configs
     and the vlm family."""
-    x = params["embed"][tokens]
+    table = params["embed"]
+    if L.parallel() and table.shape[0] != padded_vocab(cfg.vocab):
+        # vocab-parallel: each rank looks up the tokens of its rows, the
+        # others' rows are zeros, and the sum over "model" is exact
+        rows = table.shape[0]
+        local = tokens - L.model_rank() * rows
+        hit = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)] * hit[..., None].to(table.dtype)
+        x = L.model_reduce(x)
+    else:
+        x = table[tokens]
     if cfg.embed_scale or cfg.family == "vlm":
         # the scale is rounded to the activations' dtype first, as JAX
         # rounds a Python scalar that multiplies an array
@@ -394,17 +433,66 @@ def _prefix(cfg: ArchConfig) -> Optional[int]:
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
-            mask_pad: bool = False) -> torch.Tensor:
+            mask_pad: bool = False, local: bool = False) -> torch.Tensor:
+    """The head's logits; under a mesh that splits the vocab, this rank's
+    block of them with ``local``, else joined over "model"."""
     x = norm_apply(cfg.norm, x, params["final_norm"])
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    start = _vocab_start(params, cfg)
+    if start is not None:
+        x = L.model_enter(x)
     logits = x @ head
     if cfg.logits_dtype == "bfloat16":
         logits = logits.to(torch.bfloat16)
-    if mask_pad and logits.shape[-1] != cfg.vocab:
+    if mask_pad and padded_vocab(cfg.vocab) != cfg.vocab:
         pad = torch.arange(logits.shape[-1], device=logits.device) \
-            >= cfg.vocab
+            + (start or 0) >= cfg.vocab
         logits = logits.masked_fill(pad, float("-inf"))
+    if start is not None and not local:
+        logits = L.model_gather(logits, -1)
     return logits
+
+
+# every leaf's module under a mesh: the leaves matched by _WHOLE compute
+# whole (the rule table splits whisper's pos_embed as an "embed" on its
+# positions, and Mamba2's fused projection and conv on channels that are
+# not heads), those by _HEADS_* and _SSM_HEADS on their "model" block only
+# when the module's heads are split, the rest always on their block (the
+# vocab, the ffn, the experts)
+_WHOLE = re.compile(r"(pos_embed|ssm/(w_in|conv_w|conv_b))$")
+_HEADS_Q = re.compile(r"(wq|bq|wo)$")
+_HEADS_KV = re.compile(r"(wk|wv|bk|bv)$")
+_SSM_HEADS = re.compile(r"ssm/")
+
+
+def _keep_model(cfg: ArchConfig, path: str) -> bool:
+    mp = L.model_size()
+    if _WHOLE.search(path):
+        return False
+    if _SSM_HEADS.search(path):
+        return _ssm_cfg(cfg).n_heads % mp == 0
+    heads = bool(cfg.n_heads) and cfg.n_heads % mp == 0
+    if _HEADS_KV.search(path):
+        return heads and cfg.n_kv % mp == 0
+    if _HEADS_Q.search(path):
+        return heads
+    return True
+
+
+def compute_view(params, cfg: ArchConfig, path: str = ""):
+    """The params as the modules compute with them under a mesh (placed
+    leaves through ``layers.from_placed``), the tree itself without one."""
+    if not L.parallel():
+        return params
+    if isinstance(params, dict):
+        return {k: compute_view(v, cfg, f"{path}/{k}" if path else k)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [compute_view(v, cfg, f"{path}/{i}")
+                for i, v in enumerate(params)]
+    # the MoE runs on the whole batch on every rank (moe_apply)
+    return L.from_placed(params, _keep_model(cfg, path),
+                         batch_specific="moe/" not in path)
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +526,7 @@ def _encode(params, cfg: ArchConfig, audio: torch.Tensor) -> torch.Tensor:
         h = h + A.attention_forward(p["attn"], acfg,
                                     norm_apply(cfg.norm, h, p["ln1"]))
         return h + mlp_apply(p["mlp"], norm_apply(cfg.norm, h, p["ln2"]),
-                             cfg.activation)
+                             cfg.activation, cfg.d_ff)
 
     run = _remat(cfg, body)
     for p in _split(params["enc"]["layers"], cfg.n_enc_layers):
@@ -463,6 +551,11 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
     ``extra``: ``{"audio": [B, enc_seq, d]}`` for an encdec model,
     ``{"img": [B, img_tokens, img_embed_dim]}`` for a vlm model, whose
     logits then cover ``img_tokens + T`` positions."""
+    return _forward(compute_view(params, cfg), cfg, tokens, extra)
+
+
+def _forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
+             local: bool = False):
     x = _embed_inputs(params, cfg, tokens, extra)
     enc_out = _enc_out(params, cfg, extra)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -482,7 +575,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None):
         x, aux = run(x, layers[(where, i, pidx)], enc_out)
         if aux is not None:
             aux_total = aux_total + aux
-    return _logits(params, cfg, x), aux_total
+    return _logits(params, cfg, x, local=local), aux_total
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
@@ -493,10 +586,12 @@ def loss_fn(params, cfg: ArchConfig, batch):
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     extra = {k: batch[k] for k in ("audio", "img") if k in batch}
-    logits, aux = forward(params, cfg, inp, extra)
+    params = compute_view(params, cfg)
+    logits, aux = _forward(params, cfg, inp, extra, local=True)
     if cfg.family == "vlm":
         logits = logits[:, cfg.img_tokens:]
-    ce = cross_entropy(logits, labels, true_vocab=cfg.vocab)
+    ce = cross_entropy(logits, labels, true_vocab=cfg.vocab,
+                       vocab_start=_vocab_start(params, cfg))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -569,6 +664,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, extra=None,
     vlm model's ``extra["img"]`` before them): (last-token logits [B, V],
     caches).  The attention caches are bfloat16 by default whatever the
     weights' dtype, the mamba caches float32, as in the JAX package."""
+    params = compute_view(params, cfg)
     x = _embed_inputs(params, cfg, tokens, extra)
     b, total_t = x.shape[:2]          # a vlm model's image positions too
     max_seq = max(max_seq or total_t, total_t)
@@ -594,6 +690,7 @@ def decode_step(params, cfg: ArchConfig, caches, token: torch.Tensor,
     MoE layer routes the wave's B tokens as one group (its aux is
     dropped)."""
     index = caches["index"] if index is None else int(index)
+    params = compute_view(params, cfg)
     x = _embed(params, cfg, token)[:, None, :]
     for kind, where, i, pidx, cidx in _layers(cfg):
         x = _layer_decode(cfg, kind, _take(params[where][i], pidx), x,

@@ -15,16 +15,25 @@ master copies and moments), and a large leaf is updated a slice of its
 leading (layer) axis at a time: a full-width model's optimizer state is
 most of the card's memory, and a whole-leaf temporary of a 64-layer
 stacked weight would be gigabytes.  The returned params and state are the
-same tensors as those passed in.  Gradient compression
-(``optim/grad_compression.py``) waits for ROADMAP Queue 1 item 7.
+same tensors as those passed in.
+
+Placed params (DTensors on a mesh, ``launch/sharding.py``) take moments
+and master copies of the same placements, so the param specs shard the
+optimizer state as in the JAX package (ZeRO); the update runs on each
+rank's blocks, and the global norm sums every block once over the whole
+process group.  Gradient compression (error-feedback int8) is
+``optim/grad_compression.py``; the update does not call it, as the JAX
+package's does not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Callable, NamedTuple, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "AdamWState", "init", "update", "global_norm"]
@@ -70,15 +79,49 @@ def _slices(t: torch.Tensor):
     return list(torch.split(t, rows, dim=0))
 
 
+def _placed(x) -> bool:
+    # no DTensor exists before its module is imported (importing it costs
+    # seconds, which an unmeshed run need not pay)
+    dt = sys.modules.get("torch.distributed.tensor")
+    return dt is not None and isinstance(x, dt.DTensor)
+
+
+def _local(x):
+    """A placed leaf's block on this rank (its own storage), else ``x``."""
+    return x.to_local() if _placed(x) else x
+
+
+def _owner(x) -> bool:
+    """Whether this rank counts a placed leaf's block in a sum over the
+    process group: the first rank along every mesh axis the leaf is
+    whole on (a block held by several ranks counts once)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, x.placements)
+               if not pl.is_shard())
+
+
+def _sum_sq(x) -> torch.Tensor:
+    return sum(torch.sum(torch.square(s.float())) for s in _slices(x))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(sum over leaves of sum(x^2)), in float32."""
-    leaves = [sum(torch.sum(torch.square(s.float())) for s in _slices(x))
-              for x in tree_flatten(tree)[0]]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """sqrt(sum over leaves of sum(x^2)), in float32; placed leaves sum
+    their blocks over the process group."""
+    leaves = tree_flatten(tree)[0]
+    if not any(_placed(x) for x in leaves):
+        return torch.sqrt(torch.sum(torch.stack([_sum_sq(x)
+                                                 for x in leaves])))
+    parts = [_sum_sq(x.to_local()) * float(_owner(x)) for x in leaves]
+    total = torch.sum(torch.stack(parts))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def init(cfg: AdamWConfig, params) -> AdamWState:
     def zeros(p):
+        if _placed(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     master = (tree_map(lambda p: p.detach().to(torch.float32, copy=True),
                        params) if cfg.master_fp32 else None)
@@ -115,12 +158,13 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params
     lr = _lr_at(cfg, step)
 
     p_leaves, spec = tree_flatten(params)
-    g_leaves = tree_flatten(grads)[0]
-    m_leaves = tree_flatten(state.mu)[0]
-    v_leaves = tree_flatten(state.nu)[0]
-    ref = (tree_flatten(state.master)[0] if cfg.master_fp32
-           else [p.float() for p in p_leaves])
-    for g, m, v, p32, p in zip(g_leaves, m_leaves, v_leaves, ref, p_leaves):
+    g_leaves = [_local(x) for x in tree_flatten(grads)[0]]
+    m_leaves = [_local(x) for x in tree_flatten(state.mu)[0]]
+    v_leaves = [_local(x) for x in tree_flatten(state.nu)[0]]
+    ref = ([_local(x) for x in tree_flatten(state.master)[0]]
+           if cfg.master_fp32 else [_local(p).float() for p in p_leaves])
+    for g, m, v, p32, p in zip(g_leaves, m_leaves, v_leaves, ref,
+                               [_local(p) for p in p_leaves]):
         dev = m.device
         args = (scale.to(dev), lr.to(dev), bc1.to(dev), bc2.to(dev), cfg)
         for gs, ms, vs, ps in zip(_slices(g), _slices(m), _slices(v),

@@ -9,7 +9,9 @@ saves what each returned; a case that raises ends its worker, which brings
 the other ranks down at their next collective.  ``RankResults.case(name)``
 is rank 0's result of one case, after checking that every rank finished
 it and that its ``"global"`` part is the same on every rank (every rank
-gets the same global results).
+gets the same global results).  ``start_ranks`` starts a group and
+returns at once; its ``wait()`` gives the ``RankResults``, so a test
+module can run two groups, and its own reference, side by side.
 """
 
 from __future__ import annotations
@@ -84,6 +86,44 @@ class RankResults:
 
 def run_ranks(cases_file, world: int, tmp: Path,
               timeout_s: float = 300.0) -> RankResults:
+    return start_ranks(cases_file, world, tmp, timeout_s).wait()
+
+
+class _Started:
+    """A group of workers started by ``start_ranks``; ``wait()`` collects
+    them (under the group's wall-clock limit, counted from the start)."""
+
+    def __init__(self, procs, world: int, tmp: Path, deadline: float):
+        self.procs, self.world, self.tmp = procs, world, tmp
+        self.deadline = deadline
+
+    def wait(self) -> RankResults:
+        procs, world, tmp = self.procs, self.world, self.tmp
+        logs = [""] * world
+        try:
+            for r, p in enumerate(procs):
+                logs[r] = p.communicate(
+                    timeout=max(0.0, self.deadline - time.monotonic()))[0]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for r, p in enumerate(procs):
+                out = p.communicate()[0]
+                logs[r] = (logs[r] or out or "") + \
+                    "\n[killed at the time limit]"
+        results = []
+        for r in range(world):
+            path = tmp / f"rank{r}.pt"
+            results.append(torch.load(path, weights_only=False)
+                           if path.exists() else {})
+        return RankResults(world, results, [p.returncode for p in procs],
+                           [log[-4000:] for log in logs])
+
+
+def start_ranks(cases_file, world: int, tmp: Path,
+                timeout_s: float = 300.0) -> _Started:
+    """``run_ranks`` without the wait: the workers run while the caller
+    does other work, then ``.wait()``."""
     tmp = Path(tmp)
     store = tmp / "store"
     env = {k: v for k, v in os.environ.items() if k not in _LAUNCH_ENV}
@@ -95,23 +135,5 @@ def run_ranks(cases_file, world: int, tmp: Path,
         [sys.executable, str(WORKER), str(cases_file), str(store), str(r),
          str(world), str(tmp)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = [""] * world
     # one limit for the whole group, not one a rank
-    deadline = time.monotonic() + timeout_s
-    try:
-        for r, p in enumerate(procs):
-            logs[r] = p.communicate(
-                timeout=max(0.0, deadline - time.monotonic()))[0]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        for r, p in enumerate(procs):
-            out = p.communicate()[0]
-            logs[r] = (logs[r] or out or "") + "\n[killed at the time limit]"
-    results = []
-    for r in range(world):
-        path = tmp / f"rank{r}.pt"
-        results.append(torch.load(path, weights_only=False)
-                       if path.exists() else {})
-    return RankResults(world, results, [p.returncode for p in procs],
-                       [log[-4000:] for log in logs])
+    return _Started(procs, world, tmp, time.monotonic() + timeout_s)

@@ -1291,3 +1291,34 @@ def test_cuda_torch_profiler_trace_writes_the_device_timeline(cuda_device,
     import json
     doc = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("cat") == "kernel" for e in doc["traceEvents"])
+
+
+@pytest.mark.gpu
+def test_cuda_one_rank_nccl_mesh_forward_equals_unmeshed(cuda_device):
+    """qwen2's reduced forward on a 1 x 1 ("data", "model") mesh of one
+    NCCL rank (params placed by ``param_specs``) equals the unmeshed
+    forward: the one-rank collectives move nothing, so every product runs
+    as it does without the mesh."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import mesh as TM
+    from repro_torch.launch import sharding as TSH
+    from repro_torch.models import transformer as TT
+    cfg = reduced(get_config("qwen2-0.5b"))
+    params = TT.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(1))
+    want, _ = TT.forward(params, cfg, toks)
+    assert not dist.is_initialized()
+    TM.init_distributed(backend="nccl")
+    try:
+        mesh = TM.make_local_mesh(1)
+        assert dist.get_backend() == "nccl"
+        placed = TSH.place_params(params, mesh)
+        with TSH.activate(mesh, batch_sharded=True), torch.no_grad():
+            got, _ = TT.forward(placed, cfg, toks)
+    finally:
+        TM.shutdown_distributed()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

@@ -71,13 +71,6 @@ BY_DESIGN = {
 WAITING = {
     "core.scaling": {"*": "8.7"},
     "launch.dryrun": {"*": "8.7"},
-    "optim.grad_compression": {"*": "7"},
-    "launch.mesh": {name: "7" for name in (
-        "MeshPlan", "batch_axes", "make_local_mesh", "make_mesh",
-        "make_production_mesh")},
-    "launch.sharding": {name: "7" for name in (
-        "activate", "batch_specs", "cache_shardings", "param_shardings",
-        "param_specs", "spec_tree_to_shardings")},
     "models.model": {"input_specs": "8.7", "cache_specs": "8.7"},
 }
 

@@ -304,7 +304,9 @@ def test_trainer_defaults_to_cuda_and_names_what_waits(monkeypatch,
                                                        tmp_path, capsys):
     """Checkpoints no longer wait (``ckpt_dir`` saves the last step, and a
     second call on that directory says so and trains nothing); model
-    parallelism still names item 7."""
+    parallelism without a process group runs on the one device, as the
+    JAX package's ``make_local_mesh`` clamps it to the devices there
+    are."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TTR.main(["--arch", "qwen2-0.5b", "--steps", "1"])
@@ -318,8 +320,10 @@ def test_trainer_defaults_to_cuda_and_names_what_waits(monkeypatch,
               "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "restored step 1" in out and "already holds step 1" in out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TTR.run("qwen2-0.5b", steps=1, device="cpu", model_parallel=2)
+    assert not torch.distributed.is_initialized()
+    assert TTR.run("qwen2-0.5b", steps=1, batch=1, seq=8, device="cpu",
+                   model_parallel=2) == \
+        TTR.run("qwen2-0.5b", steps=1, batch=1, seq=8, device="cpu")
 
 
 def test_trainer_cli_on_the_cpu(capsys):
