@@ -46,8 +46,10 @@ failure ends the run with a non-zero exit):
   2c. flash_attention against its plain version on the card, with kernel,
      plain and library (torch's scaled_dot_product_attention on the same
      inputs, a yardstick only: the port never calls it) times beside the
-     bound; bf16 runs on the tensor-core kernels, float32 on the CUDA-core
-     ones: the serving prefill's shape, q [8, 14, 2048, 64] and k, v
+     bound; bf16 runs on the wgmma kernels, float32 on the 3xTF32 ones
+     (its bound 3 x the operations at TF32's rate, the CUDA cores'
+     float32 bound beside it): the serving prefill's shape, q [8, 14,
+     2048, 64] and k, v
      [8, 2, 2048, 64], bf16, causal (rtol=atol=1e-2 against the plain
      version in float32 on the same bf16 inputs); the same at B=1 in
      float32 (2e-5); gemma3's local layer, [1, 16, 2048, 256] /
@@ -59,8 +61,9 @@ failure ends the run with a non-zero exit):
      8:1 with a prefix-LM span: its prefill wave [8, 8, 1024, 256] and
      training batch [2, 8, 1280, 256] with the image's 256 positions as
      the prefix, and a prefix of 200 ending inside a tile at T = 456, in
-     bf16 and float32; for a prefix case, the SDPA backend that takes the
-     explicit mask;
+     bf16 and float32; the training example's float32 shapes, [8, 5 over
+     1, 256, 64] and [8, 10 over 2, 256, 64]; for a prefix case, the SDPA
+     backend that takes the explicit mask;
   2f. the threefry kernels (``threefry_split``, ``threefry_draw``)
      against their plain version on the card at the SNN paths' shapes
      (main's 5 keys a step and normal draws of 80,000 x 5.0 and 20,000 x
@@ -152,7 +155,8 @@ failure ends the run with a non-zero exit):
      autograd through ``flash_attention_ref``: Qwen2-0.5B's training
      shape, q [4, 14, 2048, 64], k/v [4, 2, 2048, 64], bf16, causal; the
      same at B=1 in float32; gemma3's local layer; the other cases of 2c
-     (tolerances at FLASH_BWD_TOL); beside the
+     (tolerances at FLASH_BWD_TOL); two calls bit-equal (no atomics);
+     beside the
      bound, the plain backward's time and SDPA's backward
      (``torch.autograd.grad`` through ``scaled_dot_product_attention``, a
      yardstick only) with the kernels it ran;
@@ -470,7 +474,7 @@ MB_RUN = dict(steps=2500, plain_steps=200, search_steps=2500,
               search=tuple(0.24 * 2.0 ** (i / 4 - 1) for i in range(12)))
 # name, (B, Hq, Hkv, T, D), dtype, options, tolerance against the plain
 # version (in float32, on the same inputs)
-# (bf16 runs on the tensor cores, float32 on the CUDA cores)
+# (bf16 runs on the tensor cores as bf16, float32 as 3xTF32)
 FLASH_CASES = (
     ("prefill", (8, 14, 2, 2048, 64), "bfloat16", {"causal": True}, 1e-2),
     ("prefill_b1_f32", (1, 14, 2, 2048, 64), "float32", {"causal": True},
@@ -519,6 +523,11 @@ FLASH_CASES = (
      {"causal": True, "prefix": 200}, 1e-2),
     ("paligemma_prefix200_f32", (1, 8, 1, 456, 256), "float32",
      {"causal": True, "prefix": 200}, 2e-5),
+    # examples/train_lm_torch.py's float32 training: its default model (5
+    # query heads over 1) and --hundred-m's (10 over 2), 8 x 256 tokens
+    ("example_f32", (8, 5, 1, 256, 64), "float32", {"causal": True}, 2e-5),
+    ("example_100m_f32", (8, 10, 2, 256, 64), "float32", {"causal": True},
+     2e-5),
 )
 # phase 14: the MoE, SSM and hybrid families served at full width, one
 # wave of 8 greedy requests (prompts of 512-1024 tokens from numpy's
@@ -647,6 +656,10 @@ FLASH_BWD_CASES = (
      {"causal": True, "prefix": 200}),
     ("paligemma_prefix200_f32", (1, 8, 1, 456, 256), "float32",
      {"causal": True, "prefix": 200}),
+    # examples/train_lm_torch.py's float32 training (default and
+    # --hundred-m)
+    ("example_f32", (8, 5, 1, 256, 64), "float32", {"causal": True}),
+    ("example_100m_f32", (8, 10, 2, 256, 64), "float32", {"causal": True}),
 )
 # float32: tests/test_kernels.py's gradient tolerance.  bf16: against the
 # plain backward on the same saved bf16 tensors, 1e-2 of each gradient's
@@ -852,7 +865,9 @@ def main() -> int:
     checkpoints(torch, report)
     torch.cuda.empty_cache()
     launches_families.update(lm_mesh(torch, report))
-    # each kernel's launches come from the run of its own path
+    # each kernel's launches come from the run of its own path; the
+    # float32 flash route's is phase 8c's float32 training step (qwen2)
+    launches_f32 = report["train_step_check"]["qwen2-0.5b"]["launches"]
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
                "izhikevich_step": launches_main, "hh_step": launches_mb,
@@ -862,6 +877,8 @@ def main() -> int:
                "threefry_draw.randint": launches_construct,
                "flash_attention": launches_serve,
                "flash_attention_bwd": launches_qwen,
+               "flash_attention" + F32_ENTRY: launches_f32,
+               "flash_attention_bwd" + F32_ENTRY: launches_f32,
                "ssd_scan": launches_mamba,
                "ssd_scan.state": launches_families["14c"],
                "spike_bitmask": launches_obs}
@@ -872,8 +889,12 @@ def main() -> int:
                    "delay_ring_fold": "delay", "hh_step": "mb",
                    "threefry_fold_in": "build",
                    "threefry_draw.randint": "build"}
+    # the float32 phases 15c and 17c, for the float32 entries
+    f32_steps = {label: report[key]["launches"] for label, key in
+                 (("15c", "whisper_check"), ("17c", "paligemma_check"))}
     for e in kernel_entries:
-        e["launches"] = path_of[e["name"]][e["name"]]
+        counter = e["name"].removesuffix(F32_ENTRY)
+        e["launches"] = path_of[e["name"]][counter]
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         on = engine_path.get(e["name"])
         e["engine_launches"] = (launches_engine[on][e["name"]] if on
@@ -882,9 +903,11 @@ def main() -> int:
               f"{e['name']} never launched on the engine's path")
         # and its launches on each of phases 14's, 15's, 17's and 19's
         # paths that runs it
-        e["family_launches"] = {
-            label: n[e["name"]] for label, n in launches_families.items()
-            if n.get(e["name"])}
+        runs = (f32_steps if e["name"].endswith(F32_ENTRY)
+                else launches_families)
+        e["family_launches"] = {label: n[counter]
+                                for label, n in runs.items()
+                                if n.get(counter)}
     report["kernels"] = kernel_entries
     report["build"] = kernels
     out = ROOT / "chiprun_out"
@@ -1427,16 +1450,12 @@ def compare_flash(torch, report) -> list:
             es = q.element_size()
             nbytes = es * (2 * b * hq * tq * d + 2 * b * hkv * tk * d)
             flops = 4.0 * b * hq * d * pairs
-            peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
             row = {"name": "flash_attention", "case": name,
                    "shape": [b, hq, hkv, t, d], "dtype": dt,
                    "options": kw, "tol": tol, "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "library_kernels": lib_backend,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   **_flash_bounds(dt, nbytes, flops),
                    "bytes": nbytes, "flops": flops,
                    "tflops": flops / ms / 1e9}
             rows.append(row)
@@ -1444,15 +1463,49 @@ def compare_flash(torch, report) -> list:
             del q, k, v, out, ref, mask
             torch.cuda.empty_cache()
     report["flash_table"] = rows
-    r = rows[0]                       # the serving prefill's own shape
-    return [{"name": "flash_attention", "route": "cuda",
-             # the bf16 route (tensor cores), which the path runs
-             "source":
-                 "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:112",
-             "launches": 0,
-             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}}]
+    # the serving prefill's own shape (bf16) and its float32 counterpart
+    return _flash_entries("flash_attention",
+                          "src/repro/kernels/flash_attention.py:112",
+                          rows, "prefill", "prefill_b1_f32")
+
+
+# each flash route's source; the float32 entries' names in the kernels
+# line, which the wrappers count under their own ("flash_attention",
+# "flash_attention_bwd")
+FLASH_SOURCES = {"bfloat16": "src/repro_torch/kernels/csrc/"
+                             "flash_attention_sm90.cu",
+                 "float32": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+F32_ENTRY = ".f32"
+
+
+def _flash_bounds(dt: str, nbytes: float, flops: float) -> dict:
+    """A flash case's bound: bf16 on the tensor cores' bf16 rate; float32
+    as 3xTF32 on the tensor cores (three TF32 products for each,
+    ``_tc_bound``), with the CUDA cores' float32 bound beside it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dt == "bfloat16":
+        t_ops = flops / BF16_FLOPS * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    f32 = _bound(nbytes, flops)
+    return {**_tc_bound(nbytes, flops, passes=3),
+            "f32_bound_ms": f32["bound_ms"], "f32_bound_by": f32["bound_by"]}
+
+
+def _flash_entries(name: str, replaces: str, rows: list, bf16_case: str,
+                   f32_case: str) -> list:
+    """The kernels line's entries of both flash routes, from the rows of
+    the named cases."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    out = []
+    for dt, case, suffix in (("bfloat16", bf16_case, ""),
+                             ("float32", f32_case, F32_ENTRY)):
+        r = next(x for x in rows if x["case"] == case)
+        out.append({"name": name + suffix, "route": "cuda",
+                    "source": FLASH_SOURCES[dt], "replaces": replaces,
+                    "launches": 0, **{k: r[k] for k in keys}})
+    return out
 
 
 def _ssd_work(b, t, h, dh, ds) -> tuple:
@@ -1682,6 +1735,12 @@ def compare_flash_bwd(torch, report) -> list:
                                         (b, hkv, tk, d), (b, hq, tq, d)))
             out, lse = FA.flash_attention_fwd(q, k, v, **kw)
             got = FA.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            # no atomics: a second call gives the same bits
+            again = FA.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
+            check(same, f"flash_attention_bwd {name}: two calls on the same "
+                  "inputs gave different bits")
+            del again
             # the plain backward on the same saved tensors
             want = R.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                              out.float(), lse, g.float(),
@@ -1752,17 +1811,14 @@ def compare_flash_bwd(torch, report) -> list:
             nbytes = (es * (4 * b * hq * tq * d + 4 * b * hkv * tk * d)
                       + 4 * b * hq * tq)
             flops = 10.0 * b * hq * d * pairs
-            peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / peak * 1e3
             row = {"name": "flash_attention_bwd", "case": name,
                    "shape": [b, hq, hkv, t, d], "dtype": dt, "options": kw,
                    "tol": FLASH_BWD_TOL[dt], "max_abs_err": max(errs),
-                   "max_abs_err_autograd": max(auto_errs), "ms": ms,
+                   "max_abs_err_autograd": max(auto_errs),
+                   "bit_equal_calls": same, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "library_kernels": lib_backend,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   **_flash_bounds(dt, nbytes, flops),
                    "bytes": nbytes, "flops": flops,
                    "tflops": flops / ms / 1e9}
             rows.append(row)
@@ -1770,15 +1826,10 @@ def compare_flash_bwd(torch, report) -> list:
             del q, k, v, g, out, lse, got, mask
             torch.cuda.empty_cache()
     report["flash_bwd_table"] = rows
-    r = rows[0]                       # the training shape
-    return [{"name": "flash_attention_bwd", "route": "cuda",
-             # the bf16 route (tensor cores), which the path runs
-             "source":
-                 "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-             "replaces": "src/repro/kernels/flash_xla.py:121",
-             "launches": 0,
-             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}}]
+    # the training shape (bf16) and its float32 counterpart
+    return _flash_entries("flash_attention_bwd",
+                          "src/repro/kernels/flash_xla.py:121", rows,
+                          "train", "train_b1_f32")
 
 
 def _ulp(torch, a, b) -> int:

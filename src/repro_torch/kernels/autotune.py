@@ -117,10 +117,12 @@ KERNELS: Dict[str, KernelInfo] = {
               ELEMENTWISE_BLOCKS),
     **_family("spike_bitmask", ["spike_bitmask"], ELEMENTWISE_BLOCKS),
     # designed tiles: the blocks the wgmma / mma shapes fix
-    **_family("flash_attention", [f"flash_attention<float,{j}>"
-                                  for j in (1, 2, 3, 4)]
-              + ["flash_bwd_delta<float>", "flash_bwd_dkdv<float>",
-                 "flash_bwd_dq<float>"], (256,)),
+    **_family("flash_attention", [f"flash_tf32_fwd<{d}>"
+                                  for d in (64, 128, 256)]
+              + ["flash_tf32_bwd_delta",
+                                  "flash_tf32_bwd_gqa_sum"]
+              + [f"flash_tf32_bwd_{k}<{d}>" for k in ("dkdv", "dq")
+                 for d in (64, 128, 256)], (256,)),
     **_family("flash_attention_sm90", ["flash_bwd_rowsum"], (256,)),
     **_family("flash_attention_sm90", [f"flash_fwd_wgmma<{p}>"
                                        for p in (1, 2, 3, 4)]
@@ -236,7 +238,8 @@ def _default_dyn_smem(kernel: str) -> int:
     """The dynamic shared memory a kernel's own launch takes at its
     designed tile: the bf16 flash kernels' from their launch plan at D = 64
     panels; -1 lets the library use its launch's own (the float32 flash
-    and SSD kernels); 0 for the rest."""
+    kernels' at their tiles' width, and the SSD kernels'); 0 for the
+    rest."""
     if kernel.startswith(("flash_fwd_wgmma", "flash_bwd_dkdv_wgmma",
                           "flash_bwd_dq_wgmma")):
         from repro_torch.kernels import flash_attention as FA
@@ -245,8 +248,8 @@ def _default_dyn_smem(kernel: str) -> int:
         part = {"flash_fwd_wgmma": "fwd", "flash_bwd_dkdv_wgmma": "dkdv",
                 "flash_bwd_dq_wgmma": "dq"}[kernel.split("<")[0]]
         return int(plan[part]["smem"])
-    if kernel.startswith(("flash_attention<", "flash_bwd_dkdv<",
-                          "flash_bwd_dq<", "ssd_scan")):
+    if kernel.startswith(("flash_tf32_fwd<", "flash_tf32_bwd_dkdv<",
+                          "flash_tf32_bwd_dq<", "ssd_scan")):
         return -1
     return 0
 

@@ -4,17 +4,18 @@
 Two routes replace the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (the forward)
 and the recompute backward of ``repro/kernels/flash_xla.py`` (``_bwd``):
-bf16 operands go to the tensor cores (``csrc/flash_attention_sm90.cu``:
-wgmma on bf16 tiles fed by TMA), float32 operands to the CUDA cores
-(``csrc/flash_attention.cu``; float32 on the tensor cores would be TF32).
-The sources' headers say how, and what bounds them on the card.
+bf16 operands go to the tensor cores as bf16 (``csrc/flash_attention_sm90.cu``:
+wgmma on bf16 tiles fed by TMA), float32 operands to the tensor cores as
+3xTF32 (``csrc/flash_attention.cu``: mma.sync on operands split into two
+TF32 parts, fed by cp.async, which holds float32's tolerances).  The
+sources' headers say how, and what bounds them on the card.
 
 Dispatch goes by where the tensors lie: on the CPU the plain versions
 ``repro_torch.kernels.ref.flash_attention_fwd_ref`` / ``_bwd_ref``; on a
 CUDA device the kernels of the dtype's route, on the current stream, or an
 error (a failed launch raises; nothing falls back to the other route).
 ``launch_plan`` computes on the host what each launch needs (route, tiles,
-ring stages, shared memory, TMA boxes, grid).  The kernels read dense
+ring stages, shared memory, TMA boxes, grids, scratch).  The kernels read dense
 row-major ``[B, H, T, D]`` operands: the wrappers make q, k and v
 contiguous (a copy when they are transposed views, as the model's
 ``[B, T, H, D]`` projections are) and return contiguous outputs.
@@ -22,8 +23,10 @@ contiguous (a copy when they are transposed views, as the model's
 ``FlashAttention.apply`` is the differentiable attention of the port, on
 both devices: its forward saves (q, k, v, out, lse) and its backward is
 ``flash_attention_bwd``.  ``launches`` counts kernel launches: one a
-forward call and one a backward call (the backward runs three kernels:
-the rowsum pre-pass, dK/dV and dQ); plain-version calls are not counted.
+forward call and one a backward call (the backward runs three kernels,
+the rowsum pre-pass, dK/dV and dQ, and on the float32 route a fourth that
+sums the GQA partials where Hq > Hkv); plain-version calls are not
+counted.
 """
 
 from __future__ import annotations
@@ -55,10 +58,12 @@ ROUTES = {
                      "bwd": ("flash_bwd_rowsum_kernel",
                              "flash_bwd_dkdv_wgmma_kernel",
                              "flash_bwd_dq_wgmma_kernel")},
-    torch.float32: {"route": "cuda_cores",
-                    "fwd": ("flash_attention_kernel",),
-                    "bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                            "flash_bwd_dq_kernel")},
+    torch.float32: {"route": "tensor_cores_3xtf32",
+                    "fwd": ("flash_tf32_fwd_kernel",),
+                    "bwd": ("flash_tf32_bwd_delta_kernel",
+                            "flash_tf32_bwd_dkdv_kernel",
+                            "flash_tf32_bwd_gqa_sum_kernel",
+                            "flash_tf32_bwd_dq_kernel")},
 }
 SMEM_MAX = 232_448        # dynamic shared memory one CTA may use (H100)
 _SMEM_SM = 233_472        # shared memory of one SM
@@ -67,6 +72,11 @@ _PANEL = 64               # columns of a TMA box: 128 bytes of bf16
 _ROW = 128                # bytes of one box row
 _FWD_BQ = 128             # queries a forward CTA (two warpgroups of 64)
 _BWD_TILE = 64            # keys (dK/dV) or queries (dQ) a backward CTA
+# float32, by the tiles' column width kd: (forward queries x keys, dK/dV
+# keys x queries, dQ queries x keys) a CTA and step
+_F32_TILES = {64: ((64, 64), (64, 32), (64, 32)),
+              128: ((64, 32), (64, 32), (64, 32)),
+              256: ((32, 32), (32, 32), (32, 32))}
 
 
 def reset_launches() -> None:
@@ -76,13 +86,13 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The float32 route (CUDA cores)."""
+    """The float32 route (tensor cores, 3xTF32)."""
     lib = _build.load("flash_attention")
     lib.flash_attention_fwd.argtypes = ([P] * 5 + [I] * 7 + [F] + [I] * 4
-                                        + [F, I, P])
+                                        + [F, I, I, P])
     lib.flash_attention_fwd.restype = I
-    lib.flash_attention_bwd.argtypes = ([P] * 10 + [I] * 7 + [F] + [I] * 4
-                                        + [F, I, P])
+    lib.flash_attention_bwd.argtypes = ([P] * 11 + [I] * 7 + [F] + [I] * 4
+                                        + [F, I, I, I, P])
     lib.flash_attention_bwd.restype = I
     lib.flash_attention_error_string.argtypes = [I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -115,9 +125,71 @@ def _stages(budget: int, fixed: int, stage: int, most: int = 3) -> int:
     return min(most, (budget - 1024 - fixed - 8) // (stage + 16))
 
 
+def _f32_plan(b: int, hq: int, hkv: int, tq: int, tk: int, d: int) -> dict:
+    """The float32 route's launches (``csrc/flash_attention.cu``, which
+    refuses a shared-memory size other than its layout's).
+
+    Tiles are laid out for ``kd`` = 64, 128 or 256 columns (the smallest
+    that holds D), rows ``kd + 4`` floats apart; the streamed tiles (K/V
+    in the forward and dQ, Q/dO with lse and delta in dK/dV) land in two
+    cp.async stages, the next in flight while this one multiplies.  The
+    forward CTA (8 warps) holds 64 queries up to kd = 128, 32 at 256: two
+    warps on each 16 rows, each with its own online softmax over half of
+    every key tile of ``bk``, merged at the end (at 256 two such pairs on
+    each 16 rows, half of O's columns each).  The dK/dV CTA
+    (8 warps) holds ``bk`` keys of one query head and takes ``bq`` queries
+    a step, the dQ CTA (8 warps) ``bq`` queries and ``bk`` keys a step: 64
+    x 32 up to kd = 128, 32 x 32 at 256.  Every grid has its tiles on axis
+    x and b·Hq on axis y.  Where Hq > Hkv the dK/dV CTAs write float32
+    partials per query head, ``scratch_bytes`` of them ([2, B, Hq, Tk,
+    D]), which ``gqa_sum`` adds up per KV head; ``delta_bytes`` is the
+    rowsum pre-pass's [B, Hq, Tq]."""
+    kd = 64 if d <= 64 else 128 if d <= 128 else 256
+    ld = kd + 4
+    (fbq, fbk), (kbk, kbq), (qbq, qbk) = _F32_TILES[kd]
+    # Q, two stages of K and V
+    fwd = {"threads": 256, "bq": fbq, "bk": fbk, "stages": 2,
+           "smem": 4 * (fbq * ld + 2 * 2 * fbk * ld),
+           "grid": (_cdiv(tq, fbq), b * hq)}
+    # K and V, two stages of Q, dO, lse and delta, P^T and dS^T as (hi, lo)
+    dkdv = {"threads": 256, "bk": kbk, "bq": kbq, "stages": 2,
+            "smem": (4 * (2 * kbk * ld + 2 * 2 * kbq * ld + 2 * 2 * kbq)
+                     + 8 * 2 * kbk * (kbq + 4)),
+            "grid": (_cdiv(tk, kbk), b * hq)}
+    # Q and dO, two stages of K and V, dS as (hi, lo)
+    dq = {"threads": 256, "bq": qbq, "bk": qbk, "stages": 2,
+          "smem": 4 * (2 * qbq * ld + 2 * 2 * qbk * ld) + 8 * qbq * (qbk + 4),
+          "grid": (_cdiv(tq, qbq), b * hq)}
+    gqa = hq != hkv
+    plan = {"route": ROUTES[torch.float32]["route"], "kd": kd, "fwd": fwd,
+            "delta": {"threads": 256, "grid": (_cdiv(b * hq * tq, 8),)},
+            "dkdv": dkdv, "dq": dq,
+            "gqa_sum": ({"threads": 256,
+                         "grid": (_cdiv(b * hkv * tk * d // 4, 256), 2)}
+                        if gqa else None),
+            "scratch_bytes": 2 * b * hq * tk * d * 4 if gqa else 0,
+            "delta_bytes": b * hq * tq * 4}
+    if b * hq > GRID_Y_MAX:
+        raise ValueError(f"b·Hq = {b * hq} exceeds the float32 kernels' "
+                         f"grid axis y ({GRID_Y_MAX})")
+    grids = [plan[k]["grid"] for k in ("fwd", "delta", "dkdv", "dq")]
+    if gqa:
+        grids.append(plan["gqa_sum"]["grid"])
+    if max(gr[0] for gr in grids) > INT_MAX:
+        raise ValueError(f"shapes {(b, hq, hkv, tq, tk, d)} exceed the "
+                         f"float32 kernels' grid axis x ({INT_MAX})")
+    for k in ("fwd", "dkdv", "dq"):
+        if plan[k]["smem"] > SMEM_MAX:
+            raise ValueError(f"the float32 {k} CTA needs {plan[k]['smem']} "
+                             f"bytes of shared memory, past {SMEM_MAX}")
+    return plan
+
+
+@functools.lru_cache(maxsize=1024)
 def launch_plan(dtype: torch.dtype, b: int, hq: int, hkv: int, tq: int,
                 tk: int, d: int) -> dict:
-    """What the launches of ``dtype``'s route need at these shapes.
+    """What the launches of ``dtype``'s route need at these shapes (one
+    dict a shape, cached: the caller reads it and never changes it).
 
     bf16 (the tensor cores): per kernel its threads, rows per tile, ring
     stages, dynamic shared memory (which ``csrc/flash_attention_sm90.cu``
@@ -130,18 +202,15 @@ def launch_plan(dtype: torch.dtype, b: int, hq: int, hkv: int, tq: int,
     (head, query tile) items from a 4-stage ring) or 64 queries (dQ, two
     CTAs to an SM at D <= 64).  Every grid has its tiles on axis y, the
     longest causal ones launched first.
-    float32 (the CUDA cores): the route alone; ``csrc/flash_attention.cu``
-    plans its own launches, with b·Hq on grid axis y.
+    float32 (the tensor cores as 3xTF32): see ``_f32_plan``.
 
     Raises ValueError where a grid of the route would exceed what a launch
-    takes: float32 b·Hq past axis y's 65535; bf16 b·Hq or b·Hkv past axis
-    x's 2^31 - 1, or the tiles past axis y."""
+    takes: float32 b·Hq past axis y's 65535 or the tiles past axis x's
+    2^31 - 1; bf16 b·Hq or b·Hkv past axis x's 2^31 - 1, or the tiles past
+    axis y; or where a CTA's shared memory would exceed ``SMEM_MAX``."""
     route = ROUTES[dtype]["route"]
     if dtype == torch.float32:
-        if b * hq > GRID_Y_MAX:
-            raise ValueError(f"b·Hq = {b * hq} exceeds the float32 "
-                             f"kernels' grid axis y ({GRID_Y_MAX})")
-        return {"route": route}
+        return _f32_plan(b, hq, hkv, tq, tk, d)
     panels = _cdiv(d, _PANEL)
     bk = 128 if panels <= 2 else 64
     q_bytes = panels * _FWD_BQ * _ROW
@@ -264,7 +333,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               stream)
             err = lib.flash_attention_sm90_error_string
         else:
-            rc = _lib().flash_attention_fwd(*args, 0, *shape, *opts, stream)
+            rc = _lib().flash_attention_fwd(*args, 0, *shape, *opts,
+                                            plan["fwd"]["smem"], stream)
             err = _lib().flash_attention_error_string
     launches["flash_attention"] += 1
     raise_on(rc, err, "flash_attention")
@@ -316,7 +386,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 plan["dq"]["smem"], stream)
             err = lib.flash_attention_sm90_error_string
         else:
-            rc = _lib().flash_attention_bwd(*args, 0, *shape, *opts, stream)
+            # the query heads' dK/dV partials where Hq > Hkv
+            part = (torch.empty(plan["scratch_bytes"] // 4,
+                                dtype=torch.float32, device=q.device)
+                    if plan["scratch_bytes"] else None)
+            rc = _lib().flash_attention_bwd(
+                *args, None if part is None else part.data_ptr(), 0, *shape,
+                *opts, plan["dkdv"]["smem"], plan["dq"]["smem"], stream)
             err = _lib().flash_attention_error_string
     launches["flash_attention_bwd"] += 1
     raise_on(rc, err, "flash_attention_bwd")

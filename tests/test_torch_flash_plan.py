@@ -1,11 +1,12 @@
 """The host-side launch plan of repro_torch's flash attention
 (``kernels.flash_attention.launch_plan``), on the CPU: which route each
-dtype takes, and for the bf16 tensor-core kernels the tiles, ring stages,
-shared memory, TMA boxes and grids at every head dim the wrapper takes
-(D <= 256, D % 8 == 0).  The kernels check the plan's shared-memory bytes
-against their own layout on the card (tests/test_torch_cuda.py); here the
-plan itself is held to the card's limits.  No jax: the plan has no
-counterpart in the JAX package."""
+dtype takes; for the bf16 kernels the tiles, ring stages, shared memory,
+TMA boxes and grids, and for the float32 (3xTF32) kernels the tiles,
+stages, shared memory, grids and GQA scratch, at every head dim the
+wrapper takes (D <= 256, D % 8 == 0).  The kernels check the plan's
+shared-memory bytes against their own layout on the card
+(tests/test_torch_cuda.py); here the plan itself is held to the card's
+limits.  No jax: the plan has no counterpart in the JAX package."""
 
 import pytest
 
@@ -27,8 +28,10 @@ def test_route_by_dtype():
     bf = FA.launch_plan(torch.bfloat16, 1, 2, 1, 64, 64, 64)
     f32 = FA.launch_plan(torch.float32, 1, 2, 1, 64, 64, 64)
     assert bf["route"] == FA.ROUTES[torch.bfloat16]["route"] == "tensor_cores"
-    assert f32 == {"route": FA.ROUTES[torch.float32]["route"]}
-    assert f32["route"] == "cuda_cores"
+    assert f32["route"] == FA.ROUTES[torch.float32]["route"]
+    assert f32["route"] == "tensor_cores_3xtf32"
+    assert set(f32) >= {"fwd", "delta", "dkdv", "dq", "gqa_sum",
+                        "scratch_bytes"}
     # the two routes name disjoint kernels, so a profile tells them apart
     names = [set(FA.ROUTES[dt]["fwd"] + FA.ROUTES[dt]["bwd"])
              for dt in (torch.bfloat16, torch.float32)]
@@ -156,8 +159,9 @@ def test_float32_refuses_batch_heads_past_grid_axis_y():
     with pytest.raises(ValueError, match="axis y"):
         FA._check(*_meta(torch.float32, *BIG_BATCH), None, None, 0)
     ok = (4095, 16, 4, 16, 16, 64)          # b·Hq = 65,520
-    assert FA._check(*_meta(torch.float32, *ok), None, None, 0)[1] == {
-        "route": "cuda_cores"}
+    plan = FA._check(*_meta(torch.float32, *ok), None, None, 0)[1]
+    assert plan == FA.launch_plan(torch.float32, *ok)
+    assert {plan[k]["grid"][1] for k in ("fwd", "dkdv", "dq")} == {65_520}
 
 
 def test_bf16_refuses_grids_past_what_a_launch_takes():
@@ -167,3 +171,116 @@ def test_bf16_refuses_grids_past_what_a_launch_takes():
         FA.launch_plan(torch.bfloat16, 1, 2, 1, 65_536 * 128 + 1, 64, 64)
     with pytest.raises(ValueError, match="axis x"):
         FA.launch_plan(torch.bfloat16, 2 ** 28, 8, 1, 64, 64, 64)
+
+
+# -- the float32 route (3xTF32 on the tensor cores) ---------------------------
+
+def _f32(d, b=2, hq=4, hkv=2, tq=300, tk=300):
+    return FA.launch_plan(torch.float32, b, hq, hkv, tq, tk, d)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_float32_plan_fits_shared_memory(d):
+    """Each kernel's tiles, two cp.async stages of the streamed ones and
+    (in the backward) the split P/dS tiles fit one CTA's shared memory,
+    laid out for the smallest of 64, 128 or 256 columns that holds D,
+    rows kd + 4 floats apart; two CTAs an SM fit up to kd = 128 in the
+    forward and at kd = 64 in the backward."""
+    p = _f32(d)
+    kd = p["kd"]
+    assert kd in (64, 128, 256) and kd >= d and (kd == 64 or kd // 2 < d)
+    ld = 4 * (kd + 4)                                   # bytes a tile row
+    fwd, dkdv, dq = p["fwd"], p["dkdv"], p["dq"]
+    for k in (fwd, dkdv, dq):
+        assert k["stages"] == 2
+        assert k["smem"] <= FA.SMEM_MAX, (d, k)
+    assert fwd["smem"] == (fwd["bq"] + 2 * 2 * fwd["bk"]) * ld
+    assert dkdv["smem"] == ((2 * dkdv["bk"] + 4 * dkdv["bq"]) * ld
+                            + 16 * dkdv["bq"] + 16 * dkdv["bk"]
+                            * (dkdv["bq"] + 4))
+    assert dq["smem"] == ((2 * dq["bq"] + 4 * dq["bk"]) * ld
+                          + 8 * dq["bq"] * (dq["bk"] + 4))
+    ctas = {k: SM_BYTES // (p[k]["smem"] + RESERVED)
+            for k in ("fwd", "dkdv", "dq")}
+    assert ctas["fwd"] == (2 if kd <= 128 else 1)
+    assert ctas["dkdv"] == ctas["dq"] == (2 if kd == 64 else 1)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_float32_plan_tiles(d):
+    """The forward CTA (8 warps: two on each 16 rows, each over half of
+    every key tile) holds 64 queries and takes tiles of 64 keys at kd = 64,
+    32 at 128; at 256 32 queries (two such pairs on each 16 rows, half of
+    the columns each) and tiles of 32 keys.  The backward CTAs (8 warps)
+    hold tiles of 64 x 32 up to kd = 128 and 32 x 32 at 256, each a whole
+    number of 16-row mma tiles and 8-column steps."""
+    p = _f32(d)
+    kd, fwd, dkdv, dq = p["kd"], p["fwd"], p["dkdv"], p["dq"]
+    assert (fwd["threads"], fwd["bq"], fwd["bk"]) == {
+        64: (256, 64, 64), 128: (256, 64, 32), 256: (256, 32, 32)}[kd]
+    # whole 8-key steps in each half of a key tile
+    assert fwd["bk"] % 16 == 0 and fwd["bq"] % 16 == 0
+    assert dkdv["threads"] == dq["threads"] == 256
+    want = {64: (64, 32), 128: (64, 32), 256: (32, 32)}[kd]
+    assert (dkdv["bk"], dkdv["bq"]) == want
+    assert (dq["bq"], dq["bk"]) == want
+    # 8 warps: (rows / 16) row groups, each D's columns split among the rest
+    for rows in (dkdv["bk"], dq["bq"]):
+        assert rows % 16 == 0 and 8 % (rows // 16) == 0
+        assert kd % (8 * (8 // (rows // 16))) == 0
+
+
+# b, hq, hkv, tq, tk, d -> forward, dK/dV and dQ grids; scratch bytes
+F32_GRIDS = [
+    # train_b1_f32 (2e), the training example's default and --hundred-m
+    # shapes, paligemma's prefix 200 at D = 256, whisper's cross-attention
+    ((1, 14, 2, 2048, 2048, 64), (32, 14), (32, 14), (32, 14),
+     2 * 14 * 2048 * 64 * 4),
+    ((8, 5, 1, 256, 256, 64), (4, 40), (4, 40), (4, 40),
+     2 * 8 * 5 * 256 * 64 * 4),
+    ((8, 10, 2, 256, 256, 64), (4, 80), (4, 80), (4, 80),
+     2 * 8 * 10 * 256 * 64 * 4),
+    ((1, 8, 1, 456, 456, 256), (15, 8), (15, 8), (15, 8),
+     2 * 8 * 456 * 256 * 4),
+    ((2, 6, 6, 37, 1500, 64), (1, 12), (24, 12), (1, 12), 0),
+    ((2, 4, 4, 200, 200, 112), (4, 8), (4, 8), (4, 8), 0),
+]
+
+
+@pytest.mark.parametrize("shape,fwd,dkdv,dq,scratch", F32_GRIDS)
+def test_float32_plan_grids_and_scratch(shape, fwd, dkdv, dq, scratch):
+    """Tiles on grid axis x, b·Hq on axis y; one dK/dV CTA per (key tile,
+    query head); where Hq > Hkv the float32 partials [2, B, Hq, Tk, D]
+    and the sum over each KV head's group (one thread a float4 of dK and
+    of dV), else no scratch and no sum."""
+    b, hq, hkv, tq, tk, d = shape
+    p = FA.launch_plan(torch.float32, *shape)
+    assert p["fwd"]["grid"] == fwd
+    assert p["dkdv"]["grid"] == dkdv
+    assert p["dq"]["grid"] == dq
+    assert p["scratch_bytes"] == scratch
+    assert p["delta_bytes"] == 4 * b * hq * tq
+    assert p["delta"]["grid"] == (-(-b * hq * tq // 8),)
+    if hq == hkv:
+        assert p["gqa_sum"] is None
+    else:
+        assert p["gqa_sum"]["grid"] == (-(-b * hkv * tk * d // 4 // 256), 2)
+
+
+@pytest.mark.parametrize("shape", [(1, 14, 2, 2048, 2048, 64),
+                                   (8, 5, 1, 256, 256, 64),
+                                   (8, 10, 2, 256, 256, 64)])
+def test_float32_dkdv_fills_the_card(shape):
+    """At the float32 training shape and the example's two, the dK/dV
+    kernel launches at least one CTA for each of the card's 132 SMs (the
+    CUDA-core kernel it replaced had one per KV head: 64, 32 and 64)."""
+    gx, gy = FA.launch_plan(torch.float32, *shape)["dkdv"]["grid"]
+    assert gx * gy >= 132
+
+
+def test_float32_refuses_grids_past_what_a_launch_takes():
+    """Tiles past axis x (2^31 - 1 CTAs) raise like b·Hq past axis y."""
+    with pytest.raises(ValueError, match="axis x"):
+        FA.launch_plan(torch.float32, 1, 1, 1, 64 * 2 ** 31, 64, 64)
+    with pytest.raises(ValueError, match="axis y"):
+        FA.launch_plan(torch.float32, 65_536, 1, 1, 64, 64, 64)
