@@ -23,8 +23,12 @@ Rows (``run.py``'s names and sizes):
   (a yardstick: a cuBLAS matrix product on the card);
 - ``occupancy``: ``kernels/autotune.py``'s H100 occupancy table (on the
   CPU the plan of the shapes alone: no registers are read without a card);
-- ``lm_scaling``, ``roofline``: not ported yet; each prints one row saying
-  so (ROADMAP Queue 1 item 8.7).
+- ``lm_scaling``: ``repro_torch.core.scaling.probe_and_fit`` at
+  ``run.py``'s fan-ins (64-2048), its fitted hyperbola and the ratio
+  scale(256) / scale(1024) (ideal 2.0), as ``run.py``'s two rows;
+- ``roofline``: the H100 roofline of the dry run's records
+  (``repro_torch.launch.roofline`` over ``experiments/dryrun_torch/``), a
+  row a cell, or one row saying that no record exists yet.
 
 Every timed row synchronises the card before it reads the clock.  The
 results go to ``*_torch.json`` files under ``--out`` (default
@@ -42,9 +46,6 @@ import numpy as np
 import torch
 
 RESULTS = Path(__file__).resolve().parents[1] / "experiments" / "bench"
-# the ROADMAP item that the rows not ported yet wait for
-WAITS = {"lm_scaling": "core/scaling.py's probe_and_fit",
-         "roofline": "the dry run's artifacts (launch/dryrun.py)"}
 
 
 class _Run:
@@ -272,20 +273,44 @@ def bench_occupancy_blocksize(r: _Run) -> None:
 
 
 # ---------------------------------------------------------------------------
-# LM-side rows: not ported yet
+# LM-side rows
 # ---------------------------------------------------------------------------
 
-def _waits(r: _Run, name: str) -> None:
-    r.row(f"{name}_not_ported", 0.0,
-          f"waits for ROADMAP Queue 1 item 8.7 ({WAITS[name]})")
-
-
 def bench_lm_scaling_probe(r: _Run) -> None:
-    _waits(r, "lm_scaling")
+    from repro_torch import random as RND
+    from repro_torch.core.scaling import probe_and_fit
+    t0 = time.perf_counter()
+    pol = probe_and_fit(RND.PRNGKey(0),
+                        fanins=(64, 128, 256, 512, 1024, 2048),
+                        device=r.device)
+    us = (time.perf_counter() - t0) * 1e6
+    r.save("lm_scaling_policy", {"k1": pol.k1, "k2": pol.k2, "k3": pol.k3})
+    r.row("lm_scaling_fit", us / 6,
+          f"k1={pol.k1:.4g} k2={pol.k2:.4g} k3={pol.k3:.4g}")
+    # the fitted law should track 1/fan_in on the variance
+    s256, s1024 = pol.scale(256), pol.scale(1024)
+    r.row("lm_scaling_ratio_256_1024", 0.0,
+          f"scale_ratio={s256 / s1024:.2f} (ideal 2.0)")
 
 
 def bench_roofline(r: _Run) -> None:
-    _waits(r, "roofline")
+    from repro_torch.launch import roofline as RL
+    seen = False
+    for tag in ("pod16x16", "pod2x16x16"):
+        ok = [x for x in RL.build_table(tag) if "why" not in x]
+        for x in ok:
+            r.row(f"roofline_{tag}_{x['arch']}_{x['shape']}",
+                  x["step_time_bound_s"] * 1e6,
+                  f"bottleneck={x['bottleneck']} "
+                  f"frac={x['roofline_fraction']:.2f} "
+                  f"useful={x['useful_ratio']:.2f}")
+        if ok:
+            seen = True
+            r.save(f"roofline_{tag}", {"rows": ok})
+    if not seen:
+        r.row("roofline_no_records", 0.0,
+              f"no dry-run record under {RL.ART_DIR} (python -m "
+              "repro_torch.launch.dryrun --all --both-meshes)")
 
 
 BENCHES = {

@@ -368,6 +368,25 @@ failure ends the run with a non-zero exit):
      block's scale, deq + new error equal to the gradient, bytes before
      and after, compress and decompress ms.
 
+  20. the dry run and the LM scaling law (``launch/dryrun.py``,
+     ``core/scaling.py``; the card's name, power limit and torch's
+     version printed): (a) ``probe_and_fit`` at ``benchmarks/run.py``'s
+     fan-ins (64-2048) on the card and on the CPU, the six scales equal,
+     the fit, scale(256)/scale(1024) (ideal 2.0) and the seconds; (b) the
+     dry run of phase 8a's training step (4 x 2048) and of phase 7's
+     decode step (8 at 4096 positions) on a fake group of one rank (fake
+     cuda tensors), against the real steps of those phases: FLOPs equal
+     to ``FlopCounterMode``'s count of the real step, the peak within 15%
+     of the step's own (``torch.cuda.max_memory_allocated()`` after a
+     reset, less what earlier phases left live beside the step's inputs),
+     and the roofline's bound against the measured ms/step; (c) qwen3-8b x
+     train_4k, qwen2-0.5b x prefill_32k and mixtral-8x22b x decode_32k on
+     a fake group of 256 (the 16 x 16 mesh), traced on fake cuda and on
+     fake CPU tensors: FLOPs, bytes, collectives and peak equal, the trace
+     seconds printed.  The traces run in three processes
+     (``chip_smoke.py --dryrun-traces``) started after phase 1, beside
+     the phases before 20.
+
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, ``engine_launches`` on phase 13's and ``family_launches`` on phases
@@ -388,10 +407,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
-BF16_FLOPS = 989e12              # H100 SXM, bf16 dense on the tensor cores
-TF32_FLOPS = 495e12              # H100 SXM, TF32 dense on the tensor cores
+# the card's data-sheet rates, from their one place in the port
+# (kernels/autotune.py's H100_RATES); None without torch or outside a
+# checkout, which main() reports before anything runs
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.kernels.autotune import H100_RATES
+except ImportError:
+    H100_RATES = None
+HBM_BYTES_PER_S = getattr(H100_RATES, "hbm_bytes_per_s", None)
+FP32_FLOPS = getattr(H100_RATES, "fp32_flops", None)
+BF16_FLOPS = getattr(H100_RATES, "bf16_flops", None)
+TF32_FLOPS = getattr(H100_RATES, "tf32_flops", None)
 TOL = 1e-5
 NEURON_TOL = 2e-4
 SPIKE_DISAGREEMENT = 0.002
@@ -441,7 +469,7 @@ THREEFRY_INT_OPS = 72
 NORMAL_FLOAT_OPS = 17
 # 32-bit integer operations/s: Hopper has 64 INT32 lanes a SM beside 128
 # float32 lanes, and no fused pair: a quarter of FP32_FLOPS
-INT32_OPS = FP32_FLOPS / 4
+INT32_OPS = FP32_FLOPS and FP32_FLOPS / 4
 # the graph route's raster check: 3 chunks of 32 steps and a remainder
 RASTER_CHECK_STEPS = 100
 MB_EXAMPLE = dict(n_pn=24, n_lhi=6, n_kc=150, n_dn=12)
@@ -584,6 +612,19 @@ LM_MESH = dict(serve_arch="qwen2-0.5b", max_batch=8, max_seq=4096,
                per_step={"flash_attention": 48, "flash_attention_bwd": 24},
                ckpt_arch="qwen2-0.5b", ckpt_layers=2, ckpt_batch=2,
                ckpt_seq=512, gc_batch=2, gc_seq=512)
+# phase 20: the dry run and the LM scaling law.  (a) the probe at
+# benchmarks/run.py's fan-ins; (b) the dry run of phase 8a's training step
+# and phase 7's decode step on a fake group of one rank (fake cuda
+# tensors), against the real steps; (c) three production cells on a fake
+# group of 256, traced on fake cuda and on fake CPU tensors.  Each
+# trace's name is arch:kind:seq:batch
+DRYRUN = dict(fanins=(64, 128, 256, 512, 1024, 2048), peak_rtol=0.15,
+              one_rank=("qwen2-0.5b:train:2048:4",
+                        "qwen2-0.5b:decode:4096:8"),
+              production=("qwen3-8b:train:4096:256",
+                          "qwen2-0.5b:prefill:32768:32",
+                          "mixtral-8x22b:decode:32768:128"),
+              timeout_s=900)
 # device kernels of PyTorch's own attention (SDPA's flash, memory-efficient
 # and cuDNN routes), which no path of the port may run
 SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "cudnn")
@@ -812,12 +853,24 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if H100_RATES is None:
+        print("chip_smoke: repro_torch.kernels.autotune does not import "
+              "from this checkout", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     report: dict = {}
     kernels = card_and_build(torch, report)
+    # phase 20's traces run on the host beside the phases before it
+    traces = start_dryrun_traces()
+    try:
+        return _phases(torch, report, kernels, traces, t_start)
+    finally:
+        traces.stop()
+
+
+def _phases(torch, report, kernels, traces, t_start) -> int:
     kernel_entries = compare_kernels(torch, report)
     kernel_entries += compare_neuron_kernels(torch, report)
     kernel_entries += compare_flash(torch, report)
@@ -865,6 +918,8 @@ def main() -> int:
     checkpoints(torch, report)
     torch.cuda.empty_cache()
     launches_families.update(lm_mesh(torch, report))
+    torch.cuda.empty_cache()
+    dryrun_and_scaling(torch, report, traces)
     # each kernel's launches come from the run of its own path; the
     # float32 flash route's is phase 8c's float32 training step (qwen2)
     launches_f32 = report["train_step_check"]["qwen2-0.5b"]["launches"]
@@ -2925,7 +2980,15 @@ def serve_full(torch, report) -> dict:
               f" device ops/step; top {prof_decode['top'][:4]}")
         out["profile_prefill"] = prof_prefill
         out["profile_decode"] = prof_decode
-        del srv, box
+        # phase 20's real decode step (the wave of 8 at 4096 positions):
+        # its peak memory and FLOPs, and the run's decode ms/step
+        caches = box["caches"]
+        out["decode_counts"] = _step_counts(
+            torch, lambda: T.decode_step(srv.params, cfg, caches, token),
+            (srv.params, caches, token))
+        out["decode_ms_per_step"] = sum(
+            w["decode_ms_per_step"] for w in waves) / len(waves)
+        del srv, box, caches
         return launches
 
 
@@ -3498,6 +3561,14 @@ def train_full(torch, report, name: str, label: str) -> dict:
                                   "ms_per_step": spec["per_step"]["ssd_scan"]
                                   * fwd_ms}
         print(f"{arch}: {json.dumps(summary)}; launches {launches}")
+        if label == "8a":
+            # phase 20's real step: its peak memory and FLOPs
+            batch = pipe.next_batch()
+
+            def step():
+                return step_fn(params, opt, batch)
+            summary["counts"] = _step_counts(torch, step,
+                                             (params, opt, batch))
 
         # where the device time of one more step goes
         box = {"p": params, "o": opt}
@@ -6167,7 +6238,8 @@ def lm_mesh(torch, report) -> dict:
 # ---------------------------------------------------------------------------
 # every row run_torch.py prints, by its name's prefix
 HARNESS_ROWS = ("table1_", "table2_", "fig2_", "eq12_", "speed_", "kernel_",
-                "occupancy_", "lm_scaling_not_ported", "roofline_not_ported")
+                "occupancy_", "lm_scaling_fit", "lm_scaling_ratio_256_1024",
+                "roofline_")
 NCCL_LEAK = "destroy_process_group() was not called"
 
 
@@ -6231,5 +6303,229 @@ def paper_harness(torch, report) -> None:
         out["determinism"] = {**payload, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dry run and the LM scaling law
+# ---------------------------------------------------------------------------
+def _dry_cell(name: str):
+    """(config, ShapeConfig) of a trace named arch:kind:seq:batch."""
+    from repro_torch.configs import ShapeConfig, get_config
+    arch, kind, seq, batch = name.split(":")
+    return get_config(arch), ShapeConfig(name, int(seq), int(batch), kind)
+
+
+def dryrun_traces(argv) -> int:
+    """``chip_smoke.py --dryrun-traces DEVICE WORLD OUT NAME...``: each
+    named cell traced by the dry run (``launch/dryrun.py``) on fake
+    tensors of DEVICE, as rank 0 of a fake group of WORLD ranks (1: a 1 x
+    1 mesh; 256: the production 16 x 16 mesh); {name: record or error}
+    written to OUT as JSON."""
+    device, world, out, names = argv[0], int(argv[1]), argv[2], argv[3:]
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MESH
+    res = {}
+    with D.fake_group(world):
+        mesh = (MESH.make_mesh((1, 1), ("data", "model"), device=device)
+                if world == 1 else
+                MESH.make_production_mesh(device=device))
+        for name in names:
+            try:
+                res[name] = D.trace_cell(*_dry_cell(name), mesh)
+            except Exception as e:  # noqa: BLE001 - the phase fails on it
+                res[name] = {"error": f"{type(e).__name__}: {e}"}
+            Path(out).write_text(json.dumps(res))
+    return 0
+
+
+class _Traces:
+    """The dry-run trace processes phase 20 reads: started after phase 1,
+    they run on the host while the card runs the phases before 20."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+        self.procs = {}
+
+    def start(self, key: str, device: str, world: int, names) -> None:
+        out = self.dir / f"{key}.json"
+        log = open(self.dir / f"{key}.log", "w")
+        self.procs[key] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-traces",
+             device, str(world), str(out), *names], cwd=str(ROOT),
+            stdout=log, stderr=subprocess.STDOUT), out, log, time.time())
+
+    def result(self, key: str, timeout_s: float) -> dict:
+        p, out, log, t0 = self.procs[key]
+        try:
+            rc = p.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise SmokeFailure(f"the {key} traces did not end in "
+                               f"{timeout_s} s")
+        log.close()
+        text = (self.dir / f"{key}.log").read_text()
+        check(rc == 0 and out.exists(),
+              f"the {key} traces exited {rc}:\n{text[-3000:]}")
+        res = json.loads(out.read_text())
+        errors = {k: v["error"] for k, v in res.items() if "error" in v}
+        check(not errors, f"the {key} traces failed: {errors}")
+        return {**res, "wall_s": time.time() - t0}
+
+    def stop(self) -> None:
+        import shutil
+        for p, _, log, _ in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def start_dryrun_traces() -> _Traces:
+    """Phase 20's traces: (b) on a fake group of one rank, fake cuda
+    tensors; (c) on a fake group of 256, fake cuda and fake CPU tensors,
+    in three processes."""
+    tr = _Traces()
+    tr.start("one_rank", "cuda", 1, DRYRUN["one_rank"])
+    tr.start("production_cuda", "cuda", 256, DRYRUN["production"])
+    tr.start("production_cpu", "cpu", 256, DRYRUN["production"])
+    return tr
+
+
+def _step_counts(torch, run, inputs) -> dict:
+    """One call of ``run`` (a training or decode step on the card, over
+    the tensors of ``inputs``): its peak device memory after a reset, the
+    bytes live before it and the inputs' own bytes, and its FLOPs counted
+    by ``FlopCounterMode`` on a second call.  ``step_peak_bytes`` is the
+    peak less what was live beside the inputs (earlier phases' tensors,
+    the libraries' workspaces): the step's own, which the dry run traces."""
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import FlopCounterMode
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tree_leaves(inputs)
+                if isinstance(t, torch.Tensor) and t.is_cuda}
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = run()
+        torch.cuda.synchronize()
+    del out
+    own = sum(storages.values())
+    return {"flops": int(fc.get_total_flops()), "peak_bytes": peak,
+            "live_bytes": live, "input_bytes": own,
+            "step_peak_bytes": peak - (live - own)}
+
+
+def _bound_ms(rec: dict) -> tuple:
+    """The roofline's least time of a traced step on one card, in ms, and
+    what bounds it (no collective term: one rank)."""
+    t_ops = rec["flops"] / BF16_FLOPS * 1e3
+    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def dryrun_and_scaling(torch, report, traces) -> None:
+    """Phase 20."""
+    from repro_torch import random as RND
+    from repro_torch.core import scaling as SC
+    out = report["dryrun"] = {"torch": torch.__version__,
+                              "card": report["nvidia_smi"]}
+    with phase("20. the dry run and the LM scaling law on the card"):
+        print(f"card: {report['nvidia_smi']}; torch {torch.__version__}")
+        # (a) the probe, on the card and on the CPU
+        fanins = DRYRUN["fanins"]
+        key = RND.PRNGKey(0)
+        scales, secs, pols = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            scales[dev] = [SC.probe_scale_for_fanin(
+                RND.fold_in(key, i), f, device=dev)
+                for i, f in enumerate(fanins)]
+            pols[dev] = SC.probe_and_fit(key, fanins=fanins, device=dev)
+            secs[dev] = time.perf_counter() - t0
+        pol = pols["cuda"]
+        ratio = pol.scale(256) / pol.scale(1024)
+        print(f"20a: probe_and_fit at fan-ins {fanins}: scales "
+              f"{scales['cuda']} on the card, {scales['cpu']} on the CPU; "
+              f"{pol}; scale(256)/scale(1024) = {ratio:.4f} (ideal 2.0); "
+              f"probes and fit {secs['cuda']:.2f} s on the card, "
+              f"{secs['cpu']:.2f} s on the CPU")
+        check(scales["cuda"] == scales["cpu"],
+              f"the card's scales {scales['cuda']} differ from the CPU's "
+              f"{scales['cpu']}")
+        check((pol.k1, pol.k2, pol.k3) == (pols["cpu"].k1, pols["cpu"].k2,
+                                           pols["cpu"].k3),
+              f"the fits differ: {pol} vs {pols['cpu']}")
+        out["scaling"] = {"fanins": list(fanins), "scales": scales["cuda"],
+                          "policy": [pol.k1, float(pol.k2), pol.k3],
+                          "ratio_256_1024": ratio, "seconds": secs}
+
+        # (b) the dry run of phases 8a's and 7's steps against the real ones
+        one = traces.result("one_rank", DRYRUN["timeout_s"])
+        real = {DRYRUN["one_rank"][0]: (
+                    report["train_qwen2-0.5b"]["counts"],
+                    report["train_qwen2-0.5b"]["ms_per_step"]),
+                DRYRUN["one_rank"][1]: (
+                    report["serve"]["decode_counts"],
+                    report["serve"]["decode_ms_per_step"])}
+        out["steps"] = {}
+        for name, (counts, ms) in real.items():
+            rec = one[name]
+            bound, by = _bound_ms(rec)
+            gap = rec["peak_bytes"] / counts["step_peak_bytes"] - 1
+            row = {"dry_flops": rec["flops"], "real_flops": counts["flops"],
+                   "dry_peak_bytes": rec["peak_bytes"], **{
+                       f"real_{k}": v for k, v in counts.items()
+                       if k != "flops"},
+                   "peak_gap": gap, "dry_bytes": rec["bytes"],
+                   "bound_ms": bound, "bound_by": by, "ms": ms,
+                   "fraction": bound / ms, "trace_s": rec["trace_s"]}
+            out["steps"][name] = row
+            print(f"20b: {name}: FLOPs dry run {rec['flops']} vs the real "
+                  f"step {counts['flops']}; peak {rec['peak_bytes']} vs the "
+                  f"step's {counts['step_peak_bytes']} ({100 * gap:+.2f}%: "
+                  f"max_memory_allocated {counts['peak_bytes']} less the "
+                  f"{counts['live_bytes'] - counts['input_bytes']} B live "
+                  f"beside its {counts['input_bytes']} B of inputs); "
+                  f"bound {bound:.3f} ms by {by} vs {ms:.3f} ms/step "
+                  f"measured ({100 * bound / ms:.1f}%); traced in "
+                  f"{rec['trace_s']:.2f} s")
+            check(rec["flops"] == counts["flops"],
+                  f"{name}: the dry run counts {rec['flops']} FLOPs, the "
+                  f"real step {counts['flops']}")
+            check(abs(gap) <= DRYRUN["peak_rtol"],
+                  f"{name}: the dry run's peak is {100 * gap:+.1f}% off "
+                  "the card's")
+
+        # (c) production cells: fake cuda against fake CPU
+        cuda = traces.result("production_cuda", DRYRUN["timeout_s"])
+        cpu = traces.result("production_cpu", DRYRUN["timeout_s"])
+        out["production"] = {}
+        for name in DRYRUN["production"]:
+            a, b = cuda[name], cpu[name]
+            keys = ("flops", "bytes", "peak_bytes", "collectives")
+            print(f"20c: {name} on a fake group of 256: FLOPs {a['flops']}"
+                  f", bytes {a['bytes']}, collective bytes "
+                  f"{a['collectives']['total_bytes']} "
+                  f"({a['collectives']['counts']}), peak {a['peak_bytes']} "
+                  f"(fits 80 GB: {a['fits']}); traced in {a['trace_s']:.1f}"
+                  f" s on fake cuda, {b['trace_s']:.1f} s on fake CPU")
+            check(all(a[k] == b[k] for k in keys),
+                  f"{name}: fake cuda {[a[k] for k in keys]} vs fake CPU "
+                  f"{[b[k] for k in keys]}")
+            out["production"][name] = {"cuda": a, "cpu": b}
+        out["trace_wall_s"] = {k: r["wall_s"] for k, r in
+                               (("one_rank", one), ("production_cuda", cuda),
+                                ("production_cpu", cpu))}
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-traces"]:
+        sys.exit(dryrun_traces(sys.argv[2:]))
     sys.exit(main())

@@ -21,7 +21,10 @@ paper's experiment at full width), 11 (SNN serving at full width) and 12
 (on-device construction and the SNN benchmark scripts; reads phases 3's
 and 5's host builds and phase 3's us/step when they ran before it) and 13
 (the sharded engine at one NCCL rank; holds its runs to phases 12c's, 5's
-and 6a's when they ran before it, else to its model's Simulator).
+and 6a's when they ran before it, else to its model's Simulator), 7 (LM
+serving at full width), 8a (qwen2-0.5b trained at full width) and 20 (the
+dry run and the LM scaling law; reads phases 7's and 8a's steps, so list
+``7 8a 20``; its traces start after phase 1).
 Default:
 ``9a 3 9b 6a 9c``, in that order.  Phase 1 (the card and the kernel build)
 always runs first.  The phases print what ``chip_smoke.py`` prints; the
@@ -51,6 +54,21 @@ def main(labels) -> int:
     report: dict = {}
     t0 = time.perf_counter()
     CS.card_and_build(torch, report)
+    traces = CS.start_dryrun_traces() if "20" in labels else None
+    try:
+        _run(CS, torch, report, labels, traces)
+    finally:
+        if traces is not None:
+            traces.stop()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_phases.json").write_text(
+        json.dumps(report, indent=1, default=str))
+    print(f"phases {labels} in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def _run(CS, torch, report, labels, traces=None) -> None:
     for label in labels or ["9a", "3", "9b", "6a", "9c"]:
         if label == "2":
             CS.compare_kernels(torch, report)
@@ -118,15 +136,15 @@ def main(labels) -> int:
             CS.gscale_table(torch, report)
         elif label == "9c":
             CS.mb_observed(torch, report)
+        elif label == "7":
+            CS.serve_full(torch, report)
+        elif label == "8a":
+            CS.train_full(torch, report, "qwen2-0.5b", "8a")
+        elif label == "20":
+            CS.dryrun_and_scaling(torch, report, traces)
         else:
             raise SystemExit(f"unknown phase label {label!r}")
         torch.cuda.empty_cache()
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke_phases.json").write_text(
-        json.dumps(report, indent=1, default=str))
-    print(f"phases {labels} in {time.perf_counter() - t0:.1f} s")
-    return 0
 
 
 if __name__ == "__main__":

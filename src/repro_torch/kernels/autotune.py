@@ -38,7 +38,7 @@ import torch
 from repro_torch.obs import trace as _trace
 
 __all__ = [
-    "H100Limits", "H100", "KERNELS", "ELEMENTWISE_BLOCKS", "SPMV_ROWS",
+    "H100Limits", "H100", "H100Rates", "H100_RATES", "KERNELS", "ELEMENTWISE_BLOCKS", "SPMV_ROWS",
     "TIE_RTOL", "occupancy", "kernel_names", "kernel_attributes",
     "runtime_occupancy", "device_limits", "spmv_smem_bytes", "spmv_regs",
     "choose_block_elementwise", "choose_block_spmv", "choose_propagation",
@@ -69,6 +69,29 @@ class H100Limits:
 
 
 H100 = H100Limits()
+
+
+@dataclasses.dataclass(frozen=True)
+class H100Rates:
+    """The H100 SXM's data-sheet rates (NVIDIA H100 Tensor Core GPU data
+    sheet; dense rates, without sparsity, at the full 700 W): what a
+    bound or a roofline term divides by.  The link rates cannot be
+    measured on one card."""
+
+    bf16_flops: float = 989e12     # bf16 / fp16 on the tensor cores
+    tf32_flops: float = 495e12     # TF32 on the tensor cores
+    fp32_flops: float = 67e12      # float32 on the CUDA cores
+    hbm_bytes_per_s: float = 3.35e12   # HBM3
+    hbm_bytes: float = 80e9        # HBM3 capacity, 80 GB
+    # NVLink 4: 900 GB/s a card in both directions (18 links of 50 GB/s),
+    # 450 GB/s a direction, among a node's 8 cards (NVSwitch)
+    nvlink_bytes_per_s: float = 450e9
+    # between nodes: one 400 Gb/s NDR InfiniBand port a card (the DGX
+    # H100's eight ConnectX-7 ports, one a card), 50 GB/s a direction
+    internode_bytes_per_s: float = 50e9
+
+
+H100_RATES = H100Rates()
 
 # blocks an elementwise kernel is compiled for (kinfo::with_block in
 # csrc/kernel_info.cuh) and rows a scatter CTA may cover (with_rows in

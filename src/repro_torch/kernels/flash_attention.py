@@ -10,10 +10,17 @@ wgmma on bf16 tiles fed by TMA), float32 operands to the tensor cores as
 TF32 parts, fed by cp.async, which holds float32's tolerances).  The
 sources' headers say how, and what bounds them on the card.
 
-Dispatch goes by where the tensors lie: on the CPU the plain versions
+``flash_attention_fwd`` and ``flash_attention_bwd`` are custom ops
+(``torch.ops.repro_torch.flash_attention_fwd`` / ``_bwd``), dispatched by
+where the tensors lie: on the CPU the plain versions
 ``repro_torch.kernels.ref.flash_attention_fwd_ref`` / ``_bwd_ref``; on a
 CUDA device the kernels of the dtype's route, on the current stream, or an
 error (a failed launch raises; nothing falls back to the other route).
+Under ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``), on either
+fake device, the op checks the shapes and the ``launch_plan`` as a launch
+would (and raises where a launch would) and returns the kernel's outputs
+without computing anything; ``FlopCounterMode`` counts the kernels' own
+products (``attention_flops``) on every route.
 ``launch_plan`` computes on the host what each launch needs (route, tiles,
 ring stages, shared memory, TMA boxes, grids, scratch).  The kernels read dense
 row-major ``[B, H, T, D]`` operands: the wrappers make q, k and v
@@ -34,9 +41,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
@@ -45,7 +53,8 @@ from repro_torch.kernels._dispatch import (GRID_Y_MAX, INT_MAX, F, I, P,
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "FlashAttention", "launches", "reset_launches", "launch_plan",
-           "ROUTES", "MAX_HEAD_DIM", "SMEM_MAX"]
+           "visible_pairs", "attention_flops", "FWD_PRODUCTS",
+           "BWD_PRODUCTS", "ROUTES", "MAX_HEAD_DIM", "SMEM_MAX"]
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
@@ -299,17 +308,71 @@ def _masks(causal, window, scale, d, softcap, prefix):
             0.0 if softcap is None else float(softcap))
 
 
+def visible_pairs(tq: int, tk: int, window: Optional[int] = None,
+                  causal: bool = True) -> int:
+    """The (query, key) pairs of a Tq x Tk rectangle that the kernels
+    count as computed, by ``benchmarks/roofline.py::_visibility``'s share:
+    Tq (Tq + 1) / 2 under a causal mask with Tq == Tk, the whole rectangle
+    otherwise, and at most Tq min(window, Tk) under a window (exact for
+    the causal and the full rectangle; JAX's min(window, Tk) / Tk share
+    for a window).  A prefix-LM span counts as causal, as there."""
+    pairs = tq * (tq + 1) // 2 if causal and tq == tk else tq * tk
+    if window is not None:
+        pairs = min(pairs, tq * min(window, tk))
+    return pairs
+
+
+# products of the [Tq, Tk] rectangle a call runs: the forward S = Q K^T
+# and O = P V; the backward's dK/dV kernel S^T, dP^T, dV and dK, and its
+# dQ kernel S, dP and dQ (csrc/flash_attention*.cu, both routes)
+FWD_PRODUCTS, BWD_PRODUCTS = 2, 7
+
+
+def attention_flops(q_shape, k_shape, causal: bool, window: Optional[int],
+                    products: int) -> int:
+    """Floating-point operations of ``products`` [Tq, Tk] x D products at
+    these shapes: 2 B Hq D a visible pair each (``visible_pairs``)."""
+    b, hq, tq, d = q_shape
+    return products * 2 * b * hq * d * visible_pairs(tq, k_shape[2], window,
+                                                     causal)
+
+
+def _opts(causal, window, scale, q_offset, softcap, prefix) -> tuple:
+    """The options as the ops' schema types them."""
+    return (bool(causal), None if window is None else int(window),
+            None if scale is None else float(scale), int(q_offset),
+            None if softcap is None else float(softcap),
+            None if prefix is None else int(prefix))
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None, q_offset: int = 0,
                         softcap: Optional[float] = None,
                         prefix: Optional[int] = None):
     """(out, lse): ``flash_attention``'s output and each row's log-sum-exp
-    ``[B, Hq, Tq]`` in float32 (``-inf`` where a row sees no key)."""
-    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
-              softcap=softcap, prefix=prefix)
-    if on_cpu("flash_attention", q, k, v):
-        return _ref.flash_attention_fwd_ref(q, k, v, **kw)
+    ``[B, Hq, Tq]`` in float32 (``-inf`` where a row sees no key).  The
+    op ``torch.ops.repro_torch.flash_attention_fwd``: the plain version on
+    CPU tensors, the kernel on CUDA ones, and under ``FakeTensorMode`` the
+    kernel's output shapes after its ``launch_plan``."""
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, *_opts(causal, window, scale, q_offset, softcap, prefix))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], scale: Optional[float], q_offset: int,
+            softcap: Optional[float], prefix: Optional[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _ref.flash_attention_fwd_ref(
+        q, k, v, causal=causal, window=window, scale=scale,
+        q_offset=q_offset, softcap=softcap, prefix=prefix)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, causal, window, scale, q_offset, softcap, prefix):
+    on_cpu("flash_attention", q, k, v)        # raises unless one device
     shape, plan = _check(q, k, v, window, prefix, q_offset)
     b, hq, hkv, tq, tk, d = shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -341,6 +404,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, window, scale, q_offset, softcap, prefix):
+    (b, hq, _, tq, _, _), _ = _check(q, k, v, window, prefix, q_offset)
+    return (q.new_empty(q.shape),
+            q.new_empty((b, hq, tq), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, *_, **__) -> int:
+    return attention_flops(q_shape, k_shape, causal, window, FWD_PRODUCTS)
+
+
+def _check_bwd(q, k, v, o, lse, dout, window, prefix, q_offset):
+    """``_check``, and that (o, dout, lse) fit q."""
+    shape, plan = _check(q, k, v, window, prefix, q_offset)
+    b, hq, _, tq, _, _ = shape
+    if tuple(o.shape) != tuple(q.shape) \
+            or tuple(dout.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (b, hq, tq):
+        raise ValueError(f"out {tuple(o.shape)}, dout "
+                         f"{tuple(dout.shape)} and lse {tuple(lse.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    return shape, plan
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
@@ -349,23 +437,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: Optional[float] = None,
                         prefix: Optional[int] = None):
     """(dq, dk, dv) in the inputs' dtypes from the forward's saved (q, k,
-    v, out, lse) and the output's gradient ``dout``; float32 sums."""
-    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
-              softcap=softcap, prefix=prefix)
-    if on_cpu("flash_attention_bwd", q, k, v, out, lse, dout):
-        return _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    shape, plan = _check(q, k, v, window, prefix, q_offset)
+    v, out, lse) and the output's gradient ``dout``; float32 sums.  The op
+    ``torch.ops.repro_torch.flash_attention_bwd``, dispatched as
+    ``flash_attention_fwd``'s."""
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, lse, dout,
+        *_opts(causal, window, scale, q_offset, softcap, prefix))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+            causal: bool, window: Optional[int], scale: Optional[float],
+            q_offset: int, softcap: Optional[float], prefix: Optional[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, dout, causal=causal, window=window, scale=scale,
+        q_offset=q_offset, softcap=softcap, prefix=prefix)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, o, lse, dout, causal, window, scale, q_offset,
+              softcap, prefix):
+    on_cpu("flash_attention_bwd", q, k, v, o, lse, dout)
+    shape, plan = _check_bwd(q, k, v, o, lse, dout, window, prefix,
+                             q_offset)
     b, hq, hkv, tq, tk, d = shape
-    if tuple(out.shape) != tuple(q.shape) \
-            or tuple(dout.shape) != tuple(q.shape) \
-            or tuple(lse.shape) != (b, hq, tq):
-        raise ValueError(f"out {tuple(out.shape)}, dout "
-                         f"{tuple(dout.shape)} and lse {tuple(lse.shape)} "
-                         f"do not fit q {tuple(q.shape)}")
-    q, k, v, out = (_aligned(t) for t in (q, k, v, out))
+    q, k, v, o = (_aligned(t) for t in (q, k, v, o))
     dout = _aligned(dout.to(q.dtype))
     lse = _aligned(lse)
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", o),
                     ("dout", dout)):
         check_operand(name, t, q.dtype)
     check_operand("lse", lse, torch.float32)
@@ -373,7 +475,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    args = tuple(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
+    args = tuple(t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq,
                                         dk, dv))
     opts = (*_masks(causal, window, scale, d, softcap, prefix), int(q_offset))
     with torch.cuda.device(q.device):
@@ -397,6 +499,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches["flash_attention_bwd"] += 1
     raise_on(rc, err, "flash_attention_bwd")
     return dq, dk, dv
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, o, lse, dout, causal, window, scale, q_offset,
+              softcap, prefix):
+    _check_bwd(q, k, v, o, lse, dout, window, prefix, q_offset)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, dout_shape,
+               causal, window, *_, **__) -> int:
+    return attention_flops(q_shape, k_shape, causal, window, BWD_PRODUCTS)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

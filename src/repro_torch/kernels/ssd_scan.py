@@ -9,9 +9,13 @@ what a call needs (passes, grids, threads, shared memory, chunk,
 scratch); the kernel refuses a plan whose shared memory differs from its
 own layout.
 
-``ssd_scan`` dispatches by where the tensors lie: on the CPU the plain
-version ``repro_torch.models.ssm.ssd_chunked``; on a CUDA device the
-kernel's two passes, on the current stream, or an error.
+``ssd_scan`` (the custom op ``torch.ops.repro_torch.ssd_scan``) dispatches
+by where the tensors lie: on the CPU the plain version
+``repro_torch.models.ssm.ssd_chunked``; on a CUDA device the kernel's two
+passes, on the current stream, or an error; under ``FakeTensorMode`` (the
+dry run) the kernel's checks and ``launch_plan`` and its output shapes,
+nothing computed.  ``FlopCounterMode`` counts the kernel's four products
+(``scan_flops``) on every route.
 ``ssd_scan_state`` is the same kernel for prefill: it also writes the
 state each scan CTA carries after the last chunk, float32 [b, h, ds, dh]
 (its plain version ``ssd_chunked(..., return_final_state=True)``); the
@@ -31,17 +35,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import (INT_MAX, I, P, check_operand,
                                            on_cpu, raise_on)
 
 __all__ = ["ssd_scan", "ssd_scan_state", "SSDScan", "launches",
-           "reset_launches",
-           "launch_plan", "MAX_HEAD_DIM", "MAX_STATE_DIM", "CHUNK", "COLS"]
+           "reset_launches", "launch_plan", "scan_flops", "MAX_HEAD_DIM",
+           "MAX_STATE_DIM", "CHUNK", "COLS"]
 
 launches: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.state": 0}
 
@@ -114,10 +119,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              D: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [b, t, h, dh], dt [b, t, h], A [h], B/C [b, t, 1, ds], D [h] or
     None -> y [b, t, h, dh] in x's dtype (the kernel computes in float32).
-    No autograd: ``SSDScan.apply`` is the differentiable form."""
-    if on_cpu("ssd_scan", x, dt, A, B, C, D):
-        return _plain(x, dt, A, B, C, D)
-    return _launch(x, dt, A, B, C, D, final_state=False)[0]
+    The op ``torch.ops.repro_torch.ssd_scan``.  No autograd:
+    ``SSDScan.apply`` is the differentiable form."""
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, B, C, D)
 
 
 def ssd_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -127,19 +131,85 @@ def ssd_scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """``ssd_scan`` that also returns the state after the last chunk:
     (y [b, t, h, dh] in x's dtype, state [b, h, ds, dh] float32).  On a
     CUDA device the scan starts from zeros, and ``initial_state`` raises.
-    No autograd (prefill)."""
-    if on_cpu("ssd_scan", x, dt, A, B, C, D, initial_state):
-        return _plain(x, dt, A, B, C, D, initial_state=initial_state,
-                      return_final_state=True)
+    The op ``torch.ops.repro_torch.ssd_scan_state``.  No autograd
+    (prefill)."""
+    return torch.ops.repro_torch.ssd_scan_state(x, dt, A, B, C, D,
+                                                initial_state)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cpu")
+def _scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+    return _plain(x, dt, A, B, C, D)
+
+
+@_scan_op.register_kernel("cuda")
+def _scan_cuda(x, dt, A, B, C, D):
+    on_cpu("ssd_scan", x, dt, A, B, C, D)     # raises unless one device
+    return _launch(x, dt, A, B, C, D, final_state=False)[0]
+
+
+@_scan_op.register_fake
+def _scan_fake(x, dt, A, B, C, D):
+    _check(x, dt, A, B, C, D)
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_state", mutates_args=(),
+                         device_types="cpu")
+def _state_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: Optional[torch.Tensor],
+              initial_state: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _plain(x, dt, A, B, C, D, initial_state=initial_state,
+                  return_final_state=True)
+
+
+def _no_initial_state(initial_state) -> None:
     if initial_state is not None:
         raise ValueError("the ssd_scan kernel starts from a zero state; "
                          "it takes no initial_state")
+
+
+@_state_op.register_kernel("cuda")
+def _state_cuda(x, dt, A, B, C, D, initial_state):
+    on_cpu("ssd_scan", x, dt, A, B, C, D, initial_state)
+    _no_initial_state(initial_state)
     return _launch(x, dt, A, B, C, D, final_state=True)
 
 
-def _launch(x, dt, A, B, C, D, final_state: bool):
-    """The kernel's two passes: (y, the final state, or None without
-    ``final_state``), counted as ``"ssd_scan.state"`` or ``"ssd_scan"``."""
+@_state_op.register_fake
+def _state_fake(x, dt, A, B, C, D, initial_state):
+    _no_initial_state(initial_state)
+    b, _, h, dh, ds = _check(x, dt, A, B, C, D)
+    return (x.new_empty(x.shape),
+            x.new_empty((b, h, ds, dh), dtype=torch.float32))
+
+
+def scan_flops(x_shape, b_shape) -> int:
+    """Floating-point operations of the kernel's four products at x [b, t,
+    h, dh], B [b, t, 1, ds], chunks of ``CHUNK`` rows (the last one
+    shorter where 32 does not divide t): C B^T once a (batch, chunk), 2 L^2
+    ds; and a (batch, head, chunk) the intra-chunk product over its lower
+    triangle, L (L + 1) dh, C S and the state update, 2 L ds dh each."""
+    b, t, h, dh = x_shape
+    ds = b_shape[3]
+    full, rest = divmod(t, CHUNK)
+    sq = full * CHUNK * CHUNK + rest * rest
+    tri = full * CHUNK * (CHUNK + 1) + rest * (rest + 1)
+    return 2 * b * sq * ds + b * h * (tri * dh + 4 * t * ds * dh)
+
+
+@register_flop_formula([torch.ops.repro_torch.ssd_scan,
+                        torch.ops.repro_torch.ssd_scan_state])
+def _scan_flops(x_shape, dt_shape, a_shape, b_shape, *_, **__) -> int:
+    return scan_flops(x_shape, b_shape)
+
+
+def _check(x, dt, A, B, C, D) -> tuple:
+    """Raise on what the kernel does not take; return (b, t, h, dh, ds)."""
     if x.dim() != 4 or dt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
         raise ValueError("x must be [b, t, h, dh], dt [b, t, h] and B, C "
                          "[b, t, g, ds]")
@@ -165,6 +235,14 @@ def _launch(x, dt, A, B, C, D, final_state: bool):
     if b * h > INT_MAX or b * -(-t // CHUNK) > INT_MAX \
             or b * t * h * dh > 2 ** 62:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
+    launch_plan(b, t, h, dh, ds)
+    return b, t, h, dh, ds
+
+
+def _launch(x, dt, A, B, C, D, final_state: bool):
+    """The kernel's two passes: (y, the final state, or None without
+    ``final_state``), counted as ``"ssd_scan.state"`` or ``"ssd_scan"``."""
+    b, t, h, dh, ds = _check(x, dt, A, B, C, D)
     ops = [_dense(a) for a in (x, dt, A, B, C)]
     d = None if D is None else _dense(D)
     for name, a in zip(("x", "dt", "A", "B", "C"), ops):

@@ -52,12 +52,15 @@ import torch.distributed as dist
 from repro_torch._device import resolve_device
 
 __all__ = ["SNN_AXIS", "Mesh", "NamedMesh", "init_distributed",
-           "shutdown_distributed", "make_mesh", "make_production_mesh",
+           "init_fake_distributed", "shutdown_distributed", "make_mesh", "make_production_mesh",
            "make_local_mesh", "make_snn_mesh", "sub_mesh", "snn_axis",
            "batch_axes", "MeshPlan", "backend_for", "join_launcher"]
 
 #: the axis the SNN engine partitions neuron populations over
 SNN_AXIS = "neuron"
+
+# the dry run's process-group backend: it stands in for NCCL and gloo
+FAKE_BACKEND = "fake"
 
 # seconds a collective may wait for its peers before the group raises (a
 # rank that dies must bring the others down, not hang them)
@@ -101,7 +104,7 @@ def init_distributed(rank: Optional[int] = None,
             raise RuntimeError(f"the process group is up as rank {have[0]} "
                                f"of {have[1]}; asked for rank {want[0]} of "
                                f"{want[1]}")
-        if dist.get_backend() != backend:
+        if dist.get_backend() not in (backend, FAKE_BACKEND):
             raise RuntimeError(f"the process group's backend is "
                                f"{dist.get_backend()!r}, asked for "
                                f"{backend!r}")
@@ -132,6 +135,21 @@ def init_distributed(rank: Optional[int] = None,
     global _started
     _started = True
     return dist.get_rank(), dist.get_world_size()
+
+
+def init_fake_distributed(world_size: int) -> None:
+    """Join this process to a fake process group as rank 0 of
+    ``world_size`` (PyTorch's ``"fake"`` backend: every collective returns
+    at once and moves nothing), on which ``make_mesh`` builds any mesh of
+    that many ranks in one process: the dry run's (``launch/dryrun.py``).
+    ``shutdown_distributed`` ends it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up")
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+    global _started
+    _started = True
 
 
 def shutdown_distributed() -> bool:
@@ -427,7 +445,7 @@ def make_mesh(shape, axes, device=None) -> NamedMesh:
         raise ValueError(f"a mesh of shape {tuple(shape)} needs "
                          f"{math.prod(shape)} ranks; the process group has "
                          f"{world}")
-    if dist.get_backend() != backend_for(dev):
+    if dist.get_backend() not in (backend_for(dev), FAKE_BACKEND):
         raise RuntimeError(f"a {dist.get_backend()} group cannot carry "
                            f"tensors on {dev}")
     mesh = NamedMesh(shape, axes, dev)

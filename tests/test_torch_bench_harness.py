@@ -108,8 +108,13 @@ def test_the_other_rows_are_well_formed(tmp_path, capsys):
     assert "occupancy_izhikevich_step_exc" in occ and len(occ) > 10
     assert all("block=" in by_name[n][1] and "occ=" in by_name[n][1]
                for n in occ)
-    for name in ("lm_scaling", "roofline"):
-        assert "8.7" in by_name[f"{name}_not_ported"][1]
+    assert by_name["lm_scaling_fit"][0] > 0
+    assert by_name["lm_scaling_fit"][1].startswith("k1=")
+    ratio = by_name["lm_scaling_ratio_256_1024"][1]
+    assert ratio.startswith("scale_ratio=") and "(ideal 2.0)" in ratio
+    roof = [n for n in by_name if n.startswith("roofline_")]
+    assert roof == ["roofline_no_records"] or all(
+        "bottleneck=" in by_name[n][1] for n in roof), roof
     assert json.loads((tmp_path / "sparse_vs_dense_step_torch.json")
                       .read_text())
     assert all(p.name.endswith("_torch.json") for p in tmp_path.iterdir())

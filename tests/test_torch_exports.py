@@ -68,11 +68,7 @@ BY_DESIGN = {
     "flags": {"*": "REPRO_USE_PALLAS: no backend switch in the port"},
 }
 # module -> {name: ROADMAP Queue 1 item}
-WAITING = {
-    "core.scaling": {"*": "8.7"},
-    "launch.dryrun": {"*": "8.7"},
-    "models.model": {"input_specs": "8.7", "cache_specs": "8.7"},
-}
+WAITING = {}
 
 
 def _modules():
