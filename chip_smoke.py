@@ -383,9 +383,16 @@ failure ends the run with a non-zero exit):
      train_4k, qwen2-0.5b x prefill_32k and mixtral-8x22b x decode_32k on
      a fake group of 256 (the 16 x 16 mesh), traced on fake cuda and on
      fake CPU tensors: FLOPs, bytes, collectives and peak equal, the trace
-     seconds printed.  The traces run in three processes
-     (``chip_smoke.py --dryrun-traces``) started after phase 1, beside
-     the phases before 20.
+     seconds printed; qwen3-8b x decode_32k too (each rank attends over
+     its block of the cache's sequence: its peak at most 10 GB a card),
+     and ``benchmarks/hillclimb_torch.py``'s whisper_decode cell on fake
+     cuda (the replicated weights' variant moves fewer collective bytes);
+     (d) phase 8a's step (qwen2-0.5b, 4 x 2048) under the remat policies
+     "full", "dots" and "none" from the same weights and batch: "dots"'s
+     loss and every gradient within the LM tolerances of "full"'s, its
+     peak between theirs, each policy's ms/step.  The traces run in three
+     processes (``chip_smoke.py --dryrun-traces``) started after phase 1,
+     beside the phases before 20.
 
 Before the last line it prints the card's ``nvidia-smi`` name and power
 limit and a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
@@ -623,8 +630,21 @@ DRYRUN = dict(fanins=(64, 128, 256, 512, 1024, 2048), peak_rtol=0.15,
                         "qwen2-0.5b:decode:4096:8"),
               production=("qwen3-8b:train:4096:256",
                           "qwen2-0.5b:prefill:32768:32",
-                          "mixtral-8x22b:decode:32768:128"),
+                          "mixtral-8x22b:decode:32768:128",
+                          "qwen3-8b:decode:32768:128"),
+              # benchmarks/hillclimb_torch.py's cells, on fake cuda only
+              hillclimb=("whisper_decode",),
+              # a decode over the split cache (qwen3-8b's 8 KV heads on a
+              # 16-wide "model"): its peak a card at most this
+              split_decode=("qwen3-8b:decode:32768:128", 10.0),
               timeout_s=900)
+# phase 20d: phase 8a's step (qwen2-0.5b, 4 x 2048) under each remat
+# policy: "dots" held to "full" (the loss within rtol 1e-5, each gradient
+# within rtol 1e-4 plus 2e-5 of its leaf's largest entry), its peak
+# between theirs; steps timed after one warm-up
+REMAT = dict(arch="qwen2-0.5b", batch=4, seq=2048, lr=3e-3, timed=3,
+             policies=("full", "dots", "none"), loss_rtol=1e-5,
+             grad_rtol=1e-4, grad_atol=2e-5)
 # device kernels of PyTorch's own attention (SDPA's flash, memory-efficient
 # and cuDNN routes), which no path of the port may run
 SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "cudnn")
@@ -3015,8 +3035,8 @@ def _routes_seen(seen):
     from repro_torch.models import moe as M
     real = M.moe_route
 
-    def route(p, cfg, xg, cap):
-        out = real(p, cfg, xg, cap)
+    def route(p, cfg, xg, cap, n_ranks=1):
+        out = real(p, cfg, xg, cap, n_ranks)
         seen(out)
         return out
 
@@ -3046,7 +3066,8 @@ def _pinned_routes(torch, recorded: list, tie: float, ties: dict):
     calls = iter(recorded)
     real = M.moe_route
 
-    def route(p, cfg, xg, cap):
+    def route(p, cfg, xg, cap, n_ranks=1):
+        check(n_ranks == 1, "pinned routes on one batch rank only")
         idx, place, keep = next(calls)
         own = real(p, cfg, xg, cap)
         probs = torch.softmax(xg.float() @ p["router"], dim=-1)
@@ -6317,9 +6338,12 @@ def dryrun_traces(argv) -> int:
     """``chip_smoke.py --dryrun-traces DEVICE WORLD OUT NAME...``: each
     named cell traced by the dry run (``launch/dryrun.py``) on fake
     tensors of DEVICE, as rank 0 of a fake group of WORLD ranks (1: a 1 x
-    1 mesh; 256: the production 16 x 16 mesh); {name: record or error}
+    1 mesh; 256: the production 16 x 16 mesh), or (``hillclimb:CELL``)
+    ``benchmarks/hillclimb_torch.py``'s cell; {name: record or error}
     written to OUT as JSON."""
     device, world, out, names = argv[0], int(argv[1]), argv[2], argv[3:]
+    import tempfile
+    from benchmarks import hillclimb_torch as H
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import mesh as MESH
     res = {}
@@ -6329,7 +6353,11 @@ def dryrun_traces(argv) -> int:
                 MESH.make_production_mesh(device=device))
         for name in names:
             try:
-                res[name] = D.trace_cell(*_dry_cell(name), mesh)
+                if name.startswith("hillclimb:"):
+                    with tempfile.TemporaryDirectory() as tmp:
+                        res[name] = H.run(name.split(":", 1)[1], device, tmp)
+                else:
+                    res[name] = D.trace_cell(*_dry_cell(name), mesh)
             except Exception as e:  # noqa: BLE001 - the phase fails on it
                 res[name] = {"error": f"{type(e).__name__}: {e}"}
             Path(out).write_text(json.dumps(res))
@@ -6387,7 +6415,8 @@ def start_dryrun_traces() -> _Traces:
     in three processes."""
     tr = _Traces()
     tr.start("one_rank", "cuda", 1, DRYRUN["one_rank"])
-    tr.start("production_cuda", "cuda", 256, DRYRUN["production"])
+    tr.start("production_cuda", "cuda", 256, DRYRUN["production"] + tuple(
+        f"hillclimb:{c}" for c in DRYRUN["hillclimb"]))
     tr.start("production_cpu", "cpu", 256, DRYRUN["production"])
     return tr
 
@@ -6519,10 +6548,117 @@ def dryrun_and_scaling(torch, report, traces) -> None:
             check(all(a[k] == b[k] for k in keys),
                   f"{name}: fake cuda {[a[k] for k in keys]} vs fake CPU "
                   f"{[b[k] for k in keys]}")
+            split, gb = DRYRUN["split_decode"]
+            if name == split:
+                # each rank attends over its block of the cache's sequence
+                check(a["peak_bytes"] <= gb * 1e9,
+                      f"{name}: peak {a['peak_bytes']} B a card, over {gb} GB")
             out["production"][name] = {"cuda": a, "cpu": b}
+        out["hillclimb"] = {}
+        for c in DRYRUN["hillclimb"]:
+            res = cuda[f"hillclimb:{c}"]
+            steps = res["steps"]
+            print(f"20c: hillclimb {res['cell']} on fake {res['device']}: "
+                  + "; ".join(f"{k}: {v['flops']} FLOPs, {v['bytes']} B, "
+                              f"collectives {v['collective_bytes']} B, peak "
+                              f"{v['peak_bytes']} B" for k, v in
+                              steps.items()))
+            check(res["device"] == "cuda" and all(
+                v["flops"] > 0 and v["peak_bytes"] > 0
+                for v in steps.values()), f"hillclimb {c}: {res}")
+            if "replicated_weights" in steps:
+                # whole weights on every rank: no FSDP all-gathers a layer
+                check(steps["replicated_weights"]["collective_bytes"]
+                      < steps["baseline"]["collective_bytes"],
+                      f"hillclimb {c}: replicated weights move "
+                      f"{steps['replicated_weights']['collective_bytes']} "
+                      "collective bytes, the baseline "
+                      f"{steps['baseline']['collective_bytes']}")
+            out["hillclimb"][c] = res
         out["trace_wall_s"] = {k: r["wall_s"] for k, r in
                                (("one_rank", one), ("production_cuda", cuda),
                                 ("production_cpu", cpu))}
+    remat_dots(torch, report)
+
+
+def remat_dots(torch, report) -> None:
+    """Phase 20d: phase 8a's first step under each remat policy, from the
+    same weights and batch."""
+    import dataclasses
+    from torch.utils._pytree import tree_flatten_with_path, tree_map
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    c = REMAT
+    out = report["dryrun"]["remat"] = {}
+    with phase(f"20d. {c['arch']} ({c['batch']} x {c['seq']}) under the "
+               f"remat policies {c['policies']}"):
+        for pol in c["policies"]:
+            cfg = dataclasses.replace(get_config(c["arch"]), remat=True,
+                                      remat_policy=pol)
+            params, opt, step_fn, pipe = _train_setup(
+                torch, cfg, c["batch"], c["seq"], c["timed"] + 1, c["lr"],
+                seed=0)
+            batch = pipe.next_batch()
+            seen = {}
+            real = adamw.update
+
+            def spy(cfg_, grads, state, p):
+                seen["grads"] = tree_map(lambda g: g.detach().float(), grads)
+                return real(cfg_, grads, state, p)
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with mock.patch.object(adamw, "update", spy):
+                params, opt, m = step_fn(params, opt, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - live
+            times = []
+            for _ in range(c["timed"]):
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, batch)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[pol] = {"loss": loss, "step_peak_bytes": peak,
+                        "ms": times, "ms_per_step": sum(times) / len(times),
+                        "grads": seen["grads"]}
+            print(f"20d: remat {pol!r}: first loss {loss:.6f}, the step's "
+                  f"peak {peak} B above the {live} B live before it; "
+                  f"{out[pol]['ms_per_step']:.1f} ms/step ({times})")
+            del params, opt, step_fn, m
+            torch.cuda.empty_cache()
+        full, dots = out["full"], out["dots"]
+        check(abs(dots["loss"] - full["loss"])
+              <= c["loss_rtol"] * abs(full["loss"]),
+              f"remat 'dots' loss {dots['loss']} vs 'full' {full['loss']}")
+        worst, equal = 0.0, True
+        for (path, g), (_, w) in zip(
+                tree_flatten_with_path(dots["grads"])[0],
+                tree_flatten_with_path(full["grads"])[0]):
+            tol = c["grad_rtol"] * w.abs() + c["grad_atol"] * float(
+                w.abs().max())
+            err = (g - w).abs()
+            equal = equal and bool(torch.equal(g, w))
+            worst = max(worst, float((err / tol.clamp(min=1e-30)).max()))
+            check(bool((err <= tol).all()),
+                  f"remat 'dots' gradient {path} off 'full''s by "
+                  f"{float(err.max())}")
+        check(full["step_peak_bytes"] <= dots["step_peak_bytes"]
+              <= out["none"]["step_peak_bytes"],
+              "remat 'dots' peak "
+              f"{dots['step_peak_bytes']} not between 'full''s "
+              f"{full['step_peak_bytes']} and 'none''s "
+              f"{out['none']['step_peak_bytes']}")
+        print(f"20d: 'dots' against 'full': loss {dots['loss']:.6f} vs "
+              f"{full['loss']:.6f}; every gradient within the tolerance "
+              f"(worst {worst:.3g} of it; bit-equal: {equal}); peaks full "
+              f"{full['step_peak_bytes']} <= dots {dots['step_peak_bytes']} "
+              f"<= none {out['none']['step_peak_bytes']} B")
+        for pol in c["policies"]:
+            del out[pol]["grads"]
+        out["grads_bit_equal"] = equal
 
 
 if __name__ == "__main__":

@@ -102,7 +102,7 @@ def main(argv=None) -> int:
                     logits, caches = T.prefill(view, cfg, toks,
                                                max_seq=2048)
                 if name == "mesh":
-                    caches = layout.store(caches)
+                    caches = layout.store(caches, joined=True)
                 return {"caches": caches, "tok": logits.argmax(-1)}
 
         def step(name, box):

@@ -418,16 +418,23 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
 def threefry2x32_ref(k0, k1, x0, x1):
     """The Threefry-2x32 hash (20 rounds) of counters (x0, x1) under key
     (k0, k1), all int64 tensors in [0, 2^32) (broadcast together); returns
-    the two output words the same way."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    the two output words the same way.  The rounds run in place on int32
+    words: int32 addition wraps as uint32 addition does, and a rotation's
+    right shift keeps only the low bits the arithmetic shift brings down."""
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    ks = (_as_i32(k0), _as_i32(k1), _as_i32(k0 ^ k1 ^ 0x1BD11BDA))
+    y0 = (_as_i32(x0) + ks[0]).expand(shape).contiguous()
+    y1 = (_as_i32(x1) + ks[1]).expand(shape).contiguous()
+    low = torch.empty_like(y1)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = x0 ^ (((x1 << r) | (x1 >> (32 - r))) & _M32)
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
+            y0.add_(y1)
+            torch.bitwise_right_shift(y1, 32 - r, out=low)
+            low.bitwise_and_((1 << r) - 1)
+            y1.bitwise_left_shift_(r).bitwise_or_(low).bitwise_xor_(y0)
+        y0.add_(ks[(i + 1) % 3])
+        y1.add_(ks[(i + 2) % 3]).add_(i + 1)
+    return _u32(y0), _u32(y1)
 
 
 def _key_words(keys: torch.Tensor):

@@ -22,6 +22,9 @@ weights replicated for prefill and decode under
     writes its outputs once (true of the eager ops, a floor for the
     kernels); collectives are counted apart, and neither copies between
     the host and the device nor scalars at all (``StepCounter``);
+  * the FLOPs and bytes of the four LM kernels' custom ops apart
+    (``core``: flash forward and backward, ``ssd_scan``,
+    ``ssd_scan_state``), within the totals;
   * collective operand bytes and counts by kind (all-gather: the operand
     is the result over the group's size; all-reduce, reduce-scatter,
     all-to-all), from the ``c10d`` ops the model code issues
@@ -79,7 +82,7 @@ from repro_torch.optim import adamw
 __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
            "analytic_param_bytes_per_device", "StepCounter", "count_step",
            "prepare_cell", "trace_cell", "fake_group", "run_cell", "main",
-           "ART_DIR", "COLLECTIVES"]
+           "ART_DIR", "COLLECTIVES", "CORE_OPS"]
 
 ART_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
@@ -110,6 +113,12 @@ _COLLECTIVE_OPS = {
         ("reduce-scatter", 0),
     ("_c10d_functional", "all_to_all_single"): ("all-to-all", 0),
 }
+# the LM kernels' custom ops, whose FLOPs and bytes the counter also keeps
+# apart (``core``): the attention and SSD cores that hillclimb's
+# ``no_core`` variant leaves out, as the JAX dry run's
+# ``ROOFLINE_NO_ATTN`` / ``_NO_SSD`` flags do
+CORE_OPS = ("flash_attention_fwd", "flash_attention_bwd", "ssd_scan",
+            "ssd_scan_state")
 # ops that touch no tensor memory: allocation alone, and waits
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided", "wait_tensor"}
@@ -155,6 +164,7 @@ class StepCounter(TorchDispatchMode):
         self.bytes = 0
         self.coll_bytes = {k: 0 for k in COLLECTIVES}
         self.coll_counts = {k: 0 for k in COLLECTIVES}
+        self.core_bytes = {k: 0 for k in CORE_OPS}
         self._live: Dict[int, int] = {}
         self._refs = []
         self.live = 0
@@ -194,7 +204,11 @@ class StepCounter(TorchDispatchMode):
                 and func.namespace != "prim":
             ts = _tensors((args, kwargs)) + _tensors(out)
             if all(t.device == self.device for t in ts):
-                self.bytes += sum(_nbytes(t) for t in ts if t.dim())
+                n = sum(_nbytes(t) for t in ts if t.dim())
+                self.bytes += n
+                if func.namespace == "repro_torch" \
+                        and packet.__name__ in self.core_bytes:
+                    self.core_bytes[packet.__name__] += n
         for t in _tensors(out):
             self._register(t)
         self.peak = max(self.peak, self.live)
@@ -202,6 +216,7 @@ class StepCounter(TorchDispatchMode):
 
     def result(self) -> dict:
         return {"bytes": self.bytes, "peak_bytes": self.peak,
+                "core": {k: {"bytes": v} for k, v in self.core_bytes.items()},
                 "collectives": {
                     "bytes": dict(self.coll_bytes),
                     "counts": dict(self.coll_counts),
@@ -222,8 +237,13 @@ def count_step(step, args, ctx=None) -> dict:
         out = step(*args)
     secs = time.perf_counter() - t0
     del out
-    return {"flops": int(flops.get_total_flops()), **counter.result(),
-            "trace_s": secs}
+    rec = {"flops": int(flops.get_total_flops()), **counter.result(),
+           "trace_s": secs}
+    by_op = {getattr(op, "__name__", str(op)): n for op, n in
+             flops.get_flop_counts().get("Global", {}).items()}
+    for name, core in rec["core"].items():
+        core["flops"] = int(by_op.get(name, 0))
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +379,9 @@ def prepare_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, params, inputs):
     ``input_specs``' tree (fake or real tensors, made by the caller).
     Prefill and decode on a mesh run as the server runs them: this rank's
     rows where the batch axes divide the batch, the logits joined over
-    them, the caches stored in ``cache_shardings``' layout (a decode loads
-    them into the layout the modules compute in and stores them back)."""
+    them, the caches stored in ``cache_shardings``' layout (a decode
+    attends over this rank's block of a split sequence, and joins only
+    the conv history's channels)."""
     if mesh is None:
         if shape.kind == "train":
             return (make_train_step(cfg),
@@ -397,7 +418,7 @@ def prepare_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, params, inputs):
             logits, caches = prefill(params, tokens, extra)
             if split:
                 logits = L.batch_gather(logits, 0)
-            return logits, layout.store(caches)
+            return logits, layout.store(caches, joined=True)
         local = _owned({k: SH.local_rows(v, mesh, split)
                         for k, v in inputs.items()})
         tokens = local.pop("tokens")
@@ -415,7 +436,7 @@ def prepare_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, params, inputs):
     rows = b // mesh.size("batch") if split else b
     with SH.activate(mesh, batch_sharded=split):
         caches = layout.store(T.init_caches(cfg, rows, t, torch.bfloat16,
-                                            mesh.device))
+                                            mesh.device), joined=True)
     token = _owned(SH.local_rows(inputs["token"], mesh, split))
     return serve_step, (placed, caches, token), ctx
 

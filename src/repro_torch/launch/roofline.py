@@ -32,6 +32,7 @@ counted FLOPs.
 from __future__ import annotations
 
 import json
+from pathlib import Path
 from typing import Dict, List, Optional
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, get_shape
@@ -129,8 +130,9 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
     return 2.0 * n * shape.global_batch
 
 
-def load_cell(mesh_tag: str, arch: str, shape: str) -> Optional[dict]:
-    p = ART_DIR / mesh_tag / f"{arch}__{shape}.json"
+def load_cell(mesh_tag: str, arch: str, shape: str,
+              art_dir=None) -> Optional[dict]:
+    p = Path(art_dir or ART_DIR) / mesh_tag / f"{arch}__{shape}.json"
     if not p.exists():
         return None
     return json.loads(p.read_text())
@@ -162,13 +164,13 @@ def cell_terms(rec: dict) -> Optional[dict]:
     }
 
 
-def build_table(mesh_tag: str = "pod16x16") -> List[dict]:
-    """A row a cell that has a record: its terms, or its SKIP reason or
-    FAIL error."""
+def build_table(mesh_tag: str = "pod16x16", art_dir=None) -> List[dict]:
+    """A row a cell that has a record (under ``art_dir``, default
+    ``ART_DIR``): its terms, or its SKIP reason or FAIL error."""
     rows = []
     for arch in ARCHS:
         for shape in SHAPES:
-            rec = load_cell(mesh_tag, arch, shape.name)
+            rec = load_cell(mesh_tag, arch, shape.name, art_dir)
             if rec is None:
                 continue
             t = cell_terms(rec)

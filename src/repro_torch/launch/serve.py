@@ -28,10 +28,10 @@ prompts are split over the batch axes when they divide it; prefill and
 decode run under ``activate`` on the compute view of the params (made
 once), the logits are joined on every rank and every rank samples the
 same token, so their generators stay in step.  Between steps the caches
-are kept in ``cache_shardings``' layout (DTensors); a step joins what it
-needs whole (a sequence dim split over "model" or the batch axes, the
-conv history's channels) and takes its blocks back after.  Without a
-group the server runs on one device, as before.
+are kept in ``cache_shardings``' layout (DTensors); a decode step attends
+over each rank's block of a split k/v sequence and joins only the conv
+history's channels (``d_conv - 1`` rows a request).  Without a group the
+server runs on one device, as before.
 
 ``waves`` records each wave's size, padded prompt length, prefill seconds
 (up to the first tokens on the host), decode steps and decode seconds.
@@ -79,10 +79,12 @@ class Request:
 
 class _CacheLayout:
     """A wave's caches between steps: each leaf that ``cache_shardings``
-    splits is a DTensor in that layout, the others plain tensors.  The
-    layout the modules compute in is the same but for a k/v sequence dim
-    and the conv history's channels, which they take whole: a step joins
-    those (``load``) and takes its blocks back (``store``)."""
+    splits is a DTensor in that layout, the others plain tensors.  A
+    decode step computes in that same layout (``attention_decode`` attends
+    over a rank's block of a split sequence), but for the conv history's
+    channels, which it takes whole: ``load`` joins those and ``store``
+    takes their blocks back.  Prefill writes each k/v sequence whole
+    (``fill_cache``): ``store(caches, joined=True)`` splits it."""
 
     def __init__(self, cfg, mesh, batch: int, max_seq: int, dtype):
         self.mesh = mesh
@@ -90,19 +92,23 @@ class _CacheLayout:
         self.plans = self._plan(like, SH.cache_shardings(like, mesh))
 
     def _plan(self, like, specs, name=""):
-        """Per leaf: None (kept as it is), or (compute placements, stored
-        placements, whole shape, whole stride)."""
+        """Per leaf: None (kept as it is), or (the step's placements,
+        prefill's placements, stored placements, whole shape, whole
+        stride)."""
         if isinstance(like, dict):
             return {k: self._plan(like[k], specs[k], k) for k in like}
         if isinstance(like, list):
             return [self._plan(a, b, name) for a, b in zip(like, specs)]
         if not isinstance(like, torch.Tensor) or not any(specs):
             return None
-        comp = list(specs)
-        whole = {"k": -3, "v": -3, "conv": -1}.get(name)
-        if whole is not None:
-            comp[len(comp) + whole] = None
-        return (SH.NamedSharding(self.mesh, tuple(comp)).placements,
+
+        def whole(dim):
+            comp = list(specs)
+            if dim is not None:
+                comp[len(comp) + dim] = None
+            return SH.NamedSharding(self.mesh, tuple(comp)).placements
+        return (whole(-1 if name == "conv" else None),
+                whole({"k": -3, "v": -3, "conv": -1}.get(name)),
                 SH.NamedSharding(self.mesh, specs).placements,
                 like.shape, like.stride())
 
@@ -113,22 +119,26 @@ class _CacheLayout:
             return [self._walk(fn, a, b) for a, b in zip(tree, plans)]
         return tree if plans is None else fn(tree, *plans)
 
-    def store(self, caches):
-        """Caches in the compute layout -> the stored layout."""
+    def store(self, caches, joined: bool = False):
+        """Caches in a decode step's layout (``joined``: prefill's, each
+        k/v sequence whole) -> the stored layout."""
         from torch.distributed.tensor import DTensor
         dm = self.mesh.device_mesh
 
-        def fn(x, comp, stored, shape, stride):
+        def fn(x, step, pre, stored, shape, stride):
+            comp = pre if joined else step
             t = DTensor.from_local(x, dm, comp, run_check=False,
                                    shape=shape, stride=stride)
             return t if comp == stored else t.redistribute(dm, stored)
         return self._walk(fn, caches, self.plans)
 
-    def load(self, caches):
-        """Stored caches -> the compute layout (plain local tensors)."""
+    def load(self, caches, joined: bool = False):
+        """Stored caches -> a decode step's layout (``joined``: prefill's),
+        as plain local tensors."""
         dm = self.mesh.device_mesh
 
-        def fn(x, comp, stored, shape, stride):
+        def fn(x, step, pre, stored, shape, stride):
+            comp = pre if joined else step
             return (x if comp == stored else x.redistribute(dm, comp)
                     ).to_local()
         return self._walk(fn, caches, self.plans)
@@ -217,7 +227,7 @@ class Server:
                 self.cfg, self.mesh, len(reqs),
                 max(self.max_seq, caches["index"]), torch.bfloat16)
             self._split = split
-            caches = self._layout.store(caches)
+            caches = self._layout.store(caches, joined=True)
         logits_np = logits.float().cpu().numpy()
         for i, r in enumerate(reqs):
             r.out.append(self._sample(logits_np[i], r))

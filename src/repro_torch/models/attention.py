@@ -13,7 +13,9 @@ cache of ``max_seq``) is chosen with the paper's eq. (1)/(2) memory model
   attention_decode  : one token against a KV cache (dense or ring), plain
                       torch with the JAX casts; it writes the new key and
                       value into the cache in place, or (``cross=True``)
-                      attends to an encoder's cached keys and values
+                      attends to an encoder's cached keys and values; on
+                      a mesh, over this rank's block of the sequence with
+                      the blocks' partial softmax merged
 
 Cross-attention (the encdec family) passes the encoder's projected keys
 and values as ``kv=``: the query is projected (bias, qk-norm) without
@@ -32,7 +34,10 @@ heads that the axis divides are split the same way; others (qwen2's 2 on
 a 4-wide axis) are projected whole and each local query head takes its
 group's (``_heads_plan``), and the cache then holds every KV head.  Heads
 the axis does not divide (qwen2-0.5b's 14 on 4) run whole on every rank,
-with every weight joined.
+with every weight joined.  A decode's cache stays in the layout
+``cache_shardings`` stores it in: a sequence split over "model" (the KV
+heads do not divide it) or over the batch axes (a batch-1 wave) is
+attended block by block (``attention_decode``).
 """
 
 from __future__ import annotations
@@ -248,13 +253,43 @@ def fill_cache(cache, k: torch.Tensor, v: torch.Tensor, start: int = 0):
     return cache
 
 
+def _seq_split(s_local: int, s: int):
+    """The axis ("model" or "batch") that this rank's cache block of an
+    ``s``-slot sequence lies on, and the block's index along it; (None, 0)
+    when the rank holds every slot.  ``cache_shardings`` puts a cache's
+    sequence on the batch axes when the batch does not divide them (the
+    entry points then leave the batch whole: a batch-1 wave), else on
+    "model" when the KV heads do not divide it, never on both."""
+    if s_local == s:
+        return None, 0
+    nb = L.batch_size()
+    if not L.batch_sharded() and nb > 1 and s % nb == 0:
+        axis, n, r = "batch", nb, L.batch_rank()
+    else:
+        axis, n, r = "model", L.model_size(), L.model_rank()
+    if s_local * n != s:
+        raise ValueError(f"a cache block of {s_local} slots is not one "
+                         f"of {n} blocks of {s} on {axis!r}")
+    return axis, r
+
+
 def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
                      index: int, cross: bool = False):
     """One-token step.  x: [B, 1, d]; index: the token's absolute position.
     Writes its key and value into ``cache`` (in place) and returns
     (y [B, 1, d], cache).  With ``cross`` the cache holds an encoder's keys
     and values: nothing is written, no rope is applied, and every slot with
-    ``pos >= 0`` is attended to."""
+    ``pos >= 0`` is attended to.
+
+    Under a mesh the cache may be this rank's block of the sequence (its
+    ``pos`` whole): the rank that holds the new token's slot writes it,
+    each rank attends over its own slots, and the blocks' partial softmax
+    merges over their axis as flash-decoding merges it (the max, then the
+    sum of exponentials, then the weighted values, in float32).  A block
+    with no valid slot adds weight 0.  Where the sequence lies on "model",
+    every rank needs every query head's logits over its block: the local
+    heads' queries are joined over "model", and after the merge the rank
+    keeps its heads for its ``wo`` block."""
     b = x.shape[0]
     plan = _heads_plan(cfg)
     sel = None
@@ -267,6 +302,9 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["scale"])
     kc, vc, kpos = cache["k"], cache["v"], cache["pos"]
+    s_local, s = kc.shape[1], kpos.shape[0]
+    axis, blk = _seq_split(s_local, s)
+    lo = blk * s_local
     if not cross:
         pos1 = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
         k1 = (x @ p["wk"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
@@ -278,19 +316,25 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
             k1 = rmsnorm(k1, p["k_norm"]["scale"])
         q = apply_rope(q, pos1, cfg.rope_theta)
         k1 = apply_rope(k1, pos1, cfg.rope_theta)
-        s = kc.shape[1]
         slot = index % s if cache["ring"] else min(index, s - 1)
-        kc[:, slot] = k1[:, 0]
-        vc[:, slot] = v1[:, 0]
+        if lo <= slot < lo + s_local:
+            kc[:, slot - lo] = k1[:, 0]
+            vc[:, slot - lo] = v1[:, 0]
         kpos[slot] = index
+    if axis is not None:
+        kpos = kpos[lo:lo + s_local]
+    all_heads = axis == "model" and plan is not None
+    if all_heads:
+        q = L.model_gather(q, 2)      # [B, 1, H, D]
+    elif sel is not None:
+        kc, vc = _pick_heads(kc, sel), _pick_heads(vc, sel)
 
     # one query against the cache, grouped: the GQA-repeated cache is never
     # built.  Logits in float32; the softmax weights are cast to the cache's
     # dtype before p . v, as the JAX package does.
-    if sel is not None:
-        kc, vc = _pick_heads(kc, sel), _pick_heads(vc, sel)
+    heads = q.shape[2]
     n_kv = kc.shape[2]
-    rep = cfg.n_heads // n_kv
+    rep = heads // n_kv
     qg = q.reshape(b, n_kv, rep, cfg.head_dim).float()
     logits = torch.einsum("bgrd,bsgd->bgrs", qg, kc.float())
     logits = logits / math.sqrt(cfg.head_dim)
@@ -302,9 +346,26 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
         if cfg.window is not None:
             valid = valid & (kpos > index - cfg.window)
     logits = logits.masked_fill(~valid, float("-inf"))
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", w.to(vc.dtype).float(), vc.float())
-    y = out.reshape(b, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
+    if axis is None:
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bgrs,bsgd->bgrd", w.to(vc.dtype).float(),
+                           vc.float())
+    else:
+        # the partial softmax of this block, merged over the blocks: every
+        # block together holds a valid slot, so the max is finite and an
+        # empty block's exponentials are 0
+        mx = L.model_max if axis == "model" else L.batch_max
+        total = L.model_reduce if axis == "model" else L.batch_reduce
+        m = mx(torch.amax(logits, dim=-1, keepdim=True))
+        e = torch.exp(logits - m)
+        w = e / total(e.sum(dim=-1, keepdim=True))
+        out = total(torch.einsum("bgrs,bsgd->bgrd", w.to(vc.dtype).float(),
+                                 vc.float()))
+    out = out.reshape(b, 1, heads * cfg.head_dim)
+    if all_heads:
+        hl = cfg.q_dim
+        out = out[..., L.model_rank() * hl:(L.model_rank() + 1) * hl]
+    y = out.to(x.dtype) @ p["wo"]
     if plan is not None:
         y = L.model_reduce(y)
     return y, cache

@@ -23,6 +23,9 @@ they run over):
                 reductions of the cross entropy
   model_gather / model_split (and batch_*): a tensor's blocks joined, or
                 this rank's block taken; each the other's backward
+  batch_enter / batch_reduce: the same pair over the batch axes (a
+                module that runs on this rank's rows with weights whole
+                on every batch rank, a loss term summed over the rows)
 
 The loss is whole and equal on every rank, so a gradient that reaches a
 tensor whole on every rank is the whole gradient.  ``shard()`` is the
@@ -44,9 +47,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 __all__ = ["set_axis_env", "clear_axis_env", "shard", "parallel",
-           "batch_sharded", "model_size", "model_rank", "model_enter",
-           "model_reduce", "model_max", "model_gather", "model_split",
-           "batch_reduce", "batch_gather", "batch_split", "from_placed",
+           "batch_sharded", "model_size", "model_rank", "batch_size",
+           "batch_rank", "model_enter", "model_reduce", "model_max",
+           "model_gather", "model_split", "batch_enter", "batch_reduce",
+           "batch_max", "batch_gather", "batch_split", "from_placed",
            "dense_init", "embed_init", "rmsnorm", "layernorm", "norm_apply",
            "norm_init", "rope_freqs", "apply_rope", "mlp_init", "mlp_apply",
            "ACTIVATIONS", "cross_entropy"]
@@ -101,6 +105,17 @@ def model_size() -> int:
 
 def model_rank() -> int:
     return _AXIS_ENV["mesh"].coord("model") if parallel() else 0
+
+
+def batch_size() -> int:
+    """The ranks over the batch axes together (1 without a mesh)."""
+    return _AXIS_ENV["mesh"].size("batch") if parallel() else 1
+
+
+def batch_rank() -> int:
+    """This rank's index over the batch axes, rank-major in their order
+    (a DTensor sharded on them holds that block)."""
+    return _AXIS_ENV["mesh"].coord("batch") if parallel() else 0
 
 
 def _group(axis: str):
@@ -203,8 +218,17 @@ def model_split(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _Split.apply(x, dim % x.dim(), "model")
 
 
+def batch_enter(x: torch.Tensor) -> torch.Tensor:
+    return _Enter.apply(x, "batch")
+
+
 def batch_reduce(x: torch.Tensor) -> torch.Tensor:
     return _Reduce.apply(x, "batch")
+
+
+def batch_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over the batch ranks (no gradient)."""
+    return _all_reduce(x.detach(), "batch", dist.ReduceOp.MAX)
 
 
 def batch_gather(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -27,15 +27,23 @@ weighted by the pair's gate; both moves are gathers in the backward too
 With a mesh active (``launch/sharding.py``): the rule table gives the
 experts' leading axis to "model" when it divides the experts (granite's
 32: ``expert_sharding="expert"``), else their ffn axis (mixtral's 8 on a
-16-wide axis: ``"ffn"``), so the placed weights say which.  The block's
-input is joined over the batch axes when the batch is split
-(``batch_gather``: groups, capacity and queue places are then the
-single-device ones) and routed whole on every rank.  "expert": each rank
-dispatches the pairs of its own experts into their queues and runs
-``_Moved`` and the products on them; "ffn": each rank runs every expert
-on its ffn block, ``w_out`` row-parallel.  Either way the combined output
-is a partial sum over "model" (``model_reduce``), and this rank's rows of
-the batch are taken back out.
+16-wide axis: ``"ffn"``), so the placed weights say which.  The group
+size and capacity come from the global token count, as in the JAX
+package's global view.  When the batch is split and this rank's rows are
+whole groups, the rank routes its own groups (the JAX package's
+``shard(xg, "batch", None, None)``): routing and drops are the
+single-device ones group for group, the weights enter the rank's rows
+(``batch_enter``: their gradient sums over the batch axes) and the load
+balance's counts and probabilities sum over the batch axes
+(``batch_reduce``) before they are divided by the global counts.
+Otherwise (a decode wave: one group of the whole wave, which the JAX
+package replicates too) the block's input is joined over the batch axes
+(``batch_gather``), routed whole on every rank, and this rank's rows are
+taken back out after.  "expert": each rank dispatches the pairs of its
+own experts into their queues and runs ``_Moved`` and the products on
+them; "ffn": each rank runs every expert on its ffn block, ``w_out``
+row-parallel.  Either way the combined output is a partial sum over
+"model" (``model_reduce``).
 """
 
 from __future__ import annotations
@@ -98,10 +106,14 @@ def group_and_capacity(cfg: MoEConfig, n: int) -> Tuple[int, int]:
     return gs, min(cap, gs)
 
 
-def moe_route(p, cfg: MoEConfig, xg: torch.Tensor, cap: int):
+def moe_route(p, cfg: MoEConfig, xg: torch.Tensor, cap: int,
+              n_ranks: int = 1):
     """Routing of the groups ``xg`` [g, gs, d]: (expert_idx [g, gs, k]
     int64, place [g, gs, k] int64, keep [g, gs, k] bool, gates [g, gs, k]
-    float32 with the dropped pairs zeroed, aux float32 scalar)."""
+    float32 with the dropped pairs zeroed, aux float32 scalar).
+    ``n_ranks`` > 1: ``xg`` is this rank's share of the groups of that
+    many batch ranks, and the aux loss is the global one (its counts and
+    probabilities summed over the batch axes)."""
     g, gs, _ = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     logits = xg.float() @ p["router"]                        # [g, gs, e]
@@ -112,8 +124,13 @@ def moe_route(p, cfg: MoEConfig, xg: torch.Tensor, cap: int):
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     onehot = torch.nn.functional.one_hot(expert_idx, e)      # [g, gs, k, e]
-    f_e = onehot.sum(dim=(0, 1, 2)).float() / (g * gs * k)
-    p_e = probs.mean(dim=(0, 1))
+    if n_ranks == 1:
+        f_e = onehot.sum(dim=(0, 1, 2)).float() / (g * gs * k)
+        p_e = probs.mean(dim=(0, 1))
+    else:
+        n = g * gs * n_ranks
+        f_e = L.batch_reduce(onehot.sum(dim=(0, 1, 2)).float()) / (n * k)
+        p_e = L.batch_reduce(probs.sum(dim=(0, 1))) / n
     aux = cfg.aux_loss_weight * e * torch.sum(f_e * p_e)
 
     # each pair's place in its expert's queue, token-major and slot-minor:
@@ -126,6 +143,13 @@ def moe_route(p, cfg: MoEConfig, xg: torch.Tensor, cap: int):
     place = (before * flat).sum(1).reshape(g, gs, k).long()
     keep = place < cap
     return expert_idx, place, keep, gate * keep, aux
+
+
+def _own_groups(tokens: int, gs: int) -> bool:
+    """Whether a rank's ``tokens`` rows are whole groups of ``gs``: it then
+    routes them itself (the global groups fall evenly on the batch ranks,
+    rank-major, as GSPMD shards them)."""
+    return tokens % gs == 0
 
 
 class _Moved(torch.autograd.Function):
@@ -159,15 +183,20 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     if cfg.dispatch not in _DISPATCHES:
         raise ValueError(f"dispatch must be one of {_DISPATCHES}, got "
                          f"{cfg.dispatch!r}")
-    split = L.batch_sharded()
-    if split:
-        x = L.batch_gather(x, 0)          # the whole batch on every rank
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    gs, cap = group_and_capacity(cfg, b * t)
+    nb = L.batch_size() if L.batch_sharded() else 1
+    gs, cap = group_and_capacity(cfg, b * t * nb)
+    gather = nb > 1 and not _own_groups(b * t, gs)
+    if gather:
+        x = L.batch_gather(x, 0)          # the whole batch on every rank
+        b = x.shape[0]
+    elif nb > 1:
+        p = {name: L.batch_enter(w) for name, w in p.items()}
     g = b * t // gs
     xg = x.reshape(g, gs, d)
-    expert_idx, place, keep, gate, aux = moe_route(p, cfg, xg, cap)
+    expert_idx, place, keep, gate, aux = moe_route(
+        p, cfg, xg, cap, 1 if gather else nb)
 
     # this rank's experts [lo, lo + el) ("expert"), or every expert on an
     # ffn block ("ffn"); tp: the output is a partial sum over "model"
@@ -208,6 +237,6 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     y = y.reshape(b, t, d)
     if tp:
         y = L.model_reduce(y)
-    if split:
+    if gather:
         y = L.batch_split(y, 0)
     return y, aux

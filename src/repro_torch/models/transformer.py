@@ -74,12 +74,14 @@ local KV heads, the local SSD heads).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -490,7 +492,8 @@ def compute_view(params, cfg: ArchConfig, path: str = ""):
     if isinstance(params, list):
         return [compute_view(v, cfg, f"{path}/{i}")
                 for i, v in enumerate(params)]
-    # the MoE runs on the whole batch on every rank (moe_apply)
+    # the MoE's weights enter the rank's rows in moe_apply, where it
+    # routes its own groups (a decode wave runs whole on every rank)
     return L.from_placed(params, _keep_model(cfg, path),
                          batch_specific="moe/" not in path)
 
@@ -499,19 +502,35 @@ def compute_view(params, cfg: ArchConfig, path: str = ""):
 # public entry points
 # ---------------------------------------------------------------------------
 
+# the products without a batch dimension: what ``"dots"`` saves (a
+# [B, T, d] @ W reaches ``mm``; attention's and the experts' batched
+# products are ``bmm``)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(cfg: ArchConfig, body):
     """The configured activation-checkpoint policy around a layer body:
     ``"full"`` recomputes the layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant), ``"none"`` or
-    ``cfg.remat`` False saves everything.  JAX's ``"dots"`` policy (save
-    the matrix products' outputs) keeps its name here but recomputes in
-    full: the port has no policy that saves only some of a layer's
-    tensors."""
+    (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves the
+    outputs of the matrix products that have no batch dimension (JAX's
+    ``dots_with_no_batch_dims_saveable``: ``mm`` and ``addmm``, through
+    selective-checkpoint contexts) and recomputes the rest (batched
+    products, the flash and SSD ops, norms, elementwise ops), ``"none"``
+    or ``cfg.remat`` False saves everything."""
     if not cfg.remat or cfg.remat_policy == "none":
         return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
 
     def run(*args):
-        return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
     return run
 
 

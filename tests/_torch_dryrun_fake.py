@@ -6,12 +6,21 @@ module.
 runs, in this one process, one reduced cell per family and step kind
 (train with two microbatches, prefill, decode) on a fake group of 4 ranks
 (a 2 x 2 ("data", "model") mesh), then ``COMPARED``'s cell on fake groups
-of 2 (meshes 2 x 1 and 1 x 2), each group made and ended here
-(``dryrun.fake_group``), and writes every record to OUT.json."""
+of 2 (meshes 2 x 1 and 1 x 2), then ``MEMORY``'s cells on a fake group of
+16 (a 4 x 4 mesh) as the port runs them and with the join it made before
+(the MoE's input gathered over the batch axes, a decode's k/v sequence
+joined), each group made and ended here (``dryrun.fake_group``), then
+``REMAT``'s cell on one device under each remat policy; and, on the
+group of 4, ``benchmarks/hillclimb_torch.py``'s three cells at the
+reduced size (``HILLCLIMB``) beside the dry run's record of each cell's
+baseline.  It writes every record to OUT.json."""
 
 import dataclasses
 import json
 import sys
+import tempfile
+from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -27,6 +36,52 @@ CELLS = (ShapeConfig("train", 16, 8, "train"),
 # the cell traced both on a fake group of 2 and on 2 real gloo ranks
 COMPARED = (dataclasses.replace(reduced(get_config("qwen2-0.5b")),
                                 n_layers=2, microbatches=2), CELLS[0])
+
+
+# the per-rank peaks that the port's mesh layouts shrink: the MoE prefill
+# (each rank routes its own groups; before, the batch was joined on every
+# rank) and the decode over a split cache sequence (before, each k/v
+# sequence was joined for the step); 2 layers of the reduced configs
+MEMORY = {"granite-moe-1b-a400m/prefill": ShapeConfig("p", 256, 16,
+                                                      "prefill"),
+          "mixtral-8x22b/prefill": ShapeConfig("p", 256, 16, "prefill"),
+          "qwen2-0.5b/decode": ShapeConfig("d", 1024, 16, "decode")}
+# the reduced qwen2's training step under each remat policy, one device
+REMAT = ShapeConfig("train", 64, 4, "train")
+
+
+# hillclimb's cells at the reduced size, 2 layers, remat on (so "dots"
+# differs from the baseline); the cells with a replicated-weights variant
+# take heads that the 2-wide "model" axis does not divide, as qwen2-0.5b's
+# 14 and whisper-tiny's 6 are on the production 16
+HILLCLIMB = {"mixtral_train": ({}, ShapeConfig("train", 64, 8, "train")),
+             "qwen2_prefill": ({"n_heads": 3, "n_kv": 1},
+                               ShapeConfig("prefill", 64, 4, "prefill")),
+             "whisper_decode": ({"n_heads": 3, "n_kv": 3},
+                                ShapeConfig("decode", 64, 4, "decode"))}
+
+
+def hillclimb_config(cell: str):
+    from benchmarks import hillclimb_torch as H
+    return dataclasses.replace(reduced(get_config(H.CELLS[cell][0])),
+                               n_layers=2, remat=True,
+                               **HILLCLIMB[cell][0])
+
+
+def hillclimb() -> dict:
+    """Each cell's variants (on the fake group of 4 that is up) and the dry
+    run's record of its baseline on the same mesh."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmarks import hillclimb_torch as H
+    res = {}
+    with tempfile.TemporaryDirectory() as out:
+        for cell, (_, shape) in HILLCLIMB.items():
+            cfg = hillclimb_config(cell)
+            run = H.run(cell, "cpu", out, cfg, shape, (2, 2))
+            res[cell] = {"run": run, "written": json.loads(
+                (Path(out) / f"{cell}.json").read_text()),
+                "record": _trace(cfg, shape, (2, 2))}
+    return res
 
 
 def config(arch: str):
@@ -58,16 +113,52 @@ def _trace(cfg, cell, shape):
     mesh = MESH.make_mesh(shape, ("data", "model"), device="cpu")
     rec = D.trace_cell(cfg, cell, mesh)
     return {k: rec[k] for k in ("flops", "bytes", "peak_bytes",
-                                "collectives")}
+                                "collectives", "core")}
+
+
+def _joined():
+    """The layouts the port used before: the MoE's gather route taken
+    always, a decode's caches loaded with each k/v sequence whole."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import moe as MO
+    real = S._CacheLayout.load
+    return (mock.patch.object(MO, "_own_groups", lambda *_: False),
+            mock.patch.object(S._CacheLayout, "load",
+                              lambda self, c: real(self, c, joined=True)))
+
+
+def memory() -> dict:
+    """``MEMORY``'s cells on a fake group of 16, as run and joined."""
+    res = {}
+    with D.fake_group(16):
+        for name, cell in MEMORY.items():
+            cfg = dataclasses.replace(reduced(get_config(
+                name.split("/")[0])), n_layers=2)
+            res[name] = {"split": _trace(cfg, cell, (4, 4))}
+            moe, cache = _joined()
+            with moe, cache:
+                res[name]["joined"] = _trace(cfg, cell, (4, 4))
+    return res
+
+
+def remat() -> dict:
+    """``REMAT``'s cell (the reduced qwen2, remat on) on one device."""
+    base = dataclasses.replace(reduced(get_config("qwen2-0.5b")), remat=True)
+    return {pol: {k: v for k, v in D.trace_cell(
+        dataclasses.replace(base, remat_policy=pol), REMAT, None,
+        "cpu").items() if k in ("flops", "bytes", "peak_bytes")}
+        for pol in ("full", "dots", "none")}
 
 
 def main(out: str) -> None:
-    res = {"families": {}, "compared": {}}
+    res = {"families": {}, "compared": {}, "memory": memory(),
+           "remat": remat()}
     with D.fake_group(4):
         for arch in FAMILIES:
             for cell in CELLS:
                 res["families"][f"{arch}/{cell.kind}"] = _trace(
                     config(arch), cell, (2, 2))
+        res["hillclimb"] = hillclimb()
     for shape in ((2, 1), (1, 2)):
         with D.fake_group(2):
             res["compared"][f"{shape[0]}x{shape[1]}"] = _trace(

@@ -20,6 +20,16 @@ from repro_torch.kernels import ref as TR  # noqa: E402
 from repro_torch.kernels import spike_bitmask as SBK  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(shape, p, seed):
     return np.random.default_rng(seed).random(shape) < p
 

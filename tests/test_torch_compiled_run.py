@@ -35,6 +35,16 @@ from repro_torch.sparse import formats as TF  # noqa: E402
 N_EXC, N_INH, N_CONN, SEED = 80, 20, 10, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _exc(v):
     """A gScale for both excitatory groups (the Simulator's group names)."""
     return {"exc_exc": v, "exc_inh": v}

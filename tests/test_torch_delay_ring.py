@@ -37,6 +37,16 @@ from repro_torch.sparse import formats as TF  # noqa: E402
 RASTER_AGREEMENT = 0.998
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _replaced(ring, acc, cursor, sign, gscale):
     """The eager sequence of the heterogeneous-delay branch before the
     fold kernel: _scale, roll, add, read the cursor's row, clear it."""

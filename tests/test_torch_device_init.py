@@ -30,6 +30,16 @@ from repro_torch.sparse import device_init as DI  # noqa: E402
 from repro_torch.sparse import formats as F  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _key(seed=0):
     return R.PRNGKey(seed)
 

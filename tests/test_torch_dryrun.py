@@ -20,7 +20,22 @@ kernels' custom ops, against the JAX package on the CPU:
   x 2), the collectives of the reduced qwen2 step equal to a real 2-rank
   gloo run's (the fake groups in one subprocess, ``_torch_dryrun_fake.
   py``; the gloo ranks through ``_torch_dist.py``; both started together);
-- a real CPU step's counts equal to the dry run's of the same cell.
+- a real CPU step's counts equal to the dry run's of the same cell;
+- on a fake group of 16 (4 x 4), the per-rank peak of a reduced MoE
+  prefill and of a decode over a split cache against the joins the port
+  made before (the MoE's input over the batch axes, a decode's k/v
+  sequence): the MoE's tensors shrink by the 4 batch ranks and the caches
+  by the 4 "model" ranks, the step's peak by more than 2.5x (its weights
+  and residual stream do not shrink), the decode's by at least 3/4 of
+  its layers' whole k/v;
+- the ``"dots"`` remat policy's peak between ``"full"``'s and
+  ``"none"``'s;
+- ``benchmarks/hillclimb_torch.py``'s three cells at the reduced size on
+  the fake group of 4: every variant of the JAX script, the file it
+  writes, each baseline's counts equal to the dry run's record of the
+  same cell, ``*no_core`` less by exactly the custom ops' terms, and
+  ``"dots"`` changing the counts; ``benchmarks/report_torch.py`` rendered
+  from a tree with records and from one without, with no TPU constant.
 """
 
 import dataclasses
@@ -67,6 +82,16 @@ ROOT = TESTS.parent
 NAMES = list(ARCHS)
 PRODUCTION = [((16, 16), ("data", "model")),
               ((2, 16, 16), ("pod", "data", "model"))]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_dryrun():
@@ -423,6 +448,140 @@ def test_fake_collectives_equal_a_real_gloo_run(groups, mesh):
     assert fake["collectives"] == real["global"]
     assert fake["flops"] == real["flops"]
     assert fake["collectives"]["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("cell", ["granite-moe-1b-a400m/prefill",
+                                  "mixtral-8x22b/prefill",
+                                  "qwen2-0.5b/decode"])
+def test_mesh_layouts_shrink_the_peak_against_the_joins(groups, cell):
+    from _torch_dryrun_fake import MEMORY
+    rec = groups.get()["fake"]["memory"][cell]
+    split, joined = rec["split"]["peak_bytes"], rec["joined"]["peak_bytes"]
+    assert joined > 2.5 * split, (split, joined)
+    if cell.endswith("decode"):
+        # the joined load held every layer's whole k and v (bf16) at once
+        cfg = reduced(get_config("qwen2-0.5b"))
+        shape = MEMORY[cell]
+        whole = 2 * 2 * 2 * (shape.global_batch // 4) * shape.seq_len \
+            * cfg.n_kv * cfg.head_dim
+        assert joined - split >= 0.75 * whole, (split, joined, whole)
+
+
+def test_dots_remat_peak_lies_between_full_and_none(groups):
+    rec = groups.get()["fake"]["remat"]
+    assert rec["full"]["peak_bytes"] < rec["dots"]["peak_bytes"] \
+        < rec["none"]["peak_bytes"]
+    # "dots" recomputes less than "full", more than "none" (no recompute)
+    assert rec["full"]["flops"] > rec["dots"]["flops"] \
+        > rec["none"]["flops"]
+
+
+HILLCLIMB_VARIANTS = {
+    "mixtral_train": ["baseline_naive", "no_core", "remat_dots",
+                      "remat_dots_no_core", "remat_dots_bf16logits_no_core"],
+    "qwen2_prefill": ["baseline_naive", "no_core", "bf16_logits_no_core",
+                      "replicated_no_core"],
+    "whisper_decode": ["baseline", "replicated_weights"]}
+
+
+@pytest.mark.parametrize("cell", list(HILLCLIMB_VARIANTS))
+def test_hillclimb_cells_against_the_dry_run(groups, cell):
+    res = groups.get()["fake"]["hillclimb"][cell]
+    run, rec = res["run"], res["record"]
+    assert res["written"] == run
+    steps = run["steps"]
+    assert list(steps) == HILLCLIMB_VARIANTS[cell]
+    base = steps[HILLCLIMB_VARIANTS[cell][0]]
+    assert base == {"flops": rec["flops"], "bytes": rec["bytes"],
+                    "collective_bytes": rec["collectives"]["total_bytes"],
+                    "peak_bytes": rec["peak_bytes"]}
+    for name, s in steps.items():
+        assert s["flops"] > 0 and s["bytes"] > 0 and s["peak_bytes"] > 0
+        if not name.endswith("no_core"):
+            assert "core" not in s
+            continue
+        # its own trace less exactly the custom ops' terms
+        core = s["core"]
+        assert set(core) == set(D.CORE_OPS)
+        full = steps.get(name[:-len("_no_core")] if name != "no_core"
+                         else HILLCLIMB_VARIANTS[cell][0])
+        if full is not None:
+            assert s["flops"] == full["flops"] - sum(
+                c["flops"] for c in core.values())
+            assert s["bytes"] == full["bytes"] - sum(
+                c["bytes"] for c in core.values())
+            assert s["peak_bytes"] == full["peak_bytes"]
+            assert s["collective_bytes"] == full["collective_bytes"]
+    if "no_core" in steps:
+        assert steps["no_core"]["flops"] < base["flops"]
+    if "remat_dots" in steps:
+        # "dots" recomputes less of each layer than "full"
+        assert steps["remat_dots"]["flops"] < base["flops"]
+
+
+def _write_records(art: Path) -> None:
+    """A few small records of each kind, as the port's runs write them."""
+    from _torch_dryrun_fake import HILLCLIMB
+    bench = art / "bench"
+    bench.mkdir(parents=True)
+    (bench / "table1_izhikevich_torch.json").write_text(json.dumps(
+        {"n_conns": [40, 80], "gscales": [1.5, 0.75], "target_rate": 5.0,
+         "k1": 12.5, "k2": 3.0, "k3": 0.01, "mape_pct": 1.25}))
+    (bench / "table2_mushroom_lhi10_torch.json").write_text(json.dumps(
+        {"k1": 2.5, "k2": 1.0, "k3": 0.5, "mape_pct": 7.5, "k1_lhi": 1.0,
+         "k2_lhi": 2.0, "k3_lhi": 3.0, "mape_lhi_pct": 9.0}))
+    (bench / "fig2_agreement_torch.json").write_text(json.dumps(
+        {"mape_pct": 0.0}))
+    (bench / "eq12_memory_torch.json").write_text(json.dumps(
+        {"rows": [[100, 201001, 1000000], [500, 1001001, 1000000]]}))
+    cfg = reduced(get_config("qwen2-0.5b"))
+    cell = HILLCLIMB["qwen2_prefill"][1]
+    rec = D.trace_cell(cfg, cell, None, "cpu")
+    for tag in ("pod16x16", "pod2x16x16"):
+        d = art / "dryrun_torch" / tag
+        d.mkdir(parents=True)
+        (d / "qwen2-0.5b__prefill_32k.json").write_text(json.dumps(
+            {**rec, "arch": "qwen2-0.5b", "shape": "prefill_32k",
+             "mesh": tag, "status": "OK", "n_devices": 256}))
+        (d / "qwen2-0.5b__long_500k.json").write_text(json.dumps(
+            {"arch": "qwen2-0.5b", "shape": "long_500k", "mesh": tag,
+             "status": "SKIP", "reason": "full-attention arch"}))
+    perf = art / "perf_torch"
+    perf.mkdir()
+    row = {"flops": 2e12, "bytes": 3e9, "collective_bytes": 4e8,
+           "peak_bytes": 5e9}
+    (perf / "qwen2_prefill.json").write_text(json.dumps(
+        {"cell": "qwen2-0.5b x prefill_32k x pod16x16", "steps":
+         {"baseline_naive": row, "no_core": row}, "n_devices": 256}))
+
+
+def test_report_renders_with_and_without_records(tmp_path):
+    from benchmarks import report_torch as R
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    out = R.main(["--art", str(empty), "--out", str(tmp_path / "a.md")])
+    doc = out.read_text()
+    for section in ("## Paper validation", "## Dry run", "## Roofline",
+                    "## Perf log"):
+        assert section in doc
+    assert doc.count("(no ") == 4
+    art = tmp_path / "art"
+    _write_records(art)
+    doc = R.main(["--art", str(art), "--out", str(tmp_path / "b.md")]
+                 ).read_text()
+    assert "(no " not in doc
+    assert "| the port | 12.5 | 3 | 0.01 | 1.25 |" in doc
+    assert "10 LHIs" in doc and "PN->LHI fit" in doc
+    assert "| qwen2-0.5b | prefill_32k | OK |" in doc
+    assert "| qwen2-0.5b | long_500k | SKIP |" in doc
+    assert "### pod2x16x16" in doc and "| baseline_naive | 2 | 3 | 0.4 |" \
+        in doc
+    # the H100's rates, none of the TPU's (v5e: 16 GB, 197e12, 819e9)
+    assert "9.89e+14" in doc and "3.35e+12" in doc
+    for tpu in ("197e12", "819e9", "1.97e+14", "8.19e+11", "v5e", "16 GB"):
+        assert tpu not in doc
+    with pytest.raises(SystemExit):
+        R.main(["--art", str(art), "--out", str(tmp_path / "EXPERIMENTS.md")])
 
 
 def test_real_cpu_step_counts_equal_the_dry_run():

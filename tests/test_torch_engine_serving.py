@@ -41,6 +41,16 @@ STATE_TOL = dict(rtol=2e-4, atol=2e-4)
 AGREEMENT = 0.998
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=[1, 2, 8], ids=lambda d: f"D{d}")
 def ranks(request, tmp_path_factory):
     return run_ranks(CASES, request.param,

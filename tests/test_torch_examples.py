@@ -19,7 +19,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run(script: str, *args: str) -> str:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: the suite runs one worker a core
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "examples" / script),
                           "--device", "cpu", *args], capture_output=True,
                          text=True, timeout=600, env=env, cwd=ROOT)

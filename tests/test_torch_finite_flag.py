@@ -25,6 +25,16 @@ STEPS, BATCH, BAD = 20, 3, 1         # the member that gets the bad value
 SIZES = {"izh": 30, "hh": 20}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spec(cls):
     ms = cls("flags")
     ms.add_neuron_population("izh", SIZES["izh"], "izhikevich")

@@ -30,6 +30,16 @@ ATTN_CASES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(case, seed):
     b, hq, hkv, tq, tk, d = case[:6]
     rng = np.random.default_rng(seed)

@@ -34,6 +34,16 @@ BWD_RTOL, BWD_ATOL = 5e-4, 5e-5
 NEG_INF = -1e30               # the kernels' finite start of the row max
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tf32(a: torch.Tensor) -> torch.Tensor:
     """cvt.rna.tf32.f32: keep 10 mantissa bits, round to nearest with ties
     away from zero (add half of the dropped unit to the magnitude's bits,

@@ -37,6 +37,16 @@ from repro_torch.sparse.formats import (FixedFanout, OneToOne,  # noqa: E402
                                         UniformIntDelay, UniformWeight)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class FakeClock:
     def __init__(self, t: float = 0.0):
         self.t = t

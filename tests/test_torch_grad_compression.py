@@ -21,6 +21,16 @@ from repro.optim import grad_compression as JGC  # noqa: E402
 from repro_torch.optim import grad_compression as GC  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _leaf(n, seed, scale=1.0):
     r = np.random.default_rng(seed)
     return (r.standard_normal(n) * scale).astype(np.float32)

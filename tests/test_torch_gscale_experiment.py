@@ -29,6 +29,16 @@ ALLOW_HZ = 0.002 / DT_S           # 0.2% of a spike a neuron-step
 SAME = 1e-5                       # grids built in float32 by either package
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def both():
     port = TEXP.izhikevich_gscale_sweep(device="cpu", **SIZE)

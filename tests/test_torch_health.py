@@ -33,6 +33,16 @@ IZH = dict(n_total=60, n_conn=10, seed=2)
 MB_SMALL = dict(n_pn=16, n_lhi=4, n_kc=64, n_dn=12, seed=5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _izh_pair(monitor):
     jm = JIZ.compile_model(JIZ.IzhikevichNetConfig(**IZH),
                            monitor=JHE.HealthConfig(**monitor))

@@ -1,5 +1,6 @@
 """repro_torch stands alone: no module of the port, no part of
-chip_smoke.py and no example of the port imports jax or the JAX package; importing the port leaves jax
+chip_smoke.py, no example and no benchmark script of the port imports jax
+or the JAX package; importing the port leaves jax
 unloaded; tensors on the CPU take the plain versions without counting a
 launch (ELL and neuron kernels alike); an entry point that needs a card
 raises when there is none."""
@@ -23,7 +24,8 @@ from repro_torch.kernels import izhikevich_step as IZ  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + sorted((ROOT / "benchmarks").glob("*_torch.py"))
 
 
 def _imported_modules(path: pathlib.Path):

@@ -51,6 +51,16 @@ STIM_PN = dict(name="stim_pn", state={"V": 0.0}, params={},
                sim_code="V = Isyn", threshold_code="V > 0.5", reset_code="")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fan_in_gscales() -> dict:
     s, e = SIZES, EXAMPLE
     return {"PN_KC": e["n_pn"] / s["n_pn"], "PN_LHI": e["n_pn"] / s["n_pn"],

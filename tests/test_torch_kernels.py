@@ -27,6 +27,16 @@ SHAPES = [(16, 4, 32, 1), (64, 16, 100, 4), (200, 50, 333, 2),
           (128, 128, 512, 8)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(n_pre, k, n_post, b, seed, integer=False, n_slots=None):
     rng = np.random.default_rng(seed)
     if integer:

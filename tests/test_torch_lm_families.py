@@ -42,6 +42,16 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 ACT_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
@@ -125,8 +135,8 @@ def _counting_drops():
     seen = []
     real = TM.moe_route
 
-    def route(p, cfg, xg, cap):
-        out = real(p, cfg, xg, cap)
+    def route(p, cfg, xg, cap, n_ranks=1):
+        out = real(p, cfg, xg, cap, n_ranks)
         seen.append(int((~out[2]).sum()))
         return out
 

@@ -26,11 +26,23 @@ mesh is held to it:
   every rank's blocks.
 
 At D = 2 qwen2's forward from the JAX package's weights is also held to
-the JAX package's unsharded forward (1e-4).  The MoE routing is the same
-on the mesh as on one device: the router runs whole on the whole batch
-on every rank, so no near tie can flip between them.
+the JAX package's unsharded forward (1e-4).
+
+The MoE block alone, with drops (capacity factor 1.25), on a 2 x 1 mesh
+(D = 2) and a 2 x 4 one (D = 8), "expert" (granite) and "ffn" (mixtral)
+sharding: where each rank's rows are whole groups it routes them itself,
+and its routing and drops joined over the batch ranks equal one device's
+exactly; y, aux and every gradient within the tolerances above; where
+the groups do not divide the rank's rows the gather route agrees too.
+The decode over a split cache sequence (a KV-head count that does not
+divide "model", a ring cache, a batch-1 wave whose sequence lies on the
+batch axes, a first step at which most blocks are empty): every step's
+float32 logits within 1e-4 and the caches within 1e-5 of one device's,
+each rank's cache a block of the sequence during the step, and a server
+run's greedy tokens equal.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -136,6 +148,109 @@ def _single(arch: str, tmp: Path) -> dict:
                                    seq=C.T_LEN, ckpt_dir=ck, ckpt_every=2,
                                    log_every=100, device="cpu")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_single(arch: str, route: str) -> dict:
+    """The MoE block on one device on the case's inputs (the routing
+    recorded)."""
+    from unittest import mock
+    from repro_torch.models import moe as MO
+    mcfg = C.moe_config(arch, C.MOE_GROUPS[route])
+    params, x, c = C.moe_inputs(mcfg)
+    leaves = [params[k] for k in params]
+    for p in leaves:
+        p.requires_grad_(True)
+    x.requires_grad_(True)
+    record, seen = C.moe_routes()
+    with mock.patch.object(MO, "moe_route", record):
+        y, aux = MO.moe_apply(params, mcfg, x)
+    grads = torch.autograd.grad((y * c).sum() + aux, [x] + leaves)
+    idx, place, keep = seen[0]
+    return {"y": y.detach().numpy(), "aux": float(aux.detach()),
+            "expert_idx": idx.numpy(), "place": place.numpy(),
+            "keep": keep.numpy(), "grad_x": grads[0].numpy(),
+            "grads": [g.numpy() for g in grads[1:]],
+            "groups": idx.shape[0]}
+
+
+MOE_IDS = [(d, a, r) for d in (2, 8) for a in C.MOE_ARCHS
+           for r in C.MOE_GROUPS]
+
+
+@pytest.mark.parametrize("d,arch,route", MOE_IDS,
+                         ids=[f"D{d}-{a}-{r}" for d, a, r in MOE_IDS])
+def test_moe_routes_each_ranks_groups(runs, d, arch, route):
+    got = runs[0][d].case("moe_routing")["global"][f"{arch}/{route}"]
+    want = _moe_single(arch, route)
+    # both meshes split the batch over 2 ranks
+    assert got["groups_routed"] == (want["groups"] // 2 if route == "local"
+                                    else want["groups"])
+    for k in ("expert_idx", "place", "keep"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    if route == "local":
+        assert not want["keep"].all()         # the case drops pairs
+    np.testing.assert_allclose(got["y"], want["y"], atol=1e-4, rtol=0)
+    assert abs(got["aux"] - want["aux"]) <= 1e-6
+    for i, (g, w) in enumerate(zip([got["grad_x"]] + got["grads"],
+                                   [want["grad_x"]] + want["grads"])):
+        np.testing.assert_allclose(
+            g, w, rtol=1e-4, atol=2e-5 * float(np.abs(w).max()),
+            err_msg=f"gradient {i}")
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_single(d: int, name: str) -> dict:
+    arch, _, b, prompt, max_seq, n = C.SPLIT_DECODE[d][name]
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = C.split_decode_tokens(arch, prompt, b)
+    with torch.no_grad():
+        plog, caches = T.prefill(params, cfg, toks[:, :prompt],
+                                 cache_dtype=torch.float32, max_seq=max_seq)
+        logits = [plog.numpy()]
+        for i in range(n):
+            dlog, caches = T.decode_step(params, cfg, caches,
+                                         toks[:, prompt + i])
+            logits.append(dlog.numpy())
+    srv = S.Server(arch, max_batch=4, max_seq=max_seq, device="cpu")
+    prompts = (C.RING_PROMPTS if name == "ring" else
+               [toks[r, :prompt].tolist() for r in range(b)])
+    for i, p in enumerate(prompts):
+        srv.submit(S.Request(rid=i, prompt=p, max_new=6))
+    return {"logits": logits, "caches": [
+        x.float().numpy() for x in tree_flatten(
+            {"segments": caches["segments"], "tail": caches["tail"]})[0]
+        if isinstance(x, torch.Tensor)],
+        "tokens": {r.rid: r.out for r in srv.run()}}
+
+
+DECODE_IDS = [(d, n) for d in (2, 8) for n in C.SPLIT_DECODE[d]]
+
+
+@pytest.mark.parametrize("d,name", DECODE_IDS,
+                         ids=[f"D{d}-{n}" for d, n in DECODE_IDS])
+def test_decode_attends_each_ranks_cache_block(runs, d, name):
+    got = runs[0][d].case("split_decode")["global"][name]
+    want = _decode_single(d, name)
+    for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0,
+                                   err_msg=f"step {i}")
+    have = [x for x in tree_flatten(got["caches"])[0]
+            if isinstance(x, np.ndarray)]
+    assert len(have) == len(want["caches"])
+    for i, (g, w) in enumerate(zip(have, want["caches"])):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0,
+                                   err_msg=f"cache leaf {i}")
+    # during the step each k/v cache is this rank's block of its sequence
+    shape = C.SPLIT_DECODE[d][name][1]
+    blocks = shape[0] if name == "batch1" else shape[1]
+    kv = [w.shape for w in want["caches"] if w.ndim == 5]
+    step = [s for s in got["blocks"] if len(s) == 5]
+    assert len(step) == len(kv) > 0
+    for s, w in zip(step, kv):
+        assert s[2] * blocks == w[2], (s, w)
+    assert got["tokens"] == want["tokens"]
 
 
 def _mesh_case(runs, d, family):

@@ -55,6 +55,16 @@ ARCHS = {"qwen2-0.5b": {}, "qwen3-8b": {}, "starcoder2-15b": {},
 SSM_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 

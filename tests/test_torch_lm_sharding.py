@@ -41,6 +41,16 @@ PRODUCTION = [((16, 16), ("data", "model")),
               ((2, 16, 16), ("pod", "data", "model"))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _meshes(shape, axes):
     port = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, shape)))
     return port, AbstractMesh(shape, axes)

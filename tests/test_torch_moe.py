@@ -50,6 +50,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(fields, dispatch):
     jc = JM.MoEConfig(d_model=32, d_ff=64, dispatch=dispatch, **fields)
     return jc, TM.MoEConfig(**dataclasses.asdict(jc))

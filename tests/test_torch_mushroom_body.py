@@ -31,6 +31,16 @@ SMALL = dict(n_pn=20, n_lhi=5, n_kc=100, n_dn=10)       # test_snn_system
 POPS = ("PN", "LHI", "KC", "DN")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("sizes", [EXAMPLE, SMALL], ids=["example", "small"])
 def test_graph_is_bit_identical_to_jax(sizes):
     jm = JMB.compile_model(JMB.MushroomBodyConfig(**sizes))

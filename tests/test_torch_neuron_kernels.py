@@ -37,6 +37,16 @@ SPIKE_DISAGREEMENT = 0.002
 HH_PARAMS = dict(TN.TRAUBMILES_HH.params)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _izh_inputs(shape, seed, per_neuron):
     rng = np.random.default_rng(seed)
     n = shape[-1]

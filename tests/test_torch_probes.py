@@ -37,6 +37,16 @@ AGREEMENT = 0.998
 N_A, N_B = 30, 14
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spec(P, probes=(), custom=(), stdp=True):
     """tests/test_probes.py's net: two Izhikevich populations, an ExpDecay
     group and an STDP group (every state kind a probe can read), driven by

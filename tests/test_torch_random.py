@@ -25,6 +25,16 @@ from repro_torch.kernels import threefry as TF  # noqa: E402
 from repro_torch.sparse import formats as TSF  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tk(jk) -> torch.Tensor:
     """A JAX key (or keys) as the port's int32 [..., 2] tensor."""
     a = np.asarray(jax.random.key_data(jk)).astype(np.uint32)

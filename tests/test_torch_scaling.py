@@ -19,6 +19,16 @@ from repro_torch.core import scaling as TS  # noqa: E402
 FANINS = (64, 256, 1024)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _probe_and_fit(module, key, **kw):
     """``module.probe_and_fit(key, FANINS)`` and the scale of each fan-in
     it probed (recorded from its calls of ``probe_scale_for_fanin``)."""

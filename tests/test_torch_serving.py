@@ -48,6 +48,16 @@ AGREEMENT = 0.998
 N_A, N_B = 30, 14
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _net(P, delay="homogeneous", probes=(), monitor=False, weight=None):
     """tests/test_serving.py's cover net (delay ring, STDP traces and
     plastic g), driven by numpy stim on "a": a -> b with a homogeneous

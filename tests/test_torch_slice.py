@@ -45,6 +45,16 @@ JAXPKG = dict(spec=JSPEC, neurons=JN, syn=JSYN, formats=JF, iz=JIZ)
 PORT = dict(spec=TSPEC, neurons=TN, syn=TSYN, formats=TF, iz=TIZ)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _izh_spec(P, inh_representation="sparse"):
     """izhikevich_net's own spec, without the thalamic noise (these tests
     drive both packages with the same numpy stim), one group forced

@@ -27,6 +27,16 @@ CI_ENV = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(name, monkeypatch, tmp_path):
     import importlib
     for k, v in CI_ENV[name].items():

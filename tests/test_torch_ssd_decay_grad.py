@@ -32,6 +32,16 @@ from repro_torch.models import ssm as TS  # noqa: E402
 B, T, H, DH, DS = 1, 32, 2, 4, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(dt_value):
     rng = np.random.default_rng(4)
     return [rng.standard_normal((B, T, H, DH)).astype(np.float32),

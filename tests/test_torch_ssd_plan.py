@@ -33,6 +33,16 @@ INT_MAX = 2 ** 31 - 1
 TOL = 2e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dh", range(4, SSD.MAX_HEAD_DIM + 1, 4))
 def test_plan_within_the_card_limits(dh):
     """For every (dh, ds) the wrapper takes: two passes of 256 threads;

@@ -38,6 +38,16 @@ SHAPES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(b, t, h, dh, ds, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((b, t, h, dh)).astype(np.float32),

@@ -38,6 +38,16 @@ SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ssd_inputs(b, t, h, dh, g, ds, seed):
     r = np.random.default_rng(seed)
     return [r.standard_normal((b, t, h, dh)).astype(np.float32),

@@ -30,6 +30,16 @@ SIZES = [1, 7, 128, 4097]
 NORMAL_ULP = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u32(x) -> np.ndarray:
     """uint32 bits of a port key/bits tensor or a JAX array."""
     a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -4,10 +4,11 @@ every parameter's gradient (reduced mamba2-2.7b, qwen2-0.5b,
 granite-moe-1b-a400m and mixtral-8x22b (ce plus the MoE aux) and
 zamba2-7b (the shared block's gradient summed over its two
 applications), the JAX weights carried over by
-``convert.load_lm_params``), remat, and the
-``launch.train.run`` loop.  On the CPU the port takes the kernels' plain
-versions: attention's forward and backward (``flash_attention_fwd_ref`` /
-``_bwd_ref``) and the SSD's ``ssd_chunked``.
+``convert.load_lm_params``), remat (the ``"dots"`` policy against the
+JAX package's too), and the ``launch.train.run`` loop.  On the CPU the
+port takes the kernels' plain versions: attention's forward and backward
+(``flash_attention_fwd_ref`` / ``_bwd_ref``) and the SSD's
+``ssd_chunked``.
 
 Tolerances, and why:
 - pipeline batches: bit for bit (both draw from the same numpy
@@ -57,6 +58,16 @@ from repro_torch.optim import schedule as TSC  # noqa: E402
 
 ARCHS = ("mamba2-2.7b", "qwen2-0.5b", "granite-moe-1b-a400m",
          "mixtral-8x22b", "zamba2-7b")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs one worker a core, and CPU ops
+    under several spinning thread pools ran up to ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _leaves(tree, path=""):
@@ -257,6 +268,26 @@ def test_remat_gives_the_same_gradients(arch):
         assert torch.equal(l0, l1)
         for path in g0:
             assert torch.equal(g0[path], g1[path]), (policy, path)
+
+
+@pytest.mark.parametrize("arch", ("qwen2-0.5b", "granite-moe-1b-a400m"))
+def test_dots_remat_step_matches_jax_dots(arch):
+    """``remat_policy="dots"`` against the JAX package's (its
+    ``dots_with_no_batch_dims_saveable``): the loss and every gradient."""
+    jc, tc, jp, tp = _models(arch, remat=True, remat_policy="dots")
+    toks = np.random.default_rng(5).integers(0, jc.vocab, (2, 17)) \
+        .astype(np.int32)
+    (jl, _), jgrads = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jc, {"tokens": jnp.asarray(toks)}),
+        has_aux=True)(jp)
+    tl, _, tg = _grads(tc, tp, toks)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    jleaves = dict(_leaves(jgrads))
+    assert sorted(jleaves) == sorted(tg)
+    for path, g in tg.items():
+        a = np.asarray(jleaves[path])
+        np.testing.assert_allclose(g.numpy(), a, rtol=1e-4,
+                                   atol=2e-5 * np.abs(a).max(), err_msg=path)
 
 
 def test_model_loss_is_loss_fn():
