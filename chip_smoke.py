@@ -42,7 +42,17 @@ failure ends the run with a non-zero exit):
        untouched; beside each time the wrapper's host time (CUDA-event
        time less device time) and hh_step's SASS instruction count (all,
        and one substep's); no single PyTorch call computes either, so
-       they have no library time;
+       they have no library time; then izhikevich_step's drawing instance
+       (``izhikevich_step.drive``: two current operands summed, the
+       drive's normals hashed in the kernel, a stim added) at main's
+       [1, 80000] x 5.0 and [1, 20000] x 2.0 and the sweep's [8, 80000],
+       with and without a stim, over every lane and over a window that
+       pads: bit-equal to the unfused kernels it replaces (zeros, adds,
+       the draw kernel, izhikevich_step) in v', u', spikes and the flag,
+       within the tolerances above of its plain version (the normals
+       within 4 float32 ulp); its device time, its bound (bytes against
+       the threefry's integer operations) and the unfused sequence's
+       device time beside it;
   2c. flash_attention against its plain version on the card, with kernel,
      plain and library (torch's scaled_dot_product_attention on the same
      inputs, a yardstick only: the port never calls it) times beside the
@@ -90,12 +100,17 @@ failure ends the run with a non-zero exit):
      route, their comparisons with the plain versions the eager one;
   3. the main path at full width: the Izhikevich net, 100k neurons, 1000
      synapses per neuron (4 split ELL groups, ~1.8 GB), 1000 steps; its
-     launch counts (4 ell_spmv, 2 izhikevich_step, 1 threefry_split and 2
-     threefry_draw per step); 50 steps through the plain versions on the
-     card (no kernel launched), whose raster must agree with the kernel
-     run's on >= 99.8% of neuron-steps; profiles of 50 steps, eager and
-     replayed (device ops a step, busy share; eagerly, the device ops a
-     step that the NaN guard costs);
+     launch counts (4 ell_spmv, 2 izhikevich_step, both drawing their
+     thalamic drive (izhikevich_step.drive), 1 threefry_split and no
+     threefry_draw per step); 100 steps bit-equal to the same net with
+     lambda inputs (the unfused route: zeros, adds, the draw kernel),
+     eagerly and replayed, in counts, rasters and every state tensor; 50
+     steps through the plain versions on the card (no kernel launched),
+     whose raster must agree with the kernel run's on >= 99.8% of
+     neuron-steps; profiles of 50 steps, eager and replayed (device ops a
+     step, busy share; eagerly, the device ops a step that the NaN guard
+     costs), beside the lambda net's (its ops a step within 1 of the
+     recorded 33.2 / 33.9, the fused route's 10 fewer);
   4. a gScale sweep of the excitatory groups: 8 candidates (0.3 .. 1.2,
      below saturation) x 500 steps as one batch, rates non-decreasing in
      gScale, then the conductance search;
@@ -189,7 +204,8 @@ failure ends the run with a non-zero exit):
      equal to ``record_raster``'s raster, the health totals the summed
      counts; us/step of the net with and without the observation, eager
      and replayed, in turns, and device ops a step (phase 3's, which has
-     none of it, within 1 of PR 19's 33.2 / 33.9);
+     none of it, within 1 of the recorded 33.2 / 33.9 less the 10 that
+     the fused drive takes out);
   9c. mb_full with ``kc_probe_every=25``, ``kc_dn_normalize=True`` (KC_DN
      on the ELL path, its g in the state) and the monitor: eager vs graph
      over 500 steps as in 9b, 2500 steps, then ``custom_update(
@@ -451,6 +467,12 @@ DELAY = dict(n_total=100_000, n_conn=1000, max_delay=20, steps=200,
 # posts at B = 1, and at the sweep's B = 8
 FOLD_SHAPES = ((1, 21, 80_000), (8, 21, 80_000))
 IZH_SHAPES = ((1, 80_000), (8, 80_000))      # exc; B of phases 3 and 4
+# the drawing Izhikevich kernel in phase 2b: main's exc and inh at B = 1
+# and the sweep's exc at B = 8, (B, n, the drive's scale); each with two
+# current operands, with and without a [B, n] stim, over every lane and
+# over a window that pads (a rank's lanes [n / 4, n / 4 + 7n / 8) of a
+# population of 9n / 8: its last n / 8 lanes add 0)
+DRIVE_SHAPES = ((1, 80_000, 5.0), (1, 20_000, 2.0), (8, 80_000, 5.0))
 # mb_full's LHI, KC and DN (phase 6b), then mb_table's batch of 5 (6a)
 HH_SHAPES = ((1, 20), (1, 100_000), (1, 100), (5, 100_000))
 # float operations per (member, neuron), counting expf and a division as
@@ -498,9 +520,15 @@ SNN_SERVE = dict(streams=8, chunk=50, requests=16, min_steps=100,
              max_steps=200, izh_scale=3.0, mb_scale=1.5, mb_requests=8,
              mb_probe_every=5, buckets=(4, 8), delay_streams=4,
              delay_steps=(200, 180, 160, 140))
-# PR 19's device ops a step of phase 3 (eager, replayed), which a run
-# without probes, custom updates or a monitor keeps
-MAIN_OPS_PR19 = (33.2, 33.9)
+# the recorded device ops a step of phase 3 (eager, replayed), which a
+# run without probes, custom updates or a monitor keeps on the
+# lambda-input route; the fused drive takes 10 of them out (2 zeros, 4
+# group adds, 2 draws, 2 drive adds)
+MAIN_OPS_UNFUSED = (33.2, 33.9)
+MAIN_OPS_DRIVE = 10
+# phase 3's fused route against the same net with lambda inputs, bit for
+# bit, eagerly and replayed
+DRIVE_TWIN_STEPS = 100
 # phase 13: the sharded engine at one NCCL rank: the all-gather timed
 # alone, a profile's steps (13d serves phase 11's SNN_SERVE requests)
 ENGINE = dict(nccl_reps=200, profile_steps=50)
@@ -946,8 +974,9 @@ def _phases(torch, report, kernels, traces, t_start) -> int:
     path_of = {"ell_spmv": launches_main, "ell_spmv_delay": launches_delay,
                "delay_ring_fold": launches_delay,
                "izhikevich_step": launches_main, "hh_step": launches_mb,
+               "izhikevich_step.drive": launches_main,
                "threefry_split": launches_main,
-               "threefry_draw": launches_main,
+               "threefry_draw": launches_mb,
                "threefry_fold_in": launches_construct,
                "threefry_draw.randint": launches_construct,
                "flash_attention": launches_serve,
@@ -959,7 +988,8 @@ def _phases(torch, report, kernels, traces, t_start) -> int:
                "spike_bitmask": launches_obs}
     # and, for those on the engine's paths, their launches there
     engine_path = {"ell_spmv": "main", "izhikevich_step": "main",
-                   "threefry_split": "main", "threefry_draw": "main",
+                   "izhikevich_step.drive": "main",
+                   "threefry_split": "main", "threefry_draw": "mb",
                    "spike_bitmask": "main", "ell_spmv_delay": "delay",
                    "delay_ring_fold": "delay", "hh_step": "mb",
                    "threefry_fold_in": "build",
@@ -1438,14 +1468,18 @@ def compare_neuron_kernels(torch, report) -> list:
                          "library_ms": None, **_bound(b * n * HH_BYTES, ops),
                          "bytes": b * n * HH_BYTES, "ops": ops})
             print(json.dumps(rows[-1]))
+        rows += _compare_izhikevich_drive(torch, dev, gen)
     report["neuron_kernel_table"] = rows
     entries = []
     for name, replaces in (
             ("izhikevich_step", "src/repro/kernels/izhikevich_step.py:50"),
-            ("hh_step", "src/repro/kernels/hh_step.py:71")):
-        # the largest population of the kernel's path at B = 1
-        r = max((x for x in rows if x["name"] == name and x["B"] == 1),
-                key=lambda x: x["n"])
+            ("hh_step", "src/repro/kernels/hh_step.py:71"),
+            ("izhikevich_step.drive",
+             "src/repro/core/models/izhikevich_net.py:62")):
+        # the largest population of the kernel's path at B = 1 (the drive:
+        # main's exc over every lane, no stim)
+        r = max((x for x in rows if x["name"] == name and x["B"] == 1
+                 and "ms" in x), key=lambda x: x["n"])
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/neuron_step.cu",
@@ -1453,6 +1487,131 @@ def compare_neuron_kernels(torch, report) -> list:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}})
     return entries
+
+
+def _compare_izhikevich_drive(torch, dev, gen) -> list:
+    """Phase 2b's drawing Izhikevich kernel at DRIVE_SHAPES: bit-equal to
+    the unfused kernel sequence it replaces (zeros, the two currents'
+    adds, the draw kernel's normals sliced to the window and padded, the
+    drive's add, the stim's, then the plain Izhikevich kernel) in v', u',
+    spikes and the flag; within the neuron tolerance of its plain version
+    (the normals within NORMAL_ULP); its device time, bound and the
+    unfused sequence's device time where it runs without a stim over
+    every lane (the main path's form) and, at [1, 80000], with a stim (the
+    served form)."""
+    from repro_torch import random as RND
+    from repro_torch.kernels import izhikevich_step as IZ
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import threefry as TFK
+    rows = []
+    for b, n, scale in DRIVE_SHAPES:
+        r = torch.rand(n, device=dev, generator=gen)
+        params = (0.02 + 0.08 * r, 0.25 - 0.05 * r, -65.0 + 15.0 * r * r,
+                  8.0 - 6.0 * r * r)
+
+        def field(lo, hi):
+            return lo + (hi - lo) * torch.rand((b, n), device=dev,
+                                               generator=gen)
+        v, u = field(-80.0, 25.0), field(-20.0, 5.0)
+        currents = [3.0 * torch.randn((b, n), device=dev, generator=gen)
+                    for _ in range(2)]
+        stim_rows = 4.0 * torch.randn((b, n), device=dev, generator=gen)
+        # a step's input keys: a strided column of its split
+        keys = TFK.threefry_split(RND.split(RND.PRNGKey(1234), b).to(dev),
+                                  THREEFRY_SPLITS[0])[:, 1]
+        for window in ("whole", "padded"):
+            first, n_real = ((0, n) if window == "whole"
+                             else (n // 4, n - n // 8))
+            drive = (keys, scale, first, n_real)
+            for stim in (None, stim_rows):
+                flags = [torch.ones(b, dtype=torch.bool, device=dev)
+                         for _ in range(3)]
+
+                def unfused(i, flag=flags[0], stim=stim, first=first,
+                            n_real=n_real):
+                    isyn = torch.zeros((b, n), device=dev)
+                    for c in currents:
+                        isyn = isyn + c
+                    noise = TFK.threefry_draw(keys, first + n_real, "normal",
+                                              scale)[:, first:]
+                    if n_real < n:
+                        noise = torch.nn.functional.pad(noise,
+                                                        (0, n - n_real))
+                    isyn = isyn + noise
+                    if stim is not None:
+                        isyn = isyn + stim
+                    return IZ.izhikevich_step(v, u, isyn, *params, 1.0,
+                                              finite=flag)
+
+                def fused(i, flag=flags[1], stim=stim, drive=drive):
+                    return IZ.izhikevich_step(v, u, None, *params, 1.0,
+                                              finite=flag, currents=currents,
+                                              drive=drive, stim=stim)
+
+                def plain(i, flag=flags[2], stim=stim, drive=drive):
+                    return R.izhikevich_step_ref(
+                        v, u, None, *params, 1.0, finite=flag,
+                        currents=currents, drive=drive, stim=stim)
+                want, got, ref = unfused(0), fused(0), plain(0)
+                torch.cuda.synchronize()
+                what = (f"izhikevich_step.drive [{b}, {n}] x {scale}, "
+                        f"{window} lanes, {'a' if stim is not None else 'no'}"
+                        " stim")
+                check(all(bool(torch.equal(x, y)) for x, y in zip(got, want))
+                      and bool(torch.equal(flags[1], flags[0])),
+                      f"{what}: not bit-equal to the unfused kernels")
+                noise_k = TFK.threefry_draw(keys, first + n_real, "normal",
+                                            scale)[:, first:]
+                noise_p = R.threefry_draw_ref(keys, first + n_real,
+                                              "normal", scale)[:, first:]
+                ulp = _ulp(torch, noise_k, noise_p)
+                check(ulp <= NORMAL_ULP, f"{what}: normals {ulp} ulp from "
+                      "the plain version's")
+                agree = got[2] == ref[2]
+                disagree = float((~agree).float().mean())
+                err = max(float((o - e)[agree].abs().max())
+                          for o, e in zip(got[:2], ref[:2]))
+                check(disagree < SPIKE_DISAGREEMENT
+                      and all(bool(torch.allclose(o[agree], e[agree],
+                                                  rtol=NEURON_TOL,
+                                                  atol=NEURON_TOL))
+                              for o, e in zip(got[:2], ref[:2])),
+                      f"{what}: spikes differ on {disagree}, max abs err "
+                      f"{err} against the plain version")
+                spiking = float(got[2].float().mean())
+                check(0.01 < spiking < 0.99, f"{what}: spiking {spiking}")
+                row = {"name": "izhikevich_step.drive", "B": b, "n": n,
+                       "scale": scale, "window": [first, n_real],
+                       "stim": stim is not None, "bit_equal_unfused": True,
+                       "max_abs_err": err, "spike_disagreement": disagree,
+                       "normal_max_ulp": ulp, "spiking": spiking}
+                timed = window == "whole" and (
+                    stim is None or (b, n) == DRIVE_SHAPES[0][:2])
+                if timed:
+                    nbytes = (b * n * (8 + 4 * len(currents) + 9
+                                       + (4 if stim is not None else 0))
+                              + n * 16 + b * 8)
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = max(b * n_real * THREEFRY_INT_OPS / INT32_OPS,
+                                b * n * (IZH_OPS + 4) / FP32_FLOPS
+                                + b * n_real * NORMAL_FLOAT_OPS
+                                / FP32_FLOPS) * 1e3
+                    row.update({
+                        "ms": _device_ms(torch, fused, 50,
+                                         "izhikevich_step_kernel")[0],
+                        "unfused_ms": _device_ms(torch, unfused, 50)[0],
+                        "wall_ms": _time_ms(torch, fused, 50),
+                        "unfused_wall_ms": _time_ms(torch, unfused, 50),
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": ("bytes" if t_bytes >= t_ops
+                                     else "operations"),
+                        "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+                        "library_ms": None, "bytes": nbytes})
+                    if (b, n) == DRIVE_SHAPES[0][:2] and stim is None:
+                        row["plain_ms"] = _device_ms(torch, plain, 20)[0]
+                rows.append(row)
+                print(json.dumps(row))
+    return rows
 
 
 def _visible_pairs(torch, tq, tk, causal, window=None, prefix=None,
@@ -1990,8 +2149,8 @@ def compare_threefry(torch, report) -> list:
     for name, replaces, pick in (
             ("threefry_split", "src/repro/core/snn/simulator.py:210",
              lambda r: r["B"] == 1 and r["num"] == THREEFRY_SPLITS[0]),
-            ("threefry_draw", "src/repro/core/models/izhikevich_net.py:62",
-             lambda r: r["B"] == 1 and r["case"] == "main exc"),
+            ("threefry_draw", "src/repro/core/snn/simulator.py:239",
+             lambda r: r["B"] == 1 and r["case"] == "mb_full PN"),
             ("threefry_fold_in", "src/repro/sparse/device_init.py:163",
              lambda r: r["case"] == "a word into each row key"),
             ("threefry_draw.randint", "src/repro/sparse/device_init.py:158",
@@ -2297,14 +2456,16 @@ def _profile_window(torch, run, steps: int, guard: bool = True) -> dict:
 
 
 def _profiles(torch, model, steps: int, batch: int = 1,
-              gscales=None) -> dict:
-    """Profiles of ``steps`` steps eagerly (with the NaN guard's cost) and
-    replayed from graphs, from a fresh state of ``batch`` members."""
-    sim = model.simulator
+              gscales=None, sim=None, guard: bool = True) -> dict:
+    """Profiles of ``steps`` steps eagerly (with the NaN guard's cost
+    where ``guard``) and replayed from graphs, from a fresh state of
+    ``batch`` members (``sim``: what runs them, default the model's
+    Simulator)."""
+    sim = model.simulator if sim is None else sim
     st = sim.init_state(batch)
     print("eager:")
     eager = _profile_window(torch, lambda n: sim.run(st, n, gscales),
-                            steps)
+                            steps, guard=guard)
     print("graph:")
     graph = _profile_window(
         torch, lambda n: sim.run_compiled(st, n, gscales), steps,
@@ -2476,6 +2637,60 @@ def _plain_agreement(torch, model, n: int, **run_kw) -> tuple:
     return agree, kr, pr
 
 
+def _lambda_twin(model):
+    """A Simulator of ``model``'s network (the same synapse groups) whose
+    ``NormalInput`` drives are lambdas of the same draw: the route that
+    draws each population's normals with the draw kernel and builds its
+    input with zeros and adds, as the port did before the fused drive."""
+    import dataclasses
+    from repro_torch import random as RND
+    from repro_torch.core.snn import neurons as TN
+    from repro_torch.core.snn.network import Network
+    from repro_torch.core.snn.simulator import Simulator
+
+    def draw(scale):
+        return lambda keys, t, n: RND.normal(keys, (n,), scale=scale)
+    net = model.network
+    pops = {k: (dataclasses.replace(p, input_fn=draw(p.input_fn.scale))
+                if isinstance(p.input_fn, TN.NormalInput) else p)
+            for k, p in net.populations.items()}
+    sim = model.simulator
+    return Simulator(Network(name=f"{net.name}_lambda", populations=pops,
+                             synapses=net.synapses), dt=sim.dt,
+                     seed=sim.seed, device=sim.device)
+
+
+def _same_as_twin(torch, model, twin, steps: int) -> dict:
+    """``steps`` steps of ``model``'s fused route against its lambda twin,
+    from one fresh state, eagerly and replayed: counts, rasters, every
+    state tensor (key and finite too) bit for bit, and the draw kernel
+    launched only by the twin."""
+    sim = model.simulator
+    out = {}
+    for how in ("eager", "graph"):
+        runs, draws = [], []
+        for s_ in (sim, twin):
+            st = s_.init_state()
+            run = s_.run if how == "eager" else s_.run_compiled
+            if how == "graph":
+                # the capture's warm-up steps launch eagerly: count a
+                # replayed run only
+                run(st, steps, record_raster=True)
+            reset_launches()
+            runs.append(run(st, steps, record_raster=True))
+            torch.cuda.synchronize()
+            draws.append(read_launches()["threefry_draw"])
+        _check_same_run(torch, runs[0], runs[1], f"main fused vs lambda "
+                        f"({how})", raster=True)
+        check(draws == [0, 2 * steps], f"main fused vs lambda ({how}): "
+              f"draw kernel launches {draws}, not [0, {2 * steps}]")
+        out[how] = {"bit_equal": True, "draws": draws}
+    print(f"main: the fused route equals the lambda-input net bit for bit "
+          f"over {steps} steps, eagerly and replayed (counts, rasters, "
+          "every state tensor, key, finite)")
+    return out
+
+
 def main_path(torch, report):
     from repro_torch.core.models import izhikevich_net as IZ
     with phase("3. main path: Izhikevich net, 100k neurons"):
@@ -2492,21 +2707,22 @@ def main_path(torch, report):
         n_sparse = sum(1 for g in model.network.synapses
                        if g.representation == "sparse")
         check(n_sparse == 4, f"expected 4 sparse groups, got {groups}")
-        check(model.simulator.routes == {"exc": "izhikevich_step",
-                                         "inh": "izhikevich_step"},
+        check(model.simulator.routes == {"exc": "izhikevich_step+drive",
+                                         "inh": "izhikevich_step+drive"},
               f"neuron routes {model.simulator.routes}")
         steps = MAIN["steps"]
+        twin = _lambda_twin(model)
+        same = _same_as_twin(torch, model, twin, DRIVE_TWIN_STEPS)
         graph, _, _ = _eager_vs_graph(torch, model, "main", steps)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         res, secs, rates = _run_checked(torch, model, steps, "kernel run")
         launches = read_launches()
         print(f"launches in the main-path run: {launches}")
-        check(launches["ell_spmv"] >= n_sparse * steps,
-              f"ell_spmv launched {launches['ell_spmv']} times for "
-              f"{n_sparse} sparse groups x {steps} steps")
-        for name, per_step in (("izhikevich_step", 2), ("threefry_split", 1),
-                               ("threefry_draw", 2)):
+        for name, per_step in (("ell_spmv", n_sparse),
+                               ("izhikevich_step", 2),
+                               ("izhikevich_step.drive", 2),
+                               ("threefry_split", 1), ("threefry_draw", 0)):
             check(launches[name] == per_step * steps,
                   f"{name} launched {launches[name]} times for "
                   f"{per_step} x {steps} steps")
@@ -2519,7 +2735,26 @@ def main_path(torch, report):
             "graph_counts": dict(model.simulator.graph_counts)}
         agree, _, _ = _plain_agreement(torch, model, MAIN["plain_steps"])
         report["main"]["plain_raster_agreement"] = agree
-        report["main"]["profile"] = _profiles(torch, model, 50)
+        report["main"]["profile"] = prof = _profiles(torch, model, 50)
+        print("the lambda-input net:")
+        lam = _profiles(torch, model, 50, sim=twin, guard=False)
+        ops, lam_ops = ([p_[k]["device_ops_per_step"]
+                         for k in ("eager", "graph")] for p_ in (prof, lam))
+        us, lam_us = ([p_[k]["device_us_per_step"]
+                       for k in ("eager", "graph")] for p_ in (prof, lam))
+        print(f"main, device ops a step eager / replayed: fused "
+              f"{ops[0]:.1f} / {ops[1]:.1f}, lambda inputs {lam_ops[0]:.1f}"
+              f" / {lam_ops[1]:.1f} (recorded: {MAIN_OPS_UNFUSED}); device "
+              f"us a step: fused {us[0]:.1f} / {us[1]:.1f}, lambda inputs "
+              f"{lam_us[0]:.1f} / {lam_us[1]:.1f} ({report['nvidia_smi']})")
+        for i in range(2):
+            check(abs(lam_ops[i] - MAIN_OPS_UNFUSED[i]) <= 1.0
+                  and abs(lam_ops[i] - ops[i] - MAIN_OPS_DRIVE) <= 1.0,
+                  f"device ops a step: fused {ops}, lambda {lam_ops}; "
+                  f"expected the lambda net's within 1 of the recorded "
+                  f"{MAIN_OPS_UNFUSED} and {MAIN_OPS_DRIVE} fewer fused")
+        report["main"]["lambda_twin"] = {"same": same, "profile": lam}
+        del twin
         return launches, model
 
 
@@ -4022,8 +4257,8 @@ def sharded_engine(torch, report) -> dict:
         print(f"13a: built {model} over the mesh in {build_s:.3f} s "
               f"(the full graph and every block drawn); routes "
               f"{eng.routes}; launches {build_launches}")
-        check(eng.routes == {"exc": "izhikevich_step",
-                             "inh": "izhikevich_step"},
+        check(eng.routes == {"exc": "izhikevich_step+drive",
+                             "inh": "izhikevich_step+drive"},
               f"13a: neuron routes {eng.routes}")
         digest = graph_digest(
             (g.name, {f: getattr(g.ell, f) for f in FIELDS})
@@ -4065,7 +4300,8 @@ def sharded_engine(torch, report) -> dict:
               f"launches {la}")
         steps = MAIN["steps"]
         for name, per_step in (("spike_bitmask", 2), ("izhikevich_step", 2),
-                               ("threefry_split", 1), ("threefry_draw", 2)):
+                               ("izhikevich_step.drive", 2),
+                               ("threefry_split", 1), ("threefry_draw", 0)):
             check(la[name] == per_step * steps,
                   f"13a: {name} launched {la[name]} times for {per_step} x "
                   f"{steps} steps")
@@ -4444,13 +4680,14 @@ def main_observed(torch, report) -> dict:
         ops3 = (base["eager"]["device_ops_per_step"],
                 base["graph"]["device_ops_per_step"])
         print(f"phase 3 (nothing observed): {ops3[0]:.1f} / {ops3[1]:.1f} "
-              f"device ops a step eager / graph (PR 19: {MAIN_OPS_PR19}); "
+              f"device ops a step eager / graph (recorded: "
+              f"{MAIN_OPS_UNFUSED}, less the fused drive's {MAIN_OPS_DRIVE}); "
               f"observed: {prof_e['device_ops_per_step']:.1f} / "
               f"{prof_g['device_ops_per_step']:.1f}")
-        check(abs(ops3[0] - MAIN_OPS_PR19[0]) <= 1.0
-              and abs(ops3[1] - MAIN_OPS_PR19[1]) <= 1.0,
-              f"phase 3's device ops a step {ops3} moved from PR 19's "
-              f"{MAIN_OPS_PR19}")
+        check(all(abs(ops3[i] - (MAIN_OPS_UNFUSED[i] - MAIN_OPS_DRIVE))
+                  <= 1.0 for i in range(2)),
+              f"phase 3's device ops a step {ops3} moved from the recorded "
+              f"{MAIN_OPS_UNFUSED} less the fused drive's {MAIN_OPS_DRIVE}")
         bm = {n: v for n, v in prof_g["by_name"].items()
               if "spike_bitmask" in n}
         report["main_observed"] = {
@@ -4816,6 +5053,7 @@ def _blocks_at_path_shapes(torch, AT, rounds: int = BLOCK_ROUNDS) -> list:
                            rnd(1, n_kc), rnd(1, n_kc), rnd(1, n_kc))
     keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, 2), device=dev,
                          generator=gen, dtype=torch.int32)
+    cur2 = 3.0 * rnd(1, n_exc)
     ring = rnd(*FOLD_SHAPES[0])
     b, s_, n_post = FOLD_SHAPES[0]
     acc0 = rnd(s_, n_post, b).double()
@@ -4843,6 +5081,17 @@ def _blocks_at_path_shapes(torch, AT, rounds: int = BLOCK_ROUNDS) -> list:
                                                  pd, 1.0),
          lambda: R.izhikevich_step_ref(v, u, isyn, pa, pb, pc, pd, 1.0),
          lambda: izhikevich_step.launch_plan(1, n_exc)),
+        # the drawing instance, bit-equal to the unfused kernels it
+        # replaces (zeros, the adds, the draw kernel, the plain kernel)
+        ("izhikevich_step.drive", izhikevich_step, "izhikevich_step",
+         lambda: izhikevich_step.izhikevich_step(
+             v, u, None, pa, pb, pc, pd, 1.0, currents=[isyn, cur2],
+             drive=(keys, 5.0, 0, n_exc)),
+         lambda: izhikevich_step.izhikevich_step(
+             v, u, torch.zeros_like(isyn) + isyn + cur2
+             + threefry.threefry_draw(keys, n_exc, "normal", 5.0),
+             pa, pb, pc, pd, 1.0),
+         lambda: izhikevich_step.launch_plan(1, n_exc, True)),
         ("hh_step", hh_step, "hh_step",
          lambda: hh_step.hh_step(hv, hm, hh_, hn, hi, 0.1),
          lambda: R.hh_step_ref(hv, hm, hh_, hn, hi, 0.1),
@@ -4997,6 +5246,25 @@ def _blocks_at_experiment_shapes(torch, plans) -> list:
             plain = lambda: R.izhikevich_step_ref(v, u, isyn, pa, pb, pc,
                                                   pd, 1.0)
             shape = f"[{b}, {n}]"
+        elif name == "izhikevich_step.drive":
+            # the drawing instance against the unfused kernels it
+            # replaces, bit for bit (its plain version draws the normals
+            # within NORMAL_ULP: phase 2b)
+            _, n, b = key
+            v = -65.0 + 40.0 * rnd(b, n)
+            u, isyn, cur2 = -13.0 + rnd(b, n), 10.0 * rnd(b, n), rnd(b, n)
+            pa, pb, pc, pd = (rnd(n) for _ in range(4))
+            keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2), device=dev,
+                                 generator=gen, dtype=torch.int32)
+            module, kname = izhikevich_step, "izhikevich_step"
+            run = lambda: izhikevich_step.izhikevich_step(
+                v, u, None, pa, pb, pc, pd, 1.0, currents=[isyn, cur2],
+                drive=(keys, 5.0, 0, n))
+            plain = lambda: izhikevich_step.izhikevich_step(
+                v, u, torch.zeros_like(isyn) + isyn + cur2
+                + threefry.threefry_draw(keys, n, "normal", 5.0),
+                pa, pb, pc, pd, 1.0)
+            shape = f"[{b}, {n}]"
         elif name == "hh_step":
             _, n, b = key
             hv, hm, hh_, hn, hi = (-60.0 + 10.0 * rnd(b, n), rnd(b, n),
@@ -5146,8 +5414,8 @@ def paper_experiment(torch, report) -> dict:
         _print_mushroom(mb)
         launches = read_launches()
         print(f"launches in the experiment: {launches}")
-        for name in ("ell_spmv", "izhikevich_step", "hh_step",
-                     "threefry_split", "threefry_draw"):
+        for name in ("ell_spmv", "izhikevich_step", "izhikevich_step.drive",
+                     "hh_step", "threefry_split", "threefry_draw"):
             check(launches[name] > 0, f"the experiment launched no {name}")
         picks = (izh["gscales"] + mb["gscales"] + mb["gscales_lhi"])
         check(all(math.isfinite(g) for g in picks)
@@ -5163,8 +5431,8 @@ def paper_experiment(torch, report) -> dict:
         out["experiment_blocks"] = _blocks_at_experiment_shapes(torch,
                                                                 plans)
         kinds = {r["name"] for r in out["experiment_blocks"]}
-        check({"ell_spmv", "izhikevich_step", "hh_step", "threefry_split",
-               "threefry_draw"} <= kinds,
+        check({"ell_spmv", "izhikevich_step.drive", "hh_step",
+               "threefry_split", "threefry_draw"} <= kinds,
               f"the trace holds plans of only {sorted(kinds)}")
         path = ROOT / "chiprun_out" / "phase10_trace.json"
         path.parent.mkdir(exist_ok=True)

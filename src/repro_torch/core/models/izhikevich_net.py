@@ -11,14 +11,13 @@ The graph comes from the host numpy generator and equals the JAX package's
 for the same seed.  The per-neuron parameters come from the threefry key
 ``PRNGKey(seed)`` (``repro_torch.random``) as in the JAX package, bit for
 bit, and the thalamic noise from each step's subkeys (JAX's draws, within
-a few float32 ulp: ``repro_torch.random.normal``).
+a few float32 ulp: ``repro_torch.random.normal``), declared as
+``neurons.NormalInput`` so that each population's fused kernel draws it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-import torch
 
 from repro_torch import random as R
 from repro_torch.core.snn import neurons as N
@@ -54,19 +53,14 @@ def spec(cfg: IzhikevichNetConfig) -> ModelSpec:
     s_in = cfg.input_scale
 
     # the thalamic drive: each member's [n] normal draw from the step's
-    # subkey (keys [B, 2] on the model's device), the scale fused into the
-    # draw kernel as JAX rounds 5.0 * s_in * normal(k, (n,))
-    def thalamic_exc(keys: torch.Tensor, t, n: int) -> torch.Tensor:
-        return R.normal(keys, (n,), scale=5.0 * s_in)
-
-    def thalamic_inh(keys: torch.Tensor, t, n: int) -> torch.Tensor:
-        return R.normal(keys, (n,), scale=2.0 * s_in)
-
+    # subkey, the scale rounded as JAX rounds 5.0 * s_in * normal(k, (n,));
+    # declared as NormalInput, it is hashed inside the populations' fused
+    # Izhikevich kernel
     ms = ModelSpec(name=f"izhikevich_{cfg.n_total}_{cfg.n_conn}")
     ms.add_neuron_population("exc", n_exc, N.IZHIKEVICH, exc_params,
-                             thalamic_exc)
+                             N.NormalInput(5.0 * s_in))
     ms.add_neuron_population("inh", n_inh, N.IZHIKEVICH, inh_params,
-                             thalamic_inh)
+                             N.NormalInput(2.0 * s_in))
     ms.add_synapse_population(
         "exc", "exc", ["exc", "inh"], connect=FixedFanout(cfg.n_conn),
         weight=UniformWeight(0.0, 0.5),

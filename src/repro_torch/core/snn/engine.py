@@ -23,9 +23,11 @@ which draws only the rank's rows).  A step mirrors the JAX package's
   3. neuron updates on the shard, by the same fused kernels as the
      ``Simulator`` (``izhikevich_step``, ``hh_step``) or codegen.
 
-The key schedule is replicated (every rank splits the same keys), and
-``input_fn`` / ``rand`` draws are full size, then sliced to the shard, so
-the key consumes the same stream at any D: the engine equals the
+The key schedule is replicated (every rank splits the same keys),
+``input_fn`` / ``rand`` draws are full size, then sliced to the shard, and
+a ``NormalInput`` drive is hashed by the fused Izhikevich kernel on the
+rank's own lanes alone (the same counters), so the key consumes the same
+stream at any D: the engine equals the
 single-device ``Simulator`` bit for bit (counts, rasters, every state
 tensor, ``finite``).  Padded lanes carry edge-replicated parameters, get
 no input and never spike (masked); they are left out of every output and
@@ -194,6 +196,12 @@ class ShardedEngine(Simulator):
     def _fused_update(self, pop):
         return super()._fused_update(self._lpops[pop.name])
 
+    def _drive_window(self, name: str) -> Tuple[int, int]:
+        """This rank's real lanes of population ``name``: a fused drive
+        hashes the normals of [lo, hi) only, and adds 0.0 past them."""
+        lo, hi, _ = self._lanes[name]
+        return lo, hi - lo
+
     # -- lanes and collectives ----------------------------------------------
     def _local_lanes(self, full: torch.Tensor, name: str) -> torch.Tensor:
         """A full-size [..., n] tensor's lanes of this rank's shard
@@ -297,9 +305,10 @@ class ShardedEngine(Simulator):
                        for name in self._pre_pops}
 
         # 1. synaptic propagation into the local post shard
+        currents = {name: [] for name in self._takes_currents()}
         isyn = {name: torch.zeros((batch, S), dtype=torch.float32,
                                   device=self.device)
-                for name, S in self._shard.items()}
+                for name, S in self._shard.items() if name not in currents}
         new_syn = dict(state.syn)
         for g in net.synapses:
             st = state.syn[g.name]
@@ -327,22 +336,21 @@ class ShardedEngine(Simulator):
             if new_pre_local is not None:
                 s_new = dataclasses.replace(s_new, wu_pre=new_pre_local)
             new_syn[g.name] = s_new
-            isyn[g.post] = isyn[g.post] + cur
+            if g.post in currents:
+                currents[g.post].append(cur)
+            else:
+                isyn[g.post] = isyn[g.post] + cur
 
-        # 2+3. neuron updates on the shard
+        # 2+3. neuron updates on the shard: an input function's draw is
+        # full size, then this rank's lanes, and a fused drive hashes the
+        # rank's lanes alone (``_drive_window``): the key consumes the
+        # same stream at any world size
         new_neurons, new_spikes, new_prev = {}, {}, dict(state.prev_above)
         finite = state.finite
         for i, (name, pop) in enumerate(net.populations.items()):
             k_in, k_rand = keys[:, 1 + 2 * i], keys[:, 2 + 2 * i]
-            cur = isyn[name]
-            if pop.input_fn is not None:
-                # a full-size draw, then this rank's lanes: the key
-                # consumes the same stream at any world size
-                cur = cur + self._local_lanes(
-                    pop.input_fn(k_in, t_col, pop.n), name)
-            if name in stim:
-                cur = cur + stim[name]
-            ext = {"Isyn": cur, "dt": self._dt_cpu, "t": t_col}
+            ext = self._neuron_ext(name, pop, isyn, currents, k_in, t_col,
+                                   stim)
             if pop.model.needs_rand:
                 ext["rand"] = self._local_lanes(
                     _random.uniform(k_rand, pop.n), name)

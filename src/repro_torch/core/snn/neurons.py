@@ -8,7 +8,8 @@ the mushroom body, LIF, the Rulkov map), compiled by the port's codegen.
 kernel computes (``IZHIKEVICH`` -> ``izhikevich_step``, any
 ``make_traubmiles(k)`` -> ``hh_step`` with ``substeps=k``); the simulator
 runs those populations through the kernel and every other model through
-codegen.
+codegen.  ``NormalInput`` declares a population's input as a scaled normal
+draw a neuron a step, which the Izhikevich kernel then hashes itself.
 
 Units follow GeNN: time in ms, voltages in mV, conductances in uS, currents
 in nA, capacitance in nF.
@@ -16,6 +17,7 @@ in nA, capacitance in nF.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,7 +28,7 @@ from repro_torch.core.codegen import NeuronModel
 __all__ = [
     "IZHIKEVICH", "TRAUBMILES_HH", "POISSON", "LIF", "RULKOV_MAP",
     "make_traubmiles", "izhikevich_population_params", "get_model",
-    "fused_kernel",
+    "fused_kernel", "NormalInput",
 ]
 
 # ---------------------------------------------------------------------------
@@ -189,6 +191,23 @@ def fused_kernel(model: NeuronModel) -> Optional[Tuple[str, Dict[str, int]]]:
     if k >= 1 and decl == _declaration(make_traubmiles(k)):
         return "hh_step", {"substeps": k}
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalInput:
+    """An input function that draws ``scale * N(0, 1)`` a neuron a step
+    from the population's input key (the paper's thalamic drive), as
+    ``random.normal(keys, (n,), scale=scale)`` draws it, the scale
+    rounded to float32.  Declared this way (not as a lambda), an
+    Izhikevich population's draw runs inside its fused kernel, which sums
+    the group currents, hashes the normals in registers and updates the
+    state in one launch; any route that calls the input function gets
+    the same draw."""
+
+    scale: float
+
+    def __call__(self, keys: torch.Tensor, t, n: int) -> torch.Tensor:
+        return _random.normal(keys, (n,), scale=self.scale)
 
 
 def get_model(name: str) -> NeuronModel:

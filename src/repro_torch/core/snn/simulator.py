@@ -7,7 +7,12 @@ Counterpart of ``repro/core/snn/simulator.py`` (its host path).  Each step:
   2. neuron updates: a population of the built-in Izhikevich or Traub-Miles
      model advances through its fused kernel (``neurons.fused_kernel``:
      ``izhikevich_step`` / ``hh_step``), every other through the codegen'd
-     model equations
+     model equations.  An Izhikevich population whose input is a
+     ``neurons.NormalInput`` (or none) takes its groups' currents, its
+     drive's key and its stim into the kernel, which sums them, hashes the
+     drive's normals and updates the state in one launch (route
+     ``"izhikevich_step+drive"``, or ``"izhikevich_step"`` with no drive):
+     no zeros, adds or draw of its own
   3. spike extraction (threshold / reset, or rising-edge detection)
 
 What differs from the JAX package:
@@ -137,6 +142,12 @@ def _scalar(v) -> Optional[float]:
     return float(arr) if arr.ndim == 0 else None
 
 
+def _fusable_input(fn) -> bool:
+    """Whether a population's input function is one a fused kernel draws
+    itself (a ``neurons.NormalInput``), or there is none."""
+    return fn is None or isinstance(fn, neurons.NormalInput)
+
+
 def _all_slots(x: torch.Tensor) -> torch.Tensor:
     """Whether a per-synapse bool tensor is all True over its slots:
     [B, n_pre, K] -> [B] ([n_pre, K], shared by every member, -> 0-dim)."""
@@ -185,7 +196,8 @@ class Simulator:
             for cu in custom_updates if cu.kind == "group"
             and any(op == "mean" and axis == "post"
                     for op, _, axis in cu.reduce.values())}
-        # population -> "izhikevich_step" | "hh_step" | "codegen"
+        # population -> "izhikevich_step" | "izhikevich_step+drive" |
+        # "hh_step" | "codegen"
         self.routes: Dict[str, str] = {}
         self._updates = {}
         for name, pop in net.populations.items():
@@ -211,10 +223,17 @@ class Simulator:
         is marked ``clears_finite``: the kernel writes the NaN guard's flag
         (``ext["finite"]``, cleared in place), so no isfinite fold follows.
 
-        Izhikevich parameters are made [n] float32 tensors here, once.  A
-        Traub-Miles population with a per-neuron parameter is not the
-        kernel's function (its parameters are scalars) and stays on
-        codegen."""
+        Izhikevich parameters are made [n] float32 tensors here, once.  The
+        Izhikevich update is marked ``takes_currents``: while its
+        population's input function is a ``neurons.NormalInput`` or None
+        (read every step), ``step`` hands it the groups' currents
+        (``ext["currents"]``), the drive's scale and input key
+        (``ext["drive_scale"]``, ``ext["k_in"]``) and its stim
+        (``ext["stim"]``), and the kernel sums them and draws the drive on
+        the lanes ``_drive_window`` gives; any other input function gets
+        ``step``'s summed ``ext["Isyn"]``.  A Traub-Miles
+        population with a per-neuron parameter is not the kernel's
+        function (its parameters are scalars) and stays on codegen."""
         found = neurons.fused_kernel(pop.model)
         if found is None:
             return None
@@ -225,15 +244,37 @@ class Simulator:
                                           device=self.device)
                           .broadcast_to((pop.n,)).contiguous()
                           for k in "abcd")
+            first, n_real = self._drive_window(pop.name)
 
             def izhikevich(state, params, ext):
+                if "currents" not in ext:
+                    v, u, spiked = _iz.izhikevich_step(
+                        state["V"], state["U"], ext["Isyn"], a, b, c, d, dt,
+                        finite=ext["finite"])
+                    return {"V": v, "U": u}, spiked
+                currents = ext["currents"]
+                if len(currents) > _iz.MAX_CURRENTS:
+                    # the first ones pre-summed, in order (from +0.0 in
+                    # the kernel, the sum rounds as the zeros' chain does)
+                    k = len(currents) - _iz.MAX_CURRENTS + 1
+                    head = currents[0]
+                    for cur in currents[1:k]:
+                        head = head + cur
+                    currents = [head, *currents[k:]]
+                scale = ext["drive_scale"]
+                drive = (None if scale is None
+                         else (ext["k_in"], scale, first, n_real))
                 v, u, spiked = _iz.izhikevich_step(
-                    state["V"], state["U"], ext["Isyn"], a, b, c, d, dt,
-                    finite=ext["finite"])
+                    state["V"], state["U"], None, a, b, c, d, dt,
+                    finite=ext["finite"], currents=currents, drive=drive,
+                    stim=ext["stim"])
                 return {"V": v, "U": u}, spiked
 
             izhikevich.clears_finite = True
-            return kernel, izhikevich
+            izhikevich.takes_currents = True
+            return (kernel + "+drive"
+                    if isinstance(pop.input_fn, neurons.NormalInput)
+                    else kernel), izhikevich
         scalars = {k: _scalar(v) for k, v in pop.params.items()}
         if any(v is None for v in scalars.values()):
             return None
@@ -247,6 +288,47 @@ class Simulator:
 
         hh.clears_finite = True
         return kernel, hh
+
+    def _drive_window(self, name: str) -> Tuple[int, int]:
+        """(first, n_real): the lanes of population ``name`` that a step's
+        drive draws (all of them here; a sharded engine's rank, its
+        own)."""
+        return 0, self._pop_sizes[name]
+
+    def _local_lanes(self, full: torch.Tensor, name: str) -> torch.Tensor:
+        """A full-size [..., n] draw as a step's tensors carry it (whole
+        here; a sharded engine's rank takes its lanes)."""
+        return full
+
+    def _takes_currents(self) -> set:
+        """The populations whose update sums its groups' currents and its
+        drive and stim itself: a ``takes_currents`` update whose
+        population's input is a ``NormalInput`` or none."""
+        return {name for name, up in self._updates.items()
+                if getattr(up, "takes_currents", False)
+                and _fusable_input(self.net.populations[name].input_fn)}
+
+    def _neuron_ext(self, name: str, pop: Population, isyn, currents,
+                    k_in: torch.Tensor, t_col: torch.Tensor, stim) -> dict:
+        """A population's ``ext`` for its update: its currents, input key
+        and stim where it takes them, else ``Isyn``, the sum ``step``
+        builds op by op (its groups' currents, plus its input function's
+        draw, plus its stim)."""
+        ext = {"dt": self._dt_cpu, "t": t_col}
+        if name in currents:
+            fn = pop.input_fn
+            ext.update(currents=currents[name], k_in=k_in,
+                       drive_scale=None if fn is None else fn.scale,
+                       stim=stim.get(name))
+            return ext
+        cur = isyn[name]
+        if pop.input_fn is not None:
+            cur = cur + self._local_lanes(pop.input_fn(k_in, t_col, pop.n),
+                                          name)
+        if name in stim:
+            cur = cur + stim[name]
+        ext["Isyn"] = cur
+        return ext
 
     def _validate_gscales(self, gscales: Optional[Mapping[str, object]]
                           ) -> None:
@@ -340,9 +422,13 @@ class Simulator:
         keys = _random.split(state.key, 1 + 2 * len(net.populations))
 
         # 1. synaptic propagation (last step's spikes) ------------------
+        # (a population whose kernel sums its currents gets them as they
+        # are; every other one's Isyn is summed here)
+        currents = {name: [] for name in self._takes_currents()}
         isyn = {name: torch.zeros((batch, pop.n), dtype=torch.float32,
                                   device=self.device)
-                for name, pop in net.populations.items()}
+                for name, pop in net.populations.items()
+                if name not in currents}
         new_syn = dict(state.syn)
         for g in net.synapses:
             v_post = state.neurons[g.post].get("V")
@@ -350,19 +436,18 @@ class Simulator:
                                 gs.get(g.name, 1.0), dt, v_post=v_post,
                                 post_spikes=state.spikes[g.post], t=t)
             new_syn[g.name] = s_new
-            isyn[g.post] = isyn[g.post] + cur
+            if g.post in currents:
+                currents[g.post].append(cur)
+            else:
+                isyn[g.post] = isyn[g.post] + cur
 
         # 2+3. neuron updates: fused kernel or generated code -----------
         new_neurons, new_spikes, new_prev = {}, {}, dict(state.prev_above)
         finite = state.finite
         for i, (name, pop) in enumerate(net.populations.items()):
             k_in, k_rand = keys[:, 1 + 2 * i], keys[:, 2 + 2 * i]
-            cur = isyn[name]
-            if pop.input_fn is not None:
-                cur = cur + pop.input_fn(k_in, t_col, pop.n)
-            if name in stim:
-                cur = cur + stim[name]
-            ext = {"Isyn": cur, "dt": self._dt_cpu, "t": t_col}
+            ext = self._neuron_ext(name, pop, isyn, currents, k_in, t_col,
+                                   stim)
             if pop.model.needs_rand:
                 ext["rand"] = _random.uniform(k_rand, pop.n)
             update = self._updates[name]

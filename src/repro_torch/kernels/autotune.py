@@ -133,7 +133,8 @@ KERNELS: Dict[str, KernelInfo] = {
               SPMV_ROWS),
     **_family("ell_spmv", ["delay_ring_fold<4>", "delay_ring_fold<1>"],
               ELEMENTWISE_BLOCKS),
-    **_family("neuron_step", ["izhikevich_step", "hh_step"],
+    **_family("neuron_step", ["izhikevich_step", "hh_step",
+                              "izhikevich_step.drive"],
               ELEMENTWISE_BLOCKS),
     **_family("threefry", ["threefry_split", "threefry_draw",
                            "threefry_fold_in"],
@@ -619,6 +620,7 @@ REPORT_SHAPES = (
     ("ell_spmv inh->exc", "spmv", (20_000, 200, 80_000, 1, None)),
     ("ell_spmv_delay exc->exc", "spmv", (80_000, 800, 80_000, 1, 21)),
     ("izhikevich_step exc", "izhikevich_step", (80_000, 1)),
+    ("izhikevich_step.drive exc", "izhikevich_step.drive", (80_000, 1)),
     ("hh_step KC", "hh_step", (100_000, 1)),
     ("threefry_split", "threefry_split", (5, 1)),
     ("threefry_draw exc", "threefry_draw", (80_000, 1)),

@@ -6,8 +6,16 @@
 // every intermediate of the update in registers, so the state makes one
 // round trip through device memory per step instead of one per statement.
 //
-//   izhikevich_step_f32: two V half-steps, the U update, V clamped at 30,
-//     spike = V >= 29.99, reset V = c, U += d where spiked.
+//   izhikevich_step_f32: a population's whole step, GeNN's generated
+//     neuron kernel: the input summed from the synapse groups' currents
+//     (0.0f plus each in the network's order), plus the thalamic drive
+//     hashed in registers where one is declared (scale * N(0, 1) of the
+//     member's key, threefry.cuh: the draw kernel's own arithmetic), plus
+//     the stim where one is given, each add rounded as the simulator's
+//     eager adds round; then two V half-steps, the U update, V clamped at
+//     30, spike = V >= 29.99, reset V = c, U += d where spiked.  One kernel
+//     templated on the drive (instance "izhikevich_step.drive"), so the
+//     input's ~5 elementwise passes and the draw's launch go away.
 //   hh_step_f32: Traub-Miles Hodgkin-Huxley, `substeps` Euler substeps of
 //     dt / substeps, guarded vtrap (x / (exp(x) - 1), Taylor 1 - x/2 for
 //     |x| <= 1e-4), gates clipped to [0, 1]; it also writes above = V >= 0
@@ -47,12 +55,18 @@
 // (fminf/fmaxf would drop it and hide a blow-up from the NaN guard).
 //
 // What bounds them on this card:
-//   * Izhikevich: memory.  It reads v, u, isyn (12 B per member) and a..d
-//     (16 B per neuron, once across the batch; the other members' reads
-//     hit L2) and writes v', u' and a spike byte (9 B per member): ~28
-//     operations against ~37 B at B = 1, far below the ~20 op/B at which
-//     the card's float32 rate (67 TFLOP/s) would bind before its memory
-//     (3.35 TB/s).
+//   * Izhikevich: memory.  It reads v, u and each current (8 + 4k B per
+//     member for k groups; the stim 4 more) and a..d (16 B per neuron, once
+//     across the batch; the other members' reads hit L2) and writes v', u'
+//     and a spike byte (9 B per member): ~28 float operations against ~41
+//     B at B = 1 with two groups, far below the ~20 op/B at which the
+//     card's float32 rate (67 TFLOP/s) would bind before its memory (3.35
+//     TB/s).  The drawing instance adds ~72 32-bit integer operations a
+//     neuron (20 threefry rounds and the key schedule) and ~17 float ones
+//     (the normal): at the integer rate (a quarter of the float32 lanes)
+//     that is ~0.5 us at 80,000 neurons against ~1 us of bytes, so bytes
+//     still bound it; both lie under the launch floor (~1.2 us), which is
+//     why the drive is fused here instead of drawn by a kernel of its own.
 //   * HH: by the bytes, memory (it reads v, m, h, n, isyn and writes v, m,
 //     h, n and above: 37 B per member, against ~440 operations over 5
 //     substeps counting an expf or a division as one); by what it issues,
@@ -72,6 +86,7 @@
 #include <cstdint>
 
 #include "kernel_info.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -108,11 +123,42 @@ __device__ __forceinline__ void clear_if_not_finite(uint8_t* finite,
     finite[blockIdx.y] = 0;
 }
 
-template <int kThreads>
+// The summed input of a population: up to kMaxCurrents [batch, n] current
+// operands (the synapse groups' currents in the network's order, none for
+// a population no group posts onto; one for a caller's isyn), added to
+// 0.0f in that order.
+constexpr int kMaxCurrents = 8;
+
+struct Currents {
+  const float* p[kMaxCurrents];
+  int count;
+};
+
+// The thalamic drive: member b's normal of lane first + j, times scale,
+// for the lanes j < n_real (a rank's window of the population; the lanes
+// past it are padding and add 0.0f).  keys: member b's key at
+// keys + b * key_stride (a strided column of the step's split).
+struct Drive {
+  const uint32_t* keys;
+  long long key_stride;
+  float scale;
+  int first;
+  int n_real;
+};
+
+// kDrive: the instance that hashes the drive in registers (the draw
+// kernel's arithmetic, threefry.cuh), else the drive is absent.  kCount:
+// the number of current operands where the launch knows it at compile
+// time (2 with a drive: main's two groups a population; 1 without: one
+// summed isyn), else -1 and cur.count is read (measured on the card, the
+// fixed count saves ~0.2 us a call at [1, 80000]).  stim: [batch, n] with
+// row stride stim_stride (0: one [n] row for every member), or null.
+template <int kThreads, bool kDrive, int kCount>
 __global__ void __launch_bounds__(kThreads)
 izhikevich_step_kernel(const float* __restrict__ v_in,
-                       const float* __restrict__ u_in,
-                       const float* __restrict__ isyn_in,
+                       const float* __restrict__ u_in, Currents cur,
+                       Drive drive, const float* __restrict__ stim,
+                       long long stim_stride,
                        const float* __restrict__ pa,
                        const float* __restrict__ pb,
                        const float* __restrict__ pc,
@@ -122,13 +168,50 @@ izhikevich_step_kernel(const float* __restrict__ v_in,
                        uint8_t* __restrict__ finite, int n, float dt) {
   const long long row = static_cast<long long>(blockIdx.y) * n;
   const float hdt = kHalf * dt;
+  const int count = kCount >= 0 ? kCount : cur.count;
+  uint32_t k0 = 0u, k1 = 0u;
+  if (kDrive) {
+    const uint32_t* k = drive.keys + blockIdx.y * drive.key_stride;
+    k0 = k[0];
+    k1 = k[1];
+  }
+  const float* stim_row =
+      stim != nullptr ? stim + blockIdx.y * stim_stride : nullptr;
   bool ok = true;
   for (int j = blockIdx.x * kThreads + threadIdx.x; j < n;
        j += gridDim.x * kThreads) {
     const long long i = row + j;
+    // every load first, so that their latencies overlap (an add that
+    // waited on one load would hold the next load back behind it)
     float v = v_in[i];
     float u = u_in[i];
-    const float isyn = isyn_in[i];
+    float c[kMaxCurrents];
+#pragma unroll
+    for (int k = 0; k < kMaxCurrents; ++k) {
+      if (k == count) break;
+      c[k] = __ldg(cur.p[k] + i);
+    }
+    const float s = stim_row != nullptr ? __ldg(stim_row + j) : 0.0f;
+    // the simulator's sequence, each add rounded: zeros + each current,
+    // + the drive, + the stim
+    float isyn = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxCurrents; ++k) {
+      if (k == count) break;
+      isyn = __fadd_rn(isyn, c[k]);
+    }
+    if (kDrive) {
+      const float noise =
+          j < drive.n_real
+              ? __fmul_rn(threefry::normal(threefry::bits(
+                              k0, k1,
+                              static_cast<unsigned long long>(drive.first) +
+                                  static_cast<unsigned long long>(j))),
+                          drive.scale)
+              : 0.0f;
+      isyn = __fadd_rn(isyn, noise);
+    }
+    if (stim_row != nullptr) isyn = __fadd_rn(isyn, s);
     // C and Python both group these products and sums from the left
     v = v + hdt * (kIzA * v * v + kIzB * v + kIzC - u + isyn);
     v = v + hdt * (kIzA * v * v + kIzB * v + kIzC - u + isyn);
@@ -206,24 +289,47 @@ hh_step_kernel(const float* __restrict__ v_in, const float* __restrict__ m_in,
 
 extern "C" {
 
-// v, u, isyn, v_out, u_out, spiked_out: [batch, n]; a, b, c, d: [n];
+// v, u, v_out, u_out, spiked_out: [batch, n]; currents: n_currents
+// (0..8) pointers to [batch, n] operands, added in order; a, b, c, d: [n];
+// keys: null for no drive, else member b's key at keys + b * key_stride,
+// whose normals of lanes first + j (j < n_real) times scale are added
+// next; stim: [batch, n] rows stim_stride apart (0: one row), or null;
 // finite: [batch] bytes, or null for no flag.  block and grid_x are the
 // wrapper's plan (kernels.autotune.choose_block_elementwise); a block the
 // source is not compiled for is refused.
-int izhikevich_step_f32(const float* v, const float* u, const float* isyn,
+int izhikevich_step_f32(const float* v, const float* u,
+                        const float* const* currents, int n_currents,
+                        const uint32_t* keys, long long key_stride,
+                        float scale, int first, int n_real,
+                        const float* stim, long long stim_stride,
                         const float* a, const float* b, const float* c,
                         const float* d, float* v_out, float* u_out,
                         uint8_t* spiked_out, uint8_t* finite, int batch,
                         int n, float dt, int block, int grid_x,
                         void* stream) {
-  if (grid_x <= 0 || batch < 0 || n < 0)
+  if (grid_x <= 0 || batch < 0 || n < 0 || n_currents < 0 ||
+      n_currents > kMaxCurrents || stim_stride < 0 ||
+      (keys != nullptr && (key_stride < 2 || first < 0 || n_real < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  Currents cur{};
+  for (int k = 0; k < n_currents; ++k) cur.p[k] = currents[k];
+  cur.count = n_currents;
+  const Drive drive{keys, key_stride, scale, first, n_real};
   return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
+    constexpr int B = decltype(bs)::value;
     if (batch == 0 || n == 0) return cudaSuccess;
-    izhikevich_step_kernel<decltype(bs)::value>
-        <<<dim3(grid_x, batch), decltype(bs)::value, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-            v, u, isyn, a, b, c, d, v_out, u_out, spiked_out, finite, n, dt);
+    const dim3 grid(grid_x, batch);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define IZK(D, K)                                                  \
+  izhikevich_step_kernel<B, D, K><<<grid, B, 0, st>>>(             \
+      v, u, cur, drive, stim, stim_stride, a, b, c, d, v_out, u_out, \
+      spiked_out, finite, n, dt)
+    if (keys != nullptr) {
+      if (n_currents == 2) IZK(true, 2); else IZK(true, -1);
+    } else {
+      if (n_currents == 1) IZK(false, 1); else IZK(false, -1);
+    }
+#undef IZK
     return cudaGetLastError();
   }));
 }
@@ -252,10 +358,12 @@ int hh_step_f32(const float* v, const float* m, const float* h,
   }));
 }
 
-KINFO_NAMES(neuron_step, "izhikevich_step", "hh_step")
+KINFO_NAMES(neuron_step, "izhikevich_step", "hh_step",
+            "izhikevich_step.drive")
 
 // kernels.autotune.kernel_attributes: which 0 izhikevich_step, 1 hh_step,
-// each compiled for one of the blocks of kinfo::with_block.
+// 2 izhikevich_step.drive (the instance that draws a drive), each compiled
+// for one of the blocks of kinfo::with_block.
 int neuron_step_kernel_info(int which, int block, int query_block,
                             int dyn_smem, int* out) {
   return static_cast<int>(kinfo::with_block(block, [&](auto bs) {
@@ -264,10 +372,13 @@ int neuron_step_kernel_info(int which, int block, int query_block,
     switch (which) {
       case 0:
         return static_cast<cudaError_t>(kinfo::kernel_info(
-            izhikevich_step_kernel<B>, q, dyn_smem, out));
+            izhikevich_step_kernel<B, false, 1>, q, dyn_smem, out));
       case 1:
         return static_cast<cudaError_t>(
             kinfo::kernel_info(hh_step_kernel<B>, q, dyn_smem, out));
+      case 2:
+        return static_cast<cudaError_t>(kinfo::kernel_info(
+            izhikevich_step_kernel<B, true, 2>, q, dyn_smem, out));
       default:
         return cudaErrorInvalidValue;
     }

@@ -34,6 +34,8 @@
 //     _row_keys) and its per-round keys fold_in(row key, i); unlike split
 //     it takes any number of keys (grid axis x).
 //
+// The hash, the uniform and the normal are threefry.cuh's device
+// functions, which neuron_step.cu's drawing Izhikevich kernel shares.
 // erf_inv is XLA's float32 expansion (Giles' two branches on
 // w = -log1p(-x*x)), written out operation by operation with round-to-
 // nearest intrinsics (CUDA's erfinvf is another function); its Horner
@@ -54,51 +56,14 @@
 #include <stdint.h>
 
 #include "kernel_info.cuh"
+#include "threefry.cuh"
 
 namespace {
 
+using threefry::threefry2x32;
+
 // A launch's block is one of kinfo::with_block's sizes, chosen on the host
 // by the occupancy model (kernels.autotune.choose_block_elementwise).
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds, as jax/_src/prng.py's _threefry2x32_lowering.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
-
-// XLA's float32 erf_inv (chlo.erf_inv), operation by operation.
-__device__ __forceinline__ float erf_inv_xla(float x) {
-  const float w = -log1pf(__fmul_rn(x, -x));
-  const bool small = w < 5.0f;
-  const float z = small ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
-  const float cs[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
-                       -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
-                       -0.00417768164f, 0.246640727f, 1.50140941f};
-  const float cl[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
-                       -0.00367342844f, 0.00573950773f, -0.0076224613f,
-                       0.00943887047f, 1.00167406f, 2.83297682f};
-  float p = small ? cs[0] : cl[0];
-#pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, z, small ? cs[i] : cl[i]);
-  return fabsf(x) == 1.0f ? x * __int_as_float(0x7f800000) : __fmul_rn(p, x);
-}
 
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
@@ -133,8 +98,6 @@ threefry_draw_kernel(const uint32_t* __restrict__ keys, long long key_stride,
                       threadIdx.x;
   const int b = blockIdx.y;
   const uint32_t* k = keys + b * key_stride;
-  uint32_t x0 = static_cast<uint32_t>(static_cast<unsigned long long>(j) >> 32);
-  uint32_t x1 = static_cast<uint32_t>(j);
   if (dist == 3) {
     // once a CTA: k1, k2 = split(key) (the counters (0, 0) and (0, 1))
     // and the multiplier (a block has at least 128 threads)
@@ -150,6 +113,9 @@ threefry_draw_kernel(const uint32_t* __restrict__ keys, long long key_stride,
     }
     __syncthreads();
     if (j >= n) return;
+    uint32_t x0 =
+        static_cast<uint32_t>(static_cast<unsigned long long>(j) >> 32);
+    uint32_t x1 = static_cast<uint32_t>(j);
     uint32_t y0 = x0, y1 = x1;
     threefry2x32(sub[0], sub[1], x0, x1);
     threefry2x32(sub[2], sub[3], y0, y1);
@@ -159,19 +125,15 @@ threefry_draw_kernel(const uint32_t* __restrict__ keys, long long key_stride,
     return;
   }
   if (j >= n) return;
-  threefry2x32(k[0], k[1], x0, x1);
-  const uint32_t bits = x0 ^ x1;
+  const uint32_t bits =
+      threefry::bits(k[0], k[1], static_cast<unsigned long long>(j));
   uint32_t* o = out + static_cast<long long>(b) * n + j;
   if (dist == 0) {
     *o = bits;
     return;
   }
-  float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-  if (dist == 2) {
-    const float u_lo = -0.99999994f;            // nextafter(-1, 0)
-    const float u = fmaxf(u_lo, __fadd_rn(__fmul_rn(f, 2.0f), u_lo));
-    f = __fmul_rn(erf_inv_xla(u), 1.41421354f);
-  }
+  const float f =
+      dist == 2 ? threefry::normal(bits) : threefry::uniform(bits);
   *o = __float_as_uint(affine ? __fmaf_rn(f, scale, offset)
                               : __fmul_rn(f, scale));
 }

@@ -15,6 +15,12 @@ kernel fuses: scale, roll, add, read and clear the cursor's slot.
 ``g`` may carry a leading batch axis (``[B, n_pre, K]``): plastic groups in
 a batched run hold one weight matrix per batch member.
 
+``izhikevich_step_ref`` also takes the Izhikevich kernel's input as the
+simulator's sequence of eager ops (``_izhikevich_input_ref``): zeros plus
+each synapse group's current, plus the thalamic normal draw of the lanes
+given, plus the stim, so that on the CPU the fused route equals the
+unfused sequence bit for bit.
+
 The neuron updates take state ``[B, n]`` (or ``[n]``) and parameters that
 are scalars or ``[n]``.  They repeat the statements of the codegen'd
 ``IZHIKEVICH`` and ``make_traubmiles(substeps)`` in the same order, with
@@ -180,9 +186,40 @@ def _clear_if_not_finite(finite, *arrays) -> None:
             finite &= torch.isfinite(arr).all(dim=-1)
 
 
-def izhikevich_step_ref(v, u, isyn, a, b, c, d, dt, finite=None):
+def _izhikevich_input_ref(v, isyn=None, currents=None, drive=None,
+                          stim=None):
+    """A population's summed input as the simulator builds it op by op:
+    ``isyn``, or zeros plus each of ``currents`` in order; plus the drive
+    (``(keys, scale, first, n_real)``: each member's normal of the lanes
+    ``first + j`` for ``j < n_real`` times the float32 scale, as
+    ``random.normal`` draws it, zeros past ``n_real``); plus ``stim``."""
+    if (isyn is None) == (currents is None):
+        raise ValueError("give isyn or currents, not both")
+    if currents is not None:
+        isyn = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for cur in currents:
+            isyn = isyn + cur
+    if drive is not None:
+        keys, scale, first, n_real = drive
+        noise = _draw_lanes_ref(keys, torch.arange(
+            first, first + n_real, dtype=torch.int64, device=keys.device),
+            "normal", scale)
+        pad = v.shape[-1] - n_real
+        if pad:
+            noise = torch.nn.functional.pad(noise, (0, pad))
+        isyn = isyn + noise.reshape(v.shape)
+    if stim is not None:
+        isyn = isyn + stim
+    return isyn
+
+
+def izhikevich_step_ref(v, u, isyn, a, b, c, d, dt, finite=None, *,
+                        currents=None, drive=None, stim=None):
     """Fused Izhikevich update (two half-steps on V): (v', u', spiked);
-    clears ``finite`` [B] where v' or u' is not all finite."""
+    clears ``finite`` [B] where v' or u' is not all finite.  The input is
+    ``_izhikevich_input_ref``'s: ``isyn``, or ``currents`` summed, plus the
+    drive and the stim where given."""
+    isyn = _izhikevich_input_ref(v, isyn, currents, drive, stim)
     dt = torch.as_tensor(dt, dtype=torch.float32)
     v = v + 0.5 * dt * (0.04 * v * v + 5.0 * v + 140.0 - u + isyn)
     v = v + 0.5 * dt * (0.04 * v * v + 5.0 * v + 140.0 - u + isyn)
@@ -529,8 +566,17 @@ def threefry_draw_ref(keys: torch.Tensor, n: int, dist: str,
         raise ValueError(f"dist must be one of {DRAWS}, got {dist!r}")
     if dist == "randint":
         return _randint_ref(keys, n, lo, span)
+    return _draw_lanes_ref(keys, torch.arange(n, dtype=torch.int64,
+                                              device=keys.device),
+                           dist, scale, offset)
+
+
+def _draw_lanes_ref(keys: torch.Tensor, j: torch.Tensor, dist: str,
+                    scale: float = 1.0, offset: Optional[float] = None
+                    ) -> torch.Tensor:
+    """``threefry_draw_ref``'s bits, uniform or normal draw of the
+    elements ``j`` (int64 [m]) only: [B, m]."""
     k0, k1 = _key_words(keys)
-    j = torch.arange(n, dtype=torch.int64, device=keys.device)
     b0, b1 = threefry2x32_ref(k0, k1, j >> 32, j & _M32)
     bits = b0 ^ b1
     if dist == "bits":

@@ -34,7 +34,9 @@ heads that the axis divides are split the same way; others (qwen2's 2 on
 a 4-wide axis) are projected whole and each local query head takes its
 group's (``_heads_plan``), and the cache then holds every KV head.  Heads
 the axis does not divide (qwen2-0.5b's 14 on 4) run whole on every rank,
-with every weight joined.  A decode's cache stays in the layout
+with every weight joined.  Weights placed whole (the dry run's
+``serve_replicate_weights``) give each rank its heads' blocks locally
+(``rank_blocks``).  A decode's cache stays in the layout
 ``cache_shardings`` stores it in: a sequence split over "model" (the KV
 heads do not divide it) or over the batch axes (a batch-1 wave) is
 attended block by block (``attention_decode``).
@@ -56,7 +58,7 @@ from repro_torch.models.layers import (apply_rope, dense_init, norm_init,
 __all__ = [
     "AttnConfig", "attn_init", "attention_forward", "attention_decode",
     "init_cache", "fill_cache", "window_cache_elements",
-    "dense_cache_elements",
+    "dense_cache_elements", "rank_blocks",
 ]
 
 
@@ -98,6 +100,33 @@ def _heads_plan(cfg: AttnConfig):
     rep = cfg.n_heads // cfg.n_kv
     sel = [(r * hl + i) // rep for i in range(hl)]
     return dataclasses.replace(cfg, n_heads=hl), sel
+
+
+def rank_blocks(p, cfg: AttnConfig, plan):
+    """``p`` as ``plan``'s rank computes with it: the weights themselves
+    where they hold the rank's head blocks (placed on "model"), else, for
+    whole weights (the dry run's ``serve_replicate_weights`` places every
+    weight whole), the rank's blocks taken out of them locally, with no
+    collective, as GSPMD slices a replicated weight under ``shard(q,
+    "batch", None, "heads", None)``: ``wq``'s and ``wo``'s query heads and
+    the biases', and ``wk``'s and ``wv``'s KV heads where they are split."""
+    if plan is None:
+        return p
+    local = plan[0]
+    if p["wq"].shape[-1] == local.q_dim:
+        return p
+    r = L.model_rank()
+    qs = slice(r * local.q_dim, (r + 1) * local.q_dim)
+    out = dict(p, wq=p["wq"][:, qs], wo=p["wo"][qs])
+    if "bq" in p:
+        out["bq"] = p["bq"][qs]
+    if local.n_kv != cfg.n_kv:
+        ks = slice(r * local.kv_dim, (r + 1) * local.kv_dim)
+        out.update(wk=p["wk"][:, ks], wv=p["wv"][:, ks])
+        for name in ("bk", "bv"):
+            if name in p:
+                out[name] = p[name][ks]
+    return out
 
 
 def _pick_heads(t: torch.Tensor, sel) -> torch.Tensor:
@@ -167,6 +196,7 @@ def attention_forward(p, cfg: AttnConfig, x: torch.Tensor,
     if positions is None:
         positions = torch.arange(t, device=x.device)
     plan = _heads_plan(cfg)
+    p = rank_blocks(p, cfg, plan)
     sel, xq = None, x
     if plan is not None:
         # x enters this rank's heads; with the KV heads whole, k and v are
@@ -292,6 +322,7 @@ def attention_decode(p, cfg: AttnConfig, x: torch.Tensor, cache,
     keeps its heads for its ``wo`` block."""
     b = x.shape[0]
     plan = _heads_plan(cfg)
+    p = rank_blocks(p, cfg, plan)
     sel = None
     if plan is not None:
         cfg, sel = plan

@@ -179,6 +179,7 @@ def _enc_kv(cfg: ArchConfig, p_x, enc_out: torch.Tensor):
     b, t, _ = enc_out.shape
     acfg = _attn_cfg(cfg, "attn")
     n_kv = A._cache_config(acfg).n_kv
+    p_x = A.rank_blocks(p_x, acfg, A._heads_plan(acfg))
     if n_kv != cfg.n_kv:
         # this rank's KV heads (whole ones enter in attention_forward)
         enc_out = L.model_enter(enc_out)

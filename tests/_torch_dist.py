@@ -12,6 +12,8 @@ it and that its ``"global"`` part is the same on every rank (every rank
 gets the same global results).  ``start_ranks`` starts a group and
 returns at once; its ``wait()`` gives the ``RankResults``, so a test
 module can run two groups, and its own reference, side by side.
+``Groups`` starts one group a world size of a cases file, all at once,
+and waits for each when a test first asks for it.
 """
 
 from __future__ import annotations
@@ -137,3 +139,25 @@ def start_ranks(cases_file, world: int, tmp: Path,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     # one limit for the whole group, not one a rank
     return _Started(procs, world, tmp, time.monotonic() + timeout_s)
+
+
+class Groups:
+    """One group of ranks a world size of ``worlds``, each running every
+    case of ``cases_file``, all started together (``start_ranks``; under
+    ``tmp_factory``'s folders ``<prefix>_D<world>``); ``get(world)`` waits
+    for one group, ``wait_all()`` for every one."""
+
+    def __init__(self, cases_file, worlds, tmp_factory, prefix: str,
+                 timeout_s: float = 300.0):
+        self.started = {d: start_ranks(cases_file, d, tmp_factory.mktemp(
+            f"{prefix}_D{d}"), timeout_s) for d in worlds}
+        self.done = {}
+
+    def get(self, world: int) -> RankResults:
+        if world not in self.done:
+            self.done[world] = self.started[world].wait()
+        return self.done[world]
+
+    def wait_all(self) -> None:
+        for d in self.started:
+            self.get(d)

@@ -10,7 +10,9 @@ of 2 (meshes 2 x 1 and 1 x 2), then ``MEMORY``'s cells on a fake group of
 16 (a 4 x 4 mesh) as the port runs them and with the join it made before
 (the MoE's input gathered over the batch axes, a decode's k/v sequence
 joined), each group made and ended here (``dryrun.fake_group``), then
-``REMAT``'s cell on one device under each remat policy; and, on the
+``REMAT``'s cell on one device under each remat policy, then
+``REPLICATED``'s cells on the group of 16 with their weights placed whole
+and sharded; and, on the
 group of 4, ``benchmarks/hillclimb_torch.py``'s three cells at the
 reduced size (``HILLCLIMB``) beside the dry run's record of each cell's
 baseline.  It writes every record to OUT.json."""
@@ -48,6 +50,19 @@ MEMORY = {"granite-moe-1b-a400m/prefill": ShapeConfig("p", 256, 16,
           "qwen2-0.5b/decode": ShapeConfig("d", 1024, 16, "decode")}
 # the reduced qwen2's training step under each remat policy, one device
 REMAT = ShapeConfig("train", 64, 4, "train")
+# served with its weights placed whole (``serve_replicate_weights``): the
+# reduced qwen2 at 2 layers with 8 query heads, which the "model" axis of
+# a 2 x 8 mesh on the fake group of 16 divides, over 2 KV heads (whole on
+# every rank: each local query head picks its group's) or 8 (split)
+REPLICATED = {"prefill": ShapeConfig("prefill", 64, 4, "prefill"),
+              "decode": ShapeConfig("decode", 64, 4, "decode")}
+REPLICATED_KV = (2, 8)
+
+
+def replicated_config(n_kv: int, replicate: bool):
+    return dataclasses.replace(reduced(get_config("qwen2-0.5b")), n_layers=2,
+                               n_heads=8, n_kv=n_kv,
+                               serve_replicate_weights=replicate)
 
 
 # hillclimb's cells at the reduced size, 2 layers, remat on (so "dots"
@@ -141,6 +156,53 @@ def memory() -> dict:
     return res
 
 
+def _weights_and_attention():
+    """Patches that count, beside the step's own counts, the collective
+    bytes of the weights' joins (``layers.from_placed``) and the FLOPs of
+    the attention modules, into the dict they return."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    seen = {"weight_collective_bytes": 0, "attention_flops": 0}
+    real_placed = L.from_placed
+
+    def from_placed(t, *args, **kw):
+        with D.StepCounter(D._local(t).device) as c:
+            out = real_placed(t, *args, **kw)
+        seen["weight_collective_bytes"] += sum(c.coll_bytes.values())
+        return out
+
+    def counted(fn):
+        def run(*args, **kw):
+            with FlopCounterMode(display=False) as f:
+                out = fn(*args, **kw)
+            seen["attention_flops"] += int(f.get_total_flops())
+            return out
+        return run
+    patches = (mock.patch.object(L, "from_placed", from_placed),
+               mock.patch.object(A, "attention_forward",
+                                 counted(A.attention_forward)),
+               mock.patch.object(A, "attention_decode",
+                                 counted(A.attention_decode)))
+    return seen, patches
+
+
+def replicated() -> dict:
+    """``REPLICATED``'s cells on a 2 x 8 mesh of the fake group of 16 that
+    is up, with the weights placed whole and sharded: each trace's counts,
+    its weights' collective bytes and its attention FLOPs."""
+    res = {}
+    for n_kv in REPLICATED_KV:
+        for kind, cell in REPLICATED.items():
+            for rep in (True, False):
+                seen, patches = _weights_and_attention()
+                with patches[0], patches[1], patches[2]:
+                    rec = _trace(replicated_config(n_kv, rep), cell, (2, 8))
+                res[f"kv{n_kv}/{kind}/{'whole' if rep else 'sharded'}"] = {
+                    **rec, **seen}
+    return res
+
+
 def remat() -> dict:
     """``REMAT``'s cell (the reduced qwen2, remat on) on one device."""
     base = dataclasses.replace(reduced(get_config("qwen2-0.5b")), remat=True)
@@ -153,6 +215,8 @@ def remat() -> dict:
 def main(out: str) -> None:
     res = {"families": {}, "compared": {}, "memory": memory(),
            "remat": remat()}
+    with D.fake_group(16):
+        res["replicated"] = replicated()
     with D.fake_group(4):
         for arch in FAMILIES:
             for cell in CELLS:

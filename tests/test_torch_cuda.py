@@ -11,7 +11,9 @@ order than index_add_), exact with integer-valued weights, and exact for
 float64); the dendritic ring's fold bit-equal to its plain version (sign
 bits of zeros included); rtol=atol=2e-4
 for the neuron updates, whose spike decisions may differ on under 0.2% of
-neurons (the parity contract of tests/test_kernels.py); flash attention
+neurons (the parity contract of tests/test_kernels.py), and the
+Izhikevich kernel that sums a population's currents, draws its drive and
+adds its stim bit-equal to the unfused kernels it replaces; flash attention
 within rtol=atol=2e-5 of its plain version in float32 (the sums run in
 another order) and within 1e-2 in bfloat16, against the plain version on
 the same bf16 inputs upcast to float32 (the kernel's output is rounded to
@@ -418,7 +420,7 @@ def test_cuda_neuron_kernels_match_plain(cuda_device, b):
     out = IZ.izhikevich_step(v, u, isyn, *params, 1.0)
     hout = HH.hh_step(*hh_in, 0.1, substeps=5)
     torch.cuda.synchronize()
-    assert IZ.launches == {"izhikevich_step": 1}
+    assert IZ.launches == {"izhikevich_step": 1, "izhikevich_step.drive": 0}
     assert HH.launches == {"hh_step": 1}
     ref = TR.izhikevich_step_ref(v, u, isyn, *params, 1.0)
     agree = out[2] == ref[2]
@@ -484,6 +486,122 @@ def test_cuda_neuron_wrappers_reject_bad_operands(cuda_device):
         HH.hh_step(v, v, v, v.cpu(), v, 0.1)
     with pytest.raises(TypeError):            # per-neuron params
         HH.hh_step(v, v, v, v, v, 0.1, gK=p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", ["whole", "padded"])
+@pytest.mark.parametrize("stim", ["none", "rows", "row"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_fused_izhikevich_equals_the_unfused_kernels(cuda_device, b,
+                                                          stim, window):
+    """The drawing Izhikevich kernel (two currents, the drive's normals of
+    a lane window, a stim) bit-equal to the unfused sequence on the card:
+    zeros, the adds, the draw kernel, the plain kernel; and within the
+    neuron tolerance of its plain version."""
+    rng = np.random.default_rng(3)
+    n = 20_000
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda_device)
+
+    v, u = t(rng.uniform(-80, 25, (b, n))), t(rng.uniform(-20, 5, (b, n)))
+    currents = [t(3 * rng.standard_normal((b, n))) for _ in range(2)]
+    r = rng.random(n)
+    params = [t(0.02 + 0.08 * r), t(0.25 - 0.05 * r), t(-65 + 15 * r * r),
+              t(8 - 6 * r * r)]
+    st = (None if stim == "none" else
+          t(4 * rng.standard_normal((b, n) if stim == "rows" else (n,))))
+    keys = R.split(R.split(R.PRNGKey(5), b).to(cuda_device), 5)[:, 1]
+    first, n_real, n_total = ((0, n, n) if window == "whole"
+                              else (3000, 15_000, 40_000))
+    isyn = torch.zeros((b, n), device=cuda_device)
+    for cur in currents:
+        isyn = isyn + cur
+    noise = R.normal(keys, (n_total,), scale=5.0)[:, first:first + n_real]
+    isyn = isyn + torch.nn.functional.pad(noise, (0, n - n_real))
+    if st is not None:
+        isyn = isyn + st
+    flags = [torch.ones(b, dtype=torch.bool, device=cuda_device)
+             for _ in range(3)]
+    want = IZ.izhikevich_step(v, u, isyn, *params, 1.0, finite=flags[0])
+    IZ.reset_launches()
+    drive = (keys, 5.0, first, n_real)
+    got = IZ.izhikevich_step(v, u, None, *params, 1.0, finite=flags[1],
+                             currents=currents, drive=drive, stim=st)
+    torch.cuda.synchronize()
+    assert IZ.launches == {"izhikevich_step": 1, "izhikevich_step.drive": 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(flags[1], flags[0])
+    ref = TR.izhikevich_step_ref(v, u, None, *params, 1.0, finite=flags[2],
+                                 currents=currents, drive=drive, stim=st)
+    agree = got[2] == ref[2]
+    assert (~agree).float().mean().item() < 0.002
+    for a, e in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a[agree], e[agree], **NEURON_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_izhikevich_rejects_bad_operands(cuda_device):
+    v = torch.zeros(2, 8, device=cuda_device)
+    p = torch.ones(8, device=cuda_device)
+    keys = torch.zeros(2, 2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):           # isyn and currents
+        IZ.izhikevich_step(v, v, v, p, p, p, p, 1.0, currents=[v])
+    with pytest.raises(ValueError):           # past the operands a launch sums
+        IZ.izhikevich_step(v, v, None, p, p, p, p, 1.0, currents=[v] * 9)
+    with pytest.raises(ValueError):           # keys of another shape
+        IZ.izhikevich_step(v, v, None, p, p, p, p, 1.0, currents=[v],
+                           drive=(keys[:1], 1.0, 0, 8))
+    with pytest.raises(ValueError):           # lanes past the population
+        IZ.izhikevich_step(v, v, None, p, p, p, p, 1.0, currents=[v],
+                           drive=(keys, 1.0, 0, 9))
+    with pytest.raises(TypeError):
+        IZ.izhikevich_step(v, v, None, p, p, p, p, 1.0, currents=[v],
+                           stim=v.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["eager", "graph"])
+def test_cuda_normal_input_net_equals_its_lambda_twin(cuda_device, how):
+    """The cortical net with its thalamic drives fused (no draw kernel, no
+    zeros or adds) equals the same net with lambda inputs, bit for bit,
+    eagerly and replayed from CUDA graphs."""
+    import copy
+    from repro_torch.core.snn import neurons as TN
+    cfg = TIZ.IzhikevichNetConfig(n_total=4000, n_conn=100, seed=7)
+    spec = TIZ.spec(cfg)
+    twin = copy.deepcopy(spec)
+    for pop in twin.populations.values():
+        pop.input_fn = (lambda s: lambda k, t, n: R.normal(
+            k, (n,), scale=s))(pop.input_fn.scale)
+    outs, draws = [], []
+    for sp in (spec, twin):
+        m = sp.build(dt=cfg.dt, seed=cfg.seed, device=cuda_device)
+        st = m.init_state(2, key=torch.tensor([[0, 1], [2, 3]],
+                                              dtype=torch.int32))
+        if how == "eager":
+            run = lambda: m.simulator.run(st, 100, record_raster=True)
+        else:
+            run = lambda: m.run(100, state=st, record_raster=True)
+            run()              # the captures' warm-up steps run eagerly
+        TFK.reset_launches()
+        res = run()
+        torch.cuda.synchronize()
+        draws.append(TFK.launches["threefry_draw"])
+        outs.append({"counts": res.spike_counts, "raster": res.raster,
+                     "finite": res.finite,
+                     "state": res.state})
+    for k in ("counts", "raster"):
+        for pop in outs[0][k]:
+            assert torch.equal(outs[0][k][pop], outs[1][k][pop]), (k, pop)
+    assert torch.equal(outs[0]["finite"], outs[1]["finite"])
+    a, b = outs[0]["state"], outs[1]["state"]
+    assert torch.equal(a.key, b.key)
+    for pop in a.neurons:
+        for var in a.neurons[pop]:
+            assert torch.equal(a.neurons[pop][var], b.neurons[pop][var])
+    assert draws[0] == 0 and draws[1] == 2 * 100
 
 
 # b, hq, hkv, tq, tk, d, causal, window, softcap, prefix, q_offset

@@ -30,6 +30,11 @@ kernels' custom ops, against the JAX package on the CPU:
   its layers' whole k/v;
 - the ``"dots"`` remat policy's peak between ``"full"``'s and
   ``"none"``'s;
+- with the weights placed whole (``serve_replicate_weights``) and heads
+  that "model" divides, a reduced prefill and decode on a 2 x 8 mesh of
+  the fake group of 16: no weight collective, attention's FLOPs a card
+  those of the sharded weights; the decode at 2 gloo ranks equal to one
+  device's (tokens equal, logits within 1e-4 in float32);
 - ``benchmarks/hillclimb_torch.py``'s three cells at the reduced size on
   the fake group of 4: every variant of the JAX script, the file it
   writes, each baseline's counts equal to the dry run's record of the
@@ -465,6 +470,35 @@ def test_mesh_layouts_shrink_the_peak_against_the_joins(groups, cell):
         whole = 2 * 2 * 2 * (shape.global_batch // 4) * shape.seq_len \
             * cfg.n_kv * cfg.head_dim
         assert joined - split >= 0.75 * whole, (split, joined, whole)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("n_kv", [2, 8])
+def test_replicated_weights_split_heads_the_model_axis_divides(groups, n_kv,
+                                                               kind):
+    """With the weights placed whole and "model" dividing the heads, each
+    rank takes its heads' blocks locally: the step traces, its weights
+    cost no collective bytes (sharded, their joins over the batch axis
+    do), and its attention's FLOPs a card are the sharded step's."""
+    res = groups.get()["fake"]["replicated"]
+    whole = res[f"kv{n_kv}/{kind}/whole"]
+    sharded = res[f"kv{n_kv}/{kind}/sharded"]
+    assert whole["flops"] > 0 and whole["peak_bytes"] > 0
+    assert whole["weight_collective_bytes"] == 0
+    assert sharded["weight_collective_bytes"] > 0
+    assert whole["attention_flops"] == sharded["attention_flops"] > 0
+    assert whole["collectives"]["total_bytes"] \
+        < sharded["collectives"]["total_bytes"]
+
+
+def test_replicated_weights_decode_on_two_ranks_equals_one_device(groups):
+    from _torch_dryrun_cases import replicated_decode_logits
+    got = groups.get()["real"].case("replicated_decode")["global"]
+    want = replicated_decode_logits(None)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    assert float((got - want).abs().max()) <= 1e-4
 
 
 def test_dots_remat_peak_lies_between_full_and_none(groups):

@@ -23,7 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 import _torch_engine_serving_cases as C  # noqa: E402
-from _torch_dist import run_ranks  # noqa: E402
+from _torch_dist import Groups  # noqa: E402
 from repro.core.models import izhikevich_net as JIZ  # noqa: E402
 from repro.core.snn import spec as JSPEC  # noqa: E402
 from repro.core.snn import synapses as JSYN  # noqa: E402
@@ -51,10 +51,18 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _groups(tmp_path_factory):
+    """The groups of 1, 2 and 8 ranks, started together with the module's
+    first test."""
+    groups = Groups(CASES, (1, 2, 8), tmp_path_factory, "serve")
+    yield groups
+    groups.wait_all()
+
+
 @pytest.fixture(scope="module", params=[1, 2, 8], ids=lambda d: f"D{d}")
-def ranks(request, tmp_path_factory):
-    return run_ranks(CASES, request.param,
-                     tmp_path_factory.mktemp(f"serve_D{request.param}"))
+def ranks(request, _groups):
+    return _groups.get(request.param)
 
 
 def _same(a, b, where):

@@ -49,26 +49,23 @@ BY_DESIGN = {
                                           "torch_profiler_trace"},
     "kernels.flash_xla": {"*": "XLA's custom VJP; the port's backward "
                                "lives in kernels/flash_attention.py"},
-    # parts left out of ported modules (ROADMAP Queue 1)
-    "core.models.izhikevich_net": {
-        "build": "the JAX package's (Network, Simulator) builder; the port "
-                 "builds through compile_model"},
-    "core.snn.synapses": {
-        "make_group": "the deprecated ell=/dense= constructors; the port "
-                      "takes conn=LocalConnectivity"},
+    "flags": {"*": "REPRO_USE_PALLAS: no backend switch in the port"},
+}
+# module -> {name: its item of ROADMAP's rule-3 queue (the JAX package's
+# public functions that the port still lacks, in the queue's order)}
+WAITING = {
     "sparse.formats": {
-        name: "CSR is on no path of the port: ELL and dense only"
+        name: "rule-3 queue, item 1: CSR, the paper's own sparse format"
         for name in ("CSRSynapses", "csr_to_dense", "dense_to_csr",
                      "dense_to_ell")},
     "sparse.ops": {
-        name: "CSR and compacted-event accumulation: both propagation "
-              "modes run the live-row ELL kernel"
-        for name in ("accumulate_auto", "accumulate_csr",
-                     "accumulate_ell_compacted")},
-    "flags": {"*": "REPRO_USE_PALLAS: no backend switch in the port"},
+        "accumulate_csr": "rule-3 queue, item 2",
+        "accumulate_ell_compacted": "rule-3 queue, item 2 (its top-k "
+                                    "overflow drops the smallest indices)",
+        "accumulate_auto": "rule-3 queue, item 2"},
+    "core.snn.synapses": {"make_group": "rule-3 queue, item 3"},
+    "core.models.izhikevich_net": {"build": "rule-3 queue, item 3"},
 }
-# module -> {name: ROADMAP Queue 1 item}
-WAITING = {}
 
 
 def _modules():

@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import _torch_mesh_cases as C  # noqa: E402
-from _torch_dist import run_ranks  # noqa: E402
+from _torch_dist import Groups  # noqa: E402
 from repro.core.snn import bitmask as JBM  # noqa: E402
 from repro.launch import sharding as JSH  # noqa: E402
 from repro_torch.core.snn import bitmask as BM  # noqa: E402
@@ -41,10 +41,18 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _groups(tmp_path_factory):
+    """The groups of 1, 2 and 8 ranks, started together with the module's
+    first test."""
+    groups = Groups(CASES, (1, 2, 8), tmp_path_factory, "mesh")
+    yield groups
+    groups.wait_all()
+
+
 @pytest.fixture(scope="module", params=[1, 2, 8], ids=lambda d: f"D{d}")
-def ranks(request, tmp_path_factory):
-    return run_ranks(CASES, request.param,
-                     tmp_path_factory.mktemp(f"mesh_D{request.param}"))
+def ranks(request, _groups):
+    return _groups.get(request.param)
 
 
 def test_collectives(ranks):

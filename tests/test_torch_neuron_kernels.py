@@ -206,7 +206,7 @@ def test_populations_take_the_fused_route_or_codegen():
         "pois": "codegen", "lif": "codegen"}
     assert TIZ.compile_model(TIZ.IzhikevichNetConfig(n_total=50, n_conn=5),
                              device="cpu").simulator.routes == {
-        "exc": "izhikevich_step", "inh": "izhikevich_step"}
+        "exc": "izhikevich_step+drive", "inh": "izhikevich_step+drive"}
 
 
 def test_fused_route_runs_what_codegen_ran():
