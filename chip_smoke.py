@@ -157,14 +157,16 @@ failure ends the run with a non-zero exit):
      bounds, float32 on the CUDA cores and the tensor cores' (3 x the
      operations at TF32's rate: the kernel splits every operand into two
      tf32 halves), with the time before the redesign and its prediction
-     (no single PyTorch call computes the scan); the count of tensor-core
-     (HMMA) instructions in the built kernel; and the time of
+     (no single PyTorch call computes the scan); the counts of tensor-core
+     instructions in the built kernels (HMMA: mma.sync, C B^T; HGMMA:
+     wgmma, the scan); and the time of
      ``SSDScan``'s backward (autograd of ``ssd_chunked``) at the training
      shape; then the prefill form (``ssd_scan_state``: y and the state
      after the last chunk) against ``ssd_chunked(return_final_state=True)``
      within 2e-4 at mamba2's serving prefill [8, 2048, 80, 64] / 128,
      zamba2's [8, 2048, 112, 64] / 64 and t = 1037, its time beside the
-     stateless kernel's and the bound (x, B, C, dt, y and the state);
+     stateless kernel's and the bound (x, B, C, dt, y and the state), and
+     at the two prefills the time before the redesign and its prediction;
   2e. the flash-attention backward against its plain version
      (``flash_attention_bwd_ref``, on the same saved tensors) and against
      autograd through ``flash_attention_ref``: Qwen2-0.5B's training
@@ -700,12 +702,15 @@ SSD_STATE_CASES = (
     ("zamba2_prefill", (8, 2048, 112, 64, 64)),
     ("t1037", (1, 1037, 80, 64, 128)),
 )
-SSD_Q = 32                       # the kernel's chunk (csrc/ssd_scan.cu)
-# the training shape's time on the CUDA-core kernel that the tensor-core
-# one replaced (PERF.md) and what the redesign predicted, in ms; both
-# printed beside this run's time
-SSD_BEFORE_MS = 1.363
-SSD_PREDICTED_MS = (0.25, 0.5)
+# the training shape's time on the kernel that the head-group one replaced
+# (PR 16's: a CTA per (batch, head, 32 columns); PERF.md) and what the
+# redesign predicted, in ms; both printed beside this run's time
+SSD_BEFORE_MS = 0.4582
+SSD_PREDICTED_MS = (0.20, 0.30)
+# the same for the prefill form at the two serving prefills
+SSD_STATE_BEFORE_MS = {"mamba2_prefill": 1.4728, "zamba2_prefill": 1.8979}
+SSD_STATE_PREDICTED_MS = {"mamba2_prefill": (0.55, 0.70),
+                          "zamba2_prefill": (0.40, 0.55)}
 # name, (B, Hq, Hkv, T, D), dtype, options: the training shape of
 # qwen2-0.5b (batch 4 x 2048), the same at B=1 in float32, gemma3's local
 # layer, and small float32 softcap, prefix and non-causal cases
@@ -1743,12 +1748,14 @@ def _flash_entries(name: str, replaces: str, rows: list, bf16_case: str,
 
 
 def _ssd_work(b, t, h, dh, ds) -> tuple:
-    """(bytes, float ops) of the SSD scan at the kernel's chunk: x, B, C
+    """(bytes, float ops) of the SSD scan at chunks of ``WORK_CHUNK`` rows
+    (``kernels.ssd_scan``: fixed, whatever chunk the kernel takes): x, B, C
     and dt read once, y written once (float32); C B^T once a chunk (the
     heads share it), the lower triangles of it and of G x, and C S and the
     state update per head."""
+    from repro_torch.kernels.ssd_scan import WORK_CHUNK as q
     tri = sum(n * (n + 1) // 2 for n in
-              (min(SSD_Q, t - c) for c in range(0, t, SSD_Q)))
+              (min(q, t - c) for c in range(0, t, q)))
     nbytes = 4 * (2 * b * t * h * dh + 2 * b * t * ds + b * t * h + 2 * h)
     ops = 2 * b * tri * ds + 2 * b * h * (tri * dh + 2 * t * ds * dh)
     return nbytes, ops
@@ -1817,11 +1824,14 @@ def compare_ssd(torch, report) -> list:
         print(f"torch.backends.cuda.matmul.allow_tf32 = "
               f"{torch.backends.cuda.matmul.allow_tf32}")
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-        hmma = _sass_count(str(_build.library_path("ssd_scan")), "HMMA")
-        print(f"ssd_scan.cu: {hmma} HMMA (tensor-core mma) instructions in "
-              "its SASS")
-        check(hmma > 0, "the ssd_scan kernel has no tensor-core instruction")
+        lib = str(_build.library_path("ssd_scan"))
+        hmma, hgmma = _sass_count(lib, "HMMA"), _sass_count(lib, "HGMMA")
+        print(f"ssd_scan.cu: {hmma} HMMA (mma.sync, C B^T) and {hgmma} HGMMA "
+              "(wgmma, the scan) instructions in its SASS")
+        check(hmma > 0 and hgmma > 0,
+              "the ssd_scan kernels lack their tensor-core instructions")
         report["ssd_hmma_instructions"] = hmma
+        report["ssd_hgmma_instructions"] = hgmma
         gen = torch.Generator(device=dev).manual_seed(3)
         for name, (b, t, h, dh, ds) in SSD_CASES:
             def rand(*shape):
@@ -1861,7 +1871,7 @@ def compare_ssd(torch, report) -> list:
                 row["bwd_ms"] = _ssd_bwd_ms(torch, SSD, x, dt, A, B, C, D)
                 lo, hi = SSD_PREDICTED_MS
                 print(f"ssd_scan at the training shape: {ms:.4f} ms "
-                      f"(before the tensor cores {SSD_BEFORE_MS}; predicted "
+                      f"(before the head groups {SSD_BEFORE_MS}; predicted "
                       f"{lo}-{hi}: {'in' if lo <= ms <= hi else 'out'}); "
                       f"bounds: tensor cores {row['bound_ms']:.4f} "
                       f"({row['bound_by']}), float32 CUDA cores "
@@ -1923,7 +1933,16 @@ def _ssd_state_case(torch, SSD, gen, name, shape) -> dict:
            "max_abs_err": max(err_y, err_s), "state_max_abs_err": err_s,
            "tol": SSD_TOL, "ms": ms, "no_state_ms": no_state_ms,
            "plain_ms": plain_ms, "library_ms": None,
-           **_tc_bound(nbytes, ops), "bytes": nbytes, "ops": ops}
+           **_tc_bound(nbytes, ops), "bytes": nbytes, "ops": ops,
+           "plan": SSD.launch_plan(b, t, h, dh, ds)}
+    if name in SSD_STATE_BEFORE_MS:
+        lo, hi = SSD_STATE_PREDICTED_MS[name]
+        row["before_ms"] = SSD_STATE_BEFORE_MS[name]
+        row["predicted_ms"] = [lo, hi]
+        print(f"ssd_scan_state at {name}: {ms:.4f} ms (before the head "
+              f"groups {row['before_ms']}; predicted {lo}-{hi}: "
+              f"{'in' if lo <= ms <= hi else 'out'}); bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']})")
     print(json.dumps(row))
     del x, dt, A, B, C, D, y, st
     torch.cuda.empty_cache()

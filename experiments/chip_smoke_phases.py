@@ -22,7 +22,8 @@ paper's experiment at full width), 11 (SNN serving at full width) and 12
 and 5's host builds and phase 3's us/step when they ran before it) and 13
 (the sharded engine at one NCCL rank; holds its runs to phases 12c's, 5's
 and 6a's when they ran before it, else to its model's Simulator), 7 (LM
-serving at full width), 8a (qwen2-0.5b trained at full width) and 20 (the
+serving at full width), 8a (qwen2-0.5b trained at full width), 8b
+(mamba2-2.7b trained at full width) and 20 (the
 dry run and the LM scaling law; reads phases 7's and 8a's steps, so list
 ``7 8a 20``; its traces start after phase 1).
 Default:
@@ -140,6 +141,8 @@ def _run(CS, torch, report, labels, traces=None) -> None:
             CS.serve_full(torch, report)
         elif label == "8a":
             CS.train_full(torch, report, "qwen2-0.5b", "8a")
+        elif label == "8b":
+            CS.train_full(torch, report, "mamba2-2.7b", "8b")
         elif label == "20":
             CS.dryrun_and_scaling(torch, report, traces)
         else:

@@ -1,0 +1,679 @@
+// A design of the SSD scan kept for measurement (experiments/
+// ssd_kernel_times.py --kernel), not built by the package: mma_sync.cu
+// with one more warpgroup a CTA, producers that copy and split chunk c + 1
+// into a second set of split tiles (two stages, named barriers full /
+// empty) while the heads' warps run chunk c's products; the second set
+// leaves room for 2 heads a CTA at ds 128 (3 at ds 64).  It spills (nvcc
+// -Xptxas -v).  The text below is this design's own; its launch takes its
+// Layout's bytes, whatever shared memory the wrapper asks.
+//
+// Mamba2 SSD chunked scan on Hopper (sm_90a), on the tensor cores.
+//
+// Replaces the TPU kernel repro/kernels/ssd_scan.py::ssd_scan_pallas
+// (repro/kernels/ssd_scan.py:76, body `_kernel`), and for prefill the JAX
+// package's XLA ssd_chunked(..., return_final_state=True): the chunked
+// state-space-dual form of the Mamba2 recurrence,
+//   within a chunk   att[i, j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i
+//                    y_intra   = att x
+//   across chunks    y_inter_i = exp(cum_i) C_i . S
+//                    y         = y_intra + y_inter + D x
+//   state update     S <- exp(total) S + sum_j exp(total - cum_j) dt_j B_j x_j^T
+// where cum is the within-chunk cumulative sum of dt A and total its last
+// entry.  Only n_groups == 1: B and C are shared by every head.
+//
+// Layout: x [b, t, h, dh] and y like it, dt [b, t, h], A and D [h],
+// B and C [b, t, ds], all float32, dense row-major (the wrapper makes them
+// contiguous).  dh <= 64 and ds <= 128, both multiples of 4 (rows are
+// copied 16 bytes at a time); the tiles are padded with zeros up to 64
+// rows of dh and NS = 64 or 128 columns of ds (the instantiation: ds <= 64
+// takes NS = 64), which adds nothing to any sum.
+//
+// The state transposed.  Each warp carries S^T [16 rows of dh][NS] of one
+// head in the accumulator registers of the state product (NS / 2 floats a
+// thread), and computes the chunk's y^T [its 16 dh rows][Q] itself:
+//   P1  y^T  = S^T C^T                  [16, Q]  over ds  (A: S^T's own
+//       registers, B: C)
+//       y^T *= exp(cum_i)  (column i)
+//   P2  y^T += x^T (G o decay o dt)^T   [16, Q]  over j <= i
+//   P3  S^T  = exp(total) S^T + (w x)^T B   [16, NS] over j
+// An mma.m16n8k8 accumulator holds, for a thread, columns 2q and 2q + 1 of
+// each 8-column block; its A operand wants columns q and q + 4.  Every
+// product permutes its k block the same way in both operands (instruction
+// k = q <-> element 2q, k = q + 4 <-> element 2q + 1: a sum over k does not
+// depend on its order), so S^T's accumulator registers are P1's A
+// fragments as they stand, and each thread splits only its own state: no
+// copy of S goes through shared memory, and no warp waits on another for
+// y.  The four warps of a head, and the heads of a CTA, share nothing but
+// the chunk's B, C, G = C B^T and dt.
+//
+// The split.  The products run on the tensor cores as 3xTF32 with
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: each operand element
+// a is split into hi = tf32(a) and lo = tf32(a - hi), both rounded to
+// nearest with ties away from zero (cvt.rna.tf32.f32's rounding, done on
+// the integer pipe), and a product accumulates lo.hi, then hi.lo, then
+// hi.hi in float32 (lo.lo, ~2^-22 relative, is dropped).  One TF32 pass
+// misses the SSD tolerance (2e-4) by ~17x.  C and B^T are split once a
+// chunk by the whole CTA into shared memory, as (hi, lo) pairs in the
+// layout their B fragments are read in (one 16-byte load a fragment); G o
+// decay o dt once a chunk by each head's four warps, likewise; S^T and x by
+// the one thread that holds them.  Everything else stays float32 on the
+// CUDA cores: the cumulative sum of dt A (a shuffle scan each warp runs
+// for itself, a lane per row of the chunk), the decays, the dt and w
+// weights, exp(cum_i) on P1's columns, S and the D skip.  The upper
+// triangle is set to 0 before any exp: there cum_i - cum_j > 0 and can
+// overflow (inf * 0 would give NaN).
+//
+// Two passes.  Pass 1 (ssd_scan_kernel_cb) computes G = C B^T once for each
+// (batch, chunk), the same for every head, into a float32 scratch [b,
+// chunks, Q, Q] (the two tiles above the diagonal are not written).  Pass 2
+// (ssd_scan_kernel<NS>): one CTA of 128 `heads` threads takes `heads`
+// heads of one batch (the last group of a batch may hold fewer; its idle
+// warps still copy and split), warp 4k + m on head k's dh rows 16m..16m +
+// 15, and walks the chunks of Q = 32 rows in turn:
+//   A. wait for chunk c's copies; barrier (every warp has left chunk c - 1);
+//   B. split C into [i][s] and B^T into [s][j] (every thread), scan dt A
+//      and split head k's G o decay o dt into [i][j] (its four warps);
+//      barrier;
+//   C. start chunk c + 1's copies (cp.async: B, C, G and dt into the raw
+//      tiles, which B has read), then P1, P2 and P3 on chunk c, with x read
+//      from global memory into registers at the start of P1 and first used
+//      after it.
+// The copies of chunk c + 1 run under chunk c's products.  The chunk is the
+// kernel's own: the function does not depend on it (up to rounding); a t
+// that 32 does not divide is masked by index (rows past t read as x = B =
+// C = dt = 0, so they decay nothing and add nothing).  Prefill asks for the
+// final state too (`fs`, not null): after the last chunk each warp stores
+// its S^T rows into fs[b, h, :, its rows] ([b, h, ds, dh] float32); the
+// padded rows of the last chunk left S as it was.
+//
+// What bounds it.  At mamba2's prefill (x [8, 2048, 80, 64], ds 128) the
+// function moves 693 MB (0.207 ms at 3.35 TB/s) and needs 45.7 GFLOP at Q
+// = 32: 3 x that at the 495 TFLOP/s of TF32 is 0.277 ms, so the split's
+// operations bound it.  The kernel reaches the tensor cores through
+// mma.sync, whose TF32 rate on this card is ~335 TFLOP/s (0.41 ms for the
+// same work).  A head's walk is serial and its S (32 KB) lives in
+// registers, so an SM holds 3 heads (NS = 128) or 4 (NS = 64): mamba2's 640
+// heads take two rounds of the card, zamba2's 896 (ds 64) two.  The
+// launch plan chooses `heads` a CTA from the rounds each choice takes
+// (kernels/ssd_scan.py: launch_plan).  wgmma (m64nNk8, B from shared memory
+// K-major) would fit P1 and P3 of a head's four warps, but its A operand
+// read from registers must stay unchanged until the product completes,
+// which for P1 holds S^T's split hi and lo (NS registers a thread) over
+// the whole product beside the state itself; mma.sync consumes a fragment
+// as it issues it.
+//
+// The build turns off multiply-add contraction (-fmad=false, _build.py);
+// the products on the CUDA cores round as written.
+
+#include <cuda_runtime.h>
+
+#include "kernel_info.cuh"
+#include <cstdint>
+
+namespace {
+
+constexpr int kQ = 32;                // rows of a chunk
+constexpr int kDH = 64;               // largest head dim
+constexpr int kDS = 128;              // largest state dim
+constexpr int kHeadThreads = 128;     // 4 warps a head, 16 dh rows each
+constexpr int kCbThreads = 256;       // pass 1
+constexpr int kLCB = kDS + 8;         // pass 1's pitch of B and C rows
+constexpr int kLG = kQ + 8;           // pitch of the split G rows (uint2)
+constexpr int kLBT = kQ + 8;          // pitch of the split B^T rows (uint2)
+constexpr int kLX = kDH + 4;          // pitch of the x rows (float)
+// named barriers: stage s full (producers arrive, consumers wait) and
+// empty (consumers arrive, producers wait); 0 is __syncthreads'
+constexpr int kFull = 1;
+constexpr int kEmpty = 3;
+
+// Pass 2's dynamic shared memory for NS columns of ds, in bytes: two
+// stages, each the CTA's split C [i][s] and B^T [s][j], then per head the
+// split G o decay o dt [i][j], x [j][d] (float32) and the chunk's scalars
+// (exp(cum_i), the state weights w_j, exp(total)).  The pitches keep every
+// fragment load and the producers' transposing stores free of bank
+// conflicts (pitch mod 32 words: the uint2 tiles 16, x 4).
+template <int NS>
+struct Layout {
+  static constexpr int kLC = NS + 8;                  // split C rows (uint2)
+  static constexpr int kCsp = 0;                      // uint2 [Q][kLC]
+  static constexpr int kBsp = 8 * kQ * kLC;           // uint2 [NS][kLBT]
+  static constexpr int kHeads = kBsp + 8 * NS * kLBT;
+  static constexpr int kGsp = 0;                      // uint2 [Q][kLG]
+  static constexpr int kX = 8 * kQ * kLG;             // float [Q][kLX]
+  static constexpr int kSc = kX + 4 * kQ * kLX;       // float [2Q + 4]
+  static constexpr int kPerHead = kSc + 4 * (2 * kQ + 4);
+  // heads a CTA may take: the registers of 128 threads a head and 128
+  // producer threads at the __launch_bounds__ below (S^T alone is NS / 2 a
+  // thread), and the two stages' shared memory
+  static constexpr int kMaxHeads = NS == 128 ? 2 : 3;
+  __host__ __device__ static constexpr int stage(int heads) {
+    return kHeads + heads * kPerHead;
+  }
+  __host__ __device__ static constexpr int bytes(int heads) {
+    return 2 * stage(heads);
+  }
+};
+
+struct Params {
+  const float* x;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  const float* D;    // nullptr: no skip term
+  float* y;
+  float* cb;         // C B^T of every chunk: [batch, chunks, Q, Q]
+  float* fs;         // nullptr, or the final state [batch, h, ds, dh]
+  int t, h, dh, ds;
+  int heads;         // heads a CTA (pass 2)
+};
+
+// An mma operand fragment, split: the tf32 hi part and the remainder's.
+struct FragA { uint32_t hi[4], lo[4]; };
+struct FragB { uint32_t hi[2], lo[2]; };
+
+// cvt.rna.tf32.f32 on the integer pipe: add half of the 13 dropped bits'
+// unit to the magnitude and clear them (round to nearest, ties away from
+// zero; the operands here are finite).  The cvt instruction itself
+// compiles to four instructions with NaN handling.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint2 split2(float v) {
+  uint2 r;
+  split(v, r.x, r.y);
+  return r;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the small terms first, then hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
+// Fragment coordinates (PTX ISA, m16n8k8 .tf32), g = lane / 4, q = lane % 4:
+// A (16 x 8): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4);
+// B (8 x 8):  b0 (k = q, n = g), b1 (k = q + 4, n = g);
+// C (16 x 8): c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1).
+// With the k permutation (k = q <-> element 2q, k = q + 4 <-> 2q + 1) a B
+// fragment of a split [n][k] tile is one 16-byte load: (hi, lo) of
+// elements 2q and 2q + 1 of row g.
+__device__ __forceinline__ FragB load_b_split(const uint2* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  FragB f;
+  f.hi[0] = v.x;
+  f.lo[0] = v.y;
+  f.hi[1] = v.z;
+  f.lo[1] = v.w;
+  return f;
+}
+
+// A from four float32 values in fragment order (a0 .. a3), split
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A from a row-major [m][k] tile at p (its (0, 0)), pass 1
+__device__ __forceinline__ FragA load_a(const float* p, int ld, int g, int q) {
+  const float2 r0 = *reinterpret_cast<const float2*>(p + g * ld + 2 * q);
+  const float2 r1 = *reinterpret_cast<const float2*>(p + (g + 8) * ld + 2 * q);
+  return split_a(r0.x, r1.x, r0.y, r1.y);
+}
+
+// B from an [n][k] tile, pass 1
+__device__ __forceinline__ FragB load_b_nk(const float* p, int ld, int g,
+                                           int q) {
+  const float2 r = *reinterpret_cast<const float2*>(p + g * ld + 2 * q);
+  FragB f;
+  split(r.x, f.hi[0], f.lo[0]);
+  split(r.y, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const float4*>(p))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Pass 1: G = C B^T of one chunk (the same for every head, g = 1), one
+// CTA per (batch, chunk), warp w on the 16 x 8 tile (w / 4, w % 4) of
+// the lower triangle's tiles; the two tiles above it are skipped.
+__global__ void __launch_bounds__(kCbThreads)
+ssd_scan_kernel_cb(Params p) {
+  __shared__ __align__(16) float bs[kQ * kLCB];
+  __shared__ __align__(16) float cs[kQ * kLCB];
+  const int nc = (p.t + kQ - 1) / kQ;
+  const int b = blockIdx.x / nc;
+  const int c0 = (blockIdx.x - b * nc) * kQ;
+  const int rows = min(kQ, p.t - c0);
+  const long long row0 = static_cast<long long>(b) * p.t + c0;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kQ * (kDS / 4); i += kCbThreads) {
+    const int j = i / (kDS / 4);
+    const int s = (i % (kDS / 4)) * 4;
+    float4 vb = make_float4(0.f, 0.f, 0.f, 0.f), vc = vb;
+    if (j < rows && s < p.ds) {
+      const long long off = (row0 + j) * p.ds + s;
+      vb = *reinterpret_cast<const float4*>(p.B + off);
+      vc = *reinterpret_cast<const float4*>(p.C + off);
+    }
+    *reinterpret_cast<float4*>(&bs[j * kLCB + s]) = vb;
+    *reinterpret_cast<float4*>(&cs[j * kLCB + s]) = vc;
+  }
+  __syncthreads();
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int q = tid & 3;
+  const int mt = warp >> 2;
+  const int nt = warp & 3;
+  if (mt == 0 && nt >= 2) return;     // above the diagonal
+  float acc[4] = {};
+#pragma unroll
+  for (int ks = 0; ks < kDS / 8; ++ks)
+    mma3(acc, load_a(cs + 16 * mt * kLCB + 8 * ks, kLCB, g, q),
+         load_b_nk(bs + 8 * nt * kLCB + 8 * ks, kLCB, g, q));
+  float* out = p.cb + static_cast<long long>(blockIdx.x) * kQ * kQ;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+    *reinterpret_cast<float2*>(out + (16 * mt + g + 8 * hr) * kQ + 8 * nt +
+                               2 * q) = make_float2(acc[2 * hr],
+                                                    acc[2 * hr + 1]);
+}
+
+// Pass 2: the scan, one CTA per (batch, group of p.heads heads): 128
+// consumer threads a head (warp 4k + m on head k's dh rows 16m..), then
+// 128 producer threads that fill the other stage meanwhile.
+template <int NS>
+__device__ __forceinline__ void produce(const Params& p, char* sm, int b,
+                                        int hd0, int nc, int pt,
+                                        int nthreads) {
+  using L = Layout<NS>;
+  constexpr int kUnits = kQ * (NS / 4) / kHeadThreads;  // float4 of C, of B
+  constexpr int kXUnits = kQ * (kDH / 4) / kHeadThreads;  // of a head's x
+  const int pw = pt >> 5;             // producer warp: G rows 8 pw..
+  const int lane = pt & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int stage = L::stage(p.heads);
+  const long long xrow = static_cast<long long>(p.h) * p.dh;
+  const int i = 8 * pw + g;           // the G row this lane scales
+  const int j0 = 8 * q;               // and its columns j0 .. j0 + 7
+  float av[L::kMaxHeads];
+#pragma unroll
+  for (int kk = 0; kk < L::kMaxHeads; ++kk)
+    av[kk] = kk < p.heads && hd0 + kk < p.h ? p.A[hd0 + kk] : 0.0f;
+  // chunk c's C, B, G, dt and x, read into registers one chunk ahead (zero
+  // past t, ds, dh and h)
+  float4 cv[kUnits], bv[kUnits], gv[2], xv[L::kMaxHeads][kXUnits];
+  float dtv[L::kMaxHeads];
+  auto fetch = [&](int c) {
+    const int rows = min(kQ, p.t - c * kQ);
+    const long long row0 = static_cast<long long>(b) * p.t + c * kQ;
+#pragma unroll
+    for (int v = 0; v < kUnits; ++v) {
+      const int u = pt + v * kHeadThreads;
+      const int ic = u / (NS / 4);
+      const int sc = (u % (NS / 4)) * 4;
+      cv[v] = ldg4(p.C + (row0 + ic) * p.ds + sc, ic < rows && sc < p.ds);
+      const int jb = u % kQ;
+      const int sb = (u / kQ) * 4;
+      bv[v] = ldg4(p.B + (row0 + jb) * p.ds + sb, jb < rows && sb < p.ds);
+    }
+    const float* grow =
+        p.cb + ((static_cast<long long>(b) * nc + c) * kQ + i) * kQ + j0;
+    gv[0] = ldg4(grow, true);
+    gv[1] = ldg4(grow + 4, true);
+#pragma unroll
+    for (int kk = 0; kk < L::kMaxHeads; ++kk) {
+      const bool head = kk < p.heads && hd0 + kk < p.h;
+      dtv[kk] = head && lane < rows
+                    ? __ldg(p.dt + (row0 + lane) * p.h + hd0 + kk)
+                    : 0.0f;
+#pragma unroll
+      for (int v = 0; v < kXUnits; ++v) {
+        const int u = pt + v * kHeadThreads;
+        const int j = u / (kDH / 4);
+        const int d = (u % (kDH / 4)) * 4;
+        xv[kk][v] = ldg4(p.x + (row0 + j) * xrow +
+                             static_cast<long long>(hd0 + kk) * p.dh + d,
+                         head && j < rows && d < p.dh);
+      }
+    }
+  };
+  fetch(0);
+  for (int c = 0; c < nc; ++c) {
+    const int s = c & 1;
+    char* base = sm + s * stage;
+    uint2* csp = reinterpret_cast<uint2*>(base + L::kCsp);
+    uint2* bsp = reinterpret_cast<uint2*>(base + L::kBsp);
+    // the consumers have left chunk c - 2, which this stage held
+    if (c >= 2) bar_sync(kEmpty + s, nthreads);
+    // C [i][s] and B^T [s][j], split into (hi, lo) pairs
+#pragma unroll
+    for (int v = 0; v < kUnits; ++v) {
+      const int u = pt + v * kHeadThreads;
+      const int ic = u / (NS / 4);
+      const int sc = (u % (NS / 4)) * 4;
+      const uint2 e0 = split2(cv[v].x), e1 = split2(cv[v].y),
+                  e2 = split2(cv[v].z), e3 = split2(cv[v].w);
+      *reinterpret_cast<uint4*>(csp + ic * L::kLC + sc) =
+          make_uint4(e0.x, e0.y, e1.x, e1.y);
+      *reinterpret_cast<uint4*>(csp + ic * L::kLC + sc + 2) =
+          make_uint4(e2.x, e2.y, e3.x, e3.y);
+      const int jb = u % kQ;
+      const int sb = (u / kQ) * 4;
+      bsp[(sb + 0) * kLBT + jb] = split2(bv[v].x);
+      bsp[(sb + 1) * kLBT + jb] = split2(bv[v].y);
+      bsp[(sb + 2) * kLBT + jb] = split2(bv[v].z);
+      bsp[(sb + 3) * kLBT + jb] = split2(bv[v].w);
+    }
+    const float gin[8] = {gv[0].x, gv[0].y, gv[0].z, gv[0].w,
+                          gv[1].x, gv[1].y, gv[1].z, gv[1].w};
+#pragma unroll
+    for (int kk = 0; kk < L::kMaxHeads; ++kk) {
+      if (kk >= p.heads) break;
+      char* mine = base + L::kHeads + kk * L::kPerHead;
+      float* xs = reinterpret_cast<float*>(mine + L::kX);
+#pragma unroll
+      for (int v = 0; v < kXUnits; ++v) {
+        const int u = pt + v * kHeadThreads;
+        *reinterpret_cast<float4*>(xs + (u / (kDH / 4)) * kLX +
+                                   (u % (kDH / 4)) * 4) = xv[kk][v];
+      }
+      // the scan of dt A over the chunk, lane j holding row j (every
+      // producer warp for itself)
+      const float dtj = dtv[kk];
+      float cum = dtj * av[kk];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, cum, off);
+        if (lane >= off) cum += o;
+      }
+      const float total = __shfl_sync(0xffffffffu, cum, 31);
+      // G[i][j] exp(cum_i - cum_j) dt_j on the lower triangle, split; the
+      // upper triangle (never written by pass 1) is zeroed before the exp
+      // sees it
+      const float ci = __shfl_sync(0xffffffffu, cum, i);
+      uint2 e[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int j = j0 + x;
+        const float cj = __shfl_sync(0xffffffffu, cum, j);
+        const float dj = __shfl_sync(0xffffffffu, dtj, j);
+        const float dec = expf(j <= i ? ci - cj : 0.0f);
+        e[x] = split2(j <= i ? gin[x] * dec * dj : 0.0f);
+      }
+      uint2* gsp = reinterpret_cast<uint2*>(mine + L::kGsp);
+#pragma unroll
+      for (int x = 0; x < 8; x += 2)
+        *reinterpret_cast<uint4*>(gsp + i * kLG + j0 + x) =
+            make_uint4(e[x].x, e[x].y, e[x + 1].x, e[x + 1].y);
+      if (pw == (kk & 3)) {
+        // exp(cum_i) (y_inter's decay), the state's weight w_j and
+        // exp(total)
+        float* sc = reinterpret_cast<float*>(mine + L::kSc);
+        sc[lane] = expf(cum);
+        sc[kQ + lane] = expf(total - cum) * dtj;
+        if (lane == 0) sc[2 * kQ] = expf(total);
+      }
+    }
+    // the next chunk's reads fly under the consumers' products
+    if (c + 1 < nc) fetch(c + 1);
+    __threadfence_block();
+    bar_arrive(kFull + s, nthreads);
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kHeadThreads * (Layout<NS>::kMaxHeads + 1),
+                                  1)
+ssd_scan_kernel(Params p) {
+  using L = Layout<NS>;
+  extern __shared__ float4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  const int groups = (p.h + p.heads - 1) / p.heads;
+  const int b = blockIdx.x / groups;
+  const int hd0 = (blockIdx.x - b * groups) * p.heads;
+  const int nc = (p.t + kQ - 1) / kQ;
+  const int consumers = kHeadThreads * p.heads;
+  const int nthreads = consumers + kHeadThreads;
+  const int tid = threadIdx.x;
+  if (tid >= consumers) {
+    produce<NS>(p, sm, b, hd0, nc, tid - consumers, nthreads);
+    return;
+  }
+  const int stage = L::stage(p.heads);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int k = warp >> 2;            // this warp's head in the CTA
+  const int d0 = 16 * (warp & 3);     // its dh rows d0 .. d0 + 15
+  const int hd = hd0 + k;
+  const bool live = hd < p.h && d0 < p.dh;
+  const float dskip = hd < p.h && p.D ? p.D[hd] : 0.0f;
+  const long long xrow = static_cast<long long>(p.h) * p.dh;
+
+  float st[NS / 8][4];                // S^T rows d0 + g (+8), cols 8n + 2q
+#pragma unroll
+  for (int n = 0; n < NS / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) st[n][r] = 0.0f;
+
+  for (int c = 0; c < nc; ++c) {
+    const int s = c & 1;
+    const char* base = sm + s * stage;
+    const uint2* csp = reinterpret_cast<const uint2*>(base + L::kCsp);
+    const uint2* bsp = reinterpret_cast<const uint2*>(base + L::kBsp);
+    const char* mine = base + L::kHeads + k * L::kPerHead;
+    const uint2* gsp = reinterpret_cast<const uint2*>(mine + L::kGsp);
+    const float* xs = reinterpret_cast<const float*>(mine + L::kX);
+    const float* sc = reinterpret_cast<const float*>(mine + L::kSc);
+    bar_sync(kFull + s, nthreads);    // chunk c's stage is filled
+    if (live) {
+      const int rows = min(kQ, p.t - c * kQ);
+      const long long row0 = static_cast<long long>(b) * p.t + c * kQ;
+      // P1: y^T = S^T C^T, A straight from the state's registers
+      float acc[kQ / 8][4];
+#pragma unroll
+      for (int ni = 0; ni < kQ / 8; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[ni][r] = 0.0f;
+#pragma unroll
+      for (int kb = 0; kb < NS / 8; ++kb) {
+        const FragA fa = split_a(st[kb][0], st[kb][2], st[kb][1], st[kb][3]);
+#pragma unroll
+        for (int ni = 0; ni < kQ / 8; ++ni)
+          mma3(acc[ni], fa,
+               load_b_split(csp + (8 * ni + g) * L::kLC + 8 * kb + 2 * q));
+      }
+      // column i by exp(cum_i)
+#pragma unroll
+      for (int ni = 0; ni < kQ / 8; ++ni) {
+        const float2 e = *reinterpret_cast<const float2*>(sc + 8 * ni +
+                                                          2 * q);
+        acc[ni][0] *= e.x;
+        acc[ni][1] *= e.y;
+        acc[ni][2] *= e.x;
+        acc[ni][3] *= e.y;
+      }
+      // x^T in A-fragment order: xa[kb] = x at (d0 + g, 8kb + 2q), (d0 + g
+      // + 8, 8kb + 2q), (d0 + g, 8kb + 2q + 1), (d0 + g + 8, 8kb + 2q + 1)
+      float xa[kQ / 8][4];
+#pragma unroll
+      for (int kb = 0; kb < kQ / 8; ++kb)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          xa[kb][r] =
+              xs[(8 * kb + 2 * q + (r >> 1)) * kLX + d0 + g + 8 * (r & 1)];
+      // P2: y^T += x^T (G o decay o dt)^T over the lower triangle's blocks
+#pragma unroll
+      for (int kb = 0; kb < kQ / 8; ++kb) {
+        const FragA fx = split_a(xa[kb][0], xa[kb][1], xa[kb][2], xa[kb][3]);
+#pragma unroll
+        for (int ni = 0; ni < kQ / 8; ++ni)
+          if (ni >= kb)
+            mma3(acc[ni], fx,
+                 load_b_split(gsp + (8 * ni + g) * kLG + 8 * kb + 2 * q));
+      }
+      // D x (y^T's (d, i) is x^T's fragment element at (d, j = i)) and y
+#pragma unroll
+      for (int ni = 0; ni < kQ / 8; ++ni) {
+        acc[ni][0] += dskip * xa[ni][0];
+        acc[ni][1] += dskip * xa[ni][2];
+        acc[ni][2] += dskip * xa[ni][1];
+        acc[ni][3] += dskip * xa[ni][3];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * ni + 2 * q + (r & 1);
+          const int d = d0 + g + 8 * (r >> 1);
+          if (i < rows && d < p.dh)
+            p.y[(row0 + i) * xrow + static_cast<long long>(hd) * p.dh + d] =
+                acc[ni][r];
+        }
+      }
+      // P3: S^T = exp(total) S^T + (w x)^T B
+      const float etot = sc[2 * kQ];
+#pragma unroll
+      for (int n = 0; n < NS / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) st[n][r] *= etot;
+#pragma unroll
+      for (int kb = 0; kb < kQ / 8; ++kb) {
+        const float2 w = *reinterpret_cast<const float2*>(sc + kQ + 8 * kb +
+                                                          2 * q);
+        const FragA fw = split_a(xa[kb][0] * w.x, xa[kb][1] * w.x,
+                                 xa[kb][2] * w.y, xa[kb][3] * w.y);
+#pragma unroll
+        for (int n = 0; n < NS / 8; ++n)
+          mma3(st[n], fw, load_b_split(bsp + (8 * n + g) * kLBT + 8 * kb +
+                                       2 * q));
+      }
+    }
+    // the producers may refill this stage with chunk c + 2
+    if (c + 2 < nc) bar_arrive(kEmpty + s, nthreads);
+  }
+  if (p.fs == nullptr || !live) return;
+  // the state after the last chunk: fs[b, hd, s, d] for this warp's rows d
+  float* out =
+      p.fs + (static_cast<long long>(b) * p.h + hd) * p.ds * p.dh;
+#pragma unroll
+  for (int n = 0; n < NS / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = 8 * n + 2 * q + (r & 1);
+      const int d = d0 + g + 8 * (r >> 1);
+      if (s < p.ds && d < p.dh)
+        out[static_cast<long long>(s) * p.dh + d] = st[n][r];
+    }
+}
+
+template <int NS>
+int launch_scan(const Params& p, int batch, int smem, cudaStream_t s) {
+  using L = Layout<NS>;
+  if (p.heads < 1 || p.heads > L::kMaxHeads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  smem = L::bytes(p.heads);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long groups = (p.h + p.heads - 1) / p.heads;
+  ssd_scan_kernel<NS><<<static_cast<unsigned>(batch * groups),
+                        kHeadThreads * (p.heads + 1), smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns the first failing launch's cudaError_t.  D may be null; `cb` is
+// float32 scratch of batch * ceil(t / 32) * 32 * 32 entries; `fs` null or
+// the final state's [batch, h, ds, dh] float32; `heads` (heads a CTA) and
+// `smem` are the wrapper's launch plan (repro_torch.kernels.ssd_scan.
+// launch_plan: the scan's "heads" and "smem"), refused unless `heads` is
+// one the instantiation takes and `smem` equals its Layout's bytes.
+// Pass 1's grid is batch * chunks; pass 2's batch * ceil(h / heads), of
+// 128 heads threads, NS = 64 where ds <= 64, else 128.
+extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* A,
+                            const float* B, const float* C, const float* D,
+                            float* y, float* cb, float* fs, int batch,
+                            int t, int h, int dh, int ds, int heads,
+                            int smem, void* stream) {
+  if (dh <= 0 || dh > kDH || dh % 4 || ds <= 0 || ds > kDS || ds % 4 ||
+      t <= 0 || h <= 0 || batch <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Params p{x, dt, A, B, C, D, y, cb, fs, t, h, dh, ds, heads};
+  const long long nc = (t + kQ - 1) / kQ;
+  ssd_scan_kernel_cb<<<static_cast<unsigned>(batch * nc), kCbThreads, 0,
+                       s>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return ds <= 64 ? launch_scan<64>(p, batch, smem, s)
+                  : launch_scan<128>(p, batch, smem, s);
+}
+
+extern "C" const char* ssd_scan_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+KINFO_NAMES(ssd_scan, "ssd_scan_cb", "ssd_scan", "ssd_scan_ds64")
+
+// kernels.autotune.kernel_attributes.  which: 0 ssd_scan_kernel_cb (static
+// shared memory, 256 threads), 1 ssd_scan_kernel<128> (384 threads: 3
+// heads), 2 ssd_scan_kernel<64> (512 threads: 4 heads); dyn_smem < 0: the
+// instantiation's Layout at its most heads.  The runtime's occupancy is
+// asked at query_block (the kernel's own block when <= 0).
+extern "C" int ssd_scan_kernel_info(int which, int block, int query_block,
+                                    int dyn_smem, int* out) {
+  (void)block;
+  if (which == 0)
+    return kinfo::kernel_info(ssd_scan_kernel_cb,
+                              query_block > 0 ? query_block : kCbThreads,
+                              dyn_smem >= 0 ? dyn_smem : 0, out);
+  if (which == 1) {
+    using L = Layout<128>;
+    return kinfo::kernel_info(
+        ssd_scan_kernel<128>,
+        query_block > 0 ? query_block : kHeadThreads * (L::kMaxHeads + 1),
+        dyn_smem >= 0 ? dyn_smem : L::bytes(L::kMaxHeads), out);
+  }
+  if (which == 2) {
+    using L = Layout<64>;
+    return kinfo::kernel_info(
+        ssd_scan_kernel<64>,
+        query_block > 0 ? query_block : kHeadThreads * (L::kMaxHeads + 1),
+        dyn_smem >= 0 ? dyn_smem : L::bytes(L::kMaxHeads), out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

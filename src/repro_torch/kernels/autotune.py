@@ -154,7 +154,11 @@ KERNELS: Dict[str, KernelInfo] = {
     **_family("flash_attention_sm90", [f"flash_bwd_dkdv_wgmma<{p}>"
                                        for p in (2, 3, 4)]
               + [f"flash_bwd_dq_wgmma<{p}>" for p in (1, 2, 3, 4)], (160,)),
-    **_family("ssd_scan", ["ssd_scan_cb", "ssd_scan"], (256,)),
+    **_family("ssd_scan", ["ssd_scan_cb"], (256,)),
+    # the scan at its most heads a CTA, 128 threads a head: 3 with the
+    # 128-column state, 4 with the 64-column one (ds <= 64)
+    **_family("ssd_scan", ["ssd_scan"], (384,)),
+    **_family("ssd_scan", ["ssd_scan_ds64"], (512,)),
     **_family("device_limits", ["register_ceiling_probe"], (32,)),
 }
 

@@ -3,21 +3,23 @@
 ``csrc/ssd_scan.cu`` replaces the TPU kernel
 ``repro/kernels/ssd_scan.py::ssd_scan_pallas`` with two passes that run
 the scan's four products on the tensor cores in 3xTF32 (float32
-accuracy): C B^T once a chunk, then the scan itself; its header says how,
+accuracy): C B^T once a chunk (mma.sync), then the scan itself on wgmma,
+a CTA walking the chunks of ``heads`` heads of one batch with each head's
+state S^T in its warpgroup's accumulator registers; its header says how,
 and what bounds it on the card.  ``launch_plan`` computes on the host
-what a call needs (passes, grids, threads, shared memory, chunk,
-scratch); the kernel refuses a plan whose shared memory differs from its
-own layout.
+what a call needs (passes, grids, threads, heads a CTA, shared memory,
+chunk, scratch); the kernel refuses a plan whose heads or shared memory
+differ from its own layout.
 
 ``ssd_scan`` (the custom op ``torch.ops.repro_torch.ssd_scan``) dispatches
 by where the tensors lie: on the CPU the plain version
 ``repro_torch.models.ssm.ssd_chunked``; on a CUDA device the kernel's two
 passes, on the current stream, or an error; under ``FakeTensorMode`` (the
 dry run) the kernel's checks and ``launch_plan`` and its output shapes,
-nothing computed.  ``FlopCounterMode`` counts the kernel's four products
-(``scan_flops``) on every route.
+nothing computed.  ``FlopCounterMode`` counts the scan's four products
+(``scan_flops``, at chunks of ``WORK_CHUNK`` rows) on every route.
 ``ssd_scan_state`` is the same kernel for prefill: it also writes the
-state each scan CTA carries after the last chunk, float32 [b, h, ds, dh]
+state each head's warps carry after the last chunk, float32 [b, h, ds, dh]
 (its plain version ``ssd_chunked(..., return_final_state=True)``); the
 kernel starts from a zero state, so an ``initial_state`` is taken on the
 CPU only.  ``launches`` counts kernel calls, one for the two passes,
@@ -41,50 +43,102 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels._dispatch import (INT_MAX, I, P, check_operand,
                                            on_cpu, raise_on)
 
 __all__ = ["ssd_scan", "ssd_scan_state", "SSDScan", "launches",
            "reset_launches", "launch_plan", "scan_flops", "MAX_HEAD_DIM",
-           "MAX_STATE_DIM", "CHUNK", "COLS"]
+           "MAX_STATE_DIM", "CHUNK", "WORK_CHUNK", "HEAD_THREADS",
+           "MAX_HEADS"]
 
 launches: Dict[str, int] = {"ssd_scan": 0, "ssd_scan.state": 0}
 
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
 CHUNK = 32                # the kernel's chunk (rows), whatever t is
-COLS = 32                 # head-dim columns of one scan CTA
-_THREADS = 256
-_MIN_CTAS = 3             # the scan's __launch_bounds__(256, 3)
-_SMEM_SM = 233_472        # shared memory of one H100 SM
-_SMEM_RESERVED = 1_024    # the runtime's share of every resident CTA
+# the chunk at which ``scan_flops`` counts the work (the dry run's FLOPs
+# and chip_smoke.py's bound): fixed, whatever chunk the kernel takes
+WORK_CHUNK = 32
+HEAD_THREADS = 128        # a head's warpgroup, 16 head-dim rows a warp
+# heads a scan CTA may take, by the state columns it carries (64 where ds
+# <= 64, else 128): the registers of its __launch_bounds__(128 x this, 1)
+MAX_HEADS = {64: 4, 128: 3}
+_CB_THREADS = 256
+
+
+def _state_cols(ds: int) -> int:
+    return 64 if ds <= 64 else 128
+
+
+def _scan_smem(ns: int, heads: int) -> int:
+    """The scan's dynamic shared memory (``Layout<NS>::bytes`` of
+    ``csrc/ssd_scan.cu``): raw B and C [32][NS + 4] and G [32][32] in
+    float32 (what the copies land in); C and B^T split into hi and lo
+    tiles of 32 x NS float32 words each (wgmma's operands); a head: G o
+    decay o dt split into hi and lo tiles of 32 x 32 words, dt [32] and x
+    in two buffers [2][32][64 + 4] float32."""
+    q = CHUNK
+    base = 2 * 4 * q * (ns + 4) + 4 * q * q + 4 * (4 * q * ns)
+    return base + heads * (2 * 4 * q * q + 4 * q
+                           + 2 * 4 * q * (MAX_HEAD_DIM + 4))
+
+
+def _max_regs(ns: int) -> int:
+    """Registers a thread at most: the scan's __launch_bounds__ (128 x
+    MAX_HEADS threads, one CTA an SM), in the allocator's units of 8."""
+    return AT.H100.regs_per_sm // (HEAD_THREADS * MAX_HEADS[ns]) // 8 * 8
+
+
+def _ctas_per_sm(ns: int, heads: int) -> int:
+    """Resident scan CTAs an SM at ``heads`` heads a CTA, by the occupancy
+    model (``autotune.occupancy``) at the registers of ``_max_regs``."""
+    return AT.occupancy(HEAD_THREADS * heads, _max_regs(ns),
+                        _scan_smem(ns, heads), AT.H100)["ctas"]
+
+
+def _choose_heads(b: int, h: int, ns: int) -> int:
+    """Heads a CTA: a head's walk is serial, so a call takes ``rounds`` of
+    the card's resident CTAs, each as long as the heads an SM holds (plus
+    one for the chunk's shared splits and barriers); the fewest (rounds x
+    (heads an SM + 1)), the fewer heads on a tie."""
+    best = None
+    for hg in range(1, min(h, MAX_HEADS[ns]) + 1):
+        per_sm = _ctas_per_sm(ns, hg)
+        rounds = -(-b * -(-h // hg) // (AT.H100.sms * per_sm))
+        cost = rounds * (hg * per_sm + 1)
+        if best is None or cost < best[0]:
+            best = (cost, hg)
+    return best[1]
 
 
 def launch_plan(b: int, t: int, h: int, dh: int, ds: int) -> dict:
-    """What a call needs at x [b, t, h, dh], B/C [b, t, 1, ds]: two passes
-    of 256 threads.  ``cb``: C B^T of each (batch, chunk) into a float32
-    scratch of ``scratch_bytes``, its B and C tiles in static shared
-    memory.  ``scan``: one CTA per (batch, head, block of ``COLS``
-    head-dim columns) walking its ``chunks`` chunks of ``CHUNK`` rows;
-    its dynamic shared memory holds one chunk's tiles in float32 (the
-    ``Smem`` struct of ``csrc/ssd_scan.cu``, which checks it): x [32, 32 +
-    4], w x split into (hi, lo) pairs [32, 32 + 2], B [32, 128 + 4], C [32,
-    128 + 8], the state [128, 32 + 4], the scaled C B^T [32, 32 + 8] and
-    the second half-sum of C S [32, 32 + 4] (the pitches keep the fragment
-    loads free of bank conflicts).  The
-    tiles always hold 32 columns of dh and 128 of ds, zero past dh and ds:
-    multiples of the mma's 8."""
+    """What a call needs at x [b, t, h, dh], B/C [b, t, 1, ds]: two passes.
+    ``cb``: C B^T of each (batch, chunk) into a float32 scratch of
+    ``scratch_bytes``, 256 threads, its B and C tiles in static shared
+    memory.  ``scan``: one CTA per (batch, group of ``heads`` heads), a
+    warpgroup (128 threads) a head, walking its ``chunks`` chunks of
+    ``CHUNK`` rows with the state's ``state_cols`` columns of ds (64 or
+    128) in registers; ``heads`` by ``_choose_heads``, its dynamic shared
+    memory ``smem`` (``_scan_smem``), at most ``max_regs`` registers a
+    thread by ``__launch_bounds__`` (one CTA of ``MAX_HEADS`` an SM),
+    ``ctas_per_sm`` resident by the occupancy model, no cluster; two
+    ``stages``: chunk c + 1's raw tiles are copied in while chunk c's split
+    tiles are read.  The tiles hold 64 rows of dh and ``state_cols`` of ds,
+    zero past dh and ds: multiples of wgmma's 8."""
     q, nc = CHUNK, -(-t // CHUNK)
-    floats = (q * (COLS + 4) + q * (MAX_STATE_DIM + 4)
-              + q * (MAX_STATE_DIM + 8) + MAX_STATE_DIM * (COLS + 4)
-              + q * (q + 8) + q * (COLS + 4))
-    smem = 4 * floats + 8 * q * (COLS + 2)
-    per_sm = min(_MIN_CTAS, _SMEM_SM // (smem + _SMEM_RESERVED))
-    return {"passes": 2, "threads": _THREADS, "chunk": q, "chunks": nc,
-            "cols": COLS,
-            "cb": {"grid": (b * nc,), "smem": 2 * 4 * q * (MAX_STATE_DIM + 8)},
-            "scan": {"grid": (b * h, -(-dh // COLS)), "smem": smem,
-                     "ctas_per_sm": per_sm},
+    ns = _state_cols(ds)
+    hg = _choose_heads(b, h, ns)
+    smem = _scan_smem(ns, hg)
+    return {"passes": 2, "chunk": q, "chunks": nc,
+            "cb": {"grid": (b * nc,), "threads": _CB_THREADS,
+                   "smem": 2 * 4 * q * (MAX_STATE_DIM + 8)},
+            "scan": {"grid": (b * -(-h // hg),),
+                     "threads": HEAD_THREADS * hg, "heads": hg,
+                     "state_cols": ns, "smem": smem,
+                     "max_regs": _max_regs(ns),
+                     "ctas_per_sm": _ctas_per_sm(ns, hg),
+                     "cluster": (1, 1, 1), "stages": 2},
             "scratch_bytes": 4 * b * nc * q * q}
 
 
@@ -96,7 +150,7 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.ssd_scan_fwd.argtypes = [P] * 9 + [I] * 7 + [P]
     lib.ssd_scan_fwd.restype = I
     lib.ssd_scan_error_string.argtypes = [I]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -189,16 +243,18 @@ def _state_fake(x, dt, A, B, C, D, initial_state):
 
 
 def scan_flops(x_shape, b_shape) -> int:
-    """Floating-point operations of the kernel's four products at x [b, t,
-    h, dh], B [b, t, 1, ds], chunks of ``CHUNK`` rows (the last one
-    shorter where 32 does not divide t): C B^T once a (batch, chunk), 2 L^2
-    ds; and a (batch, head, chunk) the intra-chunk product over its lower
-    triangle, L (L + 1) dh, C S and the state update, 2 L ds dh each."""
+    """Floating-point operations of the scan's four products at x [b, t,
+    h, dh], B [b, t, 1, ds], chunks of ``WORK_CHUNK`` rows (the last one
+    shorter where 32 does not divide t), whatever chunk the kernel takes:
+    C B^T once a (batch, chunk), 2 L^2 ds; and a (batch, head, chunk) the
+    intra-chunk product over its lower triangle, L (L + 1) dh, C S and the
+    state update, 2 L ds dh each."""
     b, t, h, dh = x_shape
     ds = b_shape[3]
-    full, rest = divmod(t, CHUNK)
-    sq = full * CHUNK * CHUNK + rest * rest
-    tri = full * CHUNK * (CHUNK + 1) + rest * (rest + 1)
+    q = WORK_CHUNK
+    full, rest = divmod(t, q)
+    sq = full * q * q + rest * rest
+    tri = full * q * (q + 1) + rest * (rest + 1)
     return 2 * b * sq * ds + b * h * (tri * dh + 4 * t * ds * dh)
 
 
@@ -260,7 +316,8 @@ def _launch(x, dt, A, B, C, D, final_state: bool):
         rc = _lib().ssd_scan_fwd(
             *(a.data_ptr() for a in ops), None if d is None else d.data_ptr(),
             y.data_ptr(), cb.data_ptr(), None if fs is None else fs.data_ptr(),
-            b, t, h, dh, ds, plan["scan"]["smem"], stream)
+            b, t, h, dh, ds, plan["scan"]["heads"], plan["scan"]["smem"],
+            stream)
     launches["ssd_scan.state" if final_state else "ssd_scan"] += 1
     raise_on(rc, _lib().ssd_scan_error_string, "ssd_scan")
     return y.to(x.dtype), fs

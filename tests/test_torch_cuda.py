@@ -45,6 +45,7 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from repro_torch import random as R  # noqa: E402
 from repro_torch.core.models import izhikevich_net as TIZ  # noqa: E402
 from repro_torch.core.models import mushroom_body as TMB  # noqa: E402
@@ -784,9 +785,14 @@ def test_cuda_flash_attention_bf16_batch_heads_past_grid_axis_y(cuda_device):
 
 
 # b, t, h, dh, ds (the last: dh and ds multiples of 4 but not of 8, padded
-# with zeros to the tensor cores' mma width)
+# with zeros to the tensor cores' mma width); then the scan's edges: t
+# under one chunk of 32, one chunk and a row, the two stages' chunks and a
+# row, dh 16 with ds 16 and 64 (the 64-column state), and 7 heads, which
+# no group of 2 to 4 heads a CTA divides
 SSD_CASES = [(2, 256, 8, 64, 128), (1, 96, 4, 64, 128), (1, 1000, 3, 16, 16),
-             (2, 300, 5, 32, 64), (1, 200, 3, 20, 12)]
+             (2, 300, 5, 32, 64), (1, 200, 3, 20, 12),
+             (2, 20, 3, 64, 128), (1, 33, 4, 64, 128), (1, 65, 2, 64, 64),
+             (2, 130, 3, 16, 64), (3, 97, 7, 64, 128)]
 
 
 @pytest.mark.gpu
@@ -854,6 +860,53 @@ def test_cuda_ssd_scan_final_state_matches_plain(cuda_device, case):
     torch.testing.assert_close(state, ref_s, rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError, match="initial_state"):
         kops.ssd_scan_state(x, dt, A, B, C, D, initial_state=state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,ds,heads", [(3, 128, 2), (5, 128, 3), (80, 128, 3),
+                                        (5, 64, 2), (7, 64, 4), (112, 64, 3)])
+def test_cuda_ssd_scan_heads_a_cta_that_do_not_divide_h(cuda_device, h, ds,
+                                                        heads):
+    """Both forms with ``heads`` heads a CTA forced on a head count it does
+    not divide: the last group's idle warps copy and split, and write
+    nothing."""
+    from unittest import mock
+    b, t, dh = 2, 77, 64
+    rng = np.random.default_rng(7)
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda_device)
+
+    x = f(rng.standard_normal((b, t, h, dh)))
+    dt = f(0.001 + 0.1 * rng.random((b, t, h)))
+    A = f(-np.exp(rng.uniform(0, 2, h)))
+    B = f(rng.standard_normal((b, t, 1, ds)))
+    C = f(rng.standard_normal((b, t, 1, ds)))
+    D = f(rng.standard_normal(h))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with mock.patch.object(SSD, "_choose_heads", lambda *_: heads):
+        assert SSD.launch_plan(b, t, h, dh, ds)["scan"]["heads"] == heads
+        y = SSD.ssd_scan(x, dt, A, B, C, D)
+        ys, state = SSD.ssd_scan_state(x, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    ref_y, ref_s = TS.ssd_chunked(x, dt, A, B, C, D, return_final_state=True)
+    torch.testing.assert_close(y, ref_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(ys, ref_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, ref_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [s for _, s in chip_smoke.SSD_CASES[:1]]
+                         + [s for _, s in chip_smoke.SSD_STATE_CASES])
+def test_cuda_ssd_plan_ctas_per_sm_equal_the_runtime(cuda_device, shape):
+    """The scan CTAs an SM that the launch plan counts (the occupancy
+    model) equal the runtime's, at the heads, threads and shared memory the
+    plan launches at 2d's training and prefill shapes."""
+    scan = SSD.launch_plan(*shape)["scan"]
+    kernel = "ssd_scan" if scan["state_cols"] == 128 else "ssd_scan_ds64"
+    assert scan["ctas_per_sm"] == AT.runtime_occupancy(
+        kernel, AT.KERNELS[kernel].blocks[0], scan["threads"],
+        scan["smem"]) > 0
 
 
 @pytest.mark.gpu

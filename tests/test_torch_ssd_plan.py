@@ -1,16 +1,19 @@
 """The tensor-core SSD scan of repro_torch on the CPU: its host-side launch
-plan (``kernels.ssd_scan.launch_plan``) held to the H100's limits, and an
-emulation of the kernel's arithmetic (``csrc/ssd_scan.cu``) in plain torch
-held to JAX's naive recurrence ``repro.kernels.ref.ssd_scan_ref``.
+plan (``kernels.ssd_scan.launch_plan``) held to the H100's limits, the
+work count that its bound and the dry run's FLOPs read, and an emulation
+of the kernel's arithmetic (``csrc/ssd_scan.cu``) in plain torch held to
+JAX's naive recurrence ``repro.kernels.ref.ssd_scan_ref``.
 
-The kernel runs the scan's four products (C B^T, the scaled G times x,
-C S and the state update B^T (w x)) on the tensor cores as 3xTF32: each
+The kernel carries each head's state transposed, S^T [dh, ds], in the
+registers of its four warps, and runs the scan's four products (C B^T;
+y^T = S^T C^T, its columns scaled by exp(cum); y^T += x^T (G o decay o
+dt)^T; the state update (w x)^T B) on the tensor cores as 3xTF32: each
 operand is split into hi = tf32(a) and lo = tf32(a - hi), both rounded to
 nearest (ties away from zero), and a product sums lo.hi + hi.lo + hi.hi
 in float32.  The emulation rounds by bit mask and follows the kernel's
-chunk (32 rows) and its order of operations.  It holds to rtol = atol =
-2e-4 (tests/test_kernels.py's SSD tolerance) at Mamba2's widths (dh 64,
-ds 128) and t = 1024; one TF32 pass does not, so the split cannot be
+chunk (``CHUNK`` rows) and its order of operations.  It holds to rtol =
+atol = 2e-4 (tests/test_kernels.py's SSD tolerance) at Mamba2's widths (dh
+64, ds 128) and t = 1024; one TF32 pass does not, so the split cannot be
 dropped unnoticed.  The kernel itself is held to the plain version on a
 card in tests/test_torch_cuda.py and chip_smoke.py (phase 2d)."""
 
@@ -23,14 +26,23 @@ import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from repro.kernels import ref as JR  # noqa: E402
+from repro.models import ssm as JS  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 
 SMEM_MAX = 232_448            # dynamic shared memory one CTA may use (H100)
 SM_BYTES = 233_472            # shared memory of one H100 SM
 RESERVED = 1_024              # the runtime's share of every resident CTA
+REGS_SM = 65_536              # registers of one SM
 SMS = 132                     # SMs of an H100 SXM
 INT_MAX = 2 ** 31 - 1
 TOL = 2e-4
+# 2d's shapes (training, t96, t1000, h4, h3_small; the prefills of mamba2
+# and zamba2, t1037) and the families' head counts: mamba2's 80, zamba2's
+# 112 (ds 64), 3
+PLAN_SHAPES = ([s for _, s in chip_smoke.SSD_CASES]
+               + [s for _, s in chip_smoke.SSD_STATE_CASES]
+               + [(1, 512, 80, 64, 128), (4, 2048, 112, 64, 64),
+                  (1, 64, 3, 64, 128), (2, 300, 3, 16, 64)])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -43,57 +55,117 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def _within_the_card(p, b, h):
+    """A plan's two passes within one H100's limits."""
+    scan, cb = p["scan"], p["cb"]
+    assert p["passes"] == 2 and cb["threads"] == 256
+    assert cb["smem"] <= 48 * 1024 and 1 <= cb["grid"][0] <= INT_MAX
+    hg, ns = scan["heads"], scan["state_cols"]
+    assert 1 <= hg <= SSD.MAX_HEADS[ns]
+    # a head's warpgroup: 16 dh rows a warp
+    assert scan["threads"] == SSD.HEAD_THREADS * hg <= 1024
+    assert scan["grid"] == (b * -(-h // hg),) and scan["grid"][0] <= INT_MAX
+    assert scan["cluster"] == (1, 1, 1) and scan["stages"] == 2
+    assert scan["smem"] <= SMEM_MAX
+    # one CTA an SM at the most heads fits the registers of the
+    # __launch_bounds__; the CTAs an SM the plan counts fit both
+    assert scan["max_regs"] <= 255 and scan["max_regs"] % 8 == 0
+    assert SSD.HEAD_THREADS * SSD.MAX_HEADS[ns] * scan["max_regs"] \
+        <= REGS_SM
+    n = scan["ctas_per_sm"]
+    assert n >= 1 and n * (scan["smem"] + RESERVED) <= SM_BYTES
+    assert n * scan["threads"] * scan["max_regs"] <= REGS_SM
+
+
 @pytest.mark.parametrize("dh", range(4, SSD.MAX_HEAD_DIM + 1, 4))
 def test_plan_within_the_card_limits(dh):
-    """For every (dh, ds) the wrapper takes: two passes of 256 threads;
-    the scan's shared memory within a CTA's 227 KB and three CTAs an SM
-    (its __launch_bounds__), C B^T's static tiles within 48 KB; grids
-    within axis x (2^31 - 1) and y (65535), and dh's blocks of 32 columns
-    covering it (the tiles pad dh and ds with zeros to 32 and 128 columns,
-    multiples of the mma's 8, whatever dh and ds are)."""
+    """For every (dh, ds) the wrapper takes, at the training shape's batch
+    and heads: two passes, C B^T's 256 threads and static tiles within 48
+    KB; the scan's warpgroup a head, its shared memory within a CTA's
+    227 KB and the CTAs an SM it counts within the SM's shared memory and
+    registers; grids within axis x (2^31 - 1), no cluster; the state's
+    columns 64 where ds <= 64, else 128 (the tiles pad dh and ds with
+    zeros to 64 rows and those columns, multiples of the mma's 8)."""
     for ds in range(4, SSD.MAX_STATE_DIM + 1, 4):
         p = SSD.launch_plan(2, 2048, 80, dh, ds)
-        scan, cb = p["scan"], p["cb"]
-        assert p["passes"] == 2 and p["threads"] == 256
-        assert scan["smem"] <= SMEM_MAX and cb["smem"] <= 48 * 1024
-        assert scan["ctas_per_sm"] == 3
-        assert scan["ctas_per_sm"] * (scan["smem"] + RESERVED) <= SM_BYTES
-        assert SSD.COLS % 8 == 0 and SSD.MAX_STATE_DIM % 8 == 0
-        assert 1 <= scan["grid"][0] <= INT_MAX
-        assert 1 <= scan["grid"][1] <= 65535
-        assert 1 <= cb["grid"][0] <= INT_MAX
-        cols = scan["grid"][1] * SSD.COLS
-        assert dh <= cols < dh + SSD.COLS
+        _within_the_card(p, 2, 80)
+        assert p["scan"]["state_cols"] == (64 if ds <= 64 else 128)
+        assert ds <= p["scan"]["state_cols"] and SSD.MAX_HEAD_DIM % 16 == 0
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("heads", [None, 1, 2, 3, 4, 6])
+def test_plan_within_the_card_at_2ds_shapes(monkeypatch, shape, heads):
+    """2d's shapes and the families' head counts, at the plan's own heads a
+    CTA and at each one forced (``_choose_heads`` patched); a count past
+    the state columns' ``MAX_HEADS`` is a CTA that no SM holds (0 resident
+    by the occupancy model: its registers at the __launch_bounds__' count
+    exceed the SM's), which the kernel refuses."""
+    b, t, h, dh, ds = shape
+    cols = 64 if ds <= 64 else 128
+    if heads is not None:
+        monkeypatch.setattr(SSD, "_choose_heads", lambda *_: heads)
+    p = SSD.launch_plan(b, t, h, dh, ds)
+    if heads is not None and heads > SSD.MAX_HEADS[cols]:
+        assert p["scan"]["heads"] == heads and p["scan"]["ctas_per_sm"] == 0
+        assert p["scan"]["threads"] * p["scan"]["max_regs"] > REGS_SM
+        return
+    _within_the_card(p, b, h)
+    assert heads is not None or p["scan"]["heads"] <= h
+    assert p["chunks"] == -(-t // SSD.CHUNK)
+    assert p["scratch_bytes"] == 4 * b * p["chunks"] * SSD.CHUNK ** 2
 
 
 def test_plan_fills_the_card_in_one_wave_at_the_training_shape():
     """Mamba2-2.7B's training shape (x [2, 2048, 80, 64], ds 128): C B^T
-    for 2 x 64 chunks, then 320 scan CTAs of one (batch, head, 32
-    columns) each, all resident at once (132 SMs x 3)."""
+    for 2 x 64 chunks, then 80 scan CTAs of two heads each, all resident
+    at once (one CTA an SM on 132 SMs); the serving prefills take two
+    rounds of the card (an SM holds the state of three heads at ds 128,
+    and two CTAs of two at ds 64); a t the chunk does not divide is masked
+    by index."""
     p = SSD.launch_plan(2, 2048, 80, 64, 128)
-    assert p["chunk"] == SSD.CHUNK == 32 and p["chunks"] == 64
-    assert p["cb"]["grid"] == (128,)
-    assert p["scan"]["grid"] == (160, 2)
-    ctas = p["scan"]["grid"][0] * p["scan"]["grid"][1]
-    assert -(-ctas // (SMS * p["scan"]["ctas_per_sm"])) == 1
-    # every SM holds two or three: no SM runs a CTA alone
-    assert 2 * SMS <= ctas <= 3 * SMS
-    # the Smem struct of csrc/ssd_scan.cu: x [32][36], B [32][132], C
-    # [32][136], S [128][36], G [32][40], C S's second half [32][36] in
-    # float32, w x [32][34] in pairs
-    assert p["scan"]["smem"] == 4 * (32 * 36 + 32 * 132 + 32 * 136
-                                     + 128 * 36 + 32 * 40 + 32 * 36) \
-        + 8 * 32 * 34
+    assert p["chunk"] == SSD.CHUNK and p["chunks"] == 2048 // SSD.CHUNK
+    assert p["cb"]["grid"] == (2 * p["chunks"],)
+    assert p["scan"]["heads"] == 2 and p["scan"]["grid"] == (80,)
+    assert p["scan"]["ctas_per_sm"] == 1
+    assert -(-p["scan"]["grid"][0] // (SMS * p["scan"]["ctas_per_sm"])) == 1
+    # the Layout<128> of csrc/ssd_scan.cu: raw B and C [32][132] and G
+    # [32][32] in float32; C and B^T split into hi and lo tiles of 32 x
+    # 128 words; a head: G o decay o dt's hi and lo tiles of 32 x 32, dt
+    # [32] and x [2][32][68] in float32
+    assert p["scan"]["smem"] == 4 * (2 * 32 * 132 + 32 * 32) \
+        + 4 * 4 * 32 * 128 + 2 * 4 * (2 * 32 * 32 + 32 + 2 * 32 * 68)
+    assert p["scan"]["threads"] == 256
     assert p["cb"]["smem"] == 2 * 4 * 32 * 136
     assert p["scratch_bytes"] == 4 * 2 * 64 * 32 * 32
-    # a t the chunk does not divide: the last chunk masked by index; dh
-    # within one block of columns: one CTA a head
+    for shape, heads, ctas, per_sm in (((8, 2048, 80, 64, 128), 3, 216, 3),
+                                       ((8, 2048, 112, 64, 64), 2, 448, 4)):
+        q = SSD.launch_plan(*shape)
+        assert (q["scan"]["heads"], q["scan"]["grid"]) == (heads, (ctas,))
+        assert q["scan"]["ctas_per_sm"] * heads == per_sm
+        assert -(-ctas // (SMS * q["scan"]["ctas_per_sm"])) == 2
     small = SSD.launch_plan(1, 1000, 3, 16, 16)
-    assert small["chunks"] == 32 and small["scan"]["grid"] == (3, 1)
+    assert small["chunks"] == 32 and small["scan"]["state_cols"] == 64
+    assert small["scan"]["grid"] == (-(-3 // small["scan"]["heads"]),)
 
 
-def test_chip_smoke_counts_work_at_the_kernels_chunk():
-    assert chip_smoke.SSD_Q == SSD.CHUNK
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_chip_smoke_counts_work_at_the_kernels_chunk(monkeypatch, chunk):
+    """The bound's count of work (chip_smoke._ssd_work: bytes, and the
+    lower triangles of C B^T) and the dry run's FLOP formula (scan_flops:
+    C B^T whole) count at a fixed chunk of 32 rows, whatever chunk the
+    kernel takes, so that rows 6's bounds and the dry run's records stay as
+    they were: both equal their values at PR 16's 32-row kernel at the
+    training and prefill shapes."""
+    monkeypatch.setattr(SSD, "CHUNK", chunk)
+    assert SSD.WORK_CHUNK == 32
+    want = {(2, 2048, 80, 64, 128): (11463032832, 173277824, 11446779904),
+            (8, 2048, 80, 64, 128): (45852131328, 693109376, 45787119616),
+            (8, 2048, 112, 64, 64): (34007416832, 955253632, 33974910976),
+            (1, 1037, 80, 64, 128): (2900812032, 43869888, 2896728832)}
+    for (b, t, h, dh, ds), (flops, nbytes, ops) in want.items():
+        assert SSD.scan_flops((b, t, h, dh), (b, t, 1, ds)) == flops
+        assert chip_smoke._ssd_work(b, t, h, dh, ds) == (nbytes, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -117,21 +189,26 @@ def _mm(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
     return (alo @ bhi + ahi @ blo) + ahi @ bhi
 
 
-def _emulate(x, dt, A, B, C, D, split: bool, q: int = SSD.CHUNK):
+def _emulate(x, dt, A, B, C, D, split: bool, q: int = SSD.CHUNK,
+             final_state: bool = False):
     """The kernel's chunked scan: chunks of q rows in turn (a t that q does
-    not divide padded with zero rows), the products by ``_mm``, the rest
-    in float32 as the kernel computes it."""
+    not divide padded with zero rows), the state carried transposed (S^T
+    [dh, ds]), the products by ``_mm`` in the kernel's orientation and
+    order (y^T = (S^T C^T times exp(cum_i) on column i, plus x^T (G o decay
+    o dt)^T, each product its own sum), plus D x; S^T = exp(total) S^T + (w
+    x)^T B), the rest in float32 as the kernel computes it.  Returns y, and
+    the final state [b, h, ds, dh] with ``final_state``."""
     b, t, h, dh = x.shape
     ds = B.shape[3]
     pad = -t % q
     if pad:
         x, dt, B, C = (torch.cat([v, v.new_zeros((b, pad) + v.shape[2:])], 1)
                        for v in (x, dt, B, C))
-    S = x.new_zeros(b, h, ds, dh)
+    St = x.new_zeros(b, h, dh, ds)
     tri = torch.ones(q, q, dtype=torch.bool).tril()
     ys = []
     for c0 in range(0, t + pad, q):
-        xc = x[:, c0:c0 + q].permute(0, 2, 1, 3)          # [b, h, q, dh]
+        xt = x[:, c0:c0 + q].permute(0, 2, 3, 1)          # [b, h, dh, q]
         dtc = dt[:, c0:c0 + q].permute(0, 2, 1)           # [b, h, q]
         Bc, Cc = B[:, c0:c0 + q, 0], C[:, c0:c0 + q, 0]   # [b, q, ds]
         cum = torch.cumsum(dtc * A[None, :, None], dim=2)
@@ -140,15 +217,16 @@ def _emulate(x, dt, A, B, C, D, split: bool, q: int = SSD.CHUNK):
         diff = cum[:, :, :, None] - cum[:, :, None, :]
         dec = torch.exp(torch.where(tri, diff, torch.zeros(())))
         Gs = torch.where(tri, G * dec * dtc[:, :, None, :], torch.zeros(()))
-        # C's rows carry y_inter's decay exp(cum_i) into C S
-        Ce = torch.exp(cum)[..., None] * Cc[:, None]      # [b, h, q, ds]
-        y = (xc * D[None, :, None, None] + _mm(Gs, xc, split)) \
-            + _mm(Ce, S, split)
-        ys.append(y.permute(0, 2, 1, 3))
+        yt = _mm(St, Cc.transpose(1, 2)[:, None], split) \
+            * torch.exp(cum)[:, :, None, :]
+        yt = (yt + _mm(xt, Gs.transpose(-1, -2), split)) \
+            + D[None, :, None, None] * xt
+        ys.append(yt.permute(0, 3, 1, 2))                 # [b, q, h, dh]
         w = torch.exp(total - cum) * dtc
-        S = S * torch.exp(total)[..., None] \
-            + _mm(Bc.transpose(1, 2)[:, None], w[..., None] * xc, split)
-    return torch.cat(ys, 1)[:, :t]
+        St = St * torch.exp(total)[..., None] \
+            + _mm(xt * w[:, :, None, :], Bc[:, None], split)
+    y = torch.cat(ys, 1)[:, :t]
+    return (y, St.transpose(-1, -2)) if final_state else y
 
 
 def _inputs(b, t, h, dh, ds, seed):
@@ -198,3 +276,21 @@ def test_3xtf32_emulation_holds_the_ssd_tolerance(b, t, h, dh, ds):
     assert share1 > 1.0, share1
     # the emulated split is float32's equal: far inside the tolerance
     assert share3 < 0.2 < share1 / 10, (share3, share1)
+
+
+@pytest.mark.parametrize("b,t,h,dh,ds", [(2, 333, 3, 64, 128),
+                                         (1, 130, 5, 16, 64)])
+def test_3xtf32_emulation_final_state_matches_the_jax_package(b, t, h, dh,
+                                                              ds):
+    """The prefill form: the emulated state after the last chunk (t = 333
+    and 130 leave a last chunk of 13 and 2 rows, whose padded rows must
+    leave the state as it was) and y against JAX's ``ssd_chunked(...,
+    return_final_state=True)`` on the same numpy inputs, within 2e-4."""
+    arrs = _inputs(b, t, h, dh, ds, seed=11 + t)
+    ref_y, ref_s = (np.asarray(a) for a in JS.ssd_chunked(
+        *map(jnp.asarray, arrs), return_final_state=True))
+    y, state = _emulate(*[torch.tensor(a) for a in arrs], split=True,
+                        final_state=True)
+    assert state.shape == ref_s.shape == (b, h, ds, dh)
+    np.testing.assert_allclose(y.numpy(), ref_y, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(state.numpy(), ref_s, rtol=TOL, atol=TOL)
